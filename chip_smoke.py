@@ -6,12 +6,18 @@ that the port builds, is right, and decodes on the card.
 
 Phases (any failure raises and exits non-zero before the last line):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
-  2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc)
+  2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc, one process
+     per source)
   3. each kernel against its plain PyTorch version on the card
-  4. write a full-width random Mimi GGUF and load it with load_model
-  5. decode requests through the model (20 s b1, 60 s b1, 20 s b4 in f32,
-     20 s b1 in bf16), counting kernel launches; the f32 outputs are held
-     against the same weights with the plain attention on the card
+  4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
+     and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
+     20 s b1 in bf16) with every launch count set to 0 just before and
+     read just after; the f32 outputs are held against the same weights
+     with the plain attention on the card
+  5. DAC: the same for a full-width random DAC (descript/dac_24khz widths):
+     20 s b1 and 20 s b4 in f32, 20 s b1 in bf16, and one decode_latent;
+     the f32 outputs are held against the same weights with the plain
+     residual units on the card
   6. CUDA-event times (median of >= 10 runs after warm-up)
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
@@ -31,20 +37,47 @@ import numpy as np
 import torch
 
 SEED = 0
-# (B, H, T, D, window): the Mimi decoder transformer at 20 s b1, 60 s b1
-# and 20 s b4, pure causal, and D=128 with a small window
-KERNEL_SHAPES_F32 = [(1, 8, 500, 64, 250), (1, 8, 1500, 64, 250),
-                     (4, 8, 500, 64, 250), (1, 2, 300, 64, None),
-                     (1, 2, 256, 128, 16)]
-KERNEL_SHAPE_BF16 = (1, 8, 500, 64, 250)
-# bounds of tests/test_attn_pallas.py: f32 atol 2e-5 rtol 1e-5; bf16 atol 3e-2
-F32_TOL = dict(atol=2e-5, rtol=1e-5)
-BF16_ATOL = 3e-2
-# (name, seconds of audio, batch, compute dtype)
-REQUESTS = [("20s_b1_f32", 20, 1, "float32"), ("60s_b1_f32", 60, 1, "float32"),
-            ("20s_b4_f32", 20, 4, "float32"), ("20s_b1_bf16", 20, 1, "bfloat16")]
-LAYERS = 8                  # kernel launches per decode: one per layer
 TIMED_RUNS = 10
+
+# -- flash_sdpa_window: (B, H, T, D, window): the Mimi decoder transformer
+# at 20 s b1, 60 s b1 and 20 s b4, pure causal, and D=128 with a small
+# window; bounds of tests/test_attn_pallas.py (f32 atol 2e-5 rtol 1e-5,
+# bf16 atol 3e-2)
+ATTN_SHAPES_F32 = [(1, 8, 500, 64, 250), (1, 8, 1500, 64, 250),
+                   (4, 8, 500, 64, 250), (1, 2, 300, 64, None),
+                   (1, 2, 256, 128, 16)]
+ATTN_SHAPE_BF16 = (1, 8, 500, 64, 250)
+ATTN_F32_TOL = dict(atol=2e-5, rtol=1e-5)
+ATTN_BF16_ATOL = 3e-2
+# (name, seconds of audio, batch, compute dtype)
+MIMI_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
+                 ("60s_b1_f32", 60, 1, "float32"),
+                 ("20s_b4_f32", 20, 4, "float32"),
+                 ("20s_b1_bf16", 20, 1, "bfloat16")]
+MIMI_LAYERS = 8                    # flash_sdpa_window launches per decode
+
+# -- seanet_res_unit (B, T, C, d) and seanet_res_chain (B, T, C): the DAC
+# decoder's block shapes at 20 s b1, a batch of 2, and T below the halo.
+# f32 bound: max abs err <= 1e-4 * max|plain| and corr > 0.99999 (the
+# kernels' sin^2 series differs from torch.sin by up to 7.2e-6, and sums
+# run in another order). bf16 kernels round their conv operands to bf16
+# as the TPU kernels do; they are held against the plain version in f32
+# on the same bf16 inputs, at the bounds of tests/test_seanet_pallas.py.
+# Those bounds leave about 5 standard deviations of the rounding noise at
+# outputs near 0, and a check over 46M outputs meets its 6-7 sigma tail:
+# so the inputs keep the chain's output near that test's scale (std about
+# 3.4): alphas |N(0, 1)| + 1 and biases N(0, 0.1) (res_params).
+UNIT_SHAPES = [(1, 12000, 768, 1), (1, 12000, 768, 9), (1, 60000, 384, 3),
+               (2, 1000, 384, 9), (1, 20, 96, 9)]
+CHAIN_SHAPES = [(1, 240000, 192), (1, 480000, 96), (2, 100, 96), (1, 20, 192)]
+UNIT_BF16 = dict(rtol=2e-2, atol=5e-2, corr=0.9999)
+CHAIN_BF16 = dict(rtol=3e-2, atol=8e-2, corr=0.9995)
+DILATIONS = (1, 3, 9)
+# (C, T) of the four decoder blocks of a 20 s b1 DAC decode
+DAC_BLOCKS = [(768, 12000), (384, 60000), (192, 240000), (96, 480000)]
+DAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
+                ("20s_b4_f32", 20, 4, "float32"),
+                ("20s_b1_bf16", 20, 1, "bfloat16")]
 
 
 def log(msg: str) -> None:
@@ -77,13 +110,49 @@ def cuda_ms(fn, reps: int = 1, runs: int = TIMED_RUNS, warmup: int = 2) -> float
     return statistics.median(samples)
 
 
-def randn(shape, dtype, seed):
+def turns(kernel, plain, reps: int = 1):
+    """Kernel and plain times in turns (plain, kernel, kernel, plain): the
+    best of each pair and the four samples."""
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    return min(k1, k2), min(p1, p2), (k1, k2, p1, p2)
+
+
+def randn(shape, dtype, seed, scale=1.0):
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
-        "cuda", dtype)
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).to("cuda", dtype)
+
+
+def res_params(n, c, dtype, seed, k=7):
+    """n residual units' weights: convs at fan-in scale (std 1/sqrt(K*C)),
+    biases N(0, 0.1), alphas |N(0, 1)| + 1."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+    return dict(w1s=t(rng.standard_normal((n, k, c, c)) / np.sqrt(k * c)),
+                b1s=t(rng.standard_normal((n, c)) * 0.1),
+                a1s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
+                a2s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
+                w2s=t(rng.standard_normal((n, c, c)) / np.sqrt(c)),
+                b2s=t(rng.standard_normal((n, c)) * 0.1))
+
+
+def unit_args(p, u=0):
+    return (p["a1s"][u], p["w1s"][u], p["b1s"][u], p["a2s"][u], p["w2s"][u],
+            p["b2s"][u])
+
+
+def corr(a, b) -> float:
+    return float(np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1])
 
 
 def main() -> int:
+    t_start = time.monotonic()
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this runs on an NVIDIA GPU")
@@ -96,11 +165,27 @@ def main() -> int:
 
     import codec_tpu_torch
     from codec_tpu_torch.kernels import build
+    from codec_tpu_torch.models import dac
+    from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi import mimi_decode_fn
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.ops import seanet_cuda
     from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                                flash_sdpa_window_ref)
+    from codec_tpu_torch.ops.seanet_cuda import (seanet_res_chain,
+                                                 seanet_res_unit)
     from codec_tpu_torch.runtime.model import f32_precision
+
+    wrappers = {"flash_sdpa_window": flash_sdpa_window,
+                "seanet_res_unit": seanet_res_unit,
+                "seanet_res_chain": seanet_res_chain}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.monotonic()
@@ -110,11 +195,13 @@ def main() -> int:
     for line in res.log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    smem = seanet_cuda.smem_per_block(0)
+    log(f"[build] opt-in shared memory per block: {smem} bytes")
 
-    # -- 3. kernel against its plain version ---------------------------------
-    max_err = 0.0
-    cases = [(s, torch.float32) for s in KERNEL_SHAPES_F32]
-    cases.append((KERNEL_SHAPE_BF16, torch.bfloat16))
+    # -- 3. kernels against their plain versions ------------------------------
+    max_err = {name: 0.0 for name in wrappers}
+    cases = [(s, torch.float32) for s in ATTN_SHAPES_F32]
+    cases.append((ATTN_SHAPE_BF16, torch.bfloat16))
     for i, ((b, h, t, d, w), dtype) in enumerate(cases):
         q, k, v = (randn((b, h, t, d), dtype, SEED + 3 * i + j) for j in range(3))
         got = flash_sdpa_window(q, k, v, window=w)
@@ -122,135 +209,335 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if dtype == torch.float32:
-            torch.testing.assert_close(got, want, **F32_TOL)
-            max_err = max(max_err, err)
+            torch.testing.assert_close(got, want, **ATTN_F32_TOL)
+            max_err["flash_sdpa_window"] = max(max_err["flash_sdpa_window"], err)
             bound = "atol 2e-5 rtol 1e-5"
         else:
             torch.testing.assert_close(got.float(), want.float(),
-                                       atol=BF16_ATOL, rtol=0)
-            bound = f"atol {BF16_ATOL}"
+                                       atol=ATTN_BF16_ATOL, rtol=0)
+            bound = f"atol {ATTN_BF16_ATOL}"
         log(f"[kernel] flash_sdpa_window B{b} H{h} T{t} D{d} window={w} "
             f"{str(dtype)[6:]}: max abs err {err:.3e} ({bound}) ok")
 
-    # -- 4. a full-width Mimi GGUF through load_model -------------------------
+    def hold(name, label, got, want_f32, dtype, bf16_bounds):
+        """The seanet bounds (see UNIT_SHAPES); want_f32 is the plain
+        version in f32."""
+        torch.cuda.synchronize()
+        g, w = got.float().cpu().numpy(), want_f32.float().cpu().numpy()
+        err, peak, c = float(np.abs(g - w).max()), float(np.abs(w).max()), corr(g, w)
+        if not np.isfinite(g).all():
+            raise RuntimeError(f"{name} {label}: non-finite output")
+        if dtype == torch.float32:
+            if not (err <= 1e-4 * peak and c > 0.99999):
+                raise RuntimeError(f"{name} {label}: max abs err {err} "
+                                   f"(peak {peak}), corr {c}")
+            max_err[name] = max(max_err[name], err)
+            bound = "max err <= 1e-4 peak, corr > 0.99999"
+        else:
+            np.testing.assert_allclose(g, w, rtol=bf16_bounds["rtol"],
+                                       atol=bf16_bounds["atol"])
+            if not c > bf16_bounds["corr"]:
+                raise RuntimeError(f"{name} {label}: corr {c}")
+            margin = float((np.abs(g - w) - bf16_bounds["atol"]
+                            - bf16_bounds["rtol"] * np.abs(w)).max())
+            bound = (f"rtol {bf16_bounds['rtol']} atol {bf16_bounds['atol']}"
+                     f" corr > {bf16_bounds['corr']}; worst margin {margin:.4f}")
+        log(f"[kernel] {name} {label}: max abs err {err:.3e} (peak "
+            f"{peak:.3f}), corr {c:.9f} ({bound}) ok")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, t, c, d) in enumerate(UNIT_SHAPES):
+            p = res_params(1, c, dtype, SEED + 10 + i)
+            x = randn((b, t, c), dtype, SEED + 20 + i)
+            got = seanet_res_unit(x, *unit_args(p), dilation=d)
+            with f32_precision(True):
+                want = seanet_cuda.seanet_res_unit_ref(
+                    x.float(), *(a.float() for a in unit_args(p)), dilation=d)
+            hold("seanet_res_unit", f"B{b} T{t} C{c} d{d} {str(dtype)[6:]}",
+                 got, want, dtype, UNIT_BF16)
+        for i, (b, t, c) in enumerate(CHAIN_SHAPES):
+            p = res_params(3, c, dtype, SEED + 30 + i)
+            x = randn((b, t, c), dtype, SEED + 40 + i)
+            got = seanet_res_chain(x, **p, dilations=DILATIONS)
+            with f32_precision(True):
+                want = seanet_cuda.seanet_res_chain_ref(
+                    x.float(), **{k: v.float() for k, v in p.items()},
+                    dilations=DILATIONS)
+            hold("seanet_res_chain", f"B{b} T{t} C{c} {str(dtype)[6:]}",
+                 got, want, dtype, CHAIN_BF16)
+            del x, got, want
+
+    # -- 4, 5. full-width models through load_model ---------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
-        path = Path(tmp.name) / "mimi_random.gguf"
+        mimi_path = Path(tmp.name) / "mimi_random.gguf"
+        dac_path = Path(tmp.name) / "dac_random.gguf"
         t0 = time.monotonic()
-        write_random_mimi_gguf(path, seed=SEED)
-        log(f"[model] wrote {path.name} ({path.stat().st_size / 2**20:.1f} MiB) "
-            f"in {time.monotonic() - t0:.2f} s")
+        write_random_mimi_gguf(mimi_path, seed=SEED)
+        write_random_dac_gguf(dac_path, seed=SEED)
+        log(f"[model] wrote {mimi_path.name} "
+            f"({mimi_path.stat().st_size / 2**20:.1f} MiB) and {dac_path.name} "
+            f"({dac_path.stat().st_size / 2**20:.1f} MiB) in "
+            f"{time.monotonic() - t0:.2f} s")
         t0 = time.monotonic()
-        models = {dt: codec_tpu_torch.load_model(path, compute_dtype=dt,
-                                                 device="cuda")
-                  for dt in ("float32", "bfloat16")}
+        mimi_models = {dt: codec_tpu_torch.load_model(
+            mimi_path, compute_dtype=dt, device="cuda")
+            for dt in ("float32", "bfloat16")}
+        dac_models = {dt: codec_tpu_torch.load_model(
+            dac_path, compute_dtype=dt, device="cuda")
+            for dt in ("float32", "bfloat16")}
         torch.cuda.synchronize()
-        m32 = models["float32"]
-        cfg = m32.cfg
-        log(f"[model] load_model f32 + bf16 in {time.monotonic() - t0:.2f} s: "
-            f"hidden {cfg.hidden}, {cfg.n_layers} layers, {cfg.n_heads} heads "
-            f"x {cfg.head_dim}, mlp {cfg.intermediate}, {cfg.n_q} codebooks x "
-            f"{cfg.codebook_size} x {cfg.codebook_dim}, window {cfg.window}")
     finally:
         tmp.cleanup()
+    cfg = mimi_models["float32"].cfg
+    dcfg = dac_models["float32"].cfg
+    widths = [blk["units"]["w1"].shape[-1]
+              for blk in dac_models["float32"].params["dec_blocks"]]
+    log(f"[model] load_model Mimi + DAC, f32 + bf16, in "
+        f"{time.monotonic() - t0:.2f} s")
+    log(f"[model] Mimi: hidden {cfg.hidden}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads} heads x {cfg.head_dim}, mlp {cfg.intermediate}, "
+        f"{cfg.n_q} codebooks x {cfg.codebook_size} x {cfg.codebook_dim}, "
+        f"window {cfg.window}")
+    log(f"[model] DAC: latent {dcfg.latent_dim}, block widths {widths}, hop "
+        f"{dcfg.hop_size}, {dcfg.n_q} codebooks x {dcfg.codebook_size} x "
+        f"{dcfg.codebook_dim}, {dcfg.sample_rate} Hz")
 
     rng = np.random.default_rng(SEED)
-    reqs = []
-    for name, secs, batch, dt in REQUESTS:
-        frames = secs * cfg.sample_rate // cfg.hop_size
-        codes = rng.integers(0, cfg.codebook_size,
-                             (batch, frames, cfg.n_q)).astype(np.int32)
-        reqs.append((name, secs, batch, models[dt], codes))
 
-    # -- 5. the main path: decode requests through the model -----------------
+    def requests(spec, models, mcfg):
+        out = []
+        for name, secs, batch, dt in spec:
+            frames = secs * mcfg.sample_rate // mcfg.hop_size
+            codes = rng.integers(0, mcfg.codebook_size,
+                                 (batch, frames, mcfg.n_q)).astype(np.int32)
+            out.append((name, secs, batch, models[dt], codes))
+        return out
+
+    mimi_reqs = requests(MIMI_REQUESTS, mimi_models, cfg)
+    dac_reqs = requests(DAC_REQUESTS, dac_models, dcfg)
+
+    # -- 4. the Mimi path ------------------------------------------------------
     outs = {}
-    flash_sdpa_window.launches = 0
-    for name, secs, batch, model, codes in reqs:
+    zero_counts()
+    for name, secs, batch, model, codes in mimi_reqs:
         before = flash_sdpa_window.launches
         outs[name] = model.decode(codes)
         step = flash_sdpa_window.launches - before
-        if step != LAYERS:
-            raise RuntimeError(f"{name}: {step} kernel launches, want {LAYERS}")
-    main_path_launches = flash_sdpa_window.launches
-    if main_path_launches != LAYERS * len(reqs):
-        raise RuntimeError(f"main path launched the kernel "
-                           f"{main_path_launches} times")
-    log(f"[decode] main path: {main_path_launches} flash_sdpa_window "
-        f"launches over {len(reqs)} decodes ({LAYERS} per decode)")
+        if step != MIMI_LAYERS:
+            raise RuntimeError(f"mimi {name}: {step} kernel launches, want "
+                               f"{MIMI_LAYERS}")
+    mimi_counts = counts()
+    want_counts = {"flash_sdpa_window": MIMI_LAYERS * len(mimi_reqs),
+                   "seanet_res_unit": 0, "seanet_res_chain": 0}
+    if mimi_counts != want_counts:
+        raise RuntimeError(f"Mimi path launches {mimi_counts}, want {want_counts}")
+    log(f"[mimi] main path launches: {mimi_counts} over {len(mimi_reqs)} "
+        f"decodes ({MIMI_LAYERS} per decode)")
 
-    def plain_decode(model, codes):
+    def plain_mimi(model, codes):
         c = torch.from_numpy(codes.astype(np.int64)).cuda()
         with torch.inference_mode(), f32_precision(True):
             pcm = mimi_decode_fn(model.params, c, model.cfg,
                                  attention=flash_sdpa_window_ref)
         return pcm.float().cpu().numpy()
 
-    for name, secs, batch, model, codes in reqs:
+    for name, secs, batch, model, codes in mimi_reqs:
         pcm = outs[name]
         want_shape = (batch, codes.shape[1] * cfg.hop_size)
         if pcm.shape != want_shape or pcm.dtype != np.float32:
-            raise RuntimeError(f"{name}: pcm {pcm.shape} {pcm.dtype}, "
+            raise RuntimeError(f"mimi {name}: pcm {pcm.shape} {pcm.dtype}, "
                                f"want {want_shape} float32")
         if not np.isfinite(pcm).all():
-            raise RuntimeError(f"{name}: non-finite samples")
-        line = f"[decode] {name}: pcm {pcm.shape} finite, peak {np.abs(pcm).max():.4f}"
+            raise RuntimeError(f"mimi {name}: non-finite samples")
+        line = (f"[mimi] {name}: pcm {pcm.shape} finite, peak "
+                f"{np.abs(pcm).max():.4f}")
         if model.compute_dtype == torch.float32:
-            ref = plain_decode(model, codes)
-            corr = np.corrcoef(pcm.ravel(), ref.ravel())[0, 1]
+            ref = plain_mimi(model, codes)
+            c = corr(pcm, ref)
             rel = np.abs(pcm - ref).max() / np.abs(ref).max()
-            if not corr > 0.99999:
-                raise RuntimeError(f"{name}: corr {corr} vs plain attention")
-            line += (f"; vs plain attention on the card: corr {corr:.9f}, "
+            if not c > 0.99999:
+                raise RuntimeError(f"mimi {name}: corr {c} vs plain attention")
+            line += (f"; vs plain attention on the card: corr {c:.9f}, "
                      f"max rel err {rel:.3e}")
         else:
-            f32 = m32.decode(codes)
             line += (f"; vs the f32 model: corr "
-                     f"{np.corrcoef(pcm.ravel(), f32.ravel())[0, 1]:.6f}")
+                     f"{corr(pcm, mimi_models['float32'].decode(codes)):.6f}")
         log(line)
 
-    # -- 6. times --------------------------------------------------------------
-    log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} runs")
-    kernel_ms = plain_ms = None
-    for (b, h, t, d, w), dtype in [(s, torch.float32) for s in KERNEL_SHAPES_F32[:3]] + \
-            [(KERNEL_SHAPE_BF16, torch.bfloat16)]:
-        q, k, v = (randn((b, h, t, d), dtype, SEED + j) for j in range(3))
-        # turns: plain, kernel, kernel, plain
-        p1 = cuda_ms(lambda: flash_sdpa_window_ref(q, k, v, window=w), reps=20)
-        k1 = cuda_ms(lambda: flash_sdpa_window(q, k, v, window=w), reps=20)
-        k2 = cuda_ms(lambda: flash_sdpa_window(q, k, v, window=w), reps=20)
-        p2 = cuda_ms(lambda: flash_sdpa_window_ref(q, k, v, window=w), reps=20)
-        kern, plain = min(k1, k2), min(p1, p2)
-        if (b, h, t, d, w) == KERNEL_SHAPES_F32[0] and dtype == torch.float32:
-            kernel_ms, plain_ms = kern, plain
-        log(f"[time] flash_sdpa_window B{b} H{h} T{t} D{d} w{w} "
-            f"{str(dtype)[6:]}: kernel {kern:.4f} ms ({k1:.4f}, {k2:.4f}), "
-            f"plain {plain:.4f} ms ({p1:.4f}, {p2:.4f}) [{name_limit}]")
+    # -- 5. the DAC path -------------------------------------------------------
+    plan, per_decode = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        plan[dtype] = [seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem)
+                       for c in widths]
+        per_decode[dtype] = {
+            "flash_sdpa_window": 0,
+            "seanet_res_unit": 3 * sum(not t for t in plan[dtype]),
+            "seanet_res_chain": sum(plan[dtype])}
+        if not (per_decode[dtype]["seanet_res_unit"]
+                and per_decode[dtype]["seanet_res_chain"]):
+            raise RuntimeError(f"the gate runs only one kernel per DAC decode "
+                               f"in {dtype}: {per_decode[dtype]}")
+        tiles = [seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem)
+                 for c in widths]
+        log(f"[dac] gate at {smem} bytes, {str(dtype)[6:]}: widths {widths}, "
+            f"chain tiles {tiles}, chain taken {plan[dtype]} (from "
+            f"{seanet_cuda.CHAIN_MIN_TILE} rows); launches per decode "
+            f"{per_decode[dtype]}")
+    n_latent = dcfg.sample_rate * 20 // dcfg.hop_size
+    latent = np.random.default_rng(SEED + 1).standard_normal(
+        (n_latent, dcfg.latent_dim)).astype(np.float32)
+    outs = {}
+    zero_counts()
+    for name, secs, batch, model, codes in dac_reqs:
+        before = counts()
+        outs[name] = model.decode(codes)
+        step = {k: v - before[k] for k, v in counts().items()}
+        if step != per_decode[model.compute_dtype]:
+            raise RuntimeError(f"dac {name}: launches {step}, want "
+                               f"{per_decode[model.compute_dtype]}")
+    before = counts()
+    lat_pcm = dac_models["float32"].decode_latent(latent)
+    step = {k: v - before[k] for k, v in counts().items()}
+    dac_counts = counts()
+    if step != per_decode[torch.float32]:
+        raise RuntimeError(f"dac decode_latent: launches {step}, want "
+                           f"{per_decode[torch.float32]}")
+    log(f"[dac] main path launches: {dac_counts} over {len(dac_reqs)} decodes "
+        f"and 1 decode_latent")
 
-    for name, secs, batch, model, codes in reqs:
-        ms = cuda_ms(lambda: model.decode(codes))
-        xrt = secs * batch / (ms / 1000.0)
-        line = (f"[time] decode {name}: {ms:.3f} ms per request, "
-                f"{xrt:.1f}x realtime ({secs * batch} s of audio)")
+    def plain_dac(model, codes):
+        c = torch.from_numpy(codes.astype(np.int64)).cuda()
+        with torch.inference_mode(), f32_precision(True):
+            pcm = dac.dac_decode_fn(model.params, c, model.cfg,
+                                    res_units=dac.plain_res_units)
+        return pcm.float().cpu().numpy()
+
+    n_out = lambda frames: dcfg.hop_size * frames - 8     # rates 8/5/4/2
+    if lat_pcm.shape != (n_out(n_latent),) or not np.isfinite(lat_pcm).all():
+        raise RuntimeError(f"dac decode_latent: pcm {lat_pcm.shape}, finite "
+                           f"{np.isfinite(lat_pcm).all()}")
+    log(f"[dac] decode_latent 20s_b1_f32: pcm {lat_pcm.shape} finite")
+    for name, secs, batch, model, codes in dac_reqs:
+        pcm = outs[name]
+        want_shape = (batch, n_out(codes.shape[1]))
+        if pcm.shape != want_shape or pcm.dtype != np.float32:
+            raise RuntimeError(f"dac {name}: pcm {pcm.shape} {pcm.dtype}, "
+                               f"want {want_shape} float32")
+        if not np.isfinite(pcm).all():
+            raise RuntimeError(f"dac {name}: non-finite samples")
+        sat = float((np.abs(pcm) > 0.99).mean())
+        line = (f"[dac] {name}: pcm {pcm.shape} finite, peak "
+                f"{np.abs(pcm).max():.4f}, std {pcm.std():.4f}, share "
+                f"|pcm| > 0.99: {sat:.2e}")
         if model.compute_dtype == torch.float32:
-            c = torch.from_numpy(codes.astype(np.int64)).cuda()
+            if not sat < 0.01:
+                raise RuntimeError(f"dac {name}: {sat:.2%} of samples saturated")
+            ref = plain_dac(model, codes)
+            c = corr(pcm, ref)
+            rel = np.abs(pcm - ref).max() / np.abs(ref).max()
+            if not c > 0.99999:
+                raise RuntimeError(f"dac {name}: corr {c} vs plain res units")
+            line += (f"; vs plain res units on the card: corr {c:.9f}, "
+                     f"max rel err {rel:.3e}")
+        else:
+            line += (f"; vs the f32 model: corr "
+                     f"{corr(pcm, dac_models['float32'].decode(codes)):.6f}")
+        log(line)
+    del outs
 
-            def dev(attention=None):
-                with torch.inference_mode(), f32_precision(True):
-                    mimi_decode_fn(model.params, c, model.cfg,
-                                   attention=attention)
-            d_kern = cuda_ms(dev)
-            d_plain = cuda_ms(lambda: dev(flash_sdpa_window_ref))
-            line += (f"; mimi_decode_fn alone (codes already on the card, "
-                     f"no copy back) {d_kern:.3f} ms with the kernel, "
-                     f"{d_plain:.3f} ms with plain attention")
-        log(line + f" [{name_limit}]")
+    # -- 6. times --------------------------------------------------------------
+    log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
+        f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
+    times = {}
+    for (b, h, t, d, w), dtype in [(s, torch.float32) for s in ATTN_SHAPES_F32[:3]] + \
+            [(ATTN_SHAPE_BF16, torch.bfloat16)]:
+        q, k, v = (randn((b, h, t, d), dtype, SEED + j) for j in range(3))
+        kern, plain, s = turns(lambda: flash_sdpa_window(q, k, v, window=w),
+                               lambda: flash_sdpa_window_ref(q, k, v, window=w),
+                               reps=20)
+        if (b, h, t, d, w) == ATTN_SHAPES_F32[0] and dtype == torch.float32:
+            times["flash_sdpa_window"] = (kern, plain)
+        log(f"[time] flash_sdpa_window B{b} H{h} T{t} D{d} w{w} "
+            f"{str(dtype)[6:]}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
+            f"(samples k {s[0]:.4f} {s[1]:.4f}, p {s[2]:.4f} {s[3]:.4f}) "
+            f"[{name_limit}]")
 
+    for dtype in (torch.float32, torch.bfloat16):
+        for bi, (c, t) in enumerate(DAC_BLOCKS, start=1):
+            p = res_params(3, c, dtype, SEED + 50 + bi)
+            x = randn((1, t, c), dtype, SEED + 60 + bi)
+            flop = 2 * 8 * c * c * t            # one unit, K = 7
+            with f32_precision(dtype == torch.float32):
+                unit, plain1, s = turns(
+                    lambda: seanet_res_unit(x, *unit_args(p), dilation=1),
+                    lambda: seanet_cuda.seanet_res_unit_ref(
+                        x, *unit_args(p), dilation=1))
+                line = (f"[time] block {bi} C{c} T{t} {str(dtype)[6:]}: "
+                        f"one unit (d=1): kernel {unit:.3f} ms "
+                        f"({flop / unit / 1e9:.2f} TFLOP/s), plain "
+                        f"{plain1:.3f} ms ({flop / plain1 / 1e9:.2f} TFLOP/s)")
+                if bi == 1 and dtype == torch.float32:
+                    times["seanet_res_unit"] = (unit, plain1)
+                if seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem):
+                    chain, plain3, s = turns(
+                        lambda: seanet_res_chain(x, **p, dilations=DILATIONS),
+                        lambda: seanet_cuda.seanet_res_chain_ref(
+                            x, **p, dilations=DILATIONS))
+                    line += (f"; chain of 3: kernel {chain:.3f} ms "
+                             f"({3 * flop / chain / 1e9:.2f} TFLOP/s), plain "
+                             f"{plain3:.3f} ms")
+                    if bi == 4 and dtype == torch.float32:
+                        times["seanet_res_chain"] = (chain, plain3)
+            log(line + f" [{name_limit}]")
+            del x, p
+
+    for label, reqs, plain_units in (
+            ("mimi", mimi_reqs, None), ("dac", dac_reqs, dac.plain_res_units)):
+        for name, secs, batch, model, codes in reqs:
+            ms = cuda_ms(lambda: model.decode(codes))
+            xrt = secs * batch / (ms / 1000.0)
+            line = (f"[time] {label} decode {name}: {ms:.3f} ms per request, "
+                    f"{xrt:.1f}x realtime ({secs * batch} s of audio)")
+            if model.compute_dtype == torch.float32:
+                c = torch.from_numpy(codes.astype(np.int64)).cuda()
+
+                if label == "mimi":
+                    def dev(plain=False):
+                        with torch.inference_mode(), f32_precision(True):
+                            mimi_decode_fn(model.params, c, model.cfg,
+                                           attention=flash_sdpa_window_ref
+                                           if plain else None)
+                    what = "plain attention"
+                else:
+                    def dev(plain=False):
+                        with torch.inference_mode(), f32_precision(True):
+                            dac.dac_decode_fn(model.params, c, model.cfg,
+                                              res_units=plain_units
+                                              if plain else None)
+                    what = "plain res units"
+                d_kern = cuda_ms(dev)
+                d_plain = cuda_ms(lambda: dev(True))
+                line += (f"; decode fn alone (codes already on the card, no "
+                         f"copy back) {d_kern:.3f} ms with the kernels, "
+                         f"{d_plain:.3f} ms with {what}")
+            log(line + f" [{name_limit}]")
+
+    main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"],
+                   "seanet_res_unit": dac_counts["seanet_res_unit"],
+                   "seanet_res_chain": dac_counts["seanet_res_chain"]}
+    sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
+                                     "codec_tpu/ops/attn_pallas.py:82"),
+               "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",
+                                   "codec_tpu/ops/seanet_pallas.py:92"),
+               "seanet_res_chain": ("codec_tpu_torch/csrc/seanet_res.cu",
+                                    "codec_tpu/ops/seanet_pallas.py:218")}
     result = {"kernels": [{
-        "name": "flash_sdpa_window", "route": "cuda",
-        "source": "codec_tpu_torch/csrc/flash_sdpa_window.cu",
-        "replaces": "codec_tpu/ops/attn_pallas.py:82",
-        "launches": main_path_launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": main_counts[name], "max_abs_err": max_err[name],
+        "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (src, rep) in sources.items()]}
+    log(f"[time] chip_smoke.py ran {time.monotonic() - t_start:.1f} s")
     print(json.dumps(result), flush=True)
     print(f"card: {card()}", flush=True)
     print(json.dumps({"ok": True, "device": {

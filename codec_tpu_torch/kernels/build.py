@@ -1,7 +1,8 @@
 """Build the port's CUDA sources (`codec_tpu_torch/csrc/*.cu`) at first use.
 
-nvcc compiles every source into one shared library with a plain C
-interface, which the op wrappers load with ctypes. The library lands in
+nvcc compiles every source to an object, one process per source, all
+started together, then links the objects into one shared library with a
+plain C interface, which the op wrappers load with ctypes. The library lands in
 `build/codec_tpu_torch/` beside the package and is named by a hash of the
 sources and flags, so an unchanged tree loads the library it built before
 and an edited one builds anew. Nothing here runs when the package is
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "codec_tpu_torch"
 # sm_90a (not sm_90) keeps wgmma and setmaxnreg available to the kernels;
 # -Xptxas -v reports registers, shared memory and spills per kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -61,21 +62,44 @@ def build() -> BuildResult:
     lib = BUILD_DIR / f"libcodec_tpu_torch-{h.hexdigest()[:16]}.so"
     if lib.exists():
         return BuildResult(lib, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent process sees
+    # build under private names, then rename: a concurrent process sees
     # either no library or a whole one
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in srcs if p.suffix == ".cu")]
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.monotonic() - t0
+    objs = [work / f"{p.stem}.o" for p in srcs if p.suffix == ".cu"]
+    jobs = []
+    try:
+        for obj in objs:
+            jobs.append(_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                str(CSRC_DIR / f"{obj.stem}.cu")]))
+        logs = [_finish(*job) for job in jobs]
+        tmp = work / lib.name
+        logs.append(_finish(*_start([nvcc, "-shared", "-o", str(tmp),
+                                     *map(str, objs)])))
+        os.replace(tmp, lib)
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return BuildResult(lib, time.monotonic() - t0, "".join(logs))
+
+
+def _start(cmd: list) -> tuple:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(cmd: list, proc: subprocess.Popen) -> str:
+    """Wait for one nvcc process; its stderr, or raise with it."""
+    _, err = proc.communicate()
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return BuildResult(lib, seconds, proc.stderr)
+                           f"{' '.join(cmd)}\n{err}")
+    return err
 
 
 @functools.cache

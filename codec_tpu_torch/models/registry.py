@@ -33,3 +33,9 @@ def known_archs():
 def _mimi():
     from .mimi_model import MimiCodec
     return MimiCodec
+
+
+@register("dac")
+def _dac():
+    from .dac import DacCodec
+    return DacCodec

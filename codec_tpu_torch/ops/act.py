@@ -12,3 +12,9 @@ def elu(x: torch.Tensor) -> torch.Tensor:
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return 0.5 * x * (1.0 + torch.erf(x * (2.0 ** -0.5)))
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor,
+          eps: float = 1e-9) -> torch.Tensor:
+    """Snake x + sin²(αx)/(α+eps) (DAC), α per channel on the last dim."""
+    return x + torch.sin(alpha * x) ** 2 / (alpha + eps)

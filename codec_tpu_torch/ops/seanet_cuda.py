@@ -1,0 +1,355 @@
+"""Fused SEANet residual units (DAC): the CUDA kernels' wrappers, their
+plain PyTorch versions and the gate between unit and chain.
+
+Counterpart of codec_tpu/ops/seanet_pallas.py::seanet_res_unit and
+::seanet_res_chain. The kernels are csrc/seanet_res.cu, built by
+kernels/build.py on first launch (never at import). For a CPU tensor each
+wrapper runs its plain version; for a CUDA tensor it launches its kernel
+or raises.
+
+One unit is x + conv1x1(snake(conv_kK,d(snake(x, α1)) + b1, α2)) + b2 with
+symmetric zero padding (K-1)·d/2. Layouts are the reference's: x
+[B, T, C]; w1 WIO [K, C, C]; w2 [C, C] (in, out); alphas and biases [C].
+The chain takes them stacked over a leading unit dim.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from . import act, conv
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PI = 3.14159265358979323846
+# kernel geometry (csrc/seanet_res.cu): 32-row blocks, input channels
+# staged 32 at a time, output channels in passes of a tile's width: f32
+# (FMA) passes are 32·TN columns of at most 256, or, from C = 512 on,
+# where each warp takes 8 rows and half the columns, 64·TN of at most
+# 512 (on an H100 that is 20% faster at C = 512 and 768, and no faster at
+# 384, where it halves the blocks per SM; PERF.md); bf16 (mma.sync)
+# passes are 64·NT columns of at most 384
+_ROWS = 32
+_KC = 32
+_WIDE_C = 512
+# tile: (compiled widths, columns per width unit, rows per warp)
+_TILES = {"f32": ((1, 2, 3, 4, 6, 8), 32, 4), "f32 wide": ((4, 6, 8), 64, 8),
+          "bf16": ((1, 2, 3, 4, 6), 64, 32)}
+_MAX_UNITS = 4
+# The chain recomputes its halo rows in every unit but the last: with
+# K=7, (72 + 54) rows per tile. Below 256 rows per tile that is more than
+# a sixth of its work, and on an H100 three unit launches are faster
+# (PERF.md); above the cap, a narrow C would leave too few blocks to fill
+# the card.
+CHAIN_MIN_TILE = 256
+_CHAIN_MAX_TILE = 512
+
+
+def sin2(y: torch.Tensor) -> torch.Tensor:
+    """sin²(y) as the kernels compute it: period-π range reduction and an
+    odd Taylor series on [-π/2, π/2] (the reference's `_sin2`)."""
+    r = y - _PI * torch.round(y * (1.0 / _PI))
+    r2 = r * r
+    s = r * (1.0 + r2 * (-1.0 / 6.0 + r2 * (1.0 / 120.0 + r2 * (
+        -1.0 / 5040.0 + r2 * (1.0 / 362880.0)))))
+    return s * s
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def seanet_res_unit_ref(x: torch.Tensor, alpha1: torch.Tensor,
+                        w1: torch.Tensor, b1: torch.Tensor,
+                        alpha2: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, dilation: int = 1,
+                        eps: float = 1e-9) -> torch.Tensor:
+    """One residual unit in plain ops, in x's dtype."""
+    k = w1.shape[0]
+    h = act.snake(x, alpha1, eps)
+    h = conv.conv1d(h, w1, b1, dilation=dilation,
+                    padding=((k - 1) * dilation) // 2)
+    h = act.snake(h, alpha2, eps)
+    return x + (h @ w2 + b2)
+
+
+def seanet_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor,
+                         b1s: torch.Tensor, a1s: torch.Tensor,
+                         a2s: torch.Tensor, w2s: torch.Tensor,
+                         b2s: torch.Tensor,
+                         dilations: Sequence[int] = (1, 3, 9),
+                         eps: float = 1e-9) -> torch.Tensor:
+    """The units in sequence over the whole sequence, in plain ops."""
+    for u, d in enumerate(dilations):
+        x = seanet_res_unit_ref(x, a1s[u], w1s[u], b1s[u], a2s[u], w2s[u],
+                                b2s[u], dilation=d, eps=eps)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The gate: shared memory of each kernel, and the chain's tile
+# ---------------------------------------------------------------------------
+
+def _tile(c: int, dtype: torch.dtype) -> str:
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "f32 wide" if c >= _WIDE_C else "f32"
+
+
+def tile_width(c: int, dtype: torch.dtype) -> int:
+    """A pass's width parameter (TN for f32, NT for bf16): the fewest
+    passes, split evenly, rounded up to a compiled width."""
+    widths, cols, _ = _TILES[_tile(c, dtype)]
+    passes = -(-c // (cols * widths[-1]))
+    need = -(-c // (cols * passes))
+    return next(w for w in widths if w >= need)
+
+
+def _pass_columns(c: int, dtype: torch.dtype) -> int:
+    return _TILES[_tile(c, dtype)][1] * tile_width(c, dtype)
+
+
+def _tile_args(c: int, dtype: torch.dtype) -> tuple:
+    """(rows per warp, width, dtype code): the kernels' tile arguments."""
+    return (_TILES[_tile(c, dtype)][2], tile_width(c, dtype),
+            _DTYPE_CODES[dtype])
+
+
+def _halo(k: int, d: int) -> int:
+    return ((k - 1) * d) // 2
+
+
+def _common_bytes(c: int, halo: int, dtype: torch.dtype) -> int:
+    """The snaked hidden S, the snaked input chunk A with its halo and two
+    weight tiles W, staged as f32 for f32 and as bf16 for bf16 (rows of
+    bf16 buffers padded by 8 elements)."""
+    cp = -(-c // _KC) * _KC
+    bn = _pass_columns(c, dtype)
+    if dtype == torch.float32:
+        return 4 * (_ROWS * cp + (_ROWS + 2 * halo) * _KC + 2 * _KC * bn)
+    return 2 * (_ROWS * (cp + 8) + (_ROWS + 2 * halo) * (_KC + 8)
+                + 2 * _KC * (bn + 8))
+
+
+def unit_smem_bytes(c: int, k: int, dilation: int,
+                    dtype: torch.dtype) -> int:
+    return _common_bytes(c, _halo(k, dilation), dtype)
+
+
+def chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
+                     dtype: torch.dtype) -> int:
+    """The chain's f32 state [tile + 2·Σ halos, C | 1] (rows of odd
+    length; rounded up to 16 bytes) plus the unit's buffers at the largest
+    halo."""
+    halos = [_halo(k, d) for d in dilations]
+    state = -(-(tile + 2 * sum(halos)) * (c | 1) // 4) * 16
+    return state + _common_bytes(c, max(halos), dtype)
+
+
+def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
+               smem_limit: int) -> int:
+    """Rows per block of the chain kernel: the largest multiple of 32, up
+    to 512, whose state fits `smem_limit` bytes of shared memory, or 0
+    when not even 32 rows fit."""
+    tile = _CHAIN_MAX_TILE
+    while tile and chain_smem_bytes(c, k, dilations, tile, dtype) > smem_limit:
+        tile -= _ROWS
+    return tile
+
+
+def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
+              smem_limit: int) -> bool:
+    """The gate: a block's units run as one chain launch when at least
+    CHAIN_MIN_TILE rows of its state fit, else as one unit launch each."""
+    return chain_tile(c, k, dilations, dtype, smem_limit) >= CHAIN_MIN_TILE
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _lib():
+    from ..kernels.build import load_library
+
+    lib = load_library()
+    lib.codec_seanet_res_unit.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.codec_seanet_res_unit.restype = ctypes.c_int
+    lib.codec_seanet_res_chain.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.codec_seanet_res_chain.restype = ctypes.c_int
+    lib.codec_smem_per_block_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.codec_smem_per_block_optin.restype = ctypes.c_int
+    lib.codec_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.codec_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().codec_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+@functools.cache
+def smem_per_block(index: int) -> int:
+    """Opt-in shared memory per block of CUDA device `index`, in bytes."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().codec_smem_per_block_optin(ctypes.byref(out)),
+                  "cudaDeviceGetAttribute")
+    return out.value
+
+
+def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
+           vectors: Sequence) -> None:
+    """x [B, T, C]; w1s [N, K, C, C], K odd; w2s [N, C, C]; each vector
+    [N, C]; all contiguous on x's device in x's dtype."""
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what}: dtype {x.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    if x.ndim != 3 or x.shape[1] < 1 or not 1 <= x.shape[0] <= 65535:
+        raise ValueError(f"{what}: x must be [B, T, C] with T >= 1, "
+                         f"got {tuple(x.shape)}")
+    n, c = w1s.shape[0], x.shape[2]
+    k = w1s.shape[1] if w1s.ndim == 4 else 0
+    if w1s.shape != (n, k, c, c) or k % 2 == 0:
+        raise ValueError(f"{what}: w1 must be WIO [K, {c}, {c}] with K odd, "
+                         f"got {tuple(w1s.shape[1:])}")
+    if w2s.shape != (n, c, c):
+        raise ValueError(f"{what}: w2 must be [{c}, {c}] (the second conv "
+                         f"is 1x1), got {tuple(w2s.shape[1:])}")
+    for v in vectors:
+        if v is None:
+            raise ValueError(f"{what}: both convs need a bias")
+        if v.shape != (n, c) or v.device != x.device:
+            raise ValueError(f"{what}: alphas and biases must be [{c}] on "
+                             f"{x.device}, got {tuple(v.shape[1:])} on "
+                             f"{v.device}")
+    for name, t in (("x", x), ("w1", w1s), ("w2", w2s)):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                             f"x is {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _vec(a1s, b1s, a2s, b2s, eps: float) -> torch.Tensor:
+    """[N, 6, C] f32: α1, 1/(α1+eps), b1, α2, 1/(α2+eps), b2 per unit."""
+    a1, a2 = a1s.float(), a2s.float()
+    return torch.stack([a1, 1.0 / (a1 + eps), b1s.float(), a2,
+                        1.0 / (a2 + eps), b2s.float()], dim=1).contiguous()
+
+
+def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
+                    b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, dilation: int = 1,
+                    eps: float = 1e-9) -> torch.Tensor:
+    """One residual unit: x [B, T, C] (f32 or bf16) → [B, T, C].
+
+    Counts its kernel launches in `seanet_res_unit.launches`."""
+    if x.device.type == "cpu":
+        return seanet_res_unit_ref(x, alpha1, w1, b1, alpha2, w2, b2,
+                                   dilation=dilation, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"seanet_res_unit: no kernel for device {x.device}")
+    vectors = [None if v is None else v[None]
+               for v in (alpha1, b1, alpha2, b2)]
+    _check("seanet_res_unit", x, w1[None], w2[None], vectors)
+    if not isinstance(dilation, int) or dilation < 1:
+        raise ValueError(f"seanet_res_unit: dilation must be a positive "
+                         f"int, got {dilation!r}")
+    b, t, c = x.shape
+    k = w1.shape[0]
+    limit = smem_per_block(x.device.index or 0)
+    need = unit_smem_bytes(c, k, dilation, x.dtype)
+    if need > limit:
+        raise ValueError(f"seanet_res_unit: C={c}, K={k}, d={dilation} needs "
+                         f"{need} bytes of shared memory, the device has "
+                         f"{limit}")
+    vec = _vec(*vectors, eps=eps)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().codec_seanet_res_unit(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), vec.data_ptr(),
+            out.data_ptr(), b, t, c, k, dilation, *_tile_args(c, x.dtype),
+            stream)
+    _raise_on(err, "seanet_res_unit")
+    seanet_res_unit.launches += 1
+    return out
+
+
+def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
+                     a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
+                     b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
+                     eps: float = 1e-9) -> torch.Tensor:
+    """N residual units in one pass: x [B, T, C] (f32 or bf16); w1s
+    [N, K, C, C]; w2s [N, C, C]; alphas and biases [N, C] → [B, T, C].
+    The residual stays f32 across units. Raises on CUDA where not even 32
+    rows of the chain's state fit shared memory (`chain_tile`).
+
+    Counts its kernel launches in `seanet_res_chain.launches`."""
+    if x.device.type == "cpu":
+        return seanet_res_chain_ref(x, w1s, b1s, a1s, a2s, w2s, b2s,
+                                    dilations=dilations, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"seanet_res_chain: no kernel for device {x.device}")
+    vectors = (a1s, b1s, a2s, b2s)
+    _check("seanet_res_chain", x, w1s, w2s, vectors)
+    dilations = tuple(dilations)
+    if (len(dilations) != w1s.shape[0] or len(dilations) > _MAX_UNITS
+            or not all(isinstance(d, int) and d >= 1 for d in dilations)):
+        raise ValueError(f"seanet_res_chain: want one positive dilation per "
+                         f"unit (at most {_MAX_UNITS}), got {dilations} for "
+                         f"{w1s.shape[0]} units")
+    b, t, c = x.shape
+    k = w1s.shape[1]
+    tile = chain_tile(c, k, dilations, x.dtype,
+                      smem_per_block(x.device.index or 0))
+    if not tile:
+        raise ValueError(f"seanet_res_chain: the chain's state at C={c}, "
+                         f"K={k} does not fit shared memory; run the units "
+                         f"one by one (seanet_res_unit)")
+    tile = min(tile, -(-t // _ROWS) * _ROWS)
+    vec = _vec(*vectors, eps=eps)
+    out = torch.empty_like(x)
+    dils = (ctypes.c_int * len(dilations))(*dilations)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().codec_seanet_res_chain(
+            x.data_ptr(), w1s.data_ptr(), w2s.data_ptr(), vec.data_ptr(),
+            out.data_ptr(), b, t, c, k, len(dilations), dils, tile,
+            *_tile_args(c, x.dtype), stream)
+    _raise_on(err, "seanet_res_chain")
+    seanet_res_chain.launches += 1
+    return out
+
+
+seanet_res_unit.launches = 0
+seanet_res_chain.launches = 0
+
+
+def seanet_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
+                     a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
+                     b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
+                     eps: float = 1e-9) -> torch.Tensor:
+    """A block's residual units (arguments as `seanet_res_chain`). On a
+    CUDA tensor: the chain kernel where the gate (`use_chain`) takes it,
+    else one unit kernel launch per unit. On a CPU tensor: the plain
+    version."""
+    if x.device.type == "cuda" and not use_chain(
+            x.shape[-1], w1s.shape[1], dilations, x.dtype,
+            smem_per_block(x.device.index or 0)):
+        for u, d in enumerate(dilations):
+            x = seanet_res_unit(x, a1s[u], w1s[u], b1s[u], a2s[u], w2s[u],
+                                b2s[u], dilation=d, eps=eps)
+        return x
+    return seanet_res_chain(x, w1s, b1s, a1s, a2s, w2s, b2s,
+                            dilations=dilations, eps=eps)

@@ -1,9 +1,11 @@
 """CodecModel: the public runtime object (load → decode).
 
 Counterpart of codec_tpu/runtime/model.py, eager: no jit cache, no shape
-buckets (every Mimi decode layer is causal, so decoding at the exact T
-gives what a padded-and-cropped decode gives), no mesh. Each model holds
-its parameters on one `device` in one `compute_dtype`.
+buckets, no mesh. Decoding at the exact T gives what the reference's
+padded-and-cropped decode gives: a causal arch is cropped to T*hop
+samples, and a non-causal one (`causal_time = False`) keeps its whole
+output, as the reference decodes it unpadded. Each model holds its
+parameters on one `device` in one `compute_dtype`.
 """
 
 from __future__ import annotations
@@ -95,6 +97,9 @@ class CodecModel:
     latent_dim: int = 0
     has_encoder: bool = False
     has_decoder: bool = True
+    # causal archs decode exactly T*hop samples and are cropped to them;
+    # a non-causal arch (symmetric padding) keeps its whole output
+    causal_time: bool = True
 
     def __init__(self, reader: GGUFReader, compute_dtype="float32",
                  device="cuda"):
@@ -133,8 +138,6 @@ class CodecModel:
         n_q=0 means all model codebooks (or all the codes carry, if fewer)."""
         if not self.has_decoder:
             raise CodecError(f"{self.arch}: model has no decoder")
-        if pcm_format not in ("f32", "i16"):
-            raise CodecError(f"unknown pcm_format {pcm_format!r}")
         codes = np.asarray(codes)
         squeeze = codes.ndim == 2
         if squeeze:
@@ -144,12 +147,22 @@ class CodecModel:
         use_nq = n_q if n_q > 0 else min(self.n_q, codes.shape[2])
         if n_q < 0 or use_nq < 1 or use_nq > self.n_q or codes.shape[2] < use_nq:
             raise CodecError(f"n_q must be 0 or in [1, {self.n_q}]")
-        t = codes.shape[1]
         c = torch.from_numpy(np.ascontiguousarray(codes[:, :, :use_nq],
                                                   dtype=np.int64))
+        out = self._run_on_device(
+            lambda: self._decode_impl(c.to(self.device), use_nq), pcm_format,
+            codes.shape[1] * self.hop_size if self.causal_time else None)
+        return out[0] if squeeze else out
+
+    def _run_on_device(self, fn, pcm_format: str,
+                       n_samples: Optional[int] = None) -> np.ndarray:
+        """fn() → pcm [B, samples] under inference mode (TF32 off for f32),
+        cut to n_samples when given, formatted, on the host."""
+        if pcm_format not in ("f32", "i16"):
+            raise CodecError(f"unknown pcm_format {pcm_format!r}")
         with torch.inference_mode(), \
                 f32_precision(self.compute_dtype == torch.float32):
-            pcm = self._decode_impl(c.to(self.device), use_nq)
-            pcm = self._fmt_out(pcm[:, : t * self.hop_size], pcm_format)
-            out = pcm.cpu().numpy()
-        return out[0] if squeeze else out
+            pcm = fn()
+            if n_samples is not None:
+                pcm = pcm[:, :n_samples]
+            return self._fmt_out(pcm, pcm_format).cpu().numpy()

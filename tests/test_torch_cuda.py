@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from codec_tpu_torch.ops import seanet_cuda
 from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                            flash_sdpa_window_ref)
 
@@ -130,3 +131,177 @@ def test_kernel_rejects_what_it_does_not_take(dev, case):
         kw = {"window": 0}
     with pytest.raises(ValueError):
         flash_sdpa_window(q, k, v, **kw)
+
+
+# -- the fused SEANet res-unit kernels (DAC) ---------------------------------
+
+DILS = (1, 3, 9)
+
+
+def _res_params(n, c, dtype, dev, seed=0, k=7):
+    """n units' weights as chip_smoke.py draws them: convs at fan-in
+    scale, biases N(0, 0.1), alphas |N(0, 1)| + 1."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    return dict(w1s=t(rng.standard_normal((n, k, c, c)) / np.sqrt(k * c)),
+                b1s=t(rng.standard_normal((n, c)) * 0.1),
+                a1s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
+                a2s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
+                w2s=t(rng.standard_normal((n, c, c)) / np.sqrt(c)),
+                b2s=t(rng.standard_normal((n, c)) * 0.1))
+
+
+def _x(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        dev, dtype)
+
+
+def _unit_args(p):
+    return (p["a1s"][0], p["w1s"][0], p["b1s"][0], p["a2s"][0], p["w2s"][0],
+            p["b2s"][0])
+
+
+def _check_against_plain(got, x, p, dtype, fn_ref):
+    """f32: max abs err <= 1e-4 * peak and corr > 0.99999; bf16 (against
+    the plain version in f32 on the same bf16 inputs): the bounds of
+    tests/test_seanet_pallas.py (unit rtol 2e-2 / atol 5e-2 / corr 0.9999,
+    chain rtol 3e-2 / atol 8e-2 / corr 0.9995)."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    with f32_precision(True):
+        want = fn_ref(x.float(), {k: v.float() for k, v in p.items()})
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    g, w = got.float().cpu().numpy(), want.cpu().numpy()
+    corr = np.corrcoef(g.ravel(), w.ravel())[0, 1]
+    if dtype == torch.float32:
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert corr > 0.99999, corr
+    elif fn_ref is _unit_ref:
+        np.testing.assert_allclose(g, w, rtol=2e-2, atol=5e-2)
+        assert corr > 0.9999, corr
+    else:
+        np.testing.assert_allclose(g, w, rtol=3e-2, atol=8e-2)
+        assert corr > 0.9995, corr
+
+
+def _unit_ref(x, p, d=1):
+    return seanet_cuda.seanet_res_unit_ref(x, *_unit_args(p), dilation=d)
+
+
+def _chain_ref(x, p):
+    return seanet_cuda.seanet_res_chain_ref(x, **p, dilations=DILS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,d", [
+    (1, 20, 96, 9),        # T below the halo
+    (2, 100, 16, 3),       # B = 2, a ragged last tile
+    (1, 200, 8, 1),
+    (1, 333, 384, 9),      # two column passes
+    (1, 64, 768, 1),       # three column passes
+    (1, 37, 40, 3),        # C no multiple of 32
+    (1, 45, 20, 9),        # C no multiple of 8: bf16 weights load unvectorized
+    (2, 50, 6, 3),         # C no multiple of 4: so do f32 weights
+])
+def test_res_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
+    p = _res_params(1, c, dtype, dev, seed=b * t + c)
+    x = _x((b, t, c), dtype, dev, seed=2)
+    got = seanet_cuda.seanet_res_unit(x, *_unit_args(p), dilation=d)
+    _check_against_plain(got, x, p, dtype, lambda x, p: _unit_ref(x, p, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c", [
+    (1, 20, 192),          # T far below the chain's halo of 39
+    (2, 100, 96),
+    (1, 700, 192),         # several tiles of 128 rows
+    (1, 1000, 8),
+    (1, 77, 40),
+    (1, 90, 6),
+])
+def test_res_chain_kernel_matches_plain(dev, dtype, b, t, c):
+    p = _res_params(3, c, dtype, dev, seed=t + c)
+    x = _x((b, t, c), dtype, dev, seed=3)
+    got = seanet_cuda.seanet_res_chain(x, **p, dilations=DILS)
+    _check_against_plain(got, x, p, dtype, _chain_ref)
+
+
+def test_res_counters_count_kernel_launches_only(dev):
+    p = _res_params(3, 96, torch.float32, dev)
+    x = torch.randn(1, 50, 96, device=dev)
+    cpu = {k: v.cpu() for k, v in p.items()}
+    unit0, chain0 = (seanet_cuda.seanet_res_unit.launches,
+                     seanet_cuda.seanet_res_chain.launches)
+    seanet_cuda.seanet_res_unit(x, *_unit_args(p))
+    seanet_cuda.seanet_res_unit(x.cpu(), *_unit_args(cpu))
+    seanet_cuda.seanet_res_chain(x, **p)
+    seanet_cuda.seanet_res_chain(x.cpu(), **cpu)
+    seanet_cuda.seanet_res_units(x.cpu(), **cpu)
+    assert seanet_cuda.seanet_res_unit.launches == unit0 + 1
+    assert seanet_cuda.seanet_res_chain.launches == chain0 + 1
+
+
+@pytest.mark.parametrize("case", ["even_k", "no_bias", "dtype", "layout",
+                                  "conv2_k3"])
+def test_res_kernels_reject_what_they_do_not_take(dev, case):
+    p = _res_params(3, 32, torch.float32, dev)
+    x = torch.randn(1, 64, 32, device=dev)
+    if case == "even_k":
+        p["w1s"] = p["w1s"][:, :6].contiguous()
+    elif case == "no_bias":
+        p["b1s"] = None
+    elif case == "dtype":
+        x = x.half()
+        p = {k: v.half() for k, v in p.items()}
+    elif case == "layout":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        p["w2s"] = torch.randn(3, 3, 32, 32, device=dev)
+    with pytest.raises(ValueError):
+        seanet_cuda.seanet_res_chain(x, **p)
+    unit = [None if p[k] is None else p[k][0]
+            for k in ("a1s", "w1s", "b1s", "a2s", "w2s", "b2s")]
+    with pytest.raises(ValueError):
+        seanet_cuda.seanet_res_unit(x, *unit)
+
+
+@pytest.fixture(scope="module")
+def small_dac_gguf(tmp_path_factory):
+    from codec_tpu_torch.models.dac import DacConfig
+    from codec_tpu_torch.models.dac_init import write_random_dac_gguf
+
+    path = tmp_path_factory.mktemp("dac") / "small.gguf"
+    write_random_dac_gguf(path, seed=3, decoder_dim=768, cfg=DacConfig(
+        n_q=4, codebook_size=64, codebook_dim=8, latent_dim=128))
+    return path
+
+
+def test_dac_decode_on_card_uses_kernels_and_matches_cpu(dev, small_dac_gguf):
+    """Decoder widths 384/192/96/48: blocks 1-2 run three unit launches
+    each, blocks 3-4 one chain launch each (the gate at an H100's shared
+    memory); the card's decode agrees with the port on the CPU at the f32
+    bound of tests/test_torch_dac.py."""
+    import codec_tpu_torch
+
+    gpu = codec_tpu_torch.load_model(small_dac_gguf, device="cuda")
+    cpu = codec_tpu_torch.load_model(small_dac_gguf, device="cpu")
+    limit = seanet_cuda.smem_per_block(0)
+    chains = sum(seanet_cuda.use_chain(c, 7, DILS, torch.float32, limit)
+                 for c in (384, 192, 96, 48))
+    assert 0 < chains < 4
+    codes = np.random.default_rng(5).integers(0, 64, (2, 30, 4)).astype(np.int32)
+    unit0, chain0 = (seanet_cuda.seanet_res_unit.launches,
+                     seanet_cuda.seanet_res_chain.launches)
+    got = gpu.decode(codes)
+    assert seanet_cuda.seanet_res_chain.launches == chain0 + chains
+    assert seanet_cuda.seanet_res_unit.launches == unit0 + 3 * (4 - chains)
+    want = cpu.decode(codes)
+    assert got.shape == want.shape == (2, 320 * 30 - 8)
+    corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+    assert corr > 0.99999, corr
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

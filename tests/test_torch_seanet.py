@@ -1,0 +1,212 @@
+"""The port's fused SEANet res-unit ops (codec_tpu_torch.ops.seanet_cuda)
+against codec_tpu's on the CPU.
+
+On a CPU tensor each wrapper runs its plain version, so these tests hold
+the plain versions (the card's reference for the CUDA kernels) against
+codec_tpu's Pallas kernels in interpret mode and against its plain f32
+ops. Inputs come from NumPy seeds and go to both packages.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from codec_tpu.ops import act as jact
+from codec_tpu.ops import conv as jconv
+from codec_tpu.ops import seanet_pallas
+from codec_tpu_torch.ops import seanet_cuda
+from codec_tpu_torch.ops.seanet_cuda import (seanet_res_chain,
+                                             seanet_res_unit,
+                                             seanet_res_units)
+
+DILS = (1, 3, 9)
+
+
+def _unit_params(rng, c, k=7, w_scale=0.2):
+    """One unit's weights as in tests/test_seanet_pallas.py (w_scale=None:
+    fan-in scale, std 1/sqrt(K*C))."""
+    s1 = 1 / np.sqrt(k * c) if w_scale is None else w_scale
+    s2 = 1 / np.sqrt(c) if w_scale is None else w_scale
+    f32 = lambda a: a.astype(np.float32)
+    return dict(w1=f32(rng.standard_normal((k, c, c)) * s1),
+                b1=f32(rng.standard_normal(c)),
+                w2=f32(rng.standard_normal((c, c)) * s2),
+                b2=f32(rng.standard_normal(c)),
+                a1=f32(np.abs(rng.standard_normal(c)) + 0.2),
+                a2=f32(np.abs(rng.standard_normal(c)) + 0.2))
+
+
+def _stacked(units):
+    return {k: np.stack([u[k] for u in units]) for k in units[0]}
+
+
+def _port_unit(x, u, d):
+    t = torch.from_numpy
+    return seanet_res_unit(t(x), t(u["a1"]), t(u["w1"]), t(u["b1"]),
+                           t(u["a2"]), t(u["w2"]), t(u["b2"]),
+                           dilation=d).numpy()
+
+
+def _port_chain(x, s, fn=seanet_res_chain):
+    t = torch.from_numpy
+    return fn(t(x), t(s["w1"]), t(s["b1"]), t(s["a1"]), t(s["a2"]),
+              t(s["w2"]), t(s["b2"]), dilations=DILS).numpy()
+
+
+def _jax_unit_f32(x, u, d):
+    """codec_tpu's plain f32 ops: snake, conv1d, snake, 1x1, +x."""
+    j = {k: jnp.asarray(v) for k, v in u.items()}
+    k = u["w1"].shape[0]
+    h = jact.snake(jnp.asarray(x), j["a1"])
+    h = jconv.conv1d(h, j["w1"], j["b1"], dilation=d,
+                     padding=((k - 1) * d) // 2)
+    h = jact.snake(h, j["a2"])
+    return np.asarray(jnp.asarray(x) + (h @ j["w2"] + j["b2"]))
+
+
+def _assert_corr(got, want, bound):
+    corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+    assert corr > bound, corr
+
+
+# the shapes and bounds of tests/test_seanet_pallas.py: the Pallas kernel
+# rounds its matmul operands to bf16, which bounds the agreement
+@pytest.mark.parametrize("b,t,c,d,tb", [
+    (2, 200, 8, 1, 64),
+    (1, 200, 8, 3, 64),
+    (1, 130, 16, 9, 32),
+    (1, 64, 8, 1, 64),
+])
+def test_unit_matches_pallas_kernel(b, t, c, d, tb):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    u = _unit_params(rng, c)
+    want = np.asarray(seanet_pallas.seanet_res_unit(
+        jnp.asarray(x), u["a1"], u["w1"], u["b1"], u["a2"], u["w2"], u["b2"],
+        dilation=d, t_blk=tb, interpret=True))
+    got = _port_unit(x, u, d)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=5e-2)
+    _assert_corr(got, want, 0.9999)
+
+
+@pytest.mark.parametrize("b,t,tb", [(1, 200, 64), (2, 130, 64), (1, 64, 64)])
+def test_chain_matches_pallas_kernel(b, t, tb):
+    rng = np.random.default_rng(1)
+    c = 8
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    s = _stacked([_unit_params(rng, c) for _ in DILS])
+    want = np.asarray(seanet_pallas.seanet_res_chain(
+        jnp.asarray(x), s["w1"], s["b1"], s["a1"], s["a2"], s["w2"], s["b2"],
+        dilations=DILS, t_blk=tb, interpret=True))
+    for fn in (seanet_res_chain, seanet_res_units):
+        got = _port_chain(x, s, fn)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=3e-2, atol=8e-2)
+        _assert_corr(got, want, 0.9995)
+
+
+# f32 against f32: the same math with sums in another order; weights at
+# fan-in scale keep every activation near 1, so atol 1e-5 is ~1e-5
+# relative. B=2, a T that is no multiple of 32, and T below the halo.
+@pytest.mark.parametrize("b,t,c,d", [
+    (2, 45, 16, 1), (1, 77, 24, 3), (1, 20, 16, 9), (2, 5, 8, 9),
+    (1, 1, 8, 3),
+])
+def test_unit_matches_jax_f32_ops(b, t, c, d):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    u = _unit_params(rng, c, w_scale=None)
+    np.testing.assert_allclose(_port_unit(x, u, d), _jax_unit_f32(x, u, d),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,c", [(2, 45, 16), (1, 20, 16), (1, 130, 8)])
+def test_chain_matches_jax_f32_ops(b, t, c):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    units = [_unit_params(rng, c, w_scale=None) for _ in DILS]
+    want = x
+    for u, d in zip(units, DILS):
+        want = _jax_unit_f32(want, u, d)
+    np.testing.assert_allclose(_port_chain(x, _stacked(units)), want,
+                               rtol=0, atol=1e-5)
+
+
+def test_sin2_matches_jax_and_sin():
+    """The kernels' sin² formula: the port's statement of it against the
+    reference's `_sin2` (same f32 formula, 1e-6), and against sin²: the
+    series stops at r⁹, whose remainder at |r| = π/2 makes sin² off by
+    up to 7.2e-6 (bound 1e-5)."""
+    rng = np.random.default_rng(4)
+    y = np.concatenate([np.linspace(-40, 40, 4001),
+                        rng.standard_normal(4000) * 10]).astype(np.float32)
+    got = seanet_cuda.sin2(torch.from_numpy(y)).numpy()
+    want = np.asarray(seanet_pallas._sin2(jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.sin(y.astype(np.float64)) ** 2,
+                               rtol=0, atol=1e-5)
+
+
+H100_SMEM = 232448      # opt-in shared memory per block of an H100
+
+
+@pytest.mark.parametrize("dtype,c,tile", [
+    (torch.float32, 768, 0), (torch.float32, 384, 0),
+    (torch.float32, 192, 96), (torch.float32, 96, 384),
+    (torch.bfloat16, 768, 0), (torch.bfloat16, 384, 0),
+    (torch.bfloat16, 192, 160), (torch.bfloat16, 96, 416),
+])
+def test_gate_at_the_24khz_widths(dtype, c, tile):
+    """The chain's tile where its state fits; the gate takes it from 256
+    rows: blocks 1-3 run three unit launches, block 4 one chain launch,
+    so 9 unit and 1 chain launches per decode, in f32 and in bf16."""
+    assert seanet_cuda.chain_tile(c, 7, DILS, dtype, H100_SMEM) == tile
+    assert seanet_cuda.use_chain(c, 7, DILS, dtype, H100_SMEM) == (c == 96)
+    assert seanet_cuda.unit_smem_bytes(c, 7, 9, dtype) <= H100_SMEM
+    if tile:
+        assert seanet_cuda.chain_smem_bytes(c, 7, DILS, tile, dtype) <= H100_SMEM
+        assert seanet_cuda.chain_smem_bytes(
+            c, 7, DILS, tile + 32, dtype) > H100_SMEM
+
+
+@pytest.mark.parametrize("dtype,c,rows,width", [
+    (torch.float32, 768, 8, 6), (torch.float32, 384, 4, 6),
+    (torch.float32, 192, 4, 6), (torch.float32, 96, 4, 3),
+    (torch.float32, 8, 4, 1), (torch.float32, 300, 4, 6),
+    (torch.float32, 40, 4, 2), (torch.float32, 512, 8, 8),
+    (torch.float32, 1024, 8, 8),
+    (torch.bfloat16, 768, 32, 6), (torch.bfloat16, 384, 32, 6),
+    (torch.bfloat16, 192, 32, 3), (torch.bfloat16, 96, 32, 2),
+    (torch.bfloat16, 8, 32, 1), (torch.bfloat16, 1000, 32, 6),
+])
+def test_tile_width(dtype, c, rows, width):
+    """Rows per warp, and the fewest passes (f32: 32·TN columns, 64·TN
+    from C = 512 with 8 rows per warp; bf16: 64·NT), split evenly."""
+    assert seanet_cuda.tile_width(c, dtype) == width
+    assert seanet_cuda._tile_args(c, dtype)[:2] == (rows, width)
+
+
+def test_import_builds_nothing_and_needs_no_nvcc():
+    """The wrappers ran their plain versions above; nothing loaded the
+    library or asked a device for its shared memory."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 9, 8)).astype(np.float32)
+    _port_chain(x, _stacked([_unit_params(rng, 8) for _ in DILS]),
+                seanet_res_units)
+    assert seanet_cuda._lib.cache_info().currsize == 0
+    assert seanet_cuda.smem_per_block.cache_info().currsize == 0
+
+
+def test_no_device_falls_back_to_the_plain_version():
+    x = torch.zeros((1, 4, 8), device="meta")
+    w1 = torch.zeros((7, 8, 8), device="meta")
+    v = torch.zeros(8, device="meta")
+    w2 = torch.zeros((8, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        seanet_res_unit(x, v, w1, v, v, w2, v)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        seanet_res_chain(x, w1[None].expand(3, -1, -1, -1), v[None], v[None],
+                         v[None], w2[None], v[None])
