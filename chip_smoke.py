@@ -18,7 +18,13 @@ Phases (any failure raises and exits non-zero before the last line):
      20 s b1 and 20 s b4 in f32, 20 s b1 in bf16, and one decode_latent;
      the f32 outputs are held against the same weights with the plain
      residual units on the card
-  6. CUDA-event times (median of >= 10 runs after warm-up)
+  6. SNAC: the same for a full-width random SNAC (hubertsiuzdak/snac_24khz
+     widths, Orpheus packing): 20 s b1 and 20 s b4 in f32, 20 s b1 in
+     bf16, each checked for its launch count, shape, finite samples and
+     (f32) saturation and held against the plain residual units
+  7. CUDA-event times (median of >= 10 runs after warm-up), each kernel
+     beside its plain version, its bound on this card and, for the
+     attention, one PyTorch call that computes the same function
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -26,6 +32,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -35,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 TIMED_RUNS = 10
@@ -79,6 +87,25 @@ DAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                 ("20s_b4_f32", 20, 4, "float32"),
                 ("20s_b1_bf16", 20, 1, "bfloat16")]
 
+# -- snac_res_chain (B, T, C): the four SNAC decoder blocks of a 20 s b1
+# decode (936 frames), a batch of 2, a T that is no multiple of 32, T below
+# the halo and T = 1. Each shape runs in the form a decode launches (one
+# N = 1 launch per dilation, snac_res_units) and, where its state fits, as
+# the chain (N = 3). Bounds as for the DAC chain; inputs at the scales of
+# tests/test_seanet_pallas.py's depthwise test (x 0.3, taps 0.2, biases
+# 0.1, the 1x1 at that test's gain for any C), alphas N(1, 0.5)
+SNAC_BLOCKS = [(512, 7488), (256, 59904), (128, 239616), (64, 479232)]
+SNAC_SHAPES = [(1, t, c) for c, t in SNAC_BLOCKS] + [
+    (2, 1000, 128), (1, 4100, 256), (1, 20, 64), (1, 1, 64)]
+SNAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
+                 ("20s_b4_f32", 20, 4, "float32"),
+                 ("20s_b1_bf16", 20, 1, "bfloat16")]
+
+# H100 SXM data-sheet peaks (dense): f32 on the FMA units (the f32 kernels
+# use no TF32), bf16 on the tensor cores, and HBM3
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = 3.35e12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -89,6 +116,33 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(nvcc_log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v report: the
+    kernel, its type and tile, its registers and any spills."""
+    out, name, spill = [], None, ""
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kernel = re.search(r"\d+([a-z][a-z_]*_kernel)", mangled)
+            tile = re.search(r"(FmaTile|MmaTile)I((?:Li\d+E)+)", mangled)
+            name = " ".join(filter(None, [
+                kernel.group(1) if kernel else mangled[:60],
+                "bf16" if "bfloat16" in mangled else "f32",
+                tile and f"{tile.group(1)}<"
+                f"{','.join(re.findall(r'Li(\d+)E', tile.group(2)))}>"]))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (f", spills {m.group(1)}/{m.group(2)} bytes"
+                     if m.group(1) != "0" or m.group(2) != "0" else "")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers{spill}")
+            name, spill = None, ""
+    return out
 
 
 def cuda_ms(fn, reps: int = 1, runs: int = TIMED_RUNS, warmup: int = 2) -> float:
@@ -151,6 +205,49 @@ def corr(a, b) -> float:
     return float(np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1])
 
 
+def dw_params(n, c, dtype, seed, k=7):
+    """n depthwise units' weights (SNAC_SHAPES gives the scales)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+    return dict(w1s=t(rng.standard_normal((n, k, c)) * 0.2),
+                b1s=t(rng.standard_normal((n, c)) * 0.1),
+                a1s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
+                a2s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
+                w2s=t(rng.standard_normal((n, c, c)) * 0.1 * np.sqrt(128 / c)),
+                b2s=t(rng.standard_normal((n, c)) * 0.1))
+
+
+def least_time(flops, nbytes):
+    """The least time this card could take: the larger of the bytes over
+    the HBM rate and the operations over their type's peak; flops is
+    [(count, dtype)]. Returns (ms, "bytes" or "operations")."""
+    t_ops = sum(f / PEAK_FLOPS[dt] for f, dt in flops)
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def attn_work(b, h, t, d, w, dtype):
+    """flash_sdpa_window's FLOP (QK and PV over the visible band) and bytes
+    (q, k, v read and out written once)."""
+    pairs = sum(min(i + 1, w or t) for i in range(t))
+    return [(4 * d * pairs * b * h, dtype)], 4 * b * h * t * d * dtype.itemsize
+
+
+def res_work(n, b, t, c, dtype, k=7, depthwise=False):
+    """n residual units' conv FLOP (the snakes' few operations per element
+    are left out) and bytes (x read and out written once, the weights read
+    once). SNAC's depthwise taps run in f32 in both dtypes."""
+    taps = k if depthwise else k * c
+    weights = n * (taps * c + c * c) * dtype.itemsize
+    flops = [(2 * n * c * c * b * t, dtype),
+             (2 * n * taps * c * b * t, torch.float32 if depthwise else dtype)]
+    return flops, 2 * b * t * c * dtype.itemsize + weights
+
+
 def main() -> int:
     t_start = time.monotonic()
     # -- 1. the card ---------------------------------------------------------
@@ -165,20 +262,23 @@ def main() -> int:
 
     import codec_tpu_torch
     from codec_tpu_torch.kernels import build
-    from codec_tpu_torch.models import dac
+    from codec_tpu_torch.models import dac, snac
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi import mimi_decode_fn
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
     from codec_tpu_torch.ops import seanet_cuda
     from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                                flash_sdpa_window_ref)
     from codec_tpu_torch.ops.seanet_cuda import (seanet_res_chain,
-                                                 seanet_res_unit)
+                                                 seanet_res_unit,
+                                                 snac_res_chain)
     from codec_tpu_torch.runtime.model import f32_precision
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
-                "seanet_res_chain": seanet_res_chain}
+                "seanet_res_chain": seanet_res_chain,
+                "snac_res_chain": snac_res_chain}
 
     def zero_counts():
         for fn in wrappers.values():
@@ -192,9 +292,8 @@ def main() -> int:
     res = build.build()
     log(f"[build] {res.path.name}: nvcc {res.seconds:.2f} s "
         f"(phase {time.monotonic() - t0:.2f} s)")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for line in ptxas_report(res.log):
+        log(f"[build] {line}")
     smem = seanet_cuda.smem_per_block(0)
     log(f"[build] opt-in shared memory per block: {smem} bytes")
 
@@ -266,26 +365,44 @@ def main() -> int:
             hold("seanet_res_chain", f"B{b} T{t} C{c} {str(dtype)[6:]}",
                  got, want, dtype, CHAIN_BF16)
             del x, got, want
+        for i, (b, t, c) in enumerate(SNAC_SHAPES):
+            p = dw_params(3, c, dtype, SEED + 70 + i)
+            if c >= 64 and not (p["a1s"] < 0).any():
+                raise RuntimeError("snac_res_chain: no negative alpha drawn")
+            x = randn((b, t, c), dtype, SEED + 80 + i, scale=0.3)
+            with f32_precision(True):
+                want = seanet_cuda.snac_res_chain_ref(
+                    x.float(), **{k: v.float() for k, v in p.items()},
+                    dilations=DILATIONS)
+            forms = [("N=1 x3", lambda: seanet_cuda.snac_res_units(
+                x, **p, dilations=DILATIONS))]
+            if seanet_cuda.dw_chain_tile(c, 7, DILATIONS, dtype, smem):
+                forms.append(("N=3", lambda: snac_res_chain(
+                    x, **p, dilations=DILATIONS)))
+            for form, run in forms:
+                hold("snac_res_chain", f"{form} B{b} T{t} C{c} "
+                     f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
+            del x, want
 
     # -- 4, 5. full-width models through load_model ---------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
-        mimi_path = Path(tmp.name) / "mimi_random.gguf"
-        dac_path = Path(tmp.name) / "dac_random.gguf"
+        paths = {name: Path(tmp.name) / f"{name}_random.gguf"
+                 for name in ("mimi", "dac", "snac")}
         t0 = time.monotonic()
-        write_random_mimi_gguf(mimi_path, seed=SEED)
-        write_random_dac_gguf(dac_path, seed=SEED)
-        log(f"[model] wrote {mimi_path.name} "
-            f"({mimi_path.stat().st_size / 2**20:.1f} MiB) and {dac_path.name} "
-            f"({dac_path.stat().st_size / 2**20:.1f} MiB) in "
-            f"{time.monotonic() - t0:.2f} s")
+        write_random_mimi_gguf(paths["mimi"], seed=SEED)
+        write_random_dac_gguf(paths["dac"], seed=SEED)
+        write_random_snac_gguf(paths["snac"], seed=SEED)
+        log("[model] wrote " + ", ".join(
+            f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
+            for path in paths.values())
+            + f" in {time.monotonic() - t0:.2f} s")
         t0 = time.monotonic()
-        mimi_models = {dt: codec_tpu_torch.load_model(
-            mimi_path, compute_dtype=dt, device="cuda")
-            for dt in ("float32", "bfloat16")}
-        dac_models = {dt: codec_tpu_torch.load_model(
-            dac_path, compute_dtype=dt, device="cuda")
-            for dt in ("float32", "bfloat16")}
+        mimi_models, dac_models, snac_models = (
+            {dt: codec_tpu_torch.load_model(paths[name], compute_dtype=dt,
+                                            device="cuda")
+             for dt in ("float32", "bfloat16")}
+            for name in ("mimi", "dac", "snac"))
         torch.cuda.synchronize()
     finally:
         tmp.cleanup()
@@ -293,7 +410,10 @@ def main() -> int:
     dcfg = dac_models["float32"].cfg
     widths = [blk["units"]["w1"].shape[-1]
               for blk in dac_models["float32"].params["dec_blocks"]]
-    log(f"[model] load_model Mimi + DAC, f32 + bf16, in "
+    scfg = snac_models["float32"].cfg
+    snac_widths = [blk["units"]["w1"].shape[-1]
+                   for blk in snac_models["float32"].params["dec_blocks"]]
+    log(f"[model] load_model Mimi + DAC + SNAC, f32 + bf16, in "
         f"{time.monotonic() - t0:.2f} s")
     log(f"[model] Mimi: hidden {cfg.hidden}, {cfg.n_layers} layers, "
         f"{cfg.n_heads} heads x {cfg.head_dim}, mlp {cfg.intermediate}, "
@@ -302,13 +422,18 @@ def main() -> int:
     log(f"[model] DAC: latent {dcfg.latent_dim}, block widths {widths}, hop "
         f"{dcfg.hop_size}, {dcfg.n_q} codebooks x {dcfg.codebook_size} x "
         f"{dcfg.codebook_dim}, {dcfg.sample_rate} Hz")
+    log(f"[model] SNAC: latent {scfg.latent_dim}, block widths {snac_widths}, "
+        f"rates {scfg.decoder_rates}, hop {scfg.hop_size}, {scfg.n_q} "
+        f"codebooks x {scfg.codebook_size} x {scfg.codebook_dim} at strides "
+        f"{scfg.vq_strides}, {scfg.sample_rate} Hz")
 
     rng = np.random.default_rng(SEED)
 
-    def requests(spec, models, mcfg):
+    def requests(spec, models, mcfg, multiple=1):
         out = []
         for name, secs, batch, dt in spec:
             frames = secs * mcfg.sample_rate // mcfg.hop_size
+            frames -= frames % multiple
             codes = rng.integers(0, mcfg.codebook_size,
                                  (batch, frames, mcfg.n_q)).astype(np.int32)
             out.append((name, secs, batch, models[dt], codes))
@@ -316,6 +441,8 @@ def main() -> int:
 
     mimi_reqs = requests(MIMI_REQUESTS, mimi_models, cfg)
     dac_reqs = requests(DAC_REQUESTS, dac_models, dcfg)
+    snac_reqs = requests(SNAC_REQUESTS, snac_models, scfg,
+                         multiple=scfg.vq_strides[0])
 
     # -- 4. the Mimi path ------------------------------------------------------
     outs = {}
@@ -329,7 +456,8 @@ def main() -> int:
                                f"{MIMI_LAYERS}")
     mimi_counts = counts()
     want_counts = {"flash_sdpa_window": MIMI_LAYERS * len(mimi_reqs),
-                   "seanet_res_unit": 0, "seanet_res_chain": 0}
+                   "seanet_res_unit": 0, "seanet_res_chain": 0,
+                   "snac_res_chain": 0}
     if mimi_counts != want_counts:
         raise RuntimeError(f"Mimi path launches {mimi_counts}, want {want_counts}")
     log(f"[mimi] main path launches: {mimi_counts} over {len(mimi_reqs)} "
@@ -373,7 +501,7 @@ def main() -> int:
         per_decode[dtype] = {
             "flash_sdpa_window": 0,
             "seanet_res_unit": 3 * sum(not t for t in plan[dtype]),
-            "seanet_res_chain": sum(plan[dtype])}
+            "seanet_res_chain": sum(plan[dtype]), "snac_res_chain": 0}
         if not (per_decode[dtype]["seanet_res_unit"]
                 and per_decode[dtype]["seanet_res_chain"]):
             raise RuntimeError(f"the gate runs only one kernel per DAC decode "
@@ -446,7 +574,62 @@ def main() -> int:
         log(line)
     del outs
 
-    # -- 6. times --------------------------------------------------------------
+    # -- 6. the SNAC path ------------------------------------------------------
+    # the gate (seanet_cuda.snac_res_units): one N = 1 launch per unit
+    snac_per_decode = {"flash_sdpa_window": 0, "seanet_res_unit": 0,
+                       "seanet_res_chain": 0,
+                       "snac_res_chain": len(DILATIONS) * len(snac_widths)}
+    log(f"[snac] gate: one N=1 launch per unit at widths {snac_widths}; "
+        f"launches per decode {snac_per_decode}")
+    outs = {}
+    zero_counts()
+    for name, secs, batch, model, codes in snac_reqs:
+        before = counts()
+        outs[name] = model.decode(codes)
+        step = {k: v - before[k] for k, v in counts().items()}
+        if step != snac_per_decode:
+            raise RuntimeError(f"snac {name}: launches {step}, want "
+                               f"{snac_per_decode}")
+    snac_counts = counts()
+    log(f"[snac] main path launches: {snac_counts} over {len(snac_reqs)} "
+        f"decodes")
+
+    def plain_snac(model, codes):
+        c = torch.from_numpy(codes.astype(np.int64)).cuda()
+        with torch.inference_mode(), f32_precision(True):
+            pcm = snac.snac_decode_fn(model.params, c, model.cfg,
+                                      res_units=snac.plain_res_units)
+        return pcm.float().cpu().numpy()
+
+    for name, secs, batch, model, codes in snac_reqs:
+        pcm = outs[name]
+        want_shape = (batch, codes.shape[1] * scfg.hop_size)
+        if pcm.shape != want_shape or pcm.dtype != np.float32:
+            raise RuntimeError(f"snac {name}: pcm {pcm.shape} {pcm.dtype}, "
+                               f"want {want_shape} float32")
+        if not np.isfinite(pcm).all():
+            raise RuntimeError(f"snac {name}: non-finite samples")
+        sat = float((np.abs(pcm) > 0.99).mean())
+        line = (f"[snac] {name}: {codes.shape[1]} frames -> pcm {pcm.shape} "
+                f"finite, peak {np.abs(pcm).max():.4f}, std {pcm.std():.4f}, "
+                f"share |pcm| > 0.99: {sat:.2e}")
+        if model.compute_dtype == torch.float32:
+            if not sat < 0.01:
+                raise RuntimeError(f"snac {name}: {sat:.2%} of samples saturated")
+            ref = plain_snac(model, codes)
+            c = corr(pcm, ref)
+            rel = np.abs(pcm - ref).max() / np.abs(ref).max()
+            if not c > 0.99999:
+                raise RuntimeError(f"snac {name}: corr {c} vs plain res units")
+            line += (f"; vs plain res units on the card: corr {c:.9f}, "
+                     f"max rel err {rel:.3e}")
+        else:
+            line += (f"; vs the f32 model: corr "
+                     f"{corr(pcm, snac_models['float32'].decode(codes)):.6f}")
+        log(line)
+    del outs
+
+    # -- 7. times --------------------------------------------------------------
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
     times = {}
@@ -456,12 +639,25 @@ def main() -> int:
         kern, plain, s = turns(lambda: flash_sdpa_window(q, k, v, window=w),
                                lambda: flash_sdpa_window_ref(q, k, v, window=w),
                                reps=20)
+        line = (f"[time] flash_sdpa_window B{b} H{h} T{t} D{d} w{w} "
+                f"{str(dtype)[6:]}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
+                f"(samples k {s[0]:.4f} {s[1]:.4f}, p {s[2]:.4f} {s[3]:.4f})")
         if (b, h, t, d, w) == ATTN_SHAPES_F32[0] and dtype == torch.float32:
-            times["flash_sdpa_window"] = (kern, plain)
-        log(f"[time] flash_sdpa_window B{b} H{h} T{t} D{d} w{w} "
-            f"{str(dtype)[6:]}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
-            f"(samples k {s[0]:.4f} {s[1]:.4f}, p {s[2]:.4f} {s[3]:.4f}) "
-            f"[{name_limit}]")
+            # the library's call for the same function: SDPA with the band
+            # mask (key j visible to query i iff i - w < j <= i)
+            i = torch.arange(t, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=band)
+            diff = (sdpa() - flash_sdpa_window(q, k, v, window=w)).abs().max()
+            lib = cuda_ms(sdpa, reps=20)
+            work = attn_work(b, h, t, d, w, dtype)
+            times["flash_sdpa_window"] = (kern, plain, *least_time(*work), lib)
+            line += (f"; F.scaled_dot_product_attention with the band mask "
+                     f"{lib:.4f} ms (max abs diff to the kernel "
+                     f"{diff.item():.2e}); bound "
+                     f"{times['flash_sdpa_window'][2]:.4f} ms")
+        log(line + f" [{name_limit}]")
 
     for dtype in (torch.float32, torch.bfloat16):
         for bi, (c, t) in enumerate(DAC_BLOCKS, start=1):
@@ -478,7 +674,9 @@ def main() -> int:
                         f"({flop / unit / 1e9:.2f} TFLOP/s), plain "
                         f"{plain1:.3f} ms ({flop / plain1 / 1e9:.2f} TFLOP/s)")
                 if bi == 1 and dtype == torch.float32:
-                    times["seanet_res_unit"] = (unit, plain1)
+                    work = res_work(1, 1, t, c, dtype)
+                    times["seanet_res_unit"] = (unit, plain1,
+                                                *least_time(*work), None)
                 if seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem):
                     chain, plain3, s = turns(
                         lambda: seanet_res_chain(x, **p, dilations=DILATIONS),
@@ -488,12 +686,42 @@ def main() -> int:
                              f"({3 * flop / chain / 1e9:.2f} TFLOP/s), plain "
                              f"{plain3:.3f} ms")
                     if bi == 4 and dtype == torch.float32:
-                        times["seanet_res_chain"] = (chain, plain3)
+                        work = res_work(3, 1, t, c, dtype)
+                        times["seanet_res_chain"] = (chain, plain3,
+                                                     *least_time(*work), None)
             log(line + f" [{name_limit}]")
             del x, p
 
+    for dtype in (torch.float32, torch.bfloat16):
+        for bi, (c, t) in enumerate(SNAC_BLOCKS, start=1):
+            p = dw_params(3, c, dtype, SEED + 90 + bi)
+            x = randn((1, t, c), dtype, SEED + 100 + bi, scale=0.3)
+            flops, nbytes = res_work(3, 1, t, c, dtype, depthwise=True)
+            b_ms, b_by = least_time(flops, nbytes)
+            flop = sum(f for f, _ in flops)
+            with f32_precision(dtype == torch.float32):
+                kern, plain, s = turns(
+                    lambda: seanet_cuda.snac_res_units(x, **p),
+                    lambda: seanet_cuda.snac_res_chain_ref(x, **p))
+            line = (f"[time] snac block {bi} C{c} T{t} {str(dtype)[6:]}: "
+                    f"three units as 3 N=1 launches {kern:.3f} ms "
+                    f"({flop / kern / 1e9:.2f} TFLOP/s, "
+                    f"{nbytes / kern / 1e6:.1f} GB/s, {b_ms / kern:.1%} of the "
+                    f"bound {b_ms:.4f} ms, {b_by}), plain {plain:.3f} ms "
+                    f"(samples k {s[0]:.3f} {s[1]:.3f}, p {s[2]:.3f} "
+                    f"{s[3]:.3f})")
+            if seanet_cuda.dw_chain_tile(c, 7, DILATIONS, dtype, smem):
+                chain = cuda_ms(lambda: snac_res_chain(x, **p))
+                line += f"; chain N=3 {chain:.3f} ms"
+            if bi == 3 and dtype == torch.float32:
+                times["snac_res_chain"] = (kern, plain, b_ms, b_by, None)
+            log(line + f" [{name_limit}]")
+            del x, p
+
+    decode_fns = {"dac": dac.dac_decode_fn, "snac": snac.snac_decode_fn}
     for label, reqs, plain_units in (
-            ("mimi", mimi_reqs, None), ("dac", dac_reqs, dac.plain_res_units)):
+            ("mimi", mimi_reqs, None), ("dac", dac_reqs, dac.plain_res_units),
+            ("snac", snac_reqs, snac.plain_res_units)):
         for name, secs, batch, model, codes in reqs:
             ms = cuda_ms(lambda: model.decode(codes))
             xrt = secs * batch / (ms / 1000.0)
@@ -512,7 +740,7 @@ def main() -> int:
                 else:
                     def dev(plain=False):
                         with torch.inference_mode(), f32_precision(True):
-                            dac.dac_decode_fn(model.params, c, model.cfg,
+                            decode_fns[label](model.params, c, model.cfg,
                                               res_units=plain_units
                                               if plain else None)
                     what = "plain res units"
@@ -525,17 +753,25 @@ def main() -> int:
 
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"],
-                   "seanet_res_chain": dac_counts["seanet_res_chain"]}
+                   "seanet_res_chain": dac_counts["seanet_res_chain"],
+                   "snac_res_chain": snac_counts["snac_res_chain"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",
                                    "codec_tpu/ops/seanet_pallas.py:92"),
                "seanet_res_chain": ("codec_tpu_torch/csrc/seanet_res.cu",
-                                    "codec_tpu/ops/seanet_pallas.py:218")}
+                                    "codec_tpu/ops/seanet_pallas.py:218"),
+               "snac_res_chain": ("codec_tpu_torch/csrc/snac_res.cu",
+                                  "codec_tpu/ops/seanet_pallas.py:328")}
+    # times at: attention B1 H8 T500 D64 w250, the DAC unit at block 1
+    # (d=1), the DAC chain at block 4, SNAC's three units at block 3 (the
+    # N=1 launches a decode makes); all f32. No single PyTorch call
+    # computes a residual unit, so those rows have no library time.
     result = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": main_counts[name], "max_abs_err": max_err[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
+        **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                   times[name]))}
         for name, (src, rep) in sources.items()]}
     log(f"[time] chip_smoke.py ran {time.monotonic() - t_start:.1f} s")
     print(json.dumps(result), flush=True)

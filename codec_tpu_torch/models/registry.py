@@ -39,3 +39,9 @@ def _mimi():
 def _dac():
     from .dac import DacCodec
     return DacCodec
+
+
+@register("snac", "snac_24khz")
+def _snac():
+    from .snac import SnacCodec
+    return SnacCodec

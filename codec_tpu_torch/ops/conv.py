@@ -52,11 +52,12 @@ def convtr1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           stride: int = 1, dilation: int = 1,
-           padding: int = 0) -> torch.Tensor:
-    """Standard conv. x: [B, T, C_in], w: [K, C_in, C_out]."""
+           stride: int = 1, dilation: int = 1, padding: int = 0,
+           groups: int = 1) -> torch.Tensor:
+    """Standard conv. x: [B, T, C_in], w: [K, C_in/groups, C_out] (a
+    depthwise conv: [K, 1, C] with groups=C)."""
     y = F.conv1d(_cf(x), w.permute(2, 1, 0), b, stride=stride,
-                 padding=padding, dilation=dilation)
+                 padding=padding, dilation=dilation, groups=groups)
     return _cf(y)
 
 

@@ -1,16 +1,19 @@
-"""Fused SEANet residual units (DAC): the CUDA kernels' wrappers, their
-plain PyTorch versions and the gate between unit and chain.
+"""Fused SEANet residual units (DAC's dense ones, SNAC's depthwise ones):
+the CUDA kernels' wrappers, their plain PyTorch versions and the gates
+between unit and chain.
 
-Counterpart of codec_tpu/ops/seanet_pallas.py::seanet_res_unit and
-::seanet_res_chain. The kernels are csrc/seanet_res.cu, built by
-kernels/build.py on first launch (never at import). For a CPU tensor each
-wrapper runs its plain version; for a CUDA tensor it launches its kernel
-or raises.
+Counterpart of codec_tpu/ops/seanet_pallas.py::seanet_res_unit,
+::seanet_res_chain and ::snac_res_chain. The kernels are csrc/seanet_res.cu
+and csrc/snac_res.cu, built by kernels/build.py on first launch (never at
+import). For a CPU tensor each wrapper runs its plain version; for a CUDA
+tensor it launches its kernel or raises.
 
 One unit is x + conv1x1(snake(conv_kK,d(snake(x, α1)) + b1, α2)) + b2 with
-symmetric zero padding (K-1)·d/2. Layouts are the reference's: x
-[B, T, C]; w1 WIO [K, C, C]; w2 [C, C] (in, out); alphas and biases [C].
-The chain takes them stacked over a leading unit dim.
+symmetric zero padding (K-1)·d/2; in SNAC's units the dilated conv is
+depthwise (one K-tap filter per channel). Layouts are the reference's: x
+[B, T, C]; w1 WIO [K, C, C] (dense) or per-channel taps [K, C]
+(depthwise); w2 [C, C] (in, out); alphas and biases [C]. The chains take
+them stacked over a leading unit dim.
 """
 
 from __future__ import annotations
@@ -89,8 +92,25 @@ def seanet_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor,
     return x
 
 
+def snac_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
+                       a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
+                       b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
+                       eps: float = 1e-9) -> torch.Tensor:
+    """SNAC's depthwise units in sequence over the whole sequence, in plain
+    ops in x's dtype: snake, depthwise dilated conv (groups=C), snake, 1x1,
+    +x. w1s [N, K, C] are each unit's per-channel taps."""
+    c, k = x.shape[-1], w1s.shape[1]
+    for u, d in enumerate(dilations):
+        h = act.snake(x, a1s[u], eps)
+        h = conv.conv1d(h, w1s[u][:, None, :], b1s[u], dilation=d,
+                        padding=_halo(k, d), groups=c)
+        h = act.snake(h, a2s[u], eps)
+        x = x + (h @ w2s[u] + b2s[u])
+    return x
+
+
 # ---------------------------------------------------------------------------
-# The gate: shared memory of each kernel, and the chain's tile
+# The gates: shared memory of each kernel, and the chains' tiles
 # ---------------------------------------------------------------------------
 
 def _tile(c: int, dtype: torch.dtype) -> str:
@@ -139,14 +159,27 @@ def unit_smem_bytes(c: int, k: int, dilation: int,
     return _common_bytes(c, _halo(k, dilation), dtype)
 
 
+def _state_bytes(c: int, k: int, dilations: Sequence[int], tile: int) -> int:
+    """A chain's f32 state [tile + 2·Σ halos, C | 1] (rows of odd length),
+    rounded up to 16 bytes."""
+    halo = sum(_halo(k, d) for d in dilations)
+    return -(-(tile + 2 * halo) * (c | 1) // 4) * 16
+
+
 def chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
                      dtype: torch.dtype) -> int:
-    """The chain's f32 state [tile + 2·Σ halos, C | 1] (rows of odd
-    length; rounded up to 16 bytes) plus the unit's buffers at the largest
-    halo."""
-    halos = [_halo(k, d) for d in dilations]
-    state = -(-(tile + 2 * sum(halos)) * (c | 1) // 4) * 16
-    return state + _common_bytes(c, max(halos), dtype)
+    """The chain's state plus the unit's buffers at the largest halo."""
+    return (_state_bytes(c, k, dilations, tile)
+            + _common_bytes(c, max(_halo(k, d) for d in dilations), dtype))
+
+
+def _largest_tile(smem_bytes, smem_limit: int) -> int:
+    """The largest multiple of 32, up to 512, with smem_bytes(tile) <=
+    smem_limit, or 0 when not even 32 rows fit."""
+    tile = _CHAIN_MAX_TILE
+    while tile and smem_bytes(tile) > smem_limit:
+        tile -= _ROWS
+    return tile
 
 
 def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
@@ -154,10 +187,8 @@ def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
     """Rows per block of the chain kernel: the largest multiple of 32, up
     to 512, whose state fits `smem_limit` bytes of shared memory, or 0
     when not even 32 rows fit."""
-    tile = _CHAIN_MAX_TILE
-    while tile and chain_smem_bytes(c, k, dilations, tile, dtype) > smem_limit:
-        tile -= _ROWS
-    return tile
+    return _largest_tile(
+        lambda tile: chain_smem_bytes(c, k, dilations, tile, dtype), smem_limit)
 
 
 def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
@@ -165,6 +196,35 @@ def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
     """The gate: a block's units run as one chain launch when at least
     CHAIN_MIN_TILE rows of its state fit, else as one unit launch each."""
     return chain_tile(c, k, dilations, dtype, smem_limit) >= CHAIN_MIN_TILE
+
+
+def dw_unit_smem_bytes(c: int, k: int, dilation: int,
+                       dtype: torch.dtype) -> int:
+    """SNAC's unit kernel: S and two weight tiles as the dense kernels
+    stage them (f32 for f32, bf16 for bf16), and the snaked input chunk A
+    [32 + 2·halo, 32] in f32 in both."""
+    cp = -(-c // _KC) * _KC
+    bn = _pass_columns(c, dtype)
+    a = 4 * (_ROWS + 2 * _halo(k, dilation)) * _KC
+    if dtype == torch.float32:
+        return 4 * (_ROWS * cp + 2 * _KC * bn) + a
+    return 2 * (_ROWS * (cp + 8) + 2 * _KC * (bn + 8)) + a
+
+
+def dw_chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
+                        dtype: torch.dtype) -> int:
+    """SNAC's chain: its f32 state plus the unit's buffers at the largest
+    dilation."""
+    return (_state_bytes(c, k, dilations, tile)
+            + dw_unit_smem_bytes(c, k, max(dilations), dtype))
+
+
+def dw_chain_tile(c: int, k: int, dilations: Sequence[int],
+                  dtype: torch.dtype, smem_limit: int) -> int:
+    """Rows per block of SNAC's chain kernel (as `chain_tile`)."""
+    return _largest_tile(
+        lambda tile: dw_chain_smem_bytes(c, k, dilations, tile, dtype),
+        smem_limit)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +243,8 @@ def _lib():
         ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.codec_seanet_res_chain.restype = ctypes.c_int
+    lib.codec_snac_res_chain.argtypes = lib.codec_seanet_res_chain.argtypes
+    lib.codec_snac_res_chain.restype = ctypes.c_int
     lib.codec_smem_per_block_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.codec_smem_per_block_optin.restype = ctypes.c_int
     lib.codec_cuda_error_string.argtypes = [ctypes.c_int]
@@ -208,9 +270,10 @@ def smem_per_block(index: int) -> int:
 
 
 def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
-           vectors: Sequence) -> None:
-    """x [B, T, C]; w1s [N, K, C, C], K odd; w2s [N, C, C]; each vector
-    [N, C]; all contiguous on x's device in x's dtype."""
+           vectors: Sequence, depthwise: bool = False) -> None:
+    """x [B, T, C]; w1s [N, K, C, C] (or, depthwise, [N, K, C]), K odd;
+    w2s [N, C, C]; each vector [N, C]; all contiguous on x's device in
+    x's dtype."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what}: dtype {x.dtype} not supported "
                          f"(float32 or bfloat16)")
@@ -218,10 +281,12 @@ def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
         raise ValueError(f"{what}: x must be [B, T, C] with T >= 1, "
                          f"got {tuple(x.shape)}")
     n, c = w1s.shape[0], x.shape[2]
-    k = w1s.shape[1] if w1s.ndim == 4 else 0
-    if w1s.shape != (n, k, c, c) or k % 2 == 0:
-        raise ValueError(f"{what}: w1 must be WIO [K, {c}, {c}] with K odd, "
-                         f"got {tuple(w1s.shape[1:])}")
+    taps = (c,) if depthwise else (c, c)
+    k = w1s.shape[1] if w1s.ndim == 2 + len(taps) else 0
+    if w1s.shape != (n, k, *taps) or k % 2 == 0:
+        form = f"taps [K, {c}]" if depthwise else f"WIO [K, {c}, {c}]"
+        raise ValueError(f"{what}: w1 must be {form} with K odd, got "
+                         f"{tuple(w1s.shape[1:])}")
     if w2s.shape != (n, c, c):
         raise ValueError(f"{what}: w2 must be [{c}, {c}] (the second conv "
                          f"is 1x1), got {tuple(w2s.shape[1:])}")
@@ -238,6 +303,15 @@ def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
                              f"x is {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _dilations(what: str, dilations: Sequence[int], n: int) -> tuple:
+    dilations = tuple(dilations)
+    if (len(dilations) != n or len(dilations) > _MAX_UNITS
+            or not all(isinstance(d, int) and d >= 1 for d in dilations)):
+        raise ValueError(f"{what}: want one positive dilation per unit (at "
+                         f"most {_MAX_UNITS}), got {dilations} for {n} units")
+    return dilations
 
 
 def _vec(a1s, b1s, a2s, b2s, eps: float) -> torch.Tensor:
@@ -303,12 +377,7 @@ def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
         raise ValueError(f"seanet_res_chain: no kernel for device {x.device}")
     vectors = (a1s, b1s, a2s, b2s)
     _check("seanet_res_chain", x, w1s, w2s, vectors)
-    dilations = tuple(dilations)
-    if (len(dilations) != w1s.shape[0] or len(dilations) > _MAX_UNITS
-            or not all(isinstance(d, int) and d >= 1 for d in dilations)):
-        raise ValueError(f"seanet_res_chain: want one positive dilation per "
-                         f"unit (at most {_MAX_UNITS}), got {dilations} for "
-                         f"{w1s.shape[0]} units")
+    dilations = _dilations("seanet_res_chain", dilations, w1s.shape[0])
     b, t, c = x.shape
     k = w1s.shape[1]
     tile = chain_tile(c, k, dilations, x.dtype,
@@ -353,3 +422,76 @@ def seanet_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
         return x
     return seanet_res_chain(x, w1s, b1s, a1s, a2s, w2s, b2s,
                             dilations=dilations, eps=eps)
+
+
+def snac_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
+                   a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
+                   b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
+                   eps: float = 1e-9) -> torch.Tensor:
+    """N depthwise residual units (SNAC) in one pass: x [B, T, C] (f32 or
+    bf16); w1s [N, K, C] per-channel taps; w2s [N, C, C]; alphas and
+    biases [N, C] → [B, T, C]. With N = 1 the kernel stages its input
+    from device memory and fits at any SNAC width; with N > 1 it keeps
+    the residual in f32 in shared memory across units, and raises on CUDA
+    where not even 32 rows of that state fit (`dw_chain_tile`).
+
+    Counts its kernel launches in `snac_res_chain.launches`."""
+    if x.device.type == "cpu":
+        return snac_res_chain_ref(x, w1s, b1s, a1s, a2s, w2s, b2s,
+                                  dilations=dilations, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"snac_res_chain: no kernel for device {x.device}")
+    vectors = (a1s, b1s, a2s, b2s)
+    _check("snac_res_chain", x, w1s, w2s, vectors, depthwise=True)
+    dilations = _dilations("snac_res_chain", dilations, w1s.shape[0])
+    b, t, c = x.shape
+    k = w1s.shape[1]
+    limit = smem_per_block(x.device.index or 0)
+    if len(dilations) == 1:
+        tile = _ROWS
+        need = dw_unit_smem_bytes(c, k, dilations[0], x.dtype)
+        if need > limit:
+            raise ValueError(f"snac_res_chain: C={c}, K={k}, d={dilations[0]} "
+                             f"needs {need} bytes of shared memory, the "
+                             f"device has {limit}")
+    else:
+        tile = dw_chain_tile(c, k, dilations, x.dtype, limit)
+        if not tile:
+            raise ValueError(f"snac_res_chain: the chain's state at C={c}, "
+                             f"K={k} does not fit shared memory; run the "
+                             f"units one at a time (N = 1)")
+        tile = min(tile, -(-t // _ROWS) * _ROWS)
+    vec = _vec(*vectors, eps=eps)
+    out = torch.empty_like(x)
+    dils = (ctypes.c_int * len(dilations))(*dilations)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().codec_snac_res_chain(
+            x.data_ptr(), w1s.data_ptr(), w2s.data_ptr(), vec.data_ptr(),
+            out.data_ptr(), b, t, c, k, len(dilations), dils, tile,
+            *_tile_args(c, x.dtype), stream)
+    _raise_on(err, "snac_res_chain")
+    snac_res_chain.launches += 1
+    return out
+
+
+snac_res_chain.launches = 0
+
+
+def snac_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
+                   a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
+                   b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
+                   eps: float = 1e-9) -> torch.Tensor:
+    """A SNAC block's residual units (arguments as `snac_res_chain`). On a
+    CUDA tensor: one N = 1 launch of `snac_res_chain` per unit, which on
+    an H100 beats the chain (N = 3) at every SNAC width and dtype: the
+    chain's state leaves one or two blocks per SM where the unit kernel
+    runs three to six (PERF.md). On a CPU tensor: the plain version."""
+    if x.device.type == "cuda":
+        for u, d in enumerate(dilations):
+            s = slice(u, u + 1)
+            x = snac_res_chain(x, w1s[s], b1s[s], a1s[s], a2s[s], w2s[s],
+                               b2s[s], dilations=(d,), eps=eps)
+        return x
+    return snac_res_chain(x, w1s, b1s, a1s, a2s, w2s, b2s,
+                          dilations=dilations, eps=eps)

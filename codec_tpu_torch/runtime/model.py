@@ -154,6 +154,9 @@ class CodecModel:
             codes.shape[1] * self.hop_size if self.causal_time else None)
         return out[0] if squeeze else out
 
+    def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
+        raise CodecError(f"{self.arch}: decode_latent not supported")
+
     def _run_on_device(self, fn, pcm_format: str,
                        n_samples: Optional[int] = None) -> np.ndarray:
         """fn() → pcm [B, samples] under inference mode (TF32 off for f32),

@@ -1,12 +1,14 @@
 """Where a decode's device time goes: one warm request under torch.profiler.
 
-    python -m codec_tpu_torch.tools.profile_decode [dac|mimi] [--seconds 20]
+    python -m codec_tpu_torch.tools.profile_decode [dac|mimi|snac] \
+        [--seconds 20]
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
-unprofiled and one profiled decode. Prints the card's name and power
-limit, the latency, the device busy time (the kernels' self time, aten
-ops excluded), the idle share against the unprofiled latency, and the
+unprofiled and one profiled decode (SNAC: the frame count rounded down
+to a multiple of 4). Prints the card's name and power limit, the
+latency, the device busy time (the kernels' self time, aten ops
+excluded), the idle share against the unprofiled latency, and the
 kernels with the most device time. Needs a CUDA device.
 """
 
@@ -39,7 +41,8 @@ def _timed_decode(model, codes) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_decode")
-    ap.add_argument("arch", nargs="?", default="dac", choices=["dac", "mimi"])
+    ap.add_argument("arch", nargs="?", default="dac",
+                    choices=["dac", "mimi", "snac"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
@@ -50,18 +53,21 @@ def main(argv=None) -> int:
     import codec_tpu_torch
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
 
     card = _card()
     print(f"card: {card}")
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
         path = Path(tmp) / f"{args.arch}.gguf"
-        (write_random_dac_gguf if args.arch == "dac"
-         else write_random_mimi_gguf)(path, seed=0)
+        {"dac": write_random_dac_gguf, "mimi": write_random_mimi_gguf,
+         "snac": write_random_snac_gguf}[args.arch](path, seed=0)
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
                                                device="cuda")
             frames = args.seconds * model.sample_rate // model.hop_size
+            if args.arch == "snac":
+                frames -= frames % model.cfg.vq_strides[0]
             codes = rng.integers(0, model.codebook_size,
                                  (batch, frames, model.n_q)).astype(np.int32)
             for _ in range(2):

@@ -65,8 +65,9 @@ def test_import_builds_nothing_and_needs_no_nvcc():
 
     assert build.load_library.cache_info().currsize == 0
     assert attn_cuda._kernel_fn.cache_info().currsize == 0
-    assert build.sources() == [build.CSRC_DIR / "flash_sdpa_window.cu",
-                               build.CSRC_DIR / "seanet_res.cu"]
+    assert build.sources() == [build.CSRC_DIR / name for name in (
+        "flash_sdpa_window.cu", "seanet_res.cu", "seanet_tiles.cuh",
+        "snac_res.cu")]
 
 
 def test_no_device_falls_back_to_the_plain_version():

@@ -305,3 +305,126 @@ def test_dac_decode_on_card_uses_kernels_and_matches_cpu(dev, small_dac_gguf):
     corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
     assert corr > 0.99999, corr
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# -- the fused depthwise res-unit kernel (SNAC) ---------------------------------
+
+def _dw_params(n, c, dtype, dev, seed=0, k=7):
+    """n depthwise units' weights as chip_smoke.py draws them (the scales
+    of tests/test_seanet_pallas.py's depthwise test, the 1x1 at that
+    test's gain for any C), alphas N(1, 0.5) with every fourth channel's
+    sign flipped, so some are negative at any C."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    def alpha():
+        a = 1.0 + 0.5 * rng.standard_normal((n, c))
+        a[:, ::4] *= -1
+        return t(a)
+
+    return dict(w1s=t(rng.standard_normal((n, k, c)) * 0.2),
+                b1s=t(rng.standard_normal((n, c)) * 0.1),
+                a1s=alpha(), a2s=alpha(),
+                w2s=t(rng.standard_normal((n, c, c)) * 0.1 * np.sqrt(128 / c)),
+                b2s=t(rng.standard_normal((n, c)) * 0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,dils", [
+    (1, 20, 64, DILS),       # T below the chain's halo of 39
+    (1, 1, 64, DILS),
+    (2, 1000, 128, DILS),    # B = 2, a ragged last tile
+    (1, 700, 64, DILS),      # two tiles of 512 rows
+    (1, 77, 40, DILS),       # C no multiple of 32
+    (2, 50, 6, DILS),        # C no multiple of 8 or 4: weights load unvectorized
+    (1, 333, 512, (9,)),     # the unit kernel (N = 1) at SNAC's widest block
+    (1, 4100, 256, (1,)),
+    (2, 45, 20, (3,)),
+])
+def test_dw_chain_kernel_matches_plain(dev, dtype, b, t, c, dils):
+    """f32: max abs err <= 1e-4 * peak and corr > 0.99999; bf16 (against
+    the plain version in f32 on the same bf16 inputs): rtol 3e-2 / atol
+    8e-2 / corr 0.9995, the bounds of tests/test_seanet_pallas.py."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    p = _dw_params(len(dils), c, dtype, dev, seed=b * t + c)
+    x = _x((b, t, c), dtype, dev, seed=4) * 0.3
+    got = seanet_cuda.snac_res_chain(x, **p, dilations=dils)
+    with f32_precision(True):
+        want = seanet_cuda.snac_res_chain_ref(
+            x.float(), **{k: v.float() for k, v in p.items()}, dilations=dils)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    g, w = got.float().cpu().numpy(), want.cpu().numpy()
+    corr = np.corrcoef(g.ravel(), w.ravel())[0, 1]
+    if dtype == torch.float32:
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert corr > 0.99999, corr
+    else:
+        np.testing.assert_allclose(g, w, rtol=3e-2, atol=8e-2)
+        assert corr > 0.9995, corr
+
+
+def test_dw_counter_counts_kernel_launches_only(dev):
+    p = _dw_params(3, 64, torch.float32, dev)
+    x = torch.randn(1, 50, 64, device=dev)
+    cpu = {k: v.cpu() for k, v in p.items()}
+    before = seanet_cuda.snac_res_chain.launches
+    seanet_cuda.snac_res_chain(x, **p)
+    seanet_cuda.snac_res_chain(x.cpu(), **cpu)
+    seanet_cuda.snac_res_units(x.cpu(), **cpu)
+    assert seanet_cuda.snac_res_chain.launches == before + 1
+    seanet_cuda.snac_res_units(x, **p)              # three N = 1 launches
+    assert seanet_cuda.snac_res_chain.launches == before + 4
+
+
+@pytest.mark.parametrize("case", ["dense_taps", "no_bias", "dtype", "layout",
+                                  "wide_chain"])
+def test_dw_kernel_rejects_what_it_does_not_take(dev, case):
+    c = 512 if case == "wide_chain" else 32
+    p = _dw_params(3, c, torch.float32, dev)
+    x = torch.randn(1, 64, c, device=dev)
+    if case == "dense_taps":
+        p["w1s"] = torch.randn(3, 7, c, c, device=dev)
+    elif case == "no_bias":
+        p["b2s"] = None
+    elif case == "dtype":
+        x = x.half()
+        p = {k: v.half() for k, v in p.items()}
+    elif case == "layout":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        seanet_cuda.snac_res_chain(x, **p)
+
+
+@pytest.fixture(scope="module")
+def small_snac_gguf(tmp_path_factory):
+    from codec_tpu_torch.models.snac import SnacConfig
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
+
+    path = tmp_path_factory.mktemp("snac") / "small.gguf"
+    write_random_snac_gguf(path, seed=3, decoder_dim=512, cfg=SnacConfig(
+        latent_dim=128, codebook_size=64, codebook_dim=8))
+    return path
+
+
+def test_snac_decode_on_card_uses_kernel_and_matches_cpu(dev, small_snac_gguf):
+    """Decoder widths 256/128/64/32: every block's three units run
+    through snac_res_chain, one N = 1 launch each; the card's decode
+    agrees with the port on the CPU at the f32 bound of
+    tests/test_torch_snac.py."""
+    import codec_tpu_torch
+
+    gpu = codec_tpu_torch.load_model(small_snac_gguf, device="cuda")
+    cpu = codec_tpu_torch.load_model(small_snac_gguf, device="cpu")
+    codes = np.random.default_rng(6).integers(0, 64, (2, 16, 3)).astype(np.int32)
+    before = seanet_cuda.snac_res_chain.launches
+    got = gpu.decode(codes)
+    assert seanet_cuda.snac_res_chain.launches == before + 4 * 3
+    want = cpu.decode(codes)
+    assert got.shape == want.shape == (2, 16 * 512)
+    corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+    assert corr > 0.99999, corr
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

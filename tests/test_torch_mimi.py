@@ -165,11 +165,12 @@ def test_encode_and_streaming_not_yet_ported(tiny):
 
 
 def test_unported_arch_raises(tmp_path):
-    w = GGUFWriter(tmp_path / "snac.gguf", "snac")
+    w = GGUFWriter(tmp_path / "wavtokenizer.gguf", "wavtokenizer")
     w.add_tensor("x", np.zeros(4, np.float32))
     w.write()
-    with pytest.raises(CodecError, match="'snac' is not yet ported"):
-        codec_tpu_torch.load_model(tmp_path / "snac.gguf", device="cpu")
+    with pytest.raises(CodecError, match="'wavtokenizer' is not yet ported"):
+        codec_tpu_torch.load_model(tmp_path / "wavtokenizer.gguf",
+                                   device="cpu")
 
 
 def test_bfloat16_compute_decodes(tiny):

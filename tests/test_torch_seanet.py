@@ -210,3 +210,23 @@ def test_no_device_falls_back_to_the_plain_version():
     with pytest.raises(ValueError, match="no kernel for device"):
         seanet_res_chain(x, w1[None].expand(3, -1, -1, -1), v[None], v[None],
                          v[None], w2[None], v[None])
+
+
+def test_compare_sass_splits_kernels_and_drops_file_hashes():
+    """The SASS comparison tool (used to show that moving code into a
+    shared header left the compiled kernels alone) keys kernels by name
+    with the per-file namespace hash taken out."""
+    from codec_tpu_torch.tools.compare_sass import sass_by_kernel
+
+    def dump(file_hash, body):
+        ns = f"_GLOBAL__N__{file_hash}_11_seanet_res_cu_47380782"
+        return (f"\n\tcode for sm_90a\n\t\tFunction : _ZN44{ns}"
+                f"20seanet_res_unit_kernelIfEEvv\n{body}\n"
+                f"\t\tFunction : _Z3fooIfEvv\n  MOV R1, c[0x0][0x28] ;\n")
+
+    a = sass_by_kernel(dump("f6ec251a", "  FFMA R0, R1, R2, R0 ;"))
+    b = sass_by_kernel(dump("0badcafe", "  FFMA R0, R1, R2, R0 ;"))
+    c = sass_by_kernel(dump("0badcafe", "  FFMA R0, R2, R1, R0 ;"))
+    name = "_ZN44ANON20seanet_res_unit_kernelIfEEvv"
+    assert sorted(a) == sorted(b) == sorted([name, "_Z3fooIfEvv"])
+    assert a == b and a[name] != c[name]
