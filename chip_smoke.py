@@ -22,9 +22,22 @@ Phases (any failure raises and exits non-zero before the last line):
      widths, Orpheus packing): 20 s b1 and 20 s b4 in f32, 20 s b1 in
      bf16, each checked for its launch count, shape, finite samples and
      (f32) saturation and held against the plain residual units
-  7. CUDA-event times (median of >= 10 runs after warm-up), each kernel
+  7. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
+     residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
+     Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
+     packed on the card (the memory it adds is checked), and run three
+     requests of a 16-token prompt to 25 greedy frames (Q4_K per-token
+     prefill, Q4_K prefill in one bucket of 16, Q8_0 per-token) through
+     run_codebook_ar and the Mimi decode, each with the launch counts set
+     to 0 just before and read just after; the backbone hiddens are held
+     against the plain packed product on the card, teacher-forced on the
+     same inputs, and the greedy codes against the plain path's
+  8. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
-     attention, one PyTorch call that computes the same function
+     attention and the packed products, one PyTorch call that computes
+     the same function; device times of the packed products from
+     torch.profiler; per-request TTS times (median of 3 runs after one
+     warm-up)
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -101,6 +114,22 @@ SNAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                  ("20s_b4_f32", 20, 4, "float32"),
                  ("20s_b1_bf16", 20, 1, "bfloat16")]
 
+# -- q8_0_matmul / q4_k_matmul: the Llama-3.2-1B backbone's matrices
+# (out, in) q/o, k/v, gate/up and down, at m = 1, 16 and 32 rows with x in
+# f32 and at m = 1 in bf16. The kernel and its plain version multiply the
+# same dequantized weights in f32 with sums in another order: max abs err
+# <= 1e-4 * max|plain|. One-hot rows must give the dequantized weights bit
+# for bit.
+QMAT_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+QMAT_MS = (1, 16, 32)
+QMAT_MAIN = (8192, 2048)                # gate/up, the kernels' line shape
+# -- the CSM TTS path: (name, backbone qtype, prefill bucket); each request
+# is a 16-token prompt (ids from SEED) to 25 greedy frames (2 s at 12.5 Hz)
+TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
+                ("q8_0_per_token", "Q8_0", 0)]
+TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 3
+Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
+
 # H100 SXM data-sheet peaks (dense): f32 on the FMA units (the f32 kernels
 # use no TF32), bf16 on the tensor cores, and HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -118,6 +147,19 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """The `*_kernel` identifier in a mangled name: an Itanium name is
+    prefixed by its length, which may follow a hash's digits."""
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for j in range(len(run)):
+            ident = mangled[m.end(): m.end() + int(run[j:])]
+            if len(ident) == int(run[j:]) and ident.endswith("_kernel") \
+                    and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                return ident
+    return mangled[:60]
+
+
 def ptxas_report(nvcc_log: str) -> list:
     """One line per compiled kernel from nvcc's -Xptxas -v report: the
     kernel, its type and tile, its registers and any spills."""
@@ -126,13 +168,14 @@ def ptxas_report(nvcc_log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            kernel = re.search(r"\d+([a-z][a-z_]*_kernel)", mangled)
             tile = re.search(r"(FmaTile|MmaTile)I((?:Li\d+E)+)", mangled)
+            rows = re.search(r"matmul_kernelILi(\d+)E", mangled)
             name = " ".join(filter(None, [
-                kernel.group(1) if kernel else mangled[:60],
+                kernel_name(mangled),
                 "bf16" if "bfloat16" in mangled else "f32",
                 tile and f"{tile.group(1)}<"
-                f"{','.join(re.findall(r'Li(\d+)E', tile.group(2)))}>"]))
+                f"{','.join(re.findall(r'Li(\d+)E', tile.group(2)))}>",
+                rows and f"m<={rows.group(1)}"]))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -248,6 +291,53 @@ def res_work(n, b, t, c, dtype, k=7, depthwise=False):
     return flops, 2 * b * t * c * dtype.itemsize + weights
 
 
+def qmat_work(out_d, in_d, m, packed):
+    """A packed product's FLOP (f32 FMAs) and bytes: the packed weights
+    (quants, scales, mins), x read and y written once."""
+    wbytes = sum(t.numel() * t.element_size() for t in packed.values())
+    return [(2 * m * in_d * out_d, torch.float32)], wbytes + 4 * m * (in_d + out_d)
+
+
+def device_ms(fn, n: int = 50):
+    """Device time per call of fn: the kernels' self time under
+    torch.profiler over n warm calls (aten ops left out), / n. None when
+    the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0 and not e.key.startswith("aten::"))
+    return total / 1e3 / n if total > 0 else None
+
+
+class Recorder:
+    """The Backbone protocol around a LlamaBackbone that records each call:
+    (kind, input rows, returned hidden, host seconds). Every call ends in
+    a copy of the hidden to the host, so its time covers the device work."""
+
+    def __init__(self, bb):
+        self.bb, self.calls = bb, []
+
+    def step(self, embed):
+        t = time.perf_counter()
+        h = self.bb.step(embed)
+        self.calls.append(("step", np.asarray(embed), h, time.perf_counter() - t))
+        return h
+
+    def prefill(self, embeds, bucket: int = 0):
+        t = time.perf_counter()
+        h = self.bb.prefill(embeds, bucket=bucket)
+        self.calls.append(("prefill", np.asarray(embeds), h,
+                           time.perf_counter() - t))
+        return h
+
+
 def main() -> int:
     t_start = time.monotonic()
     # -- 1. the card ---------------------------------------------------------
@@ -274,11 +364,24 @@ def main() -> int:
                                                  seanet_res_unit,
                                                  snac_res_chain)
     from codec_tpu_torch.runtime.model import f32_precision
+    from codec_tpu_torch.io.gguf import GGUFReader, quantize_q4_k, quantize_q8_0
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
+                                               run_codebook_ar)
+    from codec_tpu_torch.models.lm_init import (write_random_backbone_gguf,
+                                                write_random_csm_gguf)
+    from codec_tpu_torch.ops import qmat
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
                 "seanet_res_chain": seanet_res_chain,
-                "snac_res_chain": snac_res_chain}
+                "snac_res_chain": snac_res_chain,
+                "q8_0_matmul": q8_0_matmul,
+                "q4_k_matmul": q4_k_matmul}
+    none = dict.fromkeys(wrappers, 0)
 
     def zero_counts():
         for fn in wrappers.values():
@@ -384,6 +487,52 @@ def main() -> int:
                      f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
             del x, want
 
+    # the packed products: each backbone shape, m = 1/16/32 in f32 and m = 1
+    # in bf16 against the plain version, then 32 one-hot rows (bit-exact)
+    def packed_product(name, x, qt):
+        if name == "q8_0_matmul":
+            return q8_0_matmul(x, qt["qs"], qt["scale"])
+        return q4_k_matmul(x, qt["qs"], qt["scale"], qt["minv"])
+
+    qrng = np.random.default_rng(SEED + 110)
+    qmat_weights = {}
+    for out_d, in_d in QMAT_SHAPES:
+        w = qrng.standard_normal((out_d, in_d), dtype=np.float32) * 0.02
+        for name, quantize, pack in (
+                ("q8_0_matmul", quantize_q8_0, qmat.pack_q8_0),
+                ("q4_k_matmul", quantize_q4_k, qmat.pack_q4_k)):
+            qt = qmat.to_device(pack(np.frombuffer(quantize(w), np.uint8),
+                                     w.shape), "cuda")
+            qmat_weights[name, out_d, in_d] = qt
+            dense = qmat.dequant_ref(qt)
+            for m in QMAT_MS:
+                for dtype in (torch.float32, torch.bfloat16)[:2 if m == 1 else 1]:
+                    x = randn((m, in_d), dtype, SEED + 120 + m)
+                    got = packed_product(name, x, qt)
+                    want = x.float() @ dense.T
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    peak = want.abs().max().item()
+                    if not (got.dtype == torch.float32 and err <= 1e-4 * peak):
+                        raise RuntimeError(f"{name} {out_d}x{in_d} m{m} "
+                                           f"{dtype}: max abs err {err} "
+                                           f"(peak {peak})")
+                    max_err[name] = max(max_err[name], err)
+                    log(f"[kernel] {name} out {out_d} in {in_d} m{m} "
+                        f"{str(dtype)[6:]}: max abs err {err:.3e} (peak "
+                        f"{peak:.3f}; bound 1e-4 peak) ok")
+            cols = torch.from_numpy(qrng.choice(in_d, 32, replace=False)).cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.zeros((32, in_d), dtype=dtype, device="cuda")
+                x[torch.arange(32, device="cuda"), cols] = 1
+                if not torch.equal(packed_product(name, x, qt), dense[:, cols].T):
+                    raise RuntimeError(f"{name} {out_d}x{in_d} {dtype}: one-hot "
+                                       f"rows do not give the dequantized "
+                                       f"weights bit for bit")
+            log(f"[kernel] {name} out {out_d} in {in_d}: 32 one-hot rows give "
+                f"the dequantized weights bit for bit, f32 and bf16 x")
+            del dense
+
     # -- 4, 5. full-width models through load_model ---------------------------
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     try:
@@ -455,9 +604,7 @@ def main() -> int:
             raise RuntimeError(f"mimi {name}: {step} kernel launches, want "
                                f"{MIMI_LAYERS}")
     mimi_counts = counts()
-    want_counts = {"flash_sdpa_window": MIMI_LAYERS * len(mimi_reqs),
-                   "seanet_res_unit": 0, "seanet_res_chain": 0,
-                   "snac_res_chain": 0}
+    want_counts = {**none, "flash_sdpa_window": MIMI_LAYERS * len(mimi_reqs)}
     if mimi_counts != want_counts:
         raise RuntimeError(f"Mimi path launches {mimi_counts}, want {want_counts}")
     log(f"[mimi] main path launches: {mimi_counts} over {len(mimi_reqs)} "
@@ -499,9 +646,8 @@ def main() -> int:
         plan[dtype] = [seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem)
                        for c in widths]
         per_decode[dtype] = {
-            "flash_sdpa_window": 0,
-            "seanet_res_unit": 3 * sum(not t for t in plan[dtype]),
-            "seanet_res_chain": sum(plan[dtype]), "snac_res_chain": 0}
+            **none, "seanet_res_unit": 3 * sum(not t for t in plan[dtype]),
+            "seanet_res_chain": sum(plan[dtype])}
         if not (per_decode[dtype]["seanet_res_unit"]
                 and per_decode[dtype]["seanet_res_chain"]):
             raise RuntimeError(f"the gate runs only one kernel per DAC decode "
@@ -576,8 +722,7 @@ def main() -> int:
 
     # -- 6. the SNAC path ------------------------------------------------------
     # the gate (seanet_cuda.snac_res_units): one N = 1 launch per unit
-    snac_per_decode = {"flash_sdpa_window": 0, "seanet_res_unit": 0,
-                       "seanet_res_chain": 0,
+    snac_per_decode = {**none,
                        "snac_res_chain": len(DILATIONS) * len(snac_widths)}
     log(f"[snac] gate: one N=1 launch per unit at widths {snac_widths}; "
         f"launches per decode {snac_per_decode}")
@@ -629,7 +774,148 @@ def main() -> int:
         log(line)
     del outs
 
-    # -- 7. times --------------------------------------------------------------
+    # -- 7. the CSM TTS path ---------------------------------------------------
+    t0 = time.monotonic()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
+    try:
+        csm_path = write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
+                                         seed=SEED)
+        bb_paths = {q: write_random_backbone_gguf(
+            Path(tmp.name) / f"backbone_{q}.gguf", seed=SEED, qtype=q)
+            for q in ("Q4_K", "Q8_0")}
+        log("[tts] wrote " + ", ".join(
+            f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
+            for path in [csm_path, *bb_paths.values()])
+            + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        csm = codec_tpu_torch.load_model(csm_path, device="cuda")
+        reader = GGUFReader(csm_path)
+        lm = create_lm(reader, device="cuda")
+        backbones, growth = {}, {}
+        for qtype, path in bb_paths.items():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            backbones[qtype] = create_backbone(path, quantized=True,
+                                               device="cuda")
+            torch.cuda.synchronize()
+            growth[qtype] = torch.cuda.memory_allocated() - before
+    finally:
+        tmp.cleanup()
+    bcfg = backbones["Q4_K"].cfg
+    log(f"[tts] loaded in {time.monotonic() - t0:.2f} s: backbone hidden "
+        f"{bcfg.hidden}, {bcfg.n_layers} layers, {bcfg.n_heads} heads x "
+        f"{bcfg.head_dim}, {bcfg.n_kv_heads} KV heads, FFN {bcfg.ffn_dim}, "
+        f"vocab {bcfg.vocab_size}, rope_theta {bcfg.rope_theta:g} with llama3 "
+        f"factors, max_ctx {bcfg.max_ctx}; adaptor {lm.depth_layers} depth "
+        f"layers at {lm.depth_hidden}, {lm.n_heads} heads x {lm.head_dim}, "
+        f"{lm.info.n_codebook} codebooks x {lm.info.codebook_sizes[0]}")
+    for qtype, bb in backbones.items():
+        mats = [v for lw in bb.params["layers"] for v in lw.values()
+                if isinstance(v, dict)]
+        if len(mats) != 7 * bcfg.n_layers:
+            raise RuntimeError(f"{qtype} backbone: {len(mats)} packed "
+                               f"matrices, want {7 * bcfg.n_layers}")
+        packed = sum(t.numel() * t.element_size() for qt in mats
+                     for t in qt.values())
+        emb = bb.params["tok_embd"]
+        log(f"[tts] {qtype} backbone load added {growth[qtype] / 1e9:.3f} GB "
+            f"on the card (packed matrices {packed / 1e9:.3f}, f32 tok_embd "
+            f"{emb.numel() * emb.element_size() / 1e9:.3f}, KV cache "
+            f"{bb.kv.numel() * bb.kv.element_size() / 1e9:.3f})")
+    if not growth["Q4_K"] < Q4K_LOAD_LIMIT:
+        raise RuntimeError(f"the Q4_K backbone load added {growth['Q4_K']} "
+                           f"bytes, the limit is {Q4K_LOAD_LIMIT:.0f}")
+
+    prompt = list(backbones["Q4_K"].embed_tokens(np.random.default_rng(
+        SEED + 130).integers(0, bcfg.vocab_size, TTS_PROMPT)))
+    kernel_of = {"Q4_K": "q4_k_matmul", "Q8_0": "q8_0_matmul"}
+
+    def tts_request(bb, bucket):
+        """One greedy request through run_codebook_ar and the Mimi decode
+        → (result, pcm, recorder, times in ms)."""
+        bb.reset()
+        alm = AudioLM(reader, codec=csm, lm=lm)
+        rec = Recorder(bb)
+        t = time.perf_counter()
+        res = run_codebook_ar(alm, rec, prompt, max_steps=TTS_FRAMES,
+                              decode=False, prefill_bucket=bucket)
+        gen = time.perf_counter() - t
+        t = time.perf_counter()
+        pcm = _decode_transformed(alm, res.codes)
+        dec = time.perf_counter() - t
+        n_pre = 1 if bucket else TTS_PROMPT
+        pre = sum(c[3] for c in rec.calls[:n_pre])
+        steps = [c[3] for c in rec.calls[n_pre:]]
+        return res, pcm, rec, {
+            "prefill": pre * 1e3, "step": statistics.mean(steps) * 1e3,
+            "frame": (gen - pre - sum(steps)) / TTS_FRAMES * 1e3,
+            "decode": dec * 1e3, "total": (gen + dec) * 1e3}
+
+    plain_bbs = {q: LlamaBackbone.from_params(bb.cfg, bb.params,
+                                              qmm=qmat.qmatmul_plain)
+                 for q, bb in backbones.items()}
+    tts_counts = dict(none)
+    for name, qtype, bucket in TTS_REQUESTS:
+        n_pre = 1 if bucket else TTS_PROMPT
+        want = {**none, "flash_sdpa_window": MIMI_LAYERS,
+                kernel_of[qtype]: 7 * bcfg.n_layers * (n_pre + TTS_FRAMES)}
+        zero_counts()
+        res, pcm, rec, _ = tts_request(backbones[qtype], bucket)
+        step = counts()
+        if step != want:
+            raise RuntimeError(f"tts {name}: launches {step}, want {want}")
+        tts_counts = {k: v + step[k] for k, v in tts_counts.items()}
+        if res.codes.shape != (TTS_FRAMES, lm.info.n_codebook) \
+                or res.stopped_by_eos:
+            raise RuntimeError(f"tts {name}: codes {res.codes.shape}, "
+                               f"eos {res.stopped_by_eos}")
+        if pcm.shape != (TTS_FRAMES * csm.hop_size,) or not np.isfinite(pcm).all():
+            raise RuntimeError(f"tts {name}: pcm {pcm.shape}, finite "
+                               f"{np.isfinite(pcm).all()}")
+        # the backbone hiddens through the plain packed product on the
+        # card, teacher-forced on the same inputs
+        plain = plain_bbs[qtype]
+        plain.reset()
+        want_h = np.stack([plain.prefill(rows, bucket=bucket) if kind == "prefill"
+                           else plain.step(rows) for kind, rows, _, _ in rec.calls])
+        got_h = np.stack([c[2] for c in rec.calls])
+        c = corr(got_h, want_h)
+        rel = float(np.abs(got_h - want_h).max() / np.abs(want_h).max())
+        if not (c > 0.99999 and rel <= 1e-4):
+            raise RuntimeError(f"tts {name}: hiddens vs the plain product: "
+                               f"corr {c}, max rel err {rel}")
+        # the greedy codes of the plain path; at a first difference, the
+        # kernel path's top-2 margin decides (near-tie rule)
+        pres = tts_request(plain, bucket)[0]
+        diff = np.argwhere(pres.codes != res.codes)
+        line = (f"[tts] {name}: launches {step[kernel_of[qtype]]} "
+                f"{kernel_of[qtype]} + {step['flash_sdpa_window']} "
+                f"flash_sdpa_window; {len(rec.calls)} backbone calls, hiddens "
+                f"vs the plain product: corr {c:.9f}, max rel err {rel:.3e}; "
+                f"pcm {pcm.shape} finite, peak {np.abs(pcm).max():.4f}; ")
+        if len(diff):
+            f, k = (int(v) for v in diff[0])
+            st = lm.new_state()
+            st.step_begin(rec.calls[n_pre - 1 + f][2])
+            for j in range(k):
+                st.step_logits()
+                st.step_push_code(int(res.codes[f, j]))
+            top = np.sort(st.step_logits()[0])[-2:]
+            if not top[1] - top[0] <= 1e-4 * abs(top[1]):
+                raise RuntimeError(f"tts {name}: greedy codes differ from the "
+                                   f"plain path at frame {f} codebook {k}, "
+                                   f"top-2 margin {top[1] - top[0]}")
+            line += (f"codes first differ from the plain path at frame {f} "
+                     f"codebook {k}: a near-tie, top-2 margin "
+                     f"{top[1] - top[0]:.3e} (allowed)")
+        else:
+            line += f"greedy codes equal the plain path's ({res.codes.shape})"
+        log(line)
+    log(f"[tts] main path launches: {tts_counts} over {len(TTS_REQUESTS)} "
+        f"requests")
+    del plain_bbs
+
+    # -- 8. times --------------------------------------------------------------
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
     times = {}
@@ -718,6 +1004,47 @@ def main() -> int:
             log(line + f" [{name_limit}]")
             del x, p
 
+    # the packed products at m = 1 (one decode step) on every backbone
+    # shape: device time per call from torch.profiler, and the CUDA-event
+    # time of back-to-back calls, which includes the host's launch work
+    for out_d, in_d in QMAT_SHAPES:
+        x = randn((1, in_d), torch.float32, SEED + 140)
+        for name in ("q8_0_matmul", "q4_k_matmul"):
+            qt = qmat_weights[name, out_d, in_d]
+            dense = qmat.dequant_ref(qt)
+            kern = lambda: packed_product(name, x, qt)
+            plain = lambda: qmat.qmatmul_plain(x, qt)
+            lib = lambda: F.linear(x, dense)
+            dev = [device_ms(fn) for fn in (kern, plain, lib)]
+            k_ev, p_ev, s = turns(kern, plain, reps=20)
+            l_ev = cuda_ms(lib, reps=20)
+            b_ms, b_by = least_time(*qmat_work(out_d, in_d, 1, qt))
+            fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+            log(f"[time] {name} out {out_d} in {in_d} m1 f32: device time "
+                f"kernel {fmt(dev[0])}, plain (dequant + matmul) "
+                f"{fmt(dev[1])}, F.linear on the dequantized f32 weight "
+                f"{fmt(dev[2])}; bound {b_ms:.4f} ms ({b_by}); CUDA events "
+                f"per call kernel {k_ev:.4f} ms, plain {p_ev:.4f} ms, "
+                f"F.linear {l_ev:.4f} ms [{name_limit}]")
+            if (out_d, in_d) == QMAT_MAIN:
+                times[name] = (dev[0] or k_ev, dev[1] or p_ev, b_ms, b_by,
+                               dev[2] or l_ev)
+            del dense
+
+    for name, qtype, bucket in TTS_REQUESTS:
+        runs = [tts_request(backbones[qtype], bucket)[3]
+                for _ in range(TTS_TIMED_RUNS)]
+        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        audio_s = TTS_FRAMES * csm.hop_size / csm.sample_rate
+        log(f"[time] tts {name}: prefill {med['prefill']:.2f} ms, backbone "
+            f"step {med['step']:.3f} ms, frame (c0 head + "
+            f"{lm.info.n_codebook - 1} depth forwards + host sampling + "
+            f"compose) {med['frame']:.3f} ms, Mimi decode "
+            f"{med['decode']:.2f} ms, total {med['total']:.1f} ms, "
+            f"{audio_s / (med['total'] / 1e3):.3f}x realtime ({audio_s:.0f} s "
+            f"of audio; median of {TTS_TIMED_RUNS} runs after a warm-up) "
+            f"[{name_limit}]")
+
     decode_fns = {"dac": dac.dac_decode_fn, "snac": snac.snac_decode_fn}
     for label, reqs, plain_units in (
             ("mimi", mimi_reqs, None), ("dac", dac_reqs, dac.plain_res_units),
@@ -751,10 +1078,13 @@ def main() -> int:
                          f"{d_plain:.3f} ms with {what}")
             log(line + f" [{name_limit}]")
 
-    main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"],
+    main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
+                   + tts_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"],
                    "seanet_res_chain": dac_counts["seanet_res_chain"],
-                   "snac_res_chain": snac_counts["snac_res_chain"]}
+                   "snac_res_chain": snac_counts["snac_res_chain"],
+                   "q8_0_matmul": tts_counts["q8_0_matmul"],
+                   "q4_k_matmul": tts_counts["q4_k_matmul"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",
@@ -762,11 +1092,20 @@ def main() -> int:
                "seanet_res_chain": ("codec_tpu_torch/csrc/seanet_res.cu",
                                     "codec_tpu/ops/seanet_pallas.py:218"),
                "snac_res_chain": ("codec_tpu_torch/csrc/snac_res.cu",
-                                  "codec_tpu/ops/seanet_pallas.py:328")}
+                                  "codec_tpu/ops/seanet_pallas.py:328"),
+               "q8_0_matmul": ("codec_tpu_torch/csrc/qmat.cu",
+                               "codec_tpu/ops/qmat_pallas.py:171"),
+               "q4_k_matmul": ("codec_tpu_torch/csrc/qmat.cu",
+                               "codec_tpu/ops/qmat_pallas.py:200")}
     # times at: attention B1 H8 T500 D64 w250, the DAC unit at block 1
     # (d=1), the DAC chain at block 4, SNAC's three units at block 3 (the
-    # N=1 launches a decode makes); all f32. No single PyTorch call
-    # computes a residual unit, so those rows have no library time.
+    # N=1 launches a decode makes), the packed products at m = 1 on the
+    # gate matrix (device times); all f32. No single PyTorch call computes
+    # a residual unit, so those rows have no library time; the packed
+    # products' library time is F.linear on the dequantized f32 weight
+    # (no PyTorch call multiplies GGUF-packed weights). Launches: all paths
+    # of this run (the attention: Mimi decodes and the TTS requests' Mimi
+    # decodes).
     result = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": main_counts[name], "max_abs_err": max_err[name],

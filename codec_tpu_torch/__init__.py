@@ -1,7 +1,8 @@
 """codec_tpu_torch — the codec engine on PyTorch and CUDA (NVIDIA Hopper).
 
 The PyTorch port of codec_tpu, which stays the reference it is held
-against. Mimi, DAC and SNAC decode are ported so far:
+against. Mimi, DAC and SNAC decode, and CSM-style TTS (codec_tpu_torch.lm),
+are ported so far:
 
     model = codec_tpu_torch.load_model("mimi.gguf", device="cuda")
     pcm = model.decode(codes)          # codes [T, n_q] → [T*hop] float32

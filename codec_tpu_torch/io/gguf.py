@@ -518,6 +518,13 @@ class GGUFReader:
             return None
         return self.get(name, dtype)
 
+    def get_raw_quant(self, name: str) -> Tuple[str, np.ndarray, Tuple[int, ...]]:
+        """(type name, raw uint8 block bytes, numpy shape) of a tensor, not
+        dequantized: ops/qmat.py packs Q8_0/Q4_K blocks from these bytes so
+        the weights stay quantized on the device."""
+        info = self.tensors[name]
+        return info.type_name, self._raw(info), info.shape
+
 
 
 # ---------------------------------------------------------------------------

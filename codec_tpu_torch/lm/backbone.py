@@ -1,0 +1,329 @@
+"""Llama-family backbone — the host LLM of codebook-AR TTS flows
+(counterpart of codec_tpu/lm/backbone.py, eager).
+
+Loaded from a backbone GGUF (codec_tpu/convert/backbone.py's `backbone.*`
+schema). Covers Llama 3.x (CSM: llama3 rope scaling through baked freq
+factors), Qwen3 (per-head q/k RMS norm, optional attention bias) and
+plain Llama/Qwen2. A MoE backbone raises: its sparse FFN is not ported
+yet.
+
+Layer matrices are dense [out, in] tensors, or with `quantized=True` the
+Q8_0/Q4_K blocks of the GGUF packed for ops/qmat.py and multiplied by the
+dequantizing CUDA kernels (csrc/qmat.cu) without ever being dequantized
+in device memory. Norms and embeddings stay dense.
+
+The KV cache is one preallocated [L, 2, n_kv, max_ctx, D] tensor that the
+forward updates in place at the new positions; attention reads keys
+[0, pos + T) only, which equals the reference's masked attention over
+the whole cache (its -1e30 logits give exp = 0 exactly).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..io.gguf import GGUFReader
+from ..ops import norms, qmat, rope
+
+NEG_INF = -1e30
+_MATRICES = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+@dataclass
+class BackboneConfig:
+    hidden: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    ffn_dim: int
+    vocab_size: int
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    max_ctx: int = 4096
+    has_qk_norm: bool = False
+    has_attn_bias: bool = False
+    tied_lm_head: bool = True
+    # MoE (Qwen3-MoE-style sparse FFN): n_experts == 0 means dense
+    n_experts: int = 0
+    n_experts_used: int = 0
+    norm_topk_prob: bool = True
+    moe_ffn_dim: int = 0
+
+    @classmethod
+    def from_gguf(cls, r: GGUFReader) -> "BackboneConfig":
+        return cls(
+            n_experts=r.get_i32("backbone.n_experts", 0),
+            n_experts_used=r.get_i32("backbone.n_experts_used", 0),
+            norm_topk_prob=r.get_bool("backbone.norm_topk_prob", True),
+            moe_ffn_dim=r.get_i32("backbone.moe_ffn_dim", 0),
+            hidden=r.get_i32("backbone.hidden_dim"),
+            n_layers=r.get_i32("backbone.n_layers"),
+            n_heads=r.get_i32("backbone.n_heads"),
+            n_kv_heads=r.get_i32("backbone.n_kv_heads"),
+            head_dim=r.get_i32("backbone.head_dim"),
+            ffn_dim=r.get_i32("backbone.ffn_dim"),
+            vocab_size=r.get_i32("backbone.vocab_size"),
+            rope_theta=r.get_f32("backbone.rope_theta", 10000.0),
+            rms_eps=r.get_f32("backbone.rms_eps", 1e-5),
+            max_ctx=r.get_i32("backbone.max_ctx", 4096),
+            has_qk_norm=r.get_bool("backbone.qk_norm", False),
+            has_attn_bias=r.get_bool("backbone.attn_bias", False),
+            tied_lm_head=r.get_bool("backbone.tied_lm_head", True),
+        )
+
+
+def _dense_only(cfg: BackboneConfig) -> None:
+    if cfg.n_experts:
+        raise ValueError(f"MoE backbone ({cfg.n_experts} experts): the sparse "
+                         f"FFN is not ported yet")
+
+
+def load_backbone_params(r: GGUFReader, cfg: BackboneConfig,
+                         dtype=torch.float32, quantized: bool = False,
+                         device="cuda") -> Dict[str, Any]:
+    """Parameters on `device`: {"tok_embd", "out_norm", "freq_factors"
+    (f32 or None), "lm_head" (untied only), "layers": one dict per layer}.
+    quantized=True keeps Q8_0/Q4_K layer matrices packed (dicts of
+    ops/qmat.py); F16/F32 matrices load dense in `dtype` either way."""
+    _dense_only(cfg)
+
+    def get(name, required=True):
+        if not r.has_tensor(name):
+            if required:
+                raise KeyError(f"backbone tensor missing: {name}")
+            return None
+        return torch.from_numpy(np.array(r.get(name), np.float32)).to(device, dtype)
+
+    def get_mat(name):
+        if quantized and r.tensors[name].type_name in ("Q8_0", "Q4_K"):
+            return qmat.to_device(qmat.pack_tensor(r, name), device)
+        return get(name)
+
+    ff = get("backbone.rope_freq_factors", required=False)
+    p: Dict[str, Any] = {"tok_embd": get("backbone.tok_embd"),
+                         "out_norm": get("backbone.out_norm.w"),
+                         "freq_factors": None if ff is None else ff.float()}
+    if not cfg.tied_lm_head:
+        p["lm_head"] = get("backbone.lm_head.w")
+    p["layers"] = []
+    for i in range(cfg.n_layers):
+        pre = f"backbone.l{i}."
+        lw = {k: get_mat(f"{pre}{k}.w") for k in _MATRICES}
+        lw["attn_norm"] = get(pre + "attn_norm.w")
+        lw["ffn_norm"] = get(pre + "ffn_norm.w")
+        if cfg.has_attn_bias:
+            for k in ("q", "k", "v"):
+                lw[f"{k}_b"] = get(f"{pre}{k}.b")
+        if cfg.has_qk_norm:
+            lw["q_norm"] = get(pre + "q_norm.w")
+            lw["k_norm"] = get(pre + "k_norm.w")
+        p["layers"].append(lw)
+    return p
+
+
+def params_from_reference(cfg: BackboneConfig, tree: Dict[str, Any],
+                          dtype=torch.float32, device="cpu") -> Dict[str, Any]:
+    """codec_tpu's `load_backbone_params` tree as NumPy arrays (layers
+    stacked [L, ...]; packed matrices as dicts in its group-minor column
+    order) → this package's parameters, packed matrices repacked into the
+    natural order bit for bit (ops/qmat.natural_order)."""
+    _dense_only(cfg)
+
+    def dense(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+
+    stacked = tree["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        lw = {}
+        for k, v in stacked.items():
+            if isinstance(v, dict):
+                qt = qmat.natural_order({n: np.asarray(a)[i] for n, a in v.items()})
+                lw[k] = qmat.to_device(qt, device)
+            else:
+                lw[k] = dense(np.asarray(v)[i])
+        layers.append(lw)
+    ff = tree.get("freq_factors")
+    p = {"tok_embd": dense(tree["tok_embd"]), "out_norm": dense(tree["out_norm"]),
+         "freq_factors": None if ff is None else dense(ff).float(),
+         "layers": layers}
+    if "lm_head" in tree:
+        p["lm_head"] = dense(tree["lm_head"])
+    return p
+
+
+def _mm(h: torch.Tensor, w, qmm: Callable) -> torch.Tensor:
+    """h @ w.T for a dense [out, in] weight or a packed dict (through `qmm`;
+    its f32 result is cast back to h's dtype)."""
+    if isinstance(w, dict):
+        return qmm(h, w).to(h.dtype)
+    return F.linear(h, w)
+
+
+def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
+                pos0: int, cfg: BackboneConfig, rope_cs, mask,
+                qmm: Callable = qmat.qmatmul) -> torch.Tensor:
+    """One decoder layer over xb [T, hidden] at positions pos0..pos0+T-1:
+    attention against this layer's cache kv_l [2, n_kv, max_ctx, D] (the
+    new keys and values are written into it in place) + SwiGLU FFN.
+    rope_cs: (cos, sin) of the positions; mask: additive [T, pos0+T] or
+    None (one query sees every key)."""
+    t = xb.shape[0]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = norms.rms_norm(xb, lw["attn_norm"], cfg.rms_eps)
+    q, k, v = (_mm(h, lw[n], qmm) for n in ("q", "k", "v"))
+    if cfg.has_attn_bias:
+        q, k, v = q + lw["q_b"], k + lw["k_b"], v + lw["v_b"]
+    q = q.reshape(t, nh, hd).transpose(0, 1)
+    k = k.reshape(t, nkv, hd).transpose(0, 1)
+    v = v.reshape(t, nkv, hd).transpose(0, 1)
+    if cfg.has_qk_norm:                       # per-head RMS over head_dim
+        q = norms.rms_norm(q, lw["q_norm"], cfg.rms_eps)
+        k = norms.rms_norm(k, lw["k_norm"], cfg.rms_eps)
+    q = rope.rotate(q[None], *rope_cs)[0]
+    k = rope.rotate(k[None], *rope_cs)[0]
+
+    s = pos0 + t
+    kv_l[0, :, pos0:s] = k
+    kv_l[1, :, pos0:s] = v
+    keys, vals = kv_l[0, :, None, :s], kv_l[1, :, None, :s]   # [n_kv, 1, S, D]
+    # query head j reads kv head j // (nh / nkv), as jnp.repeat does
+    qg = q.reshape(nkv, nh // nkv, t, hd)
+    logits = torch.matmul(qg.float(), keys.float().transpose(-1, -2)) * hd ** -0.5
+    if mask is not None:
+        logits = logits + mask
+    w = torch.softmax(logits, dim=-1).to(vals.dtype)
+    ctx = torch.matmul(w, vals).reshape(nh, t, hd).transpose(0, 1)
+    xb = xb + _mm(ctx.reshape(t, nh * hd), lw["o"], qmm)
+
+    h = norms.rms_norm(xb, lw["ffn_norm"], cfg.rms_eps)
+    g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
+    return xb + _mm(g, lw["down"], qmm)
+
+
+def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
+                     x: torch.Tensor, cfg: BackboneConfig,
+                     qmm: Callable = qmat.qmatmul) -> torch.Tensor:
+    """x: [T, hidden] new-token embeddings at positions pos0..pos0+T-1;
+    kv [L, 2, n_kv, max_ctx, D] is updated in place → hiddens [T, hidden]
+    after the output norm."""
+    t = x.shape[0]
+    positions = torch.arange(pos0, pos0 + t, device=x.device)
+    rope_cs = rope.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                                freq_factors=params["freq_factors"])
+    mask = None
+    if t > 1:                                 # query at p sees keys <= p
+        key_pos = torch.arange(pos0 + t, device=x.device)
+        mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, NEG_INF)
+    for li, lw in enumerate(params["layers"]):
+        x = layer_block(x, lw, kv[li], pos0, cfg, rope_cs, mask, qmm)
+    return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
+
+
+class LlamaBackbone:
+    """A backbone GGUF on `device`, with the tts_runner Backbone protocol
+    (`step`) plus `prefill`, `embed_tokens` and `text_logits`.
+
+    `quantized` keeps Q8_0/Q4_K matrices packed (default False: they are
+    dequantized at load). `qmm` is the packed product (default
+    ops/qmat.qmatmul, the kernels on CUDA); ops/qmat.qmatmul_plain runs the
+    same weights through the plain version."""
+
+    def __init__(self, path_or_reader, dtype=torch.float32, max_ctx: int = 0,
+                 quantized: bool = False, device="cuda",
+                 qmm: Callable = qmat.qmatmul):
+        r = path_or_reader if isinstance(path_or_reader, GGUFReader) \
+            else GGUFReader(path_or_reader)
+        if r.architecture != "llama_backbone":
+            raise ValueError(f"not a backbone GGUF: {r.architecture!r}")
+        cfg = BackboneConfig.from_gguf(r)
+        if max_ctx:
+            cfg.max_ctx = max_ctx
+        self._init(cfg, load_backbone_params(r, cfg, dtype, quantized, device),
+                   dtype, qmm)
+
+    @classmethod
+    def from_params(cls, cfg: BackboneConfig, params: Dict[str, Any],
+                    dtype=torch.float32,
+                    qmm: Callable = qmat.qmatmul) -> "LlamaBackbone":
+        """A backbone over parameters already in memory (the
+        `load_backbone_params` layout, on their device); `dtype` is the KV
+        cache's."""
+        bb = cls.__new__(cls)
+        bb._init(cfg, params, dtype, qmm)
+        return bb
+
+    def _init(self, cfg, params, dtype, qmm) -> None:
+        self.cfg = cfg
+        self.params = params
+        self.dtype = dtype
+        self.device = params["tok_embd"].device
+        self.qmm = qmm
+        self.kv: Optional[torch.Tensor] = None
+        self.reset()
+
+    # -- state -------------------------------------------------------------
+    def reset(self) -> None:
+        """Empty context; the KV cache is allocated once and reused."""
+        c = self.cfg
+        shape = (c.n_layers, 2, c.n_kv_heads, c.max_ctx, c.head_dim)
+        if self.kv is None or tuple(self.kv.shape) != shape:
+            self.kv = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.pos = 0
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pos + x.shape[0] > self.cfg.max_ctx:
+            raise ValueError(f"backbone context full: {self.pos} + "
+                             f"{x.shape[0]} > max_ctx {self.cfg.max_ctx}")
+        with torch.inference_mode():
+            return backbone_forward(self.params, self.kv, self.pos, x,
+                                    self.cfg, self.qmm)
+
+    # -- Backbone protocol + helpers ----------------------------------------
+    def step(self, embed: np.ndarray) -> np.ndarray:
+        """One input embedding [hidden] → the hidden [hidden] (f32, host)."""
+        x = torch.as_tensor(np.asarray(embed, np.float32)).to(self.device,
+                                                               self.dtype)
+        h = self._forward(x[None])
+        self.pos += 1
+        return h[0].float().cpu().numpy()
+
+    def prefill(self, embeds: np.ndarray, bucket: int = 0) -> np.ndarray:
+        """Feed [T, hidden] prompt embeddings in one forward; returns the
+        LAST hidden. `bucket > 0` right-pads the rows to the next multiple
+        of `bucket` (clamped to max_ctx), as the reference does to bound
+        its compiled shapes: the padded rows' keys land past `pos`, where
+        no real row attends them and later writes replace them."""
+        x = torch.as_tensor(np.asarray(embeds, np.float32)).to(self.device,
+                                                               self.dtype)
+        t = int(x.shape[0])
+        if bucket > 0:
+            pad = min(-t % int(bucket), self.cfg.max_ctx - self.pos - t)
+            if pad > 0:
+                x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        h = self._forward(x)
+        self.pos += t
+        return h[t - 1].float().cpu().numpy()
+
+    def embed_tokens(self, ids) -> np.ndarray:
+        ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return self.params["tok_embd"][ids].float().cpu().numpy()
+
+    def text_logits(self, hidden: np.ndarray) -> np.ndarray:
+        h = torch.as_tensor(np.asarray(hidden, np.float32)).to(self.device,
+                                                               self.dtype)
+        w = self.params["tok_embd"] if self.cfg.tied_lm_head \
+            else self.params["lm_head"]
+        return (h @ w.T).float().cpu().numpy()
+
+
+def create_backbone(path, dtype=torch.float32, max_ctx: int = 0,
+                    quantized: bool = False, device="cuda") -> LlamaBackbone:
+    return LlamaBackbone(path, dtype=dtype, max_ctx=max_ctx,
+                         quantized=quantized, device=device)

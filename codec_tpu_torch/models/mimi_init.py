@@ -90,9 +90,18 @@ def write_random_mimi_gguf(path: Union[str, Path], seed: int = 0,
                            num_filters: int = 64) -> None:
     """A decode-only Mimi GGUF (F32) with random weights from `seed`,
     kyutai/mimi widths by default."""
-    params = random_mimi_params(cfg, num_filters, seed)
     wr = GGUFWriter(path, "mimi")
     wr.add_name("Mimi")
+    add_random_mimi(wr, seed, cfg, num_filters)
+    wr.write()
+
+
+def add_random_mimi(wr: GGUFWriter, seed: int = 0,
+                    cfg: MimiConfig = MimiConfig(),
+                    num_filters: int = 64) -> None:
+    """Add a random decode-only Mimi's KVs and F32 tensors to an open
+    writer (models/lm_init.py adds an LM adaptor beside them)."""
+    params = random_mimi_params(cfg, num_filters, seed)
     for key, val in (("codec.sample_rate", cfg.sample_rate),
                      ("codec.hop_size", cfg.hop_size),
                      ("codec.n_q", cfg.n_q),
@@ -135,4 +144,3 @@ def write_random_mimi_gguf(path: Union[str, Path], seed: int = 0,
         add_wb(f"dec.l{li + 1}.block.1.conv", stage["r1"])
         add_wb(f"dec.l{li + 1}.block.3.conv", stage["r2"])
     add_wb("dec.l14.conv", params["dec_l14"])
-    wr.write()

@@ -13,3 +13,10 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the trailing (channel) dim."""
     return torch.nn.functional.layer_norm(x, x.shape[-1:], gamma, beta, eps)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the trailing dim, in x's dtype: x / rms(x) * gamma."""
+    ms = torch.mean(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * gamma

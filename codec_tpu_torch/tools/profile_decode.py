@@ -2,6 +2,7 @@
 
     python -m codec_tpu_torch.tools.profile_decode [dac|mimi|snac] \
         [--seconds 20]
+    python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
@@ -10,6 +11,13 @@ to a multiple of 4). Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
 kernels with the most device time. Needs a CUDA device.
+
+`csm` profiles one warm generation frame of the CSM-style TTS path
+instead: a full-width random CSM codec and a Llama-3.2-1B-shaped backbone
+(packed `--qtype`), a 16-token prompt prefilled, two warm frames, then
+one frame (the c0 head and the depth decoder's 31 forwards with greedy
+host sampling, the feedback compose, one backbone step) unprofiled and
+under the profiler. It also counts the frame's kernel launches.
 """
 
 from __future__ import annotations
@@ -39,11 +47,83 @@ def _timed_decode(model, codes) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _kernel_times(prof):
+    """(name, device ms, count) of every kernel (aten ops left out)."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+
+
+def _report(kernels, top: int) -> float:
+    busy = sum(ms for _, ms, _ in kernels)
+    for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} {key[:110]}")
+    return busy
+
+
+def _csm_frame(qtype: str, top: int, card: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    import codec_tpu_torch
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import create_backbone
+    from codec_tpu_torch.lm.tts_runner import prefill_prompt
+    from codec_tpu_torch.models.lm_init import (write_random_backbone_gguf,
+                                                write_random_csm_gguf)
+
+    with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
+        csm_path = write_random_csm_gguf(Path(tmp) / "csm.gguf", seed=0)
+        bb_path = write_random_backbone_gguf(Path(tmp) / "bb.gguf", seed=0,
+                                             qtype=qtype)
+        reader = GGUFReader(csm_path)
+        alm = AudioLM(reader, codec=codec_tpu_torch.load_model(csm_path),
+                      device="cuda")
+        bb = create_backbone(bb_path, quantized=True, device="cuda")
+    lm, st = alm.lm, alm.state
+    ids = np.random.default_rng(0).integers(0, bb.cfg.vocab_size, 16)
+    h = prefill_prompt(bb, list(bb.embed_tokens(ids)))
+
+    def frame():
+        nonlocal h
+        st.step_begin(h)
+        for _ in range(lm.info.n_codebook):
+            logits, _ = st.step_logits()
+            st.step_push_code(int(np.argmax(logits)))
+        h = bb.step(lm.compose_audio_embd(st.step_finish()))
+
+    for _ in range(2):
+        frame()
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    latency = timed()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed()
+    kernels = _kernel_times(prof)
+    qk = {"Q4_K": "q4_k_matmul_kernel", "Q8_0": "q8_0_matmul_kernel"}[qtype]
+    bb_launches = sum(n for k, _, n in kernels if qk in k)
+    print(f"\n== csm frame, {qtype} backbone: latency {latency:.2f} ms, "
+          f"profiled {wall:.2f} ms, {sum(n for _, _, n in kernels)} kernel "
+          f"launches ({bb_launches} {qk}) [{card}]")
+    busy = _report(kernels, top)
+    print(f"device busy {busy:.2f} ms, idle share {1 - busy / latency:.3f}, "
+          f"packed products {sum(ms for k, ms, _ in kernels if qk in k):.3f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_decode")
     ap.add_argument("arch", nargs="?", default="dac",
-                    choices=["dac", "mimi", "snac"])
+                    choices=["dac", "mimi", "snac", "csm"])
     ap.add_argument("--seconds", type=int, default=20)
+    ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
+                    help="csm: the backbone's packed type")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -57,6 +137,9 @@ def main(argv=None) -> int:
 
     card = _card()
     print(f"card: {card}")
+    if args.arch == "csm":
+        _csm_frame(args.qtype, args.top, card)
+        return 0
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
         path = Path(tmp) / f"{args.arch}.gguf"
@@ -76,18 +159,13 @@ def main(argv=None) -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 wall = _timed_decode(model, codes)
-            kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                       for e in prof.key_averages()
-                       if e.self_device_time_total > 0
-                       and not e.key.startswith("aten::")]
+            kernels = _kernel_times(prof)
             busy = sum(ms for _, ms, _ in kernels)
             print(f"\n== {args.arch} {args.seconds} s b{batch} {dtype}: "
                   f"latency {latency:.2f} ms, profiled {wall:.2f} ms, device "
                   f"busy {busy:.2f} ms, idle share {1 - busy / latency:.3f} "
                   f"[{card}]")
-            for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:args.top]:
-                print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} "
-                      f"{key[:110]}")
+            _report(kernels, args.top)
             del model
             torch.cuda.empty_cache()
     return 0

@@ -428,3 +428,165 @@ def test_snac_decode_on_card_uses_kernel_and_matches_cpu(dev, small_snac_gguf):
     corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
     assert corr > 0.99999, corr
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# -- the dequantizing products over packed Q8_0 / Q4_K weights ----------------
+
+def _packed(qtype, out_d, in_d, dev, seed=0):
+    from codec_tpu_torch.io.gguf import quantize_q4_k, quantize_q8_0
+    from codec_tpu_torch.ops import qmat
+
+    w = np.random.default_rng(seed).standard_normal((out_d, in_d)).astype(
+        np.float32) * 0.02
+    quantize, pack = {"Q8_0": (quantize_q8_0, qmat.pack_q8_0),
+                      "Q4_K": (quantize_q4_k, qmat.pack_q4_k)}[qtype]
+    return qmat.to_device(pack(np.frombuffer(quantize(w), np.uint8), w.shape), dev)
+
+
+def _product(qtype, x, qt):
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
+
+    if qtype == "Q8_0":
+        return q8_0_matmul(x, qt["qs"], qt["scale"])
+    return q4_k_matmul(x, qt["qs"], qt["scale"], qt["minv"])
+
+
+# chip_smoke.py's bound: the same dequantized weights in f32, sums in
+# another order: max abs err <= 1e-4 * max|plain|
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
+@pytest.mark.parametrize("out_d,in_d", [(96, 512), (520, 256), (64, 2048)])
+@pytest.mark.parametrize("m", [1, 17, 32])
+def test_qmat_kernel_matches_plain(dev, qtype, out_d, in_d, m):
+    from codec_tpu_torch.ops import qmat
+
+    qt = _packed(qtype, out_d, in_d, dev)
+    x = _x((m, in_d), torch.float32, dev, seed=m)
+    got = _product(qtype, x, qt)
+    want = x @ qmat.dequant_ref(qt).T
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, out_d)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
+def test_qmat_kernel_bf16_x(dev, qtype):
+    from codec_tpu_torch.ops import qmat
+
+    qt = _packed(qtype, 128, 512, dev, seed=1)
+    x = _x((1, 512), torch.bfloat16, dev, seed=2)
+    got = _product(qtype, x, qt)
+    want = x.float() @ qmat.dequant_ref(qt).T
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
+def test_qmat_kernel_one_hot_rows_give_dequantized_weights(dev, qtype, dtype):
+    from codec_tpu_torch.ops import qmat
+
+    qt = _packed(qtype, 200, 1024, dev, seed=3)
+    cols = torch.from_numpy(np.random.default_rng(4).choice(1024, 32, replace=False)).to(dev)
+    x = torch.zeros((32, 1024), dtype=dtype, device=dev)
+    x[torch.arange(32, device=dev), cols] = 1
+    assert torch.equal(_product(qtype, x, qt), qmat.dequant_ref(qt)[:, cols].T)
+
+
+def test_qmat_counters_and_dispatch(dev):
+    """qmatmul launches a kernel for m <= 32 and goes to dequant + matmul
+    above; CPU tensors never count."""
+    from codec_tpu_torch.ops import qmat
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
+
+    qt = _packed("Q4_K", 64, 256, dev)
+    before = (q8_0_matmul.launches, q4_k_matmul.launches)
+    for m in (1, 32, 33):
+        x = _x((m, 256), torch.float32, dev, seed=m)
+        got = qmat.qmatmul(x, qt)
+        torch.testing.assert_close(got, x @ qmat.dequant_ref(qt).T,
+                                   rtol=1e-5, atol=1e-5)
+    qmat.qmatmul(torch.zeros((2, 256)), {k: v.cpu() for k, v in qt.items()})
+    assert (q8_0_matmul.launches, q4_k_matmul.launches) == (before[0], before[1] + 2)
+
+
+@pytest.mark.parametrize("case", ["layout", "rows", "width", "qs_dtype", "x_dtype"])
+def test_qmat_kernels_reject_what_they_do_not_take(dev, case):
+    qtype = "Q4_K"
+    qt = _packed(qtype, 64, 512, dev)
+    x = _x((4, 512), torch.float32, dev, seed=0)
+    if case == "layout":
+        x = _x((512, 4), torch.float32, dev, seed=0).T
+    elif case == "rows":
+        x = _x((33, 512), torch.float32, dev, seed=0)
+    elif case == "width":
+        qt, qtype = _packed("Q8_0", 64, 288, dev), "Q4_K"
+        qt = {"qs": qt["qs"].view(torch.uint8)[:, :144].contiguous(),
+              "scale": qt["scale"], "minv": qt["scale"]}
+        x = _x((1, 288), torch.float32, dev, seed=0)
+    elif case == "qs_dtype":
+        qt = dict(qt, qs=qt["qs"].view(torch.int8))
+    else:
+        x = x.half()
+    with pytest.raises(ValueError):
+        _product(qtype, x, qt)
+
+
+def test_backbone_on_card_uses_kernels_and_matches_cpu(dev, tmp_path):
+    """A packed Q4_K backbone on the card: 7 launches per layer per step,
+    hiddens equal to the port on the CPU within 1e-4 (f32, sums in
+    another order)."""
+    import dataclasses
+
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B,
+                                                write_random_backbone_gguf)
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul
+
+    cfg = dataclasses.replace(LLAMA_3_2_1B, hidden=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, head_dim=64, ffn_dim=512,
+                              vocab_size=300, max_ctx=64)
+    path = write_random_backbone_gguf(tmp_path / "bb.gguf", seed=5, cfg=cfg)
+    gpu = LlamaBackbone(path, quantized=True, device="cuda")
+    cpu = LlamaBackbone(path, quantized=True, device="cpu")
+    x = _x((6, 256), torch.float32, "cpu", seed=6).numpy()
+    before = q4_k_matmul.launches
+    np.testing.assert_allclose(gpu.prefill(x, bucket=8), cpu.prefill(x, bucket=8),
+                               rtol=1e-4, atol=1e-4)
+    for i in range(3):
+        np.testing.assert_allclose(gpu.step(x[i]), cpu.step(x[i]),
+                                   rtol=1e-4, atol=1e-4)
+    assert q4_k_matmul.launches == before + 7 * 2 * 4
+
+
+def test_tts_cli_synthesize_on_card(dev, tmp_path):
+    import dataclasses
+
+    from codec_tpu_torch.cli.tts_cli import main
+    from codec_tpu_torch.io.wav import read_wav
+    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B, DepthConfig,
+                                                byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_gguf,
+                                                write_random_csm_gguf)
+    from codec_tpu_torch.models.mimi import MimiConfig
+
+    model = write_random_csm_gguf(
+        tmp_path / "csm.gguf", seed=1, num_filters=8,
+        mimi_cfg=MimiConfig(n_q=4, codebook_size=64, codebook_dim=32,
+                            hidden=64, n_layers=1, n_heads=1, head_dim=64,
+                            intermediate=128, window=40),
+        dcfg=DepthConfig(hidden=256, depth_hidden=64, layers=1, heads=2,
+                         kv_heads=1, head_dim=32, ffn=128, n_codebook=4,
+                         vocab=64))
+    bb = write_random_backbone_gguf(
+        tmp_path / "bb.gguf", seed=2, spm_b64=spm_model_b64(byte_fallback_vocab()),
+        cfg=dataclasses.replace(LLAMA_3_2_1B, hidden=256, n_layers=2, n_heads=4,
+                                n_kv_heads=2, head_dim=64, ffn_dim=512,
+                                vocab_size=300, max_ctx=96))
+    out = tmp_path / "o.wav"
+    assert main(["synthesize", "--model", str(model), "--backbone", str(bb),
+                 "--text", "hello there", "--out", str(out), "--max-frames",
+                 "3", "--quant-exec"]) == 0
+    pcm, sr = read_wav(out)
+    assert sr == 24000 and pcm.shape == (3 * 1920, 1)
