@@ -8,7 +8,10 @@ Phases (any failure raises and exits non-zero before the last line):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc, one process
      per source)
-  3. each kernel against its plain PyTorch version on the card
+  3. each kernel against its plain PyTorch version on the card (the
+     residual units also at the encoders' widths, the RVQ search also on
+     integer-valued inputs and duplicated rows, where it must agree bit
+     for bit)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16) with every launch count set to 0 just before and
@@ -22,7 +25,15 @@ Phases (any failure raises and exits non-zero before the last line):
      widths, Orpheus packing): 20 s b1 and 20 s b4 in f32, 20 s b1 in
      bf16, each checked for its launch count, shape, finite samples and
      (f32) saturation and held against the plain residual units
-  7. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
+  7. encode: the same random Mimi, DAC and SNAC files hold their encoders;
+     encode requests through load_model(...).encode (Mimi 20 s b1 and b4
+     in f32, 20 s b1 in bf16; DAC and SNAC 20 s b1 in f32 and bf16), each
+     with every launch count set to 0 just before and read just after
+     (exact counts), checked for shape and range, the f32 codes held
+     against the plain path on the card (plain attention, plain RVQ,
+     plain residual units) under the near-tie rule, and one encode →
+     decode round trip per arch
+  8. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
      packed on the card (the memory it adds is checked), and run three
@@ -32,12 +43,12 @@ Phases (any failure raises and exits non-zero before the last line):
      to 0 just before and read just after; the backbone hiddens are held
      against the plain packed product on the card, teacher-forced on the
      same inputs, and the greedy codes against the plain path's
-  8. CUDA-event times (median of >= 10 runs after warm-up), each kernel
+  9. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
      the same function; device times of the packed products from
      torch.profiler; per-request TTS times (median of 3 runs after one
-     warm-up)
+     warm-up); per-request encode times (median of 10 after 2 warm-ups)
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -129,6 +140,31 @@ TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
                 ("q8_0_per_token", "Q8_0", 0)]
 TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 3
 Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
+
+# -- rvq_encode_fused (B, T, D, n_q, V): Mimi at 20 s b1 (acoustic and
+# semantic) and b4, the unaligned shapes of tests/test_rvq_pallas.py, and
+# V = 5 with frames near 0 (rows past V are never chosen). Integer-valued
+# inputs (exact in f32, with many exact ties), with or without duplicated
+# rows (the lower copy must win), must give the plain version's codes bit
+# for bit; normal inputs equal codes, or each differing frame's first
+# differing level an f64 near-tie (relative distance margin < 1e-4) in at
+# most max(2, N/100) frames
+RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
+              (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100)]
+RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
+NEAR_TIE = 1e-4
+# the encoders' residual-unit blocks at 20 s b1: DAC (C, T) and SNAC (C, T)
+# after its pad to 2048
+DAC_ENC_BLOCKS = [(64, 480000), (128, 240000), (256, 60000), (512, 12000)]
+SNAC_ENC_BLOCKS = [(48, 481280), (96, 240640), (192, 60160), (384, 7520)]
+# (arch, name, seconds of audio, batch, compute dtype)
+ENCODE_REQUESTS = [("mimi", "20s_b1_f32", 20, 1, "float32"),
+                   ("mimi", "20s_b4_f32", 20, 4, "float32"),
+                   ("mimi", "20s_b1_bf16", 20, 1, "bfloat16"),
+                   ("dac", "20s_b1_f32", 20, 1, "float32"),
+                   ("dac", "20s_b1_bf16", 20, 1, "bfloat16"),
+                   ("snac", "20s_b1_f32", 20, 1, "float32"),
+                   ("snac", "20s_b1_bf16", 20, 1, "bfloat16")]
 
 # H100 SXM data-sheet peaks (dense): f32 on the FMA units (the f32 kernels
 # use no TF32), bf16 on the tensor cores, and HBM3
@@ -298,6 +334,73 @@ def qmat_work(out_d, in_d, m, packed):
     return [(2 * m * in_d * out_d, torch.float32)], wbytes + 4 * m * (in_d + out_d)
 
 
+def rvq_work(n, d, n_q, v):
+    """The RVQ search's operations (f32 FMAs: 2·N·V·D·n_q; the row lookup is
+    a gather) and bytes (x, the codebooks and their norms read once, the
+    codes written once)."""
+    return ([(2 * n * v * d * n_q, torch.float32)],
+            4 * (n * d + n_q * v * d + n_q * v + n * n_q))
+
+
+def rvq_inputs(b, t, d, n_q, v, kind, seed):
+    """x [b, t, d], codebooks [n_q, v, d] f32 on the card: "int" small
+    integers (every product and sum exact in f32, many exact ties); "dup"
+    the same with row v + V/2 a copy of row v; "normal" N(0, 1) frames,
+    N(0, 0.5) codebooks; "tiny" normal frames near 0."""
+    rng = np.random.default_rng(seed)
+    if kind in ("int", "dup"):
+        x, cb = rng.integers(-3, 4, (b, t, d)), rng.integers(-3, 4, (n_q, v, d))
+        if kind == "dup":
+            cb[:, v // 2: 2 * (v // 2)] = cb[:, : v // 2]
+    else:
+        x = rng.standard_normal((b, t, d)) * (1e-3 if kind == "tiny" else 1.0)
+        cb = rng.standard_normal((n_q, v, d)) * 0.5
+    return (torch.from_numpy(x.astype(np.float32)).cuda(),
+            torch.from_numpy(cb.astype(np.float32)).cuda())
+
+
+def rel_margin(d, got_v, want_v):
+    return float((d[got_v] - d[want_v]) / max(d[want_v], 1e-12))
+
+
+def euclid_margin(r, cb, prefix, got_v, want_v):
+    """f64: r [D] minus cb[lvl][c] for each prefix code, then the relative
+    distance margin of got's pick over want's at the next level."""
+    for lvl, c in enumerate(prefix):
+        r = r - cb[lvl][c]
+    return rel_margin(((r[None] - cb[len(prefix)]) ** 2).sum(-1), got_v,
+                      want_v)
+
+
+def cosine_margin(z, cb, got_v, want_v):
+    zn = z / max(np.linalg.norm(z), 1e-12)
+    cbn = cb / np.maximum(np.linalg.norm(cb, axis=1, keepdims=True), 1e-12)
+    return rel_margin(((zn[None] - cbn) ** 2).sum(-1), got_v, want_v)
+
+
+def near_ties(got, want, margin_fn):
+    """got, want [T, Q]: equal codes, or at most max(2, T/100) differing
+    frames, each first differing level an f64 near-tie. Returns the
+    differing frames' (frame, level, margin); raises otherwise."""
+    diff = got != want
+    frames = np.where(diff.any(axis=1))[0]
+    if len(frames) > max(2, want.shape[0] // 100):
+        raise RuntimeError(f"{len(frames)}/{want.shape[0]} frames differ")
+    out = []
+    for fr in frames:
+        q = int(diff[fr].argmax())
+        m = margin_fn(int(fr), q)
+        if not abs(m) < NEAR_TIE:
+            raise RuntimeError(f"frame {fr} level {q}: codes differ with "
+                               f"relative margin {m:.3e}")
+        out.append((int(fr), q, m))
+    return out
+
+
+def f64(t):
+    return t.detach().double().cpu().numpy()
+
+
 def device_ms(fn, n: int = 50):
     """Device time per call of fn: the kernels' self time under
     torch.profiler over n warm calls (aten ops left out), / n. None when
@@ -374,13 +477,17 @@ def main() -> int:
                                                 write_random_csm_gguf)
     from codec_tpu_torch.ops import qmat
     from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
+    from codec_tpu_torch.models import mimi
+    from codec_tpu_torch.ops.rvq import rvq_encode
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
                 "seanet_res_chain": seanet_res_chain,
                 "snac_res_chain": snac_res_chain,
                 "q8_0_matmul": q8_0_matmul,
-                "q4_k_matmul": q4_k_matmul}
+                "q4_k_matmul": q4_k_matmul,
+                "rvq_encode_fused": rvq_encode_fused}
     none = dict.fromkeys(wrappers, 0)
 
     def zero_counts():
@@ -487,6 +594,87 @@ def main() -> int:
                      f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
             del x, want
 
+    # the residual units at the encoders' widths, in the launches an encode
+    # makes (DAC: the gate's chain, or one unit launch per unit; SNAC: one
+    # N = 1 launch per unit). A chain is held against the plain chain, each
+    # unit launch (on the block's input, one per dilation) against the
+    # plain unit, at the bounds of the decode's checks of the same forms
+    def unit_by_unit(name, x, p, dtype, label, launch, plain, bounds):
+        for u, dil in enumerate(DILATIONS):
+            pu = {k: v[u:u + 1] for k, v in p.items()}
+            got = launch(x, pu, dil)
+            with f32_precision(True):
+                want = plain(x.float(), {k: v.float() for k, v in pu.items()},
+                             dil)
+            hold(name, f"{label} unit {u + 1} (d={dil}) {str(dtype)[6:]}",
+                 got, want, dtype, bounds)
+            del got, want
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (c, t) in enumerate(DAC_ENC_BLOCKS):
+            p = res_params(3, c, dtype, SEED + 150 + i)
+            x = randn((1, t, c), dtype, SEED + 160 + i)
+            label = f"DAC encoder block C{c} T{t}"
+            if seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem):
+                with f32_precision(True):
+                    want = seanet_cuda.seanet_res_chain_ref(
+                        x.float(), **{k: v.float() for k, v in p.items()},
+                        dilations=DILATIONS)
+                hold("seanet_res_chain", f"{label} as the chain "
+                     f"{str(dtype)[6:]}", seanet_res_chain(
+                         x, **p, dilations=DILATIONS), want, dtype, CHAIN_BF16)
+                del want
+            else:
+                unit_by_unit(
+                    "seanet_res_unit", x, p, dtype, label,
+                    lambda y, pu, dil: seanet_res_unit(
+                        y, *unit_args(pu), dilation=dil),
+                    lambda y, pu, dil: seanet_cuda.seanet_res_unit_ref(
+                        y, *unit_args(pu), dilation=dil), UNIT_BF16)
+            del x
+        for i, (c, t) in enumerate(SNAC_ENC_BLOCKS):
+            p = dw_params(3, c, dtype, SEED + 170 + i)
+            x = randn((1, t, c), dtype, SEED + 180 + i, scale=0.3)
+            unit_by_unit(
+                "snac_res_chain", x, p, dtype, f"SNAC encoder block C{c} T{t}",
+                lambda y, pu, dil: snac_res_chain(y, **pu, dilations=(dil,)),
+                lambda y, pu, dil: seanet_cuda.snac_res_chain_ref(
+                    y, **pu, dilations=(dil,)), CHAIN_BF16)
+            del x
+
+    # the RVQ search: integer-valued inputs, also with duplicated rows, bit
+    # for bit; normal inputs under the near-tie rule, V = 5 with frames
+    # near 0. Its
+    # codes have no error in size: its max_abs_err is the largest relative
+    # distance margin at a frame where its codes differ (0.0: none differ)
+    rvq_cases = [(shape, kind) for shape in RVQ_SHAPES
+                 for kind in ("int", "dup", "normal")]
+    rvq_cases.append(((1, 300, 64, 3, 5), "tiny"))
+    for i, ((b, t, d, n_q, v), kind) in enumerate(rvq_cases):
+        x, cb = rvq_inputs(b, t, d, n_q, v, kind, SEED + 190 + i)
+        got = rvq_encode_fused(x, cb).cpu().numpy().reshape(b * t, n_q)
+        want = rvq_encode(x, cb).cpu().numpy().reshape(b * t, n_q)
+        label = f"rvq_encode_fused N{b * t} D{d} n_q{n_q} V{v} {kind}"
+        if got.min() < 0 or got.max() >= (v // 2 if kind == "dup" else v):
+            raise RuntimeError(f"{label}: a code past V or past the lower "
+                               f"copy of a duplicated row")
+        if kind in ("int", "dup"):
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"{label}: {(got != want).sum()} codes "
+                                   f"differ from the plain version's")
+            note = "equal to the plain version's bit for bit"
+        else:
+            x64, cb64 = f64(x).reshape(b * t, d), f64(cb)
+            ties = near_ties(got, want, lambda fr, q: euclid_margin(
+                x64[fr], cb64, want[fr, :q], got[fr, q], want[fr, q]))
+            max_err["rvq_encode_fused"] = max(
+                [max_err["rvq_encode_fused"]] + [abs(m) for _, _, m in ties])
+            note = ("equal to the plain version's" if not ties else
+                    f"{len(ties)} frames differ, each a near-tie (margins "
+                    f"{', '.join(f'{m:.1e}' for _, _, m in ties)})")
+        log(f"[kernel] {label}: codes {note} ok")
+        del x, cb
+
     # the packed products: each backbone shape, m = 1/16/32 in f32 and m = 1
     # in bf16 against the plain version, then 32 one-hot rows (bit-exact)
     def packed_product(name, x, qt):
@@ -539,9 +727,9 @@ def main() -> int:
         paths = {name: Path(tmp.name) / f"{name}_random.gguf"
                  for name in ("mimi", "dac", "snac")}
         t0 = time.monotonic()
-        write_random_mimi_gguf(paths["mimi"], seed=SEED)
-        write_random_dac_gguf(paths["dac"], seed=SEED)
-        write_random_snac_gguf(paths["snac"], seed=SEED)
+        write_random_mimi_gguf(paths["mimi"], seed=SEED, encoder=True)
+        write_random_dac_gguf(paths["dac"], seed=SEED, encoder=True)
+        write_random_snac_gguf(paths["snac"], seed=SEED, encoder=True)
         log("[model] wrote " + ", ".join(
             f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
             for path in paths.values())
@@ -774,7 +962,146 @@ def main() -> int:
         log(line)
     del outs
 
-    # -- 7. the CSM TTS path ---------------------------------------------------
+    # -- 7. encode --------------------------------------------------------------
+    enc_models = {"mimi": mimi_models, "dac": dac_models, "snac": snac_models}
+    enc_widths = {arch: [blk["units"]["w1"].shape[-1]
+                         for blk in enc_models[arch]["float32"].params["enc_blocks"]]
+                  for arch in ("dac", "snac")}
+    enc_per = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        chains = [seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem)
+                  for c in enc_widths["dac"]]
+        enc_per["mimi", dtype] = {**none, "flash_sdpa_window": MIMI_LAYERS,
+                                  "rvq_encode_fused": 2}
+        enc_per["dac", dtype] = {
+            **none, "seanet_res_unit": 3 * sum(not c for c in chains),
+            "seanet_res_chain": sum(chains)}
+        enc_per["snac", dtype] = {
+            **none, "snac_res_chain": len(DILATIONS) * len(enc_widths["snac"])}
+        log(f"[encode] {str(dtype)[6:]}: DAC encoder widths "
+            f"{enc_widths['dac']}, chain taken {chains}; SNAC encoder widths "
+            f"{enc_widths['snac']}; launches per encode: mimi "
+            f"{enc_per['mimi', dtype]}, dac {enc_per['dac', dtype]}, snac "
+            f"{enc_per['snac', dtype]}")
+    enc_rng = np.random.default_rng(SEED + 200)
+    enc_reqs = []
+    for arch, name, secs, batch, dt in ENCODE_REQUESTS:
+        model = enc_models[arch][dt]
+        if not model.has_encoder:
+            raise RuntimeError(f"{arch}: the random file holds no encoder")
+        pcm = (enc_rng.standard_normal((batch, secs * model.sample_rate))
+               * 0.3).astype(np.float32)
+        enc_reqs.append((arch, name, secs, batch, model, pcm))
+    enc_counts, enc_outs = dict(none), {}
+    for arch, name, secs, batch, model, pcm in enc_reqs:
+        zero_counts()
+        enc_outs[arch, name] = model.encode(pcm)
+        step = counts()
+        if step != enc_per[arch, model.compute_dtype]:
+            raise RuntimeError(f"{arch} encode {name}: launches {step}, want "
+                               f"{enc_per[arch, model.compute_dtype]}")
+        enc_counts = {k: v + step[k] for k, v in enc_counts.items()}
+    log(f"[encode] main path launches: {enc_counts} over {len(enc_reqs)} "
+        f"encodes")
+
+    def plain_encode(arch, model, pcm):
+        """The plain path on the card (plain attention, plain RVQ, plain
+        residual units) → (latent f64 [B, T, C], codes [B, T, Q])."""
+        x = torch.from_numpy(pcm).cuda()
+        with torch.inference_mode(), f32_precision(True):
+            if arch == "mimi":
+                lat = mimi.mimi_encode_latent_fn(
+                    model.params, x, model.cfg, attention=flash_sdpa_window_ref)
+                codes = mimi.mimi_quantize(model.params, lat, model.cfg,
+                                           quantize=rvq_encode)
+            elif arch == "dac":
+                lat = dac.dac_encode_latent_fn(model.params, x, model.cfg,
+                                               res_units=dac.plain_res_units)
+                codes = dac.dac_quantize(model.params["vq"], lat,
+                                         model.cfg.n_q)
+            else:
+                lat = snac.snac_encode_latent_fn(
+                    model.params, x, model.cfg, res_units=snac.plain_res_units)
+                codes = snac.snac_quantize(model.params["vq"], lat, model.cfg)
+            return f64(lat), codes.cpu().numpy()
+
+    def encode_margin(arch, model, lat, want, got):
+        """margin_fn (near_ties) at one batch row: lat [T, C] f64."""
+        p, mcfg = model.params, model.cfg
+        if arch == "mimi":
+            groups = [(f64(p["sem_ip"]), f64(p["cb_sem"]), 0),
+                      (f64(p["acu_ip"]), f64(p["cb_acu"]), mcfg.n_sem)]
+
+            def margin(fr, q):
+                ip, cb, base = groups[q >= mcfg.n_sem]
+                return euclid_margin(lat[fr] @ ip.T, cb, want[fr, base:q],
+                                     got[fr, q], want[fr, q])
+            return margin
+        vq = {k: f64(v) for k, v in p["vq"].items()}
+        if arch == "dac":
+            def margin(fr, q):
+                r = lat[fr]
+                for lvl in range(q):
+                    r = r - (vq["out_w"][lvl] @ vq["cb"][lvl][want[fr, lvl]]
+                             + vq["out_b"][lvl])
+                return cosine_margin(vq["in_w"][q] @ r + vq["in_b"][q],
+                                     vq["cb"][q], got[fr, q], want[fr, q])
+            return margin
+
+        def margin(fr, q):
+            res = lat
+            for lvl in range(q):
+                s_ = mcfg.vq_strides[lvl]
+                zq = vq["cb"][lvl][want[::s_, lvl]] @ vq["out_w"][lvl].T \
+                    + vq["out_b"][lvl]
+                res = res - np.repeat(zq, s_, axis=0)
+            s_ = mcfg.vq_strides[q]
+            pooled = res.reshape(-1, s_, res.shape[-1]).mean(axis=1)
+            return cosine_margin(vq["in_w"][q] @ pooled[fr // s_]
+                                 + vq["in_b"][q], vq["cb"][q], got[fr, q],
+                                 want[fr, q])
+        return margin
+
+    for arch, name, secs, batch, model, pcm in enc_reqs:
+        codes = enc_outs[arch, name]
+        n = pcm.shape[1]
+        if arch == "mimi":
+            frames = -(-n // model.hop_size)
+        elif arch == "dac":
+            frames = n // model.hop_size
+        else:
+            frames = -(-n // model.cfg.pad_to) * model.cfg.pad_to // model.hop_size
+        want_shape = (batch, frames, model.n_q)
+        if codes.shape != want_shape or codes.dtype != np.int32:
+            raise RuntimeError(f"{arch} encode {name}: codes {codes.shape} "
+                               f"{codes.dtype}, want {want_shape} int32")
+        if codes.min() < 0 or codes.max() >= model.codebook_size:
+            raise RuntimeError(f"{arch} encode {name}: codes out of range")
+        distinct = [len(np.unique(codes[..., q])) for q in range(model.n_q)]
+        line = (f"[encode] {arch} {name}: codes {codes.shape} in range, "
+                f"distinct codes per level {distinct[:4]}"
+                f"{'...' if len(distinct) > 4 else ''}")
+        if model.compute_dtype == torch.float32:
+            x = pcm if arch != "snac" else np.pad(
+                pcm, ((0, 0), (0, frames * model.hop_size - n)))
+            lat, want = plain_encode(arch, model, x)
+            ties = [t for bi in range(batch) for t in near_ties(
+                codes[bi], want[bi],
+                encode_margin(arch, model, lat[bi], want[bi], codes[bi]))]
+            line += ("; equal to the plain path's on the card" if not ties
+                     else f"; vs the plain path on the card: {len(ties)} "
+                     f"frames differ, each a near-tie (margins "
+                     f"{', '.join(f'{m:.1e}' for _, _, m in ties)})")
+            if batch == 1:
+                pcm_out = model.decode(codes)
+                if not np.isfinite(pcm_out).all():
+                    raise RuntimeError(f"{arch}: encode → decode gave "
+                                       f"non-finite samples")
+                line += (f"; encode → decode round trip: pcm "
+                         f"{pcm_out.shape} finite")
+        log(line)
+
+    # -- 8. the CSM TTS path ---------------------------------------------------
     t0 = time.monotonic()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
     try:
@@ -915,7 +1242,7 @@ def main() -> int:
         f"requests")
     del plain_bbs
 
-    # -- 8. times --------------------------------------------------------------
+    # -- 9. times --------------------------------------------------------------
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
     times = {}
@@ -1078,13 +1405,67 @@ def main() -> int:
                          f"{d_plain:.3f} ms with {what}")
             log(line + f" [{name_limit}]")
 
+    # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4)
+    for b, t, d, n_q, v in RVQ_SHAPES[:3]:
+        x, cb = rvq_inputs(b, t, d, n_q, v, "normal", SEED + 210)
+        kern, plain, s = turns(lambda: rvq_encode_fused(x, cb),
+                               lambda: rvq_encode(x, cb), reps=5)
+        b_ms, b_by = least_time(*rvq_work(b * t, d, n_q, v))
+        flop = rvq_work(b * t, d, n_q, v)[0][0][0]
+        log(f"[time] rvq_encode_fused N{b * t} D{d} n_q{n_q} V{v} f32: kernel "
+            f"{kern:.4f} ms ({flop / kern / 1e9:.2f} TFLOP/s, {b_ms / kern:.1%} "
+            f"of the bound {b_ms:.4f} ms, {b_by}), plain (n_q matmuls + "
+            f"argmaxes) {plain:.4f} ms (samples k {s[0]:.4f} {s[1]:.4f}, p "
+            f"{s[2]:.4f} {s[3]:.4f}) [{name_limit}]")
+        if (b, t, d, n_q, v) == RVQ_MAIN:
+            times["rvq_encode_fused"] = (kern, plain, b_ms, b_by, None)
+        del x, cb
+
+    # the encode requests, host PCM to host codes; for f32, the encode
+    # function alone (PCM already on the card) with the kernels and with
+    # the plain path
+    enc_fns = {"mimi": (lambda m, x, plain: mimi.mimi_encode_fn(
+                   m.params, x, m.cfg, attention=flash_sdpa_window_ref
+                   if plain else None, quantize=rvq_encode if plain else None)),
+               "dac": (lambda m, x, plain: dac.dac_encode_fn(
+                   m.params, x, m.cfg, res_units=dac.plain_res_units
+                   if plain else None)),
+               "snac": (lambda m, x, plain: snac.snac_encode_fn(
+                   m.params, x, m.cfg, res_units=snac.plain_res_units
+                   if plain else None))}
+    for arch, name, secs, batch, model, pcm in enc_reqs:
+        ms = cuda_ms(lambda: model.encode(pcm))
+        line = (f"[time] {arch} encode {name}: {ms:.3f} ms per request, "
+                f"{secs * batch / (ms / 1000.0):.1f}x realtime ({secs * batch} "
+                f"s of audio)")
+        if model.compute_dtype == torch.float32:
+            n = pcm.shape[1]
+            x = torch.from_numpy(np.pad(pcm, ((0, 0), (0, enc_outs[
+                arch, name].shape[1] * model.hop_size - n)))
+                if arch == "snac" else pcm).cuda()
+
+            def dev(plain=False):
+                with torch.inference_mode(), f32_precision(True):
+                    enc_fns[arch](model, x, plain)
+            d_kern = cuda_ms(dev)
+            d_plain = cuda_ms(lambda: dev(True))
+            line += (f"; encode fn alone (PCM already on the card) "
+                     f"{d_kern:.3f} ms with the kernels, {d_plain:.3f} ms "
+                     f"with the plain path")
+        log(line + f" [{name_limit}]")
+
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
-                   + tts_counts["flash_sdpa_window"],
-                   "seanet_res_unit": dac_counts["seanet_res_unit"],
-                   "seanet_res_chain": dac_counts["seanet_res_chain"],
-                   "snac_res_chain": snac_counts["snac_res_chain"],
+                   + tts_counts["flash_sdpa_window"]
+                   + enc_counts["flash_sdpa_window"],
+                   "seanet_res_unit": dac_counts["seanet_res_unit"]
+                   + enc_counts["seanet_res_unit"],
+                   "seanet_res_chain": dac_counts["seanet_res_chain"]
+                   + enc_counts["seanet_res_chain"],
+                   "snac_res_chain": snac_counts["snac_res_chain"]
+                   + enc_counts["snac_res_chain"],
                    "q8_0_matmul": tts_counts["q8_0_matmul"],
-                   "q4_k_matmul": tts_counts["q4_k_matmul"]}
+                   "q4_k_matmul": tts_counts["q4_k_matmul"],
+                   "rvq_encode_fused": enc_counts["rvq_encode_fused"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",
@@ -1096,16 +1477,20 @@ def main() -> int:
                "q8_0_matmul": ("codec_tpu_torch/csrc/qmat.cu",
                                "codec_tpu/ops/qmat_pallas.py:171"),
                "q4_k_matmul": ("codec_tpu_torch/csrc/qmat.cu",
-                               "codec_tpu/ops/qmat_pallas.py:200")}
+                               "codec_tpu/ops/qmat_pallas.py:200"),
+               "rvq_encode_fused": ("codec_tpu_torch/csrc/rvq_encode.cu",
+                                    "codec_tpu/ops/rvq_pallas.py:76")}
     # times at: attention B1 H8 T500 D64 w250, the DAC unit at block 1
     # (d=1), the DAC chain at block 4, SNAC's three units at block 3 (the
     # N=1 launches a decode makes), the packed products at m = 1 on the
-    # gate matrix (device times); all f32. No single PyTorch call computes
-    # a residual unit, so those rows have no library time; the packed
-    # products' library time is F.linear on the dequantized f32 weight
-    # (no PyTorch call multiplies GGUF-packed weights). Launches: all paths
-    # of this run (the attention: Mimi decodes and the TTS requests' Mimi
-    # decodes).
+    # gate matrix (device times), the RVQ search at Mimi's 20 s b1
+    # acoustic shape (N 250, D 256, n_q 31, V 2048); all f32. No single
+    # PyTorch call computes a residual unit or an n_q-level search, so
+    # those rows have no library time; the packed products' library time
+    # is F.linear on the dequantized f32 weight (no PyTorch call multiplies
+    # GGUF-packed weights). Launches: all paths of this run (the attention:
+    # Mimi decodes, the TTS requests' Mimi decodes and Mimi encodes; the
+    # residual units: decodes and encodes).
     result = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": main_counts[name], "max_abs_err": max_err[name],

@@ -1,7 +1,11 @@
-"""DAC (Descript Audio Codec), decode path, in PyTorch.
+"""DAC (Descript Audio Codec), encode and decode, in PyTorch.
 
 Counterpart of codec_tpu/models/dac.py:
 
+encode: conv k7 → 4 blocks [3 residual units → snake → strided conv k=2s
+        pad=ceil(s/2)] → snake → conv k3 → latent → residual VQ: per level
+        in_proj → cosine (L2-normalised) nearest-code search → residual -=
+        out_proj(codebook[idx])
 decode: latent = Σ_q out_proj_q(codebook_q[codes_q]) + biases → conv k7 →
         4 blocks [snake → convtr k=2s pad=ceil(s/2) → 3 residual units
         (snake, dilated conv k7 d∈{1,3,9}, snake, conv k1, +x)] → snake →
@@ -9,17 +13,22 @@ decode: latent = Σ_q out_proj_q(codebook_q[codes_q]) + biases → conv k7 →
 
 DAC is non-causal (symmetric padding): at the 24 kHz rates (8, 5, 4, 2) it
 emits 320·T − 8 samples, and the runtime keeps them all
-(`causal_time = False`). Activations are channels-last [B, T, C]. The
-residual units of a block run through ops/seanet_cuda.py (the CUDA
-kernels on the card, their plain versions on the CPU).
+(`causal_time = False`); an encode of n samples gives n/320 frames.
+Activations are channels-last [B, T, C]. The residual units of a block,
+in the encoder and the decoder, run through ops/seanet_cuda.py (the CUDA
+kernels on the card, their plain versions on the CPU). The cosine search
+is plain torch: the reference has no kernel for it.
 
 Parameters (`load_dac_params`, `params_from_jax`) are a dict of tensors:
-  vq: cb [n_q, V, d], out_w [n_q, hidden, d], out_b [n_q, hidden]
+  vq: cb [n_q, V, d], in_w [n_q, d, hidden], in_b [n_q, d], out_w
+      [n_q, hidden, d], out_b [n_q, hidden]
   dec_c1, dec_c2: {"w": [C_out, C_in, K], "b": [C_out]}
   dec_blocks[i]: snake [C_in]; tr {"w": [C_in, C_out, K], "b"}; units, the
       block's residual units stacked in the kernels' layouts: w1 WIO
       [3, K, C, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C]
   dec_snake [C]
+  with an encoder: enc_c1, enc_c2 as convs; enc_blocks[i]: units as the
+      decoder's, snake [C], dn (the strided conv) {"w", "b"}; enc_snake [C]
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
-from ..ops import act, seanet_cuda
+from ..ops import act, norms, rvq, seanet_cuda
 from ..runtime.model import CodecError, CodecModel
 
 RES_DILATIONS = (1, 3, 9)
@@ -81,8 +90,9 @@ def _units(units, t) -> Dict[str, torch.Tensor]:
 
 def load_dac_params(r: GGUFReader, cfg: DacConfig, dtype=torch.float32,
                     device="cpu") -> Dict[str, Any]:
-    """Quantizer and decoder parameters from a DAC GGUF (wire layouts are
-    PyTorch's; the residual units are restacked for the kernels)."""
+    """Quantizer, decoder and (where the file has one) encoder parameters
+    from a DAC GGUF (wire layouts are PyTorch's; the residual units are
+    restacked for the kernels)."""
     t = partial(_to, dtype=dtype, device=device)
 
     def stack(fmt, transform=lambda a: a):
@@ -98,19 +108,11 @@ def load_dac_params(r: GGUFReader, cfg: DacConfig, dtype=torch.float32,
     def alpha(name):
         return np.asarray(r.get(name)).reshape(-1)        # (1, C, 1) → [C]
 
-    p: Dict[str, Any] = {"vq": {
-        "cb": t(stack("vq.q{}.codebook.weight")),
-        "out_w": t(stack("vq.q{}.out_proj.weight", squeeze_k1)),
-        "out_b": t(stack("vq.q{}.out_proj.bias")),
-    }}
-    p["dec_c1"] = wb("dec.model.0")
-    p["dec_blocks"] = []
-    for bi in range(1, cfg.n_blocks + 1):
-        pre = f"dec.model.{bi}.block"
-        units = []
+    def units(pre):
+        out = []
         for ri in (1, 2, 3):
             u = f"{pre}.res_unit{ri}"
-            units.append({
+            out.append({
                 "w1": np.asarray(r.get(f"{u}.conv1.weight")).transpose(2, 1, 0),
                 "b1": r.get(f"{u}.conv1.bias"),
                 "a1": alpha(f"{u}.snake1.alpha"),
@@ -118,19 +120,42 @@ def load_dac_params(r: GGUFReader, cfg: DacConfig, dtype=torch.float32,
                 "w2": np.asarray(r.get(f"{u}.conv2.weight"))[:, :, 0].T,
                 "b2": r.get(f"{u}.conv2.bias"),
             })
+        return _units(out, t)
+
+    p: Dict[str, Any] = {"vq": {
+        "cb": t(stack("vq.q{}.codebook.weight")),
+        "in_w": t(stack("vq.q{}.in_proj.weight", squeeze_k1)),
+        "in_b": t(stack("vq.q{}.in_proj.bias")),
+        "out_w": t(stack("vq.q{}.out_proj.weight", squeeze_k1)),
+        "out_b": t(stack("vq.q{}.out_proj.bias")),
+    }}
+    p["dec_c1"] = wb("dec.model.0")
+    p["dec_blocks"] = []
+    for bi in range(1, cfg.n_blocks + 1):
+        pre = f"dec.model.{bi}.block"
         p["dec_blocks"].append({"snake": t(alpha(f"{pre}.snake1.alpha")),
                                 "tr": wb(f"{pre}.conv_t1"),
-                                "units": _units(units, t)})
+                                "units": units(pre)})
     p["dec_snake"] = t(alpha(f"dec.model.{cfg.n_blocks + 1}.alpha"))
     p["dec_c2"] = wb(f"dec.model.{cfg.n_blocks + 2}")
+    if r.has_tensor("enc.block.0.weight"):
+        p["enc_c1"] = wb("enc.block.0")
+        p["enc_blocks"] = [{"units": units(pre),
+                            "snake": t(alpha(f"{pre}.snake1.alpha")),
+                            "dn": wb(f"{pre}.conv1")}
+                           for pre in (f"enc.block.{bi}.block"
+                                       for bi in range(1, cfg.n_blocks + 1))]
+        p["enc_snake"] = t(alpha(f"enc.block.{cfg.n_blocks + 1}.alpha"))
+        p["enc_c2"] = wb(f"enc.block.{cfg.n_blocks + 2}")
     return p
 
 
 def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, Any]:
-    """The quantizer and decoder of a codec_tpu DAC parameter tree (from
-    its `load_dac_params`, leaves as NumPy arrays or anything np.asarray
-    takes) → this module's parameters.
+    """The quantizer, decoder and (where the tree has one) encoder of a
+    codec_tpu DAC parameter tree (from its `load_dac_params`, leaves as
+    NumPy arrays or anything np.asarray takes) → this module's
+    parameters.
 
     codec_tpu keeps conv weights WIO [K, C_in, C_out] and convtr weights
     WIO pre-flipped along K; the plain convs go back to PyTorch's layouts
@@ -145,19 +170,26 @@ def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
         return {"w": t(np.asarray(layer["w"])[::-1].transpose(1, 2, 0)),
                 "b": t(layer["b"])}
 
+    def units(blk):
+        return _units([{"w1": u["c1"]["w"], "b1": u["c1"]["b"],
+                        "a1": u["s1"], "a2": u["s2"],
+                        "w2": np.asarray(u["c2"]["w"])[0],
+                        "b2": u["c2"]["b"]} for u in blk["units"]], t)
+
     vq = tree["vq"]
-    p: Dict[str, Any] = {"vq": {k: t(vq[k]) for k in ("cb", "out_w", "out_b")},
+    p: Dict[str, Any] = {"vq": {k: t(vq[k]) for k in ("cb", "in_w", "in_b",
+                                                      "out_w", "out_b")},
                          "dec_c1": cv(tree["dec_c1"])}
-    p["dec_blocks"] = [{
-        "snake": t(blk["snake"]),
-        "tr": tr(blk["tr"]),
-        "units": _units([{"w1": u["c1"]["w"], "b1": u["c1"]["b"],
-                          "a1": u["s1"], "a2": u["s2"],
-                          "w2": np.asarray(u["c2"]["w"])[0],
-                          "b2": u["c2"]["b"]} for u in blk["units"]], t),
-    } for blk in tree["dec_blocks"]]
+    p["dec_blocks"] = [{"snake": t(blk["snake"]), "tr": tr(blk["tr"]),
+                        "units": units(blk)} for blk in tree["dec_blocks"]]
     p["dec_snake"] = t(tree["dec_snake"])
     p["dec_c2"] = cv(tree["dec_c2"])
+    if "enc_c1" in tree:
+        p["enc_c1"] = cv(tree["enc_c1"])
+        p["enc_blocks"] = [{"units": units(blk), "snake": t(blk["snake"]),
+                            "dn": cv(blk["dn"])} for blk in tree["enc_blocks"]]
+        p["enc_snake"] = t(tree["enc_snake"])
+        p["enc_c2"] = cv(tree["enc_c2"])
     return p
 
 
@@ -170,6 +202,14 @@ def _conv(x: torch.Tensor, layer: Dict[str, torch.Tensor]) -> torch.Tensor:
     w = layer["w"]
     return F.conv1d(x.transpose(1, 2), w, layer["b"],
                     padding=w.shape[-1] // 2).transpose(1, 2)
+
+
+def _down(x: torch.Tensor, layer: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Downsampling conv k=2s, stride s, padding ceil(s/2): T/s frames for
+    T a multiple of s; x [B, T, C]."""
+    s = layer["w"].shape[-1] // 2
+    return F.conv1d(x.transpose(1, 2), layer["w"], layer["b"], stride=s,
+                    padding=(s + 1) // 2).transpose(1, 2)
 
 
 def _convtr(x: torch.Tensor, layer: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -237,6 +277,44 @@ def dac_decode_fn(params: Dict[str, Any], codes: torch.Tensor,
     return dac_decode_from_latent(params, latent, cfg, res_units=res_units)
 
 
+def dac_encode_latent_fn(params: Dict[str, Any], pcm: torch.Tensor,
+                         cfg: DacConfig,
+                         res_units: Optional[Callable] = None) -> torch.Tensor:
+    """pcm [B, n] on the parameters' device → the latent before the VQ
+    [B, n/hop, latent_dim]. `res_units` as in `dac_decode_from_latent`."""
+    run_units = res_units or kernel_res_units
+    x = _conv(pcm[..., None], params["enc_c1"])
+    for blk in params["enc_blocks"]:
+        x = run_units(x, blk["units"])
+        x = _down(act.snake(x, blk["snake"]), blk["dn"])
+    return _conv(act.snake(x, params["enc_snake"]), params["enc_c2"])
+
+
+def dac_quantize(vq: Dict[str, torch.Tensor], latent: torch.Tensor,
+                 n_q: int) -> torch.Tensor:
+    """The cosine RVQ over the first n_q levels: latent [B, T, hidden] →
+    codes [B, T, n_q] int32. The search compares L2-normalised projections
+    and codebooks; the residual takes out_proj of the raw codebook row."""
+    residual, codes = latent, []
+    for q in range(n_q):
+        z = residual @ vq["in_w"][q].T + vq["in_b"][q]             # [B, T, d]
+        cbn = norms.l2_normalize(vq["cb"][q])
+        idx, _ = rvq.rvq_layer_encode(norms.l2_normalize(z), cbn)
+        codes.append(idx)
+        residual = residual - (vq["cb"][q][idx] @ vq["out_w"][q].T
+                               + vq["out_b"][q])
+    return torch.stack(codes, dim=-1)
+
+
+def dac_encode_fn(params: Dict[str, Any], pcm: torch.Tensor, cfg: DacConfig,
+                  n_q: Optional[int] = None,
+                  res_units: Optional[Callable] = None) -> torch.Tensor:
+    """pcm [B, n] → codes [B, n/hop, n_q] int32 (reference:
+    codec_tpu/models/dac.py::dac_encode_fn)."""
+    latent = dac_encode_latent_fn(params, pcm, cfg, res_units=res_units)
+    return dac_quantize(params["vq"], latent, cfg.n_q if n_q is None else n_q)
+
+
 class DacCodec(CodecModel):
     arch = "dac"
     causal_time = False
@@ -256,8 +334,8 @@ class DacCodec(CodecModel):
     def _decode_impl(self, codes: torch.Tensor, n_q: int) -> torch.Tensor:
         return dac_decode_fn(self.params, codes, self.cfg, n_q=n_q)
 
-    def encode(self, pcm, n_q: int = 0):
-        raise CodecError("dac: encode not yet ported")
+    def _encode_impl(self, pcm: torch.Tensor, n_q: int) -> torch.Tensor:
+        return dac_encode_fn(self.params, pcm, self.cfg, n_q=n_q)
 
     def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
         """latent [T, latent_dim] or [B, T, latent_dim] → pcm [samples] or

@@ -1,11 +1,14 @@
-"""Random DAC decode weights and GGUF files from a seed.
+"""Random DAC weights and GGUF files from a seed.
 
 Shapes mirror descript/dac_24khz by default: latent 1024, decoder width
 1536 halving per block, up rates 8/5/4/2, 9 codebooks of 1024 x 8 (the
-widths of codec_tpu/models/bench_init.py::random_dac_decode_params).
+widths of codec_tpu/models/bench_init.py::random_dac_decode_params), and,
+with `encoder=True`, the encoder: width latent/16 (64) doubling per block
+over the down rates 2/4/5/8 to the latent width, then a k3 conv.
 `write_random_dac_gguf` writes them under the wire names and layouts that
 both packages' `load_dac_params` read (those of codec_tpu/convert/dac.py),
-so `load_model(path)` runs its real path with no download.
+so `load_model(path)` runs its real path with no download. The encoder is
+drawn after the rest, so a seed gives the same decoder with or without it.
 
 Each conv weight is drawn with std gain/sqrt(K * C_in), and every snake
 alpha is 1. The gain is 1, except 0.5 for the residual units' 1x1 convs
@@ -31,11 +34,11 @@ _BIAS_STD = 0.01
 
 def random_dac_params(cfg: DacConfig = DacConfig(), seed: int = 0,
                       decoder_dim: int = 1536,
-                      rates: Sequence[int] = (8, 5, 4, 2)
-                      ) -> Dict[str, np.ndarray]:
-    """Quantizer and decoder weights, float32, by wire name (PyTorch
-    layouts: conv [C_out, C_in, K], convtr [C_in, C_out, K], alpha
-    [1, C, 1])."""
+                      rates: Sequence[int] = (8, 5, 4, 2),
+                      encoder: bool = False) -> Dict[str, np.ndarray]:
+    """Quantizer, decoder and (with `encoder`) encoder weights, float32, by
+    wire name (PyTorch layouts: conv [C_out, C_in, K], convtr [C_in, C_out,
+    K], alpha [1, C, 1]). The encoder's down rates are `rates` reversed."""
     if int(np.prod(rates)) != cfg.hop_size or len(rates) != cfg.n_blocks:
         raise ValueError(f"rates {tuple(rates)} do not give hop "
                          f"{cfg.hop_size} in {cfg.n_blocks} blocks")
@@ -76,15 +79,34 @@ def random_dac_params(cfg: DacConfig = DacConfig(), seed: int = 0,
             conv(f"{unit}.conv2", c, c, 1, gain=0.5)
     alpha(f"dec.model.{cfg.n_blocks + 1}.alpha", c)
     conv(f"dec.model.{cfg.n_blocks + 2}", c, 1, 7, gain=0.3)
+    if not encoder:
+        return p
+    c = h >> cfg.n_blocks
+    conv("enc.block.0", 1, c, 7)
+    for bi, s in enumerate(reversed(rates), start=1):
+        pre = f"enc.block.{bi}.block"
+        for ri in (1, 2, 3):
+            unit = f"{pre}.res_unit{ri}"
+            alpha(f"{unit}.snake1.alpha", c)
+            conv(f"{unit}.conv1", c, c, 7)
+            alpha(f"{unit}.snake2.alpha", c)
+            conv(f"{unit}.conv2", c, c, 1, gain=0.5)
+        alpha(f"{pre}.snake1.alpha", c)
+        conv(f"{pre}.conv1", c, 2 * c, 2 * s)
+        c *= 2
+    alpha(f"enc.block.{cfg.n_blocks + 1}.alpha", c)
+    conv(f"enc.block.{cfg.n_blocks + 2}", c, h, 3)
     return p
 
 
 def write_random_dac_gguf(path: Union[str, Path], seed: int = 0,
                           cfg: DacConfig = DacConfig(),
                           decoder_dim: int = 1536,
-                          rates: Sequence[int] = (8, 5, 4, 2)) -> None:
-    """A decode-only DAC GGUF (F32) with random weights from `seed`."""
-    params = random_dac_params(cfg, seed, decoder_dim, rates)
+                          rates: Sequence[int] = (8, 5, 4, 2),
+                          encoder: bool = False) -> None:
+    """A DAC GGUF (F32) with random weights from `seed`: decode-only, or
+    with the encoder."""
+    params = random_dac_params(cfg, seed, decoder_dim, rates, encoder)
     wr = GGUFWriter(path, "dac")
     wr.add_name("DAC")
     for key, val in (("codec.sample_rate", cfg.sample_rate),
@@ -94,7 +116,7 @@ def write_random_dac_gguf(path: Union[str, Path], seed: int = 0,
                      ("codec.codebook_dim", cfg.codebook_dim),
                      ("codec.latent_dim", cfg.latent_dim)):
         wr.add_uint32(key, val)
-    wr.add_bool("codec.has_encoder", False)
+    wr.add_bool("codec.has_encoder", encoder)
     wr.add_bool("codec.has_decoder", True)
     for name, arr in params.items():
         wr.add_tensor(name, arr, "F32")

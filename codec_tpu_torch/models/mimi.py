@@ -1,21 +1,28 @@
-"""Mimi neural audio codec (kyutai/mimi), decode path, in PyTorch.
+"""Mimi neural audio codec (kyutai/mimi), encode and decode, in PyTorch.
 
 Counterpart of codec_tpu/models/mimi.py:
 
+encode: causal SEANet encoder (conv k7, then per stride 4/5/6/8 a residual
+        block and an ELU + strided conv) → ELU + conv k3 → encoder
+        transformer → stride-2 causal downsample with replicate padding →
+        semantic and acoustic RVQ with input projections (the fused search
+        of ops/rvq_cuda.py)
 decode: per-group codebook gather-sum + output projections → causal
         ConvTranspose ×2 upsample → decoder transformer (LayerNorm,
         RoPE-NEOX, causal attention over a sliding window, GELU-erf MLP,
         LayerScale) → mirrored SEANet decoder (ELU + causal convs /
         convtrs) → PCM
 
-The transformer runs channels-last [B, T, C]; the upsample and the SEANet
-stack run channels-first [B, C, T] on PyTorch's weight layouts.
+The transformers run channels-last [B, T, C]; the conv stacks run
+channels-first [B, C, T] on PyTorch's weight layouts.
 
 Parameters (`load_mimi_params`, `params_from_jax`) are a dict of tensors:
   cb_sem [n_sem, V, d], sem_op [h, d], cb_acu [n_q - n_sem, V, d], acu_op
   up, dec_l0, dec_l14, dec_stages[i].{tr, r1, r2}: {"w", "b"} with conv
       weights [C_out, C_in, K] and convtr weights [C_in, C_out, K]
   dtr: one dict per transformer layer, linear weights [out, in]
+  with an encoder: enc_l0, enc_l14, enc_stages[i].{r1, r2, dn}, dn (no
+      bias) as convs; etr as dtr; sem_ip, acu_ip [d, h]
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
-from ..ops import act, attn, conv, norms, rope, rvq
+from ..ops import act, attn, conv, norms, rope, rvq, rvq_cuda
 
 DEC_UP_STRIDES = (8, 6, 5, 4)
+ENC_STRIDES = (4, 5, 6, 8)
 _LAYER_KEYS = {
     "inln_w": "inln.w", "inln_b": "inln.b",
     "paln_w": "paln.w", "paln_b": "paln.b",
@@ -104,7 +112,8 @@ def _to(a, dtype, device) -> torch.Tensor:
 
 def load_mimi_params(r: GGUFReader, cfg: MimiConfig, dtype=torch.float32,
                      device="cpu") -> Dict[str, Any]:
-    """Decoder-half parameters from a Mimi GGUF (wire layouts are already
+    """Parameters from a Mimi GGUF: the codebooks, the decoder half and,
+    where the file has one, the encoder half (wire layouts are already
     PyTorch's)."""
     t = partial(_to, dtype=dtype, device=device)
 
@@ -137,14 +146,29 @@ def load_mimi_params(r: GGUFReader, cfg: MimiConfig, dtype=torch.float32,
                             "r2": wb(f"dec.l{li + 1}.block.3.conv")}
                            for li in (2, 5, 8, 11)]
         p["dec_l14"] = wb("dec.l14.conv")
+    if cfg.has_encoder:
+        p["enc_l0"] = wb("enc.l0.conv")
+        p["enc_stages"] = [{"r1": wb(f"enc.l{li}.block.1.conv"),
+                            "r2": wb(f"enc.l{li}.block.3.conv"),
+                            "dn": wb(f"enc.l{li + 2}.conv")}
+                           for li in (1, 4, 7, 10)]
+        p["enc_l14"] = wb("enc.l14.conv")
+        p["etr"] = [{key: t(r.get(f"etr.l{li}.{suffix}"))
+                     for key, suffix in _LAYER_KEYS.items()}
+                    for li in range(cfg.n_layers)]
+        p["dn"] = {"w": t(r.get("dn.cv.w")), "b": None}
+        p["sem_ip"] = t(r.get("q.s.ip.w"))
+        if cfg.n_q > cfg.n_sem:
+            p["acu_ip"] = t(r.get("q.a.ip.w"))
     return p
 
 
 def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, Any]:
-    """The decoder half of a codec_tpu Mimi parameter tree (from its
-    `load_mimi_params` or `random_mimi_params`, leaves as NumPy arrays or
-    anything np.asarray takes) → this module's parameters.
+    """A codec_tpu Mimi parameter tree (from its `load_mimi_params` or
+    `random_mimi_params`, leaves as NumPy arrays or anything np.asarray
+    takes): the codebooks, the decoder half and, where the tree has one,
+    the encoder half → this module's parameters.
 
     codec_tpu keeps conv weights WIO [K, C_in, C_out], convtr weights WIO
     pre-flipped along K, and the transformer layers stacked on a leading
@@ -166,15 +190,27 @@ def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
     if "cb_acu" in tree:
         p["cb_acu"] = t(tree["cb_acu"])
         p["acu_op"] = t(tree["acu_op"])
-    stacked = {k: np.asarray(v) for k, v in tree["dtr"].items()}
-    n_layers = stacked["q_w"].shape[0]
+    def layers(stack):
+        stacked = {k: np.asarray(v) for k, v in stack.items()}
+        return [{k: t(v[li]) for k, v in stacked.items()}
+                for li in range(stacked["q_w"].shape[0])]
+
     p["up"] = tr(tree["up"])
-    p["dtr"] = [{k: t(v[li]) for k, v in stacked.items()}
-                for li in range(n_layers)]
+    p["dtr"] = layers(tree["dtr"])
     p["dec_l0"] = cv(tree["dec_l0"])
     p["dec_stages"] = [{"tr": tr(s["tr"]), "r1": cv(s["r1"]),
                         "r2": cv(s["r2"])} for s in tree["dec_stages"]]
     p["dec_l14"] = cv(tree["dec_l14"])
+    if "enc_l0" in tree:
+        p["enc_l0"] = cv(tree["enc_l0"])
+        p["enc_stages"] = [{k: cv(s[k]) for k in ("r1", "r2", "dn")}
+                           for s in tree["enc_stages"]]
+        p["enc_l14"] = cv(tree["enc_l14"])
+        p["etr"] = layers(tree["etr"])
+        p["dn"] = cv(tree["dn"])
+        p["sem_ip"] = t(tree["sem_ip"])
+        if "cb_acu" in tree:
+            p["acu_ip"] = t(tree["acu_ip"])
     return p
 
 
@@ -238,3 +274,62 @@ def mimi_decode_fn(params: Dict[str, Any], codes: torch.Tensor,
     x = conv.conv1d_causal_cf(act.elu(x), params["dec_l14"]["w"],
                               params["dec_l14"]["b"])
     return x[:, 0]                                          # [B, T*hop]
+
+
+def mimi_encode_latent_fn(params: Dict[str, Any], pcm: torch.Tensor,
+                          cfg: MimiConfig,
+                          attention: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """pcm [B, n] on the parameters' device → the latent before the RVQ
+    [B, ceil(n/hop), hidden].
+
+    Each strided conv right-pads its input with zeros to a stride multiple
+    (ops/conv.py), as the reference's per-layer re-mask does, and the
+    final stride-2 downsample replicates the edge frames. `attention`
+    replaces the encoder transformer's attention function (default: the
+    CUDA kernel's wrapper; see ops/attn.mha)."""
+    x = conv.conv1d_causal_cf(pcm[:, None, :], params["enc_l0"]["w"],
+                              params["enc_l0"]["b"])
+    for stage, stride in zip(params["enc_stages"], ENC_STRIDES):
+        x = _resblock(x, stage["r1"], stage["r2"])
+        x = conv.conv1d_causal_cf(act.elu(x), stage["dn"]["w"],
+                                  stage["dn"]["b"], stride=stride)
+    x = conv.conv1d_causal_cf(act.elu(x), params["enc_l14"]["w"],
+                              params["enc_l14"]["b"])
+    x = _transformer(x.transpose(1, 2), params["etr"], cfg, attention)
+    x = conv.conv1d_causal_cf(x.transpose(1, 2), params["dn"]["w"], None,
+                              stride=2, pad_mode="replicate")
+    return x.transpose(1, 2)                                # [B, T, h]
+
+
+def mimi_encode_fn(params: Dict[str, Any], pcm: torch.Tensor, cfg: MimiConfig,
+                   n_q: Optional[int] = None,
+                   attention: Optional[Callable] = None,
+                   quantize: Optional[Callable] = None) -> torch.Tensor:
+    """pcm [B, n] → codes [B, ceil(n/hop), n_q] int32 (reference:
+    codec_tpu/models/mimi.py::mimi_encode_fn).
+
+    The semantic and acoustic searches run in f32 through `quantize(x,
+    codebooks)` (default: `rvq_cuda.rvq_encode_fused`, the CUDA kernel on
+    the card; `rvq.rvq_encode` is its plain version)."""
+    latent = mimi_encode_latent_fn(params, pcm, cfg, attention)
+    return mimi_quantize(params, latent, cfg, n_q, quantize)
+
+
+def mimi_quantize(params: Dict[str, Any], latent: torch.Tensor,
+                  cfg: MimiConfig, n_q: Optional[int] = None,
+                  quantize: Optional[Callable] = None) -> torch.Tensor:
+    """latent [B, T, hidden] → codes [B, T, n_q] int32: the semantic and
+    acoustic input projections, then each group's search (`quantize` as
+    in `mimi_encode_fn`)."""
+    quantize = quantize or rvq_cuda.rvq_encode_fused
+    if n_q is None:
+        n_q = cfg.n_q
+    n_sem = min(cfg.n_sem, n_q)
+    parts = [quantize(F.linear(latent, params["sem_ip"]).float().contiguous(),
+                      params["cb_sem"][:n_sem].float())]
+    if n_q > n_sem:
+        parts.append(quantize(
+            F.linear(latent, params["acu_ip"]).float().contiguous(),
+            params["cb_acu"][: n_q - n_sem].float()))
+    return torch.cat(parts, dim=-1)                         # [B, T, n_q]

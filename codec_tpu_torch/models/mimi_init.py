@@ -5,7 +5,8 @@ draws follow codec_tpu/models/mimi_init.py::random_mimi_params in order
 and scale, so one seed gives the same weights in both packages.
 `write_random_mimi_gguf` writes them under the Mimi wire names and layouts
 (those of codec_tpu/convert/mimi.py), so `load_model(path)` runs its real
-path with no download.
+path with no download; with `encoder=True` the file also holds the encoder
+half (`codec.has_encoder`).
 """
 
 from __future__ import annotations
@@ -80,27 +81,30 @@ def _random_tree(cfg: MimiConfig, num_filters: int = 64,
 
 def random_mimi_params(cfg: MimiConfig, num_filters: int = 64, seed: int = 0,
                        dtype=torch.float32, device="cpu") -> Dict[str, Any]:
-    """Random decoder-half parameters in this package's layout."""
+    """Random parameters, encoder half included, in this package's
+    layout."""
     return params_from_jax(_random_tree(cfg, num_filters, seed),
                            dtype=dtype, device=device)
 
 
 def write_random_mimi_gguf(path: Union[str, Path], seed: int = 0,
                            cfg: MimiConfig = MimiConfig(),
-                           num_filters: int = 64) -> None:
-    """A decode-only Mimi GGUF (F32) with random weights from `seed`,
-    kyutai/mimi widths by default."""
+                           num_filters: int = 64,
+                           encoder: bool = False) -> None:
+    """A Mimi GGUF (F32) with random weights from `seed`, kyutai/mimi
+    widths by default: decode-only, or with the encoder half."""
     wr = GGUFWriter(path, "mimi")
     wr.add_name("Mimi")
-    add_random_mimi(wr, seed, cfg, num_filters)
+    add_random_mimi(wr, seed, cfg, num_filters, encoder=encoder)
     wr.write()
 
 
 def add_random_mimi(wr: GGUFWriter, seed: int = 0,
                     cfg: MimiConfig = MimiConfig(),
-                    num_filters: int = 64) -> None:
-    """Add a random decode-only Mimi's KVs and F32 tensors to an open
-    writer (models/lm_init.py adds an LM adaptor beside them)."""
+                    num_filters: int = 64, encoder: bool = False) -> None:
+    """Add a random Mimi's KVs and F32 tensors to an open writer
+    (models/lm_init.py adds an LM adaptor beside them); decode-only unless
+    `encoder`."""
     params = random_mimi_params(cfg, num_filters, seed)
     for key, val in (("codec.sample_rate", cfg.sample_rate),
                      ("codec.hop_size", cfg.hop_size),
@@ -116,7 +120,7 @@ def add_random_mimi(wr: GGUFWriter, seed: int = 0,
                      ("codec.attn_window", cfg.window or 0)):
         wr.add_uint32(key, val)
     wr.add_float32("codec.rope_theta", cfg.rope_theta)
-    wr.add_bool("codec.has_encoder", False)
+    wr.add_bool("codec.has_encoder", encoder)
     wr.add_bool("codec.has_decoder", True)
 
     def add(name, x):
@@ -144,3 +148,18 @@ def add_random_mimi(wr: GGUFWriter, seed: int = 0,
         add_wb(f"dec.l{li + 1}.block.1.conv", stage["r1"])
         add_wb(f"dec.l{li + 1}.block.3.conv", stage["r2"])
     add_wb("dec.l14.conv", params["dec_l14"])
+    if not encoder:
+        return
+    add_wb("enc.l0.conv", params["enc_l0"])
+    for li, stage in zip((1, 4, 7, 10), params["enc_stages"]):
+        add_wb(f"enc.l{li}.block.1.conv", stage["r1"])
+        add_wb(f"enc.l{li}.block.3.conv", stage["r2"])
+        add_wb(f"enc.l{li + 2}.conv", stage["dn"])
+    add_wb("enc.l14.conv", params["enc_l14"])
+    for li, lw in enumerate(params["etr"]):
+        for key, suffix in _LAYER_KEYS.items():
+            add(f"etr.l{li}.{suffix}", lw[key])
+    add("dn.cv.w", params["dn"]["w"])
+    add("q.s.ip.w", params["sem_ip"])
+    if "acu_ip" in params:
+        add("q.a.ip.w", params["acu_ip"])

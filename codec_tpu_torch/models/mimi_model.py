@@ -1,5 +1,6 @@
 """MimiCodec: the CodecModel over models/mimi.py (counterpart of
-codec_tpu/models/mimi_model.py). Only decode is ported so far."""
+codec_tpu/models/mimi_model.py). Encode and decode are ported; the
+streaming sessions are not yet."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ import torch
 
 from ..io.gguf import GGUFReader
 from ..runtime.model import CodecError, CodecModel
-from .mimi import MimiConfig, load_mimi_params, mimi_decode_fn
+from .mimi import (MimiConfig, load_mimi_params, mimi_decode_fn,
+                   mimi_encode_fn)
 
 
 class MimiCodec(CodecModel):
@@ -30,11 +32,11 @@ class MimiCodec(CodecModel):
     def _decode_impl(self, codes: torch.Tensor, n_q: int) -> torch.Tensor:
         return mimi_decode_fn(self.params, codes, self.cfg, n_q=n_q)
 
-    def encode(self, pcm, n_q: int = 0):
-        raise CodecError("mimi: encode not yet ported")
+    def _encode_impl(self, pcm: torch.Tensor, n_q: int) -> torch.Tensor:
+        return mimi_encode_fn(self.params, pcm, self.cfg, n_q=n_q)
 
     def streaming_decoder(self, n_q: int = 0, batch: int = 1):
         raise CodecError("mimi: streaming decode not yet ported")
 
     def streaming_encoder(self, n_q: int = 0, batch: int = 1):
-        raise CodecError("mimi: encode not yet ported")
+        raise CodecError("mimi: streaming encode not yet ported")

@@ -1,7 +1,13 @@
-"""SNAC (hubertsiuzdak/snac_24khz), decode path, in PyTorch.
+"""SNAC (hubertsiuzdak/snac_24khz), encode and decode, in PyTorch.
 
 Counterpart of codec_tpu/models/snac.py:
 
+encode: zero-pad to a multiple of pad_to → conv k7 → 4 blocks [3 depthwise
+        residual units → snake → strided conv k=2s pad=ceil(s/2)] →
+        depthwise conv k7 → 3-level VQ at strides 4/2/1 (average-pool by
+        the stride → in_proj → cosine nearest code against the normalised
+        codebook → out_proj of the raw row, repeated s times, off the
+        residual) → codes in the Orpheus packing [B, T, 3]
 decode: codes in the Orpheus packing [B, T, 3] (level q reads every s_q-th
         row, strides 4/2/1) → latent = Σ_q repeat_s_q(out_proj_q(cb_q[idx]))
         → depthwise conv k7 → conv k1 → 4 blocks [snake → convtr k=2s
@@ -17,12 +23,15 @@ run through ops/seanet_cuda.py::snac_res_units (the CUDA kernel on the
 card, its plain version on the CPU).
 
 Parameters (`load_snac_params`, `params_from_jax`) are a dict of tensors:
-  vq: cb [n_q, V, d], out_w [n_q, latent, d], out_b [n_q, latent]
+  vq: cb, cb_norm [n_q, V, d], in_w [n_q, d, latent], in_b [n_q, d],
+      out_w [n_q, latent, d], out_b [n_q, latent]
   dec_in_dw, dec_in_pw, dec_final: {"w": [C_out, C_in/groups, K], "b"}
   dec_blocks[i]: act [C_in]; tr {"w": [C_in, C_out, K], "b"}; units, the
       block's residual units stacked in the kernel's layout: w1 per-channel
       taps [3, K, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C]
   dec_act_final [C]
+  with an encoder: enc0, enc_final as the decoder's convs; enc_blocks[i]:
+      units as the decoder's, act [C], down (the strided conv) {"w", "b"}
 """
 
 from __future__ import annotations
@@ -36,9 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
-from ..ops import act, seanet_cuda
+from ..ops import act, norms, seanet_cuda
 from ..runtime.model import CodecError, CodecModel
-from .dac import _to, _units
+from .dac import _down, _to, _units
 
 RES_DILATIONS = (1, 3, 9)
 
@@ -89,10 +98,9 @@ def _unit(w1, b1, a1, a2, w2, b2) -> Dict[str, np.ndarray]:
 
 def load_snac_params(r: GGUFReader, cfg: SnacConfig, dtype=torch.float32,
                      device="cpu") -> Dict[str, Any]:
-    """Quantizer (decode half) and decoder parameters from a SNAC GGUF
-    (wire layouts are PyTorch's; the residual units are restacked for the
-    kernel). The encoder's tensors and the quantizer's in_proj and
-    normalised codebooks (encode only) are not read."""
+    """Quantizer, decoder and (where the file has one) encoder parameters
+    from a SNAC GGUF (wire layouts are PyTorch's; the residual units are
+    restacked for the kernel)."""
     t = partial(_to, dtype=dtype, device=device)
 
     def wb(name):
@@ -103,35 +111,48 @@ def load_snac_params(r: GGUFReader, cfg: SnacConfig, dtype=torch.float32,
     def alpha(name):
         return np.asarray(r.get(f"{name}.alpha")).reshape(-1)
 
-    qs = [f"snac.q.{qi}" for qi in range(cfg.n_q)]
+    def units(pre):
+        return _units([_unit(r.get(f"{u}.conv1.w"), r.get(f"{u}.conv1.b"),
+                             alpha(f"{u}.act1"), alpha(f"{u}.act2"),
+                             r.get(f"{u}.conv2.w"), r.get(f"{u}.conv2.b"))
+                       for u in (f"{pre}.r{ri}"
+                                 for ri in range(len(RES_DILATIONS)))], t)
+
+    def stack(name, k1=False):
+        a = [np.asarray(r.get(f"snac.q.{qi}.{name}")) for qi in range(cfg.n_q)]
+        return t(np.stack([x[:, :, 0] for x in a] if k1 else a))
+
     p: Dict[str, Any] = {"vq": {
-        "cb": t(np.stack([r.get(f"{q}.codebook") for q in qs])),
-        "out_w": t(np.stack([np.asarray(r.get(f"{q}.out_proj.w"))[:, :, 0]
-                             for q in qs])),
-        "out_b": t(np.stack([r.get(f"{q}.out_proj.b") for q in qs])),
+        "cb": stack("codebook"), "cb_norm": stack("codebook_norm"),
+        "in_w": stack("in_proj.w", k1=True), "in_b": stack("in_proj.b"),
+        "out_w": stack("out_proj.w", k1=True), "out_b": stack("out_proj.b"),
     }}
     p["dec_in_dw"] = wb("snac.dec.conv_in_dw")
     p["dec_in_pw"] = wb("snac.dec.conv_in_pw")
     p["dec_blocks"] = []
     for bi in range(len(cfg.decoder_rates)):
         pre = f"snac.dec.b{bi}"
-        units = [_unit(r.get(f"{u}.conv1.w"), r.get(f"{u}.conv1.b"),
-                       alpha(f"{u}.act1"), alpha(f"{u}.act2"),
-                       r.get(f"{u}.conv2.w"), r.get(f"{u}.conv2.b"))
-                 for u in (f"{pre}.r{ri}" for ri in range(len(RES_DILATIONS)))]
         p["dec_blocks"].append({"act": t(alpha(f"{pre}.act")),
                                 "tr": wb(f"{pre}.convtr"),
-                                "units": _units(units, t)})
+                                "units": units(pre)})
     p["dec_act_final"] = t(alpha("snac.dec.act_final"))
     p["dec_final"] = wb("snac.dec.conv_final")
+    if r.has_tensor("snac.enc.conv0.w"):
+        p["enc0"] = wb("snac.enc.conv0")
+        p["enc_blocks"] = [{"units": units(f"snac.enc.b{bi}"),
+                            "act": t(alpha(f"snac.enc.b{bi}.act")),
+                            "down": wb(f"snac.enc.b{bi}.down")}
+                           for bi in range(1, len(cfg.encoder_rates) + 1)]
+        p["enc_final"] = wb("snac.enc.conv_final")
     return p
 
 
 def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, Any]:
-    """The quantizer (decode half) and decoder of a codec_tpu SNAC
-    parameter tree (from its `load_snac_params`, leaves as NumPy arrays or
-    anything np.asarray takes) → this module's parameters.
+    """The quantizer, decoder and (where the tree has one) encoder of a
+    codec_tpu SNAC parameter tree (from its `load_snac_params`, leaves as
+    NumPy arrays or anything np.asarray takes) → this module's
+    parameters.
 
     codec_tpu keeps conv weights WIO [K, C_in/groups, C_out] (depthwise:
     [K, 1, C]) and convtr weights WIO pre-flipped along K; the plain convs
@@ -149,23 +170,34 @@ def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
         return {"w": t(np.asarray(layer["w"])[::-1].transpose(1, 2, 0)),
                 "b": t(layer["b"])}
 
+    def units(blk):
+        return _units([_unit(torch_w(u["c1"]["w"]), u["c1"]["b"], u["a1"],
+                             u["a2"], torch_w(u["c2"]["w"]), u["c2"]["b"])
+                       for u in blk["units"]], t)
+
+    def stack(get):
+        return t(np.stack([np.asarray(get(q)) for q in tree["q"]]))
+
     p: Dict[str, Any] = {"vq": {
-        "cb": t(np.stack([np.asarray(q["cb"]) for q in tree["q"]])),
-        "out_w": t(np.stack([torch_w(q["out"]["w"])[:, :, 0]
-                             for q in tree["q"]])),
-        "out_b": t(np.stack([np.asarray(q["out"]["b"]) for q in tree["q"]])),
+        "cb": stack(lambda q: q["cb"]),
+        "cb_norm": stack(lambda q: q["cb_norm"]),
+        "in_w": stack(lambda q: torch_w(q["in"]["w"])[:, :, 0]),
+        "in_b": stack(lambda q: q["in"]["b"]),
+        "out_w": stack(lambda q: torch_w(q["out"]["w"])[:, :, 0]),
+        "out_b": stack(lambda q: q["out"]["b"]),
     }}
     p["dec_in_dw"] = cv(tree["dec_in_dw"])
     p["dec_in_pw"] = cv(tree["dec_in_pw"])
-    p["dec_blocks"] = [{
-        "act": t(blk["act"]),
-        "tr": tr(blk["tr"]),
-        "units": _units([_unit(torch_w(u["c1"]["w"]), u["c1"]["b"], u["a1"],
-                               u["a2"], torch_w(u["c2"]["w"]), u["c2"]["b"])
-                         for u in blk["units"]], t),
-    } for blk in tree["dec_blocks"]]
+    p["dec_blocks"] = [{"act": t(blk["act"]), "tr": tr(blk["tr"]),
+                        "units": units(blk)} for blk in tree["dec_blocks"]]
     p["dec_act_final"] = t(tree["dec_act_final"])
     p["dec_final"] = cv(tree["dec_final"])
+    if "enc0" in tree:
+        p["enc0"] = cv(tree["enc0"])
+        p["enc_blocks"] = [{"units": units(blk), "act": t(blk["act"]),
+                            "down": cv(blk["down"])}
+                           for blk in tree["enc_blocks"]]
+        p["enc_final"] = cv(tree["enc_final"])
     return p
 
 
@@ -242,6 +274,48 @@ def snac_decode_fn(params: Dict[str, Any], codes: torch.Tensor,
     return torch.tanh(x[..., 0])
 
 
+def snac_encode_latent_fn(params: Dict[str, Any], pcm: torch.Tensor,
+                          cfg: SnacConfig,
+                          res_units: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """pcm [B, n] (n a multiple of pad_to) on the parameters' device → the
+    latent before the VQ [B, n/hop, latent]. `res_units` as in
+    `snac_decode_fn`."""
+    run_units = res_units or kernel_res_units
+    x = _conv(pcm[..., None], params["enc0"])
+    for blk in params["enc_blocks"]:
+        x = run_units(x, blk["units"])
+        x = _down(act.snake(x, blk["act"]), blk["down"])
+    return _conv(x, params["enc_final"])
+
+
+def snac_quantize(vq: Dict[str, torch.Tensor], latent: torch.Tensor,
+                  cfg: SnacConfig) -> torch.Tensor:
+    """The multi-scale VQ: latent [B, T, latent] (T a multiple of the
+    coarsest stride) → codes [B, T, 3] in the Orpheus packing (level q's
+    code repeated s_q times)."""
+    residual, packed = latent, []
+    b, t, c = latent.shape
+    for q, stride in enumerate(cfg.vq_strides):
+        pooled = residual.reshape(b, t // stride, stride, c).mean(dim=2)
+        z = pooled @ vq["in_w"][q].T + vq["in_b"][q]
+        sims = torch.matmul(norms.l2_normalize(z), vq["cb_norm"][q].T)
+        idx = torch.argmax(sims.float(), dim=-1)                   # [B, t_q]
+        zq = vq["cb"][q][idx] @ vq["out_w"][q].T + vq["out_b"][q]
+        residual = residual - zq.repeat_interleave(stride, dim=1)
+        packed.append(idx.to(torch.int32).repeat_interleave(stride, dim=1))
+    return torch.stack(packed, dim=-1)
+
+
+def snac_encode_fn(params: Dict[str, Any], pcm: torch.Tensor,
+                   cfg: SnacConfig,
+                   res_units: Optional[Callable] = None) -> torch.Tensor:
+    """pcm [B, n] (n a multiple of pad_to) → packed codes [B, n/hop, 3]
+    int32 (reference: codec_tpu/models/snac.py::snac_encode_fn)."""
+    latent = snac_encode_latent_fn(params, pcm, cfg, res_units=res_units)
+    return snac_quantize(params["vq"], latent, cfg)
+
+
 class SnacCodec(CodecModel):
     arch = "snac"
     causal_time = False
@@ -274,5 +348,18 @@ class SnacCodec(CodecModel):
             raise CodecError(f"SNAC n_frames must be a multiple of {stride}")
         return super().decode(codes, n_q=n_q, pcm_format=pcm_format)
 
-    def encode(self, pcm, n_q: int = 0):
-        raise CodecError("snac: encode not yet ported")
+    def _encode_impl(self, pcm: torch.Tensor, n_q: int) -> torch.Tensor:
+        return snac_encode_fn(self.params, pcm, self.cfg)
+
+    def encode(self, pcm, n_q: int = 0) -> np.ndarray:
+        """pcm [n] / [B, n] (float32, or int16 kept as it is) → packed
+        codes [T, 3] / [B, T, 3] with T = ceil(n / pad_to) · pad_to / hop:
+        the input is zero-padded to a multiple of pad_to first."""
+        pcm = np.asarray(pcm)
+        if pcm.dtype != np.int16:
+            pcm = np.asarray(pcm, np.float32)
+        n = pcm.shape[-1] if pcm.ndim else 0
+        pad = -(-n // self.cfg.pad_to) * self.cfg.pad_to - n
+        if pad and pcm.ndim in (1, 2):
+            pcm = np.pad(pcm, [(0, 0)] * (pcm.ndim - 1) + [(0, pad)])
+        return super().encode(pcm, n_q=n_q)

@@ -1,14 +1,18 @@
-"""Random SNAC decode weights and GGUF files from a seed.
+"""Random SNAC weights and GGUF files from a seed.
 
 Shapes mirror hubertsiuzdak/snac_24khz by default: latent 768, decoder
 width 1024 halving per block to 512/256/128/64, up rates 8/8/4/2, 3
 codebooks of 4096 x 8 at strides 4/2/1, hop 512 (the widths of
-codec_tpu/models/bench_init.py::random_snac_params).
+codec_tpu/models/bench_init.py::random_snac_params), and, with
+`encoder=True`, the encoder: width latent/16 (48) doubling per block over
+the down rates 2/4/8/8 to the latent, depthwise residual units, a
+depthwise k7 conv last.
 `write_random_snac_gguf` writes them under the wire names, layouts and KVs
 that both packages' `load_snac_params` read (those of
 codec_tpu/convert/snac.py), so `load_model(path)` runs its real path with
 no download. It also writes the quantizer's in_proj and normalised
-codebooks, which codec_tpu's loader reads even for decode.
+codebooks, which both loaders read. The encoder is drawn after the rest,
+so a seed gives the same decoder with or without it.
 
 Each conv weight is drawn with std gain/sqrt(K * C_in / groups) and each
 convtr weight with std gain/sqrt(2 * C_in) (k = 2s taps at stride s: two
@@ -36,11 +40,18 @@ _BIAS_STD = 0.01
 _GAINS = {"res": 0.4, "final": 0.1}
 
 
+def _encoder_dim(cfg: SnacConfig) -> int:
+    """The encoder's first width: it doubles at each down rate to the
+    latent (48 for snac_24khz)."""
+    return cfg.latent_dim >> len(cfg.encoder_rates)
+
+
 def random_snac_params(cfg: SnacConfig = SnacConfig(), seed: int = 0,
-                       decoder_dim: int = 1024) -> Dict[str, np.ndarray]:
-    """Quantizer and decoder weights, float32, by wire name (PyTorch
-    layouts: conv [C_out, C_in/groups, K], convtr [C_in, C_out, K], alpha
-    [C])."""
+                       decoder_dim: int = 1024,
+                       encoder: bool = False) -> Dict[str, np.ndarray]:
+    """Quantizer, decoder and (with `encoder`) encoder weights, float32, by
+    wire name (PyTorch layouts: conv [C_out, C_in/groups, K], convtr
+    [C_in, C_out, K], alpha [C])."""
     if int(np.prod(cfg.decoder_rates)) != cfg.hop_size:
         raise ValueError(f"decoder rates {cfg.decoder_rates} do not give hop "
                          f"{cfg.hop_size}")
@@ -85,14 +96,32 @@ def random_snac_params(cfg: SnacConfig = SnacConfig(), seed: int = 0,
             conv(f"{unit}.conv2", c, c, 1, gain=_GAINS["res"])
     alpha("snac.dec.act_final", c)
     conv("snac.dec.conv_final", c, 1, 7, gain=_GAINS["final"])
+    if not encoder:
+        return p
+    c = _encoder_dim(cfg)
+    conv("snac.enc.conv0", 1, c, 7)
+    for bi, s in enumerate(cfg.encoder_rates, start=1):
+        pre = f"snac.enc.b{bi}"
+        for ri in range(3):
+            unit = f"{pre}.r{ri}"
+            alpha(f"{unit}.act1", c)
+            conv(f"{unit}.conv1", c, c, 7, depthwise=True)
+            alpha(f"{unit}.act2", c)
+            conv(f"{unit}.conv2", c, c, 1, gain=_GAINS["res"])
+        alpha(f"{pre}.act", c)
+        conv(f"{pre}.down", c, 2 * c, 2 * s)
+        c *= 2
+    conv("snac.enc.conv_final", c, c, 7, depthwise=True)
     return p
 
 
 def write_random_snac_gguf(path: Union[str, Path], seed: int = 0,
                            cfg: SnacConfig = SnacConfig(),
-                           decoder_dim: int = 1024) -> None:
-    """A decode-only SNAC GGUF (F32) with random weights from `seed`."""
-    params = random_snac_params(cfg, seed, decoder_dim)
+                           decoder_dim: int = 1024,
+                           encoder: bool = False) -> None:
+    """A SNAC GGUF (F32) with random weights from `seed`: decode-only, or
+    with the encoder."""
+    params = random_snac_params(cfg, seed, decoder_dim, encoder)
     wr = GGUFWriter(path, "snac")
     wr.add_name("SNAC")
     for key, val in (("codec.sample_rate", cfg.sample_rate),
@@ -103,12 +132,12 @@ def write_random_snac_gguf(path: Union[str, Path], seed: int = 0,
                      ("codec.codebook_size", cfg.codebook_size),
                      ("codec.codebook_dim", cfg.codebook_dim),
                      ("codec.latent_dim", cfg.latent_dim),
-                     # snac_24khz's encoder width, as the converter writes
-                     # it; the file holds no encoder (codec.has_encoder)
-                     ("snac.encoder_dim", 48),
+                     # the encoder width, as the converter writes it
+                     # (written whether or not the file holds the encoder)
+                     ("snac.encoder_dim", _encoder_dim(cfg)),
                      ("snac.decoder_dim", decoder_dim)):
         wr.add_uint32(key, val)
-    wr.add_bool("codec.has_encoder", False)
+    wr.add_bool("codec.has_encoder", encoder)
     wr.add_bool("codec.has_decoder", True)
     wr.add_array("snac.encoder_rates", list(cfg.encoder_rates))
     wr.add_array("snac.decoder_rates", list(cfg.decoder_rates))

@@ -9,8 +9,9 @@ run their conv stacks through them, with the weights converted once at load.
 
 Causal padding as in the reference:
   pad_left  = (k-1)*dilation + 1 - stride
-  pad_right = ceil(t/stride)*stride - t      (zeros)
-so output frame i depends only on inputs < (i+1)*stride.
+  pad_right = ceil(t/stride)*stride - t
+so output frame i depends only on inputs < (i+1)*stride. The pads are
+zeros, or copies of the edge frames with pad_mode="replicate".
 """
 
 from __future__ import annotations
@@ -32,12 +33,19 @@ def _cf(x: torch.Tensor) -> torch.Tensor:
 
 def conv1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, stride: int = 1,
-                     dilation: int = 1) -> torch.Tensor:
-    """Causal conv, channels-first. x: [B, C_in, T], w: [C_out, C_in, K]."""
+                     dilation: int = 1, pad_mode: str = "zeros"
+                     ) -> torch.Tensor:
+    """Causal conv, channels-first. x: [B, C_in, T], w: [C_out, C_in, K];
+    pad_mode "zeros" or "replicate"."""
     pad_left, pad_right = _causal_pads(x.shape[-1], w.shape[-1], stride,
                                        dilation)
-    return F.conv1d(F.pad(x, (pad_left, pad_right)), w, b, stride=stride,
-                    dilation=dilation)
+    if pad_mode == "replicate":
+        x = F.pad(x, (pad_left, pad_right), mode="replicate")
+    elif pad_mode == "zeros":
+        x = F.pad(x, (pad_left, pad_right))
+    else:
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    return F.conv1d(x, w, b, stride=stride, dilation=dilation)
 
 
 def convtr1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
@@ -63,10 +71,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None, stride: int = 1,
-                  dilation: int = 1) -> torch.Tensor:
-    """Causal conv. x: [B, T, C_in], w: [K, C_in, C_out]."""
+                  dilation: int = 1, pad_mode: str = "zeros") -> torch.Tensor:
+    """Causal conv. x: [B, T, C_in], w: [K, C_in, C_out]; pad_mode "zeros"
+    or "replicate"."""
     return _cf(conv1d_causal_cf(_cf(x), w.permute(2, 1, 0), b, stride=stride,
-                                dilation=dilation))
+                                dilation=dilation, pad_mode=pad_mode))
 
 
 def convtr1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

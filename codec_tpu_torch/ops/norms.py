@@ -20,3 +20,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     """RMSNorm over the trailing dim, in x's dtype: x / rms(x) * gamma."""
     ms = torch.mean(x * x, dim=-1, keepdim=True)
     return x * torch.rsqrt(ms + eps) * gamma
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalize over the trailing (channel) dim (cosine RVQ)."""
+    n = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    return x / torch.clamp(n, min=eps)

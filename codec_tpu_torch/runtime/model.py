@@ -1,11 +1,15 @@
-"""CodecModel: the public runtime object (load → decode).
+"""CodecModel: the public runtime object (load → encode / decode).
 
 Counterpart of codec_tpu/runtime/model.py, eager: no jit cache, no shape
 buckets, no mesh. Decoding at the exact T gives what the reference's
 padded-and-cropped decode gives: a causal arch is cropped to T*hop
 samples, and a non-causal one (`causal_time = False`) keeps its whole
-output, as the reference decodes it unpadded. Each model holds its
-parameters on one `device` in one `compute_dtype`.
+output, as the reference decodes it unpadded. Encoding at the exact length
+gives what the reference's bucketed encode gives: a causal arch pads each
+strided conv's input with zeros to a stride multiple (ops/conv.py), which
+is what the reference's per-layer re-mask of its bucket pad computes, and
+is cropped to ceil(n/hop) frames. Each model holds its parameters on one
+`device` in one `compute_dtype`.
 """
 
 from __future__ import annotations
@@ -106,6 +110,9 @@ class CodecModel:
         self.reader = reader
         self.device = torch.device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype, reader)
+        # encode with TF32 off: f32 compute is the parity path, bf16 the
+        # fast one (load_model's exact_encode overrides it)
+        self.exact_encode = self.compute_dtype == torch.float32
         self.metadata: Dict[str, Any] = dict(reader.kv)
         self._load(reader)
 
@@ -115,6 +122,11 @@ class CodecModel:
 
     def _decode_impl(self, codes: torch.Tensor, n_q: int) -> torch.Tensor:
         """codes [B, T, n_q] int64 on the device → pcm [B, T*hop]."""
+        raise NotImplementedError
+
+    def _encode_impl(self, pcm: torch.Tensor, n_q: int) -> torch.Tensor:
+        """pcm [B, n] in the compute dtype on the device → codes
+        [B, T, n_q] int."""
         raise NotImplementedError
 
     # -- public API --------------------------------------------------------
@@ -153,6 +165,39 @@ class CodecModel:
             lambda: self._decode_impl(c.to(self.device), use_nq), pcm_format,
             codes.shape[1] * self.hop_size if self.causal_time else None)
         return out[0] if squeeze else out
+
+    def encode(self, pcm, n_q: int = 0) -> np.ndarray:
+        """pcm: [n] / [B, n] float32 in [-1, 1], or int16 PCM, which goes to
+        the device as it is and becomes x * (1/32768) there → codes int32
+        [T, n_q] / [B, T, n_q] on the host.
+
+        n_q=0 means all model codebooks. With `exact_encode` (the default
+        for f32 compute) the encode runs with TF32 off."""
+        if not self.has_encoder:
+            raise CodecError(f"{self.arch}: model has no encoder")
+        pcm = np.asarray(pcm)
+        i16_in = pcm.dtype == np.int16
+        if not i16_in:
+            pcm = pcm.astype(np.float32)
+        squeeze = pcm.ndim == 1
+        if squeeze:
+            pcm = pcm[None]
+        if pcm.ndim != 2 or pcm.shape[1] == 0:
+            raise CodecError(f"bad pcm shape {pcm.shape}")
+        use_nq = n_q if n_q > 0 else self.n_q
+        if n_q < 0 or use_nq < 1 or use_nq > self.n_q:
+            raise CodecError(f"n_q must be 0 or in [1, {self.n_q}]")
+        n = pcm.shape[1]
+        x = torch.from_numpy(np.array(pcm, order="C"))     # a writable copy
+        with torch.inference_mode(), f32_precision(self.exact_encode):
+            x = x.to(self.device)
+            if i16_in:
+                x = x.float() * (1.0 / 32768.0)
+            codes = self._encode_impl(x.to(self.compute_dtype), use_nq)
+            if self.causal_time:
+                codes = codes[:, :-(-n // self.hop_size)]
+            codes = codes.to(torch.int32).cpu().numpy()
+        return codes[0] if squeeze else codes
 
     def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
         raise CodecError(f"{self.arch}: decode_latent not supported")

@@ -62,13 +62,14 @@ def test_import_builds_nothing_and_needs_no_nvcc():
     """The module imports where there is no nvcc and no GPU; the kernel is
     built only by its first CUDA launch."""
     from codec_tpu_torch.kernels import build
-    from codec_tpu_torch.ops import qmat_cuda
+    from codec_tpu_torch.ops import qmat_cuda, rvq_cuda
 
     assert build.load_library.cache_info().currsize == 0
     assert attn_cuda._kernel_fn.cache_info().currsize == 0
     assert qmat_cuda._kernel_fns.cache_info().currsize == 0
+    assert rvq_cuda._lib.cache_info().currsize == 0
     assert build.sources() == [build.CSRC_DIR / name for name in (
-        "flash_sdpa_window.cu", "qmat.cu", "seanet_res.cu",
+        "flash_sdpa_window.cu", "qmat.cu", "rvq_encode.cu", "seanet_res.cu",
         "seanet_tiles.cuh", "snac_res.cu")]
 
 

@@ -590,3 +590,202 @@ def test_tts_cli_synthesize_on_card(dev, tmp_path):
                  "3", "--quant-exec"]) == 0
     pcm, sr = read_wav(out)
     assert sr == 24000 and pcm.shape == (3 * 1920, 1)
+
+
+# -- the fused RVQ search, the encoder widths of the res-unit kernels, and
+# -- encode on the card ---------------------------------------------------------
+
+def _rvq_inputs(b, t, d, n_q, v, dev, kind, seed=0):
+    """x [b, t, d], codebooks [n_q, v, d] f32. "int": small integers, so
+    every product and sum is exact in f32 and ties are many; "dup": the
+    same with every row v + v/2 a copy of row v; "normal": N(0, 1) frames
+    and N(0, 0.5) codebooks; "tiny": normal frames near 0 (the norms
+    decide)."""
+    rng = np.random.default_rng(seed)
+    if kind in ("int", "dup"):
+        x = rng.integers(-3, 4, (b, t, d))
+        cb = rng.integers(-3, 4, (n_q, v, d))
+        if kind == "dup":
+            cb[:, v // 2: 2 * (v // 2)] = cb[:, : v // 2]
+    else:
+        x = rng.standard_normal((b, t, d)) * (1e-3 if kind == "tiny" else 1.0)
+        cb = rng.standard_normal((n_q, v, d)) * 0.5
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(cb.astype(np.float32)).to(dev))
+
+
+# the Mimi shapes (20 s b1 acoustic and semantic, b4), the unaligned
+# shapes of tests/test_rvq_pallas.py, D no multiple of 4 (4-byte staging)
+# and V above 8 x 256 (several row tiles per block)
+RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
+              (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
+              (2, 33, 30, 3, 70), (1, 40, 64, 2, 5000)]
+
+
+@pytest.mark.parametrize("kind", ["int", "normal", "dup"])
+@pytest.mark.parametrize("b,t,d,n_q,v", RVQ_SHAPES)
+def test_rvq_kernel_matches_plain(dev, kind, b, t, d, n_q, v):
+    """Integer-valued inputs, also with duplicated rows: bit for bit, and
+    the lower copy wins. Normal inputs: equal, or each differing frame's
+    first differing level an f64 near-tie."""
+    from codec_tpu_torch.ops import rvq
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from encode_ties import assert_codes, euclid_margin, f64
+
+    x, cb = _rvq_inputs(b, t, d, n_q, v, dev, kind, seed=b * t + v)
+    got = rvq_encode_fused(x, cb)
+    want = rvq.rvq_encode(x, cb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (b, t, n_q)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if kind in ("int", "dup"):
+        np.testing.assert_array_equal(got, want)
+        assert got.max() < (v // 2 if kind == "dup" else v)
+        return
+    x64, cb64 = f64(x).reshape(b * t, d), f64(cb)
+    g, w = got.reshape(b * t, n_q), want.reshape(b * t, n_q)
+    assert_codes(g, w, lambda fr, q: euclid_margin(x64[fr], cb64, w[fr, :q],
+                                                   g[fr, q], w[fr, q]))
+
+
+def test_rvq_kernel_never_picks_rows_past_v(dev):
+    from codec_tpu_torch.ops import rvq
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+
+    x, cb = _rvq_inputs(1, 300, 64, 3, 5, dev, "tiny", seed=1)
+    got = rvq_encode_fused(x, cb)
+    torch.cuda.synchronize()
+    assert int(got.min()) >= 0 and int(got.max()) < 5
+    assert torch.equal(got, rvq.rvq_encode(x, cb))
+
+
+def test_rvq_counter_counts_kernel_launches_only(dev):
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+
+    x, cb = _rvq_inputs(1, 20, 32, 2, 40, dev, "normal")
+    before = rvq_encode_fused.launches
+    rvq_encode_fused(x, cb)
+    rvq_encode_fused(x.cpu(), cb.cpu())
+    assert rvq_encode_fused.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["bf16", "cpu_codebook", "layout", "dim"])
+def test_rvq_kernel_rejects_what_it_does_not_take(dev, case):
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+
+    x, cb = _rvq_inputs(1, 16, 32, 2, 40, dev, "normal")
+    if case == "bf16":
+        x, cb = x.bfloat16(), cb.bfloat16()
+    elif case == "cpu_codebook":
+        cb = cb.cpu()
+    elif case == "layout":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        cb = cb[..., :16].contiguous()
+    with pytest.raises(ValueError):
+        rvq_encode_fused(x, cb)
+
+
+# the encoders' widths: DAC's units at C = 64 (T = n) and 512 (T = n/40),
+# SNAC's at C = 48 (T = n, no multiple of the 32-channel staging) and 384
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c", [(4000, 64), (300, 512)])
+def test_res_units_at_the_dac_encoder_widths(dev, dtype, t, c):
+    p = _res_params(3, c, dtype, dev, seed=c)
+    x = _x((1, t, c), dtype, dev, seed=5)
+    got = seanet_cuda.seanet_res_units(x, **p, dilations=DILS)
+    _check_against_plain(got, x, p, dtype, _chain_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c", [(4100, 48), (500, 384)])
+def test_dw_units_at_the_snac_encoder_widths(dev, dtype, t, c):
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    p = _dw_params(3, c, dtype, dev, seed=c)
+    x = _x((1, t, c), dtype, dev, seed=6) * 0.3
+    before = seanet_cuda.snac_res_chain.launches
+    got = seanet_cuda.snac_res_units(x, **p, dilations=DILS)
+    assert seanet_cuda.snac_res_chain.launches == before + 3
+    with f32_precision(True):
+        want = seanet_cuda.snac_res_chain_ref(
+            x.float(), **{k: v.float() for k, v in p.items()}, dilations=DILS)
+    torch.cuda.synchronize()
+    g, w = got.float().cpu().numpy(), want.cpu().numpy()
+    corr = np.corrcoef(g.ravel(), w.ravel())[0, 1]
+    if dtype == torch.float32:
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert corr > 0.99999, corr
+    else:
+        np.testing.assert_allclose(g, w, rtol=3e-2, atol=8e-2)
+        assert corr > 0.9995, corr
+
+
+@pytest.fixture(scope="module")
+def encoder_ggufs(tmp_path_factory):
+    """Small random files with encoders: Mimi (2 layers), DAC and SNAC at
+    their published encoder widths with narrow decoders."""
+    from codec_tpu_torch.models import dac, dac_init, mimi_init, snac, snac_init
+    from codec_tpu_torch.models.mimi import MimiConfig
+
+    d = tmp_path_factory.mktemp("enc")
+    mimi_init.write_random_mimi_gguf(d / "mimi.gguf", seed=4, num_filters=8,
+                                     cfg=MimiConfig(**SMALL), encoder=True)
+    dac_init.write_random_dac_gguf(d / "dac.gguf", seed=4, decoder_dim=64,
+                                   encoder=True, cfg=dac.DacConfig(
+                                       n_q=4, codebook_size=64))
+    snac_init.write_random_snac_gguf(d / "snac.gguf", seed=4, decoder_dim=64,
+                                     encoder=True, cfg=snac.SnacConfig(
+                                         codebook_size=64))
+    return d
+
+
+@pytest.mark.parametrize("arch,n", [("mimi", 12 * 1920 + 517),
+                                    ("dac", 40 * 320), ("snac", 2 * 2048)])
+def test_encode_on_card_uses_kernels_and_matches_cpu(dev, encoder_ggufs, arch,
+                                                     n):
+    """The card's encode makes its launches and gives the codes of the
+    port on the CPU (the plain path, which the CPU tests hold against
+    codec_tpu) under the near-tie rule."""
+    import codec_tpu_torch
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from encode_ties import assert_codes, model_margin
+
+    path = encoder_ggufs / f"{arch}.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    pcm = np.random.default_rng(7).standard_normal(n).astype(np.float32) * 0.3
+    wrappers = (flash_sdpa_window, rvq_encode_fused, seanet_cuda.seanet_res_unit,
+                seanet_cuda.seanet_res_chain, seanet_cuda.snac_res_chain)
+    before = [w.launches for w in wrappers]
+    got = gpu.encode(pcm)
+    step = [w.launches - b for w, b in zip(wrappers, before)]
+    if arch == "mimi":
+        assert step == [SMALL["n_layers"], 2, 0, 0, 0]
+    elif arch == "dac":
+        limit = seanet_cuda.smem_per_block(0)
+        chains = sum(seanet_cuda.use_chain(c, 7, DILS, torch.float32, limit)
+                     for c in (64, 128, 256, 512))
+        assert step == [0, 0, 3 * (4 - chains), chains, 0]
+    else:
+        assert step == [0, 0, 0, 0, 12]
+    want = cpu.encode(pcm)
+    assert got.shape == want.shape
+    assert_codes(got, want, model_margin(cpu, pcm, want, got))
+    assert np.isfinite(gpu.decode(got)).all()
+
+
+def test_cli_encode_and_e2e_on_card(dev, encoder_ggufs, tmp_path):
+    from codec_tpu_torch.cli.codec_cli import main
+    from codec_tpu_torch.io.wav import read_wav, write_wav
+
+    pcm = np.random.default_rng(8).standard_normal(5 * 1920).astype(np.float32)
+    write_wav(tmp_path / "in.wav", pcm * 0.3, 24000)
+    model = str(encoder_ggufs / "mimi.gguf")
+    assert main(["encode", "--model", model, "--in", str(tmp_path / "in.wav"),
+                 "--codes", str(tmp_path / "c.npy")]) == 0
+    assert np.load(tmp_path / "c.npy").shape == (5, 4)
+    assert main(["e2e", "--model", model, "--in", str(tmp_path / "in.wav"),
+                 "--out", str(tmp_path / "o.wav")]) == 0
+    x, sr = read_wav(tmp_path / "o.wav")
+    assert sr == 24000 and x.shape == (5 * 1920, 1)

@@ -162,9 +162,17 @@ def test_bad_latent_shape_raises(tiny, shape):
         tiny["port"].decode_latent(np.zeros(shape, np.float32))
 
 
-def test_encode_not_yet_ported(tiny):
-    with pytest.raises(CodecError, match="not yet ported"):
-        tiny["port"].encode(np.zeros(320, np.float32))
+def test_encode_not_yet_ported(tiny, tmp_path):
+    """Encode is ported (the HF fixture has an encoder); a decode-only
+    file raises."""
+    assert tiny["port"].encode(np.zeros(320, np.float32)).shape == (1, NQ)
+    path = tmp_path / "decode_only.gguf"
+    dac_init.write_random_dac_gguf(path, seed=0, cfg=dac.DacConfig(
+        n_q=2, codebook_size=16, codebook_dim=4, latent_dim=8), decoder_dim=16)
+    dec_only = codec_tpu_torch.load_model(path, device="cpu")
+    assert not dec_only.has_encoder
+    with pytest.raises(CodecError, match="no encoder"):
+        dec_only.encode(np.zeros(320, np.float32))
 
 
 def test_output_length_follows_causality(tiny, tmp_path):

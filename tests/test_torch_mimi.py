@@ -156,12 +156,19 @@ def test_bad_decode_arguments_raise(tiny, codes_shape, n_q, fmt):
                             pcm_format=fmt)
 
 
-def test_encode_and_streaming_not_yet_ported(tiny):
+def test_encode_and_streaming_not_yet_ported(tiny, tmp_path):
+    """The streaming sessions are not ported yet; encode is, and a
+    decode-only file has no encoder."""
     p = tiny["port"]
-    for call in (lambda: p.encode(np.zeros(1920, np.float32)),
-                 p.streaming_decoder, p.streaming_encoder):
+    for call in (p.streaming_decoder, p.streaming_encoder):
         with pytest.raises(CodecError, match="not yet ported"):
             call()
+    path = tmp_path / "decode_only.gguf"
+    mimi_init.write_random_mimi_gguf(path, seed=0, cfg=SMALL, num_filters=8)
+    dec_only = codec_tpu_torch.load_model(path, device="cpu")
+    assert p.has_encoder and not dec_only.has_encoder
+    with pytest.raises(CodecError, match="no encoder"):
+        dec_only.encode(np.zeros(1920, np.float32))
 
 
 def test_unported_arch_raises(tmp_path):
@@ -271,7 +278,10 @@ def test_port_imports_neither_jax_nor_codec_tpu():
     """The port runs where JAX is absent. (A sys.modules check cannot work
     in a process that has JAX loaded, so scan the sources.)"""
     bad = []
-    for f in sorted((ROOT / "codec_tpu_torch").rglob("*.py")):
+    files = sorted((ROOT / "codec_tpu_torch").rglob("*.py"))
+    assert {"rvq.py", "rvq_cuda.py", "model.py", "codec_cli.py"} <= {
+        f.name for f in files}
+    for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

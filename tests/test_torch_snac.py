@@ -298,8 +298,10 @@ def test_frames_must_be_a_multiple_of_four_in_both(tiny):
 
 
 def test_encode_and_decode_latent_raise(tiny):
+    """The fixture is decode-only: encode raises, and SNAC has no
+    decode_latent in either package."""
     p = tiny["port"]
-    with pytest.raises(CodecError, match="not yet ported"):
+    with pytest.raises(CodecError, match="no encoder"):
         p.encode(np.zeros(2048, np.float32))
     with pytest.raises(CodecError, match="decode_latent not supported"):
         p.decode_latent(np.zeros((8, 64), np.float32))
