@@ -7,7 +7,8 @@ that the port builds, is right, and decodes on the card.
 Phases (any failure raises and exits non-zero before the last line):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc, one process
-     per source)
+     per source); the packed products' ptxas stack frames and spills and
+     their SASS I2F counts (cuobjdump), all of which must be 0
   3. each kernel against its plain PyTorch version on the card (the
      residual units also at the encoders' widths, the RVQ search also on
      integer-valued inputs and duplicated rows, where it must agree bit
@@ -47,7 +48,9 @@ Phases (any failure raises and exits non-zero before the last line):
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
      the same function; device times of the packed products from
-     torch.profiler; per-request TTS times (median of 3 runs after one
+     torch.profiler, warm (one matrix again and again), cold (cycling over
+     the loaded backbones' 16 layers of each shape) at m = 1 and 16, and
+     one backbone forward's 112 products; per-request TTS times (median of 3 runs after one
      warm-up); per-request encode times (median of 10 after 2 warm-ups)
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
@@ -134,6 +137,11 @@ SNAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
 QMAT_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
 QMAT_MS = (1, 16, 32)
 QMAT_MAIN = (8192, 2048)                # gate/up, the kernels' line shape
+SHAPE_NAMES = {(2048, 2048): "q/o", (512, 2048): "k/v", (8192, 2048): "gate/up",
+               (2048, 8192): "down"}
+FORWARD_ORDER = ("q", "k", "v", "o", "gate", "up", "down")
+L2_BYTES = 50 * 2 ** 20
+FLUSH_BYTES = 64 * 2 ** 20
 # -- the CSM TTS path: (name, backbone qtype, prefill bucket); each request
 # is a 16-token prompt (ids from SEED) to 25 greedy frames (2 s at 12.5 Hz)
 TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
@@ -205,13 +213,14 @@ def ptxas_report(nvcc_log: str) -> list:
         if m:
             mangled = m.group(1)
             tile = re.search(r"(FmaTile|MmaTile)I((?:Li\d+E)+)", mangled)
-            rows = re.search(r"matmul_kernelILi(\d+)E", mangled)
+            rows = re.search(r"matmul_kernelI(?:Lb(\d)E)?Li(\d+)E", mangled)
             name = " ".join(filter(None, [
                 kernel_name(mangled),
                 "bf16" if "bfloat16" in mangled else "f32",
                 tile and f"{tile.group(1)}<"
                 f"{','.join(re.findall(r'Li(\d+)E', tile.group(2)))}>",
-                rows and f"m<={rows.group(1)}"]))
+                rows and f"m<={rows.group(2)}",
+                rows and rows.group(1) == "0" and "cp.async"]))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -419,6 +428,29 @@ def device_ms(fn, n: int = 50):
     return total / 1e3 / n if total > 0 else None
 
 
+def profiled_ms(fn, calls: int, keep) -> float:
+    """Device time per call: fn runs once to warm up, then once under
+    torch.profiler; the self time of the kernels whose name `keep` accepts
+    (aten ops left out), / calls. Raises when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0 and not e.key.startswith("aten::")
+                and keep(e.key))
+    if not total > 0:
+        raise RuntimeError("torch.profiler reported no device time")
+    return total / 1e3 / calls
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 class Recorder:
     """The Backbone protocol around a LlamaBackbone that records each call:
     (kind, input rows, returned hidden, host seconds). Every call ends in
@@ -480,6 +512,7 @@ def main() -> int:
     from codec_tpu_torch.models import mimi
     from codec_tpu_torch.ops.rvq import rvq_encode
     from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from codec_tpu_torch.tools import sass_report
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
@@ -504,6 +537,19 @@ def main() -> int:
         f"(phase {time.monotonic() - t0:.2f} s)")
     for line in ptxas_report(res.log):
         log(f"[build] {line}")
+    # the packed products' machine code: ptxas's stack frame and spills, and
+    # the int→float conversions (I2F) left in the SASS
+    packed = (sass_report.combine(res.log, res.path, "matmul_kernel") if res.log
+              else sass_report.report("matmul_kernel"))
+    for r in packed:
+        log(f"[build] {kernel_name(r.name)} {r.name}: {r.registers} registers, "
+            f"{r.stack} bytes stack frame, spills {r.spill_stores}/"
+            f"{r.spill_loads} bytes, {r.i2f} I2F of {r.instructions} SASS "
+            f"instructions")
+    if len(packed) != 36 or any(r.stack or r.spill_stores or r.spill_loads
+                                or r.i2f for r in packed):
+        raise RuntimeError(f"packed products: want 36 kernels with no stack "
+                           f"frame, no spills and no I2F, got {len(packed)}")
     smem = seanet_cuda.smem_per_block(0)
     log(f"[build] opt-in shared memory per block: {smem} bytes")
 
@@ -1346,17 +1392,87 @@ def main() -> int:
             k_ev, p_ev, s = turns(kern, plain, reps=20)
             l_ev = cuda_ms(lib, reps=20)
             b_ms, b_by = least_time(*qmat_work(out_d, in_d, 1, qt))
-            fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
             log(f"[time] {name} out {out_d} in {in_d} m1 f32: device time "
-                f"kernel {fmt(dev[0])}, plain (dequant + matmul) "
-                f"{fmt(dev[1])}, F.linear on the dequantized f32 weight "
-                f"{fmt(dev[2])}; bound {b_ms:.4f} ms ({b_by}); CUDA events "
+                f"kernel {fmt_ms(dev[0])}, plain (dequant + matmul) "
+                f"{fmt_ms(dev[1])}, F.linear on the dequantized f32 weight "
+                f"{fmt_ms(dev[2])}; bound {b_ms:.4f} ms ({b_by}); CUDA events "
                 f"per call kernel {k_ev:.4f} ms, plain {p_ev:.4f} ms, "
                 f"F.linear {l_ev:.4f} ms [{name_limit}]")
             if (out_d, in_d) == QMAT_MAIN:
                 times[name] = (dev[0] or k_ev, dev[1] or p_ev, b_ms, b_by,
                                dev[2] or l_ev)
             del dense
+
+    # the packed products cold, as a forward finds them: each shape's line
+    # cycles over the 16 layers' matrices of that shape in the loaded
+    # backbone (a 64 MB buffer written between launches where the cycle
+    # would stay in L2), at m = 1 and m = 16 (a bucketed prefill); then one
+    # forward's 112 products at m = 1 in forward order. Device times by the
+    # kernel's name under torch.profiler, F.linear on the same dequantized
+    # f32 weights measured the same way
+    cold = {}
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    for qtype, bb in backbones.items():
+        name = kernel_of[qtype]
+        layers = bb.params["layers"]
+        dense = [{k: qmat.dequant_ref(lw[k]) for k in FORWARD_ORDER}
+                 for lw in layers]
+        xs = {d: randn((1, d), torch.float32, SEED + 150 + d)
+              for d in (bcfg.hidden, bcfg.ffn_dim)}
+        for out_d, in_d in QMAT_SHAPES:
+            pairs = [(lw[k], dw[k]) for lw, dw in zip(layers, dense)
+                     for k in FORWARD_ORDER if tuple(lw[k]["qs"].shape)[0] == out_d
+                     and qmat.in_features(lw[k]) == in_d]
+            wbytes = sum(t.numel() * t.element_size() for qt, _ in pairs
+                         for t in qt.values())
+            flush = wbytes < 2 * L2_BYTES
+            for m in (1, 16):
+                x = randn((m, in_d), torch.float32, SEED + 160 + m)
+
+                def cycle(use_dense):
+                    for qt, dw in pairs:
+                        if flush:
+                            flush_buf.fill_(1.0)
+                        if use_dense:
+                            F.linear(x, dw)
+                        else:
+                            packed_product(name, x, qt)
+                k_ms = profiled_ms(lambda: cycle(False), len(pairs),
+                                   lambda key: "matmul_kernel" in key)
+                l_ms = profiled_ms(lambda: cycle(True), len(pairs),
+                                   lambda key: "FillFunctor" not in key)
+                b_ms, b_by = least_time(*qmat_work(out_d, in_d, m, pairs[0][0]))
+                if m == 1 and (out_d, in_d) == QMAT_MAIN:
+                    cold[name] = k_ms
+                log(f"[time] {name} cold {SHAPE_NAMES[out_d, in_d]} out {out_d} "
+                    f"in {in_d} m{m} f32 ({len(pairs)} matrices, "
+                    f"{wbytes / 1e6:.1f} MB{', 64 MB written between launches' if flush else ''}): "
+                    f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
+                    f"dequantized f32 weight {fmt_ms(l_ms)}; bound {b_ms:.4f} ms "
+                    f"({b_by}), {b_ms / k_ms:.1%} of it [{name_limit}]")
+        order = [(lw[k], dw[k]) for lw, dw in zip(layers, dense)
+                 for k in FORWARD_ORDER]
+
+        def forward(use_dense):
+            for qt, dw in order:
+                x = xs[dw.shape[1]]
+                if use_dense:
+                    F.linear(x, dw)
+                else:
+                    packed_product(name, x, qt)
+        reps = 3
+        k_ms = profiled_ms(lambda: [forward(False) for _ in range(reps)], reps,
+                           lambda key: "matmul_kernel" in key)
+        l_ms = profiled_ms(lambda: [forward(True) for _ in range(reps)], reps,
+                           lambda key: True)
+        b_sum = sum(least_time(*qmat_work(qt["qs"].shape[0], dw.shape[1], 1,
+                                          qt))[0] for qt, dw in order)
+        log(f"[time] {name} one backbone forward, {len(order)} products at m1 "
+            f"in forward order (cold): device time kernel {fmt_ms(k_ms)}, "
+            f"F.linear on the dequantized f32 weights {fmt_ms(l_ms)}; summed "
+            f"bound {b_sum:.4f} ms, {b_sum / k_ms:.1%} of it [{name_limit}]")
+        del dense, order
+    del flush_buf
 
     for name, qtype, bucket in TTS_REQUESTS:
         runs = [tts_request(backbones[qtype], bucket)[3]
@@ -1488,14 +1604,17 @@ def main() -> int:
     # PyTorch call computes a residual unit or an n_q-level search, so
     # those rows have no library time; the packed products' library time
     # is F.linear on the dequantized f32 weight (no PyTorch call multiplies
-    # GGUF-packed weights). Launches: all paths of this run (the attention:
+    # GGUF-packed weights); their cold_ms is the same shape cold (the
+    # cycle over the backbone's gate/up matrices). Launches: all paths of
+    # this run (the attention:
     # Mimi decodes, the TTS requests' Mimi decodes and Mimi encodes; the
     # residual units: decodes and encodes).
     result = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": main_counts[name], "max_abs_err": max_err[name],
         **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
-                   times[name]))}
+                   times[name])), **({"cold_ms": cold[name]} if name in cold
+                                     else {})}
         for name, (src, rep) in sources.items()]}
     log(f"[time] chip_smoke.py ran {time.monotonic() - t_start:.1f} s")
     print(json.dumps(result), flush=True)

@@ -3,8 +3,10 @@
 nvcc compiles every source to an object, one process per source, all
 started together, then links the objects into one shared library with a
 plain C interface, which the op wrappers load with ctypes. The library lands in
-`build/codec_tpu_torch/` beside the package and is named by a hash of the
-sources and flags, so an unchanged tree loads the library it built before
+`build/codec_tpu_torch/` beside the package when the package lies in a
+source tree (a checkout with its `pyproject.toml`), else (an installed
+package, under `site-packages`) in `~/.cache/codec_tpu_torch/`. It is
+named by a hash of the sources and flags, so an unchanged tree loads the library it built before
 and an edited one builds anew. Nothing here runs when the package is
 imported: the CPU-only hosts that run the tests have no nvcc.
 """
@@ -23,7 +25,19 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "codec_tpu_torch"
+
+
+def build_dir(package_dir: Path) -> Path:
+    """Where the library of the package at package_dir is built: beside it
+    in a source tree, else in the user's cache (site-packages may not be
+    writable, and is no place for build outputs)."""
+    root = package_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "codec_tpu_torch"
+    return Path.home() / ".cache" / "codec_tpu_torch"
+
+
+BUILD_DIR = build_dir(PACKAGE_DIR)
 
 # sm_90a (not sm_90) keeps wgmma and setmaxnreg available to the kernels;
 # -Xptxas -v reports registers, shared memory and spills per kernel.

@@ -202,6 +202,9 @@ class CodecModel:
     def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
         raise CodecError(f"{self.arch}: decode_latent not supported")
 
+    def encode_latent(self, pcm) -> np.ndarray:
+        raise CodecError(f"{self.arch}: continuous-latent encode not supported")
+
     def _run_on_device(self, fn, pcm_format: str,
                        n_samples: Optional[int] = None) -> np.ndarray:
         """fn() → pcm [B, samples] under inference mode (TF32 off for f32),

@@ -77,3 +77,21 @@ def test_no_device_falls_back_to_the_plain_version():
     q = torch.zeros((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         flash_sdpa_window(q, q, q, window=2)
+
+
+def test_build_dir_is_beside_a_source_tree_else_in_the_user_cache(tmp_path):
+    """A checkout (a pyproject.toml beside the package) builds into its own
+    build/; an installed package (site-packages) into ~/.cache."""
+    from pathlib import Path
+
+    from codec_tpu_torch.kernels import build
+
+    assert build.BUILD_DIR == build.PACKAGE_DIR.parent / "build" / "codec_tpu_torch"
+    tree = tmp_path / "checkout"
+    (tree / "codec_tpu_torch").mkdir(parents=True)
+    (tree / "pyproject.toml").write_text("[project]\n")
+    assert build.build_dir(tree / "codec_tpu_torch") == tree / "build" / "codec_tpu_torch"
+    site = tmp_path / "lib" / "python3.12" / "site-packages"
+    (site / "codec_tpu_torch").mkdir(parents=True)
+    assert build.build_dir(site / "codec_tpu_torch") == \
+        Path.home() / ".cache" / "codec_tpu_torch"

@@ -452,11 +452,20 @@ def _product(qtype, x, qt):
 
 
 # chip_smoke.py's bound: the same dequantized weights in f32, sums in
-# another order: max abs err <= 1e-4 * max|plain|
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
-@pytest.mark.parametrize("out_d,in_d", [(96, 512), (520, 256), (64, 2048)])
-@pytest.mark.parametrize("m", [1, 17, 32])
+# another order: max abs err <= 1e-4 * max|plain|. Shapes: small ones, the
+# backbone's k/v (512 x 2048, a cluster of 8 K slices) and down (2048 x
+# 8192), and a Q8_0 width with in % 128 != 0 (the cp.async form)
+QMAT_CASES = [(q, o, i) for q in ("Q8_0", "Q4_K")
+              for o, i in [(96, 512), (520, 256), (64, 2048), (512, 2048),
+                           (2048, 8192), (96, 160)]
+              if q == "Q8_0" or i % 256 == 0]
+
+
+@pytest.mark.parametrize("qtype,out_d,in_d", QMAT_CASES)
+@pytest.mark.parametrize("m", [1, 2, 16, 17, 32])
 def test_qmat_kernel_matches_plain(dev, qtype, out_d, in_d, m):
+    """Also: two launches give bit-identical outputs (the split-K sums
+    meet in a fixed order)."""
     from codec_tpu_torch.ops import qmat
 
     qt = _packed(qtype, out_d, in_d, dev)
@@ -466,14 +475,18 @@ def test_qmat_kernel_matches_plain(dev, qtype, out_d, in_d, m):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (m, out_d)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(_product(qtype, x, qt), got)
 
 
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
-def test_qmat_kernel_bf16_x(dev, qtype):
+@pytest.mark.parametrize("qtype,out_d,in_d",
+                         [("Q8_0", 128, 512), ("Q4_K", 128, 512)]
+                         + [c for c in QMAT_CASES if c[1] in (512, 2048, 96)
+                            and c[2] != 512])
+def test_qmat_kernel_bf16_x(dev, qtype, out_d, in_d):
     from codec_tpu_torch.ops import qmat
 
-    qt = _packed(qtype, 128, 512, dev, seed=1)
-    x = _x((1, 512), torch.bfloat16, dev, seed=2)
+    qt = _packed(qtype, out_d, in_d, dev, seed=1)
+    x = _x((1, in_d), torch.bfloat16, dev, seed=2)
     got = _product(qtype, x, qt)
     want = x.float() @ qmat.dequant_ref(qt).T
     torch.cuda.synchronize()
@@ -482,13 +495,15 @@ def test_qmat_kernel_bf16_x(dev, qtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_K"])
-def test_qmat_kernel_one_hot_rows_give_dequantized_weights(dev, qtype, dtype):
+@pytest.mark.parametrize("qtype,out_d,in_d",
+                         [("Q8_0", 200, 1024), ("Q4_K", 200, 1024)] + QMAT_CASES)
+def test_qmat_kernel_one_hot_rows_give_dequantized_weights(dev, qtype, dtype,
+                                                          out_d, in_d):
     from codec_tpu_torch.ops import qmat
 
-    qt = _packed(qtype, 200, 1024, dev, seed=3)
-    cols = torch.from_numpy(np.random.default_rng(4).choice(1024, 32, replace=False)).to(dev)
-    x = torch.zeros((32, 1024), dtype=dtype, device=dev)
+    qt = _packed(qtype, out_d, in_d, dev, seed=3)
+    cols = torch.from_numpy(np.random.default_rng(4).choice(in_d, 32, replace=False)).to(dev)
+    x = torch.zeros((32, in_d), dtype=dtype, device=dev)
     x[torch.arange(32, device=dev), cols] = 1
     assert torch.equal(_product(qtype, x, qt), qmat.dequant_ref(qt)[:, cols].T)
 

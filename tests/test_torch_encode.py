@@ -361,3 +361,21 @@ def test_cli_encode_matches_jax_and_e2e_writes_a_wav(tiny_mimi, tmp_path,
     assert main(["encode", "--model", model, "--in", str(tmp_path / "16k.wav"),
                  "--codes", str(tmp_path / "x.npy"), "--device", "cpu"]) == 1
     assert "sample rate" in capsys.readouterr().err
+
+
+# -- the base model's continuous-latent encode ----------------------------------
+
+@pytest.mark.parametrize("arch", ["mimi", "dac", "snac"])
+def test_encode_latent_raises_as_the_reference_does(arch, request):
+    """None of the ported archs has a continuous-latent encode: the port's
+    model raises the reference's CodecError, with its message."""
+    import codec_tpu.runtime.model as jmodel
+
+    fixture = request.getfixturevalue(f"tiny_{arch}")
+    pcm = _pcm(4 * 1920, 14)
+    with pytest.raises(jmodel.CodecError) as want:
+        fixture["jax"].encode_latent(pcm)
+    with pytest.raises(CodecError) as got:
+        fixture["port"].encode_latent(pcm)
+    assert str(got.value) == str(want.value)
+    assert str(got.value).endswith("continuous-latent encode not supported")

@@ -216,3 +216,107 @@ def test_rope_llama3_freq_factors_match_backbone_rope():
     want = np.asarray(jbackbone._rope(jnp.asarray(x), jnp.asarray(pos), cfg,
                                       jnp.asarray(ff)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# -- the CUDA kernels' launch plan (ops/qmat_cuda.py::plan) ---------------------
+
+BACKBONE = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+GPU_TEST_SHAPES = [(96, 512), (520, 256), (64, 2048), (200, 1024), (128, 512),
+                   (64, 256), (96, 160)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 16, 17, 32])
+@pytest.mark.parametrize("kind,out_d,in_d", [
+    (k, o, i) for k in ("q8_0", "q4_k") for o, i in BACKBONE + GPU_TEST_SHAPES
+    if k == "q8_0" or i % 256 == 0])
+def test_plan_splits_k_into_whole_chunks(kind, out_d, in_d, m):
+    """K splits into equal slices of whole chunks, x passes are whole
+    chunks, tensor copies take whole boxes from 16-byte-strided rows, and
+    the ring and x fit the block's shared memory."""
+    from codec_tpu_torch.ops import qmat_cuda as qc
+
+    p = qc.plan(kind, m, in_d, out_d)
+    assert 1 <= p.split <= qc.MAX_SPLIT and p.split * p.kslice == in_d
+    assert p.kslice % p.kc == 0 and p.kc % 32 == 0 and p.kc <= qc.KC_MAX
+    assert p.xk % p.kc == 0 and p.kslice % p.xk == 0
+    assert p.xk == p.kc or qc.m_bucket(m) * p.xk * 4 <= qc.X_BYTES
+    assert 1 <= p.stages <= min(qc.MAX_STAGES, p.kslice // p.kc)
+    assert p.blocks == -(-out_d // qc.ROWS) * p.split
+    if p.bulk:
+        # tensor maps: 16-byte row strides; a chunk is whole qs boxes and
+        # one scale box whose rows are 16-byte multiples
+        qs_row = in_d if kind == "q8_0" else in_d // 2       # global row bytes
+        qs_seg = p.kc if kind == "q8_0" else p.kc // 2
+        assert qs_row % 16 == 0 and (in_d // 32 * 4) % 16 == 0
+        assert qs_seg % qc.BOX == 0 and (p.kc // 32 * 4) % 16 == 0
+    # csrc/qmat.cu's layout: a stage is ROWS rows of qs in BOX-byte boxes,
+    # then of scales (and mins), in 1024-byte units
+    qs = -(-(p.kc if kind == "q8_0" else p.kc // 2) // qc.BOX) * qc.BOX
+    stage = -(-qc.ROWS * (qs + p.kc // 8 * (2 if kind == "q4_k" else 1)) // 1024) * 1024
+    slots = 4 * p.split * qc.m_bucket(m) * qc.ROWS if p.split > 1 else 0
+    smem = 2048 + p.stages * stage + qc.m_bucket(m) * (p.xk + 4) * 4 + slots
+    assert smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("in_d", [32, 96, 160, 224, 256, 384, 512, 2048, 8192,
+                                  8192 + 32])
+def test_plan_takes_the_cp_async_form_exactly_when_in_is_no_multiple_of_128(in_d):
+    from codec_tpu_torch.ops import qmat_cuda as qc
+
+    assert qc.plan("q8_0", 1, in_d, 64).bulk == (in_d % 128 == 0)
+    if in_d % 256 == 0:
+        assert qc.plan("q4_k", 1, in_d, 64).bulk
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("out_d,in_d", BACKBONE)
+def test_plan_fills_the_card_at_the_backbone_shapes(kind, out_d, in_d):
+    """At least 64 blocks of at most 4096 columns: the narrow k/v matrices
+    (16 row tiles) through a cluster of 4 K slices, down (K 8192) of 2."""
+    from codec_tpu_torch.ops import qmat_cuda as qc
+
+    p = qc.plan(kind, 1, in_d, out_d)
+    assert p.blocks >= qc.TARGET_BLOCKS and p.kslice <= qc.MAX_KSLICE
+    assert p.split == {512: 4, 2048: 2 if in_d == 8192 else 1, 8192: 1}[out_d]
+
+
+def test_sass_report_reads_ptxas_and_sass():
+    from codec_tpu_torch.tools import sass_report
+
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N__1a2b3c4d_7_qmat_cu_5e6f7a8b18q4_k_matmul_kernelILi1EfEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N__1a2b3c4d_7_qmat_cu_5e6f7a8b18q4_k_matmul_kernelILi1EfEEvNS_4ArgsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+    (r,) = sass_report.parse_ptxas(log)
+    assert r.name == "_ZN12ANON18q4_k_matmul_kernelILi1EfEEvNS_4ArgsE"
+    assert (r.registers, r.stack, r.spill_stores, r.spill_loads) == (72, 8, 4, 4)
+    dump = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N__1a2b3c4d_7_qmat_cu_5e6f7a8b18q4_k_matmul_kernelILi1EfEEvNS_4ArgsE
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   I2F.U32 R4, R5 ;
+        /*0020*/               @P0 I2F R6, R7 ;
+        /*0030*/                   FFMA R8, R4, R6, R8 ;
+        /*0040*/                   EXIT ;
+"""
+    assert sass_report.sass_counts(dump) == {r.name: (2, 5)}
+
+
+@pytest.mark.parametrize("kind", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("out_d,in_d", BACKBONE)
+def test_plan_tool_candidates_keep_the_plan_invariants(kind, out_d, in_d):
+    """tools/qmat_plans.py times plan()'s choice first, then other splits,
+    each of whole chunks and whole tensor-copy boxes."""
+    from codec_tpu_torch.ops import qmat_cuda as qc
+    from codec_tpu_torch.tools.qmat_plans import candidate_plans
+
+    plans = candidate_plans(kind, 1, in_d, out_d)
+    assert plans[0] == qc.plan(kind, 1, in_d, out_d)
+    assert len({p.split for p in plans}) == len(plans) >= 3
+    for p in plans:
+        assert p.split * p.kslice == in_d and p.kslice % p.kc == 0
+        assert p.kc % qc.granule(kind, in_d) == 0
+        assert p.xk % p.kc == 0 and p.kslice % p.xk == 0
+        assert 1 <= p.stages <= min(qc.MAX_STAGES, p.kslice // p.kc)
