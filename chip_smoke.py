@@ -8,11 +8,14 @@ Phases (any failure raises and exits non-zero before the last line):
   1. require CUDA; print the card's name and power limit (nvidia-smi)
   2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc, one process
      per source); the packed products' ptxas stack frames and spills and
-     their SASS I2F counts (cuobjdump), all of which must be 0
+     their SASS I2F counts (cuobjdump), all of which must be 0; the DAC
+     residual units' stack frames and spills (0), and HGMMA (wgmma) but no
+     HMMA (mma.sync) in every bf16 one
   3. each kernel against its plain PyTorch version on the card (the
-     residual units also at the encoders' widths, the RVQ search also on
-     integer-valued inputs and duplicated rows, where it must agree bit
-     for bit)
+     residual units also at every DAC decoder and encoder block's shape,
+     in the launches a request makes, and at SNAC's encoder widths, the
+     RVQ search also on integer-valued inputs and duplicated rows, where
+     it must agree bit for bit)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16) with every launch count set to 0 just before and
@@ -47,9 +50,12 @@ Phases (any failure raises and exits non-zero before the last line):
   9. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
-     the same function; device times of the packed products from
-     torch.profiler, warm (one matrix again and again), cold (cycling over
-     the loaded backbones' 16 layers of each shape) at m = 1 and 16, and
+     the same function; the DAC residual unit at every decoder and
+     encoder width, d = 1, 3, 9, f32 and bf16, and the chain against three
+     unit launches at C96, C64 and C128 (tools/seanet_times.py); device
+     times of the packed products from torch.profiler, warm (one matrix
+     again and again), cold (cycling over the loaded backbones' 16 layers
+     of each shape) at m = 1 and 16, and
      one backbone forward's 112 products; per-request TTS times (median of 3 runs after one
      warm-up); per-request encode times (median of 10 after 2 warm-ups)
 Then one JSON line of kernel results, the card line again, and the last
@@ -105,11 +111,12 @@ MIMI_LAYERS = 8                    # flash_sdpa_window launches per decode
 UNIT_SHAPES = [(1, 12000, 768, 1), (1, 12000, 768, 9), (1, 60000, 384, 3),
                (2, 1000, 384, 9), (1, 20, 96, 9)]
 CHAIN_SHAPES = [(1, 240000, 192), (1, 480000, 96), (2, 100, 96), (1, 20, 192)]
+# the unit's 7 tiles x its 2 launches (dilated conv, 1x1) and the chain's 4
+# tiles (csrc/seanet_res.cu::dispatch_tile, dispatch_chain)
+DENSE_KERNELS = 18
 UNIT_BF16 = dict(rtol=2e-2, atol=5e-2, corr=0.9999)
 CHAIN_BF16 = dict(rtol=3e-2, atol=8e-2, corr=0.9995)
 DILATIONS = (1, 3, 9)
-# (C, T) of the four decoder blocks of a 20 s b1 DAC decode
-DAC_BLOCKS = [(768, 12000), (384, 60000), (192, 240000), (96, 480000)]
 DAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                 ("20s_b4_f32", 20, 4, "float32"),
                 ("20s_b1_bf16", 20, 1, "bfloat16")]
@@ -161,8 +168,9 @@ RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100)]
 RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
 NEAR_TIE = 1e-4
-# the encoders' residual-unit blocks at 20 s b1: DAC (C, T) and SNAC (C, T)
-# after its pad to 2048
+# the residual-unit blocks at 20 s b1: the DAC decoder's and encoder's
+# (C, T) and SNAC's encoder's (C, T) after its pad to 2048
+DAC_DEC_BLOCKS = [(768, 12000), (384, 60000), (192, 240000), (96, 480000)]
 DAC_ENC_BLOCKS = [(64, 480000), (128, 240000), (256, 60000), (512, 12000)]
 SNAC_ENC_BLOCKS = [(48, 481280), (96, 240640), (192, 60160), (384, 7520)]
 # (arch, name, seconds of audio, batch, compute dtype)
@@ -173,11 +181,6 @@ ENCODE_REQUESTS = [("mimi", "20s_b1_f32", 20, 1, "float32"),
                    ("dac", "20s_b1_bf16", 20, 1, "bfloat16"),
                    ("snac", "20s_b1_f32", 20, 1, "float32"),
                    ("snac", "20s_b1_bf16", 20, 1, "bfloat16")]
-
-# H100 SXM data-sheet peaks (dense): f32 on the FMA units (the f32 kernels
-# use no TF32), bf16 on the tensor cores, and HBM3
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -212,7 +215,7 @@ def ptxas_report(nvcc_log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            tile = re.search(r"(FmaTile|MmaTile)I((?:Li\d+E)+)", mangled)
+            tile = re.search(r"(FmaTile|MmaTile|Fma|Wg)I((?:Li\d+E)+)", mangled)
             rows = re.search(r"matmul_kernelI(?:Lb(\d)E)?Li(\d+)E", mangled)
             name = " ".join(filter(None, [
                 kernel_name(mangled),
@@ -268,27 +271,6 @@ def randn(shape, dtype, seed, scale=1.0):
         np.float32)).to("cuda", dtype)
 
 
-def res_params(n, c, dtype, seed, k=7):
-    """n residual units' weights: convs at fan-in scale (std 1/sqrt(K*C)),
-    biases N(0, 0.1), alphas |N(0, 1)| + 1."""
-    rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
-
-    return dict(w1s=t(rng.standard_normal((n, k, c, c)) / np.sqrt(k * c)),
-                b1s=t(rng.standard_normal((n, c)) * 0.1),
-                a1s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
-                a2s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
-                w2s=t(rng.standard_normal((n, c, c)) / np.sqrt(c)),
-                b2s=t(rng.standard_normal((n, c)) * 0.1))
-
-
-def unit_args(p, u=0):
-    return (p["a1s"][u], p["w1s"][u], p["b1s"][u], p["a2s"][u], p["w2s"][u],
-            p["b2s"][u])
-
-
 def corr(a, b) -> float:
     return float(np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1])
 
@@ -308,32 +290,11 @@ def dw_params(n, c, dtype, seed, k=7):
                 b2s=t(rng.standard_normal((n, c)) * 0.1))
 
 
-def least_time(flops, nbytes):
-    """The least time this card could take: the larger of the bytes over
-    the HBM rate and the operations over their type's peak; flops is
-    [(count, dtype)]. Returns (ms, "bytes" or "operations")."""
-    t_ops = sum(f / PEAK_FLOPS[dt] for f, dt in flops)
-    t_mem = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
-                                     else "bytes")
-
-
 def attn_work(b, h, t, d, w, dtype):
     """flash_sdpa_window's FLOP (QK and PV over the visible band) and bytes
     (q, k, v read and out written once)."""
     pairs = sum(min(i + 1, w or t) for i in range(t))
     return [(4 * d * pairs * b * h, dtype)], 4 * b * h * t * d * dtype.itemsize
-
-
-def res_work(n, b, t, c, dtype, k=7, depthwise=False):
-    """n residual units' conv FLOP (the snakes' few operations per element
-    are left out) and bytes (x read and out written once, the weights read
-    once). SNAC's depthwise taps run in f32 in both dtypes."""
-    taps = k if depthwise else k * c
-    weights = n * (taps * c + c * c) * dtype.itemsize
-    flops = [(2 * n * c * c * b * t, dtype),
-             (2 * n * taps * c * b * t, torch.float32 if depthwise else dtype)]
-    return flops, 2 * b * t * c * dtype.itemsize + weights
 
 
 def qmat_work(out_d, in_d, m, packed):
@@ -512,7 +473,12 @@ def main() -> int:
     from codec_tpu_torch.models import mimi
     from codec_tpu_torch.ops.rvq import rvq_encode
     from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
-    from codec_tpu_torch.tools import sass_report
+    from codec_tpu_torch.tools import sass_report, seanet_times
+    # the bound (H100 data-sheet peaks)
+    from codec_tpu_torch.tools.roofline import least_time
+    # the residual units' work and inputs
+    from codec_tpu_torch.tools.seanet_times import (res_params, res_work,
+                                                    unit_args)
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
@@ -538,9 +504,12 @@ def main() -> int:
     for line in ptxas_report(res.log):
         log(f"[build] {line}")
     # the packed products' machine code: ptxas's stack frame and spills, and
-    # the int→float conversions (I2F) left in the SASS
-    packed = (sass_report.combine(res.log, res.path, "matmul_kernel") if res.log
-              else sass_report.report("matmul_kernel"))
+    # the int→float conversions (I2F) left in the SASS; the DAC residual
+    # units': stack frame and spills, and in bf16 wgmma (HGMMA), not
+    # mma.sync (HMMA)
+    sass = (sass_report.combine(res.log, res.path) if res.log
+            else sass_report.report())
+    packed = [r for r in sass if "matmul_kernel" in r.name]
     for r in packed:
         log(f"[build] {kernel_name(r.name)} {r.name}: {r.registers} registers, "
             f"{r.stack} bytes stack frame, spills {r.spill_stores}/"
@@ -550,6 +519,20 @@ def main() -> int:
                                 or r.i2f for r in packed):
         raise RuntimeError(f"packed products: want 36 kernels with no stack "
                            f"frame, no spills and no I2F, got {len(packed)}")
+    dense = [r for r in sass if "seanet_res_" in r.name]
+    for r in dense:
+        bf16 = "bfloat16" in r.name
+        log(f"[build] {kernel_name(r.name)} {'bf16' if bf16 else 'f32'} "
+            f"{r.name}: {r.registers} registers, {r.stack} bytes stack frame, "
+            f"spills {r.spill_stores}/{r.spill_loads} bytes, {r.hgmma} HGMMA, "
+            f"{r.hmma} HMMA of {r.instructions} SASS instructions")
+        if r.stack or r.spill_stores or r.spill_loads or (
+                bf16 and (not r.hgmma or r.hmma)):
+            raise RuntimeError(f"{r.name}: want no stack frame, no spills "
+                               f"and, in bf16, HGMMA and no HMMA")
+    if len(dense) != DENSE_KERNELS:
+        raise RuntimeError(f"seanet_res: want {DENSE_KERNELS} kernels, got "
+                           f"{len(dense)}")
     smem = seanet_cuda.smem_per_block(0)
     log(f"[build] opt-in shared memory per block: {smem} bytes")
 
@@ -640,11 +623,13 @@ def main() -> int:
                      f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
             del x, want
 
-    # the residual units at the encoders' widths, in the launches an encode
-    # makes (DAC: the gate's chain, or one unit launch per unit; SNAC: one
-    # N = 1 launch per unit). A chain is held against the plain chain, each
-    # unit launch (on the block's input, one per dilation) against the
-    # plain unit, at the bounds of the decode's checks of the same forms
+    # the residual units at the DAC decoder's and encoder's and SNAC's
+    # encoder's block shapes (20 s b1), in the launches a request makes
+    # (DAC: the gate's chain, or one unit launch per unit, each at the tile
+    # unit_tile picks for the shape; SNAC: one N = 1 launch per unit). A
+    # chain is held against the plain chain, each unit launch (on the
+    # block's input, one per dilation) against the plain unit, at the
+    # bounds of the checks above of the same forms
     def unit_by_unit(name, x, p, dtype, label, launch, plain, bounds):
         for u, dil in enumerate(DILATIONS):
             pu = {k: v[u:u + 1] for k, v in p.items()}
@@ -656,11 +641,15 @@ def main() -> int:
                  got, want, dtype, bounds)
             del got, want
 
+    dac_blocks = ([("decoder", c, t, SEED + 230 + i)
+                   for i, (c, t) in enumerate(DAC_DEC_BLOCKS)]
+                  + [("encoder", c, t, SEED + 150 + i)
+                     for i, (c, t) in enumerate(DAC_ENC_BLOCKS)])
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (c, t) in enumerate(DAC_ENC_BLOCKS):
-            p = res_params(3, c, dtype, SEED + 150 + i)
-            x = randn((1, t, c), dtype, SEED + 160 + i)
-            label = f"DAC encoder block C{c} T{t}"
+        for where, c, t, seed in dac_blocks:
+            p = res_params(3, c, dtype, seed)
+            x = randn((1, t, c), dtype, seed + 10)
+            label = f"DAC {where} block C{c} T{t}"
             if seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem):
                 with f32_precision(True):
                     want = seanet_cuda.seanet_res_chain_ref(
@@ -882,15 +871,11 @@ def main() -> int:
         per_decode[dtype] = {
             **none, "seanet_res_unit": 3 * sum(not t for t in plan[dtype]),
             "seanet_res_chain": sum(plan[dtype])}
-        if not (per_decode[dtype]["seanet_res_unit"]
-                and per_decode[dtype]["seanet_res_chain"]):
-            raise RuntimeError(f"the gate runs only one kernel per DAC decode "
-                               f"in {dtype}: {per_decode[dtype]}")
         tiles = [seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem)
                  for c in widths]
         log(f"[dac] gate at {smem} bytes, {str(dtype)[6:]}: widths {widths}, "
-            f"chain tiles {tiles}, chain taken {plan[dtype]} (from "
-            f"{seanet_cuda.CHAIN_MIN_TILE} rows); launches per decode "
+            f"chain tiles {tiles}, chain taken {plan[dtype]} (bf16 where "
+            f"all 512 rows fit); launches per decode "
             f"{per_decode[dtype]}")
     n_latent = dcfg.sample_rate * 20 // dcfg.hop_size
     latent = np.random.default_rng(SEED + 1).standard_normal(
@@ -1029,6 +1014,13 @@ def main() -> int:
             f"{enc_widths['snac']}; launches per encode: mimi "
             f"{enc_per['mimi', dtype]}, dac {enc_per['dac', dtype]}, snac "
             f"{enc_per['snac', dtype]}")
+    # the gate takes the chain only where it measured fastest, or lost least
+    # (PERF.md); some DAC decode or encode must still run each kernel
+    for name in ("seanet_res_unit", "seanet_res_chain"):
+        if not any(plan[name] for plan in [*per_decode.values(), *(
+                enc_per["dac", dt] for dt in (torch.float32, torch.bfloat16))]):
+            raise RuntimeError(f"the gate runs {name} on no DAC decode or "
+                               f"encode")
     enc_rng = np.random.default_rng(SEED + 200)
     enc_reqs = []
     for arch, name, secs, batch, dt in ENCODE_REQUESTS:
@@ -1318,38 +1310,24 @@ def main() -> int:
                      f"{times['flash_sdpa_window'][2]:.4f} ms")
         log(line + f" [{name_limit}]")
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for bi, (c, t) in enumerate(DAC_BLOCKS, start=1):
-            p = res_params(3, c, dtype, SEED + 50 + bi)
-            x = randn((1, t, c), dtype, SEED + 60 + bi)
-            flop = 2 * 8 * c * c * t            # one unit, K = 7
-            with f32_precision(dtype == torch.float32):
-                unit, plain1, s = turns(
-                    lambda: seanet_res_unit(x, *unit_args(p), dilation=1),
-                    lambda: seanet_cuda.seanet_res_unit_ref(
-                        x, *unit_args(p), dilation=1))
-                line = (f"[time] block {bi} C{c} T{t} {str(dtype)[6:]}: "
-                        f"one unit (d=1): kernel {unit:.3f} ms "
-                        f"({flop / unit / 1e9:.2f} TFLOP/s), plain "
-                        f"{plain1:.3f} ms ({flop / plain1 / 1e9:.2f} TFLOP/s)")
-                if bi == 1 and dtype == torch.float32:
-                    work = res_work(1, 1, t, c, dtype)
-                    times["seanet_res_unit"] = (unit, plain1,
-                                                *least_time(*work), None)
-                if seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem):
-                    chain, plain3, s = turns(
-                        lambda: seanet_res_chain(x, **p, dilations=DILATIONS),
-                        lambda: seanet_cuda.seanet_res_chain_ref(
-                            x, **p, dilations=DILATIONS))
-                    line += (f"; chain of 3: kernel {chain:.3f} ms "
-                             f"({3 * flop / chain / 1e9:.2f} TFLOP/s), plain "
-                             f"{plain3:.3f} ms")
-                    if bi == 4 and dtype == torch.float32:
-                        work = res_work(3, 1, t, c, dtype)
-                        times["seanet_res_chain"] = (chain, plain3,
-                                                     *least_time(*work), None)
-            log(line + f" [{name_limit}]")
-            del x, p
+    # the DAC residual units at every decoder and encoder width, d = 1, 3
+    # and 9, in f32 and bf16, and the chain against three unit launches
+    # (tools/seanet_times.py); the kernels line takes the f32 unit at block
+    # 1 (C768, d = 1) and the f32 chain at block 4 (C96)
+    unit_rows = seanet_times.unit_rows(log=lambda m: log(f"{m} [{name_limit}]"))
+    chain_rows = seanet_times.chain_rows(log=lambda m: log(f"{m} [{name_limit}]"))
+    row = next(r for r in unit_rows
+               if (r["c"], r["d"], r["dtype"]) == (768, 1, "float32"))
+    times["seanet_res_unit"] = (row["ms"], row["plain_ms"], row["bound_ms"],
+                                row["bound_by"], None)
+    row = next(r for r in chain_rows if (r["c"], r["dtype"]) == (96, "float32"))
+    times["seanet_res_chain"] = (row["ms"], row["plain_ms"], row["bound_ms"],
+                                 row["bound_by"], None)
+    for row in chain_rows:
+        if row["gate_takes_chain"] != (row["ms"] < row["units_ms"]):
+            log(f"[time] note: at C{row['c']} {row['dtype']} the gate takes "
+                f"{'the chain' if row['gate_takes_chain'] else 'three units'}"
+                f", the faster in this run is the other")
 
     for dtype in (torch.float32, torch.bfloat16):
         for bi, (c, t) in enumerate(SNAC_BLOCKS, start=1):

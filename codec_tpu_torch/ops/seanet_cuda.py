@@ -28,13 +28,31 @@ from . import act, conv
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PI = 3.14159265358979323846
-# kernel geometry (csrc/seanet_res.cu): 32-row blocks, input channels
-# staged 32 at a time, output channels in passes of a tile's width: f32
-# (FMA) passes are 32·TN columns of at most 256, or, from C = 512 on,
-# where each warp takes 8 rows and half the columns, 64·TN of at most
-# 512 (on an H100 that is 20% faster at C = 512 and 768, and no faster at
-# 384, where it halves the blocks per SM; PERF.md); bf16 (mma.sync)
-# passes are 64·NT columns of at most 384
+# The DAC kernels' tiles (csrc/seanet_res.cu, csrc/seanet_gemm.cuh), as
+# (rows, columns per output pass): a block, one per SM, is two consumer
+# warpgroups and one producer warpgroup. f32 (Fma): eight warp tiles of
+# 32 x 64, input chunks of 32. bf16 (Wg, wgmma): 64 or 128 rows per
+# warpgroup, passes of 64-192 columns (at most 128 accumulators a thread),
+# input chunks of 64. Each tile is the fastest at some DAC width, batch
+# (1, 4) or length (20 s, 2 s) on an H100 (PERF.md, tools/seanet_times.py
+# --what tiles).
+_UNIT_TILES = {torch.float32: ((256, 64), (128, 128), (64, 256)),
+               torch.bfloat16: ((128, 64), (128, 128), (128, 192), (256, 128))}
+_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+_UNIT_STAGES, _CHAIN_STAGES = 4, 2      # weight stages of the TMA ring
+_BARRIER_BYTES = 1024
+_H100_SMEM = 232448     # opt-in shared memory per block (csrc: kSmemLimit)
+# a pass's fixed cost in columns and a tile's in outputs (unit_tile): with
+# these, its choice is within 1.1% (f32) and 5.6% (bf16) of the fastest
+# tile at every case of the sweep in PERF.md
+_PASS_COST = 16
+_BLOCK_COST = 2048
+# SNAC's kernel (csrc/snac_res.cu, csrc/seanet_tiles.cuh): 32-row blocks,
+# input channels staged 32 at a time, output channels in passes of a
+# tile's width: f32 (FMA) passes are 32·TN columns of at most 256, or,
+# from C = 512 on, where each warp takes 8 rows and half the columns,
+# 64·TN of at most 512; bf16 (mma.sync) passes are 64·NT columns of at
+# most 384
 _ROWS = 32
 _KC = 32
 _WIDE_C = 512
@@ -42,12 +60,8 @@ _WIDE_C = 512
 _TILES = {"f32": ((1, 2, 3, 4, 6, 8), 32, 4), "f32 wide": ((4, 6, 8), 64, 8),
           "bf16": ((1, 2, 3, 4, 6), 64, 32)}
 _MAX_UNITS = 4
-# The chain recomputes its halo rows in every unit but the last: with
-# K=7, (72 + 54) rows per tile. Below 256 rows per tile that is more than
-# a sixth of its work, and on an H100 three unit launches are faster
-# (PERF.md); above the cap, a narrow C would leave too few blocks to fill
-# the card.
-CHAIN_MIN_TILE = 256
+# The chain's rows of state per block: at most 512 (more would leave a
+# narrow C too few blocks to fill the card).
 _CHAIN_MAX_TILE = 512
 
 
@@ -110,8 +124,131 @@ def snac_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The gates: shared memory of each kernel, and the chains' tiles
+# The gates: tiles and shared memory of each kernel, and the chains' tiles
 # ---------------------------------------------------------------------------
+
+def unit_tile(c: int, dtype: torch.dtype, t: int = 0, batch: int = 1,
+              sms: int = 132) -> tuple:
+    """The unit kernels' tile at width C, (rows per tile, columns per
+    output pass). A launch computes batch · ⌈T / rows⌉ · ⌈C / columns⌉
+    tiles, one at a time on each of `sms` SMs: the tile size that computes
+    the fewest outputs in its rounds over the SMs, a pass costing
+    _PASS_COST more columns (its A is read anew) and a tile _BLOCK_COST
+    more outputs (its loads' latency and its epilogue; with t = 0: over a
+    T so long that only the columns past C count), then the widest pass,
+    then the most rows."""
+    def cost(tile):
+        rows, cols = tile
+        passes = -(-c // cols)
+        if not t:
+            return passes * cols, -cols, -rows
+        blocks = batch * -(-t // rows) * passes
+        return (-(-blocks // sms) * (rows * (cols + _PASS_COST)
+                                     + _BLOCK_COST), -cols, -rows)
+
+    return min(_UNIT_TILES[dtype], key=cost)
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _layout_bytes(stages: int, stage: int, a: int, s: int = 0,
+                  state: int = 0) -> int:
+    """csrc/seanet_res.cu's make_layout: barriers, the weight ring, A, S
+    and the state, plus 1024 bytes to align the base."""
+    return (_BARRIER_BYTES + stages * stage + _r16(a) + _r16(s) + _r16(state)
+            + 1024)
+
+
+def _tile_bytes(tile: tuple, dtype: torch.dtype) -> tuple:
+    """(rows, bytes of a ring stage, bytes of an A row, element bytes)."""
+    rows, cols = tile
+    op, kc = dtype.itemsize, _CHUNK[dtype]
+    return rows, kc * cols * op, (kc + 16 // op) * op, op
+
+
+def unit_smem_bytes(c: int, k: int, dilation: int, dtype: torch.dtype,
+                    tile: tuple, pointwise: bool = False) -> int:
+    """Shared memory of a unit's product launch at `tile`: its ring of
+    weight tiles, its A slots (the rows with their halo, in boxes of 64
+    rows of 128 bytes; two, or for the 1x1 four where they fit an H100's
+    shared memory), and for the 1x1 (pointwise) the tile of x."""
+    rows, stage, _, op = _tile_bytes(tile, dtype)
+    halo = 0 if pointwise else _halo(k, dilation)
+    slot = -(-(rows + 2 * halo) // 64) * 64 * 128
+    x_tile = rows * tile[1] * op if pointwise else 0
+    slots = 4 if pointwise and _layout_bytes(
+        _UNIT_STAGES, stage, 4 * slot, x_tile) <= _H100_SMEM else 2
+    return _layout_bytes(_UNIT_STAGES, stage, slots * slot, x_tile)
+
+
+def _halo(k: int, d: int) -> int:
+    return ((k - 1) * d) // 2
+
+
+def _state_bytes(c: int, k: int, dilations: Sequence[int], tile: int) -> int:
+    """A chain's f32 state [tile + 2·Σ halos, C | 1] (rows of odd length),
+    rounded up to 16 bytes."""
+    halo = sum(_halo(k, d) for d in dilations)
+    return -(-(tile + 2 * halo) * (c | 1) // 4) * 16
+
+
+def chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
+                     dtype: torch.dtype, block: tuple) -> int:
+    """The chain at `tile` rows of state and the product tile `block`: its
+    ring, A at the largest halo, S for one row block [rows, C rounded up to
+    a chunk + 16 bytes] and its state."""
+    rows, stage, a_row, op = _tile_bytes(block, dtype)
+    halo = max(_halo(k, d) for d in dilations)
+    s_row = (-(-c // _CHUNK[dtype]) * _CHUNK[dtype]) * op + 16
+    return _layout_bytes(_CHAIN_STAGES, stage, (rows + 2 * halo) * a_row,
+                         rows * s_row, _state_bytes(c, k, dilations, tile))
+
+
+def _largest_tile(smem_bytes, smem_limit: int) -> int:
+    """The largest multiple of 32, up to 512, with smem_bytes(tile) <=
+    smem_limit, or 0 when not even 32 rows fit."""
+    tile = _CHAIN_MAX_TILE
+    while tile and smem_bytes(tile) > smem_limit:
+        tile -= _ROWS
+    return tile
+
+
+def chain_block(c: int, dtype: torch.dtype) -> tuple:
+    """The chain's product tile (csrc/seanet_res.cu::dispatch_chain): bf16
+    128 x 64; f32 one output pass, the narrowest of the unit's f32 tiles
+    that covers C (64, 128 or 256 columns), else the widest."""
+    if dtype == torch.bfloat16:
+        return (128, 64)
+    return next((tile for tile in sorted(_UNIT_TILES[dtype],
+                                         key=lambda tile: tile[1])
+                 if tile[1] >= c), (64, 256))
+
+
+def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
+               smem_limit: int) -> int:
+    """Rows of state per block of the chain kernel at its product tile
+    (`chain_block`): the most, a multiple of 32 up to 512, that fit
+    `smem_limit` bytes; 0 when not even 32 fit."""
+    block = chain_block(c, dtype)
+    return _largest_tile(lambda tile: chain_smem_bytes(
+        c, k, dilations, tile, dtype, block), smem_limit)
+
+
+def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
+              smem_limit: int) -> bool:
+    """The gate: a block's units run as one chain launch only in bf16 and
+    where the chain's whole 512-row state fits (at the DAC widths: bf16
+    C64, the encoder's first block), else as one unit launch each. On an
+    H100 the chain lost to three unit launches at every DAC width where it
+    fits, in both dtypes, least at bf16 C64 (PERF.md): the gate keeps it
+    there, so that a DAC path still runs it."""
+    return (dtype == torch.bfloat16 and chain_tile(
+        c, k, dilations, dtype, smem_limit) == _CHAIN_MAX_TILE)
+
+
+# SNAC's kernel (csrc/snac_res.cu)
 
 def _tile(c: int, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
@@ -120,7 +257,7 @@ def _tile(c: int, dtype: torch.dtype) -> str:
 
 
 def tile_width(c: int, dtype: torch.dtype) -> int:
-    """A pass's width parameter (TN for f32, NT for bf16): the fewest
+    """SNAC's pass width parameter (TN for f32, NT for bf16): the fewest
     passes, split evenly, rounded up to a compiled width."""
     widths, cols, _ = _TILES[_tile(c, dtype)]
     passes = -(-c // (cols * widths[-1]))
@@ -133,69 +270,9 @@ def _pass_columns(c: int, dtype: torch.dtype) -> int:
 
 
 def _tile_args(c: int, dtype: torch.dtype) -> tuple:
-    """(rows per warp, width, dtype code): the kernels' tile arguments."""
+    """(rows per warp, width, dtype code): SNAC's kernel's tile arguments."""
     return (_TILES[_tile(c, dtype)][2], tile_width(c, dtype),
             _DTYPE_CODES[dtype])
-
-
-def _halo(k: int, d: int) -> int:
-    return ((k - 1) * d) // 2
-
-
-def _common_bytes(c: int, halo: int, dtype: torch.dtype) -> int:
-    """The snaked hidden S, the snaked input chunk A with its halo and two
-    weight tiles W, staged as f32 for f32 and as bf16 for bf16 (rows of
-    bf16 buffers padded by 8 elements)."""
-    cp = -(-c // _KC) * _KC
-    bn = _pass_columns(c, dtype)
-    if dtype == torch.float32:
-        return 4 * (_ROWS * cp + (_ROWS + 2 * halo) * _KC + 2 * _KC * bn)
-    return 2 * (_ROWS * (cp + 8) + (_ROWS + 2 * halo) * (_KC + 8)
-                + 2 * _KC * (bn + 8))
-
-
-def unit_smem_bytes(c: int, k: int, dilation: int,
-                    dtype: torch.dtype) -> int:
-    return _common_bytes(c, _halo(k, dilation), dtype)
-
-
-def _state_bytes(c: int, k: int, dilations: Sequence[int], tile: int) -> int:
-    """A chain's f32 state [tile + 2·Σ halos, C | 1] (rows of odd length),
-    rounded up to 16 bytes."""
-    halo = sum(_halo(k, d) for d in dilations)
-    return -(-(tile + 2 * halo) * (c | 1) // 4) * 16
-
-
-def chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
-                     dtype: torch.dtype) -> int:
-    """The chain's state plus the unit's buffers at the largest halo."""
-    return (_state_bytes(c, k, dilations, tile)
-            + _common_bytes(c, max(_halo(k, d) for d in dilations), dtype))
-
-
-def _largest_tile(smem_bytes, smem_limit: int) -> int:
-    """The largest multiple of 32, up to 512, with smem_bytes(tile) <=
-    smem_limit, or 0 when not even 32 rows fit."""
-    tile = _CHAIN_MAX_TILE
-    while tile and smem_bytes(tile) > smem_limit:
-        tile -= _ROWS
-    return tile
-
-
-def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
-               smem_limit: int) -> int:
-    """Rows per block of the chain kernel: the largest multiple of 32, up
-    to 512, whose state fits `smem_limit` bytes of shared memory, or 0
-    when not even 32 rows fit."""
-    return _largest_tile(
-        lambda tile: chain_smem_bytes(c, k, dilations, tile, dtype), smem_limit)
-
-
-def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
-              smem_limit: int) -> bool:
-    """The gate: a block's units run as one chain launch when at least
-    CHAIN_MIN_TILE rows of its state fit, else as one unit launch each."""
-    return chain_tile(c, k, dilations, dtype, smem_limit) >= CHAIN_MIN_TILE
 
 
 def dw_unit_smem_bytes(c: int, k: int, dilation: int,
@@ -236,14 +313,18 @@ def _lib():
     from ..kernels.build import load_library
 
     lib = load_library()
-    lib.codec_seanet_res_unit.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.codec_seanet_res_unit.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.codec_seanet_res_unit.restype = ctypes.c_int
     lib.codec_seanet_res_chain.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.codec_seanet_res_chain.restype = ctypes.c_int
-    lib.codec_snac_res_chain.argtypes = lib.codec_seanet_res_chain.argtypes
+    lib.codec_seanet_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.codec_seanet_smem_bytes.restype = ctypes.c_int
+    lib.codec_snac_res_chain.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.codec_snac_res_chain.restype = ctypes.c_int
     lib.codec_smem_per_block_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.codec_smem_per_block_optin.restype = ctypes.c_int
@@ -267,6 +348,11 @@ def smem_per_block(index: int) -> int:
         _raise_on(_lib().codec_smem_per_block_optin(ctypes.byref(out)),
                   "cudaDeviceGetAttribute")
     return out.value
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
@@ -321,6 +407,48 @@ def _vec(a1s, b1s, a2s, b2s, eps: float) -> torch.Tensor:
                         1.0 / (a2 + eps), b2s.float()], dim=1).contiguous()
 
 
+def _weight_width(c: int, dtype: torch.dtype) -> int:
+    """The weights' row length for the tensor maps: C rounded up to 16
+    bytes (every DAC width is already)."""
+    per = 16 // dtype.itemsize
+    return -(-c // per) * per
+
+
+def _pad_weights(w: torch.Tensor, cw: int) -> torch.Tensor:
+    """w [..., C, C] zero-padded to [..., cw, cw] (a copy only where C is
+    no multiple of 16 bytes)."""
+    pad = cw - w.shape[-1]
+    return w if not pad else torch.nn.functional.pad(w, (0, pad, 0, pad))
+
+
+def _launch_unit(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                 vec: torch.Tensor, dilation: int, tile: tuple) -> torch.Tensor:
+    """One unit's launches at a product tile (checked arguments)."""
+    b, t, c = x.shape
+    k = w1.shape[0]
+    limit = smem_per_block(x.device.index or 0)
+    need = max(unit_smem_bytes(c, k, dilation, x.dtype, tile, pointwise)
+               for pointwise in (False, True))
+    if need > limit:
+        raise ValueError(f"seanet_res_unit: C={c}, K={k}, d={dilation} needs "
+                         f"{need} bytes of shared memory, the device has "
+                         f"{limit}")
+    cw = _weight_width(c, x.dtype)
+    w1, w2 = _pad_weights(w1, cw), _pad_weights(w2, cw)
+    s = x.new_empty((b, t, cw))                 # the snaked hidden S
+    out = torch.empty_like(x)
+    # xs = snake(x) is dead before the 1x1 writes out: it lives in out
+    xs = out if cw == c else x.new_empty((b, t, cw))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().codec_seanet_res_unit(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), vec.data_ptr(),
+            xs.data_ptr(), s.data_ptr(), out.data_ptr(), b, t, c, cw, k,
+            dilation, *tile, _DTYPE_CODES[x.dtype], stream)
+    _raise_on(err, "seanet_res_unit")
+    return out
+
+
 def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
                     b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor, dilation: int = 1,
@@ -340,22 +468,8 @@ def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"seanet_res_unit: dilation must be a positive "
                          f"int, got {dilation!r}")
     b, t, c = x.shape
-    k = w1.shape[0]
-    limit = smem_per_block(x.device.index or 0)
-    need = unit_smem_bytes(c, k, dilation, x.dtype)
-    if need > limit:
-        raise ValueError(f"seanet_res_unit: C={c}, K={k}, d={dilation} needs "
-                         f"{need} bytes of shared memory, the device has "
-                         f"{limit}")
-    vec = _vec(*vectors, eps=eps)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().codec_seanet_res_unit(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), vec.data_ptr(),
-            out.data_ptr(), b, t, c, k, dilation, *_tile_args(c, x.dtype),
-            stream)
-    _raise_on(err, "seanet_res_unit")
+    out = _launch_unit(x, w1, w2, _vec(*vectors, eps=eps), dilation, unit_tile(
+        c, x.dtype, t, b, _sm_count(x.device.index or 0)))
     seanet_res_unit.launches += 1
     return out
 
@@ -388,14 +502,16 @@ def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                          f"one by one (seanet_res_unit)")
     tile = min(tile, -(-t // _ROWS) * _ROWS)
     vec = _vec(*vectors, eps=eps)
+    cw = _weight_width(c, x.dtype)
+    w1s, w2s = _pad_weights(w1s, cw), _pad_weights(w2s, cw)
     out = torch.empty_like(x)
     dils = (ctypes.c_int * len(dilations))(*dilations)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().codec_seanet_res_chain(
             x.data_ptr(), w1s.data_ptr(), w2s.data_ptr(), vec.data_ptr(),
-            out.data_ptr(), b, t, c, k, len(dilations), dils, tile,
-            *_tile_args(c, x.dtype), stream)
+            out.data_ptr(), b, t, c, cw, k, len(dilations), dils, tile,
+            *chain_block(c, x.dtype), _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, "seanet_res_chain")
     seanet_res_chain.launches += 1
     return out

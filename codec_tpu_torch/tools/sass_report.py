@@ -1,6 +1,7 @@
 """What nvcc made of the port's kernels: per kernel, ptxas's registers,
-stack frame and spills, and how many int→float conversions (I2F) and
-instructions its SASS holds.
+stack frame and spills, and how many int→float conversions (I2F),
+warpgroup tensor-core products (HGMMA: wgmma), warp-level ones (HMMA:
+mma.sync) and instructions its SASS holds.
 
     python -m codec_tpu_torch.tools.sass_report [--match matmul]
 
@@ -33,6 +34,8 @@ class KernelReport:
     spill_loads: int    # bytes
     i2f: int = -1       # I2F instructions in its SASS (-1: not read)
     instructions: int = -1
+    hgmma: int = -1     # HGMMA instructions (wgmma)
+    hmma: int = -1      # HMMA instructions (mma.sync)
 
 
 def parse_ptxas(log: str) -> List[KernelReport]:
@@ -55,13 +58,15 @@ def parse_ptxas(log: str) -> List[KernelReport]:
     return out
 
 
-def sass_counts(dump: str) -> Dict[str, tuple]:
-    """cuobjdump -sass output → {kernel: (I2F count, instruction count)}."""
+def sass_counts(dump: str) -> Dict[str, dict]:
+    """cuobjdump -sass output → {kernel: {"i2f", "instructions", "hgmma",
+    "hmma": counts}}."""
     counts = {}
     for name, sass in sass_by_kernel(dump).items():
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                         sass)
-        counts[name] = (sum(op.split(".")[0] == "I2F" for op in ops), len(ops))
+        ops = [op.split(".")[0] for op in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)]
+        counts[name] = {"i2f": ops.count("I2F"), "instructions": len(ops),
+                        "hgmma": ops.count("HGMMA"), "hmma": ops.count("HMMA")}
     return counts
 
 
@@ -69,8 +74,7 @@ def combine(log: str, lib, match: str = "") -> List[KernelReport]:
     """A build's ptxas report (its nvcc log) with the SASS counts of its
     library, for the kernels whose name holds `match`."""
     counts = sass_counts(_dump(str(lib)))
-    return [KernelReport(**{**r.__dict__, "i2f": counts.get(r.name, (-1, -1))[0],
-                            "instructions": counts.get(r.name, (-1, -1))[1]})
+    return [KernelReport(**{**r.__dict__, **counts.get(r.name, {})})
             for r in parse_ptxas(log) if match in r.name]
 
 
@@ -96,7 +100,8 @@ def main(argv=None) -> int:
     for r in report(args.match):
         print(f"{r.name}: {r.registers} registers, {r.stack} bytes stack "
               f"frame, spills {r.spill_stores}/{r.spill_loads} bytes, "
-              f"{r.i2f} I2F of {r.instructions} SASS instructions")
+              f"{r.i2f} I2F, {r.hgmma} HGMMA, {r.hmma} HMMA of "
+              f"{r.instructions} SASS instructions")
     return 0
 
 

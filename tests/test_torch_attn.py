@@ -69,8 +69,8 @@ def test_import_builds_nothing_and_needs_no_nvcc():
     assert qmat_cuda._kernel_fns.cache_info().currsize == 0
     assert rvq_cuda._lib.cache_info().currsize == 0
     assert build.sources() == [build.CSRC_DIR / name for name in (
-        "flash_sdpa_window.cu", "qmat.cu", "rvq_encode.cu", "seanet_res.cu",
-        "seanet_tiles.cuh", "snac_res.cu")]
+        "flash_sdpa_window.cu", "qmat.cu", "rvq_encode.cu", "seanet_gemm.cuh",
+        "seanet_res.cu", "seanet_tiles.cuh", "snac_res.cu")]
 
 
 def test_no_device_falls_back_to_the_plain_version():

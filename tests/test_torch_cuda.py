@@ -205,14 +205,25 @@ def _chain_ref(x, p):
     (1, 333, 384, 9),      # two column passes
     (1, 64, 768, 1),       # three column passes
     (1, 37, 40, 3),        # C no multiple of 32
-    (1, 45, 20, 9),        # C no multiple of 8: bf16 weights load unvectorized
-    (2, 50, 6, 3),         # C no multiple of 4: so do f32 weights
+    (1, 45, 20, 9),        # C no multiple of 8: bf16 weights padded to 24
+    (2, 50, 6, 3),         # C no multiple of 4: so are f32 weights
+    (1, 300, 192, 1),      # T no multiple of the row tile (128 / 256 rows)
+    (2, 1000, 64, 9),      # B = 2: every block and TMA box in one batch row
+    (1, 500, 96, 3),       # C96 and C64: no multiple of a 64-wide chunk
+    (1, 700, 64, 1),
+    # T long enough for the larger tiles (unit_tile), T no multiple of them:
+    (1, 30001, 96, 9),     # f32 128 x 128, bf16 256 x 128 (a ragged pass)
+    (1, 40001, 192, 3),    # f32 256 x 64, bf16 128 x 192
+    (1, 9001, 384, 1),     # f32 128 x 128, bf16 256 x 128: three passes
 ])
 def test_res_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
+    """Also: a second launch on the same inputs gives the same bits."""
     p = _res_params(1, c, dtype, dev, seed=b * t + c)
     x = _x((b, t, c), dtype, dev, seed=2)
     got = seanet_cuda.seanet_res_unit(x, *_unit_args(p), dilation=d)
     _check_against_plain(got, x, p, dtype, lambda x, p: _unit_ref(x, p, d))
+    again = seanet_cuda.seanet_res_unit(x, *_unit_args(p), dilation=d)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -223,12 +234,38 @@ def test_res_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
     (1, 1000, 8),
     (1, 77, 40),
     (1, 90, 6),
+    (2, 1500, 64),         # C64, B = 2, a ragged last tile
+    (1, 20, 96),           # T below the halo at C96
 ])
 def test_res_chain_kernel_matches_plain(dev, dtype, b, t, c):
+    """Also: a second launch on the same inputs gives the same bits."""
     p = _res_params(3, c, dtype, dev, seed=t + c)
     x = _x((b, t, c), dtype, dev, seed=3)
     got = seanet_cuda.seanet_res_chain(x, **p, dilations=DILS)
     _check_against_plain(got, x, p, dtype, _chain_ref)
+    assert torch.equal(got, seanet_cuda.seanet_res_chain(x, **p, dilations=DILS))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res_geometry_matches_the_kernels(dev, dtype):
+    """The wrappers' shared-memory sums (ops/seanet_cuda.py: the gate, the
+    tile and the chain plan read them) equal the kernels' own layouts
+    (codec_seanet_smem_bytes) for every tile at the DAC widths."""
+    lib = seanet_cuda._lib()
+    code = seanet_cuda._DTYPE_CODES[dtype]
+    for c in (768, 384, 192, 96, 64, 40):
+        for tile in seanet_cuda._UNIT_TILES[dtype]:
+            for d in (1, 9):
+                assert seanet_cuda.unit_smem_bytes(c, 7, d, dtype, tile) == \
+                    lib.codec_seanet_smem_bytes(0, c, 3 * d, 0, 0, *tile, code)
+            assert seanet_cuda.unit_smem_bytes(c, 7, 1, dtype, tile, True) == \
+                lib.codec_seanet_smem_bytes(1, c, 0, 0, 0, *tile, code)
+        rows = seanet_cuda.chain_tile(c, 7, DILS, dtype,
+                                      seanet_cuda.smem_per_block(0))
+        block = seanet_cuda.chain_block(c, dtype)
+        if rows:
+            assert seanet_cuda.chain_smem_bytes(c, 7, DILS, rows, dtype, block) \
+                == lib.codec_seanet_smem_bytes(2, c, 27, 39, rows, *block, code)
 
 
 def test_res_counters_count_kernel_launches_only(dev):
@@ -282,24 +319,29 @@ def small_dac_gguf(tmp_path_factory):
 
 
 def test_dac_decode_on_card_uses_kernels_and_matches_cpu(dev, small_dac_gguf):
-    """Decoder widths 384/192/96/48: blocks 1-2 run three unit launches
-    each, blocks 3-4 one chain launch each (the gate at an H100's shared
-    memory); the card's decode agrees with the port on the CPU at the f32
-    bound of tests/test_torch_dac.py."""
+    """Decoder widths 384/192/96/48: the launches follow the gate at an
+    H100's shared memory (f32: three unit launches per block; bf16: the
+    chain at C48, where 512 rows of its state fit), so the decodes run both
+    kernels; the card's f32 decode agrees with the port on the CPU at the
+    f32 bound of tests/test_torch_dac.py."""
     import codec_tpu_torch
 
-    gpu = codec_tpu_torch.load_model(small_dac_gguf, device="cuda")
     cpu = codec_tpu_torch.load_model(small_dac_gguf, device="cpu")
     limit = seanet_cuda.smem_per_block(0)
-    chains = sum(seanet_cuda.use_chain(c, 7, DILS, torch.float32, limit)
-                 for c in (384, 192, 96, 48))
-    assert 0 < chains < 4
     codes = np.random.default_rng(5).integers(0, 64, (2, 30, 4)).astype(np.int32)
-    unit0, chain0 = (seanet_cuda.seanet_res_unit.launches,
-                     seanet_cuda.seanet_res_chain.launches)
-    got = gpu.decode(codes)
-    assert seanet_cuda.seanet_res_chain.launches == chain0 + chains
-    assert seanet_cuda.seanet_res_unit.launches == unit0 + 3 * (4 - chains)
+    ran = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        gpu = codec_tpu_torch.load_model(small_dac_gguf, device="cuda",
+                                         compute_dtype=str(dtype)[6:])
+        chains = sum(seanet_cuda.use_chain(c, 7, DILS, dtype, limit)
+                     for c in (384, 192, 96, 48))
+        ran += chains
+        unit0, chain0 = (seanet_cuda.seanet_res_unit.launches,
+                         seanet_cuda.seanet_res_chain.launches)
+        got = gpu.decode(codes)
+        assert seanet_cuda.seanet_res_chain.launches == chain0 + chains
+        assert seanet_cuda.seanet_res_unit.launches == unit0 + 3 * (4 - chains)
+    assert ran > 0
     want = cpu.decode(codes)
     assert got.shape == want.shape == (2, 320 * 30 - 8)
     corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]

@@ -299,9 +299,12 @@ ptxas info    : Used 72 registers, used 1 barriers, 400 bytes cmem[0]
         /*0010*/                   I2F.U32 R4, R5 ;
         /*0020*/               @P0 I2F R6, R7 ;
         /*0030*/                   FFMA R8, R4, R6, R8 ;
-        /*0040*/                   EXIT ;
+        /*0040*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR4], R24 ;
+        /*0050*/                   HMMA.16816.F32.BF16 R12, R4, R8, R12 ;
+        /*0060*/                   EXIT ;
 """
-    assert sass_report.sass_counts(dump) == {r.name: (2, 5)}
+    assert sass_report.sass_counts(dump) == {r.name: dict(
+        i2f=2, instructions=7, hgmma=1, hmma=1)}
 
 
 @pytest.mark.parametrize("kind", ["q8_0", "q4_k"])

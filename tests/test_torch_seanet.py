@@ -155,38 +155,82 @@ H100_SMEM = 232448      # opt-in shared memory per block of an H100
 
 @pytest.mark.parametrize("dtype,c,tile", [
     (torch.float32, 768, 0), (torch.float32, 384, 0),
-    (torch.float32, 192, 96), (torch.float32, 96, 384),
+    (torch.float32, 192, 32), (torch.float32, 96, 224),
+    (torch.float32, 64, 288), (torch.float32, 128, 96),
+    (torch.float32, 256, 0), (torch.float32, 512, 0),
     (torch.bfloat16, 768, 0), (torch.bfloat16, 384, 0),
-    (torch.bfloat16, 192, 160), (torch.bfloat16, 96, 416),
+    (torch.bfloat16, 192, 96), (torch.bfloat16, 96, 288),
+    (torch.bfloat16, 64, 512), (torch.bfloat16, 128, 192),
+    (torch.bfloat16, 256, 32), (torch.bfloat16, 512, 0),
 ])
 def test_gate_at_the_24khz_widths(dtype, c, tile):
-    """The chain's tile where its state fits; the gate takes it from 256
-    rows: blocks 1-3 run three unit launches, block 4 one chain launch,
-    so 9 unit and 1 chain launches per decode, in f32 and in bf16."""
+    """The chain's rows of state where they fit, at the DAC decoder and
+    encoder widths, at its one product tile per width (bf16 128 x 64; f32
+    the one pass that covers C); the gate takes it in bf16 where all 512
+    rows fit, so only at bf16 C64 (the encoder's first block): every
+    decode runs 12 unit launches, the bf16 encode 9 and one chain. The
+    unit's tile fits both of its launches."""
+    block = seanet_cuda.chain_block(c, dtype)
+    assert block == ((128, 64) if dtype == torch.bfloat16 else
+                     (256, 64) if c <= 64 else (128, 128) if c <= 128
+                     else (64, 256))
     assert seanet_cuda.chain_tile(c, 7, DILS, dtype, H100_SMEM) == tile
-    assert seanet_cuda.use_chain(c, 7, DILS, dtype, H100_SMEM) == (c == 96)
-    assert seanet_cuda.unit_smem_bytes(c, 7, 9, dtype) <= H100_SMEM
+    assert seanet_cuda.use_chain(c, 7, DILS, dtype, H100_SMEM) == (
+        dtype == torch.bfloat16 and c == 64)
+    unit = seanet_cuda.unit_tile(c, dtype)
+    for pointwise in (False, True):
+        assert seanet_cuda.unit_smem_bytes(c, 7, 9, dtype, unit,
+                                           pointwise) <= H100_SMEM
     if tile:
-        assert seanet_cuda.chain_smem_bytes(c, 7, DILS, tile, dtype) <= H100_SMEM
-        assert seanet_cuda.chain_smem_bytes(
-            c, 7, DILS, tile + 32, dtype) > H100_SMEM
+        assert seanet_cuda.chain_smem_bytes(c, 7, DILS, tile, dtype,
+                                            block) <= H100_SMEM
+        assert tile == 512 or seanet_cuda.chain_smem_bytes(
+            c, 7, DILS, tile + 32, dtype, block) > H100_SMEM
 
 
-@pytest.mark.parametrize("dtype,c,rows,width", [
-    (torch.float32, 768, 8, 6), (torch.float32, 384, 4, 6),
-    (torch.float32, 192, 4, 6), (torch.float32, 96, 4, 3),
-    (torch.float32, 8, 4, 1), (torch.float32, 300, 4, 6),
-    (torch.float32, 40, 4, 2), (torch.float32, 512, 8, 8),
-    (torch.float32, 1024, 8, 8),
-    (torch.bfloat16, 768, 32, 6), (torch.bfloat16, 384, 32, 6),
-    (torch.bfloat16, 192, 32, 3), (torch.bfloat16, 96, 32, 2),
-    (torch.bfloat16, 8, 32, 1), (torch.bfloat16, 1000, 32, 6),
+@pytest.mark.parametrize("kernel,dtype,c,t,want", [
+    # SNAC's kernel: (rows per warp, pass width)
+    ("snac", torch.float32, 768, 0, (8, 6)), ("snac", torch.float32, 384, 0, (4, 6)),
+    ("snac", torch.float32, 192, 0, (4, 6)), ("snac", torch.float32, 96, 0, (4, 3)),
+    ("snac", torch.float32, 8, 0, (4, 1)), ("snac", torch.float32, 300, 0, (4, 6)),
+    ("snac", torch.float32, 40, 0, (4, 2)), ("snac", torch.float32, 512, 0, (8, 8)),
+    ("snac", torch.float32, 1024, 0, (8, 8)),
+    ("snac", torch.bfloat16, 768, 0, (32, 6)), ("snac", torch.bfloat16, 384, 0, (32, 6)),
+    ("snac", torch.bfloat16, 192, 0, (32, 3)), ("snac", torch.bfloat16, 96, 0, (32, 2)),
+    ("snac", torch.bfloat16, 8, 0, (32, 1)), ("snac", torch.bfloat16, 1000, 0, (32, 6)),
+    # the DAC unit's: (rows per block, columns per pass) at 20 s b1, the
+    # fastest of its tiles in the sweep in PERF.md (f32 C768 and C96:
+    # within 1% of it)
+    ("dac", torch.float32, 768, 12000, (64, 256)),
+    ("dac", torch.float32, 384, 60000, (128, 128)),
+    ("dac", torch.float32, 192, 240000, (256, 64)),
+    ("dac", torch.float32, 96, 480000, (128, 128)),
+    ("dac", torch.float32, 64, 480000, (256, 64)),
+    ("dac", torch.float32, 128, 240000, (128, 128)),
+    ("dac", torch.float32, 256, 60000, (64, 256)),
+    ("dac", torch.float32, 40, 0, (256, 64)),
+    ("dac", torch.bfloat16, 768, 12000, (128, 192)),
+    ("dac", torch.bfloat16, 384, 60000, (128, 128)),
+    ("dac", torch.bfloat16, 192, 240000, (128, 192)),
+    ("dac", torch.bfloat16, 96, 480000, (256, 128)),
+    ("dac", torch.bfloat16, 64, 480000, (128, 64)),
+    ("dac", torch.bfloat16, 128, 240000, (128, 128)),
+    ("dac", torch.bfloat16, 256, 60000, (256, 128)),
+    ("dac", torch.bfloat16, 512, 12000, (128, 128)),
+    ("dac", torch.bfloat16, 768, 0, (128, 192)),
 ])
-def test_tile_width(dtype, c, rows, width):
-    """Rows per warp, and the fewest passes (f32: 32·TN columns, 64·TN
-    from C = 512 with 8 rows per warp; bf16: 64·NT), split evenly."""
-    assert seanet_cuda.tile_width(c, dtype) == width
-    assert seanet_cuda._tile_args(c, dtype)[:2] == (rows, width)
+def test_tile_width(kernel, dtype, c, t, want):
+    """SNAC: rows per warp and the fewest passes (f32: 32·TN columns, 64·TN
+    from C = 512 with 8 rows per warp; bf16: 64·NT), split evenly. The DAC
+    unit: the tile whose waves over 132 SMs cost least (outputs, with a
+    pass's and a block's fixed cost; t = 0: the fewest columns past C),
+    then the widest pass."""
+    if kernel == "snac":
+        assert seanet_cuda.tile_width(c, dtype) == want[1]
+        assert seanet_cuda._tile_args(c, dtype)[:2] == want
+    else:
+        assert seanet_cuda.unit_tile(c, dtype, t) == want
+        assert want in seanet_cuda._UNIT_TILES[dtype]
 
 
 def test_import_builds_nothing_and_needs_no_nvcc():
