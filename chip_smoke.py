@@ -9,11 +9,12 @@ Phases (any failure raises and exits non-zero before the last line):
   2. build the CUDA kernels from codec_tpu_torch/csrc (nvcc, one process
      per source); the packed products' ptxas stack frames and spills and
      their SASS I2F counts (cuobjdump), all of which must be 0; the DAC
-     residual units' stack frames and spills (0), and HGMMA (wgmma) but no
-     HMMA (mma.sync) in every bf16 one
+     residual units' and SNAC's unit's (its depthwise pass and its 1x1)
+     stack frames and spills (0), and HGMMA (wgmma) but no HMMA
+     (mma.sync) in every bf16 product
   3. each kernel against its plain PyTorch version on the card (the
-     residual units also at every DAC decoder and encoder block's shape,
-     in the launches a request makes, and at SNAC's encoder widths, the
+     residual units also at every DAC and SNAC decoder and encoder
+     block's shape, unit by unit in the launches a request makes, the
      RVQ search also on integer-valued inputs and duplicated rows, where
      it must agree bit for bit)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
@@ -52,7 +53,8 @@ Phases (any failure raises and exits non-zero before the last line):
      attention and the packed products, one PyTorch call that computes
      the same function; the DAC residual unit at every decoder and
      encoder width, d = 1, 3, 9, f32 and bf16, and the chain against three
-     unit launches at C96, C64 and C128 (tools/seanet_times.py); device
+     unit launches at C96, C64 and C128 (tools/seanet_times.py); SNAC's
+     four decoder blocks' three units beside their bound; device
      times of the packed products from torch.profiler, warm (one matrix
      again and again), cold (cycling over the loaded backbones' 16 layers
      of each shape) at m = 1 and 16, and
@@ -114,6 +116,9 @@ CHAIN_SHAPES = [(1, 240000, 192), (1, 480000, 96), (2, 100, 96), (1, 20, 192)]
 # the unit's 7 tiles x its 2 launches (dilated conv, 1x1) and the chain's 4
 # tiles (csrc/seanet_res.cu::dispatch_tile, dispatch_chain)
 DENSE_KERNELS = 18
+# SNAC's unit: the depthwise pass for K = 1, 3, 5, 7 in f32 and bf16
+# (csrc/snac_res.cu) and its 1x1 at its 4 tiles (csrc/seanet_res.cu)
+SNAC_UNIT_KERNELS = 12
 UNIT_BF16 = dict(rtol=2e-2, atol=5e-2, corr=0.9999)
 CHAIN_BF16 = dict(rtol=3e-2, atol=8e-2, corr=0.9995)
 DILATIONS = (1, 3, 9)
@@ -273,21 +278,6 @@ def randn(shape, dtype, seed, scale=1.0):
 
 def corr(a, b) -> float:
     return float(np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1])
-
-
-def dw_params(n, c, dtype, seed, k=7):
-    """n depthwise units' weights (SNAC_SHAPES gives the scales)."""
-    rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
-
-    return dict(w1s=t(rng.standard_normal((n, k, c)) * 0.2),
-                b1s=t(rng.standard_normal((n, c)) * 0.1),
-                a1s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
-                a2s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
-                w2s=t(rng.standard_normal((n, c, c)) * 0.1 * np.sqrt(128 / c)),
-                b2s=t(rng.standard_normal((n, c)) * 0.1))
 
 
 def attn_work(b, h, t, d, w, dtype):
@@ -477,8 +467,8 @@ def main() -> int:
     # the bound (H100 data-sheet peaks)
     from codec_tpu_torch.tools.roofline import least_time
     # the residual units' work and inputs
-    from codec_tpu_torch.tools.seanet_times import (res_params, res_work,
-                                                    unit_args)
+    from codec_tpu_torch.tools.seanet_times import (dw_params, res_params,
+                                                    res_work, unit_args)
 
     wrappers = {"flash_sdpa_window": flash_sdpa_window,
                 "seanet_res_unit": seanet_res_unit,
@@ -520,21 +510,26 @@ def main() -> int:
         raise RuntimeError(f"packed products: want 36 kernels with no stack "
                            f"frame, no spills and no I2F, got {len(packed)}")
     dense = [r for r in sass if "seanet_res_" in r.name]
-    for r in dense:
+    snac_unit = [r for r in sass if "snac_res_1x1" in r.name
+                 or "snac_dw" in r.name]
+    for r in dense + snac_unit:
         bf16 = "bfloat16" in r.name
+        product = "snac_dw" not in r.name
         log(f"[build] {kernel_name(r.name)} {'bf16' if bf16 else 'f32'} "
             f"{r.name}: {r.registers} registers, {r.stack} bytes stack frame, "
             f"spills {r.spill_stores}/{r.spill_loads} bytes, {r.hgmma} HGMMA, "
             f"{r.hmma} HMMA of {r.instructions} SASS instructions")
         if r.stack or r.spill_stores or r.spill_loads or (
-                bf16 and (not r.hgmma or r.hmma)):
+                bf16 and product and (not r.hgmma or r.hmma)):
             raise RuntimeError(f"{r.name}: want no stack frame, no spills "
-                               f"and, in bf16, HGMMA and no HMMA")
-    if len(dense) != DENSE_KERNELS:
-        raise RuntimeError(f"seanet_res: want {DENSE_KERNELS} kernels, got "
-                           f"{len(dense)}")
+                               f"and, in a bf16 product, HGMMA and no HMMA")
+    if len(dense) != DENSE_KERNELS or len(snac_unit) != SNAC_UNIT_KERNELS:
+        raise RuntimeError(f"seanet_res / SNAC's unit: want {DENSE_KERNELS} "
+                           f"/ {SNAC_UNIT_KERNELS} kernels, got {len(dense)} "
+                           f"/ {len(snac_unit)}")
     smem = seanet_cuda.smem_per_block(0)
-    log(f"[build] opt-in shared memory per block: {smem} bytes")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[build] opt-in shared memory per block: {smem} bytes, {sms} SMs")
 
     # -- 3. kernels against their plain versions ------------------------------
     max_err = {name: 0.0 for name in wrappers}
@@ -623,10 +618,11 @@ def main() -> int:
                      f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
             del x, want
 
-    # the residual units at the DAC decoder's and encoder's and SNAC's
-    # encoder's block shapes (20 s b1), in the launches a request makes
-    # (DAC: the gate's chain, or one unit launch per unit, each at the tile
-    # unit_tile picks for the shape; SNAC: one N = 1 launch per unit). A
+    # the residual units at the DAC and SNAC decoder's and encoder's block
+    # shapes (20 s b1), in the launches a request makes (DAC: the gate's
+    # chain, or one unit launch per unit, each at the tile unit_tile picks
+    # for the shape; SNAC: one N = 1 launch per unit, its 1x1 at the tile
+    # snac_tile picks). A
     # chain is held against the plain chain, each unit launch (on the
     # block's input, one per dilation) against the plain unit, at the
     # bounds of the checks above of the same forms
@@ -667,11 +663,17 @@ def main() -> int:
                     lambda y, pu, dil: seanet_cuda.seanet_res_unit_ref(
                         y, *unit_args(pu), dilation=dil), UNIT_BF16)
             del x
-        for i, (c, t) in enumerate(SNAC_ENC_BLOCKS):
-            p = dw_params(3, c, dtype, SEED + 170 + i)
-            x = randn((1, t, c), dtype, SEED + 180 + i, scale=0.3)
+        snac_blocks = ([("decoder", c, t, SEED + 240 + i)
+                        for i, (c, t) in enumerate(SNAC_BLOCKS)]
+                       + [("encoder", c, t, SEED + 170 + i)
+                          for i, (c, t) in enumerate(SNAC_ENC_BLOCKS)])
+        for where, c, t, seed in snac_blocks:
+            p = dw_params(3, c, dtype, seed)
+            x = randn((1, t, c), dtype, seed + 10, scale=0.3)
+            tile = seanet_cuda.snac_tile(c, dtype, t, 1, sms)
             unit_by_unit(
-                "snac_res_chain", x, p, dtype, f"SNAC encoder block C{c} T{t}",
+                "snac_res_chain", x, p, dtype,
+                f"SNAC {where} block C{c} T{t} (1x1 tile {tile[0]}x{tile[1]})",
                 lambda y, pu, dil: snac_res_chain(y, **pu, dilations=(dil,)),
                 lambda y, pu, dil: seanet_cuda.snac_res_chain_ref(
                     y, **pu, dilations=(dil,)), CHAIN_BF16)
@@ -1336,9 +1338,11 @@ def main() -> int:
             flops, nbytes = res_work(3, 1, t, c, dtype, depthwise=True)
             b_ms, b_by = least_time(flops, nbytes)
             flop = sum(f for f, _ in flops)
+            # the rows a loaded model passes (built once at load)
+            vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
             with f32_precision(dtype == torch.float32):
                 kern, plain, s = turns(
-                    lambda: seanet_cuda.snac_res_units(x, **p),
+                    lambda: seanet_cuda.snac_res_units(x, **p, vec=vec),
                     lambda: seanet_cuda.snac_res_chain_ref(x, **p))
             line = (f"[time] snac block {bi} C{c} T{t} {str(dtype)[6:]}: "
                     f"three units as 3 N=1 launches {kern:.3f} ms "

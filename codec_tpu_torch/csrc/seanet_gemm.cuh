@@ -4,8 +4,9 @@
 // policies of the [rows, C_in] x [C_in, C_out] products that eight consumer
 // warps run on it: f32 on the FMA units (Fma) and bf16 on the tensor cores
 // through wgmma (Wg). Everything is in an anonymous namespace: each source
-// that includes this header compiles its own copy. snac_res.cu keeps its
-// own building blocks (seanet_tiles.cuh).
+// that includes this header compiles its own copy. SNAC's 1x1 runs on them
+// too (seanet_res.cu::codec_snac_res_unit); SNAC's chain keeps its own
+// building blocks (seanet_tiles.cuh).
 
 #pragma once
 
@@ -213,6 +214,14 @@ struct Fma {
 #pragma unroll
       for (int j = 0; j < 8; j += 2) f(row(i), col(j), acc.v[i][j], acc.v[i][j + 1]);
   }
+  // the same with v0, v1 as float&
+  template <typename F>
+  __device__ static void each_pair_ref(Acc& acc, F f) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) f(row(i), col(j), acc.v[i][j], acc.v[i][j + 1]);
+  }
 };
 
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -391,6 +400,19 @@ struct Wg {
   // f(row, col, v0, v1) for the pairs of adjacent columns (col even)
   template <typename F>
   __device__ static void each_pair(Acc& acc, F f) {
+    const int lane = threadIdx.x & 31, c = 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int i = 0; i < NP / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          f(row0(t) + (lane >> 2) + 8 * h, 8 * i + c, acc.v[t][4 * i + 2 * h],
+            acc.v[t][4 * i + 2 * h + 1]);
+  }
+  // the same with v0, v1 as float&
+  template <typename F>
+  __device__ static void each_pair_ref(Acc& acc, F f) {
     const int lane = threadIdx.x & 31, c = 2 * (lane & 3);
 #pragma unroll
     for (int t = 0; t < MT; ++t)

@@ -76,6 +76,15 @@
 // before it stores any; the 1x1's residual x arrives as a tile by TMA
 // during the product.
 //
+// SNAC's depthwise units run their 1x1 on the same product
+// (codec_snac_res_unit: snac_res.cu's depthwise pass writes S, then
+// snac_res_1x1_kernel reads S and x) with SNAC's epilogue, which adds the
+// f32 branch to x and rounds once; where they fit, two x tiles, so that
+// the next tile's x lands while the consumers finish a tile; and a tile
+// whose rows all lie in [0, T) by column pairs with no test per row. At
+// SNAC's narrow widths a tile's product is short: the epilogue's chain of
+// tests and single loads had held the 1x1 back.
+//
 // The chain keeps what only it does: its state cur [tile + 2 halo, C] in
 // f32 in shared memory across its units, S for one row block in shared
 // memory, A snaked from cur by the consumers. It walks each unit in kM-row
@@ -136,26 +145,29 @@ __host__ __device__ inline Layout make_layout(int stages, int stage_bytes, int a
 
 // The unit's A ring: slots of [kM + 2 halo rows, rounded up to a box][128
 // bytes], two for the dilated conv (7 taps of work per slot), four for the
-// 1x1 (one) where they fit beside its x tile [kM][kNP] (boxes of 64 rows x
-// 128 bytes in the 128-byte swizzle, when the TMA can read x).
+// 1x1 (one) where they fit beside its x_slots x tiles [kM][kNP] (boxes of
+// 64 rows x 128 bytes in the 128-byte swizzle, when the TMA can read x).
 constexpr int kSmemLimit = 232448;          // an H100's opt-in bytes per block
 
 template <typename P>
-__host__ __device__ constexpr int a_slots(bool pointwise) {
+__host__ __device__ constexpr int x_tile_bytes() {
+  return P::kM * P::kNP * static_cast<int>(sizeof(typename P::Op));
+}
+
+template <typename P>
+__host__ __device__ constexpr int a_slots(bool pointwise, int x_slots = 1) {
   return pointwise && kBarrierBytes + kUnitStages * P::kStageBytes +
-                              4 * a_slot_bytes(P::kM) +
-                              P::kM * P::kNP * static_cast<int>(sizeof(typename P::Op)) +
+                              4 * a_slot_bytes(P::kM) + x_slots * x_tile_bytes<P>() +
                               1024 <= kSmemLimit
              ? 4
              : 2;
 }
 
 template <typename P>
-__host__ __device__ inline Layout unit_layout(int halo, bool pointwise) {
+__host__ __device__ inline Layout unit_layout(int halo, bool pointwise, int x_slots = 1) {
   return make_layout(kUnitStages, P::kStageBytes,
-                     a_slots<P>(pointwise) * a_slot_bytes(P::kM + 2 * halo),
-                     pointwise ? P::kM * P::kNP * static_cast<int>(sizeof(typename P::Op)) : 0,
-                     0);
+                     a_slots<P>(pointwise, x_slots) * a_slot_bytes(P::kM + 2 * halo),
+                     pointwise ? x_slots * x_tile_bytes<P>() : 0, 0);
 }
 
 // S's row stride in the chain: C rounded up to a chunk, plus 16 bytes
@@ -204,6 +216,14 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// two adjacent values in one load (p 2-element aligned)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // The snake of x, xs = Op(snake(x, a1)) (bf16: rounded to nearest even),
 // the dilated conv's input, into rows of cw channels (zeros past C): once
 // per element, not once per row block and output pass. A thread takes
@@ -245,10 +265,14 @@ __global__ void __launch_bounds__(256) seanet_snake_kernel(const T* __restrict__
 // rings run on across tiles: the producer streams the next tile's A and
 // weights while the consumers finish a tile. For the 1x1, a second
 // producer thread copies each tile's x once the consumers are done with
-// the previous one.
-template <typename T, typename P, bool kPointwise>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-seanet_res_unit_kernel(const __grid_constant__ UnitArgs args) {
+// the previous one. kSnac (SNAC's 1x1, at the tiles of dispatch_snac_tile):
+// the 1x1 adds the f32 branch to x and rounds the sum once (SNAC's
+// reference), where DAC's rounds the branch to x's dtype before it adds x
+// (DAC's reference; in f32 the two are the same); two x tiles (DAC's 1x1
+// keeps one, with four A slots where they fit); and a tile whose rows all
+// lie in [0, T) is taken by column pairs with no test per row.
+template <typename T, typename P, bool kPointwise, bool kSnac>
+__device__ __forceinline__ void unit_body(const UnitArgs& args) {
   static_assert(sizeof(T) == sizeof(typename P::Op), "f32 on Fma, bf16 on Wg");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -263,18 +287,26 @@ seanet_res_unit_kernel(const __grid_constant__ UnitArgs args) {
     co0 = i / row_tiles / args.batch * P::kNP;
     co1 = min(co0 + P::kNP, cw);
   };
-  const Layout l = unit_layout<P>(halo, kPointwise);
+  constexpr int kXSlots = kSnac ? 2 : 1;
+  static_assert(!kSnac || kBarrierBytes + kUnitStages * P::kStageBytes +
+                                   2 * a_slot_bytes(P::kM) + 2 * x_tile_bytes<P>() + 1024 <=
+                               kSmemLimit,
+                "two x tiles fit beside two A slots at SNAC's tiles");
+  const Layout l = unit_layout<P>(halo, kPointwise, kXSlots);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* x_full = bars + 4 * kMaxStages;  // the 1x1's x tile has landed
-  uint64_t* x_empty = x_full + 1;            // ... and is read
+  uint64_t* x_full = bars + 4 * kMaxStages;  // the 1x1's x tiles have landed
+  uint64_t* x_empty = x_full + kXSlots;      // ... and are read
   Ring wring = init_ring(smem, bars, l.ring, kUnitStages, P::kStageBytes);
-  Ring aring = init_ring(smem, bars + 2 * kMaxStages, l.a, a_slots<P>(kPointwise),
+  Ring aring = init_ring(smem, bars + 2 * kMaxStages, l.a, a_slots<P>(kPointwise, kXSlots),
                          a_slot_bytes(P::kM + 2 * halo));
   constexpr int kXCols = 128 / sizeof(T), kXBoxes = P::kNP / kXCols;  // per 64 rows
   const bool x_tile = kPointwise && args.x_map;
   if (x_tile && threadIdx.x == 0) {
-    mbar_init(x_full, 1);
-    mbar_init(x_empty, kConsumerWarps);
+#pragma unroll
+    for (int slot = 0; slot < kXSlots; ++slot) {
+      mbar_init(x_full + slot, 1);
+      mbar_init(x_empty + slot, kConsumerWarps);
+    }
   }
   rings_ready();
   if (threadIdx.x >= kConsumers) {
@@ -290,22 +322,23 @@ seanet_res_unit_kernel(const __grid_constant__ UnitArgs args) {
       }
     } else if (x_tile && threadIdx.x == kConsumers + 32) {
       prefetch_map(&args.xm);
-      uint32_t phase = 0;
-      for (int i = blockIdx.x; i < n_tiles; i += gridDim.x, phase ^= 1) {
+      Ring xring{x_full, x_empty, smem + l.s, kXSlots, x_tile_bytes<P>()};
+      for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
         tile(i, t0, b, co0, co1);
-        mbar_wait(x_empty, phase ^ 1);
-        mbar_arrive_expect_tx(x_full, P::kM * P::kNP * sizeof(T));
+        mbar_wait(xring.empty + xring.stage, xring.phase ^ 1);
+        mbar_arrive_expect_tx(xring.full + xring.stage, P::kM * P::kNP * sizeof(T));
         for (int br = 0; br < P::kM / kARows; ++br)
           for (int bc = 0; bc < kXBoxes; ++bc)
-            tensor_copy(smem + l.s + (br * kXBoxes + bc) * kARows * 128, &args.xm,
-                        co0 + bc * kXCols, t0 + br * kARows, b, x_full);
+            tensor_copy(xring.tile() + (br * kXBoxes + bc) * kARows * 128, &args.xm,
+                        co0 + bc * kXCols, t0 + br * kARows, b, xring.full + xring.stage);
+        xring.advance();
       }
     }
     return;
   }
   consumer_registers<224>();
   const float* __restrict__ vec = args.vec;
-  uint32_t x_phase = 0;
+  Ring xring{x_full, x_empty, smem + l.s, kXSlots, x_tile_bytes<P>()};
   for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
     int t0, b, co0, co1;
     tile(i, t0, b, co0, co1);
@@ -333,39 +366,75 @@ seanet_res_unit_kernel(const __grid_constant__ UnitArgs args) {
       // from the tile the producer copied (else from device memory), every
       // load before the first store
       const T* __restrict__ x = static_cast<const T*>(args.x) + base * c_len;
-      const T* xt = reinterpret_cast<const T*>(smem + l.s);
       T* __restrict__ out = static_cast<T*>(args.out) + base * c_len;
       const float* b2 = vec + 5 * c_len;
       auto epi = [&](typename P::Acc& acc, int c0) {
-        if (x_tile) mbar_wait(x_full, x_phase);
-        P::each(acc, [&](int r, int col, float& v) {
-          const int t = t0 + r, co = c0 + col;
-          if (t >= t_len || co >= c_len) return;
-          const T* box = xt + ((r / kARows) * kXBoxes + col / kXCols) * kARows * kXCols;
-          const float xv = x_tile ? to_f32(*a_at<true>(box, 0, r % kARows, col % kXCols))
-                                  : to_f32(x[(size_t)t * c_len + co]);
-          v = xv + round_to<T>(v + b2[co]);
-        });
+        if (x_tile) mbar_wait(xring.full + xring.stage, xring.phase);
+        const T* xt = reinterpret_cast<const T*>(xring.tile());
+        // SNAC: a tile whose rows all lie in [0, T) (x as a tile, C even)
+        // takes pairs of columns with no test per row, so that a thread's
+        // loads are in flight together
+        bool whole = false;
+        if constexpr (kSnac) whole = x_tile && t0 + P::kM <= t_len && c_len % 2 == 0;
+        if (whole) {
+          if constexpr (kSnac)
+            P::each_pair_ref(acc, [&](int r, int col, float& v0, float& v1) {
+              if (c0 + col >= c_len) return;
+              const T* box = xt + ((r / kARows) * kXBoxes + col / kXCols) * kARows * kXCols;
+              const float2 xv = load2(a_at<true>(box, 0, r % kARows, col % kXCols));
+              v0 = xv.x + (v0 + b2[c0 + col]);
+              v1 = xv.y + (v1 + b2[c0 + col + 1]);
+            });
+        } else {
+          P::each(acc, [&](int r, int col, float& v) {
+            const int t = t0 + r, co = c0 + col;
+            if (t >= t_len || co >= c_len) return;
+            const T* box = xt + ((r / kARows) * kXBoxes + col / kXCols) * kARows * kXCols;
+            const float xv = x_tile ? to_f32(*a_at<true>(box, 0, r % kARows, col % kXCols))
+                                    : to_f32(x[(size_t)t * c_len + co]);
+            if constexpr (kSnac) v = xv + (v + b2[co]);
+            else v = xv + round_to<T>(v + b2[co]);
+          });
+        }
         if (x_tile) {
           __syncwarp();
-          if ((threadIdx.x & 31) == 0) mbar_arrive(x_empty);
-          x_phase ^= 1;
+          if ((threadIdx.x & 31) == 0) mbar_arrive(xring.empty + xring.stage);
+          xring.advance();
         }
-        P::each_pair(acc, [&](int r, int col, float v0, float v1) {
-          const int t = t0 + r, co = c0 + col;
-          T* o = out + (size_t)t * c_len + co;
-          if (t >= t_len || co >= c_len) return;
-          if (c_len % 2 == 0) {
-            store2(o, v0, v1);
-          } else {
-            store(o, v0);
-            if (co + 1 < c_len) store(o + 1, v1);
-          }
-        });
+        if (whole) {
+          if constexpr (kSnac)
+            P::each_pair(acc, [&](int r, int col, float v0, float v1) {
+              if (c0 + col < c_len) store2(out + (size_t)(t0 + r) * c_len + c0 + col, v0, v1);
+            });
+        } else {
+          P::each_pair(acc, [&](int r, int col, float v0, float v1) {
+            const int t = t0 + r, co = c0 + col;
+            T* o = out + (size_t)t * c_len + co;
+            if (t >= t_len || co >= c_len) return;
+            if (c_len % 2 == 0) {
+              store2(o, v0, v1);
+            } else {
+              store(o, v0);
+              if (co + 1 < c_len) store(o + 1, v1);
+            }
+          });
+        }
       };
       product_tma<P>(wring, aring, cw, co0, co1, 1, 0, epi);
     }
   }
+}
+
+template <typename T, typename P, bool kPointwise>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+seanet_res_unit_kernel(const __grid_constant__ UnitArgs args) {
+  unit_body<T, P, kPointwise, false>(args);
+}
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+snac_res_1x1_kernel(const __grid_constant__ UnitArgs args) {
+  unit_body<T, P, true, true>(args);
 }
 
 // The chain's dilated-conv A: the snake of its state's rows
@@ -541,14 +610,39 @@ struct ChainCall {
   cudaStream_t stream;
 };
 
+// One block per SM, or per tile where there are fewer tiles
+template <typename P>
+dim3 unit_grid(const UnitCall& u) {
+  const long tiles = (long)((u.t_len + P::kM - 1) / P::kM) * u.batch *
+                     ((u.cw + P::kNP - 1) / P::kNP);
+  return dim3(static_cast<unsigned>(tiles < u.sms ? tiles : u.sms));
+}
+
+// The 1x1 conv: S -> out, x by TMA where its rows are 16-byte multiples
+// (DAC's, or with kSnac SNAC's)
+template <typename T, typename P, bool kSnac>
+cudaError_t launch_pointwise(UnitArgs& a, const UnitCall& u) {
+  if (!weight_map<P>(&a.w, u.w2, u.cw, 1) ||
+      !activation_map<P>(&a.a, u.s, u.cw, u.t_len, u.batch))
+    return cudaErrorInvalidValue;
+  a.taps = 1, a.dilation = 0;
+  a.x_map = activation_map<P>(&a.xm, u.x, u.c, u.t_len, u.batch);
+  static size_t opted[kMaxDevices] = {};
+  if constexpr (kSnac)
+    return launch_block(snac_res_1x1_kernel<T, P>, a, unit_grid<P>(u),
+                        unit_layout<P>(0, true, 2).total, opted, kMaxDevices, u.stream);
+  else
+    return launch_block(seanet_res_unit_kernel<T, P, true>, a, unit_grid<P>(u),
+                        unit_layout<P>(0, true).total, opted, kMaxDevices, u.stream);
+}
+
 template <typename T, typename P>
 struct UnitLaunch {
   static cudaError_t run(const UnitCall& u) {
     UnitArgs a{};
     T* xs = static_cast<T*>(u.xs);
-    T* s = static_cast<T*>(u.s);
-    a.x = u.x, a.s = s, a.out = u.out, a.vec = u.vec;
-    a.t_len = u.t_len, a.c = u.c, a.cw = u.cw;
+    a.x = u.x, a.s = u.s, a.out = u.out, a.vec = u.vec;
+    a.t_len = u.t_len, a.c = u.c, a.cw = u.cw, a.batch = u.batch;
     // the snake: x -> xs
     constexpr int kVec = 16 / sizeof(T);      // cw is a multiple
     const size_t rows = (size_t)u.batch * u.t_len;
@@ -557,30 +651,28 @@ struct UnitLaunch {
         static_cast<const T*>(u.x), xs, u.vec, rows, u.c, u.cw);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    // one block per SM, or per tile where there are fewer tiles
-    const long tiles = (long)((u.t_len + P::kM - 1) / P::kM) * u.batch *
-                       ((u.cw + P::kNP - 1) / P::kNP);
-    const dim3 grid(static_cast<unsigned>(tiles < u.sms ? tiles : u.sms));
-    a.batch = u.batch;
     // the dilated conv: xs -> S
     if (!weight_map<P>(&a.w, u.w1, u.cw, u.k) ||
         !activation_map<P>(&a.a, xs, u.cw, u.t_len, u.batch))
       return cudaErrorInvalidValue;
     a.taps = u.k, a.dilation = u.dilation;
     static size_t opted_conv[kMaxDevices] = {};
-    err = launch_block(seanet_res_unit_kernel<T, P, false>, a, grid,
+    err = launch_block(seanet_res_unit_kernel<T, P, false>, a, unit_grid<P>(u),
                        unit_layout<P>((u.k - 1) * u.dilation / 2, false).total, opted_conv,
                        kMaxDevices, u.stream);
     if (err != cudaSuccess) return err;
-    // the 1x1 conv: S -> out, x by TMA where its rows are 16-byte multiples
-    if (!weight_map<P>(&a.w, u.w2, u.cw, 1) ||
-        !activation_map<P>(&a.a, s, u.cw, u.t_len, u.batch))
-      return cudaErrorInvalidValue;
-    a.taps = 1, a.dilation = 0;
-    a.x_map = activation_map<P>(&a.xm, u.x, u.c, u.t_len, u.batch);
-    static size_t opted_1x1[kMaxDevices] = {};
-    return launch_block(seanet_res_unit_kernel<T, P, true>, a, grid,
-                        unit_layout<P>(0, true).total, opted_1x1, kMaxDevices, u.stream);
+    return launch_pointwise<T, P, false>(a, u);
+  }
+};
+
+// SNAC's 1x1 (after codec_snac_dw has written S)
+template <typename T, typename P>
+struct SnacPointwiseLaunch {
+  static cudaError_t run(const UnitCall& u) {
+    UnitArgs a{};
+    a.x = u.x, a.s = u.s, a.out = u.out, a.vec = u.vec;
+    a.t_len = u.t_len, a.c = u.c, a.cw = u.cw, a.batch = u.batch;
+    return launch_pointwise<T, P, true>(a, u);
   }
 };
 
@@ -609,7 +701,8 @@ struct ChainLaunch {
 };
 
 // kind 0: the unit's dilated conv at `halo`; 1: its 1x1; 2: the chain
-// (halo: its largest unit halo, halo_sum: their sum)
+// (halo: its largest unit halo, halo_sum: their sum); 3: SNAC's 1x1 (its
+// tiles only)
 struct SmemQuery {
   int kind, c, halo, halo_sum, tile;
 };
@@ -617,8 +710,9 @@ struct SmemQuery {
 template <typename T, typename P>
 struct SmemBytes {
   static int run(const SmemQuery& q) {
-    return q.kind == 2 ? chain_layout<P>(q.c, q.halo, q.halo_sum, q.tile).total
-                       : unit_layout<P>(q.kind == 1 ? 0 : q.halo, q.kind == 1).total;
+    if (q.kind == 2) return chain_layout<P>(q.c, q.halo, q.halo_sum, q.tile).total;
+    if (q.kind == 3) return unit_layout<P>(0, true, 2).total;
+    return unit_layout<P>(q.kind == 1 ? 0 : q.halo, q.kind == 1).total;
   }
 };
 
@@ -644,6 +738,21 @@ auto dispatch_tile(const Call& c, int rows, int cols, int dtype)
   } else if (dtype == 1 && rows == 256 && cols == 128) {
     return Launch<B, Wg<128, 2>>::run(c);
   }
+  return static_cast<R>(cudaErrorInvalidValue);
+}
+
+// SNAC's 1x1 tile (ops/seanet_cuda.py::snac_tile): f32 256 x 64 or 128 x
+// 128, bf16 128 x 64 or 128 x 128, the unit's tiles that won the SNAC sweep
+// (tools/seanet_times.py --what snac_tiles).
+template <template <typename, typename> class Launch, typename Call>
+auto dispatch_snac_tile(const Call& c, int rows, int cols, int dtype)
+    -> decltype(Launch<float, Fma<1>>::run(c)) {
+  using R = decltype(Launch<float, Fma<1>>::run(c));
+  using B = __nv_bfloat16;
+  if (dtype == 0 && rows == 256 && cols == 64) return Launch<float, Fma<1>>::run(c);
+  if (dtype == 0 && rows == 128 && cols == 128) return Launch<float, Fma<2>>::run(c);
+  if (dtype == 1 && rows == 128 && cols == 64) return Launch<B, Wg<64, 1>>::run(c);
+  if (dtype == 1 && rows == 128 && cols == 128) return Launch<B, Wg<128, 1>>::run(c);
   return static_cast<R>(cudaErrorInvalidValue);
 }
 
@@ -688,6 +797,34 @@ extern "C" int codec_seanet_res_unit(const void* x, const void* w1, const void* 
   return dispatch_tile<UnitLaunch>(u, rows, cols, dtype);
 }
 
+// SNAC's depthwise pass (snac_res.cu)
+extern "C" int codec_snac_dw(const void* x, const void* w1, const float* vec, void* s,
+                             int batch, int t_len, int c, int cw, int k, int dilation, int rows,
+                             int dtype, void* stream);
+
+// One SNAC unit: the depthwise pass (x -> s, dw_rows rows per block; w1
+// the taps [K, C]), then the 1x1 (s, x -> out) at the tile (rows, cols) of
+// dispatch_snac_tile; s: B T cw elements of x's dtype, w2 padded to cw.
+// Two launches in stream order. Returns a cudaError_t (0 = success).
+extern "C" int codec_snac_res_unit(const void* x, const void* w1, const void* w2,
+                                   const float* vec, void* s, void* out, int batch, int t_len,
+                                   int c, int cw, int k, int dilation, int dw_rows, int rows,
+                                   int cols, int dtype, void* stream) {
+  if (!valid_shape(batch, t_len, c, k) || dilation < 1 || !weights_ok(c, cw, dtype) ||
+      !aligned16(s))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = static_cast<cudaError_t>(
+      codec_snac_dw(x, w1, vec, s, batch, t_len, c, cw, k, dilation, dw_rows, dtype, stream));
+  if (err != cudaSuccess) return err;
+  const UnitCall u{x, w1, w2, vec, nullptr, s, out, batch, t_len, c, cw, k, dilation, sms,
+                   static_cast<cudaStream_t>(stream)};
+  return dispatch_snac_tile<SnacPointwiseLaunch>(u, rows, cols, dtype);
+}
+
 // dilations: n_units host ints; tile: rows per block (a multiple of 32).
 extern "C" int codec_seanet_res_chain(const void* x, const void* w1, const void* w2,
                                       const float* vec, void* out, int batch, int t_len,
@@ -711,7 +848,8 @@ extern "C" int codec_seanet_res_chain(const void* x, const void* w1, const void*
 extern "C" int codec_seanet_smem_bytes(int kind, int c, int halo, int halo_sum, int tile,
                                        int rows, int cols, int dtype) {
   const SmemQuery q{kind, c, halo, halo_sum, tile};
-  const int bytes = dispatch_tile<SmemBytes>(q, rows, cols, dtype);
+  const int bytes = kind == 3 ? dispatch_snac_tile<SmemBytes>(q, rows, cols, dtype)
+                              : dispatch_tile<SmemBytes>(q, rows, cols, dtype);
   return bytes == static_cast<int>(cudaErrorInvalidValue) ? -1 : bytes;
 }
 

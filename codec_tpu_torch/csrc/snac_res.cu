@@ -1,51 +1,62 @@
-// Fused depthwise residual units of the SNAC decoder for Hopper (sm_90a).
+// SNAC's depthwise residual units for Hopper (sm_90a).
 //
 // Replaces the TPU kernel codec_tpu/ops/seanet_pallas.py::snac_res_chain
 // (_dw_chain_kernel). One residual unit is
 //     out = x + conv1x1(snake(dwconv_K,d(snake(x, a1)) + b1, a2)) + b2
 // where dwconv_K,d is a depthwise (per-channel) dilated conv with symmetric
 // zero padding (K-1)*d/2 and snake(v, a) = v + sin^2(a v)/(a + eps), for
-// any sign of a. The chain kernel computes N units (SNAC: dilations 1, 3,
-// 9) in one pass with its f32 state resident in shared memory; the unit
-// kernel computes one unit (N = 1) staging its input from device memory.
-// x and out are contiguous [B, T, C]; w1 holds the per-channel taps
-// [N, K, C]; w2 is [N, C, C] (in, out); vec holds six f32 rows per unit:
-// a1, 1/(a1+eps), b1, a2, 1/(a2+eps), b2.
+// any sign of a. x and out are contiguous [B, T, C]; w1 holds the
+// per-channel taps [N, K, C]; w2 is [N, C, C] (in, out); vec holds six f32
+// rows per unit: a1, 1/(a1+eps), b1, a2, 1/(a2+eps), b2.
 //
 // Numerics, as the TPU kernel: the snaked input, the depthwise taps and
-// their sums are f32 in both dtypes (bf16 taps are widened exactly). The
-// snaked hidden feeds the 1x1 conv in x's dtype: f32 operands on plain f32
-// FMAs (no TF32: the parity path), or bf16 operands with f32 sums on the
-// tensor cores (mma.sync). The residual is added in f32 and rounded to x's
-// dtype once per launch; the chain keeps it f32 across its units.
+// their sums are f32 in both dtypes (bf16 taps are widened exactly; the
+// snaked input is never rounded to bf16). The snaked hidden S feeds the
+// 1x1 conv in x's dtype (bf16: rounded to nearest even): f32 operands on
+// plain f32 FMAs (no TF32: the parity path), or bf16 operands with f32 sums
+// on the tensor cores. The branch is added to x in f32 and the sum rounded
+// to x's dtype once; the chain keeps its residual f32 across its units.
 //
-// What bounds it on this card: per activation element a unit does 2*C FLOP
-// of 1x1 conv, 2*K of depthwise taps and two snakes, and reads and writes
-// one element (8 bytes in f32). At SNAC's widths (C = 64..512) that is
-// 16-128 FLOP per byte: above the f32 FMA ridge (67 TFLOP/s over 3.35
-// TB/s = 20 FLOP/byte) from C = 64 on, so f32 is bound by arithmetic; in
-// bf16 the 1x1 runs on the tensor cores (ridge near 295 FLOP/byte), so a
-// unit is bound by its bytes. The design keeps activations out of device
-// memory between units; its 1x1 is the SEANet kernels' tile (one 32-row
-// block, weight tiles double-buffered with cp.async), which is where later
-// work (wgmma, TMA) makes it fast.
+// A unit, the form every SNAC decode and encode launches
+// (ops/seanet_cuda.py::snac_res_units: one unit per call of the wrapper),
+// is two kernels in stream order:
+//  1. the depthwise pass here (snac_dw_kernel): x -> S = Op(snake(b1 +
+//     sum_j w1[j] snake(x, a1)[t + (j - (K-1)/2) d], a2)), written once as
+//     [B, T, cw] in x's dtype. Per element it reads and writes 2-4 bytes
+//     each and runs two snakes and K FMA, some 40 instructions: in f32 it
+//     is bound by its bytes, in bf16 by instruction issue as much as by
+//     bytes. A block stages 32 channels of its rows and their halo by
+//     cp.async, all at once, and snakes them once into f32 in shared
+//     memory (zeros outside [0, T) of its batch row). Its rows are a
+//     multiple of 4 d, so each of the d residue classes (rows t, t + d,
+//     ...) splits into items of 4 outputs: a thread reads the 4 + K - 1
+//     rows an item's taps need once (not K per output), keeps the taps and
+//     the per-channel rows in registers and stores 4 channels per row. K is
+//     a template parameter (1, 3, 5 or 7), so the tap loops carry no test.
+//  2. the 1x1 conv: csrc/seanet_res.cu's product launch (seanet_gemm.cuh),
+//     S and x by TMA into a persistent block per SM, f32 on the FMA units
+//     (bound by them), bf16 on wgmma (bound by its bytes at SNAC's widths:
+//     it reads S and x and writes out, 2 C FLOP per 6 bytes, below the
+//     tensor cores' ridge), with SNAC's epilogue (snac_res_1x1_kernel: the
+//     f32 branch added to x, one rounding), two x tiles where they fit, and
+//     tiles whose rows all lie in [0, T) taken by column pairs with no test
+//     per row: at SNAC's narrow widths a tile's product is short, and its
+//     epilogue's chain of tests and loads had held the 1x1 back.
+//     codec_snac_res_unit there launches both.
+// The bound PERF.md holds a unit's time to stays the fused function's
+// (tools/seanet_times.py::res_work(..., depthwise=True): x read and out
+// written once), whatever implements it. These five passes over the
+// activations (x and S read, S and out written, x read again) against
+// its two leave bf16, which is bound by bytes there, at most about 13%
+// of it (2/15 for a block of three units).
 //
-// How the design answers that: a thread block of 256 threads owns 32 rows
-// (unit) or a tile of rows (chain) of one batch row and all C channels.
-// The depthwise conv has no channel contraction, so it runs on the FMA
-// units in f32: input channels go in chunks of 32, snaked once into
-// shared memory with their halo (A, f32), and each thread sums the K taps
-// of one channel over 4 rows into the snaked hidden S [32, C] in x's
-// dtype. The 1x1 conv then reads S through the tile policy. The chain
-// keeps cur [tile + 2*halo, C | 1] in f32 in shared memory and walks each
-// unit in 32-row blocks, updating cur in place, re-zeroing rows outside
-// [0, T) between units as the global computation's zero padding requires.
-// Its state grows with C (at C = 512 not even 32 rows fit) and leaves one
-// or two blocks per SM, where the unit kernel runs three to six: on an
-// H100 three unit launches beat the chain at every SNAC width, so a decode
-// launches the unit kernel three times per block
-// (ops/seanet_cuda.py::snac_res_units), and the chain serves callers that
-// ask for N > 1 units in one pass.
+// The chain kernel (N > 1 units in one launch) keeps its f32 state in
+// shared memory across its units and walks each unit in 32-row blocks,
+// staging the snaked input chunk by chunk (depthwise_conv) and running
+// the SEANet tiles' 1x1 (seanet_tiles.cuh); its state leaves one or two
+// blocks per SM, so a decode does not take it (three unit launches are
+// faster at every SNAC width). It serves callers that ask for N > 1 units
+// in one pass.
 
 #include "seanet_tiles.cuh"
 
@@ -113,55 +124,6 @@ __device__ __forceinline__ void depthwise_conv(typename Tile::Op* S, float* A,
     for (int i = 0; i < kPer; ++i) store(S + (warp + 8 * i) * s_stride + c, acc[i]);
   }
   __syncthreads();                           // S is complete
-}
-
-// One unit (N = 1); block (blockIdx.x, blockIdx.y) owns rows
-// [32 blockIdx.x, +32) of batch row blockIdx.y.
-template <typename T, typename Tile>
-__global__ void __launch_bounds__(kThreads)
-snac_res_unit_kernel(SnacArgs args) {
-  using Op = typename Tile::Op;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int c_len = args.c, t_len = args.t_len, d = args.dilation[0];
-  const int halo = (args.k - 1) * d / 2;
-  const int t0 = blockIdx.x * kRows;
-  const size_t base = (size_t)blockIdx.y * t_len * c_len;
-  const T* __restrict__ x = static_cast<const T*>(args.x) + base;
-  T* __restrict__ out = static_cast<T*>(args.out) + base;
-  const float* __restrict__ vec = args.vec;
-  Op* S = reinterpret_cast<Op*>(smem);
-  Op* Ws = S + kRows * Tile::s_stride(c_len);
-  float* A = reinterpret_cast<float*>(Ws + 2 * Tile::kWElems);
-
-  const int a_rows = kRows + 2 * halo;
-  auto load_a = [&](float* As, int ci0) {
-    for (int idx = threadIdx.x; idx < a_rows * kKc; idx += kThreads) {
-      const int r = idx / kKc, ci = ci0 + idx % kKc;
-      const int pos = t0 - halo + r;
-      float v = 0.0f;
-      if (pos >= 0 && pos < t_len && ci < c_len)
-        v = snake(to_f32(x[(size_t)pos * c_len + ci]), vec[ci], vec[c_len + ci]);
-      As[idx] = v;
-    }
-  };
-  depthwise_conv<Tile>(S, A, static_cast<const T*>(args.w1), vec, c_len, args.k, d, load_a);
-
-  const float* b2 = vec + 5 * c_len;
-  auto epi = [&](float (&acc)[Tile::kR][Tile::kC], int co0) {
-#pragma unroll
-    for (int i = 0; i < Tile::kR; ++i) {
-      const int t = t0 + Tile::row(i);
-      if (t >= t_len) continue;
-#pragma unroll
-      for (int n = 0; n < Tile::kC; ++n) {
-        const int co = co0 + Tile::col(n);
-        if (co >= c_len) continue;
-        const size_t at = (size_t)t * c_len + co;
-        store(out + at, to_f32(x[at]) + (acc[i][n] + b2[co]));
-      }
-    }
-  };
-  pointwise_conv<Tile>(S, Ws, static_cast<const T*>(args.w2), c_len, epi);
 }
 
 // N units; block (blockIdx.x, blockIdx.y) owns rows [tile blockIdx.x,
@@ -261,13 +223,6 @@ snac_res_chain_kernel(SnacArgs args) {
 template <typename T, typename Tile>
 struct SnacLaunch {
   static cudaError_t run(const SnacArgs& a, int batch, cudaStream_t s) {
-    if (a.n_units == 1) {
-      const int halo = (a.k - 1) * a.dilation[0] / 2;
-      const dim3 grid((a.t_len + kRows - 1) / kRows, batch);
-      static size_t opted[kMaxDevices] = {};
-      return launch(snac_res_unit_kernel<T, Tile>, a, grid, dw_common_bytes<Tile>(a.c, halo),
-                    opted, s);
-    }
     int halo = 0, halo_max = 0;
     for (int u = 0; u < a.n_units; ++u) {
       const int h = (a.k - 1) * a.dilation[u] / 2;
@@ -282,18 +237,195 @@ struct SnacLaunch {
   }
 };
 
+// -- the depthwise pass --------------------------------------------------------
+
+constexpr int kDwQuads = 8;                   // a block's 32 channels, 4 a thread
+constexpr int kDwGroups = kThreads / kDwQuads;
+constexpr int kDwOut = 4;                     // outputs of one residue class an item computes
+constexpr int kDwMaxTaps = 7;                 // K = 1, 3, 5 or 7
+
+struct DwArgs {
+  const void* x;                    // [B, T, C]
+  const void* w1;                   // taps [K, C]
+  const float* vec;                 // [6, C]
+  void* s;                          // the snaked hidden [B, T, cw]
+  int t_len, c, cw, k, dilation, rows, async_x;
+};
+
+// A: f32 rows [rows + 2 halo] of kDwQuads float4; in bf16 followed by the
+// raw rows as they land (64 bytes each)
+__host__ __device__ constexpr int dw_smem_bytes(int rows, int halo, int elem) {
+  return (rows + 2 * halo) * kDwQuads * (16 + (elem == 4 ? 0 : 4 * elem));
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// elements [c, c + 4) of a per-channel row of length c_len, zeros past it
+template <typename T>
+__device__ __forceinline__ float4 channels4(const T* __restrict__ row, int c, int c_len) {
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = c + e < c_len ? to_f32(row[c + e]) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float4 snake4(const float4& v, const float4& a, const float4& ia) {
+  return make_float4(snake(v.x, a.x, ia.x), snake(v.y, a.y, ia.y), snake(v.z, a.z, ia.z),
+                     snake(v.w, a.w, ia.w));
+}
+
+__device__ __forceinline__ void fma4(float4& acc, const float4& w, const float4& a) {
+  acc.x = fmaf(w.x, a.x, acc.x);
+  acc.y = fmaf(w.y, a.y, acc.y);
+  acc.z = fmaf(w.z, a.z, acc.z);
+  acc.w = fmaf(w.w, a.w, acc.w);
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) owns rows [rows blockIdx.x,
+// +rows) and channels [32 blockIdx.y, +32) of batch row blockIdx.z; thread
+// (q, g) = (threadIdx.x % 8, threadIdx.x / 8) owns channels 32 blockIdx.y
+// + 4 q + [0, 4). A holds snake(x, a1) at positions t0 - halo + i, i <
+// rows + 2 halo: the rows land by cp.async, all at once (bf16 into `raw`
+// behind A), and are snaked in place. Item i of the rows / 4 items:
+// residue class rho and first member k0, outputs at tile rows rho + d (k0
+// + v), v < 4, whose K taps lie at A rows rho + d (k0 + v + j). Pad
+// channels [C, cw) come out zero: their taps and per-channel rows are
+// zero, and snake(0, 0, 0) = 0. K is a template parameter: the tap loops
+// unroll without a test per tap.
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads, 3) snac_dw_kernel(const DwArgs args) {
+  extern __shared__ float4 A[];
+  const int c_len = args.c, cw = args.cw, t_len = args.t_len, d = args.dilation;
+  const int rows = args.rows, halo = (K - 1) * d / 2;
+  const int a_rows = rows + 2 * halo;
+  const int t0 = blockIdx.x * rows;
+  const size_t base = (size_t)blockIdx.z * t_len;
+  const T* __restrict__ x = static_cast<const T*>(args.x) + base * c_len;
+  T* __restrict__ s = static_cast<T*>(args.s) + base * cw;
+  const float* __restrict__ vec = args.vec;
+  const int q = threadIdx.x % kDwQuads, g = threadIdx.x / kDwQuads;
+  const int c0 = blockIdx.y * 4 * kDwQuads, c = c0 + 4 * q;
+
+  const float4 a1 = channels4(vec, c, c_len), ia1 = channels4(vec + c_len, c, c_len);
+  if (args.async_x) {
+    // every 16-byte chunk of the block's rows at once (zeros outside [0, T)
+    // and past C); f32 lands in A, bf16 in `raw` behind it. Thread k of
+    // a row's kChunks copies chunk k of rows i0, i0 + kThreads / kChunks, ...
+    constexpr int kPer = 16 / sizeof(T), kChunks = 4 * kDwQuads / kPer;
+    constexpr int kStep = kThreads / kChunks;
+    T* raw = sizeof(T) == sizeof(float) ? reinterpret_cast<T*>(A)
+                                        : reinterpret_cast<T*>(A + a_rows * kDwQuads);
+    const int k = threadIdx.x % kChunks, ch = c0 + k * kPer;
+    const bool in_c = ch < c_len;
+    for (int i = threadIdx.x / kChunks; i < a_rows; i += kStep) {
+      const int pos = t0 - halo + i;
+      const bool valid = in_c && pos >= 0 && pos < t_len;
+      cp_async16(raw + (i * kChunks + k) * kPer, valid ? x + (size_t)pos * c_len + ch : x,
+                 valid);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = g; i < a_rows; i += kDwGroups)
+      A[i * kDwQuads + q] = snake4(load4(raw + (i * kDwQuads + q) * 4), a1, ia1);
+  } else {
+    // rows whose channels are no multiple of 16 bytes: element by element
+    for (int i = g; i < a_rows; i += kDwGroups) {
+      const int pos = t0 - halo + i;
+      const float4 v = pos >= 0 && pos < t_len ? channels4(x + (size_t)pos * c_len, c, c_len)
+                                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      A[i * kDwQuads + q] = snake4(v, a1, ia1);
+    }
+  }
+  __syncthreads();
+  if (c >= cw) return;
+
+  const T* __restrict__ w1 = static_cast<const T*>(args.w1);
+  float4 w[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) w[j] = channels4(w1 + (size_t)j * c_len, c, c_len);
+  const float4 b1 = channels4(vec + 2 * c_len, c, c_len);
+  const float4 a2 = channels4(vec + 3 * c_len, c, c_len);
+  const float4 ia2 = channels4(vec + 4 * c_len, c, c_len);
+  const int per_class = rows / d / kDwOut;    // items per residue class
+  for (int item = g; item < rows / kDwOut; item += kDwGroups) {
+    const int rho = item / per_class;
+    const int r0 = rho + d * kDwOut * (item - rho * per_class);
+    const float4* a_rows_of_item = A + r0 * kDwQuads + q;
+    const int a_step = d * kDwQuads;
+    // row m of the item's rows feeds output v through tap m - v
+    float4 acc[kDwOut];
+#pragma unroll
+    for (int v = 0; v < kDwOut; ++v) acc[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int m = 0; m < kDwOut + K - 1; ++m) {
+      const float4 a = a_rows_of_item[m * a_step];
+#pragma unroll
+      for (int v = 0; v < kDwOut; ++v)
+        if (m - v >= 0 && m - v < K) fma4(acc[v], w[m - v], a);
+    }
+    T* out = s + (size_t)(t0 + r0) * cw + c;
+#pragma unroll
+    for (int v = 0; v < kDwOut; ++v) {
+      const float4 h = make_float4(acc[v].x + b1.x, acc[v].y + b1.y, acc[v].z + b1.z,
+                                   acc[v].w + b1.w);
+      if (t0 + r0 + v * d < t_len) store4(out + (size_t)v * d * cw, snake4(h, a2, ia2));
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_dw(const DwArgs& a, int batch, cudaStream_t stream) {
+  const dim3 grid((a.t_len + a.rows - 1) / a.rows, (a.cw + 4 * kDwQuads - 1) / (4 * kDwQuads),
+                  batch);
+  static size_t opted[kMaxDevices] = {};
+  return launch(snac_dw_kernel<T, K>, a, grid,
+                dw_smem_bytes(a.rows, (K - 1) * a.dilation / 2, sizeof(T)), opted, stream);
+}
+
+// K = 1, 3, 5 or 7 taps
+template <typename T>
+cudaError_t dispatch_dw(const DwArgs& a, int batch, cudaStream_t stream) {
+  switch (a.k) {
+    case 1: return launch_dw<T, 1>(a, batch, stream);
+    case 3: return launch_dw<T, 3>(a, batch, stream);
+    case 5: return launch_dw<T, 5>(a, batch, stream);
+    case 7: return launch_dw<T, 7>(a, batch, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; rows, width: the 1x1's tile (see
-// dispatch); dilations: n_units host ints. n_units = 1 launches the unit
-// kernel (tile is ignored); n_units > 1 the chain kernel with `tile` rows
-// per block (a multiple of 32). Returns a cudaError_t (0 = success).
+// dispatch); dilations: n_units host ints; tile: rows of state per block
+// (a multiple of 32). Launches the chain kernel. Returns a cudaError_t (0 =
+// success).
 extern "C" int codec_snac_res_chain(const void* x, const void* w1, const void* w2,
                                     const float* vec, void* out, int batch, int t_len, int c,
                                     int k, int n_units, const int* dilations, int tile,
                                     int rows, int width, int dtype, void* stream) {
   if (!valid_shape(batch, t_len, c, k) || n_units < 1 || n_units > kMaxUnits ||
-      (n_units > 1 && (tile < kRows || tile % kRows != 0)))
+      tile < kRows || tile % kRows != 0)
     return cudaErrorInvalidValue;
   SnacArgs a{x, out, w1, w2, vec, t_len, c, k, n_units, tile, {0, 0, 0, 0}};
   for (int u = 0; u < n_units; ++u) {
@@ -301,4 +433,28 @@ extern "C" int codec_snac_res_chain(const void* x, const void* w1, const void* w
     a.dilation[u] = dilations[u];
   }
   return dispatch<SnacLaunch>(a, batch, rows, width, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The depthwise pass of one unit: x [B, T, C] -> the snaked hidden s [B, T,
+// cw] (cw >= C a multiple of 4, s 16-byte aligned), w1 the taps [K, C] (K
+// odd, at most 7), vec [6, C]; rows: rows per block, a multiple of 4
+// dilation. Returns a cudaError_t (0 = success).
+extern "C" int codec_snac_dw(const void* x, const void* w1, const float* vec, void* s,
+                             int batch, int t_len, int c, int cw, int k, int dilation, int rows,
+                             int dtype, void* stream) {
+  if (!valid_shape(batch, t_len, c, k) || k > kDwMaxTaps || dilation < 1 || cw < c ||
+      cw % 4 != 0 || rows < kDwOut * dilation || rows % (kDwOut * dilation) != 0 ||
+      reinterpret_cast<uintptr_t>(s) % 16 != 0 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const int elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const DwArgs a{x, w1, vec, s, t_len, c, cw, k, dilation, rows,
+                 (c * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_dw<float>(a, batch, st) : dispatch_dw<__nv_bfloat16>(a, batch, st);
+}
+
+// The depthwise pass's dynamic shared memory in bytes (dtype as above).
+extern "C" int codec_snac_dw_smem_bytes(int k, int dilation, int rows, int dtype) {
+  return dw_smem_bytes(rows, (k - 1) * dilation / 2,
+                       dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
 }

@@ -25,7 +25,8 @@ Parameters (`load_dac_params`, `params_from_jax`) are a dict of tensors:
   dec_c1, dec_c2: {"w": [C_out, C_in, K], "b": [C_out]}
   dec_blocks[i]: snake [C_in]; tr {"w": [C_in, C_out, K], "b"}; units, the
       block's residual units stacked in the kernels' layouts: w1 WIO
-      [3, K, C, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C]
+      [3, K, C, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C], and
+      vec [3, 6, C] f32, the rows the kernels read (built at load)
   dec_snake [C]
   with an encoder: enc_c1, enc_c2 as convs; enc_blocks[i]: units as the
       decoder's, snake [C], dn (the strided conv) {"w", "b"}; enc_snake [C]
@@ -83,9 +84,14 @@ def _to(a, dtype, device) -> torch.Tensor:
 
 def _units(units, t) -> Dict[str, torch.Tensor]:
     """Per-unit NumPy dicts (w1 WIO, w2 [in, out], vectors [C]) → the
-    stacked tensors of the block."""
-    return {key: t(np.stack([np.asarray(u[key]) for u in units]))
-            for key in _UNIT_KEYS}
+    stacked tensors of the block, and "vec": the f32 rows the kernels read
+    (seanet_cuda.unit_vec of the stacked alphas and biases), built once
+    here rather than on every launch."""
+    out = {key: t(np.stack([np.asarray(u[key]) for u in units]))
+           for key in _UNIT_KEYS}
+    out["vec"] = seanet_cuda.unit_vec(out["a1"], out["b1"], out["a2"],
+                                      out["b2"])
+    return out
 
 
 def load_dac_params(r: GGUFReader, cfg: DacConfig, dtype=torch.float32,
@@ -226,7 +232,7 @@ def kernel_res_units(x: torch.Tensor,
     one unit launch per unit on the card, the plain version on the CPU)."""
     return seanet_cuda.seanet_res_units(
         x.contiguous(), units["w1"], units["b1"], units["a1"], units["a2"],
-        units["w2"], units["b2"], dilations=RES_DILATIONS)
+        units["w2"], units["b2"], dilations=RES_DILATIONS, vec=units["vec"])
 
 
 def plain_res_units(x: torch.Tensor,

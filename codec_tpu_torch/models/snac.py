@@ -28,7 +28,8 @@ Parameters (`load_snac_params`, `params_from_jax`) are a dict of tensors:
   dec_in_dw, dec_in_pw, dec_final: {"w": [C_out, C_in/groups, K], "b"}
   dec_blocks[i]: act [C_in]; tr {"w": [C_in, C_out, K], "b"}; units, the
       block's residual units stacked in the kernel's layout: w1 per-channel
-      taps [3, K, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C]
+      taps [3, K, C], w2 [3, C, C] (in, out), b1, b2, a1, a2 [3, C], and
+      vec [3, 6, C] f32, the rows the kernels read (built at load)
   dec_act_final [C]
   with an encoder: enc0, enc_final as the decoder's convs; enc_blocks[i]:
       units as the decoder's, act [C], down (the strided conv) {"w", "b"}
@@ -226,11 +227,10 @@ def _convtr(x: torch.Tensor, layer: Dict[str, torch.Tensor],
 def kernel_res_units(x: torch.Tensor,
                      units: Dict[str, torch.Tensor]) -> torch.Tensor:
     """A block's three depthwise residual units (the kernel's wrapper: one
-    chain launch or one launch per unit on the card, the plain version on
-    the CPU)."""
+    unit per call on the card, the plain version on the CPU)."""
     return seanet_cuda.snac_res_units(
         x.contiguous(), units["w1"], units["b1"], units["a1"], units["a2"],
-        units["w2"], units["b2"], dilations=RES_DILATIONS)
+        units["w2"], units["b2"], dilations=RES_DILATIONS, vec=units["vec"])
 
 
 def plain_res_units(x: torch.Tensor,

@@ -6,7 +6,9 @@ Counterpart of codec_tpu/ops/seanet_pallas.py::seanet_res_unit,
 ::seanet_res_chain and ::snac_res_chain. The kernels are csrc/seanet_res.cu
 and csrc/snac_res.cu, built by kernels/build.py on first launch (never at
 import). For a CPU tensor each wrapper runs its plain version; for a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernel or raises. Each wrapper takes the units'
+f32 rows (`unit_vec`) precomputed as `vec`, as the models build them once
+at load, or builds them per call.
 
 One unit is x + conv1x1(snake(conv_kK,d(snake(x, α1)) + b1, α2)) + b2 with
 symmetric zero padding (K-1)·d/2; in SNAC's units the dilated conv is
@@ -47,9 +49,29 @@ _H100_SMEM = 232448     # opt-in shared memory per block (csrc: kSmemLimit)
 # tile at every case of the sweep in PERF.md
 _PASS_COST = 16
 _BLOCK_COST = 2048
-# SNAC's kernel (csrc/snac_res.cu, csrc/seanet_tiles.cuh): 32-row blocks,
-# input channels staged 32 at a time, output channels in passes of a
-# tile's width: f32 (FMA) passes are 32·TN columns of at most 256, or,
+# SNAC's unit (N = 1) is two launches: the depthwise pass
+# (csrc/snac_res.cu::snac_dw_kernel: blocks of dw_rows rows of 32
+# channels, their rows and halo landing by cp.async and snaked once into
+# f32 in shared memory; items of 4 outputs along a residue class; taps K
+# <= 7), then the DAC unit's 1x1 product at a tile of _SNAC_TILES
+# (snac_tile) with SNAC's epilogue.
+_DW_CHANNELS = 32
+_DW_OUT = 4
+_DW_MAX_ROWS = 256
+_DW_MAX_TAPS = 7
+# SNAC's 1x1 tiles (csrc/seanet_res.cu::dispatch_snac_tile): of the unit's
+# tiles, the two per dtype that won the SNAC sweep in PERF.md
+# (seanet_times --what snac_tiles), each with two x tiles; and snac_tile's
+# costs, as unit_tile's (a pass's in columns, a tile's in outputs), fit to
+# that sweep
+_SNAC_TILES = {torch.float32: ((256, 64), (128, 128)),
+               torch.bfloat16: ((128, 64), (128, 128))}
+_SNAC_X_SLOTS = 2
+_SNAC_PASS_COST = 0
+_SNAC_BLOCK_COST = 8192
+# SNAC's chain kernel (csrc/snac_res.cu, csrc/seanet_tiles.cuh): 32-row
+# blocks, input channels staged 32 at a time, output channels in passes of
+# a tile's width: f32 (FMA) passes are 32·TN columns of at most 256, or,
 # from C = 512 on, where each warp takes 8 rows and half the columns,
 # 64·TN of at most 512; bf16 (mma.sync) passes are 64·NT columns of at
 # most 384
@@ -106,6 +128,25 @@ def seanet_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor,
     return x
 
 
+def snac_dw_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                a1: torch.Tensor, a2: torch.Tensor, dilation: int = 1,
+                eps: float = 1e-9) -> torch.Tensor:
+    """The first half of a SNAC unit, its depthwise pass, in plain ops in
+    x's dtype: the snaked hidden S = snake(dwconv(snake(x, α1)) + b1, α2),
+    [B, T, C]; w1 [K, C] the per-channel taps."""
+    h = act.snake(x, a1, eps)
+    h = conv.conv1d(h, w1[:, None, :], b1, dilation=dilation,
+                    padding=_halo(w1.shape[0], dilation), groups=x.shape[-1])
+    return act.snake(h, a2, eps)
+
+
+def snac_pointwise_ref(x: torch.Tensor, s: torch.Tensor, w2: torch.Tensor,
+                       b2: torch.Tensor) -> torch.Tensor:
+    """The second half, the 1x1 on the snaked hidden s plus the residual:
+    x + (s @ w2 + b2)."""
+    return x + (s @ w2 + b2)
+
+
 def snac_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                        a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
                        b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
@@ -113,13 +154,9 @@ def snac_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
     """SNAC's depthwise units in sequence over the whole sequence, in plain
     ops in x's dtype: snake, depthwise dilated conv (groups=C), snake, 1x1,
     +x. w1s [N, K, C] are each unit's per-channel taps."""
-    c, k = x.shape[-1], w1s.shape[1]
     for u, d in enumerate(dilations):
-        h = act.snake(x, a1s[u], eps)
-        h = conv.conv1d(h, w1s[u][:, None, :], b1s[u], dilation=d,
-                        padding=_halo(k, d), groups=c)
-        h = act.snake(h, a2s[u], eps)
-        x = x + (h @ w2s[u] + b2s[u])
+        s = snac_dw_ref(x, w1s[u], b1s[u], a1s[u], a2s[u], d, eps)
+        x = snac_pointwise_ref(x, s, w2s[u], b2s[u])
     return x
 
 
@@ -127,26 +164,41 @@ def snac_res_chain_ref(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
 # The gates: tiles and shared memory of each kernel, and the chains' tiles
 # ---------------------------------------------------------------------------
 
-def unit_tile(c: int, dtype: torch.dtype, t: int = 0, batch: int = 1,
-              sms: int = 132) -> tuple:
-    """The unit kernels' tile at width C, (rows per tile, columns per
-    output pass). A launch computes batch · ⌈T / rows⌉ · ⌈C / columns⌉
-    tiles, one at a time on each of `sms` SMs: the tile size that computes
-    the fewest outputs in its rounds over the SMs, a pass costing
-    _PASS_COST more columns (its A is read anew) and a tile _BLOCK_COST
-    more outputs (its loads' latency and its epilogue; with t = 0: over a
-    T so long that only the columns past C count), then the widest pass,
-    then the most rows."""
+def _pick_tile(tiles: Sequence[tuple], c: int, t: int, batch: int,
+               sms: int, pass_cost: int, block_cost: int) -> tuple:
+    """Of `tiles`, the tile that computes the fewest outputs in
+    its rounds over the SMs (batch · ⌈T / rows⌉ · ⌈C / columns⌉ tiles, one
+    at a time on each of `sms` SMs), a pass costing pass_cost more columns
+    (its A is read anew) and a tile block_cost more outputs (its loads'
+    latency and its epilogue; with t = 0: over a T so long that only the
+    columns past C count), then the widest pass, then the most rows."""
     def cost(tile):
         rows, cols = tile
         passes = -(-c // cols)
         if not t:
             return passes * cols, -cols, -rows
         blocks = batch * -(-t // rows) * passes
-        return (-(-blocks // sms) * (rows * (cols + _PASS_COST)
-                                     + _BLOCK_COST), -cols, -rows)
+        return (-(-blocks // sms) * (rows * (cols + pass_cost)
+                                     + block_cost), -cols, -rows)
 
-    return min(_UNIT_TILES[dtype], key=cost)
+    return min(tiles, key=cost)
+
+
+def unit_tile(c: int, dtype: torch.dtype, t: int = 0, batch: int = 1,
+              sms: int = 132) -> tuple:
+    """The DAC unit kernels' tile at width C, (rows per tile, columns per
+    output pass): `_pick_tile` with _PASS_COST and _BLOCK_COST."""
+    return _pick_tile(_UNIT_TILES[dtype], c, t, batch, sms, _PASS_COST,
+                      _BLOCK_COST)
+
+
+def snac_tile(c: int, dtype: torch.dtype, t: int = 0, batch: int = 1,
+              sms: int = 132) -> tuple:
+    """The tile of a SNAC unit's 1x1 launch (the DAC unit's 1x1 product),
+    (rows per tile, columns per output pass): `_pick_tile` over
+    _SNAC_TILES with SNAC's own costs, fit to the SNAC sweep."""
+    return _pick_tile(_SNAC_TILES[dtype], c, t, batch, sms, _SNAC_PASS_COST,
+                      _SNAC_BLOCK_COST)
 
 
 def _r16(n: int) -> int:
@@ -169,18 +221,19 @@ def _tile_bytes(tile: tuple, dtype: torch.dtype) -> tuple:
 
 
 def unit_smem_bytes(c: int, k: int, dilation: int, dtype: torch.dtype,
-                    tile: tuple, pointwise: bool = False) -> int:
+                    tile: tuple, pointwise: bool = False,
+                    x_slots: int = 1) -> int:
     """Shared memory of a unit's product launch at `tile`: its ring of
     weight tiles, its A slots (the rows with their halo, in boxes of 64
     rows of 128 bytes; two, or for the 1x1 four where they fit an H100's
-    shared memory), and for the 1x1 (pointwise) the tile of x."""
+    shared memory), and for the 1x1 (pointwise) its x_slots tiles of x."""
     rows, stage, _, op = _tile_bytes(tile, dtype)
     halo = 0 if pointwise else _halo(k, dilation)
     slot = -(-(rows + 2 * halo) // 64) * 64 * 128
-    x_tile = rows * tile[1] * op if pointwise else 0
+    x_tiles = x_slots * rows * tile[1] * op if pointwise else 0
     slots = 4 if pointwise and _layout_bytes(
-        _UNIT_STAGES, stage, 4 * slot, x_tile) <= _H100_SMEM else 2
-    return _layout_bytes(_UNIT_STAGES, stage, slots * slot, x_tile)
+        _UNIT_STAGES, stage, 4 * slot, x_tiles) <= _H100_SMEM else 2
+    return _layout_bytes(_UNIT_STAGES, stage, slots * slot, x_tiles)
 
 
 def _halo(k: int, d: int) -> int:
@@ -275,11 +328,11 @@ def _tile_args(c: int, dtype: torch.dtype) -> tuple:
             _DTYPE_CODES[dtype])
 
 
-def dw_unit_smem_bytes(c: int, k: int, dilation: int,
-                       dtype: torch.dtype) -> int:
-    """SNAC's unit kernel: S and two weight tiles as the dense kernels
-    stage them (f32 for f32, bf16 for bf16), and the snaked input chunk A
-    [32 + 2·halo, 32] in f32 in both."""
+def _dw_block_bytes(c: int, k: int, dilation: int, dtype: torch.dtype) -> int:
+    """The buffers of a row block of SNAC's chain (csrc/snac_res.cu::
+    dw_common_bytes): S and two weight tiles as the dense tiles stage them
+    (f32 for f32, bf16 for bf16), and the snaked input chunk A [32 +
+    2·halo, 32] in f32 in both."""
     cp = -(-c // _KC) * _KC
     bn = _pass_columns(c, dtype)
     a = 4 * (_ROWS + 2 * _halo(k, dilation)) * _KC
@@ -290,10 +343,10 @@ def dw_unit_smem_bytes(c: int, k: int, dilation: int,
 
 def dw_chain_smem_bytes(c: int, k: int, dilations: Sequence[int], tile: int,
                         dtype: torch.dtype) -> int:
-    """SNAC's chain: its f32 state plus the unit's buffers at the largest
-    dilation."""
+    """SNAC's chain: its f32 state plus a row block's buffers at the
+    largest dilation."""
     return (_state_bytes(c, k, dilations, tile)
-            + dw_unit_smem_bytes(c, k, max(dilations), dtype))
+            + _dw_block_bytes(c, k, max(dilations), dtype))
 
 
 def dw_chain_tile(c: int, k: int, dilations: Sequence[int],
@@ -302,6 +355,31 @@ def dw_chain_tile(c: int, k: int, dilations: Sequence[int],
     return _largest_tile(
         lambda tile: dw_chain_smem_bytes(c, k, dilations, tile, dtype),
         smem_limit)
+
+
+def dw_rows(dilation: int) -> int:
+    """Rows per block of SNAC's depthwise pass: the most, up to 256, that
+    are a multiple of 4·d (each residue class mod d then splits into whole
+    items of 4 outputs; 4·d rows where d > 64)."""
+    step = _DW_OUT * dilation
+    return max(step, _DW_MAX_ROWS // step * step)
+
+
+def dw_smem_bytes(k: int, dilation: int, dtype: torch.dtype) -> int:
+    """The depthwise pass's shared memory (csrc/snac_res.cu::dw_smem_bytes):
+    a block's rows and their halo, 32 channels each, as f32, and in bf16
+    also as they land, before the snake."""
+    row = 4 if dtype == torch.float32 else 4 + dtype.itemsize
+    return (dw_rows(dilation) + 2 * _halo(k, dilation)) * _DW_CHANNELS * row
+
+
+def snac_unit_smem_bytes(c: int, k: int, dilation: int, dtype: torch.dtype,
+                         tile: tuple) -> int:
+    """The larger shared memory of a SNAC unit's two launches: the
+    depthwise pass and the 1x1 at `tile`."""
+    return max(dw_smem_bytes(k, dilation, dtype),
+               unit_smem_bytes(c, k, dilation, dtype, tile, pointwise=True,
+                               x_slots=_SNAC_X_SLOTS))
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +404,14 @@ def _lib():
         ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.codec_snac_res_chain.restype = ctypes.c_int
+    lib.codec_snac_res_unit.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.codec_snac_res_unit.restype = ctypes.c_int
+    lib.codec_snac_dw.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.codec_snac_dw.restype = ctypes.c_int
+    lib.codec_snac_dw_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.codec_snac_dw_smem_bytes.restype = ctypes.c_int
     lib.codec_smem_per_block_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.codec_smem_per_block_optin.restype = ctypes.c_int
     lib.codec_cuda_error_string.argtypes = [ctypes.c_int]
@@ -400,11 +486,27 @@ def _dilations(what: str, dilations: Sequence[int], n: int) -> tuple:
     return dilations
 
 
-def _vec(a1s, b1s, a2s, b2s, eps: float) -> torch.Tensor:
-    """[N, 6, C] f32: α1, 1/(α1+eps), b1, α2, 1/(α2+eps), b2 per unit."""
+def unit_vec(a1s: torch.Tensor, b1s: torch.Tensor, a2s: torch.Tensor,
+             b2s: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """The f32 rows the kernels read, [N, 6, C]: α1, 1/(α1+eps), b1, α2,
+    1/(α2+eps), b2 per unit (alphas and biases [N, C] in any dtype)."""
     a1, a2 = a1s.float(), a2s.float()
     return torch.stack([a1, 1.0 / (a1 + eps), b1s.float(), a2,
                         1.0 / (a2 + eps), b2s.float()], dim=1).contiguous()
+
+
+def _unit_rows(what: str, vec, vectors, eps: float) -> torch.Tensor:
+    """The caller's precomputed rows (checked: [N, 6, C] f32, contiguous,
+    on the vectors' device) or unit_vec's."""
+    if vec is None:
+        return unit_vec(*vectors, eps=eps)
+    n, c = vectors[0].shape
+    if (vec.shape != (n, 6, c) or vec.dtype != torch.float32
+            or vec.device != vectors[0].device or not vec.is_contiguous()):
+        raise ValueError(f"{what}: vec must be unit_vec's contiguous f32 "
+                         f"[{n}, 6, {c}] on {vectors[0].device}, got "
+                         f"{vec.dtype} {tuple(vec.shape)} on {vec.device}")
+    return vec
 
 
 def _weight_width(c: int, dtype: torch.dtype) -> int:
@@ -451,9 +553,10 @@ def _launch_unit(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
 def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
                     b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
-                    b2: torch.Tensor, dilation: int = 1,
-                    eps: float = 1e-9) -> torch.Tensor:
-    """One residual unit: x [B, T, C] (f32 or bf16) → [B, T, C].
+                    b2: torch.Tensor, dilation: int = 1, eps: float = 1e-9,
+                    vec: torch.Tensor | None = None) -> torch.Tensor:
+    """One residual unit: x [B, T, C] (f32 or bf16) → [B, T, C]; vec: its
+    rows [1, 6, C] or [6, C] (unit_vec), else built here.
 
     Counts its kernel launches in `seanet_res_unit.launches`."""
     if x.device.type == "cpu":
@@ -467,8 +570,10 @@ def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
     if not isinstance(dilation, int) or dilation < 1:
         raise ValueError(f"seanet_res_unit: dilation must be a positive "
                          f"int, got {dilation!r}")
+    vec = _unit_rows("seanet_res_unit", None if vec is None else
+                     vec.reshape(1, 6, -1), vectors, eps)
     b, t, c = x.shape
-    out = _launch_unit(x, w1, w2, _vec(*vectors, eps=eps), dilation, unit_tile(
+    out = _launch_unit(x, w1, w2, vec, dilation, unit_tile(
         c, x.dtype, t, b, _sm_count(x.device.index or 0)))
     seanet_res_unit.launches += 1
     return out
@@ -477,11 +582,13 @@ def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
 def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                      a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
                      b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
-                     eps: float = 1e-9) -> torch.Tensor:
+                     eps: float = 1e-9,
+                     vec: torch.Tensor | None = None) -> torch.Tensor:
     """N residual units in one pass: x [B, T, C] (f32 or bf16); w1s
-    [N, K, C, C]; w2s [N, C, C]; alphas and biases [N, C] → [B, T, C].
-    The residual stays f32 across units. Raises on CUDA where not even 32
-    rows of the chain's state fit shared memory (`chain_tile`).
+    [N, K, C, C]; w2s [N, C, C]; alphas and biases [N, C]; vec their rows
+    [N, 6, C] (unit_vec), else built here → [B, T, C]. The residual stays
+    f32 across units. Raises on CUDA where not even 32 rows of the chain's
+    state fit shared memory (`chain_tile`).
 
     Counts its kernel launches in `seanet_res_chain.launches`."""
     if x.device.type == "cpu":
@@ -501,7 +608,7 @@ def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                          f"K={k} does not fit shared memory; run the units "
                          f"one by one (seanet_res_unit)")
     tile = min(tile, -(-t // _ROWS) * _ROWS)
-    vec = _vec(*vectors, eps=eps)
+    vec = _unit_rows("seanet_res_chain", vec, vectors, eps)
     cw = _weight_width(c, x.dtype)
     w1s, w2s = _pad_weights(w1s, cw), _pad_weights(w2s, cw)
     out = torch.empty_like(x)
@@ -524,7 +631,8 @@ seanet_res_chain.launches = 0
 def seanet_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                      a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
                      b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
-                     eps: float = 1e-9) -> torch.Tensor:
+                     eps: float = 1e-9,
+                     vec: torch.Tensor | None = None) -> torch.Tensor:
     """A block's residual units (arguments as `seanet_res_chain`). On a
     CUDA tensor: the chain kernel where the gate (`use_chain`) takes it,
     else one unit kernel launch per unit. On a CPU tensor: the plain
@@ -534,24 +642,78 @@ def seanet_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
             smem_per_block(x.device.index or 0)):
         for u, d in enumerate(dilations):
             x = seanet_res_unit(x, a1s[u], w1s[u], b1s[u], a2s[u], w2s[u],
-                                b2s[u], dilation=d, eps=eps)
+                                b2s[u], dilation=d, eps=eps,
+                                vec=None if vec is None else vec[u])
         return x
     return seanet_res_chain(x, w1s, b1s, a1s, a2s, w2s, b2s,
-                            dilations=dilations, eps=eps)
+                            dilations=dilations, eps=eps, vec=vec)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_snac_dw(x: torch.Tensor, w1: torch.Tensor,
+                    vec: torch.Tensor, dilation: int) -> torch.Tensor:
+    """A SNAC unit's depthwise pass alone, x → S [B, T, cw] (checked
+    arguments; w1 the taps [K, C])."""
+    b, t, c = x.shape
+    k = w1.shape[0]
+    s = x.new_empty((b, t, _weight_width(c, x.dtype)))
+    with torch.cuda.device(x.device):
+        err = _lib().codec_snac_dw(
+            x.data_ptr(), w1.data_ptr(), vec.data_ptr(), s.data_ptr(), b, t,
+            c, s.shape[-1], k, dilation, dw_rows(dilation),
+            _DTYPE_CODES[x.dtype], _stream(x))
+    _raise_on(err, "snac_res_chain")
+    return s
+
+
+def _launch_snac_unit(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                      vec: torch.Tensor, dilation: int,
+                      tile: tuple) -> torch.Tensor:
+    """One SNAC unit's two launches, the depthwise pass (x → S) and the 1x1
+    at a product tile (S, x → out) (checked arguments; w1 the taps [K, C],
+    w2 [C, C])."""
+    b, t, c = x.shape
+    k = w1.shape[0]
+    if k > _DW_MAX_TAPS:
+        raise ValueError(f"snac_res_chain: the depthwise pass takes at most "
+                         f"{_DW_MAX_TAPS} taps, got K={k}")
+    limit = smem_per_block(x.device.index or 0)
+    need = snac_unit_smem_bytes(c, k, dilation, x.dtype, tile)
+    if need > limit:
+        raise ValueError(f"snac_res_chain: C={c}, K={k}, d={dilation} needs "
+                         f"{need} bytes of shared memory, the device has "
+                         f"{limit}")
+    cw = _weight_width(c, x.dtype)
+    w2 = _pad_weights(w2, cw)
+    s = x.new_empty((b, t, cw))                 # the snaked hidden S
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib().codec_snac_res_unit(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), vec.data_ptr(),
+            s.data_ptr(), out.data_ptr(), b, t, c, cw, k, dilation,
+            dw_rows(dilation), *tile, _DTYPE_CODES[x.dtype], _stream(x))
+    _raise_on(err, "snac_res_chain")
+    return out
 
 
 def snac_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                    a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
                    b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
-                   eps: float = 1e-9) -> torch.Tensor:
-    """N depthwise residual units (SNAC) in one pass: x [B, T, C] (f32 or
-    bf16); w1s [N, K, C] per-channel taps; w2s [N, C, C]; alphas and
-    biases [N, C] → [B, T, C]. With N = 1 the kernel stages its input
-    from device memory and fits at any SNAC width; with N > 1 it keeps
+                   eps: float = 1e-9,
+                   vec: torch.Tensor | None = None) -> torch.Tensor:
+    """N depthwise residual units (SNAC): x [B, T, C] (f32 or bf16); w1s
+    [N, K, C] per-channel taps; w2s [N, C, C]; alphas and biases [N, C];
+    vec their rows [N, 6, C] (unit_vec), else built here → [B, T, C]. With
+    N = 1 (what a decode launches) two kernels in stream order: the
+    depthwise pass writes the snaked hidden S once, then the 1x1 at
+    `snac_tile` reads S and x (K <= 7). With N > 1 the chain kernel keeps
     the residual in f32 in shared memory across units, and raises on CUDA
     where not even 32 rows of that state fit (`dw_chain_tile`).
 
-    Counts its kernel launches in `snac_res_chain.launches`."""
+    Counts its wrapper calls that launch in `snac_res_chain.launches`."""
     if x.device.type == "cpu":
         return snac_res_chain_ref(x, w1s, b1s, a1s, a2s, w2s, b2s,
                                   dilations=dilations, eps=eps)
@@ -560,32 +722,29 @@ def snac_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
     vectors = (a1s, b1s, a2s, b2s)
     _check("snac_res_chain", x, w1s, w2s, vectors, depthwise=True)
     dilations = _dilations("snac_res_chain", dilations, w1s.shape[0])
+    vec = _unit_rows("snac_res_chain", vec, vectors, eps)
     b, t, c = x.shape
     k = w1s.shape[1]
-    limit = smem_per_block(x.device.index or 0)
     if len(dilations) == 1:
-        tile = _ROWS
-        need = dw_unit_smem_bytes(c, k, dilations[0], x.dtype)
-        if need > limit:
-            raise ValueError(f"snac_res_chain: C={c}, K={k}, d={dilations[0]} "
-                             f"needs {need} bytes of shared memory, the "
-                             f"device has {limit}")
-    else:
-        tile = dw_chain_tile(c, k, dilations, x.dtype, limit)
-        if not tile:
-            raise ValueError(f"snac_res_chain: the chain's state at C={c}, "
-                             f"K={k} does not fit shared memory; run the "
-                             f"units one at a time (N = 1)")
-        tile = min(tile, -(-t // _ROWS) * _ROWS)
-    vec = _vec(*vectors, eps=eps)
+        out = _launch_snac_unit(x, w1s[0], w2s[0], vec, dilations[0],
+                                snac_tile(c, x.dtype, t, b,
+                                          _sm_count(x.device.index or 0)))
+        snac_res_chain.launches += 1
+        return out
+    tile = dw_chain_tile(c, k, dilations, x.dtype,
+                         smem_per_block(x.device.index or 0))
+    if not tile:
+        raise ValueError(f"snac_res_chain: the chain's state at C={c}, "
+                         f"K={k} does not fit shared memory; run the "
+                         f"units one at a time (N = 1)")
+    tile = min(tile, -(-t // _ROWS) * _ROWS)
     out = torch.empty_like(x)
     dils = (ctypes.c_int * len(dilations))(*dilations)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().codec_snac_res_chain(
             x.data_ptr(), w1s.data_ptr(), w2s.data_ptr(), vec.data_ptr(),
             out.data_ptr(), b, t, c, k, len(dilations), dils, tile,
-            *_tile_args(c, x.dtype), stream)
+            *_tile_args(c, x.dtype), _stream(x))
     _raise_on(err, "snac_res_chain")
     snac_res_chain.launches += 1
     return out
@@ -597,17 +756,19 @@ snac_res_chain.launches = 0
 def snac_res_units(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                    a1s: torch.Tensor, a2s: torch.Tensor, w2s: torch.Tensor,
                    b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
-                   eps: float = 1e-9) -> torch.Tensor:
+                   eps: float = 1e-9,
+                   vec: torch.Tensor | None = None) -> torch.Tensor:
     """A SNAC block's residual units (arguments as `snac_res_chain`). On a
-    CUDA tensor: one N = 1 launch of `snac_res_chain` per unit, which on
-    an H100 beats the chain (N = 3) at every SNAC width and dtype: the
-    chain's state leaves one or two blocks per SM where the unit kernel
-    runs three to six (PERF.md). On a CPU tensor: the plain version."""
+    CUDA tensor: one N = 1 call of `snac_res_chain` per unit (its
+    depthwise pass and 1x1), which on an H100 beats the chain (N = 3) at
+    every SNAC width and dtype: the chain's state leaves one or two blocks
+    per SM (PERF.md). On a CPU tensor: the plain version."""
     if x.device.type == "cuda":
         for u, d in enumerate(dilations):
             s = slice(u, u + 1)
             x = snac_res_chain(x, w1s[s], b1s[s], a1s[s], a2s[s], w2s[s],
-                               b2s[s], dilations=(d,), eps=eps)
+                               b2s[s], dilations=(d,), eps=eps,
+                               vec=None if vec is None else vec[s])
         return x
     return snac_res_chain(x, w1s, b1s, a1s, a2s, w2s, b2s,
                           dilations=dilations, eps=eps)

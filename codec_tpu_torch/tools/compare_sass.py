@@ -27,11 +27,12 @@ _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
 
 def sass_by_kernel(dump: str) -> Dict[str, str]:
     """cuobjdump -sass output → {kernel name: its SASS}, anonymous-namespace
-    hashes replaced by ANON in names and code alike."""
+    hashes replaced by ANON in names and code alike, and the blank lines
+    that end the dump (after the last kernel) left out."""
     dump = _ANON.sub("ANON", dump)
     parts = re.split(r"\n\s*Function : ", dump)
-    return {p.split("\n", 1)[0].strip(): p.split("\n", 1)[1] if "\n" in p
-            else "" for p in parts[1:]}
+    return {p.split("\n", 1)[0].strip(): p.split("\n", 1)[1].rstrip()
+            if "\n" in p else "" for p in parts[1:]}
 
 
 def _dump(lib: str) -> str:

@@ -1,7 +1,8 @@
-"""The DAC residual-unit kernels on the card, at every DAC width.
+"""The residual-unit kernels on the card, at every DAC and SNAC width.
 
     python -m codec_tpu_torch.tools.seanet_times [--json out.json]
-        [--what units,chains,tiles,requests] [--runs 10]
+        [--what units,chains,tiles,requests,snac,snac_tiles,snac_requests]
+        [--runs 10]
 
 Times `seanet_res_unit` at every DAC decoder width (C 768/384/192/96 at
 the T of a 20 s b1 decode) and encoder width (C 64/128/256/512), at
@@ -22,12 +23,24 @@ name and power limit; --json writes the rows. Times are CUDA events over
 three calls back to back, median of 10 samples, best of two turns.
 Units, chains and requests use only the wrappers' public functions, so
 the same file (with tools/roofline.py) times an older tree's kernels.
+
+SNAC's depthwise units (`snac_res_chain`, one N = 1 launch per unit):
+`snac`: the unit at every SNAC decoder width (C 512/256/128/64 at the T
+of a 20 s b1 decode) and encoder width (C 48/96/192/384 after the pad to
+2048), d = 1, 3 and 9, in f32 and bf16, beside its plain version and its
+bound (`res_work(..., depthwise=True)`), then each block's three units as
+a decode launches them. `snac_tiles` (this tree only): the unit at d = 1
+with each of SNAC's 1x1 tiles (`_SNAC_TILES`) at every SNAC width, 20 s
+b1, 2 s b1 and (decoder widths) 20 s b4, beside the tile `snac_tile`
+picks (through the private `_launch_snac_unit`). `snac_requests`: the SNAC 20 s decodes (b1
+f32, b4 f32, b1 bf16) with their peak device memory, as `requests`.
 Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -48,7 +61,12 @@ CHAIN_BLOCKS = [(96, 480000), (64, 480000), (128, 240000)]
 DILATIONS = (1, 3, 9)
 REQUESTS = [("20s_b1_f32", 1, "float32"), ("20s_b4_f32", 4, "float32"),
             ("20s_b1_bf16", 1, "bfloat16")]
-WHAT = ("units", "chains", "tiles", "requests")
+# SNAC's (C, T) at 20 s b1: the decoder's blocks (936 frames) and the
+# encoder's after its pad to 2048 samples
+SNAC_DECODE_BLOCKS = [(512, 7488), (256, 59904), (128, 239616), (64, 479232)]
+SNAC_ENCODE_BLOCKS = [(48, 481280), (96, 240640), (192, 60160), (384, 7520)]
+WHAT = ("units", "chains", "tiles", "requests", "snac", "snac_tiles",
+        "snac_requests")
 
 
 def card() -> str:
@@ -109,6 +127,24 @@ def res_params(n, c, dtype, seed, k=7):
                 a1s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
                 a2s=t(np.abs(rng.standard_normal((n, c))) + 1.0),
                 w2s=t(rng.standard_normal((n, c, c)) / np.sqrt(c)),
+                b2s=t(rng.standard_normal((n, c)) * 0.1))
+
+
+def dw_params(n, c, dtype, seed, k=7):
+    """n depthwise (SNAC) units' weights at the scales of
+    tests/test_seanet_pallas.py's depthwise test: taps N(0, 0.2), biases
+    N(0, 0.1), alphas N(1, 0.5) (some negative), the 1x1 at that test's
+    gain for any C."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+
+    return dict(w1s=t(rng.standard_normal((n, k, c)) * 0.2),
+                b1s=t(rng.standard_normal((n, c)) * 0.1),
+                a1s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
+                a2s=t(1.0 + 0.5 * rng.standard_normal((n, c))),
+                w2s=t(rng.standard_normal((n, c, c)) * 0.1 * np.sqrt(128 / c)),
                 b2s=t(rng.standard_normal((n, c)) * 0.1))
 
 
@@ -214,8 +250,8 @@ def tile_rows(runs: int = 10, log=print, tag: str = ""):
             p = res_params(1, c, dtype, seed=c)
             x = _x(t, c, dtype, seed=c + 1, b=b)
             a1, w1, b1, a2, w2, b2 = unit_args(p)
-            vec = seanet_cuda._vec(a1[None], b1[None], a2[None], b2[None],
-                                   eps=1e-9)
+            vec = seanet_cuda.unit_vec(a1[None], b1[None], a2[None],
+                                       b2[None])
             pick = seanet_cuda.unit_tile(c, dtype, t, b, sms)
             case = []
             for tile in seanet_cuda._UNIT_TILES[dtype]:
@@ -242,25 +278,131 @@ def tile_rows(runs: int = 10, log=print, tag: str = ""):
     return rows
 
 
-def request_rows(runs: int = 10, log=print, tag: str = ""):
-    """The DAC 20 s decode requests through load_model on a full-width
-    random DAC (seed 0): ms per request, host codes to host PCM, and the
+def snac_rows(runs: int = 10, log=print, tag: str = ""):
+    """SNAC's depthwise units: one row per (block, d, dtype), the unit
+    (one N = 1 launch of snac_res_chain) against its plain version and its
+    bound; then one row per (block, dtype) for the block's three units as a
+    decode launches them (snac_res_units)."""
+    from codec_tpu_torch.ops import seanet_cuda
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    rows = []
+    # a wrapper that takes the units' rows precomputed gets them, as a
+    # decode passes them (an older tree's builds them on every call)
+    takes_vec = "vec" in inspect.signature(
+        seanet_cuda.snac_res_chain).parameters
+    for dtype in (torch.float32, torch.bfloat16):
+        for where, blocks in (("decode", SNAC_DECODE_BLOCKS),
+                              ("encode", SNAC_ENCODE_BLOCKS)):
+            for c, t in blocks:
+                p = dw_params(3, c, dtype, seed=c)
+                x = _x(t, c, dtype, seed=c + 1) * 0.3
+                name = str(dtype)[6:]
+                vec = (dict(vec=seanet_cuda.unit_vec(
+                    p["a1s"], p["b1s"], p["a2s"], p["b2s"])) if takes_vec
+                       else {})
+                for u, d in enumerate(DILATIONS):
+                    pu = {k: v[u:u + 1] for k, v in {**p, **vec}.items()}
+                    bound, by = least_time(*res_work(1, 1, t, c, dtype,
+                                                     depthwise=True))
+                    with f32_precision(dtype == torch.float32):
+                        kern, plain = turns(
+                            lambda: seanet_cuda.snac_res_chain(
+                                x, **pu, dilations=(d,)),
+                            lambda: seanet_cuda.snac_res_chain_ref(
+                                x, **{k: v for k, v in pu.items()
+                                      if k != "vec"}, dilations=(d,)), runs)
+                    rows.append(dict(kind="snac_unit", where=where, c=c, t=t,
+                                     d=d, dtype=name, ms=kern, plain_ms=plain,
+                                     bound_ms=bound, bound_by=by))
+                    log(f"[time]{tag} snac unit {where} C{c} T{t} d{d} "
+                        f"{name}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+                        f"bound {bound:.4f} ms ({by}), {bound / kern:.1%} of "
+                        f"bound")
+                bound, by = least_time(*res_work(3, 1, t, c, dtype,
+                                                 depthwise=True))
+                with f32_precision(dtype == torch.float32):
+                    kern, plain = turns(
+                        lambda: seanet_cuda.snac_res_units(x, **p, **vec),
+                        lambda: seanet_cuda.snac_res_chain_ref(x, **p), runs)
+                rows.append(dict(kind="snac_block", where=where, c=c, t=t,
+                                 dtype=name, ms=kern, plain_ms=plain,
+                                 bound_ms=bound, bound_by=by))
+                log(f"[time]{tag} snac block {where} C{c} T{t} {name}: three "
+                    f"units {kern:.4f} ms, plain {plain:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}), {bound / kern:.1%} of bound")
+                del x, p
+    return rows
+
+
+def snac_tile_rows(runs: int = 10, log=print, tag: str = ""):
+    """One row per (dtype, SNAC block, batch, T, tile): the unit at d = 1
+    with that 1x1 tile, ms; `picked` marks snac_tile's choice, `best` the
+    fastest tile of the case. Calls the wrapper's private
+    _launch_snac_unit, which takes a tile."""
+    from codec_tpu_torch.ops import seanet_cuda
+
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = SNAC_DECODE_BLOCKS + SNAC_ENCODE_BLOCKS
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(c, t, 1) for c, t in blocks]
+        cases += [(c, t // 10, 1) for c, t in blocks]
+        cases += [(c, t, 4) for c, t in SNAC_DECODE_BLOCKS]
+        for c, t, b in cases:
+            p = dw_params(1, c, dtype, seed=c)
+            x = _x(t, c, dtype, seed=c + 1, b=b) * 0.3
+            vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
+            w1, w2 = p["w1s"][0], p["w2s"][0]
+            pick = seanet_cuda.snac_tile(c, dtype, t, b, sms)
+            case = []
+            for tile in seanet_cuda._SNAC_TILES[dtype]:
+                ms = min(cuda_ms(lambda: seanet_cuda._launch_snac_unit(
+                    x, w1, w2, vec, 1, tile), runs) for _ in range(2))
+                case.append(dict(kind="snac_tile", dtype=str(dtype)[6:], c=c,
+                                 t=t, b=b, tile=list(tile), ms=ms,
+                                 picked=tile == pick))
+            best = min(case, key=lambda r: r["ms"])
+            for row in case:
+                row["best"] = row is best
+                rows_, cols = row["tile"]
+                log(f"[time]{tag} snac tile {row['dtype']} C{c} T{t} B{b} "
+                    f"{rows_}x{cols}: {row['ms']:.4f} ms"
+                    f"{' (snac_tile)' if row['picked'] else ''}"
+                    f"{' (fastest)' if row['best'] else ''}")
+            picked = next(r for r in case if r["picked"])
+            log(f"[time]{tag} snac tile {str(dtype)[6:]} C{c} T{t} B{b}: "
+                f"snac_tile's {picked['tile']} is "
+                f"{picked['ms'] / best['ms'] - 1:.1%} above the fastest "
+                f"{best['tile']}")
+            rows += case
+            del x, p
+    return rows
+
+
+def _request_rows(arch: str, runs: int, log, tag: str):
+    """An arch's 20 s decode requests through load_model on a full-width
+    random model (seed 0): ms per request, host codes to host PCM, and the
     device memory one decode allocates at its peak beyond what was
     allocated before it (torch.cuda.max_memory_allocated)."""
     import codec_tpu_torch
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
 
     rows = []
     rng = np.random.default_rng(0)
+    write = {"dac": write_random_dac_gguf, "snac": write_random_snac_gguf}
     with tempfile.TemporaryDirectory(prefix="seanet_times_") as tmp:
-        path = Path(tmp) / "dac.gguf"
-        write_random_dac_gguf(path, seed=0)
+        path = Path(tmp) / f"{arch}.gguf"
+        write[arch](path, seed=0)
         models = {dt: codec_tpu_torch.load_model(path, compute_dtype=dt,
                                                  device="cuda")
                   for dt in ("float32", "bfloat16")}
     for name, batch, dt in REQUESTS:
         model = models[dt]
         frames = 20 * model.sample_rate // model.hop_size
+        if arch == "snac":              # a multiple of the coarsest stride
+            frames -= frames % model.cfg.vq_strides[0]
         codes = rng.integers(0, model.codebook_size,
                              (batch, frames, model.n_q)).astype(np.int32)
         ms = cuda_ms(lambda: model.decode(codes), runs, reps=1)
@@ -270,11 +412,22 @@ def request_rows(runs: int = 10, log=print, tag: str = ""):
         model.decode(codes)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - before
-        rows.append(dict(kind="request", name=name, ms=ms, peak_bytes=peak))
-        log(f"[time]{tag} dac decode {name}: {ms:.3f} ms per request, "
+        rows.append(dict(kind="request", arch=arch, name=name, ms=ms,
+                         peak_bytes=peak))
+        log(f"[time]{tag} {arch} decode {name}: {ms:.3f} ms per request, "
             f"peak device memory {peak / 2 ** 20:.1f} MiB above the "
             f"{before / 2 ** 20:.1f} MiB allocated before it")
     return rows
+
+
+def request_rows(runs: int = 10, log=print, tag: str = ""):
+    """The DAC 20 s decode requests (see _request_rows)."""
+    return _request_rows("dac", runs, log, tag)
+
+
+def snac_request_rows(runs: int = 10, log=print, tag: str = ""):
+    """The SNAC 20 s decode requests (see _request_rows)."""
+    return _request_rows("snac", runs, log, tag)
 
 
 def main(argv=None) -> int:
@@ -298,7 +451,8 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     log = lambda line: print(f"{line} [{name_limit}]", flush=True)
     run = dict(units=unit_rows, chains=chain_rows, tiles=tile_rows,
-               requests=request_rows)
+               requests=request_rows, snac=snac_rows,
+               snac_tiles=snac_tile_rows, snac_requests=snac_request_rows)
     rows = [r for name in what for r in run[name](args.runs, log, tag)]
     print(f"seanet_times ran {time.monotonic() - t0:.1f} s", flush=True)
     if args.json:

@@ -409,6 +409,118 @@ def test_dw_chain_kernel_matches_plain(dev, dtype, b, t, c, dils):
         assert corr > 0.9995, corr
 
 
+def _hold_dw(got, want, dtype, rtol, atol, corr_min):
+    torch.cuda.synchronize()
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(g).all()
+    corr = np.corrcoef(g.ravel(), w.ravel())[0, 1]
+    if dtype == torch.float32:
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+        assert corr > 0.99999, corr
+    else:
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+        assert corr > corr_min, corr
+
+
+# every SNAC block width (decoder C512-C64, encoder C48-C384) at a short T,
+# T no multiple of the pass's rows, B = 2, T below the halo and T = 1, C no
+# multiple of 8 or of 4; every fourth alpha negative (_dw_params)
+SNAC_UNIT_SHAPES = [
+    (1, 1000, 48, 1), (1, 777, 96, 3), (2, 300, 192, 9), (1, 500, 384, 9),
+    (1, 2000, 512, 1), (1, 333, 256, 3), (2, 1001, 128, 9), (1, 700, 64, 3),
+    (1, 20, 64, 9),        # T below the halo of 27
+    (1, 1, 48, 3),         # T = 1
+    (2, 45, 20, 3),        # C no multiple of 8: bf16 weights padded to 24
+    (2, 50, 6, 9),         # C no multiple of 4: x loaded element by element
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,d", SNAC_UNIT_SHAPES)
+def test_dw_pass_matches_plain(dev, dtype, b, t, c, d):
+    """The depthwise pass alone (x → the snaked hidden S) against
+    snac_dw_ref in f32 on the same inputs: f32 at the units' bound; bf16 S
+    is rounded to nearest even once, so within 2^-8 relative (twice the
+    rounding) and 1e-4 absolute (the kernel's sin^2 series). Pad channels
+    of S are zero. Two launches give the same bits."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    p = _dw_params(1, c, dtype, dev, seed=b * t + c)
+    x = _x((b, t, c), dtype, dev, seed=7) * 0.3
+    vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
+    got = seanet_cuda._launch_snac_dw(x, p["w1s"][0], vec, d)
+    cw = got.shape[-1]
+    assert got.dtype == dtype and got.shape == (b, t, cw) and cw >= c
+    assert not got[..., c:].any()
+    with f32_precision(True):
+        want = seanet_cuda.snac_dw_ref(
+            x.float(), p["w1s"][0].float(), p["b1s"][0].float(),
+            p["a1s"][0].float(), p["a2s"][0].float(), d)
+    _hold_dw(got[..., :c], want, dtype, 2 ** -8, 1e-4, 0.99999)
+    assert torch.equal(got, seanet_cuda._launch_snac_dw(x, p["w1s"][0], vec, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_dw_pass_at_other_tap_counts(dev, dtype, k):
+    """The depthwise pass compiled for K = 1, 3 and 5 taps (SNAC's is 7),
+    held as in test_dw_pass_matches_plain."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    c, d = 64, 3
+    p = _dw_params(1, c, dtype, dev, seed=k, k=k)
+    x = _x((2, 300, c), dtype, dev, seed=9) * 0.3
+    vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
+    got = seanet_cuda._launch_snac_dw(x, p["w1s"][0], vec, d)
+    with f32_precision(True):
+        want = seanet_cuda.snac_dw_ref(
+            x.float(), p["w1s"][0].float(), p["b1s"][0].float(),
+            p["a1s"][0].float(), p["a2s"][0].float(), d)
+    _hold_dw(got, want, dtype, 2 ** -8, 1e-4, 0.99999)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,d", SNAC_UNIT_SHAPES + [
+    (1, 30001, 64, 9),     # T long enough for the larger 1x1 tiles
+    (1, 20001, 128, 1),
+    (4, 2000, 512, 3),     # B = 4 at the widest block
+])
+def test_snac_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
+    """One unit (N = 1: the depthwise pass, then the 1x1 at snac_tile's
+    tile) against the plain unit at the bounds of
+    test_dw_chain_kernel_matches_plain; two launches give the same bits;
+    one launch counted per call."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    p = _dw_params(1, c, dtype, dev, seed=b * t + c + 1)
+    x = _x((b, t, c), dtype, dev, seed=8) * 0.3
+    before = seanet_cuda.snac_res_chain.launches
+    got = seanet_cuda.snac_res_chain(x, **p, dilations=(d,))
+    assert seanet_cuda.snac_res_chain.launches == before + 1
+    with f32_precision(True):
+        want = seanet_cuda.snac_res_chain_ref(
+            x.float(), **{k: v.float() for k, v in p.items()}, dilations=(d,))
+    assert got.dtype == dtype and got.shape == x.shape
+    _hold_dw(got, want, dtype, 3e-2, 8e-2, 0.9995)
+    vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
+    assert torch.equal(got, seanet_cuda.snac_res_chain(x, **p, dilations=(d,),
+                                                       vec=vec))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_snac_geometry_matches_the_kernels(dev, dtype):
+    """The wrapper's shared-memory sums for the SNAC unit equal the
+    kernels' own (the depthwise pass's and the 1x1's layouts)."""
+    lib = seanet_cuda._lib()
+    code = seanet_cuda._DTYPE_CODES[dtype]
+    for d in (1, 3, 9, 27):
+        assert seanet_cuda.dw_smem_bytes(7, d, dtype) == \
+            lib.codec_snac_dw_smem_bytes(7, d, seanet_cuda.dw_rows(d), code)
+    for tile in seanet_cuda._SNAC_TILES[dtype]:
+        assert seanet_cuda.unit_smem_bytes(64, 7, 1, dtype, tile, True, 2) == \
+            lib.codec_seanet_smem_bytes(3, 64, 0, 0, 0, *tile, code)
+
+
 def test_dw_counter_counts_kernel_launches_only(dev):
     p = _dw_params(3, 64, torch.float32, dev)
     x = torch.randn(1, 50, 64, device=dev)
@@ -454,17 +566,19 @@ def small_snac_gguf(tmp_path_factory):
 
 def test_snac_decode_on_card_uses_kernel_and_matches_cpu(dev, small_snac_gguf):
     """Decoder widths 256/128/64/32: every block's three units run
-    through snac_res_chain, one N = 1 launch each; the card's decode
-    agrees with the port on the CPU at the f32 bound of
+    through snac_res_chain, one N = 1 launch each, in both dtypes; the
+    card's f32 decode agrees with the port on the CPU at the f32 bound of
     tests/test_torch_snac.py."""
     import codec_tpu_torch
 
-    gpu = codec_tpu_torch.load_model(small_snac_gguf, device="cuda")
     cpu = codec_tpu_torch.load_model(small_snac_gguf, device="cpu")
     codes = np.random.default_rng(6).integers(0, 64, (2, 16, 3)).astype(np.int32)
-    before = seanet_cuda.snac_res_chain.launches
-    got = gpu.decode(codes)
-    assert seanet_cuda.snac_res_chain.launches == before + 4 * 3
+    for dtype in ("bfloat16", "float32"):
+        gpu = codec_tpu_torch.load_model(small_snac_gguf, device="cuda",
+                                         compute_dtype=dtype)
+        before = seanet_cuda.snac_res_chain.launches
+        got = gpu.decode(codes)
+        assert seanet_cuda.snac_res_chain.launches == before + 4 * 3
     want = cpu.decode(codes)
     assert got.shape == want.shape == (2, 16 * 512)
     corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]

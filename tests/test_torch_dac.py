@@ -91,6 +91,18 @@ def test_load_matches_params_from_jax(tiny):
         assert a.is_contiguous() and b.is_contiguous()   # the kernels' rule
 
 
+def test_unit_rows_are_cached_at_load(tiny):
+    """Each block's f32 rows are built once at load and equal unit_vec's
+    of its alphas and biases (what the wrappers built on every call)."""
+    from codec_tpu_torch.ops import seanet_cuda
+
+    for blk in tiny["port"].params["dec_blocks"]:
+        u = blk["units"]
+        assert u["vec"].shape == (3, 6, u["a1"].shape[-1])
+        assert torch.equal(u["vec"], seanet_cuda.unit_vec(
+            u["a1"], u["b1"], u["a2"], u["b2"]))
+
+
 @pytest.mark.parametrize("t", [11, 40])
 def test_decode_matches_jax(tiny, t):
     codes = _codes((t, NQ), V, t)

@@ -274,3 +274,19 @@ def test_compare_sass_splits_kernels_and_drops_file_hashes():
     name = "_ZN44ANON20seanet_res_unit_kernelIfEEvv"
     assert sorted(a) == sorted(b) == sorted([name, "_Z3fooIfEvv"])
     assert a == b and a[name] != c[name]
+
+
+def test_compare_sass_ignores_the_blank_lines_that_end_a_dump():
+    """The last kernel of a dump carries the dump's ending; two builds may
+    end it with more or fewer blank lines, which do not make its SASS
+    differ."""
+    from codec_tpu_torch.tools.compare_sass import sass_by_kernel
+
+    body = ("\n\tcode for sm_90a\n\t\tFunction : _Z3foov\n  MOV R1, "
+            "c[0x0][0x28] ;\n\t\tFunction : _Z3barv\n  FFMA R0, R1, R2, "
+            "R0 ;\n  EXIT ;\n\t\t..........")
+    a, b = sass_by_kernel(body), sass_by_kernel(body + "\n\n\n")
+    assert a == b
+    assert a["_Z3foov"] == "  MOV R1, c[0x0][0x28] ;"
+    assert a["_Z3barv"].endswith("EXIT ;\n\t\t..........")
+    assert sass_by_kernel(body.replace("R2, R0", "R2, R1")) != a

@@ -150,11 +150,13 @@ H100_SMEM = 232448      # opt-in shared memory per block of an H100
 ])
 def test_gate_at_the_24khz_widths(dtype, c, tile):
     """The depthwise chain's tile where its state (all three halos, K=7)
-    fits an H100's shared memory; the unit kernel (N = 1), which a decode
-    launches three times per block, fits at every width and dilation."""
+    fits an H100's shared memory; the unit (N = 1: the depthwise pass and
+    the 1x1 at snac_tile's tile), which a decode launches three times per
+    block, fits at every width and dilation."""
     assert seanet_cuda.dw_chain_tile(c, 7, DILS, dtype, H100_SMEM) == tile
     for d in DILS:
-        assert seanet_cuda.dw_unit_smem_bytes(c, 7, d, dtype) <= H100_SMEM
+        assert seanet_cuda.snac_unit_smem_bytes(
+            c, 7, d, dtype, seanet_cuda.snac_tile(c, dtype)) <= H100_SMEM
     if tile:
         assert seanet_cuda.dw_chain_smem_bytes(c, 7, DILS, tile,
                                                dtype) <= H100_SMEM
@@ -163,6 +165,134 @@ def test_gate_at_the_24khz_widths(dtype, c, tile):
                                                dtype) > H100_SMEM
     # the gate bounds the summed halo: a longer kernel shrinks the tile
     assert seanet_cuda.dw_chain_tile(c, 11, DILS, dtype, H100_SMEM) <= tile
+
+
+# SNAC's block widths: the decoder's (C, T at 20 s b1) and the encoder's
+# after its pad to 2048
+SNAC_BLOCKS = [(512, 7488), (256, 59904), (128, 239616), (64, 479232),
+               (48, 481280), (96, 240640), (192, 60160), (384, 7520)]
+
+
+@pytest.mark.parametrize("d", DILS)
+@pytest.mark.parametrize("c,t", SNAC_BLOCKS)
+def test_dw_pass_geometry(c, t, d):
+    """The depthwise pass's blocks (csrc/snac_res.cu): rows a multiple of
+    4·d (whole items of 4 outputs per residue class) of at most 256, 32
+    channels each, staged with their halo as f32 (bf16: also as they
+    land); at SNAC's dilations (halo 3d) three blocks fit an SM's 228 KB
+    (the kernel's occupancy), and every block's rows are at least 4/5
+    outputs (not halo)."""
+    rows = seanet_cuda.dw_rows(d)
+    assert rows % (4 * d) == 0 and 4 * d <= rows <= 256
+    assert rows > 256 - 4 * d
+    # f32 rows (snaked in place in f32), bf16 also the rows as they land
+    assert seanet_cuda.dw_smem_bytes(7, d, torch.float32) == \
+        (rows + 6 * d) * 32 * 4
+    assert seanet_cuda.dw_smem_bytes(7, d, torch.bfloat16) == \
+        (rows + 6 * d) * 32 * (4 + 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert 3 * seanet_cuda.dw_smem_bytes(7, d, dtype) <= 228 * 1024
+    assert rows / (rows + 6 * d) >= 0.8
+    grid = (-(-t // rows), -(-c // 32))
+    assert grid[0] * rows >= t and grid[1] * 32 >= c
+    for dtype in (torch.float32, torch.bfloat16):
+        tile = seanet_cuda.snac_tile(c, dtype, t)
+        assert seanet_cuda.snac_unit_smem_bytes(c, 7, d, dtype,
+                                                tile) <= H100_SMEM
+
+
+@pytest.mark.parametrize("dtype,c,t,b,want", [
+    # the faster of the 1x1's two tiles at each SNAC block in the sweep in
+    # PERF.md (20 s b1, b4 at the decoder's widths, 2 s b1), or within
+    # 7.3% (f32) and 10.4% (bf16) of it
+    (torch.float32, 512, 7488, 1, (128, 128)), (torch.float32, 256, 59904, 1, (128, 128)),
+    (torch.float32, 128, 239616, 1, (128, 128)), (torch.float32, 64, 479232, 1, (256, 64)),
+    (torch.float32, 48, 481280, 1, (256, 64)), (torch.float32, 96, 240640, 1, (128, 128)),
+    (torch.float32, 192, 60160, 1, (256, 64)), (torch.float32, 384, 7520, 1, (128, 128)),
+    (torch.float32, 128, 239616, 4, (128, 128)), (torch.float32, 192, 6016, 1, (128, 128)),
+    (torch.bfloat16, 512, 7488, 1, (128, 128)), (torch.bfloat16, 256, 59904, 1, (128, 128)),
+    (torch.bfloat16, 128, 239616, 1, (128, 128)), (torch.bfloat16, 64, 479232, 1, (128, 64)),
+    (torch.bfloat16, 48, 481280, 1, (128, 64)), (torch.bfloat16, 96, 240640, 1, (128, 128)),
+    (torch.bfloat16, 192, 60160, 1, (128, 64)), (torch.bfloat16, 384, 7520, 1, (128, 128)),
+    (torch.bfloat16, 256, 59904, 4, (128, 128)), (torch.bfloat16, 512, 748, 1, (128, 64)),
+])
+def test_snac_tile(dtype, c, t, b, want):
+    """SNAC's 1x1 tile: of its two tiles per dtype, DAC's rule (the fewest
+    outputs in the rounds over 132 SMs) with its own costs (no cost per
+    pass, 8192 outputs per tile)."""
+    assert seanet_cuda.snac_tile(c, dtype, t, b) == want
+    assert want in seanet_cuda._SNAC_TILES[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_snac_1x1_fits_two_x_tiles(dtype):
+    """SNAC's 1x1 keeps two x tiles at each of its tiles (csrc: a
+    static_assert), and DAC's 1x1 at the same tile one."""
+    for tile in seanet_cuda._SNAC_TILES[dtype]:
+        assert tile in seanet_cuda._UNIT_TILES[dtype]
+        two = seanet_cuda.unit_smem_bytes(64, 7, 1, dtype, tile, True, 2)
+        assert seanet_cuda.unit_smem_bytes(64, 7, 1, dtype, tile, True) <= \
+            two <= H100_SMEM
+
+
+def test_dw_rows_past_the_cap():
+    """A dilation past 64 takes 4·d rows (one item per residue class)."""
+    assert seanet_cuda.dw_rows(65) == 260
+    assert seanet_cuda.dw_rows(64) == 256
+    assert seanet_cuda.dw_rows(27) == 216
+
+
+@pytest.mark.parametrize("b,t,c,d", [
+    (1, 200, 8, 1), (2, 130, 16, 3), (1, 20, 8, 9), (1, 1, 8, 9),
+    (2, 57, 12, 3),
+])
+def test_dw_halves_match_jax_and_compose_to_the_unit(b, t, c, d):
+    """snac_dw_ref (x → the snaked hidden S) against codec_tpu's plain f32
+    snake / depthwise conv1d / snake at 1e-5 (fan-in scale: values near
+    1); the two halves composed equal snac_res_chain_ref at 1e-6 relative
+    and codec_tpu's Pallas kernel (interpret mode) under its bf16 bounds
+    (it rounds its 1x1's operands to bf16)."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    u = _units(rng, c, 1, fan_in=True)
+    k = u["w1"].shape[1]
+    h = jact.snake(jnp.asarray(x), jnp.asarray(u["a1"][0]))
+    h = jconv.conv1d(h, jnp.asarray(u["w1"][0])[:, None, :],
+                     jnp.asarray(u["b1"][0]), dilation=d,
+                     padding=((k - 1) * d) // 2, groups=c)
+    want_s = np.asarray(jact.snake(h, jnp.asarray(u["a2"][0])))
+    t_ = {key: torch.from_numpy(v) for key, v in u.items()}
+    xt = torch.from_numpy(x)
+    s = seanet_cuda.snac_dw_ref(xt, t_["w1"][0], t_["b1"][0], t_["a1"][0],
+                                t_["a2"][0], d)
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=0, atol=1e-5)
+    got = seanet_cuda.snac_pointwise_ref(xt, s, t_["w2"][0], t_["b2"][0])
+    chain = seanet_cuda.snac_res_chain_ref(xt, t_["w1"], t_["b1"], t_["a1"],
+                                           t_["a2"], t_["w2"], t_["b2"],
+                                           dilations=(d,))
+    torch.testing.assert_close(got, chain, rtol=1e-6, atol=0)
+    want = np.asarray(seanet_pallas.snac_res_chain(
+        jnp.asarray(x), u["w1"], u["b1"], u["a1"], u["a2"], u["w2"], u["b2"],
+        dilations=(d,), t_blk=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-2, atol=8e-2)
+    _assert_corr(got.numpy(), want, 0.9995)
+
+
+def test_unit_rows_are_checked_and_cached_at_load(tiny):
+    """The model builds each block's f32 rows once at load: they equal
+    unit_vec's of its alphas and biases; the wrapper takes rows only of
+    unit_vec's shape and type."""
+    for blk in tiny["port"].params["dec_blocks"]:
+        u = blk["units"]
+        want = seanet_cuda.unit_vec(u["a1"], u["b1"], u["a2"], u["b2"])
+        assert u["vec"].dtype == torch.float32 and u["vec"].is_contiguous()
+        assert torch.equal(u["vec"], want)
+        assert torch.equal(u["vec"][:, 1], 1.0 / (u["a1"].float() + 1e-9))
+        vectors = (u["a1"], u["b1"], u["a2"], u["b2"])
+        assert seanet_cuda._unit_rows("t", u["vec"], vectors, 1e-9) is u["vec"]
+        for bad in (u["vec"][:2], u["vec"].double(), u["vec"].transpose(0, 1)):
+            with pytest.raises(ValueError, match="vec must be"):
+                seanet_cuda._unit_rows("t", bad, vectors, 1e-9)
 
 
 def test_no_device_falls_back_to_the_plain_version():
