@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero before the last line):
      their SASS I2F counts (cuobjdump), all of which must be 0; the DAC
      residual units' and SNAC's unit's (its depthwise pass and its 1x1)
      stack frames and spills (0), and HGMMA (wgmma) but no HMMA
-     (mma.sync) in every bf16 product
+     (mma.sync) in every bf16 product; the split-f32 kernels' stack frames
+     and spills (0), HMMA (mma.sync) and no HGMMA in the attention, HGMMA
+     and no HMMA in the RVQ search; the RVQ search's cluster occupancy
   3. each kernel against its plain PyTorch version on the card (the
      residual units also at every DAC and SNAC decoder and encoder
      block's shape, unit by unit in the launches a request makes, the
@@ -59,7 +61,10 @@ Phases (any failure raises and exits non-zero before the last line):
      again and again), cold (cycling over the loaded backbones' 16 layers
      of each shape) at m = 1 and 16, and
      one backbone forward's 112 products; per-request TTS times (median of 3 runs after one
-     warm-up); per-request encode times (median of 10 after 2 warm-ups)
+     warm-up); per-request encode times (median of 10 after 2 warm-ups);
+     the attention (also as device time, torch.profiler) and the RVQ search
+     (norms given, as a model passes them) beside a second bound, three
+     TF32 passes per f32 product at the tensor cores' TF32 rate
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -116,6 +121,9 @@ CHAIN_SHAPES = [(1, 240000, 192), (1, 480000, 96), (2, 100, 96), (1, 20, 192)]
 # the unit's 7 tiles x its 2 launches (dilated conv, 1x1) and the chain's 4
 # tiles (csrc/seanet_res.cu::dispatch_tile, dispatch_chain)
 DENSE_KERNELS = 18
+# the split-f32 kernels: flash_sdpa_window at D 64 / 128 x f32 / bf16 and
+# rvq_encode at 32, 16 and 8 frames per cluster
+SPLIT_KERNELS = 7
 # SNAC's unit: the depthwise pass for K = 1, 3, 5, 7 in f32 and bf16
 # (csrc/snac_res.cu) and its 1x1 at its 4 tiles (csrc/seanet_res.cu)
 SNAC_UNIT_KERNELS = 12
@@ -170,7 +178,8 @@ Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 # differing level an f64 near-tie (relative distance margin < 1e-4) in at
 # most max(2, N/100) frames
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
-              (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100)]
+              (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
+              (1, 250, 512, 4, 2048)]
 RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
 NEAR_TIE = 1e-4
 # the residual-unit blocks at 20 s b1: the DAC decoder's and encoder's
@@ -379,23 +388,26 @@ def device_ms(fn, n: int = 50):
     return total / 1e3 / n if total > 0 else None
 
 
-def profiled_ms(fn, calls: int, keep) -> float:
+def profiled_ms(fn, calls: int, keep, tries: int = 3) -> float:
     """Device time per call: fn runs once to warm up, then once under
     torch.profiler; the self time of the kernels whose name `keep` accepts
-    (aten ops left out), / calls. Raises when the profiler saw none."""
+    (aten ops left out), / calls. The card's machine's profiler now and then
+    returns a trace without device activity: such a run is made again, and
+    this raises when `tries` runs in a row saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.self_device_time_total > 0 and not e.key.startswith("aten::")
-                and keep(e.key))
-    if not total > 0:
-        raise RuntimeError("torch.profiler reported no device time")
-    return total / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.self_device_time_total > 0
+                    and not e.key.startswith("aten::") and keep(e.key))
+        if total > 0:
+            return total / 1e3 / calls
+    raise RuntimeError(f"torch.profiler reported no device time in {tries} runs")
 
 
 def fmt_ms(v) -> str:
@@ -462,6 +474,8 @@ def main() -> int:
     from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
     from codec_tpu_torch.models import mimi
     from codec_tpu_torch.ops.rvq import rvq_encode
+    from codec_tpu_torch.ops import rvq_cuda
+    from codec_tpu_torch.ops.rvq import codebook_norms
     from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
     from codec_tpu_torch.tools import sass_report, seanet_times
     # the bound (H100 data-sheet peaks)
@@ -527,9 +541,32 @@ def main() -> int:
         raise RuntimeError(f"seanet_res / SNAC's unit: want {DENSE_KERNELS} "
                            f"/ {SNAC_UNIT_KERNELS} kernels, got {len(dense)} "
                            f"/ {len(snac_unit)}")
+    # the split-f32 kernels (csrc/tf32x3.cuh): attention in f32 and bf16 at
+    # D 64 and 128 on mma.sync (HMMA, no HGMMA), the RVQ search at 32, 16
+    # and 8 frames on wgmma (HGMMA, no HMMA)
+    split = [r for r in sass if "flash_sdpa_window_kernel" in r.name
+             or "rvq_encode_kernel" in r.name]
+    for r in split:
+        log(f"[build] {kernel_name(r.name)} {r.name}: {r.registers} registers, "
+            f"{r.stack} bytes stack frame, spills {r.spill_stores}/"
+            f"{r.spill_loads} bytes, {r.hmma} HMMA, {r.hgmma} HGMMA of "
+            f"{r.instructions} SASS instructions")
+        wgmma = "rvq_encode_kernel" in r.name
+        if r.stack or r.spill_stores or r.spill_loads or not (
+                r.hgmma if wgmma else r.hmma) or (r.hmma if wgmma else r.hgmma):
+            raise RuntimeError(f"{r.name}: want no stack frame, no spills, and "
+                               f"{'HGMMA and no HMMA' if wgmma else 'HMMA and no HGMMA'}")
+    if len(split) != SPLIT_KERNELS:
+        raise RuntimeError(f"flash_sdpa_window / rvq_encode: want "
+                           f"{SPLIT_KERNELS} kernels, got {len(split)}")
     smem = seanet_cuda.smem_per_block(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[build] opt-in shared memory per block: {smem} bytes, {sms} SMs")
+    for frames in rvq_cuda.FRAMES:
+        log(f"[build] rvq_encode_fused F{frames}: "
+            f"{rvq_cuda.held_clusters(0, frames, 256)} clusters of "
+            f"{rvq_cuda.CLUSTER} held at once (D 256; the plan assumes "
+            f"{rvq_cuda.HELD} at 16 and 32 frames)")
 
     # -- 3. kernels against their plain versions ------------------------------
     max_err = {name: 0.0 for name in wrappers}
@@ -1285,7 +1322,7 @@ def main() -> int:
     # -- 9. times --------------------------------------------------------------
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
-    times = {}
+    times, extra = {}, {}
     for (b, h, t, d, w), dtype in [(s, torch.float32) for s in ATTN_SHAPES_F32[:3]] + \
             [(ATTN_SHAPE_BF16, torch.bfloat16)]:
         q, k, v = (randn((b, h, t, d), dtype, SEED + j) for j in range(3))
@@ -1305,11 +1342,21 @@ def main() -> int:
             diff = (sdpa() - flash_sdpa_window(q, k, v, window=w)).abs().max()
             lib = cuda_ms(sdpa, reps=20)
             work = attn_work(b, h, t, d, w, dtype)
-            times["flash_sdpa_window"] = (kern, plain, *least_time(*work), lib)
+            # the bound of the unit the kernel uses, three TF32 passes per
+            # f32 product; the f32 FMA bound beside it
+            b_tc, b_by = least_time([(3 * work[0][0][0], "tf32")], work[1])
+            b_fma = least_time(*work)[0]
+            times["flash_sdpa_window"] = (kern, plain, b_tc, b_by, lib)
+            extra["flash_sdpa_window"] = {
+                "bound_fma_ms": b_fma,
+                "device_ms": device_ms(lambda: flash_sdpa_window(q, k, v,
+                                                                 window=w))}
             line += (f"; F.scaled_dot_product_attention with the band mask "
                      f"{lib:.4f} ms (max abs diff to the kernel "
-                     f"{diff.item():.2e}); bound "
-                     f"{times['flash_sdpa_window'][2]:.4f} ms")
+                     f"{diff.item():.2e}); bound {b_tc:.4f} ms (3 TF32 "
+                     f"passes, {b_by}; {b_tc / kern:.1%} of it), {b_fma:.4f} "
+                     f"ms (f32 FMA); device time (torch.profiler) "
+                     f"{fmt_ms(extra['flash_sdpa_window']['device_ms'])}")
         log(line + f" [{name_limit}]")
 
     # the DAC residual units at every decoder and encoder width, d = 1, 3
@@ -1503,20 +1550,30 @@ def main() -> int:
                          f"{d_plain:.3f} ms with {what}")
             log(line + f" [{name_limit}]")
 
-    # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4)
+    # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4),
+    # with the norms given, as the model passes them from load
     for b, t, d, n_q, v in RVQ_SHAPES[:3]:
         x, cb = rvq_inputs(b, t, d, n_q, v, "normal", SEED + 210)
-        kern, plain, s = turns(lambda: rvq_encode_fused(x, cb),
-                               lambda: rvq_encode(x, cb), reps=5)
-        b_ms, b_by = least_time(*rvq_work(b * t, d, n_q, v))
-        flop = rvq_work(b * t, d, n_q, v)[0][0][0]
-        log(f"[time] rvq_encode_fused N{b * t} D{d} n_q{n_q} V{v} f32: kernel "
-            f"{kern:.4f} ms ({flop / kern / 1e9:.2f} TFLOP/s, {b_ms / kern:.1%} "
-            f"of the bound {b_ms:.4f} ms, {b_by}), plain (n_q matmuls + "
-            f"argmaxes) {plain:.4f} ms (samples k {s[0]:.4f} {s[1]:.4f}, p "
-            f"{s[2]:.4f} {s[3]:.4f}) [{name_limit}]")
+        nrm = codebook_norms(cb)
+        kern, plain, s = turns(lambda: rvq_encode_fused(x, cb, norms=nrm),
+                               lambda: rvq_encode(x, cb, nrm), reps=5)
+        work = rvq_work(b * t, d, n_q, v)
+        flop = work[0][0][0]
+        # the unit the kernel uses, three TF32 passes per f32 product, and
+        # the f32 FMA bound beside it
+        b_tc, b_by = least_time([(3 * flop, "tf32")], work[1])
+        b_fma = least_time(*work)[0]
+        frames = rvq_cuda.plan(b * t, d, smem)
+        log(f"[time] rvq_encode_fused N{b * t} D{d} n_q{n_q} V{v} f32 (plan: "
+            f"{frames} frames x {rvq_cuda.CLUSTER} blocks a cluster): kernel "
+            f"{kern:.4f} ms ({flop / kern / 1e9:.2f} TFLOP/s, {b_tc / kern:.1%} "
+            f"of the bound {b_tc:.4f} ms for three TF32 passes, {b_by}; "
+            f"{b_fma / kern:.1%} of {b_fma:.4f} ms at the f32 FMA rate), plain "
+            f"(n_q matmuls + argmaxes) {plain:.4f} ms (samples k {s[0]:.4f} "
+            f"{s[1]:.4f}, p {s[2]:.4f} {s[3]:.4f}) [{name_limit}]")
         if (b, t, d, n_q, v) == RVQ_MAIN:
-            times["rvq_encode_fused"] = (kern, plain, b_ms, b_by, None)
+            times["rvq_encode_fused"] = (kern, plain, b_tc, b_by, None)
+            extra["rvq_encode_fused"] = {"bound_fma_ms": b_fma}
         del x, cb
 
     # the encode requests, host PCM to host codes; for f32, the encode
@@ -1582,7 +1639,12 @@ def main() -> int:
     # (d=1), the DAC chain at block 4, SNAC's three units at block 3 (the
     # N=1 launches a decode makes), the packed products at m = 1 on the
     # gate matrix (device times), the RVQ search at Mimi's 20 s b1
-    # acoustic shape (N 250, D 256, n_q 31, V 2048); all f32. No single
+    # acoustic shape (N 250, D 256, n_q 31, V 2048, norms given); all f32.
+    # The attention's and the RVQ search's bound_ms is that of three TF32
+    # passes per f32 product at 495 TFLOP/s, the unit they use; their rows
+    # also carry bound_fma_ms (the f32 FMA rate); the attention's device_ms
+    # (torch.profiler), where back-to-back calls are bound by the wrapper's
+    # host time. No single
     # PyTorch call computes a residual unit or an n_q-level search, so
     # those rows have no library time; the packed products' library time
     # is F.linear on the dequantized f32 weight (no PyTorch call multiplies
@@ -1596,7 +1658,7 @@ def main() -> int:
         "launches": main_counts[name], "max_abs_err": max_err[name],
         **dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
                    times[name])), **({"cold_ms": cold[name]} if name in cold
-                                     else {})}
+                                     else {}), **extra.get(name, {})}
         for name, (src, rep) in sources.items()]}
     log(f"[time] chip_smoke.py ran {time.monotonic() - t_start:.1f} s")
     print(json.dumps(result), flush=True)

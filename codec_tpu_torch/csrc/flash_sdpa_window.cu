@@ -3,183 +3,457 @@
 // Replaces the TPU kernel codec_tpu/ops/attn_pallas.py::flash_sdpa_window
 // (_flash_kernel). Query i attends to key j iff  i - window < j <= i  and
 // j < T; window <= 0 means pure causal. q, k, v, o are contiguous
-// [B*H, T, D] in f32 or bf16; o has the input dtype. Softmax statistics
-// and the accumulator are f32. f32 inputs run on plain f32 FMAs (never
-// TF32); bf16 inputs are widened to f32 when staged in shared memory.
+// [B*H, T, D] in f32 or bf16, D 64 or 128; o has the input dtype. Softmax
+// statistics and the accumulator are f32. Masked logits are -1e30, as in
+// the reference, which also fixes its masked-row behaviour: a row whose
+// keys so far are all masked sums exp(0) terms, and the first visible key
+// (the diagonal at the latest) makes their weight exactly 0.
 //
-// What bounds it on this card: for the Mimi decoder transformer
-// (D = 64, window 250, T = 500..1500, B*H = 8..32) one block computes
-// 64 x ~300 scores of depth 64 — about 2.5 MFLOP against ~100 KB of K/V
-// reads, far below the tensor cores' operations-per-byte line, and the
-// grid is only 64..256 blocks. So the kernel is bound by memory latency
-// and by the shared-memory traffic of its inner loops, not by tensor
-// throughput.
+// Both products run on the tensor cores with mma.sync (tf32x3.cuh). f32:
+// QK^T and PV in split f32, three TF32 passes each (relative error near
+// 1e-6, the reference's Precision.HIGHEST). bf16: QK^T on m16n8k16 (exact
+// products, f32 sums); PV keeps P at f32 accuracy as the reference does
+// (f32 p times v at HIGHEST): P = P_hi + P_lo in bf16, two passes, V exact.
 //
-// How the design answers that: each block owns one (b*h, 64-query) tile
-// and visits only the key tiles that intersect the band, so work and
-// traffic are O(T * window), never O(T^2), and the [T, T] logits and mask
-// never touch device memory. K and V tiles of 32 keys are staged once in
-// shared memory (rows padded so the inner loops are free of bank
-// conflicts) and reused by all 64 queries. Four threads share a query
-// row: each computes the scores of 8 keys, the row's max and sum are
-// combined with two warp shuffles, and each thread accumulates a quarter
-// of the output row in registers. wgmma and TMA are left for later work.
+// What bounds it on this card: for the Mimi transformers (D 64, window
+// 250, T 500..1500, B*H 8..32) the work is small, 0.19 GFLOP at 20 s b1
+// (2.9 µs at 67 TFLOP/s f32 FMA, 1.2 µs for the three TF32 passes at 495
+// TFLOP/s), and the inputs are 1 MB. What costs is latency: how many warps
+// are in flight and how long a key tile's chain of copy, products and
+// softmax takes; and, past T 500, the L2 traffic of re-reading each key
+// tile once per query tile whose band it meets.
+//
+// How the design answers that: a block takes BQ queries (16, or 32 in f32
+// at D 64: two m16 row tiles per warp) of one (b, h). Its four warps share
+// the query tile and split the key tiles (16 keys) that intersect the band
+// round-robin, so only the band is ever visited; each warp streams its own
+// tiles by cp.async into a private double buffer (no block barrier in the
+// key loop), keeps its own (m, l, accumulator), and the four partial
+// softmaxes are merged through shared memory at the end. Each K and V
+// fragment, loaded and split once, serves every row tile of the warp. The
+// online softmax works on the accumulator fragments; in f32 the PV pass
+// reorders each 8-key step (fragment column t is key 2t, t + 4 is key
+// 2t + 1) so that the score fragments are the probability fragments
+// without a shuffle. Query rows per block and warps per block were picked
+// from a sweep on the card (PERF.md §6, "Sweeps"): 32 rows in f32 at D 64 (B1 H8
+// T500 is then 128 blocks) halve the key tiles' reads and beat 16 rows at
+// every timed shape; bf16 keeps 16 rows (256 blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;            // queries per block
-constexpr int BK = 32;            // keys per shared-memory tile
-constexpr int TPR = 4;            // threads per query row
-constexpr int NT = BQ * TPR;      // threads per block
-constexpr int KPT = BK / TPR;     // keys scored by one thread per tile
+using tf32x3::ldsm_x4;
+using tf32x3::ldsm_x4_trans;
+using tf32x3::mma_3x;
+using tf32x3::mma_bf16;
+using tf32x3::smem_u32;
+using tf32x3::split;
+using tf32x3::split_bf16;
+
+constexpr int BK = 16;            // keys per tile
 constexpr float NEG_INF = -1e30f; // the masked logit of the reference
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+template <typename T>
+struct Elem {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kPad = kF32 ? 4 : 8;      // 16 bytes past each staged row
+  static constexpr int kVec = 16 / sizeof(T);    // elements per 16-byte copy
+};
 
-template <int D>
-constexpr int smem_bytes() {
-  // Qs [BQ][D+1], Ks [BK][D+1], Vs [BK][D], Ps [BQ][BK+1], all f32
-  return (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1)) * (int)sizeof(float);
+// A block: MT m16 row tiles of queries (BQ = 16·MT), shared by W warps that
+// split the band's key tiles. Shared memory, in bytes: the query tile (f32:
+// hi and lo [BQ][D + 4]; bf16: [BQ][D + 8]), the merge's statistics
+// [3][W][BQ] f32 (m, l, weights), then per warp two K and two V tiles
+// [16][D + pad]; a warp's accumulator [BQ][D + 8] f32 takes its own tiles'
+// place for the merge. MT at D 64 and W are the sweep's picks (PERF.md §6;
+// tools/mimi_times.py --what attn_tiles builds copies with others).
+template <int D, typename T>
+struct Cfg {
+  static constexpr int MT = D != 64 ? 1 : Elem<T>::kF32 ? 2 : 1;
+  static constexpr int W = 4;
+  static constexpr int BQ = 16 * MT, NT = 32 * W;
+  static constexpr int kRow = D + Elem<T>::kPad;
+  static constexpr int kQ = (Elem<T>::kF32 ? 2 : 1) * BQ * kRow * (int)sizeof(T);
+  static constexpr int kStats = 4 * 3 * W * BQ;
+  static constexpr int kTile = BK * kRow * (int)sizeof(T);
+  static constexpr int kWarp = 4 * kTile;        // K and V, double buffered
+  static constexpr int kAcc = BQ * (D + 8) * 4;
+  static constexpr int kWarpBytes = kWarp > kAcc ? kWarp : kAcc;
+  static constexpr int kTotal = kQ + kStats + W * kWarpBytes;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the warp stages keys [k0, k0 + 16) of K and V; rows past T are zero
 template <int D, typename T>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v, size_t base,
+                                          int k0, int t_len, int lane) {
+  constexpr int kPieces = D / Elem<T>::kVec, kRow = Cfg<D, T>::kRow;
+#pragma unroll
+  for (int e = lane; e < BK * kPieces; e += 32) {
+    const int row = e / kPieces, col = (e % kPieces) * Elem<T>::kVec, t = k0 + row;
+    const bool ok = t < t_len;
+    const size_t g = ok ? base + static_cast<size_t>(t) * D + col : base;
+    cp_async16(ks + row * kRow + col, k + g, ok ? 16 : 0);
+    cp_async16(vs + row * kRow + col, v + g, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int D, typename T>
+__global__ void __launch_bounds__(Cfg<D, T>::NT)
 flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
                          int t_len, int window, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * (D + 1);
-  float* Vs = Ks + BK * (D + 1);
-  float* Ps = Vs + BK * D;
-  constexpr int DPT = D / TPR;    // output columns owned by one thread
+  using C = Cfg<D, T>;
+  constexpr bool kF32 = Elem<T>::kF32;
+  constexpr int MT = C::MT, W = C::W, BQ = C::BQ, NT = C::NT;
+  constexpr int kRow = C::kRow, NDT = D / 8;   // output n-tiles of 8 columns
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* q_s = reinterpret_cast<T*>(smem);                       // f32: hi, then lo
+  float* stats = reinterpret_cast<float*>(smem + C::kQ);     // m, l, weights [W][BQ]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3, j = lane >> 3;
+  uint8_t* mine = smem + C::kQ + C::kStats + warp * C::kWarpBytes;
+  T* k_s = reinterpret_cast<T*>(mine);                       // [2][16][kRow]
+  T* v_s = k_s + 2 * BK * kRow;                              // [2][16][kRow]
 
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;        // query row within the tile
-  const int c = tid % TPR;        // lane within the row's group of four
-  const size_t base = (size_t)blockIdx.x * t_len * D;
+  const size_t base = static_cast<size_t>(blockIdx.x) * t_len * D;
   const int q0 = blockIdx.y * BQ;
-  const int qi = q0 + r;
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int row = idx / D, col = idx % D, t = q0 + row;
-    Qs[row * (D + 1) + col] = t < t_len ? to_f32(q[base + (size_t)t * D + col]) : 0.f;
-  }
-
-  // key tiles that intersect the band of this query tile
+  // key tiles that intersect the band of this query tile, dealt to the
+  // warps round-robin
   const int k_first = window > 0 ? max(q0 - window + 1, 0) : 0;
   const int k_last = min(q0 + BQ, t_len) - 1;
   const int kt_lo = k_first / BK, kt_hi = k_last / BK;
+  int kt = kt_lo + warp;
+  if (kt <= kt_hi) load_tile<D, T>(k_s, v_s, k, v, base, kt * BK, t_len, lane);
+  cp_async_commit();
 
-  float m_i = NEG_INF, l_i = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int u = 0; u < DPT; ++u) acc[u] = 0.f;
-  const float* qrow = Qs + r * (D + 1);
-  float* prow = Ps + r * (BK + 1);
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();              // the previous tile is no longer read
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int row = idx / D, col = idx % D, t = k0 + row;
-      const bool ok = t < t_len;  // rows past T stay finite (zero)
-      const size_t g = base + (size_t)t * D + col;
-      Ks[row * (D + 1) + col] = ok ? to_f32(k[g]) : 0.f;
-      Vs[row * D + col] = ok ? to_f32(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of keys c, c + TPR, ... of this tile against query qi
-    float s[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) s[i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = qrow[d];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) s[i] = fmaf(qd, Ks[(c + i * TPR) * (D + 1) + d], s[i]);
-    }
-    float m_tile = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int kj = k0 + c + i * TPR;
-      const bool ok = kj <= qi && kj < t_len && (window <= 0 || kj > qi - window);
-      s[i] = ok ? s[i] * scale : NEG_INF;
-      m_tile = fmaxf(m_tile, s[i]);
-    }
-    // the four lanes of a row are adjacent lanes of one warp
-    m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
-    m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
-    const float m_new = fmaxf(m_i, m_tile);
-    float l_tile = 0.f;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float p = expf(s[i] - m_new);
-      l_tile += p;
-      prow[c + i * TPR] = p;
-    }
-    l_tile += __shfl_xor_sync(0xffffffffu, l_tile, 1);
-    l_tile += __shfl_xor_sync(0xffffffffu, l_tile, 2);
-    // As in the reference, a row whose keys so far are all masked sums
-    // exp(0) terms; the first visible key (the diagonal at the latest)
-    // makes alpha exactly 0 and clears them.
-    const float alpha = expf(m_i - m_new);
-    l_i = l_i * alpha + l_tile;
-    m_i = m_new;
-#pragma unroll
-    for (int u = 0; u < DPT; ++u) acc[u] *= alpha;
-    __syncwarp();                 // the row's probabilities are visible
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float p = prow[j];
-      const float* vrow = Vs + j * D + c;
-#pragma unroll
-      for (int u = 0; u < DPT; ++u) acc[u] = fmaf(p, vrow[u * TPR], acc[u]);
+  // the query tile (f32: its split); rows past T are zero
+  for (int e = tid; e < BQ * D; e += NT) {
+    const int row = e / D, col = e % D, t = q0 + row;
+    const T val = t < t_len ? q[base + static_cast<size_t>(t) * D + col] : T(0.f);
+    if constexpr (kF32) {
+      uint32_t h, l;
+      split(to_f32(val), h, l);
+      reinterpret_cast<uint32_t*>(q_s)[row * kRow + col] = h;
+      reinterpret_cast<uint32_t*>(q_s)[(BQ + row) * kRow + col] = l;
+    } else {
+      q_s[row * kRow + col] = val;
     }
   }
+  __syncthreads();
 
-  if (qi < t_len) {
-    const float denom = fmaxf(l_i, 1e-30f);
-    T* orow = o + base + (size_t)qi * D + c;
+  // rows 16·mt + gq + 8·h of the tile: their running max, this lane's part
+  // of their sums, and the accumulator fragments (c0, c1 row gq; c2, c3 row
+  // gq + 8 of m-tile mt)
+  float m_r[MT][2], l_r[MT][2], acc[MT][NDT][4];
 #pragma unroll
-    for (int u = 0; u < DPT; ++u) store(orow + u * TPR, acc[u] / denom);
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_r[mt][h] = NEG_INF;
+      l_r[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int nd = 0; nd < NDT; ++nd)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nd][c] = 0.f;
+  }
+  // ldmatrix rows: A (the query tile) 8·(j & 1) + (lane & 7), 16-byte word
+  // (j >> 1); B (a K tile) 8·(j >> 1) + (lane & 7), word (j & 1)
+  const int a_row = (lane & 7) + ((j & 1) << 3), b_row = (lane & 7) + ((j >> 1) << 3);
+  const uint32_t qa = smem_u32(q_s) + (a_row * kRow) * sizeof(T) + ((j >> 1) << 4);
+  constexpr uint32_t kMtBytes = 16 * kRow * sizeof(T);      // one m-tile of the query tile
+  constexpr uint32_t kLoBytes = BQ * kRow * sizeof(T);      // f32: hi to lo
+
+  for (int i = 0; kt <= kt_hi; ++i, kt += W) {
+    const int buf = i & 1;
+    if (kt + W <= kt_hi)
+      load_tile<D, T>(k_s + (buf ^ 1) * BK * kRow, v_s + (buf ^ 1) * BK * kRow, k, v, base,
+                      (kt + W) * BK, t_len, lane);
+    cp_async_commit();
+    cp_async_wait1();         // this lane's copies of tile i have landed
+    __syncwarp();             // and every lane's
+    const T* kb = k_s + buf * BK * kRow;
+    const T* vb = v_s + buf * BK * kRow;
+    const uint32_t kbase = smem_u32(kb) + (b_row * kRow) * sizeof(T) + ((j & 1) << 4);
+
+    // S = Q K^T: per m-tile 16 queries x 16 keys, two n-tiles of 8 keys;
+    // each K fragment serves every m-tile
+    float s[MT][2][4] = {};
+    if constexpr (kF32) {
+      // at most eight k8 steps unrolled: D 128 spilled when all were
+#pragma unroll 8
+      for (int ks = 0; ks < D / 8; ++ks) {
+        uint32_t braw[4], bh[4], bl[4];
+        ldsm_x4(braw, kbase + ks * 32);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) split(__uint_as_float(braw[u]), bh[u], bl[u]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t ah[4], al[4];
+          ldsm_x4(ah, qa + mt * kMtBytes + ks * 32);
+          ldsm_x4(al, qa + kLoBytes + mt * kMtBytes + ks * 32);
+          mma_3x(s[mt][0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3x(s[mt][1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t b[4];
+        ldsm_x4(b, kbase + ks * 32);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          ldsm_x4(a, qa + mt * kMtBytes + ks * 32);
+          mma_bf16(s[mt][0], a, b[0], b[1]);
+          mma_bf16(s[mt][1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // mask, scale and the online softmax on the fragments; s[mt][nt][2h + c]
+    // is row q0 + 16·mt + gq + 8h, key kt·16 + 8nt + 2tq + c
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float m_t[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qi = q0 + 16 * mt + gq + 8 * h, kj = k0 + 8 * nt + 2 * tq + c;
+            const bool ok = kj <= qi && kj < t_len && (window <= 0 || kj > qi - window);
+            float& x = s[mt][nt][2 * h + c];
+            x = ok ? x * scale : NEG_INF;
+            m_t[h] = fmaxf(m_t[h], x);
+          }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the quad's four lanes hold row gq + 8h
+        m_t[h] = fmaxf(m_t[h], __shfl_xor_sync(0xffffffffu, m_t[h], 1));
+        m_t[h] = fmaxf(m_t[h], __shfl_xor_sync(0xffffffffu, m_t[h], 2));
+        const float m_new = fmaxf(m_r[mt][h], m_t[h]);
+        alpha[h] = expf(m_r[mt][h] - m_new);
+        m_r[mt][h] = m_new;
+        l_r[mt][h] *= alpha[h];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float& x = s[mt][nt][c];
+          x = expf(x - m_r[mt][c >> 1]);
+          l_r[mt][c >> 1] += x;
+        }
+#pragma unroll
+      for (int nd = 0; nd < NDT; ++nd)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][nd][c] *= alpha[c >> 1];
+    }
+
+    // acc += P V; each V fragment serves every m-tile
+    if constexpr (kF32) {
+      // 8-key step nt: fragment column tq is key 2tq, column tq + 4 is key
+      // 2tq + 1, so a = (c0, c2, c1, c3) of the score fragment and b reads
+      // V rows 2tq and 2tq + 1
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          split(s[mt][nt][0], ph[mt][0], pl[mt][0]);
+          split(s[mt][nt][2], ph[mt][1], pl[mt][1]);
+          split(s[mt][nt][1], ph[mt][2], pl[mt][2]);
+          split(s[mt][nt][3], ph[mt][3], pl[mt][3]);
+        }
+        const float* v0 = reinterpret_cast<const float*>(vb) + (8 * nt + 2 * tq) * kRow + gq;
+#pragma unroll
+        for (int nd = 0; nd < NDT; ++nd) {
+          uint32_t b0h, b0l, b1h, b1l;
+          split(v0[8 * nd], b0h, b0l);
+          split(v0[kRow + 8 * nd], b1h, b1l);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3x(acc[mt][nd], ph[mt], pl[mt], b0h, b1h, b0l, b1l);
+        }
+      }
+    } else {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_bf16(s[mt][0][0], s[mt][0][1], ph[mt][0], pl[mt][0]);
+        split_bf16(s[mt][0][2], s[mt][0][3], ph[mt][1], pl[mt][1]);
+        split_bf16(s[mt][1][0], s[mt][1][1], ph[mt][2], pl[mt][2]);
+        split_bf16(s[mt][1][2], s[mt][1][3], ph[mt][3], pl[mt][3]);
+      }
+      // V [key][d] through ldmatrix.trans: keys 8·(j & 1) + (lane & 7),
+      // columns 8·(2·pair + (j >> 1))
+      const uint32_t vbase = smem_u32(vb) + (a_row * kRow) * 2 + ((j >> 1) << 4);
+#pragma unroll
+      for (int pair = 0; pair < NDT / 2; ++pair) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vbase + pair * 32);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * pair], pl[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * pair], ph[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * pair + 1], pl[mt], b[2], b[3]);
+          mma_bf16(acc[mt][2 * pair + 1], ph[mt], b[2], b[3]);
+        }
+      }
+    }
+    __syncwarp();             // every lane is done with this buffer
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // merge the warps' partial softmaxes: warp w's (m, l) and its
+  // accumulator, then out = sum_w e^(m_w - M) acc_w / sum_w e^(m_w - M) l_w
+  float* acc_s = reinterpret_cast<float*>(mine);   // [BQ][D + 8]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_r[mt][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (tq == 0) {
+        stats[warp * BQ + 16 * mt + gq + 8 * h] = m_r[mt][h];
+        stats[(W + warp) * BQ + 16 * mt + gq + 8 * h] = l;
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nd = 0; nd < NDT; ++nd)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(acc_s + (16 * mt + gq + 8 * h) * (D + 8) + 8 * nd + 2 * tq) =
+            make_float2(acc[mt][nd][2 * h], acc[mt][nd][2 * h + 1]);
+  __syncthreads();
+  // row r's weight of warp w over the denominator, at stats[(2W + w)·BQ + r]
+  if (tid < BQ) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, stats[w * BQ + tid]);
+    float f[W], l = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      f[w] = expf(stats[w * BQ + tid] - mx);
+      l += f[w] * stats[(W + w) * BQ + tid];
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int w = 0; w < W; ++w) stats[(2 * W + w) * BQ + tid] = f[w] * inv;
+  }
+  __syncthreads();
+  const float* acc0 = reinterpret_cast<const float*>(smem + C::kQ + C::kStats);
+  for (int e = tid; e < BQ * D / 4; e += NT) {
+    const int row = e / (D / 4), col = 4 * (e % (D / 4)), t = q0 + row;
+    if (t >= t_len) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float wt = stats[(2 * W + w) * BQ + row];
+      const float4 a = *reinterpret_cast<const float4*>(
+          acc0 + (w * C::kWarpBytes) / 4 + row * (D + 8) + col);
+      sum.x += wt * a.x;
+      sum.y += wt * a.y;
+      sum.z += wt * a.z;
+      sum.w += wt * a.w;
+    }
+    T* out = o + base + static_cast<size_t>(t) * D + col;
+    store(out, sum.x);
+    store(out + 1, sum.y);
+    store(out + 2, sum.z);
+    store(out + 3, sum.w);
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// opted[dev]: whether this kernel was opted in to its dynamic shared memory
+// on device dev, so cudaFuncSetAttribute (a costly host call) runs once per
+// device, not once per launch
 template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int t_len, int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+cudaError_t launch(int dev, const void* q, const void* k, const void* v, void* o, int bh,
+                   int t_len, int window, float scale, cudaStream_t stream) {
+  static bool opted[kMaxDevices] = {};
+  using C = Cfg<D, T>;
+  constexpr int bytes = C::kTotal;
   auto kernel = flash_sdpa_window_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_len + BQ - 1) / BQ);
-  kernel<<<grid, NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o),
-                                      t_len, window, scale);
+  if (dev >= kMaxDevices || !opted[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) opted[dev] = true;
+  }
+  const dim3 grid(bh, (t_len + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                      static_cast<const T*>(v), static_cast<T*>(o), t_len,
+                                      window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// Dynamic shared memory of one block for head dim d and dtype (0 = float32,
+// 1 = bfloat16), in bytes; 0 for a pair the kernel does not take.
+extern "C" int codec_flash_sdpa_window_smem_bytes(int d, int dtype) {
+  if (d == 64 && dtype == 0) return Cfg<64, float>::kTotal;
+  if (d == 64 && dtype == 1) return Cfg<64, __nv_bfloat16>::kTotal;
+  if (d == 128 && dtype == 0) return Cfg<128, float>::kTotal;
+  if (d == 128 && dtype == 1) return Cfg<128, __nv_bfloat16>::kTotal;
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; q, k, v, o 16-byte aligned. Returns a
+// cudaError_t (0 = success).
 extern "C" int codec_flash_sdpa_window(const void* q, const void* k, const void* v, void* o,
                                        int bh, int t_len, int d, int window, float scale,
                                        int dtype, void* stream) {
+  for (const void* p : {q, k, v, static_cast<const void*>(o)})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && dtype == 0) return launch<64, float>(q, k, v, o, bh, t_len, window, scale, s);
-  if (d == 64 && dtype == 1) return launch<64, __nv_bfloat16>(q, k, v, o, bh, t_len, window, scale, s);
-  if (d == 128 && dtype == 0) return launch<128, float>(q, k, v, o, bh, t_len, window, scale, s);
-  if (d == 128 && dtype == 1) return launch<128, __nv_bfloat16>(q, k, v, o, bh, t_len, window, scale, s);
+  if (d == 64 && dtype == 0)
+    return launch<64, float>(dev, q, k, v, o, bh, t_len, window, scale, s);
+  if (d == 64 && dtype == 1)
+    return launch<64, __nv_bfloat16>(dev, q, k, v, o, bh, t_len, window, scale, s);
+  if (d == 128 && dtype == 0)
+    return launch<128, float>(dev, q, k, v, o, bh, t_len, window, scale, s);
+  if (d == 128 && dtype == 1)
+    return launch<128, __nv_bfloat16>(dev, q, k, v, o, bh, t_len, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

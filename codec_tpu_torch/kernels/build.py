@@ -120,3 +120,19 @@ def _finish(cmd: list, proc: subprocess.Popen) -> str:
 def load_library() -> ctypes.CDLL:
     """The built library, loaded once per process."""
     return ctypes.CDLL(str(build().path))
+
+
+def launch_on(device: int, launch):
+    """launch(stream) with `device` current, stream the raw cudaStream_t
+    (an int) of its current PyTorch stream. The device is switched only
+    when it is not the current one, and the stream read without making a
+    torch.cuda.Stream: the host cost of a small kernel's launch is most of
+    its wrapper's time."""
+    import torch
+
+    if device == torch.cuda.current_device():
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        return launch(raw(device) if raw else
+                      torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream(device).cuda_stream)

@@ -22,7 +22,8 @@ Parameters (`load_mimi_params`, `params_from_jax`) are a dict of tensors:
       weights [C_out, C_in, K] and convtr weights [C_in, C_out, K]
   dtr: one dict per transformer layer, linear weights [out, in]
   with an encoder: enc_l0, enc_l14, enc_stages[i].{r1, r2, dn}, dn (no
-      bias) as convs; etr as dtr; sem_ip, acu_ip [d, h]
+      bias) as convs; etr as dtr; sem_ip, acu_ip [d, h]; sem_search,
+      acu_search: {"cb": f32 codebooks, "norms": [n, V] f32}, built at load
 """
 
 from __future__ import annotations
@@ -160,7 +161,19 @@ def load_mimi_params(r: GGUFReader, cfg: MimiConfig, dtype=torch.float32,
         p["sem_ip"] = t(r.get("q.s.ip.w"))
         if cfg.n_q > cfg.n_sem:
             p["acu_ip"] = t(r.get("q.a.ip.w"))
+        _search_state(p)
     return p
+
+
+def _search_state(p: Dict[str, Any]) -> None:
+    """The encoder's RVQ searches take f32 codebooks and their norms: built
+    once here, per group ("sem_search", "acu_search": {"cb", "norms"}),
+    rather than on every encode. An f32 model's "cb" is its codebooks
+    tensor itself; a bf16 model keeps an f32 copy."""
+    for group in ("sem", "acu"):
+        if f"cb_{group}" in p:
+            cb = p[f"cb_{group}"].float().contiguous()
+            p[f"{group}_search"] = {"cb": cb, "norms": rvq.codebook_norms(cb)}
 
 
 def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
@@ -211,6 +224,7 @@ def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,
         p["sem_ip"] = t(tree["sem_ip"])
         if "cb_acu" in tree:
             p["acu_ip"] = t(tree["acu_ip"])
+        _search_state(p)
     return p
 
 
@@ -310,8 +324,9 @@ def mimi_encode_fn(params: Dict[str, Any], pcm: torch.Tensor, cfg: MimiConfig,
     codec_tpu/models/mimi.py::mimi_encode_fn).
 
     The semantic and acoustic searches run in f32 through `quantize(x,
-    codebooks)` (default: `rvq_cuda.rvq_encode_fused`, the CUDA kernel on
-    the card; `rvq.rvq_encode` is its plain version)."""
+    codebooks, norms=...)` (default: `rvq_cuda.rvq_encode_fused`, the CUDA
+    kernel on the card; `rvq.rvq_encode` is its plain version), on the f32
+    codebooks and norms the parameters keep from load."""
     latent = mimi_encode_latent_fn(params, pcm, cfg, attention)
     return mimi_quantize(params, latent, cfg, n_q, quantize)
 
@@ -326,10 +341,13 @@ def mimi_quantize(params: Dict[str, Any], latent: torch.Tensor,
     if n_q is None:
         n_q = cfg.n_q
     n_sem = min(cfg.n_sem, n_q)
-    parts = [quantize(F.linear(latent, params["sem_ip"]).float().contiguous(),
-                      params["cb_sem"][:n_sem].float())]
+
+    def search(group: str, levels: int) -> torch.Tensor:
+        state = params[f"{group}_search"]
+        z = F.linear(latent, params[f"{group}_ip"]).float().contiguous()
+        return quantize(z, state["cb"][:levels], norms=state["norms"][:levels])
+
+    parts = [search("sem", n_sem)]
     if n_q > n_sem:
-        parts.append(quantize(
-            F.linear(latent, params["acu_ip"]).float().contiguous(),
-            params["cb_acu"][: n_q - n_sem].float()))
+        parts.append(search("acu", n_q - n_sem))
     return torch.cat(parts, dim=-1)                         # [B, T, n_q]

@@ -15,11 +15,12 @@ from typing import Optional
 
 import torch
 
+from ..kernels.build import launch_on
 from .attn import attn_mask, sdpa
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_BQ = 64                      # queries per block (csrc/flash_sdpa_window.cu)
+_BQ = 16                      # queries per block (csrc/flash_sdpa_window.cu)
 _MAX_Q_TILES = 65535          # gridDim.y limit
 
 
@@ -49,29 +50,34 @@ def _kernel_fn():
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
+    """Raises unless the kernel takes these arguments. A Mimi layer's
+    attention is a few microseconds on the card, so every test reads only
+    what the tensors hold (no device objects); the messages are built on
+    failure."""
+    shape, dev = q.shape, q.get_device()
     for name, x in (("k", k), ("v", v)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+        if x.shape != shape or x.dtype is not q.dtype or x.get_device() != dev:
             raise ValueError(
                 f"flash_sdpa_window: {name} {tuple(x.shape)} {x.dtype} on "
-                f"{x.device} does not match q {tuple(q.shape)} {q.dtype} "
+                f"{x.device} does not match q {tuple(shape)} {q.dtype} "
                 f"on {q.device}")
-    if q.ndim != 4:
+    if len(shape) != 4:
         raise ValueError(f"flash_sdpa_window: q must be [B, H, T, D], got "
-                         f"{tuple(q.shape)}")
-    b, h, t, d = q.shape
+                         f"{tuple(shape)}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_sdpa_window: dtype {q.dtype} not supported "
                          f"(float32 or bfloat16)")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_sdpa_window: head dim {d} not supported "
-                         f"{_HEAD_DIMS}")
+    if shape[3] not in _HEAD_DIMS:
+        raise ValueError(f"flash_sdpa_window: head dim {shape[3]} not "
+                         f"supported {_HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_sdpa_window: q, k and v must be contiguous")
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"flash_sdpa_window: window must be None or a "
                          f"positive int, got {window!r}")
-    if t < 1 or -(-t // _BQ) > _MAX_Q_TILES or b * h < 1 or b * h >= 2 ** 31:
-        raise ValueError(f"flash_sdpa_window: shape {tuple(q.shape)} out of "
+    if not (1 <= shape[2] <= _BQ * _MAX_Q_TILES
+            and 1 <= shape[0] * shape[1] < 2 ** 31):
+        raise ValueError(f"flash_sdpa_window: shape {tuple(shape)} out of "
                          f"the kernel's range")
 
 
@@ -83,21 +89,23 @@ def flash_sdpa_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: [B, H, T, D] (f32 or bf16; D in {64, 128} on CUDA) →
     [B, H, T, D] in v's dtype. Query i sees key j iff i - window < j <= i.
     Counts its kernel launches in `flash_sdpa_window.launches`."""
-    if q.device.type == "cpu":
-        return flash_sdpa_window_ref(q, k, v, scale=scale, window=window)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_sdpa_window_ref(q, k, v, scale=scale, window=window)
         raise ValueError(f"flash_sdpa_window: no kernel for device {q.device}")
     _check(q, k, v, window)
     b, h, t, d = q.shape
     if scale is None:
         scale = d ** -0.5
     fn, err_str = _kernel_fn()
+    # the kernel copies 16-byte words: a view that starts off such a word
+    # is copied to a fresh (aligned) tensor
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, t, d, window or 0, float(scale), _DTYPE_CODES[q.dtype],
-                 stream)
+    err = launch_on(q.get_device(), lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, d,
+        window or 0, float(scale), _DTYPE_CODES[q.dtype], stream))
     if err != 0:
         raise RuntimeError(f"flash_sdpa_window: kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")

@@ -32,10 +32,13 @@ def rvq_layer_encode(residual: torch.Tensor, codebook: torch.Tensor,
     return idx.to(torch.int32), residual - codebook[idx]
 
 
-def rvq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+def rvq_encode(x: torch.Tensor, codebooks: torch.Tensor,
+               norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All levels of stacked codebooks [n_q, V, D]. x [B, T, D] → codes
-    [B, T, n_q] int32."""
-    norms = codebook_norms(codebooks)
+    [B, T, n_q] int32. norms [n_q, V] (codebook_norms of the codebooks) is
+    computed here when not given."""
+    if norms is None:
+        norms = codebook_norms(codebooks)
     codes = []
     residual = x
     for q in range(codebooks.shape[0]):

@@ -12,6 +12,7 @@ from codec_tpu.ops.attn_pallas import flash_sdpa_window as jflash
 from codec_tpu_torch.ops import attn_cuda
 from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                            flash_sdpa_window_ref)
+from tf32_split import flash_split
 
 
 def _qkv(rng, shape):
@@ -35,6 +36,37 @@ def test_plain_and_cpu_dispatch_match_pallas(b, h, t, d, w):
     got = flash_sdpa_window(tq, tk, tv, window=w)
     assert torch.equal(got, ref)                # CPU runs the plain version
     assert flash_sdpa_window.launches == launches   # and launches nothing
+
+
+# the kernel's products (tests/tf32_split.py: split f32 for QK^T and PV)
+# on the shapes above, and T 1, T below one 16-query tile, window 1
+@pytest.mark.parametrize("b,h,t,d,w", [
+    (1, 2, 64, 32, None),
+    (2, 4, 300, 64, 50),
+    (1, 8, 130, 64, 250),
+    (1, 2, 256, 128, 16),
+    (1, 1, 1, 64, 1),
+    (1, 2, 9, 64, None),
+    (1, 2, 40, 64, 1),
+])
+def test_split_products_match_pallas(b, h, t, d, w):
+    q, k, v = _qkv(np.random.default_rng(0), (b, h, t, d))
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in (q, k, v)), window=w,
+                             interpret=True))
+    got = flash_split(*(torch.from_numpy(a) for a in (q, k, v)), window=w)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+
+
+def test_bf16_split_products_match_pallas():
+    """bf16: exact QK^T products, P = P_hi + P_lo in bf16 against exact V."""
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, (1, 2, 200, 64))
+    want = np.asarray(jflash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                             window=40, interpret=True), dtype=np.float32)
+    got = flash_split(*(torch.from_numpy(a).to(torch.bfloat16)
+                        for a in (q, k, v)), window=40)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
 
 
 def test_bf16_matches_pallas():
@@ -70,7 +102,23 @@ def test_import_builds_nothing_and_needs_no_nvcc():
     assert rvq_cuda._lib.cache_info().currsize == 0
     assert build.sources() == [build.CSRC_DIR / name for name in (
         "flash_sdpa_window.cu", "qmat.cu", "rvq_encode.cu", "seanet_gemm.cuh",
-        "seanet_res.cu", "seanet_tiles.cuh", "snac_res.cu")]
+        "seanet_res.cu", "seanet_tiles.cuh", "snac_res.cu", "tf32x3.cuh")]
+
+
+def test_tile_sweep_finds_the_kernel_cfg():
+    """tools/mimi_times.py --what attn_tiles rewrites the two lines of
+    csrc/flash_sdpa_window.cu's Cfg that hold the block's query m-tiles and
+    warps (it raises when they moved), and the kernel's pick is the sweep's
+    first pair."""
+    from codec_tpu_torch.kernels.build import CSRC_DIR
+    from codec_tpu_torch.tools import mimi_times
+
+    src = (CSRC_DIR / "flash_sdpa_window.cu").read_text()
+    for line, patched in mimi_times._CFG_LINES:
+        assert src.count(line) == 1
+        assert patched.format(mt=1, warps=8) not in src
+    assert mimi_times.ATTN_TILES[0] == (2, 4)
+    assert "ATTN_" not in src
 
 
 def test_no_device_falls_back_to_the_plain_version():

@@ -33,8 +33,10 @@ def _qkv(shape, dtype, dev, seed=0):
 
 
 # the Mimi decoder shapes, the reference kernel's test shapes, and D=128;
-# f32 bound as in tests/test_attn_pallas.py (atol 2e-5, rtol 1e-5)
-@pytest.mark.parametrize("b,h,t,d,w", [
+# T 1, T below one 16-query tile, ragged T, window 1, window >= T, pure
+# causal, B·H 64; f32 bound as in tests/test_attn_pallas.py (atol 2e-5,
+# rtol 1e-5)
+ATTN_SHAPES = [
     (1, 8, 500, 64, 250),
     (1, 8, 1500, 64, 250),
     (4, 8, 500, 64, 250),
@@ -43,7 +45,17 @@ def _qkv(shape, dtype, dev, seed=0):
     (2, 4, 300, 64, 50),
     (1, 8, 130, 64, 250),
     (1, 1, 1, 64, 1),
-])
+    (1, 2, 9, 64, None),
+    (1, 2, 37, 64, 5),
+    (1, 4, 200, 64, 1),
+    (1, 2, 100, 64, 300),
+    (8, 8, 100, 64, 50),
+    (2, 2, 150, 128, 40),
+    (1, 1, 1, 128, None),
+]
+
+
+@pytest.mark.parametrize("b,h,t,d,w", ATTN_SHAPES)
 def test_kernel_matches_plain_f32(dev, b, h, t, d, w):
     q, k, v = _qkv((b, h, t, d), torch.float32, dev)
     got = flash_sdpa_window(q, k, v, window=w)
@@ -53,15 +65,39 @@ def test_kernel_matches_plain_f32(dev, b, h, t, d, w):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_kernel_matches_plain_bf16(dev, d):
-    q, k, v = _qkv((1, 8, 500, d), torch.bfloat16, dev, seed=1)
-    got = flash_sdpa_window(q, k, v, window=250)
-    want = flash_sdpa_window_ref(q, k, v, window=250)
+@pytest.mark.parametrize("b,h,t,d,w", [(1, 8, 500, 128, 250)] + ATTN_SHAPES)
+def test_kernel_matches_plain_bf16(dev, b, h, t, d, w):
+    q, k, v = _qkv((b, h, t, d), torch.bfloat16, dev, seed=1)
+    got = flash_sdpa_window(q, k, v, window=w)
+    want = flash_sdpa_window_ref(q, k, v, window=w)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
     # bound as in tests/test_attn_pallas.py::test_flash_bf16
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_two_launches_are_bit_identical(dev, dtype, d):
+    """No atomics and a fixed merge order: the same inputs give the same
+    bits."""
+    q, k, v = _qkv((2, 4, 333, d), dtype, dev, seed=2)
+    a = flash_sdpa_window(q, k, v, window=100)
+    b = flash_sdpa_window(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_kernel_takes_views_off_16_byte_words(dev):
+    """A view that starts off a 16-byte word is copied, not refused."""
+    q, k, v = _qkv((1, 2, 65, 64), torch.float32, dev, seed=3)
+    flat = torch.empty(q.numel() + 1, device=dev)
+    flat[1:] = q.reshape(-1)
+    qv = flat[1:].view(q.shape)
+    assert qv.data_ptr() % 16 and qv.is_contiguous()
+    got = flash_sdpa_window(qv, k, v, window=20)
+    torch.testing.assert_close(got, flash_sdpa_window(q, k, v, window=20),
+                               atol=0, rtol=0)
 
 
 def test_launch_counter_counts_kernel_launches_only(dev):
@@ -786,11 +822,17 @@ def _rvq_inputs(b, t, d, n_q, v, dev, kind, seed=0):
 
 
 # the Mimi shapes (20 s b1 acoustic and semantic, b4), the unaligned
-# shapes of tests/test_rvq_pallas.py, D no multiple of 4 (4-byte staging)
-# and V above 8 x 256 (several row tiles per block)
+# shapes of tests/test_rvq_pallas.py, D no multiple of 4 (padded by the
+# wrapper), V above 8 x 256 (several row tiles per block); N 1, N no
+# multiple of the frame group, V below the cluster size, D 32, D 96, D no
+# multiple of 8; D 512 and 2560 (8 frames a cluster, the winners' rows
+# read from L2)
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
-              (2, 33, 30, 3, 70), (1, 40, 64, 2, 5000)]
+              (2, 33, 30, 3, 70), (1, 40, 64, 2, 5000), (1, 1, 32, 3, 64),
+              (1, 1, 256, 31, 2048), (3, 17, 96, 2, 300), (1, 50, 36, 3, 6),
+              (1, 70, 20, 2, 2049), (1, 250, 512, 4, 2048),
+              (1, 20, 2560, 2, 300)]
 
 
 @pytest.mark.parametrize("kind", ["int", "normal", "dup"])
@@ -819,6 +861,43 @@ def test_rvq_kernel_matches_plain(dev, kind, b, t, d, n_q, v):
                                                    g[fr, q], w[fr, q]))
 
 
+@pytest.mark.parametrize("b,t,d,n_q,v", [(1, 250, 256, 31, 2048),
+                                         (2, 33, 30, 3, 70)])
+def test_rvq_kernel_norms_argument_and_two_launches(dev, b, t, d, n_q, v):
+    """Codes with norms= (as a model passes them) equal codes without it,
+    and two launches give the same codes."""
+    from codec_tpu_torch.ops import rvq
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+
+    x, cb = _rvq_inputs(b, t, d, n_q, v, dev, "normal", seed=5)
+    nrm = rvq.codebook_norms(cb)
+    a = rvq_encode_fused(x, cb)
+    got = rvq_encode_fused(x, cb, norms=nrm)
+    again = rvq_encode_fused(x, cb, norms=nrm)
+    torch.cuda.synchronize()
+    assert torch.equal(a, got) and torch.equal(got, again)
+
+
+def test_rvq_layout_and_plan_match_the_card(dev):
+    """ops/rvq_cuda.py's shared-memory mirror equals the library's, the
+    card holds the HELD clusters of 8 the plan assumes, and the plan only
+    picks an instantiation the card holds."""
+    from codec_tpu_torch.ops import rvq_cuda
+    from codec_tpu_torch.ops.seanet_cuda import smem_per_block
+
+    lib = rvq_cuda._lib()
+    for frames in rvq_cuda.FRAMES:
+        for d in (4, 32, 96, 256, 288, 512, 2560):
+            assert lib.codec_rvq_encode_smem_bytes(frames, d) == \
+                rvq_cuda.smem_bytes(frames, d)
+    for frames in (16, 32):
+        assert rvq_cuda.held_clusters(0, frames, 256) >= rvq_cuda.HELD
+    for n, d in ((1, 256), (16, 256), (250, 256), (1000, 256), (250, 512)):
+        frames = rvq_cuda.plan(n, d, smem_per_block(0))
+        assert rvq_cuda.held_clusters(0, frames, d) >= 1
+        assert rvq_cuda.smem_bytes(frames, d) <= smem_per_block(0)
+
+
 def test_rvq_kernel_never_picks_rows_past_v(dev):
     from codec_tpu_torch.ops import rvq
     from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
@@ -840,21 +919,27 @@ def test_rvq_counter_counts_kernel_launches_only(dev):
     assert rvq_encode_fused.launches == before + 1
 
 
-@pytest.mark.parametrize("case", ["bf16", "cpu_codebook", "layout", "dim"])
+@pytest.mark.parametrize("case", ["bf16", "cpu_codebook", "layout", "dim",
+                                  "norms_shape", "norms_dtype"])
 def test_rvq_kernel_rejects_what_it_does_not_take(dev, case):
     from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
 
     x, cb = _rvq_inputs(1, 16, 32, 2, 40, dev, "normal")
+    nrm = None
     if case == "bf16":
         x, cb = x.bfloat16(), cb.bfloat16()
     elif case == "cpu_codebook":
         cb = cb.cpu()
     elif case == "layout":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
-    else:
+    elif case == "dim":
         cb = cb[..., :16].contiguous()
+    elif case == "norms_shape":
+        nrm = torch.zeros((2, 39), device=dev)
+    else:
+        nrm = torch.zeros((2, 40), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
-        rvq_encode_fused(x, cb)
+        rvq_encode_fused(x, cb, norms=nrm)
 
 
 # the encoders' widths: DAC's units at C = 64 (T = n) and 512 (T = n/40),

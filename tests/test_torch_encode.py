@@ -156,6 +156,25 @@ def test_exact_encode_follows_the_dtype_and_the_argument(tiny_mimi):
                                           exact_encode=False).exact_encode
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mimi_keeps_search_codebooks_and_norms_from_load(tiny_mimi, dtype):
+    """The RVQ searches' f32 codebooks and norms are built once at load, in
+    both dtypes (an f32 model's are its codebooks themselves), and equal
+    codebook_norms of the codebooks cast to f32."""
+    from codec_tpu_torch.ops import rvq
+
+    model = codec_tpu_torch.load_model(tiny_mimi["path"], compute_dtype=dtype,
+                                       device="cpu")
+    p = model.params
+    for group in ("sem", "acu"):
+        state = p[f"{group}_search"]
+        cb = p[f"cb_{group}"]
+        assert state["cb"].dtype == torch.float32 and state["cb"].is_contiguous()
+        assert torch.equal(state["cb"], cb.float())
+        assert (state["cb"] is cb) == (dtype == "float32")
+        assert torch.equal(state["norms"], rvq.codebook_norms(cb.float()))
+
+
 def test_mimi_bfloat16_encodes(tiny_mimi):
     p16 = codec_tpu_torch.load_model(tiny_mimi["path"],
                                      compute_dtype="bfloat16", device="cpu")

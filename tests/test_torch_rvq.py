@@ -17,8 +17,10 @@ from codec_tpu.ops import conv as jconv
 from codec_tpu.ops import norms as jnorms
 from codec_tpu.ops import rvq as jrvq
 from codec_tpu.ops.rvq_pallas import rvq_encode_fused as jrvq_fused
-from codec_tpu_torch.ops import conv, norms, rvq
+from codec_tpu_torch.ops import conv, norms, rvq, rvq_cuda
 from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+from encode_ties import assert_codes, euclid_margin
+from tf32_split import rvq_encode_split, split, tf32_rna
 
 
 def _inputs(b, t, d, q, v, seed=0, x_scale=1.0):
@@ -48,6 +50,108 @@ def test_plain_matches_jax_scan_and_pallas_kernel(b, t, d, q, v):
     assert got.dtype == np.int32 and got.shape == (b, t, q)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, kernel)
+
+
+# the kernel's split-f32 scores (tests/tf32_split.py) on the shapes above:
+# codes equal to codec_tpu's scan and to its Pallas kernel, or differing
+# only at f64 near-ties (tests/encode_ties.py)
+@pytest.mark.parametrize("b,t,d,q,v", [
+    (1, 7, 32, 4, 64),
+    (2, 200, 256, 8, 1024),
+    (1, 130, 96, 3, 100),
+])
+def test_split_scores_match_jax_scan_and_pallas_kernel(b, t, d, q, v):
+    x, cb = _inputs(b, t, d, q, v)
+    want = np.asarray(jrvq.rvq_encode(jnp.asarray(x), jnp.asarray(cb)))
+    kernel = np.asarray(jrvq_fused(jnp.asarray(x), jnp.asarray(cb),
+                                   interpret=True))
+    got = rvq_encode_split(torch.from_numpy(x), torch.from_numpy(cb)).numpy()
+    assert got.dtype == np.int32 and got.shape == (b, t, q)
+    x64, cb64 = x.astype(np.float64).reshape(b * t, d), cb.astype(np.float64)
+    g = got.reshape(b * t, q)
+    for ref in (want, kernel):
+        w = ref.reshape(b * t, q)
+        assert_codes(g, w, lambda fr, lvl: euclid_margin(
+            x64[fr], cb64, w[fr, :lvl], g[fr, lvl], w[fr, lvl]))
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_split_scores_are_exact_on_integer_inputs(dup):
+    """Small integers split with lo = 0: every product and sum is exact, so
+    the split search gives the plain version's codes bit for bit (and the
+    lower copy of a duplicated row)."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(-3, 4, (2, 60, 48)).astype(np.float32)
+    cb = rng.integers(-3, 4, (5, 40, 48)).astype(np.float32)
+    if dup:
+        cb[:, 20:] = cb[:, :20]
+    hi, lo = split(torch.from_numpy(cb))
+    assert torch.equal(hi, torch.from_numpy(cb)) and not lo.any()
+    got = rvq_encode_split(torch.from_numpy(x), torch.from_numpy(cb)).numpy()
+    np.testing.assert_array_equal(got, _port(x, cb))
+    assert got.max() < (20 if dup else 40)
+
+
+def test_tf32_split_rounds_to_nearest_and_keeps_21_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11),
+                      3.0e-5, -123.456], dtype=torch.float32)
+    hi = tf32_rna(x)
+    # ties go away from zero, as cvt.rna
+    assert hi.tolist()[:4] == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                               -(1.0 + 2 ** -10)]
+    h, lo = split(x)
+    rel = ((h.double() + lo.double() - x.double()).abs() / x.double().abs())
+    assert rel.max() < 2 ** -20
+
+
+def test_norms_argument_gives_the_same_codes():
+    x, cb = _inputs(2, 30, 32, 3, 50, seed=10)
+    tx, tcb = torch.from_numpy(x), torch.from_numpy(cb)
+    nrm = rvq.codebook_norms(tcb)
+    assert torch.equal(rvq_encode_fused(tx, tcb, norms=nrm),
+                       rvq_encode_fused(tx, tcb))
+    assert torch.equal(rvq.rvq_encode(tx, tcb, nrm), rvq.rvq_encode(tx, tcb))
+
+
+# the launch plan on an H100 (227 KB of shared memory a block, 15 clusters
+# of 8 held at once: tools/rvq_phases.py), and the frame count the sweep
+# measured fastest at each N (PERF.md §6: 16 at N 16 and 128, 32 at 250
+# and 1000)
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (250, 256, 32),
+    (1000, 256, 32),
+    (16, 256, 16),
+    (1, 256, 16),
+    (240, 256, 16),
+    (241, 256, 32),
+])
+def test_plan_per_shape(n, d, want):
+    assert rvq_cuda.plan(n, d, H100_SMEM) == want
+
+
+def test_plan_leaves_out_partitions_that_do_not_fit():
+    # D 352: 32 frames' residual no longer fits beside the stages
+    assert rvq_cuda.smem_bytes(32, 352) > H100_SMEM >= rvq_cuda.smem_bytes(16, 352)
+    assert rvq_cuda.plan(250, 352, H100_SMEM) == 16
+    # D 512 (and up to 2560): 8 frames, the winners' rows read from L2
+    assert rvq_cuda.smem_bytes(16, 512) > H100_SMEM >= rvq_cuda.smem_bytes(8, 512)
+    assert rvq_cuda.plan(250, 512, H100_SMEM) == 8
+    assert rvq_cuda.plan(1, 2560, H100_SMEM) == 8
+    with pytest.raises(ValueError, match="shared memory"):
+        rvq_cuda.plan(250, 2592, H100_SMEM)
+
+
+@pytest.mark.parametrize("frames,d,want", [
+    (32, 256, 203848), (16, 256, 184408), (32, 32, 117832), (16, 96, 153688),
+    (8, 512, 100952), (8, 2560, 232024)])
+def test_smem_bytes_per_shape(frames, d, want):
+    """csrc/rvq_encode.cu::layout: stages of 256 x 32 f32, hi and lo [F][dp]
+    f32, the rows [F][dp] f32 (8 frames: [F] int), candidates, barriers,
+    1024 to align."""
+    assert rvq_cuda.smem_bytes(frames, d) == want
 
 
 def test_rows_past_v_are_never_chosen():
@@ -113,6 +217,37 @@ def test_phases_tool_instruments_the_kernel_source():
         assert src.count(f"PHASE({i});") == 1
     assert "unsigned long long* prof" in src
     assert "rvq_phases_max_clusters" in src
+
+
+def test_phases_tool_builds_the_presplit_variant():
+    """--variant presplit loads A's hi and lo by ldmatrix and splits
+    nothing in the scoring loop; the rest of the copy is the same."""
+    from codec_tpu_torch.tools import rvq_phases
+
+    split = rvq_phases.instrumented_source()
+    pre = rvq_phases.instrumented_source("presplit")
+    assert split.count("split(__uint_as_float(raw[u])") == 1
+    assert "split(__uint_as_float(raw[u])" not in pre
+    assert pre.count("ldsm_x4(l[t], a_at);") == 1
+    assert pre.replace(rvq_phases._PRESPLIT_A, rvq_phases._SPLIT_A) == split
+
+
+def test_ab_tool_imports_a_second_tree_beside_this_one():
+    """tools/ab_requests.py loads another tree's package under its own name:
+    its modules are that tree's, not this one's."""
+    from pathlib import Path
+
+    import codec_tpu_torch
+    from codec_tpu_torch.tools.ab_requests import import_tree
+
+    root = Path(codec_tpu_torch.__file__).resolve().parent.parent
+    other = import_tree(root, "codec_tpu_torch_second_tree")
+    import importlib
+
+    mod = importlib.import_module("codec_tpu_torch_second_tree.ops.rvq_cuda")
+    assert other.__name__ == "codec_tpu_torch_second_tree"
+    assert mod is not rvq_cuda and mod.plan(250, 256, H100_SMEM) == 32
+    assert mod.rvq_encode_fused.launches == 0
 
 
 def test_decode_sum_matches_jax():
