@@ -15,6 +15,7 @@ Phases (any failure raises and exits non-zero before the last line):
      and spills (0), HMMA (mma.sync) and no HGMMA in the attention, HGMMA
      and no HMMA in the RVQ search; the RVQ search's cluster occupancy
   3. each kernel against its plain PyTorch version on the card (the
+     attention also with carried keys, at the streaming steps' shapes; the
      residual units also at every DAC and SNAC decoder and encoder
      block's shape, unit by unit in the launches a request makes, the
      RVQ search also on integer-valued inputs and duplicated rows, where
@@ -40,7 +41,17 @@ Phases (any failure raises and exits non-zero before the last line):
      against the plain path on the card (plain attention, plain RVQ,
      plain residual units) under the near-tie rule, and one encode →
      decode round trip per arch
-  8. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
+  8. Mimi streaming sessions on the same random Mimi: decode 20 s b1 f32 in
+     pushes of 1 and 5 frames, 20 s b4 f32 and b1 bf16 in pushes of 1, and
+     60 s b1 f32 in pushes of 5 (past the 250-frame window); encode 20 s b1
+     f32 in pushes of 1 and 5 hops; every push's launches checked exactly
+     (decode 8 flash_sdpa_window with carried keys, encode 8 + 2
+     rvq_encode_fused), each f32 stream held against the full decode
+     (encode) on the card, the bf16 one for shape, finite samples and
+     saturation; decode_many over three Mimi sequences of two lengths and
+     decode_async + PendingPcm.gather over two DAC requests, each output
+     held against its own decode
+  9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
      packed on the card (the memory it adds is checked), and run three
@@ -50,7 +61,7 @@ Phases (any failure raises and exits non-zero before the last line):
      to 0 just before and read just after; the backbone hiddens are held
      against the plain packed product on the card, teacher-forced on the
      same inputs, and the greedy codes against the plain path's
-  9. CUDA-event times (median of >= 10 runs after warm-up), each kernel
+  10. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
      the same function; the DAC residual unit at every decoder and
@@ -64,7 +75,11 @@ Phases (any failure raises and exits non-zero before the last line):
      warm-up); per-request encode times (median of 10 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
      (norms given, as a model passes them) beside a second bound, three
-     TF32 passes per f32 product at the tensor cores' TF32 rate
+     TF32 passes per f32 product at the tensor cores' TF32 rate; the
+     streaming sessions' pushes (median event time, x realtime, time to
+     first audio, one push's device busy time, idle share and launches
+     under torch.profiler) and the attention with carried keys beside its
+     plain version, SDPA with the same mask and its bound
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -170,7 +185,8 @@ TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 3
 Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 
 # -- rvq_encode_fused (B, T, D, n_q, V): Mimi at 20 s b1 (acoustic and
-# semantic) and b4, the unaligned shapes of tests/test_rvq_pallas.py, and
+# semantic) and b4, the unaligned shapes of tests/test_rvq_pallas.py, the
+# streaming encode's pushes (1 frame: semantic and acoustic; 5 frames), and
 # V = 5 with frames near 0 (rows past V are never chosen). Integer-valued
 # inputs (exact in f32, with many exact ties), with or without duplicated
 # rows (the lower copy must win), must give the plain version's codes bit
@@ -179,7 +195,8 @@ Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 # most max(2, N/100) frames
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
-              (1, 250, 512, 4, 2048)]
+              (1, 250, 512, 4, 2048), (1, 1, 256, 1, 2048),
+              (1, 1, 256, 31, 2048), (1, 5, 256, 31, 2048)]
 RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
 NEAR_TIE = 1e-4
 # the residual-unit blocks at 20 s b1: the DAC decoder's and encoder's
@@ -195,6 +212,28 @@ ENCODE_REQUESTS = [("mimi", "20s_b1_f32", 20, 1, "float32"),
                    ("dac", "20s_b1_bf16", 20, 1, "bfloat16"),
                    ("snac", "20s_b1_f32", 20, 1, "float32"),
                    ("snac", "20s_b1_bf16", 20, 1, "bfloat16")]
+# -- the Mimi streaming sessions on the same random Mimi: (name, seconds of
+# audio, batch, compute dtype, frames a push). 60 s is 1500 transformer
+# frames, past the 250-frame window: the KV carry rolls. Each f32 stream is
+# held against the full decode (encode) of the same codes (PCM) on the card
+STREAM_DECODES = [("20s_b1_f32_c1", 20, 1, "float32", 1),
+                  ("20s_b1_f32_c5", 20, 1, "float32", 5),
+                  ("20s_b4_f32_c1", 20, 4, "float32", 1),
+                  ("20s_b1_bf16_c1", 20, 1, "bfloat16", 1),
+                  ("60s_b1_f32_c5", 60, 1, "float32", 5)]
+STREAM_ENCODES = [("20s_b1_f32_c1", 20, 1, "float32", 1),
+                  ("20s_b1_f32_c5", 20, 1, "float32", 5)]
+# the decode streams whose steps are timed (events, profiler), and how many
+STREAM_TIMED = ("20s_b1_f32_c1", "20s_b1_f32_c5", "20s_b4_f32_c1",
+                "20s_b1_bf16_c1")
+STREAM_TIMED_STEPS = 30
+# flash_sdpa_window with carried keys, (B, H, Tq, Tk, D, window, k_start):
+# a 1-frame step (2 queries against 249 carried keys and their own) at
+# stream start (k_start 249: every carried slot masked) and past it
+# (k_start 0), a 5-frame step and the b4 step
+STREAM_ATTN_SHAPES = [(1, 8, 2, 251, 64, 250, 0), (1, 8, 2, 251, 64, 250, 249),
+                      (1, 8, 10, 259, 64, 250, 0), (4, 8, 2, 251, 64, 250, 0)]
+STREAM_ATTN_MAIN = (1, 8, 2, 251, 64, 250, 0)   # the kernels line's shape
 
 
 def log(msg: str) -> None:
@@ -294,6 +333,25 @@ def attn_work(b, h, t, d, w, dtype):
     (q, k, v read and out written once)."""
     pairs = sum(min(i + 1, w or t) for i in range(t))
     return [(4 * d * pairs * b * h, dtype)], 4 * b * h * t * d * dtype.itemsize
+
+
+def stream_attn_work(b, h, tq, tk, d, w, k_start, dtype):
+    """flash_sdpa_window with carried keys: its FLOP (QK and PV over the
+    pairs this call's mask leaves visible: query i at key Tk - Tq + i sees
+    max(k_start, that - w + 1) .. that) and bytes (q, k, v read and out
+    written once)."""
+    pairs = sum(tk - tq + i - max(k_start, tk - tq + i - w + 1) + 1
+                for i in range(tq))
+    return ([(4 * d * pairs * b * h, dtype)],
+            2 * b * h * (tq + tk) * d * dtype.itemsize)
+
+
+def stream_mask(tq, tk, w, k_start):
+    """The boolean mask of that attention for F.scaled_dot_product_attention
+    (True: visible)."""
+    qp = tk - tq + torch.arange(tq, device="cuda")[:, None]
+    kj = torch.arange(tk, device="cuda")[None, :]
+    return (kj <= qp) & (kj > qp - w) & (kj >= k_start)
 
 
 def qmat_work(out_d, in_d, m, packed):
@@ -407,6 +465,28 @@ def profiled_ms(fn, calls: int, keep, tries: int = 3) -> float:
                     and not e.key.startswith("aten::") and keep(e.key))
         if total > 0:
             return total / 1e3 / calls
+    raise RuntimeError(f"torch.profiler reported no device time in {tries} runs")
+
+
+def profiled_step(fn, tries: int = 3):
+    """One call of fn under torch.profiler → (the kernels' and copies'
+    device time in ms, kernel launches, copies and fills): the device
+    events of the trace, aten ops left out. Retried like profiled_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.self_device_time_total > 0
+               and not e.key.startswith("aten::")]
+        if dev:
+            busy = sum(e.self_device_time_total for e in dev) / 1e3
+            copies = sum(e.count for e in dev
+                         if e.key.startswith(("Memcpy", "Memset")))
+            return busy, sum(e.count for e in dev) - copies, copies
     raise RuntimeError(f"torch.profiler reported no device time in {tries} runs")
 
 
@@ -588,6 +668,30 @@ def main() -> int:
             bound = f"atol {ATTN_BF16_ATOL}"
         log(f"[kernel] flash_sdpa_window B{b} H{h} T{t} D{d} window={w} "
             f"{str(dtype)[6:]}: max abs err {err:.3e} ({bound}) ok")
+    # with carried keys (a streaming step), at the shapes the sessions give it
+    stream_attn_err = 0.0
+    for i, ((b, h, tq, tk, d, w, ks), dtype) in enumerate(
+            (s, dt) for s in STREAM_ATTN_SHAPES
+            for dt in (torch.float32, torch.bfloat16)):
+        q = randn((b, h, tq, d), dtype, SEED + 300 + 3 * i)
+        k, v = (randn((b, h, tk, d), dtype, SEED + 301 + 3 * i + j)
+                for j in range(2))
+        got = flash_sdpa_window(q, k, v, window=w, k_start=ks)
+        want = flash_sdpa_window_ref(q, k, v, window=w, k_start=ks)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **ATTN_F32_TOL)
+            stream_attn_err = max(stream_attn_err, err)
+            bound = "atol 2e-5 rtol 1e-5"
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=ATTN_BF16_ATOL, rtol=0)
+            bound = f"atol {ATTN_BF16_ATOL}"
+        log(f"[kernel] flash_sdpa_window carried keys B{b} H{h} Tq{tq} Tk{tk} "
+            f"D{d} window={w} k_start={ks} {str(dtype)[6:]}: max abs err "
+            f"{err:.3e} ({bound}) ok")
+    max_err["flash_sdpa_window (carried keys)"] = stream_attn_err
 
     def hold(name, label, got, want_f32, dtype, bf16_bounds):
         """The seanet bounds (see UNIT_SHAPES); want_f32 is the plain
@@ -1178,7 +1282,136 @@ def main() -> int:
                          f"{pcm_out.shape} finite")
         log(line)
 
-    # -- 8. the CSM TTS path ---------------------------------------------------
+    # -- 8. the Mimi streaming sessions, decode_many and decode_async ----------
+    # every push of a session makes exactly the step's launches; the
+    # attention launches of the sessions (carried keys) are the kernels
+    # line's second attention row
+    t0 = time.monotonic()
+    dec_step = {**none, "flash_sdpa_window": MIMI_LAYERS}
+    enc_step = {**none, "flash_sdpa_window": MIMI_LAYERS, "rvq_encode_fused": 2}
+    srng = np.random.default_rng(SEED + 400)
+    stream_codes, stream_pcm, stream_launches = {}, {}, 0
+
+    def stream(session, x, chunk, want_step, axis):
+        """Pushes x in chunks along axis, each push's launches checked
+        against want_step → the concatenated outputs."""
+        outs = []
+        for lo in range(0, x.shape[axis], chunk):
+            before = counts()
+            outs.append(session.push(np.take(x, range(lo, min(
+                lo + chunk, x.shape[axis])), axis=axis)))
+            step = {k: v - before[k] for k, v in counts().items()}
+            if step != want_step:
+                raise RuntimeError(f"stream step at {lo}: launches {step}, "
+                                   f"want {want_step}")
+        return np.concatenate(outs, axis=axis)
+
+    for name, secs, batch, dt, chunk in STREAM_DECODES:
+        model = mimi_models[dt]
+        frames = secs * cfg.sample_rate // cfg.hop_size
+        codes = srng.integers(0, cfg.codebook_size,
+                              (batch, frames, cfg.n_q)).astype(np.int32)
+        stream_codes[name] = codes
+        zero_counts()
+        pcm = stream(model.streaming_decoder(batch=batch), codes, chunk,
+                     dec_step, axis=1)
+        stream_launches += flash_sdpa_window.launches
+        want_shape = (batch, frames * cfg.hop_size)
+        if pcm.shape != want_shape or pcm.dtype != np.float32 \
+                or not np.isfinite(pcm).all():
+            raise RuntimeError(f"mimi stream {name}: pcm {pcm.shape} "
+                               f"{pcm.dtype}, finite {np.isfinite(pcm).all()}")
+        full = model.decode(codes)
+        sat = float((np.abs(pcm) > 0.99).mean())
+        line = (f"[stream] decode {name}: {-(-frames // chunk)} pushes of "
+                f"{chunk} frame(s), launches per push {dec_step['flash_sdpa_window']} "
+                f"flash_sdpa_window; pcm {pcm.shape} finite, peak "
+                f"{np.abs(pcm).max():.4f}, share |pcm| > 0.99 {sat:.2e}")
+        if dt == "float32":
+            c, err = corr(pcm, full), float(np.abs(pcm - full).max())
+            peak = float(np.abs(full).max())
+            if not (c > 0.99999 and err <= 1e-4 * peak):
+                raise RuntimeError(f"mimi stream {name}: vs the full decode "
+                                   f"corr {c}, max abs err {err} (peak {peak})")
+            line += (f"; vs the full decode on the card: corr {c:.9f}, max "
+                     f"abs err {err:.3e} (peak {peak:.4f}; bound 1e-4 peak)")
+        else:
+            full_sat = float((np.abs(full) > 0.99).mean())
+            if not sat <= full_sat + 0.01:
+                raise RuntimeError(f"mimi stream {name}: {sat:.2%} of samples "
+                                   f"saturated, the full decode {full_sat:.2%}")
+            line += (f"; the full bf16 decode: share |pcm| > 0.99 "
+                     f"{full_sat:.2e}, corr {corr(pcm, full):.6f}")
+        log(line)
+
+    for name, secs, batch, dt, chunk in STREAM_ENCODES:
+        model = mimi_models[dt]
+        pcm = (srng.standard_normal((batch, secs * cfg.sample_rate))
+               * 0.3).astype(np.float32)
+        stream_pcm[name] = pcm
+        zero_counts()
+        codes = stream(model.streaming_encoder(batch=batch), pcm,
+                       chunk * cfg.hop_size, enc_step, axis=1)
+        stream_launches += flash_sdpa_window.launches
+        want = model.encode(pcm)
+        if codes.shape != want.shape or codes.dtype != np.int32:
+            raise RuntimeError(f"mimi stream encode {name}: codes "
+                               f"{codes.shape} {codes.dtype}, want "
+                               f"{want.shape} int32")
+        with torch.inference_mode(), f32_precision(True):
+            lat = f64(mimi.mimi_encode_latent_fn(
+                model.params, torch.from_numpy(pcm).cuda(), model.cfg))
+        ties = [t for bi in range(batch) for t in near_ties(
+            codes[bi], want[bi],
+            encode_margin("mimi", model, lat[bi], want[bi], codes[bi]))]
+        log(f"[stream] encode {name}: {secs * cfg.sample_rate // (chunk * cfg.hop_size)} "
+            f"pushes of {chunk} hop(s), launches per push "
+            f"{enc_step['flash_sdpa_window']} flash_sdpa_window + "
+            f"{enc_step['rvq_encode_fused']} rvq_encode_fused; codes "
+            f"{codes.shape} " + ("equal to the full encode's on the card"
+                                 if not ties else
+                                 f"vs the full encode: {len(ties)} frames "
+                                 f"differ, each a near-tie (margins "
+                                 f"{', '.join(f'{m:.1e}' for _, _, m in ties)})"))
+    log(f"[stream] main path launches: {stream_launches} flash_sdpa_window "
+        f"with carried keys over {len(STREAM_DECODES)} decode and "
+        f"{len(STREAM_ENCODES)} encode streams "
+        f"({time.monotonic() - t0:.2f} s)")
+
+    # decode_many over three Mimi sequences of two lengths (two decodes), and
+    # decode_async + PendingPcm.gather over two DAC requests, each output
+    # held to its own decode
+    from codec_tpu_torch.runtime.model import PendingPcm
+
+    def held(label, got, want):
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if got.shape != want.shape or not err <= 1e-4 * peak:
+            raise RuntimeError(f"{label}: {got.shape} against {want.shape}, "
+                               f"max abs err {err} (peak {peak})")
+        return f"max abs err {err:.3e} (peak {peak:.4f})"
+
+    seqs = [stream_codes["20s_b1_f32_c1"][0], stream_codes["20s_b1_f32_c5"][0],
+            stream_codes["60s_b1_f32_c5"][0, :125]]
+    zero_counts()
+    many = mimi_models["float32"].decode_many(seqs)
+    if counts() != {**none, "flash_sdpa_window": 2 * MIMI_LAYERS}:
+        raise RuntimeError(f"decode_many: launches {counts()}")
+    log("[runtime] mimi decode_many of 3 sequences (250, 250, 125 frames; "
+        "two batched decodes, 16 attention launches): " + "; ".join(
+            held(f"decode_many {i}", g, mimi_models["float32"].decode(s))
+            for i, (g, s) in enumerate(zip(many, seqs))))
+    dac_f32 = dac_models["float32"]
+    dseqs = [dac_reqs[0][4][0], dac_reqs[0][4][0, :300]]
+    zero_counts()
+    pending = [dac_f32.decode_async(s) for s in dseqs]
+    gathered = PendingPcm.gather(pending)
+    if counts() != {k: 2 * v for k, v in per_decode[torch.float32].items()}:
+        raise RuntimeError(f"decode_async: launches {counts()}")
+    log(f"[runtime] dac decode_async x2 ({', '.join(str(len(x)) for x in dseqs)} "
+        f"frames) + PendingPcm.gather: " + "; ".join(held(f"decode_async {i}", g, dac_f32.decode(s))
+                    for i, (g, s) in enumerate(zip(gathered, dseqs))))
+
+    # -- 9. the CSM TTS path ---------------------------------------------------
     t0 = time.monotonic()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
     try:
@@ -1319,7 +1552,7 @@ def main() -> int:
         f"requests")
     del plain_bbs
 
-    # -- 9. times --------------------------------------------------------------
+    # -- 10. times -------------------------------------------------------------
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
     times, extra = {}, {}
@@ -1550,9 +1783,10 @@ def main() -> int:
                          f"{d_plain:.3f} ms with {what}")
             log(line + f" [{name_limit}]")
 
-    # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4),
-    # with the norms given, as the model passes them from load
-    for b, t, d, n_q, v in RVQ_SHAPES[:3]:
+    # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4,
+    # and a streaming encode's 1- and 5-frame acoustic pushes), with the
+    # norms given, as the model passes them from load
+    for b, t, d, n_q, v in RVQ_SHAPES[:3] + RVQ_SHAPES[-2:]:
         x, cb = rvq_inputs(b, t, d, n_q, v, "normal", SEED + 210)
         nrm = codebook_norms(cb)
         kern, plain, s = turns(lambda: rvq_encode_fused(x, cb, norms=nrm),
@@ -1609,6 +1843,105 @@ def main() -> int:
                      f"with the plain path")
         log(line + f" [{name_limit}]")
 
+    # the streaming sessions: per step, after warm-up pushes, the median
+    # CUDA-event time of a push (host codes to host PCM), the audio it
+    # gives, and one warm push under torch.profiler (device busy time,
+    # kernel launches, copies); time to first audio: a fresh session's
+    # first push, host-timed
+    step_ms = {}
+    for name, secs, batch, dt, chunk in STREAM_DECODES:
+        if name not in STREAM_TIMED:
+            continue
+        model, codes = mimi_models[dt], stream_codes[name]
+        t = time.perf_counter()
+        session = model.streaming_decoder(batch=batch)
+        t_open = time.perf_counter() - t
+        t = time.perf_counter()
+        session.push(codes[:, :chunk])
+        ttfa = time.perf_counter() - t
+        pos = [chunk]
+
+        def push():
+            lo = pos[0] % (codes.shape[1] - chunk + 1)
+            session.push(codes[:, lo:lo + chunk])
+            pos[0] += chunk
+        ms = cuda_ms(push, runs=STREAM_TIMED_STEPS, warmup=5)
+        busy, kernels, copies = profiled_step(push)
+        audio_ms = chunk * cfg.hop_size / cfg.sample_rate * 1e3
+        step_ms[name] = ms
+        log(f"[time] mimi stream decode {name}: {ms:.3f} ms a push "
+            f"(median of {STREAM_TIMED_STEPS} after 5 warm-ups) for "
+            f"{audio_ms * batch:.0f} ms of audio ({batch} x {audio_ms:.0f}), "
+            f"{audio_ms * batch / ms:.1f}x realtime; time to first audio "
+            f"{ttfa * 1e3:.3f} ms (first push; opening the session "
+            f"{t_open * 1e3:.3f} ms); one warm push under torch.profiler: "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f} of "
+            f"the unprofiled push, {kernels} kernel launches and {copies} "
+            f"copies/fills [{name_limit}]")
+    for name, secs, batch, dt, chunk in STREAM_ENCODES:
+        model, pcm = mimi_models[dt], stream_pcm[name]
+        n = chunk * cfg.hop_size
+        session = model.streaming_encoder(batch=batch)
+        t = time.perf_counter()
+        session.push(pcm[:, :n])
+        ttfa = time.perf_counter() - t
+        pos = [n]
+
+        def push():
+            lo = pos[0] % (pcm.shape[1] - n + 1)
+            session.push(pcm[:, lo:lo + n])
+            pos[0] += n
+        ms = cuda_ms(push, runs=STREAM_TIMED_STEPS, warmup=5)
+        busy, kernels, copies = profiled_step(push)
+        audio_ms = n / cfg.sample_rate * 1e3
+        log(f"[time] mimi stream encode {name}: {ms:.3f} ms a push "
+            f"(median of {STREAM_TIMED_STEPS} after 5 warm-ups) for "
+            f"{audio_ms * batch:.0f} ms of audio, {audio_ms * batch / ms:.1f}x "
+            f"realtime; first push {ttfa * 1e3:.3f} ms; one warm push under "
+            f"torch.profiler: device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / ms:.3f}, {kernels} kernel launches and {copies} "
+            f"copies/fills [{name_limit}]")
+
+    # flash_sdpa_window with carried keys at the sessions' shapes: kernel and
+    # plain in turns, F.scaled_dot_product_attention with the same mask, the
+    # bound of the pairs this mask leaves visible, device time
+    for b, h, tq, tk, d, w, ks in STREAM_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((b, h, tq, d), dtype, SEED + 500)
+            k, v = (randn((b, h, tk, d), dtype, SEED + 501 + j)
+                    for j in range(2))
+            kern, plain, smp = turns(
+                lambda: flash_sdpa_window(q, k, v, window=w, k_start=ks),
+                lambda: flash_sdpa_window_ref(q, k, v, window=w, k_start=ks),
+                reps=20)
+            band = stream_mask(tq, tk, w, ks)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band), reps=20)
+            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w,
+                                                      k_start=ks))
+            work = stream_attn_work(b, h, tq, tk, d, w, ks, dtype)
+            flop = work[0][0][0]
+            # the kernel's passes: f32 three TF32 passes per product; bf16
+            # one pass for QK^T and two for PV
+            passes = ([(3 * flop, "tf32")] if dtype == torch.float32
+                      else [(3 * flop // 2, dtype)])
+            b_ms, b_by = least_time(passes, work[1])
+            log(f"[time] flash_sdpa_window carried keys B{b} H{h} Tq{tq} "
+                f"Tk{tk} D{d} w{w} k_start={ks} {str(dtype)[6:]}: kernel "
+                f"{kern:.4f} ms, plain {plain:.4f} ms (samples k {smp[0]:.4f} "
+                f"{smp[1]:.4f}, p {smp[2]:.4f} {smp[3]:.4f}), "
+                f"F.scaled_dot_product_attention with the same mask "
+                f"{lib:.4f} ms, device time (torch.profiler) {fmt_ms(dev)}; "
+                f"bound {b_ms:.5f} ms ({b_by}; the kernel's passes) "
+                f"[{name_limit}]")
+            if (b, h, tq, tk, d, w, ks) == STREAM_ATTN_MAIN \
+                    and dtype == torch.float32:
+                times["flash_sdpa_window (carried keys)"] = (
+                    kern, plain, b_ms, b_by, lib)
+                extra["flash_sdpa_window (carried keys)"] = {
+                    "device_ms": dev,
+                    "bound_fma_ms": least_time(*work)[0]}
+
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
                    + tts_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"],
@@ -1620,7 +1953,8 @@ def main() -> int:
                    + enc_counts["snac_res_chain"],
                    "q8_0_matmul": tts_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"],
-                   "rvq_encode_fused": enc_counts["rvq_encode_fused"]}
+                   "rvq_encode_fused": enc_counts["rvq_encode_fused"],
+                   "flash_sdpa_window (carried keys)": stream_launches}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",
@@ -1634,7 +1968,10 @@ def main() -> int:
                "q4_k_matmul": ("codec_tpu_torch/csrc/qmat.cu",
                                "codec_tpu/ops/qmat_pallas.py:200"),
                "rvq_encode_fused": ("codec_tpu_torch/csrc/rvq_encode.cu",
-                                    "codec_tpu/ops/rvq_pallas.py:76")}
+                                    "codec_tpu/ops/rvq_pallas.py:76"),
+               "flash_sdpa_window (carried keys)": (
+                   "codec_tpu_torch/csrc/flash_sdpa_window.cu",
+                   "codec_tpu/ops/attn_pallas.py:82")}
     # times at: attention B1 H8 T500 D64 w250, the DAC unit at block 1
     # (d=1), the DAC chain at block 4, SNAC's three units at block 3 (the
     # N=1 launches a decode makes), the packed products at m = 1 on the
@@ -1652,7 +1989,10 @@ def main() -> int:
     # cycle over the backbone's gate/up matrices). Launches: all paths of
     # this run (the attention:
     # Mimi decodes, the TTS requests' Mimi decodes and Mimi encodes; the
-    # residual units: decodes and encodes).
+    # residual units: decodes and encodes). The carried-key attention row is
+    # the same kernel as a streaming step launches it (B1 H8 Tq2 Tk251 D64
+    # w250 k_start 0, f32; its bound over the pairs the mask leaves
+    # visible), its launches those of the streaming sessions.
     result = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": main_counts[name], "max_abs_err": max_err[name],

@@ -1,6 +1,7 @@
-"""codec-cli-torch: `info`, `encode`, `decode` and `e2e` over a codec GGUF
-with the port (counterpart of codec_tpu/cli/codec_cli.py). Codes are .npy
-int32 [T, n_q]; audio is 16-bit PCM WAV.
+"""codec-cli-torch: `info`, `encode`, `decode`, `e2e` and `decode-latent`
+over a codec GGUF with the port (counterpart of
+codec_tpu/cli/codec_cli.py). Codes are .npy int32 [T, n_q]; latents .npy
+float32 [T, latent_dim]; audio is 16-bit PCM WAV.
 
 Usage:
   python -m codec_tpu_torch.cli.codec_cli info   --model mimi.gguf
@@ -10,6 +11,8 @@ Usage:
       --codes c.npy --out out.wav [--device cuda] [--dtype float32]
   python -m codec_tpu_torch.cli.codec_cli e2e    --model mimi.gguf \
       --in in.wav --out out.wav [--device cuda] [--dtype float32]
+  python -m codec_tpu_torch.cli.codec_cli decode-latent --model dac.gguf \
+      --latent z.npy --out out.wav [--device cuda] [--dtype float32]
 """
 
 from __future__ import annotations
@@ -52,6 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("e2e")
     common(p)
     p.add_argument("--in", dest="infile", required=True, help="input WAV")
+    p.add_argument("--out", required=True, help="output WAV")
+
+    p = sub.add_parser("decode-latent")
+    common(p)
+    p.add_argument("--latent", required=True,
+                   help="input latent .npy [T, latent_dim]")
     p.add_argument("--out", required=True, help="output WAV")
 
     p = sub.add_parser("info")
@@ -118,12 +127,16 @@ def _run(args) -> int:
         write_wav(args.out, pcm, model.sample_rate)
         print(f"wrote {args.out}: {pcm.shape[0]} samples @ "
               f"{model.sample_rate} Hz")
-    else:                                               # e2e
+    elif args.cmd == "e2e":
         codes = model.encode(_read_pcm(model, args.infile), n_q=args.nq)
         pcm = model.decode(codes, n_q=args.nq, pcm_format="i16")
         write_wav(args.out, pcm, model.sample_rate)
         print(f"wrote {args.out}: {pcm.shape[0]} samples ({codes.shape} "
               f"codes)")
+    else:                                               # decode-latent
+        pcm = model.decode_latent(np.load(args.latent), pcm_format="i16")
+        write_wav(args.out, pcm, model.sample_rate)
+        print(f"wrote {args.out}: {pcm.shape[0]} samples")
     return 0
 
 

@@ -73,7 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grammar", default="", help="not ported yet")
     p.add_argument("--ref-audio", dest="ref_audio", default=None,
                    help="not ported yet")
-    p.add_argument("--stream", action="store_true", help="not ported yet")
+    p.add_argument("--stream", action="store_true",
+                   help="streams FlowLM audio; waits for the FlowLM kind, "
+                        "its only user, which is not ported yet")
     return ap
 
 

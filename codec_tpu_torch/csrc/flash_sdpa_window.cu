@@ -1,9 +1,14 @@
 // Causal sliding-window flash attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel codec_tpu/ops/attn_pallas.py::flash_sdpa_window
-// (_flash_kernel). Query i attends to key j iff  i - window < j <= i  and
-// j < T; window <= 0 means pure causal. q, k, v, o are contiguous
-// [B*H, T, D] in f32 or bf16, D 64 or 128; o has the input dtype. Softmax
+// (_flash_kernel). q and o are contiguous [B*H, Tq, D], k and v [B*H, Tk, D]
+// with Tk >= Tq, in f32 or bf16, D 64 or 128; o has the input dtype. Query
+// i sits at key position p = Tk - Tq + i and attends to key j iff
+// k_start <= j <= p  and  p - window < j  (window <= 0: no window). With
+// Tk == Tq and k_start == 0 that is causal self-attention; a streaming step
+// passes the carried keys of the last window - 1 positions before its own
+// (Tk > Tq) and masks with k_start the carried slots that hold positions
+// before the stream began. Softmax
 // statistics and the accumulator are f32. Masked logits are -1e30, as in
 // the reference, which also fixes its masked-row behaviour: a row whose
 // keys so far are all masked sums exp(0) terms, and the first visible key
@@ -37,7 +42,11 @@
 // without a shuffle. Query rows per block and warps per block were picked
 // from a sweep on the card (PERF.md §6, "Sweeps"): 32 rows in f32 at D 64 (B1 H8
 // T500 is then 128 blocks) halve the key tiles' reads and beat 16 rows at
-// every timed shape; bf16 keeps 16 rows (256 blocks).
+// every timed shape; bf16 keeps 16 rows (256 blocks). A Mimi streaming step
+// (Tq 2-10 queries against 249 carried keys plus its own) fills one query
+// tile per (b, h), most of whose rows are past Tq: 8 blocks at b1, each
+// walking the 16 key tiles of the band. That is right and simple, not fast
+// (PERF.md §6 has its time beside its bound).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,7 +110,7 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// the warp stages keys [k0, k0 + 16) of K and V; rows past T are zero
+// the warp stages keys [k0, k0 + 16) of K and V; rows past Tk are zero
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v, size_t base,
                                           int k0, int t_len, int lane) {
@@ -125,7 +134,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(Cfg<D, T>::NT)
 flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
-                         int t_len, int window, float scale) {
+                         int t_q, int t_k, int k_start, int window, float scale) {
   using C = Cfg<D, T>;
   constexpr bool kF32 = Elem<T>::kF32;
   constexpr int MT = C::MT, W = C::W, BQ = C::BQ, NT = C::NT;
@@ -139,21 +148,22 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* k_s = reinterpret_cast<T*>(mine);                       // [2][16][kRow]
   T* v_s = k_s + 2 * BK * kRow;                              // [2][16][kRow]
 
-  const size_t base = static_cast<size_t>(blockIdx.x) * t_len * D;
-  const int q0 = blockIdx.y * BQ;
+  const size_t q_base = static_cast<size_t>(blockIdx.x) * t_q * D;
+  const size_t k_base = static_cast<size_t>(blockIdx.x) * t_k * D;
+  const int q0 = blockIdx.y * BQ, q_off = t_k - t_q;   // query i at key q_off + i
   // key tiles that intersect the band of this query tile, dealt to the
   // warps round-robin
-  const int k_first = window > 0 ? max(q0 - window + 1, 0) : 0;
-  const int k_last = min(q0 + BQ, t_len) - 1;
+  const int k_first = window > 0 ? max(q_off + q0 - window + 1, k_start) : k_start;
+  const int k_last = q_off + min(q0 + BQ, t_q) - 1;
   const int kt_lo = k_first / BK, kt_hi = k_last / BK;
   int kt = kt_lo + warp;
-  if (kt <= kt_hi) load_tile<D, T>(k_s, v_s, k, v, base, kt * BK, t_len, lane);
+  if (kt <= kt_hi) load_tile<D, T>(k_s, v_s, k, v, k_base, kt * BK, t_k, lane);
   cp_async_commit();
 
-  // the query tile (f32: its split); rows past T are zero
+  // the query tile (f32: its split); rows past Tq are zero
   for (int e = tid; e < BQ * D; e += NT) {
     const int row = e / D, col = e % D, t = q0 + row;
-    const T val = t < t_len ? q[base + static_cast<size_t>(t) * D + col] : T(0.f);
+    const T val = t < t_q ? q[q_base + static_cast<size_t>(t) * D + col] : T(0.f);
     if constexpr (kF32) {
       uint32_t h, l;
       split(to_f32(val), h, l);
@@ -191,8 +201,8 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; kt <= kt_hi; ++i, kt += W) {
     const int buf = i & 1;
     if (kt + W <= kt_hi)
-      load_tile<D, T>(k_s + (buf ^ 1) * BK * kRow, v_s + (buf ^ 1) * BK * kRow, k, v, base,
-                      (kt + W) * BK, t_len, lane);
+      load_tile<D, T>(k_s + (buf ^ 1) * BK * kRow, v_s + (buf ^ 1) * BK * kRow, k, v, k_base,
+                      (kt + W) * BK, t_k, lane);
     cp_async_commit();
     cp_async_wait1();         // this lane's copies of tile i have landed
     __syncwarp();             // and every lane's
@@ -236,7 +246,8 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // mask, scale and the online softmax on the fragments; s[mt][nt][2h + c]
-    // is row q0 + 16·mt + gq + 8h, key kt·16 + 8nt + 2tq + c
+    // is row q0 + 16·mt + gq + 8h (key position q_off + that), key
+    // kt·16 + 8nt + 2tq + c
     const int k0 = kt * BK;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -247,8 +258,9 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const int qi = q0 + 16 * mt + gq + 8 * h, kj = k0 + 8 * nt + 2 * tq + c;
-            const bool ok = kj <= qi && kj < t_len && (window <= 0 || kj > qi - window);
+            const int qi = q_off + q0 + 16 * mt + gq + 8 * h, kj = k0 + 8 * nt + 2 * tq + c;
+            const bool ok = kj <= qi && kj >= k_start && kj < t_k &&
+                            (window <= 0 || kj > qi - window);
             float& x = s[mt][nt][2 * h + c];
             x = ok ? x * scale : NEG_INF;
             m_t[h] = fmaxf(m_t[h], x);
@@ -376,9 +388,14 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   const float* acc0 = reinterpret_cast<const float*>(smem + C::kQ + C::kStats);
+  // the output rows' base, read again from %ctaid rather than kept live
+  // across the key loop: kept, it made the f32 D 128 instance spill
+  uint32_t bx;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+  const size_t o_base = static_cast<size_t>(bx) * t_q * D;
   for (int e = tid; e < BQ * D / 4; e += NT) {
     const int row = e / (D / 4), col = 4 * (e % (D / 4)), t = q0 + row;
-    if (t >= t_len) continue;
+    if (t >= t_q) continue;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < W; ++w) {
@@ -390,7 +407,7 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum.z += wt * a.z;
       sum.w += wt * a.w;
     }
-    T* out = o + base + static_cast<size_t>(t) * D + col;
+    T* out = o + o_base + static_cast<size_t>(t) * D + col;
     store(out, sum.x);
     store(out + 1, sum.y);
     store(out + 2, sum.z);
@@ -405,7 +422,8 @@ constexpr int kMaxDevices = 64;
 // device, not once per launch
 template <int D, typename T>
 cudaError_t launch(int dev, const void* q, const void* k, const void* v, void* o, int bh,
-                   int t_len, int window, float scale, cudaStream_t stream) {
+                   int t_q, int t_k, int k_start, int window, float scale,
+                   cudaStream_t stream) {
   static bool opted[kMaxDevices] = {};
   using C = Cfg<D, T>;
   constexpr int bytes = C::kTotal;
@@ -416,10 +434,10 @@ cudaError_t launch(int dev, const void* q, const void* k, const void* v, void* o
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) opted[dev] = true;
   }
-  const dim3 grid(bh, (t_len + C::BQ - 1) / C::BQ);
+  const dim3 grid(bh, (t_q + C::BQ - 1) / C::BQ);
   kernel<<<grid, C::NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o), t_len,
-                                      window, scale);
+                                      static_cast<const T*>(v), static_cast<T*>(o), t_q, t_k,
+                                      k_start, window, scale);
   return cudaGetLastError();
 }
 
@@ -435,25 +453,28 @@ extern "C" int codec_flash_sdpa_window_smem_bytes(int d, int dtype) {
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v, o 16-byte aligned. Returns a
-// cudaError_t (0 = success).
+// q, o [bh, t_q, d]; k, v [bh, t_k, d] with t_k >= t_q >= 1 and
+// 0 <= k_start <= t_k - t_q; dtype: 0 = float32, 1 = bfloat16; q, k, v, o
+// 16-byte aligned. Returns a cudaError_t (0 = success).
 extern "C" int codec_flash_sdpa_window(const void* q, const void* k, const void* v, void* o,
-                                       int bh, int t_len, int d, int window, float scale,
-                                       int dtype, void* stream) {
+                                       int bh, int t_q, int t_k, int k_start, int d,
+                                       int window, float scale, int dtype, void* stream) {
   for (const void* p : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  if (bh < 1 || t_q < 1 || t_k < t_q || k_start < 0 || k_start > t_k - t_q)
+    return cudaErrorInvalidValue;
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64 && dtype == 0)
-    return launch<64, float>(dev, q, k, v, o, bh, t_len, window, scale, s);
+    return launch<64, float>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 64 && dtype == 1)
-    return launch<64, __nv_bfloat16>(dev, q, k, v, o, bh, t_len, window, scale, s);
+    return launch<64, __nv_bfloat16>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 128 && dtype == 0)
-    return launch<128, float>(dev, q, k, v, o, bh, t_len, window, scale, s);
+    return launch<128, float>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 128 && dtype == 1)
-    return launch<128, __nv_bfloat16>(dev, q, k, v, o, bh, t_len, window, scale, s);
+    return launch<128, __nv_bfloat16>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Mimi neural audio codec (kyutai/mimi), encode and decode, in PyTorch.
+"""Mimi neural audio codec (kyutai/mimi), encode and decode, whole or in
+streamed chunks, in PyTorch.
 
 Counterpart of codec_tpu/models/mimi.py:
 
@@ -239,6 +240,16 @@ def _resblock(x: torch.Tensor, r1: Dict, r2: Dict) -> torch.Tensor:
     return x + h
 
 
+def _layer_rest(x: torch.Tensor, a: torch.Tensor, lw: Dict[str, torch.Tensor],
+                cfg: MimiConfig) -> torch.Tensor:
+    """A transformer layer after its attention a: the scaled residual, then
+    the LayerNorm'd GELU-erf MLP and its scaled residual."""
+    x = x + a * lw["sa_scale"]
+    m = norms.layer_norm(x, lw["paln_w"], lw["paln_b"], cfg.norm_eps)
+    m = F.linear(act.gelu_erf(F.linear(m, lw["fc1_w"])), lw["fc2_w"])
+    return x + m * lw["mlp_scale"]
+
+
 def _transformer(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
                  cfg: MimiConfig,
                  attention: Optional[Callable] = None) -> torch.Tensor:
@@ -250,10 +261,7 @@ def _transformer(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
         a = attn.mha(h, lw["q_w"], lw["k_w"], lw["v_w"], lw["o_w"],
                      n_heads=cfg.n_heads, rope_fn=rope_fn, causal=True,
                      window=cfg.window, attention=attention)
-        x = x + a * lw["sa_scale"]
-        m = norms.layer_norm(x, lw["paln_w"], lw["paln_b"], cfg.norm_eps)
-        m = F.linear(act.gelu_erf(F.linear(m, lw["fc1_w"])), lw["fc2_w"])
-        x = x + m * lw["mlp_scale"]
+        x = _layer_rest(x, a, lw, cfg)
     return x
 
 
@@ -351,3 +359,196 @@ def mimi_quantize(params: Dict[str, Any], latent: torch.Tensor,
     if n_q > n_sem:
         parts.append(search("acu", n_q - n_sem))
     return torch.cat(parts, dim=-1)                         # [B, T, n_q]
+
+
+# ---------------------------------------------------------------------------
+# Streaming (chunked) decode and encode
+# ---------------------------------------------------------------------------
+# Counterparts of codec_tpu/models/mimi.py's mimi_{decode,encode}_stream_*:
+# carried causal-conv tails (ops/conv.py's stream forms) and a sliding
+# window of post-RoPE keys and values make chunked decode and encode give
+# what one full call gives. A session's state is a dict of tensors on the
+# parameters' device plus "pos", the transformer frames seen so far, a host
+# int, so a step never reads back from the device.
+
+def _transformer_stream(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
+                        cfg: MimiConfig, kv: List[torch.Tensor], pos0: int,
+                        attention: Optional[Callable] = None):
+    """x: [B, Tc, C] at absolute positions pos0 + arange(Tc); kv: per layer
+    [2, B, H, W-1, D], the post-RoPE keys and values of the W-1 positions
+    before pos0 (slots for positions before 0 are masked) → (y [B, Tc, C],
+    the new kv).
+
+    Each layer attends the chunk's queries to the carried keys and its own
+    through `attention(q, k, v, window=, k_start=)` (default the CUDA
+    kernel's wrapper, attn_cuda.flash_sdpa_window; k and v are W-1 + Tc
+    long, query i at key position W-1 + i)."""
+    from ..ops.attn_cuda import flash_sdpa_window
+
+    attention = attention or flash_sdpa_window
+    b, tc, _ = x.shape
+    h, d = cfg.n_heads, cfg.head_dim
+    w1 = kv[0].shape[3] if kv else 0
+    cos, sin = rope.rope_cos_sin(
+        torch.arange(pos0, pos0 + tc, device=x.device), d, cfg.rope_theta,
+        cfg.freq_scale)
+    k_start = max(0, w1 - pos0)
+    new_kv = []
+    for lw, kv_l in zip(layers, kv):
+        hn = norms.layer_norm(x, lw["inln_w"], lw["inln_b"], cfg.norm_eps)
+
+        def heads(w):
+            return F.linear(hn, w).reshape(b, tc, h, d).transpose(1, 2)
+
+        q = rope.rotate(heads(lw["q_w"]), cos, sin)
+        # the carried keys and values, then the chunk's: [2, B, H, W-1+Tc, D]
+        ctx = torch.empty((2, b, h, w1 + tc, d), dtype=kv_l.dtype,
+                          device=x.device)
+        ctx[:, :, :, :w1] = kv_l
+        ctx[0, :, :, w1:] = rope.rotate(heads(lw["k_w"]), cos, sin)
+        ctx[1, :, :, w1:] = heads(lw["v_w"])
+        a = attention(q.contiguous(), ctx[0], ctx[1], window=cfg.window,
+                      k_start=k_start)
+        a = F.linear(a.transpose(1, 2).reshape(b, tc, h * d), lw["o_w"])
+        x = _layer_rest(x, a, lw, cfg)
+        new_kv.append(ctx[:, :, :, tc:])
+    return x, new_kv
+
+
+def _conv_carry(layer: Dict, batch: int, stride: int = 1):
+    """The zero carry of a conv ([C_out, C_in, K] weight)."""
+    w = layer["w"]
+    return conv.conv1d_causal_stream_init_cf(batch, w.shape[1], w.shape[-1],
+                                             stride, dtype=w.dtype,
+                                             device=w.device)
+
+
+def _convtr_carry(layer: Dict, batch: int, stride: int):
+    """The zero carry of a convtr ([C_in, C_out, K] weight)."""
+    w = layer["w"]
+    return conv.convtr1d_causal_stream_init_cf(batch, w.shape[1], w.shape[-1],
+                                               stride, dtype=w.dtype,
+                                               device=w.device)
+
+
+def _kv_carry(layers: List[Dict], cfg: MimiConfig, batch: int):
+    w1 = (cfg.window or 1) - 1
+    w = layers[0]["q_w"]
+    return [torch.zeros((2, batch, cfg.n_heads, w1, cfg.head_dim),
+                        dtype=w.dtype, device=w.device) for _ in layers]
+
+
+def _resblock_stream(x: torch.Tensor, r1: Dict, r2: Dict, st: Dict):
+    """_resblock on a chunk → (y, the new r1 and r2 carries)."""
+    h, c1 = conv.conv1d_causal_stream_cf(act.elu(x), r1["w"], r1["b"],
+                                         st["r1"])
+    h, c2 = conv.conv1d_causal_stream_cf(act.elu(h), r2["w"], r2["b"],
+                                         st["r2"])
+    return x + h, {"r1": c1, "r2": c2}
+
+
+def mimi_decode_stream_init(params: Dict[str, Any], cfg: MimiConfig,
+                            batch: int = 1) -> Dict[str, Any]:
+    """The zero state of a chunked decode, on the parameters' device in
+    their dtype."""
+    return {
+        "pos": 0,
+        "up": _convtr_carry(params["up"], batch, 2),
+        "kv": _kv_carry(params["dtr"], cfg, batch),
+        "l0": _conv_carry(params["dec_l0"], batch),
+        "stages": [{"tr": _convtr_carry(s["tr"], batch, st),
+                    "r1": _conv_carry(s["r1"], batch),
+                    "r2": _conv_carry(s["r2"], batch)}
+                   for s, st in zip(params["dec_stages"], DEC_UP_STRIDES)],
+        "l14": _conv_carry(params["dec_l14"], batch),
+    }
+
+
+def mimi_decode_stream_step(params: Dict[str, Any], state: Dict[str, Any],
+                            codes: torch.Tensor, cfg: MimiConfig,
+                            n_q: Optional[int] = None,
+                            attention: Optional[Callable] = None):
+    """codes [B, Tc, Q] int on the parameters' device → (pcm [B, Tc*hop],
+    the new state). Concatenated over a stream, the chunks' pcm is
+    mimi_decode_fn's on the whole stream. `attention` as in
+    _transformer_stream."""
+    if n_q is None:
+        n_q = codes.shape[-1]
+    codes = codes.clamp(0, cfg.codebook_size - 1)
+    n_sem = min(cfg.n_sem, n_q)
+    x = rvq.rvq_decode_sum(codes[..., :n_sem], params["cb_sem"], n_q=n_sem)
+    x = F.linear(x, params["sem_op"])
+    if n_q > n_sem:
+        a = rvq.rvq_decode_sum(codes[..., n_sem:n_q], params["cb_acu"],
+                               n_q=n_q - n_sem)
+        x = x + F.linear(a, params["acu_op"])
+
+    ns: Dict[str, Any] = {"stages": []}
+    x, ns["up"] = conv.convtr1d_causal_stream_cf(
+        x.transpose(1, 2), params["up"]["w"], None, state["up"], stride=2)
+    x, ns["kv"] = _transformer_stream(x.transpose(1, 2), params["dtr"], cfg,
+                                      state["kv"], state["pos"], attention)
+    ns["pos"] = state["pos"] + x.shape[1]
+    x = x.transpose(1, 2).contiguous()                      # [B, C, T]
+    x, ns["l0"] = conv.conv1d_causal_stream_cf(
+        x, params["dec_l0"]["w"], params["dec_l0"]["b"], state["l0"])
+    for st, stage, stride in zip(state["stages"], params["dec_stages"],
+                                 DEC_UP_STRIDES):
+        x, tr = conv.convtr1d_causal_stream_cf(
+            act.elu(x), stage["tr"]["w"], stage["tr"]["b"], st["tr"],
+            stride=stride)
+        x, nst = _resblock_stream(x, stage["r1"], stage["r2"], st)
+        ns["stages"].append({"tr": tr, **nst})
+    x, ns["l14"] = conv.conv1d_causal_stream_cf(
+        act.elu(x), params["dec_l14"]["w"], params["dec_l14"]["b"],
+        state["l14"])
+    return x[:, 0], ns
+
+
+def mimi_encode_stream_init(params: Dict[str, Any], cfg: MimiConfig,
+                            batch: int = 1) -> Dict[str, Any]:
+    """The zero state of a chunked encode (chunks a multiple of hop)."""
+    return {
+        "pos": 0,
+        "l0": _conv_carry(params["enc_l0"], batch),
+        "stages": [{"r1": _conv_carry(s["r1"], batch),
+                    "r2": _conv_carry(s["r2"], batch),
+                    "dn": _conv_carry(s["dn"], batch, st)}
+                   for s, st in zip(params["enc_stages"], ENC_STRIDES)],
+        "l14": _conv_carry(params["enc_l14"], batch),
+        "kv": _kv_carry(params["etr"], cfg, batch),
+        "dn": _conv_carry(params["dn"], batch, 2),
+    }
+
+
+def mimi_encode_stream_step(params: Dict[str, Any], state: Dict[str, Any],
+                            pcm: torch.Tensor, cfg: MimiConfig,
+                            n_q: Optional[int] = None,
+                            attention: Optional[Callable] = None,
+                            quantize: Optional[Callable] = None):
+    """pcm [B, n] (n a multiple of hop) in the parameters' dtype and device
+    → (codes [B, n/hop, n_q] int32, the new state). Over a stream, the
+    chunks' codes are mimi_encode_fn's on the whole stream. The searches
+    run through mimi_quantize (`quantize` as in mimi_encode_fn, default
+    the CUDA kernel's wrapper); `attention` as in _transformer_stream."""
+    ns: Dict[str, Any] = {"stages": []}
+    x, ns["l0"] = conv.conv1d_causal_stream_cf(
+        pcm[:, None, :], params["enc_l0"]["w"], params["enc_l0"]["b"],
+        state["l0"])
+    for st, stage, stride in zip(state["stages"], params["enc_stages"],
+                                 ENC_STRIDES):
+        x, nst = _resblock_stream(x, stage["r1"], stage["r2"], st)
+        x, nst["dn"] = conv.conv1d_causal_stream_cf(
+            act.elu(x), stage["dn"]["w"], stage["dn"]["b"], st["dn"],
+            stride=stride)
+        ns["stages"].append(nst)
+    x, ns["l14"] = conv.conv1d_causal_stream_cf(
+        act.elu(x), params["enc_l14"]["w"], params["enc_l14"]["b"],
+        state["l14"])
+    x, ns["kv"] = _transformer_stream(x.transpose(1, 2), params["etr"], cfg,
+                                      state["kv"], state["pos"], attention)
+    ns["pos"] = state["pos"] + x.shape[1]
+    x, ns["dn"] = conv.conv1d_causal_stream_replicate_cf(
+        x.transpose(1, 2), params["dn"]["w"], None, state["dn"],
+        state["pos"] == 0, stride=2)
+    return mimi_quantize(params, x.transpose(1, 2), cfg, n_q, quantize), ns

@@ -21,14 +21,17 @@ NEG_INF = -1e30
 def attn_mask(t_q: int, t_k: int, causal: bool = True,
               window: Optional[int] = None,
               n_valid: Optional[torch.Tensor] = None,
-              device=None) -> torch.Tensor:
+              device=None, q_off: int = 0, k_start: int = 0) -> torch.Tensor:
     """Additive float32 mask [T_q, T_k] (or [B, T_q, T_k] with n_valid).
 
-    Window w: key j is visible to query i iff i - w < j <= i; with n_valid,
+    Query i sits at key position p = q_off + i. Window w: key j is visible
+    to it iff p - w < j <= p; keys j < k_start are masked; with n_valid,
     keys j >= n_valid[b] are masked for batch row b."""
-    qi = torch.arange(t_q, device=device)[:, None]
+    qi = q_off + torch.arange(t_q, device=device)[:, None]
     kj = torch.arange(t_k, device=device)[None, :]
     ok = torch.ones((t_q, t_k), dtype=torch.bool, device=device)
+    if k_start:
+        ok &= kj >= k_start
     if causal:
         ok &= kj <= qi
     if window is not None and window > 0:

@@ -1,7 +1,9 @@
 """Causal sliding-window flash attention: the CUDA kernel's wrapper and its
 plain PyTorch version.
 
-Counterpart of codec_tpu/ops/attn_pallas.py::flash_sdpa_window. The kernel
+Counterpart of codec_tpu/ops/attn_pallas.py::flash_sdpa_window, extended to
+the keys a streaming step carries (k longer than q; the masked attention of
+codec_tpu/models/mimi.py::_transformer_stream). The kernel
 is csrc/flash_sdpa_window.cu, built by kernels/build.py on first launch
 (never at import). For a CPU tensor the wrapper runs the plain version;
 for a CUDA tensor it launches the kernel or raises.
@@ -26,12 +28,15 @@ _MAX_Q_TILES = 65535          # gridDim.y limit
 
 def flash_sdpa_window_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Plain version: the masked sdpa with a causal (+ window) mask."""
-    t = q.shape[-2]
+                          window: Optional[int] = None,
+                          k_start: int = 0) -> torch.Tensor:
+    """Plain version: the masked sdpa with a causal (+ window) mask, query i
+    at key position Tk - Tq + i, keys before k_start masked."""
+    t_q, t_k = q.shape[-2], k.shape[-2]
     return sdpa(q, k, v, scale=scale,
-                mask=attn_mask(t, t, causal=True, window=window,
-                               device=q.device))
+                mask=attn_mask(t_q, t_k, causal=True, window=window,
+                               device=q.device, q_off=t_k - t_q,
+                               k_start=k_start))
 
 
 @functools.cache
@@ -40,7 +45,7 @@ def _kernel_fn():
 
     lib = load_library()
     fn = lib.codec_flash_sdpa_window
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.codec_cuda_error_string.argtypes = [ctypes.c_int]
@@ -49,21 +54,27 @@ def _kernel_fn():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           window: Optional[int], k_start: int) -> None:
     """Raises unless the kernel takes these arguments. A Mimi layer's
     attention is a few microseconds on the card, so every test reads only
     what the tensors hold (no device objects); the messages are built on
     failure."""
     shape, dev = q.shape, q.get_device()
-    for name, x in (("k", k), ("v", v)):
-        if x.shape != shape or x.dtype is not q.dtype or x.get_device() != dev:
-            raise ValueError(
-                f"flash_sdpa_window: {name} {tuple(x.shape)} {x.dtype} on "
-                f"{x.device} does not match q {tuple(shape)} {q.dtype} "
-                f"on {q.device}")
     if len(shape) != 4:
         raise ValueError(f"flash_sdpa_window: q must be [B, H, T, D], got "
                          f"{tuple(shape)}")
+    for name, x in (("k", k), ("v", v)):
+        if (x.shape != k.shape or x.shape[:2] != shape[:2]
+                or x.shape[3:] != shape[3:] or x.shape[2] < shape[2]
+                or x.dtype is not q.dtype or x.get_device() != dev):
+            raise ValueError(
+                f"flash_sdpa_window: {name} {tuple(x.shape)} {x.dtype} on "
+                f"{x.device} does not fit q {tuple(shape)} {q.dtype} on "
+                f"{q.device} (k and v [B, H, Tk, D] with Tk >= Tq)")
+    if not (isinstance(k_start, int) and 0 <= k_start <= k.shape[2] - shape[2]):
+        raise ValueError(f"flash_sdpa_window: k_start must be an int in "
+                         f"[0, Tk - Tq = {k.shape[2] - shape[2]}], got "
+                         f"{k_start!r}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_sdpa_window: dtype {q.dtype} not supported "
                          f"(float32 or bfloat16)")
@@ -75,7 +86,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"flash_sdpa_window: window must be None or a "
                          f"positive int, got {window!r}")
-    if not (1 <= shape[2] <= _BQ * _MAX_Q_TILES
+    if not (1 <= shape[2] <= _BQ * _MAX_Q_TILES and k.shape[2] < 2 ** 31
             and 1 <= shape[0] * shape[1] < 2 ** 31):
         raise ValueError(f"flash_sdpa_window: shape {tuple(shape)} out of "
                          f"the kernel's range")
@@ -83,17 +94,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_sdpa_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: Optional[float] = None,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """Causal (+ optional sliding-window) self-attention.
+                      window: Optional[int] = None,
+                      k_start: int = 0) -> torch.Tensor:
+    """Causal (+ optional sliding-window) attention.
 
-    q, k, v: [B, H, T, D] (f32 or bf16; D in {64, 128} on CUDA) →
-    [B, H, T, D] in v's dtype. Query i sees key j iff i - window < j <= i.
-    Counts its kernel launches in `flash_sdpa_window.launches`."""
+    q: [B, H, Tq, D], k, v: [B, H, Tk, D] with Tk >= Tq (f32 or bf16; D in
+    {64, 128} on CUDA) → [B, H, Tq, D] in v's dtype. Query i sits at key
+    position p = Tk - Tq + i and sees key j iff k_start <= j <= p and
+    p - window < j; 0 <= k_start <= Tk - Tq. With Tk == Tq and k_start 0
+    this is causal self-attention. Counts its kernel launches in
+    `flash_sdpa_window.launches`."""
     if not q.is_cuda:
         if q.device.type == "cpu":
-            return flash_sdpa_window_ref(q, k, v, scale=scale, window=window)
+            return flash_sdpa_window_ref(q, k, v, scale=scale, window=window,
+                                         k_start=k_start)
         raise ValueError(f"flash_sdpa_window: no kernel for device {q.device}")
-    _check(q, k, v, window)
+    _check(q, k, v, window, k_start)
     b, h, t, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -102,10 +118,11 @@ def flash_sdpa_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # is copied to a fresh (aligned) tensor
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
-    out = torch.empty_like(v)
+    out = torch.empty_like(q)
     err = launch_on(q.get_device(), lambda stream: fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, d,
-        window or 0, float(scale), _DTYPE_CODES[q.dtype], stream))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t,
+        k.shape[2], k_start, d, window or 0, float(scale),
+        _DTYPE_CODES[q.dtype], stream))
     if err != 0:
         raise RuntimeError(f"flash_sdpa_window: kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")

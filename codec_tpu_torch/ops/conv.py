@@ -16,7 +16,7 @@ zeros, or copies of the edge frames with pad_mode="replicate".
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +57,76 @@ def convtr1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
     y = F.conv_transpose1d(x, w, b, stride=stride, dilation=dilation)
     crop = max(0, w.shape[-1] - stride)
     return y[..., : y.shape[-1] - crop]
+
+
+# -- streaming (chunked) causal forms ----------------------------------------
+# Counterparts of codec_tpu/ops/conv.py's conv1d_causal_stream family,
+# channels-first on PyTorch's weight layouts: carries are [B, C, tail].
+# Chunks whose length is a multiple of `stride` give, concatenated, the full
+# causal call's output.
+
+def conv1d_causal_stream_cf(x: torch.Tensor, w: torch.Tensor,
+                            b: Optional[torch.Tensor], carry: torch.Tensor,
+                            stride: int = 1, dilation: int = 1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked conv1d_causal_cf. x: [B, C_in, T] (T a multiple of stride),
+    w: [C_out, C_in, K]; carry: [B, C_in, k_eff - stride], the last inputs
+    seen (zeros at stream start: the causal left pad) → (y [B, C_out,
+    T/stride], new carry)."""
+    xc = torch.cat([carry, x], dim=-1)
+    y = F.conv1d(xc, w, b, stride=stride, dilation=dilation)
+    tail = _causal_pads(0, w.shape[-1], stride, dilation)[0]
+    return y, xc[..., xc.shape[-1] - max(tail, 0):]
+
+
+def conv1d_causal_stream_init_cf(batch: int, c_in: int, k: int,
+                                 stride: int = 1, dilation: int = 1,
+                                 dtype=torch.float32, device=None
+                                 ) -> torch.Tensor:
+    tail = _causal_pads(0, k, stride, dilation)[0]
+    return torch.zeros((batch, c_in, max(tail, 0)), dtype=dtype,
+                       device=device)
+
+
+def convtr1d_causal_stream_cf(x: torch.Tensor, w: torch.Tensor,
+                              b: Optional[torch.Tensor], carry: torch.Tensor,
+                              stride: int = 1
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked convtr1d_causal_cf. x: [B, C_in, T], w: [C_in, C_out, K];
+    carry: [B, C_out, K - stride], the overlap tail of earlier chunks,
+    bias-free (zeros at stream start) → (y [B, C_out, T*stride], new
+    carry). The bias lands once per emitted sample."""
+    y = F.conv_transpose1d(x, w, None, stride=stride)
+    t_out = x.shape[-1] * stride
+    tail = max(0, w.shape[-1] - stride)
+    if tail:
+        y[..., :tail] += carry
+    out = y[..., :t_out]
+    if b is not None:
+        out = out + b[:, None]
+    return out, y[..., t_out:t_out + tail]
+
+
+def convtr1d_causal_stream_init_cf(batch: int, c_out: int, k: int,
+                                   stride: int = 1, dtype=torch.float32,
+                                   device=None) -> torch.Tensor:
+    return torch.zeros((batch, c_out, max(k - stride, 0)), dtype=dtype,
+                       device=device)
+
+
+def conv1d_causal_stream_replicate_cf(x: torch.Tensor, w: torch.Tensor,
+                                      b: Optional[torch.Tensor],
+                                      carry: torch.Tensor, first: bool,
+                                      stride: int = 1, dilation: int = 1
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked conv1d_causal_cf(pad_mode="replicate"): on the first chunk
+    (`first`, a host bool: the session knows its position) the left pad
+    copies the chunk's first sample; later chunks carry real history."""
+    tail = _causal_pads(0, w.shape[-1], stride, dilation)[0]
+    if first and tail > 0:
+        carry = x[..., :1].expand(-1, -1, tail)
+    return conv1d_causal_stream_cf(x, w, b, carry, stride=stride,
+                                   dilation=dilation)
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

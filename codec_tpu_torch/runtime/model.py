@@ -1,4 +1,5 @@
-"""CodecModel: the public runtime object (load → encode / decode).
+"""CodecModel: the public runtime object (load → encode / decode, and
+decode_async / decode_many for callers with more than one request).
 
 Counterpart of codec_tpu/runtime/model.py, eager: no jit cache, no shape
 buckets, no mesh. Decoding at the exact T gives what the reference's
@@ -15,13 +16,14 @@ is cropped to ceil(n/hop) frames. Each model holds its parameters on one
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..io.gguf import (GGML_TYPE_BF16, GGML_TYPE_F16, GGML_TYPE_F32,
                        GGUFReader)
+from .perf_log import perf_scope
 
 
 class CodecError(ValueError):
@@ -142,29 +144,114 @@ class CodecModel:
                                -32768, 32767).to(torch.int16)
         raise CodecError(f"unknown pcm_format {pcm_format!r}")
 
-    def decode(self, codes, n_q: int = 0,
-               pcm_format: str = "f32") -> np.ndarray:
-        """codes: [T, Q] or [B, T, Q] int → pcm [T*hop] / [B, T*hop] on the
-        host; float32, or int16 with pcm_format="i16".
+    def _use_nq(self, n_q: int, have: int) -> int:
+        """The codebooks a decode reads: n_q, or with n_q=0 all the model's
+        (or all the codes carry, if fewer)."""
+        use_nq = n_q if n_q > 0 else min(self.n_q, have)
+        if n_q < 0 or use_nq < 1 or use_nq > self.n_q or have < use_nq:
+            raise CodecError(f"n_q must be 0 or in [1, {self.n_q}]")
+        return use_nq
 
-        n_q=0 means all model codebooks (or all the codes carry, if fewer)."""
+    def _decode_dispatch(self, codes, n_q: int,
+                         pcm_format: str) -> Tuple[torch.Tensor, bool]:
+        """Checks, uploads and enqueues a decode, under the caller's
+        _decoding() → (formatted pcm [B, samples] on the device, whether to
+        squeeze the batch). A CUDA upload goes from pinned memory without
+        waiting: a copy from pageable memory first waits for the work
+        already queued on the stream, which would serialise back-to-back
+        decode_async calls."""
         if not self.has_decoder:
             raise CodecError(f"{self.arch}: model has no decoder")
+        if pcm_format not in ("f32", "i16"):
+            raise CodecError(f"unknown pcm_format {pcm_format!r}")
         codes = np.asarray(codes)
         squeeze = codes.ndim == 2
         if squeeze:
             codes = codes[None]
         if codes.ndim != 3 or codes.shape[1] == 0:
             raise CodecError(f"bad codes shape {codes.shape}")
-        use_nq = n_q if n_q > 0 else min(self.n_q, codes.shape[2])
-        if n_q < 0 or use_nq < 1 or use_nq > self.n_q or codes.shape[2] < use_nq:
-            raise CodecError(f"n_q must be 0 or in [1, {self.n_q}]")
+        use_nq = self._use_nq(n_q, codes.shape[2])
         c = torch.from_numpy(np.ascontiguousarray(codes[:, :, :use_nq],
                                                   dtype=np.int64))
-        out = self._run_on_device(
-            lambda: self._decode_impl(c.to(self.device), use_nq), pcm_format,
-            codes.shape[1] * self.hop_size if self.causal_time else None)
-        return out[0] if squeeze else out
+        if self.device.type == "cuda":
+            c = c.pin_memory().to(self.device, non_blocking=True)
+        else:
+            c = c.to(self.device)
+        pcm = self._decode_impl(c, use_nq)
+        if self.causal_time:
+            pcm = pcm[:, :codes.shape[1] * self.hop_size]
+        return self._fmt_out(pcm, pcm_format), squeeze
+
+    @contextlib.contextmanager
+    def _decoding(self):
+        """Inference mode, with TF32 off for f32 compute."""
+        with torch.inference_mode(), \
+                f32_precision(self.compute_dtype == torch.float32):
+            yield
+
+    def decode(self, codes, n_q: int = 0,
+               pcm_format: str = "f32") -> np.ndarray:
+        """codes: [T, Q] or [B, T, Q] int → pcm [T*hop] / [B, T*hop] on the
+        host; float32, or int16 with pcm_format="i16".
+
+        n_q=0 means all model codebooks (or all the codes carry, if fewer).
+        Logs the JAX package's perf phases (runtime/perf_log.py)."""
+        with perf_scope("decode_total", self.arch), self._decoding():
+            out, squeeze = self._decode_dispatch(codes, n_q, pcm_format)
+            with perf_scope("graph_compute", "decode"):
+                pcm = out.cpu().numpy()
+        return pcm[0] if squeeze else pcm
+
+    def decode_async(self, codes, n_q: int = 0,
+                     pcm_format: str = "f32") -> "PendingPcm":
+        """decode without waiting: uploads and enqueues the work on the
+        card, no sync → a PendingPcm whose result() makes the one copy to
+        the host. Back-to-back calls queue on the card; PendingPcm.gather
+        fetches several with one sync."""
+        with self._decoding():
+            out, squeeze = self._decode_dispatch(codes, n_q, pcm_format)
+        return PendingPcm(out, squeeze)
+
+    def decode_many(self, seqs, n_q: int = 0,
+                    pcm_format: str = "f32") -> List[np.ndarray]:
+        """Decode a list of [T, Q] code sequences: the sequences of equal
+        (T, n_q) go through one batched decode each, all are enqueued
+        before the one sync that fetches every output. Batch rows are
+        independent, so each output equals its own decode() (up to the
+        order of float sums). The JAX package also pads lengths into
+        geometric buckets to bound its XLA compiles; eager torch compiles
+        nothing, so lengths are grouped only when equal."""
+        if not self.has_decoder:
+            raise CodecError(f"{self.arch}: model has no decoder")
+        seqs = [np.asarray(s) for s in seqs]
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, s in enumerate(seqs):
+            if s.ndim != 2 or s.shape[0] == 0:
+                raise CodecError(
+                    f"decode_many wants [T, Q] sequences, got {s.shape}")
+            use_nq = self._use_nq(n_q, s.shape[1])
+            groups.setdefault((s.shape[0], use_nq), []).append(i)
+        outs: List[Optional[np.ndarray]] = [None] * len(seqs)
+        with perf_scope("decode_total", f"{self.arch}_many{len(seqs)}"):
+            pending = [(self.decode_async(
+                np.stack([seqs[i][:, :use_nq] for i in idxs]), use_nq,
+                pcm_format), idxs) for (_, use_nq), idxs in groups.items()]
+            with perf_scope("graph_compute", "decode_many"):
+                arrs = PendingPcm.gather([p for p, _ in pending])
+        for (_, idxs), a in zip(pending, arrs):
+            for row, i in enumerate(idxs):
+                outs[i] = a[row]
+        return outs
+
+    @staticmethod
+    def _pcm_host_f32(pcm) -> np.ndarray:
+        """A PCM argument on the host as float32: float passes through,
+        int16 scales by 1/32768 (for encode paths that take the PCM on the
+        host, as the streaming encoder does)."""
+        pcm = np.asarray(pcm)
+        if pcm.dtype == np.int16:
+            return pcm.astype(np.float32) / 32768.0
+        return np.asarray(pcm, np.float32)
 
     def encode(self, pcm, n_q: int = 0) -> np.ndarray:
         """pcm: [n] / [B, n] float32 in [-1, 1], or int16 PCM, which goes to
@@ -172,7 +259,8 @@ class CodecModel:
         [T, n_q] / [B, T, n_q] on the host.
 
         n_q=0 means all model codebooks. With `exact_encode` (the default
-        for f32 compute) the encode runs with TF32 off."""
+        for f32 compute) the encode runs with TF32 off. Logs the JAX
+        package's perf phases (runtime/perf_log.py)."""
         if not self.has_encoder:
             raise CodecError(f"{self.arch}: model has no encoder")
         pcm = np.asarray(pcm)
@@ -189,14 +277,16 @@ class CodecModel:
             raise CodecError(f"n_q must be 0 or in [1, {self.n_q}]")
         n = pcm.shape[1]
         x = torch.from_numpy(np.array(pcm, order="C"))     # a writable copy
-        with torch.inference_mode(), f32_precision(self.exact_encode):
+        with perf_scope("encode_total", self.arch), torch.inference_mode(), \
+                f32_precision(self.exact_encode):
             x = x.to(self.device)
             if i16_in:
                 x = x.float() * (1.0 / 32768.0)
-            codes = self._encode_impl(x.to(self.compute_dtype), use_nq)
-            if self.causal_time:
-                codes = codes[:, :-(-n // self.hop_size)]
-            codes = codes.to(torch.int32).cpu().numpy()
+            with perf_scope("graph_compute", "encode"):
+                codes = self._encode_impl(x.to(self.compute_dtype), use_nq)
+                if self.causal_time:
+                    codes = codes[:, :-(-n // self.hop_size)]
+                codes = codes.to(torch.int32).cpu().numpy()
         return codes[0] if squeeze else codes
 
     def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
@@ -211,9 +301,39 @@ class CodecModel:
         cut to n_samples when given, formatted, on the host."""
         if pcm_format not in ("f32", "i16"):
             raise CodecError(f"unknown pcm_format {pcm_format!r}")
-        with torch.inference_mode(), \
-                f32_precision(self.compute_dtype == torch.float32):
+        with self._decoding():
             pcm = fn()
             if n_samples is not None:
                 pcm = pcm[:, :n_samples]
             return self._fmt_out(pcm, pcm_format).cpu().numpy()
+
+
+class PendingPcm:
+    """A decode in flight (CodecModel.decode_async): the formatted output
+    on the device. result() copies it to the host (one sync); gather
+    fetches many with one sync."""
+
+    def __init__(self, out: torch.Tensor, squeeze: bool):
+        self._out = out
+        self._squeeze = squeeze
+
+    def device_array(self) -> torch.Tensor:
+        """The output [B, samples] on the device, for consumers that stay
+        there (no copy to the host)."""
+        return self._out
+
+    def _host(self, pcm: np.ndarray) -> np.ndarray:
+        return pcm[0] if self._squeeze else pcm
+
+    def result(self) -> np.ndarray:
+        return self._host(self._out.cpu().numpy())
+
+    @staticmethod
+    def gather(pending: List["PendingPcm"]) -> List[np.ndarray]:
+        """The host PCM of every PendingPcm: the copies are enqueued into
+        pinned memory without waiting, then one sync per device."""
+        copies = [p._out.to("cpu", non_blocking=True) if p._out.is_cuda
+                  else p._out for p in pending]
+        for dev in {p._out.device for p in pending if p._out.is_cuda}:
+            torch.cuda.synchronize(dev)
+        return [p._host(c.numpy()) for p, c in zip(pending, copies)]

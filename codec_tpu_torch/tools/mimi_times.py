@@ -183,7 +183,7 @@ def attn_tile_rows(runs: int = 10, log=print, tag: str = ""):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {tile}:\n{err}")
         fn = ctypes.CDLL(str(out / f"attn_{tile[0]}_{tile[1]}.so")).codec_flash_sdpa_window
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fns[tile] = fn
     rows = []
@@ -196,7 +196,8 @@ def attn_tile_rows(runs: int = 10, log=print, tag: str = ""):
         o = torch.empty_like(v)
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, t,
-                d, w, d ** -0.5, 0 if dtype == torch.float32 else 1, stream)
+                t, 0, d, w or 0, d ** -0.5, 0 if dtype == torch.float32 else 1,
+                stream)
         for tile, fn in fns.items():
             def launch():
                 if fn(*args) != 0:

@@ -3,6 +3,7 @@
     python -m codec_tpu_torch.tools.profile_decode [dac|mimi|snac] \
         [--seconds 20]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
+    python -m codec_tpu_torch.tools.profile_decode mimi_stream
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
@@ -18,6 +19,13 @@ instead: a full-width random CSM codec and a Llama-3.2-1B-shaped backbone
 one frame (the c0 head and the depth decoder's 31 forwards with greedy
 host sampling, the feedback compose, one backbone step) unprofiled and
 under the profiler. It also counts the frame's kernel launches.
+
+`mimi_stream` profiles one warm push of a Mimi streaming decode session
+(a full-width random Mimi; b1 f32 in pushes of 1 and 5 frames, b1 bf16
+and b4 f32 in pushes of 1; ten warm pushes first) and prints where its
+device time goes: the top kernels with their shares. A push's latency,
+busy time, idle share and launches are chip_smoke.py's (its streaming
+phase), measured there with CUDA events.
 """
 
 from __future__ import annotations
@@ -117,10 +125,39 @@ def _csm_frame(qtype: str, top: int, card: str) -> None:
           f"packed products {sum(ms for k, ms, _ in kernels if qk in k):.3f} ms")
 
 
+def _stream_push(top: int, card: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    import codec_tpu_torch
+    from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
+        path = Path(tmp) / "mimi.gguf"
+        write_random_mimi_gguf(path, seed=0)
+        models = {dt: codec_tpu_torch.load_model(path, compute_dtype=dt,
+                                                 device="cuda")
+                  for dt in ("float32", "bfloat16")}
+    for dtype, batch, chunk in (("float32", 1, 1), ("float32", 1, 5),
+                                ("bfloat16", 1, 1), ("float32", 4, 1)):
+        model = models[dtype]
+        codes = rng.integers(0, model.codebook_size,
+                             (batch, 250, model.n_q)).astype(np.int32)
+        session = model.streaming_decoder(batch=batch)
+        for i in range(10):
+            session.push(codes[:, i * chunk:(i + 1) * chunk])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            session.push(codes[:, 10 * chunk:11 * chunk])
+        print(f"\n== mimi stream decode push b{batch} {dtype}, {chunk} "
+              f"frame(s): device time by kernel [{card}]")
+        _report(_kernel_times(prof), top)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_decode")
     ap.add_argument("arch", nargs="?", default="dac",
-                    choices=["dac", "mimi", "snac", "csm"])
+                    choices=["dac", "mimi", "snac", "csm", "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
                     help="csm: the backbone's packed type")
@@ -139,6 +176,9 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     if args.arch == "csm":
         _csm_frame(args.qtype, args.top, card)
+        return 0
+    if args.arch == "mimi_stream":
+        _stream_push(args.top, card)
         return 0
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:

@@ -1045,3 +1045,146 @@ def test_cli_encode_and_e2e_on_card(dev, encoder_ggufs, tmp_path):
                  "--out", str(tmp_path / "o.wav")]) == 0
     x, sr = read_wav(tmp_path / "o.wav")
     assert sr == 24000 and x.shape == (5 * 1920, 1)
+
+
+# -- the attention with carried keys (a streaming step: k, v longer than q) --
+# query i at key position Tk - Tq + i; Tq 1, 2, 8, 33 against Tk = Tq + 249
+# and Tq + 19 (Mimi's window 250 and SMALL-like 20 carried, each under both
+# windows); k_start 0, mid and Tk - Tq (every carried slot masked, as at
+# stream start); D 64 at B·H 8 and D 128 at B·H 32; bounds as above
+
+STREAM_ATTN = [(tq, extra, w, ks)
+               for tq in (1, 2, 8, 33)
+               for extra, w in ((249, 250), (19, 20), (249, 20), (19, 250))
+               for ks in (0, extra // 2, extra)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,d", [(1, 8, 64), (4, 8, 128)])
+@pytest.mark.parametrize("tq,extra,w,k_start", STREAM_ATTN)
+def test_carried_key_kernel_matches_plain(dev, b, h, d, dtype, tq, extra, w,
+                                          k_start):
+    rng = np.random.default_rng(tq * 1000 + extra + k_start)
+    q = torch.from_numpy(rng.standard_normal((b, h, tq, d)).astype(
+        np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, tq + extra, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    before = flash_sdpa_window.launches
+    got = flash_sdpa_window(q, k, v, window=w, k_start=k_start)
+    assert flash_sdpa_window.launches == before + 1
+    want = flash_sdpa_window_ref(q, k, v, window=w, k_start=k_start)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_carried_key_two_launches_are_bit_identical(dev, dtype, d):
+    q, k, v = _qkv((2, 4, 251, d), dtype, dev, seed=5)
+    q = q[:, :, -2:].contiguous()
+    a = flash_sdpa_window(q, k, v, window=250, k_start=100)
+    b = flash_sdpa_window(q, k, v, window=250, k_start=100)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_carried_key_shapes_the_kernel_rejects_raise(dev):
+    """No fallback: a shape the kernel does not take raises on the card."""
+    q, k, _ = _qkv((1, 2, 4, 64), torch.float32, dev)
+    long_k = torch.zeros((1, 2, 9, 64), device=dev)
+    for args, kw in (((q, long_k[:, :, :3].contiguous(), long_k[:, :, :3]
+                       .contiguous()), {}),
+                     ((q, long_k, long_k), {"k_start": 6}),
+                     ((q, long_k, long_k[:, :1].contiguous()), {})):
+        before = flash_sdpa_window.launches
+        with pytest.raises(ValueError):
+            flash_sdpa_window(*args, window=20, **kw)
+        assert flash_sdpa_window.launches == before
+
+
+@pytest.fixture(scope="module")
+def parent_attention():
+    """An older commit's kernel entry (q, k, v of one length), for the
+    bit-for-bit check of Tk == Tq: CODEC_PARENT_TREE names an unpacked
+    `git archive` of that commit; its csrc/flash_sdpa_window.cu is built
+    with the port's nvcc flags. Skips when the variable is unset."""
+    import ctypes
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from codec_tpu_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, find_nvcc
+
+    tree = os.environ.get("CODEC_PARENT_TREE")
+    if not tree:
+        pytest.skip("CODEC_PARENT_TREE (an unpacked parent tree) is unset")
+    csrc = Path(tree) / "codec_tpu_torch" / "csrc"
+    out = BUILD_DIR.parent / "attn_parent" / "libattn_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "--shared",
+                    "-o", str(out), str(csrc / "flash_sdpa_window.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).codec_flash_sdpa_window
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d,w", ATTN_SHAPES)
+def test_equal_lengths_are_bit_identical_to_the_parent(dev, parent_attention,
+                                                       b, h, t, d, w, dtype):
+    q, k, v = _qkv((b, h, t, d), dtype, dev, seed=6)
+    got = flash_sdpa_window(q, k, v, window=w)
+    o = torch.empty_like(q)
+    err = parent_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), b * h, t, d, w or 0, d ** -0.5,
+                           0 if dtype == torch.float32 else 1,
+                           torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got, o)
+
+
+def test_streaming_on_card_uses_kernels_and_matches_cpu(dev, encoder_ggufs):
+    """A decode session's step launches the attention once per layer, an
+    encode session's also the RVQ search twice; their chunks agree with
+    the same sessions on the CPU (which the CPU tests hold against
+    codec_tpu and the full calls) at the f32 bounds, streamed past SMALL's
+    window of 40."""
+    import codec_tpu_torch
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from encode_ties import assert_codes, model_margin
+
+    path = encoder_ggufs / "mimi.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    codes = np.random.default_rng(9).integers(0, 64, (2, 36, 4)).astype(
+        np.int32)
+    sessions = [m.streaming_decoder(batch=2) for m in (gpu, cpu)]
+    outs = [[], []]
+    for lo in range(0, 36, 3):
+        before = flash_sdpa_window.launches
+        outs[0].append(sessions[0].push(codes[:, lo:lo + 3]))
+        assert flash_sdpa_window.launches == before + SMALL["n_layers"]
+        outs[1].append(sessions[1].push(codes[:, lo:lo + 3]))
+    got, want = (np.concatenate(o, axis=1) for o in outs)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+    pcm = np.random.default_rng(10).standard_normal(30 * 1920).astype(
+        np.float32) * 0.3
+    enc = gpu.streaming_encoder()
+    chunks = []
+    for lo in range(0, 30 * 1920, 5 * 1920):
+        before = (flash_sdpa_window.launches, rvq_encode_fused.launches)
+        chunks.append(enc.push(pcm[lo:lo + 5 * 1920]))
+        assert (flash_sdpa_window.launches - before[0],
+                rvq_encode_fused.launches - before[1]) == (SMALL["n_layers"], 2)
+    got = np.concatenate(chunks)
+    want = cpu.encode(pcm)
+    assert_codes(got, want, model_margin(cpu, pcm, want, got))

@@ -60,7 +60,7 @@ def tiny(tmp_path_factory):
     path = tmp_path_factory.mktemp("mimi") / "tiny_mimi.gguf"
     conv.convert_and_save(path)
     return {"path": path, "jax": codec_tpu.load_model(path),
-            "port": codec_tpu_torch.load_model(path, device="cpu")}
+            "port": codec_tpu_torch.load_model(path, device="cpu"), "hf": hf}
 
 
 def _leaves(tree):
@@ -157,18 +157,57 @@ def test_bad_decode_arguments_raise(tiny, codes_shape, n_q, fmt):
 
 
 def test_encode_and_streaming_not_yet_ported(tiny, tmp_path):
-    """The streaming sessions are not ported yet; encode is, and a
-    decode-only file has no encoder."""
+    """Encode and the streaming sessions are ported; a decode-only file
+    has no encoder, so its streaming_encoder and encode raise, and its
+    streaming_decoder opens."""
     p = tiny["port"]
-    for call in (p.streaming_decoder, p.streaming_encoder):
-        with pytest.raises(CodecError, match="not yet ported"):
-            call()
+    assert p.has_encoder
+    assert p.streaming_decoder() is not None
+    assert p.streaming_encoder() is not None
     path = tmp_path / "decode_only.gguf"
     mimi_init.write_random_mimi_gguf(path, seed=0, cfg=SMALL, num_filters=8)
     dec_only = codec_tpu_torch.load_model(path, device="cpu")
-    assert p.has_encoder and not dec_only.has_encoder
+    assert not dec_only.has_encoder
+    with pytest.raises(CodecError, match="no encoder"):
+        dec_only.streaming_encoder()
     with pytest.raises(CodecError, match="no encoder"):
         dec_only.encode(np.zeros(1920, np.float32))
+    assert dec_only.streaming_decoder().push(
+        np.zeros((1, 4), np.int32)).shape == (1920,)
+
+
+def test_decode_matches_hf_directly(tiny):
+    """The gate against HF MimiModel itself, beside the one against
+    codec_tpu: the same codes through MimiModel.decode (T=150 frames, past
+    the 250-frame window of the transformer's 300 steps)."""
+    codes = _codes((150, 4), 64, 14)
+    with torch.no_grad():
+        want = tiny["hf"].decode(torch.from_numpy(codes.T[None]).long()
+                                 )[0].numpy()[0, 0]
+    _assert_close_pcm(tiny["port"].decode(codes), want)
+
+
+def test_partial_nq_decode_matches_hf_directly(tiny):
+    codes = _codes((10, 4), 64, 15)
+    with torch.no_grad():
+        want = tiny["hf"].decode(torch.from_numpy(codes.T[None, :2]).long()
+                                 )[0].numpy()[0, 0]
+    _assert_close_pcm(tiny["port"].decode(codes, n_q=2), want)
+
+
+def test_encode_matches_hf_directly(tiny):
+    """MimiModel.encode's codes on a partial last frame: equal, or differing
+    only at f64 near-ties (tests/encode_ties.py)."""
+    from encode_ties import assert_codes, mimi_margin
+
+    p = tiny["port"]
+    pcm = (np.random.default_rng(16).standard_normal(6 * 1920 + 517)
+           * 0.1).astype(np.float32)
+    with torch.no_grad():
+        want = tiny["hf"].encode(torch.from_numpy(pcm)[None, None]
+                                 ).audio_codes.numpy()[0].T.astype(np.int32)
+    got = p.encode(pcm)
+    assert_codes(got, want, mimi_margin(p.params, p.cfg, pcm, want, got))
 
 
 def test_unported_arch_raises(tmp_path):
