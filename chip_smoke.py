@@ -11,28 +11,33 @@ Phases (any failure raises and exits non-zero before the last line):
      their SASS I2F counts (cuobjdump), all of which must be 0; the DAC
      residual units' and SNAC's unit's (its depthwise pass and its 1x1)
      stack frames and spills (0), and HGMMA (wgmma) but no HMMA
-     (mma.sync) in every bf16 product; the split-f32 kernels' stack frames
+     (mma.sync) in every bf16 and f16 product; the split-f32 kernels' stack frames
      and spills (0), HMMA (mma.sync) and no HGMMA in the attention, HGMMA
      and no HMMA in the RVQ search; the RVQ search's cluster occupancy
-  3. each kernel against its plain PyTorch version on the card (the
-     attention also with carried keys, at the streaming steps' shapes; the
-     residual units also at every DAC and SNAC decoder and encoder
-     block's shape, unit by unit in the launches a request makes, the
+  3. each kernel against its plain PyTorch version on the card, in f32,
+     bf16 and f16 where it takes them (the attention also with carried
+     keys, at the streaming steps' shapes; the residual units also at
+     every DAC and SNAC decoder and encoder block's shape (f16: the
+     decoder blocks, where its requests run it), unit by unit in the
+     launches a request makes, each launch settled (synchronized) before
+     the next so that a fault is charged to the launch that made it, the
      RVQ search also on integer-valued inputs and duplicated rows, where
      it must agree bit for bit)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
-     20 s b1 in bf16) with every launch count set to 0 just before and
-     read just after; the f32 outputs are held against the same weights
-     with the plain attention on the card
+     20 s b1 in bf16 and in f16) with every launch count set to 0 just
+     before and read just after; the f32 outputs are held against the
+     same weights with the plain attention on the card, the f16 one
+     against the plain path in f16 on the card
   5. DAC: the same for a full-width random DAC (descript/dac_24khz widths):
-     20 s b1 and 20 s b4 in f32, 20 s b1 in bf16, and one decode_latent;
-     the f32 outputs are held against the same weights with the plain
-     residual units on the card
+     20 s b1 and 20 s b4 in f32, 20 s b1 in bf16 and f16, and one
+     decode_latent; the f32 outputs are held against the same weights
+     with the plain residual units on the card, the f16 one as in 4
   6. SNAC: the same for a full-width random SNAC (hubertsiuzdak/snac_24khz
      widths, Orpheus packing): 20 s b1 and 20 s b4 in f32, 20 s b1 in
-     bf16, each checked for its launch count, shape, finite samples and
-     (f32) saturation and held against the plain residual units
+     bf16 and f16, each checked for its launch count, shape, finite
+     samples and (f32) saturation and held against the plain residual
+     units (f16 as in 4)
   7. encode: the same random Mimi, DAC and SNAC files hold their encoders;
      encode requests through load_model(...).encode (Mimi 20 s b1 and b4
      in f32, 20 s b1 in bf16; DAC and SNAC 20 s b1 in f32 and bf16), each
@@ -61,6 +66,17 @@ Phases (any failure raises and exits non-zero before the last line):
      to 0 just before and read just after; the backbone hiddens are held
      against the plain packed product on the card, teacher-forced on the
      same inputs, and the greedy codes against the plain path's
+  9b. the on-device TTS path on the same files: run_codebook_ar(
+     on_device=OnDeviceSampling(chunk_frames=8)) in Q4_K and Q8_0 greedy,
+     one sampled request (temperature 0.8, top-k 50) and
+     run_codebook_ar_batch over 4 streams, each chunk one replay of a
+     captured CUDA graph; the captured chunk against the eager chunk bit
+     for bit, greedy codes against the host path's (and each batched
+     stream against its single-stream run) equal or first differing at a
+     near-tie, 896 packed-product launches in one replay (torch.profiler),
+     per-frame and request times and a replay's idle share; one backbone
+     step as a graph at m = 1, 8 and 32, packed Q4_K against F.linear on
+     the dequantized weights
   10. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
@@ -116,7 +132,8 @@ ATTN_BF16_ATOL = 3e-2
 MIMI_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                  ("60s_b1_f32", 60, 1, "float32"),
                  ("20s_b4_f32", 20, 4, "float32"),
-                 ("20s_b1_bf16", 20, 1, "bfloat16")]
+                 ("20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("20s_b1_f16", 20, 1, "float16")]
 MIMI_LAYERS = 8                    # flash_sdpa_window launches per decode
 
 # -- seanet_res_unit (B, T, C, d) and seanet_res_chain (B, T, C): the DAC
@@ -133,21 +150,26 @@ MIMI_LAYERS = 8                    # flash_sdpa_window launches per decode
 UNIT_SHAPES = [(1, 12000, 768, 1), (1, 12000, 768, 9), (1, 60000, 384, 3),
                (2, 1000, 384, 9), (1, 20, 96, 9)]
 CHAIN_SHAPES = [(1, 240000, 192), (1, 480000, 96), (2, 100, 96), (1, 20, 192)]
-# the unit's 7 tiles x its 2 launches (dilated conv, 1x1) and the chain's 4
-# tiles (csrc/seanet_res.cu::dispatch_tile, dispatch_chain)
-DENSE_KERNELS = 18
-# the split-f32 kernels: flash_sdpa_window at D 64 / 128 x f32 / bf16 and
-# rvq_encode at 32, 16 and 8 frames per cluster
-SPLIT_KERNELS = 7
-# SNAC's unit: the depthwise pass for K = 1, 3, 5, 7 in f32 and bf16
-# (csrc/snac_res.cu) and its 1x1 at its 4 tiles (csrc/seanet_res.cu)
-SNAC_UNIT_KERNELS = 12
+# the unit's 11 tiles (f32 3, bf16 4, f16 4) x its 2 launches (dilated
+# conv, 1x1) and the chain's 5 tiles (csrc/seanet_res.cu::dispatch_tile,
+# dispatch_chain)
+DENSE_KERNELS = 27
+# the split-f32 kernels: flash_sdpa_window at D 64 / 128 x f32 / bf16 /
+# f16 and rvq_encode at 32, 16 and 8 frames per cluster
+SPLIT_KERNELS = 9
+# SNAC's unit: the depthwise pass for K = 1, 3, 5, 7 in f32, bf16 and f16
+# (csrc/snac_res.cu) and its 1x1 at its 6 tiles (csrc/seanet_res.cu)
+SNAC_UNIT_KERNELS = 18
+# the 16-bit dtypes the kernels take besides f32; f16 is held to bf16's
+# bounds (both 16-bit operands; f16 rounds finer)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 UNIT_BF16 = dict(rtol=2e-2, atol=5e-2, corr=0.9999)
 CHAIN_BF16 = dict(rtol=3e-2, atol=8e-2, corr=0.9995)
 DILATIONS = (1, 3, 9)
 DAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                 ("20s_b4_f32", 20, 4, "float32"),
-                ("20s_b1_bf16", 20, 1, "bfloat16")]
+                ("20s_b1_bf16", 20, 1, "bfloat16"),
+                ("20s_b1_f16", 20, 1, "float16")]
 
 # -- snac_res_chain (B, T, C): the four SNAC decoder blocks of a 20 s b1
 # decode (936 frames), a batch of 2, a T that is no multiple of 32, T below
@@ -161,7 +183,8 @@ SNAC_SHAPES = [(1, t, c) for c, t in SNAC_BLOCKS] + [
     (2, 1000, 128), (1, 4100, 256), (1, 20, 64), (1, 1, 64)]
 SNAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                  ("20s_b4_f32", 20, 4, "float32"),
-                 ("20s_b1_bf16", 20, 1, "bfloat16")]
+                 ("20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("20s_b1_f16", 20, 1, "float16")]
 
 # -- q8_0_matmul / q4_k_matmul: the Llama-3.2-1B backbone's matrices
 # (out, in) q/o, k/v, gate/up and down, at m = 1, 16 and 32 rows with x in
@@ -182,6 +205,12 @@ FLUSH_BYTES = 64 * 2 ** 20
 TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
                 ("q8_0_per_token", "Q8_0", 0)]
 TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 3
+# -- the on-device TTS path: chunks of 8 frames (one CUDA graph each),
+# greedy in Q4_K and Q8_0, one sampled request, one batch of 4 streams;
+# greedy codes equal the host path's or first differ at a near-tie (top-2
+# logit margin < NEAR_TIE of the top logit)
+TTS_CHUNK, TTS_STREAMS = 8, 4
+TTS_SAMPLED = dict(temperature=0.8, top_k=50)
 Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 
 # -- rvq_encode_fused (B, T, D, n_q, V): Mimi at 20 s b1 (acoustic and
@@ -272,7 +301,8 @@ def ptxas_report(nvcc_log: str) -> list:
             rows = re.search(r"matmul_kernelI(?:Lb(\d)E)?Li(\d+)E", mangled)
             name = " ".join(filter(None, [
                 kernel_name(mangled),
-                "bf16" if "bfloat16" in mangled else "f32",
+                "bf16" if "bfloat16" in mangled else
+                "f16" if "6__half" in mangled else "f32",
                 tile and f"{tile.group(1)}<"
                 f"{','.join(re.findall(r'Li(\d+)E', tile.group(2)))}>",
                 rows and f"m<={rows.group(2)}",
@@ -306,6 +336,17 @@ def cuda_ms(fn, reps: int = 1, runs: int = TIMED_RUNS, warmup: int = 2) -> float
         end.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
+
+
+def settled(what: str, out=None):
+    """Wait for the card and charge a fault to `what`, the launch just made
+    (a kernel's fault shows only at the next synchronize); → out."""
+    try:
+        torch.cuda.synchronize()
+    except Exception as e:                              # noqa: BLE001
+        raise RuntimeError(f"{what}: the card reported {type(e).__name__}: "
+                           f"{e}") from e
+    return out
 
 
 def turns(kernel, plain, reps: int = 1):
@@ -546,6 +587,10 @@ def main() -> int:
     from codec_tpu_torch.lm import create_lm
     from codec_tpu_torch.lm.audio_lm import AudioLM
     from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.fused_gen import chunk_ctx, gen_chunk_cached
+    from codec_tpu_torch.lm.tts_runner import prefill_prompt
+    from codec_tpu_torch.lm.tts_runner import run_codebook_ar_batch
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar)
     from codec_tpu_torch.models.lm_init import (write_random_backbone_gguf,
@@ -581,6 +626,7 @@ def main() -> int:
         return {name: fn.launches for name, fn in wrappers.items()}
 
     # -- 2. build ------------------------------------------------------------
+    log(f"[phase] 2 starts at {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
     res = build.build()
     log(f"[build] {res.path.name}: nvcc {res.seconds:.2f} s "
@@ -607,16 +653,18 @@ def main() -> int:
     snac_unit = [r for r in sass if "snac_res_1x1" in r.name
                  or "snac_dw" in r.name]
     for r in dense + snac_unit:
-        bf16 = "bfloat16" in r.name
+        half = ("bf16" if "bfloat16" in r.name else
+                "f16" if "6__half" in r.name else None)
         product = "snac_dw" not in r.name
-        log(f"[build] {kernel_name(r.name)} {'bf16' if bf16 else 'f32'} "
+        log(f"[build] {kernel_name(r.name)} {half or 'f32'} "
             f"{r.name}: {r.registers} registers, {r.stack} bytes stack frame, "
             f"spills {r.spill_stores}/{r.spill_loads} bytes, {r.hgmma} HGMMA, "
             f"{r.hmma} HMMA of {r.instructions} SASS instructions")
         if r.stack or r.spill_stores or r.spill_loads or (
-                bf16 and product and (not r.hgmma or r.hmma)):
+                half and product and (not r.hgmma or r.hmma)):
             raise RuntimeError(f"{r.name}: want no stack frame, no spills "
-                               f"and, in a bf16 product, HGMMA and no HMMA")
+                               f"and, in a bf16 or f16 product, HGMMA and no "
+                               f"HMMA")
     if len(dense) != DENSE_KERNELS or len(snac_unit) != SNAC_UNIT_KERNELS:
         raise RuntimeError(f"seanet_res / SNAC's unit: want {DENSE_KERNELS} "
                            f"/ {SNAC_UNIT_KERNELS} kernels, got {len(dense)} "
@@ -649,14 +697,16 @@ def main() -> int:
             f"{rvq_cuda.HELD} at 16 and 32 frames)")
 
     # -- 3. kernels against their plain versions ------------------------------
+    log(f"[phase] 3 starts at {time.monotonic() - t_start:.1f} s")
     max_err = {name: 0.0 for name in wrappers}
     cases = [(s, torch.float32) for s in ATTN_SHAPES_F32]
-    cases.append((ATTN_SHAPE_BF16, torch.bfloat16))
+    cases += [(ATTN_SHAPE_BF16, dt) for dt in HALF_DTYPES]
     for i, ((b, h, t, d, w), dtype) in enumerate(cases):
         q, k, v = (randn((b, h, t, d), dtype, SEED + 3 * i + j) for j in range(3))
-        got = flash_sdpa_window(q, k, v, window=w)
-        want = flash_sdpa_window_ref(q, k, v, window=w)
-        torch.cuda.synchronize()
+        got = settled(f"flash_sdpa_window B{b} H{h} T{t} D{d} {dtype}",
+                      flash_sdpa_window(q, k, v, window=w))
+        want = settled("its plain version",
+                       flash_sdpa_window_ref(q, k, v, window=w))
         err = (got.float() - want.float()).abs().max().item()
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, **ATTN_F32_TOL)
@@ -672,13 +722,15 @@ def main() -> int:
     stream_attn_err = 0.0
     for i, ((b, h, tq, tk, d, w, ks), dtype) in enumerate(
             (s, dt) for s in STREAM_ATTN_SHAPES
-            for dt in (torch.float32, torch.bfloat16)):
+            for dt in (torch.float32, *HALF_DTYPES)):
         q = randn((b, h, tq, d), dtype, SEED + 300 + 3 * i)
         k, v = (randn((b, h, tk, d), dtype, SEED + 301 + 3 * i + j)
                 for j in range(2))
-        got = flash_sdpa_window(q, k, v, window=w, k_start=ks)
-        want = flash_sdpa_window_ref(q, k, v, window=w, k_start=ks)
-        torch.cuda.synchronize()
+        got = settled(f"flash_sdpa_window carried keys Tq{tq} Tk{tk} D{d} "
+                      f"{dtype}", flash_sdpa_window(q, k, v, window=w,
+                                                    k_start=ks))
+        want = settled("its plain version", flash_sdpa_window_ref(
+            q, k, v, window=w, k_start=ks))
         err = (got.float() - want.float()).abs().max().item()
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, **ATTN_F32_TOL)
@@ -695,8 +747,8 @@ def main() -> int:
 
     def hold(name, label, got, want_f32, dtype, bf16_bounds):
         """The seanet bounds (see UNIT_SHAPES); want_f32 is the plain
-        version in f32."""
-        torch.cuda.synchronize()
+        version in f32 (`got` settled where it was launched)."""
+        settled(f"the plain version of {name} {label}")
         g, w = got.float().cpu().numpy(), want_f32.float().cpu().numpy()
         err, peak, c = float(np.abs(g - w).max()), float(np.abs(w).max()), corr(g, w)
         if not np.isfinite(g).all():
@@ -719,11 +771,12 @@ def main() -> int:
         log(f"[kernel] {name} {label}: max abs err {err:.3e} (peak "
             f"{peak:.3f}), corr {c:.9f} ({bound}) ok")
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, *HALF_DTYPES):
         for i, (b, t, c, d) in enumerate(UNIT_SHAPES):
             p = res_params(1, c, dtype, SEED + 10 + i)
             x = randn((b, t, c), dtype, SEED + 20 + i)
-            got = seanet_res_unit(x, *unit_args(p), dilation=d)
+            got = settled(f"seanet_res_unit B{b} T{t} C{c} d{d} {dtype}",
+                          seanet_res_unit(x, *unit_args(p), dilation=d))
             with f32_precision(True):
                 want = seanet_cuda.seanet_res_unit_ref(
                     x.float(), *(a.float() for a in unit_args(p)), dilation=d)
@@ -732,7 +785,8 @@ def main() -> int:
         for i, (b, t, c) in enumerate(CHAIN_SHAPES):
             p = res_params(3, c, dtype, SEED + 30 + i)
             x = randn((b, t, c), dtype, SEED + 40 + i)
-            got = seanet_res_chain(x, **p, dilations=DILATIONS)
+            got = settled(f"seanet_res_chain B{b} T{t} C{c} {dtype}",
+                          seanet_res_chain(x, **p, dilations=DILATIONS))
             with f32_precision(True):
                 want = seanet_cuda.seanet_res_chain_ref(
                     x.float(), **{k: v.float() for k, v in p.items()},
@@ -751,12 +805,15 @@ def main() -> int:
                     dilations=DILATIONS)
             forms = [("N=1 x3", lambda: seanet_cuda.snac_res_units(
                 x, **p, dilations=DILATIONS))]
-            if seanet_cuda.dw_chain_tile(c, 7, DILATIONS, dtype, smem):
+            # SNAC's chain kernel (N > 1, on no request path) is f32/bf16
+            if dtype != torch.float16 and seanet_cuda.dw_chain_tile(
+                    c, 7, DILATIONS, dtype, smem):
                 forms.append(("N=3", lambda: snac_res_chain(
                     x, **p, dilations=DILATIONS)))
             for form, run in forms:
-                hold("snac_res_chain", f"{form} B{b} T{t} C{c} "
-                     f"{str(dtype)[6:]}", run(), want, dtype, CHAIN_BF16)
+                label = f"{form} B{b} T{t} C{c} {str(dtype)[6:]}"
+                hold("snac_res_chain", label, settled(
+                    f"snac_res_chain {label}", run()), want, dtype, CHAIN_BF16)
             del x, want
 
     # the residual units at the DAC and SNAC decoder's and encoder's block
@@ -770,7 +827,8 @@ def main() -> int:
     def unit_by_unit(name, x, p, dtype, label, launch, plain, bounds):
         for u, dil in enumerate(DILATIONS):
             pu = {k: v[u:u + 1] for k, v in p.items()}
-            got = launch(x, pu, dil)
+            got = settled(f"{name} {label} unit {u + 1} {dtype}",
+                          launch(x, pu, dil))
             with f32_precision(True):
                 want = plain(x.float(), {k: v.float() for k, v in pu.items()},
                              dil)
@@ -782,8 +840,11 @@ def main() -> int:
                    for i, (c, t) in enumerate(DAC_DEC_BLOCKS)]
                   + [("encoder", c, t, SEED + 150 + i)
                      for i, (c, t) in enumerate(DAC_ENC_BLOCKS)])
-    for dtype in (torch.float32, torch.bfloat16):
-        for where, c, t, seed in dac_blocks:
+    for dtype in (torch.float32, *HALF_DTYPES):
+        # f16 at the decoder blocks: this run's f16 requests are decodes
+        blocks_of = (lambda bl: [x for x in bl if x[0] == "decoder"]) \
+            if dtype == torch.float16 else (lambda bl: bl)
+        for where, c, t, seed in blocks_of(dac_blocks):
             p = res_params(3, c, dtype, seed)
             x = randn((1, t, c), dtype, seed + 10)
             label = f"DAC {where} block C{c} T{t}"
@@ -793,8 +854,10 @@ def main() -> int:
                         x.float(), **{k: v.float() for k, v in p.items()},
                         dilations=DILATIONS)
                 hold("seanet_res_chain", f"{label} as the chain "
-                     f"{str(dtype)[6:]}", seanet_res_chain(
-                         x, **p, dilations=DILATIONS), want, dtype, CHAIN_BF16)
+                     f"{str(dtype)[6:]}", settled(
+                         f"seanet_res_chain {label} {dtype}", seanet_res_chain(
+                             x, **p, dilations=DILATIONS)),
+                     want, dtype, CHAIN_BF16)
                 del want
             else:
                 unit_by_unit(
@@ -808,7 +871,7 @@ def main() -> int:
                         for i, (c, t) in enumerate(SNAC_BLOCKS)]
                        + [("encoder", c, t, SEED + 170 + i)
                           for i, (c, t) in enumerate(SNAC_ENC_BLOCKS)])
-        for where, c, t, seed in snac_blocks:
+        for where, c, t, seed in blocks_of(snac_blocks):
             p = dw_params(3, c, dtype, seed)
             x = randn((1, t, c), dtype, seed + 10, scale=0.3)
             tile = seanet_cuda.snac_tile(c, dtype, t, 1, sms)
@@ -916,7 +979,7 @@ def main() -> int:
         mimi_models, dac_models, snac_models = (
             {dt: codec_tpu_torch.load_model(paths[name], compute_dtype=dt,
                                             device="cuda")
-             for dt in ("float32", "bfloat16")}
+             for dt in ("float32", "bfloat16", "float16")}
             for name in ("mimi", "dac", "snac"))
         torch.cuda.synchronize()
     finally:
@@ -928,7 +991,7 @@ def main() -> int:
     scfg = snac_models["float32"].cfg
     snac_widths = [blk["units"]["w1"].shape[-1]
                    for blk in snac_models["float32"].params["dec_blocks"]]
-    log(f"[model] load_model Mimi + DAC + SNAC, f32 + bf16, in "
+    log(f"[model] load_model Mimi + DAC + SNAC, f32 + bf16 + f16, in "
         f"{time.monotonic() - t0:.2f} s")
     log(f"[model] Mimi: hidden {cfg.hidden}, {cfg.n_layers} layers, "
         f"{cfg.n_heads} heads x {cfg.head_dim}, mlp {cfg.intermediate}, "
@@ -960,6 +1023,7 @@ def main() -> int:
                          multiple=scfg.vq_strides[0])
 
     # -- 4. the Mimi path ------------------------------------------------------
+    log(f"[phase] 4 starts at {time.monotonic() - t_start:.1f} s")
     outs = {}
     zero_counts()
     for name, secs, batch, model, codes in mimi_reqs:
@@ -1004,11 +1068,18 @@ def main() -> int:
         else:
             line += (f"; vs the f32 model: corr "
                      f"{corr(pcm, mimi_models['float32'].decode(codes)):.6f}")
+        if model.compute_dtype == torch.float16:
+            c = corr(pcm, plain_mimi(model, codes))
+            if not c > CHAIN_BF16["corr"]:
+                raise RuntimeError(f"mimi {name}: corr {c} vs plain attention")
+            line += (f"; vs plain attention in f16 on the card: corr "
+                     f"{c:.9f}")
         log(line)
 
     # -- 5. the DAC path -------------------------------------------------------
+    log(f"[phase] 5 starts at {time.monotonic() - t_start:.1f} s")
     plan, per_decode = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, *HALF_DTYPES):
         plan[dtype] = [seanet_cuda.use_chain(c, 7, DILATIONS, dtype, smem)
                        for c in widths]
         per_decode[dtype] = {
@@ -1017,7 +1088,7 @@ def main() -> int:
         tiles = [seanet_cuda.chain_tile(c, 7, DILATIONS, dtype, smem)
                  for c in widths]
         log(f"[dac] gate at {smem} bytes, {str(dtype)[6:]}: widths {widths}, "
-            f"chain tiles {tiles}, chain taken {plan[dtype]} (bf16 where "
+            f"chain tiles {tiles}, chain taken {plan[dtype]} (16-bit where "
             f"all 512 rows fit); launches per decode "
             f"{per_decode[dtype]}")
     n_latent = dcfg.sample_rate * 20 // dcfg.hop_size
@@ -1079,10 +1150,17 @@ def main() -> int:
         else:
             line += (f"; vs the f32 model: corr "
                      f"{corr(pcm, dac_models['float32'].decode(codes)):.6f}")
+        if model.compute_dtype == torch.float16:
+            c = corr(pcm, plain_dac(model, codes))
+            if not c > CHAIN_BF16["corr"]:
+                raise RuntimeError(f"dac {name}: corr {c} vs plain res units")
+            line += (f"; vs plain res units in f16 on the card: corr "
+                     f"{c:.9f}")
         log(line)
     del outs
 
     # -- 6. the SNAC path ------------------------------------------------------
+    log(f"[phase] 6 starts at {time.monotonic() - t_start:.1f} s")
     # the gate (seanet_cuda.snac_res_units): one N = 1 launch per unit
     snac_per_decode = {**none,
                        "snac_res_chain": len(DILATIONS) * len(snac_widths)}
@@ -1133,10 +1211,17 @@ def main() -> int:
         else:
             line += (f"; vs the f32 model: corr "
                      f"{corr(pcm, snac_models['float32'].decode(codes)):.6f}")
+        if model.compute_dtype == torch.float16:
+            c = corr(pcm, plain_snac(model, codes))
+            if not c > CHAIN_BF16["corr"]:
+                raise RuntimeError(f"snac {name}: corr {c} vs plain res units")
+            line += (f"; vs plain res units in f16 on the card: corr "
+                     f"{c:.9f}")
         log(line)
     del outs
 
     # -- 7. encode --------------------------------------------------------------
+    log(f"[phase] 7 starts at {time.monotonic() - t_start:.1f} s")
     enc_models = {"mimi": mimi_models, "dac": dac_models, "snac": snac_models}
     enc_widths = {arch: [blk["units"]["w1"].shape[-1]
                          for blk in enc_models[arch]["float32"].params["enc_blocks"]]
@@ -1283,6 +1368,7 @@ def main() -> int:
         log(line)
 
     # -- 8. the Mimi streaming sessions, decode_many and decode_async ----------
+    log(f"[phase] 8 starts at {time.monotonic() - t_start:.1f} s")
     # every push of a session makes exactly the step's launches; the
     # attention launches of the sessions (carried keys) are the kernels
     # line's second attention row
@@ -1412,6 +1498,7 @@ def main() -> int:
                     for i, (g, s) in enumerate(zip(gathered, dseqs))))
 
     # -- 9. the CSM TTS path ---------------------------------------------------
+    log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
     try:
@@ -1492,6 +1579,7 @@ def main() -> int:
                                               qmm=qmat.qmatmul_plain)
                  for q, bb in backbones.items()}
     tts_counts = dict(none)
+    host_codes = {}                 # the per-token requests' greedy codes
     for name, qtype, bucket in TTS_REQUESTS:
         n_pre = 1 if bucket else TTS_PROMPT
         want = {**none, "flash_sdpa_window": MIMI_LAYERS,
@@ -1499,6 +1587,8 @@ def main() -> int:
         zero_counts()
         res, pcm, rec, _ = tts_request(backbones[qtype], bucket)
         step = counts()
+        if not bucket:
+            host_codes[qtype] = res.codes
         if step != want:
             raise RuntimeError(f"tts {name}: launches {step}, want {want}")
         tts_counts = {k: v + step[k] for k, v in tts_counts.items()}
@@ -1552,12 +1642,291 @@ def main() -> int:
         f"requests")
     del plain_bbs
 
+    # -- 9b. the on-device TTS path: chunks as CUDA graphs ----------------------
+    log(f"[phase] 9b starts at {time.monotonic() - t_start:.1f} s")
+    # run_codebook_ar(on_device=...) at the full CSM width: the prompt's
+    # per-token prefill on the host path, then chunks of TTS_CHUNK frames,
+    # each one replay of a captured graph (fused frame with in-graph
+    # sampling, EOS gate, feedback compose, backbone step: 112 packed
+    # products a frame), one copy of the packed codes a chunk, and the Mimi
+    # decode. A first request captures the graph; the checked request's
+    # wrapper counts are then the prefill's products and the decode's
+    # attention, and the replays' kernels are counted by name under
+    # torch.profiler.
+    t0 = time.monotonic()
+    per_step = 7 * bcfg.n_layers
+    greedy = OnDeviceSampling(chunk_frames=TTS_CHUNK)
+    ctx = chunk_ctx(backbones["Q4_K"], TTS_PROMPT + -(-TTS_FRAMES // TTS_CHUNK)
+                    * TTS_CHUNK + 1)
+
+    def dev_request(qtype, ods, decode=True):
+        bb = backbones[qtype]
+        bb.reset()
+        return run_codebook_ar(AudioLM(reader, codec=csm, lm=lm), bb, prompt,
+                               max_steps=TTS_FRAMES, on_device=ods,
+                               decode=decode)
+
+    def same_or_near_tie(label, got, want, qtype, rows):
+        """got == want, or the first difference (frame f, codebook k) is a
+        near-tie: the relative top-2 margin of those logits on `qtype`'s host
+        path, teacher-forced on want's codes before it (prompt `rows`, None
+        for the shared prompt) → a note for the log."""
+        diff = np.argwhere(got != want)
+        if not len(diff):
+            return f"codes equal ({got.shape})"
+        f, k = (int(v) for v in diff[0])
+        bb = backbones[qtype]
+        bb.reset()
+        h = prefill_prompt(bb, prompt if rows is None else rows)
+        for i in range(f):
+            h = bb.step(lm.compose_audio_embd([int(c) for c in want[i]]))
+        st = lm.new_state()
+        st.step_begin(h)
+        for j in range(k):
+            st.step_logits()
+            st.step_push_code(int(want[f, j]))
+        top = np.sort(st.step_logits()[0])[-2:]
+        margin = float((top[1] - top[0]) / abs(top[1]))
+        if not margin < NEAR_TIE:
+            raise RuntimeError(f"tts-dev {label}: codes first differ at frame "
+                               f"{f} codebook {k}, relative top-2 margin "
+                               f"{margin:.3e}")
+        return (f"codes first differ at frame {f} codebook {k}: a near-tie, "
+                f"relative top-2 margin {margin:.3e} (allowed)")
+
+    def replay_profile(runner, want: int = 0):
+        """One replay under torch.profiler → (device busy ms, kernel
+        launches, packed-product launches) from the trace's kernels. A
+        replay runs every node of its graph, but CUPTI drops a few records
+        now and then from a trace of ~62 000 kernels (885 of 896 products
+        once): with `want`, up to four replays are traced and the first
+        that shows `want` products (else the fullest) is returned."""
+        from torch.profiler import ProfilerActivity, profile
+
+        best = None
+        for _ in range(4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                runner.run()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and not e.key.startswith("aten::")
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+            if dev:
+                got = (sum(e.self_device_time_total for e in dev) / 1e3,
+                       sum(e.count for e in dev),
+                       sum(e.count for e in dev if "matmul_kernel" in e.key))
+                if best is None or got[2] > best[2]:
+                    best = got
+                if not want or got[2] == want:
+                    return got
+        if best is None:
+            raise RuntimeError("torch.profiler reported no device time in a "
+                               "replay")
+        return best
+
+    def chunk_state(runner, qtype, ods):
+        """The runner's state at the request's first chunk: the prompt's
+        prefill, frame 0, the first chunk's noise."""
+        bb = backbones[qtype]
+        bb.reset()
+        h = prefill_prompt(bb, prompt)
+        runner.h.copy_(torch.as_tensor(np.asarray(h, np.float32)).reshape(1, -1))
+        runner.pos.fill_(bb.pos)
+        runner.base.fill_(0)
+        runner.text_ctx.fill_(0)
+        runner.draw_noise([torch.Generator(device="cuda").manual_seed(ods.seed)
+                           if ods.temperature > 0 else None])
+
+    tts_dev_counts = dict(none)
+    tts_dev_times = {}
+    for qtype, ods in (("Q4_K", greedy), ("Q8_0", greedy),
+                       ("Q4_K", OnDeviceSampling(chunk_frames=TTS_CHUNK,
+                                                 **TTS_SAMPLED))):
+        name = f"{qtype} chunk {TTS_CHUNK} " + (
+            "greedy" if ods.temperature <= 0 else
+            f"temperature {ods.temperature} top-k {ods.top_k}")
+        t1 = time.monotonic()
+        dev_request(qtype, ods, decode=False)            # captures the chunk
+        capture_s = time.monotonic() - t1
+        zero_counts()
+        res = dev_request(qtype, ods)
+        step = counts()
+        want = {**none, "flash_sdpa_window": MIMI_LAYERS,
+                kernel_of[qtype]: per_step * TTS_PROMPT}
+        if step != want:
+            raise RuntimeError(f"tts-dev {name}: wrapper launches {step}, "
+                               f"want {want} (prefill + decode; the chunks "
+                               f"are replays)")
+        tts_dev_counts = {k: v + step[k] for k, v in tts_dev_counts.items()}
+        if res.codes.shape != (TTS_FRAMES, lm.info.n_codebook) \
+                or res.stopped_by_eos:
+            raise RuntimeError(f"tts-dev {name}: codes {res.codes.shape}, eos "
+                               f"{res.stopped_by_eos}")
+        if res.pcm.shape != (TTS_FRAMES * csm.hop_size,) \
+                or not np.isfinite(res.pcm).all():
+            raise RuntimeError(f"tts-dev {name}: pcm {res.pcm.shape}")
+        if ods.temperature <= 0:
+            note = same_or_near_tie(name, res.codes, host_codes[qtype], qtype,
+                                    None)
+        else:
+            again = dev_request(qtype, ods, decode=False)
+            if not np.array_equal(again.codes, res.codes):
+                raise RuntimeError(f"tts-dev {name}: two runs with one seed "
+                                   f"gave other codes")
+            note = (f"two runs with seed {ods.seed:#x} give the same codes; "
+                    f"{(res.codes != host_codes[qtype]).mean():.1%} of them "
+                    f"differ from greedy")
+        # the captured chunk against the eager chunk from the same state
+        runner = gen_chunk_cached(lm, bb, n_frames=TTS_CHUNK, ctx=ctx,
+                                  temperature=ods.temperature,
+                                  top_k=ods.top_k, top_p=ods.top_p,
+                                  min_p=ods.min_p)
+        chunk_state(runner, qtype, ods)
+        saved = [t.clone() for t in (runner.h, runner.pos,
+                                     runner.kv[..., :ctx, :])]
+        eager = runner.graphed.eager().clone()
+        eager_state = [runner.h.clone(), runner.pos.clone()]
+        for t, v in zip((runner.h, runner.pos, runner.kv[..., :ctx, :]), saved):
+            t.copy_(v)
+        graph = runner.run().clone()
+        torch.cuda.synchronize()
+        if not (torch.equal(eager, graph) and torch.equal(eager_state[0], runner.h)
+                and torch.equal(eager_state[1], runner.pos)):
+            raise RuntimeError(f"tts-dev {name}: the captured chunk's packed "
+                               f"result, hidden or position differ from the "
+                               f"eager chunk's")
+        for t, v in zip((runner.h, runner.pos, runner.kv[..., :ctx, :]), saved):
+            t.copy_(v)
+        busy, kernels, products = replay_profile(
+            runner, per_step * TTS_CHUNK)
+        if products != per_step * TTS_CHUNK:
+            raise RuntimeError(f"tts-dev {name}: {products} packed-product "
+                               f"launches in a replay, want "
+                               f"{per_step * TTS_CHUNK}")
+        replay = cuda_ms(runner.run)
+        totals = []
+        for _ in range(1 + TTS_TIMED_RUNS):
+            t1 = time.perf_counter()
+            dev_request(qtype, ods)
+            totals.append((time.perf_counter() - t1) * 1e3)
+        total = statistics.median(totals[1:])
+        tts_dev_times[name] = (replay / TTS_CHUNK, total, 1 - busy / replay)
+        log(f"[tts-dev] {name}: {note}; captured chunk == eager chunk bit for "
+            f"bit (packed codes and meta, hidden, position); one replay: "
+            f"{kernels} kernels, {products} {kernel_of[qtype]} "
+            f"({per_step} a frame), device busy {busy:.3f} ms of "
+            f"{replay:.3f} ms (idle share {1 - busy / replay:.3f}); per frame "
+            f"{replay / TTS_CHUNK:.3f} ms ({80 * TTS_CHUNK / replay:.2f}x "
+            f"realtime); request (prefill, {TTS_FRAMES} frames, Mimi decode) "
+            f"{total:.1f} ms, median of {TTS_TIMED_RUNS} after a warm-up "
+            f"({2000 / total:.2f}x realtime for 2 s); first request with the "
+            f"capture {capture_s:.2f} s; wrapper launches {step} "
+            f"[{name_limit}]")
+
+    # B streams through one batched chunk (the products at m = B): each
+    # stream against its own single-stream device run
+    rng_b = np.random.default_rng(SEED + 131)
+    rows = [list(backbones["Q4_K"].embed_tokens(rng_b.integers(
+        0, bcfg.vocab_size, TTS_PROMPT))) for _ in range(TTS_STREAMS)]
+
+    def batch_request(decode=True):
+        return run_codebook_ar_batch(
+            [AudioLM(reader, codec=csm, lm=lm) for _ in rows],
+            backbones["Q4_K"], rows, greedy, max_steps=TTS_FRAMES,
+            decode=decode)
+
+    batch_request(decode=False)                            # captures
+    zero_counts()
+    bres = batch_request()
+    step = counts()
+    # the batch's runner, the backbone's newest batched entry
+    bkey = [k for k in backbones["Q4_K"]._gen_chunks if k[4]]
+    brunner = backbones["Q4_K"]._gen_chunks[bkey[-1]][1]
+    want = {**none, "flash_sdpa_window": MIMI_LAYERS * TTS_STREAMS,
+            "q4_k_matmul": per_step * TTS_PROMPT * TTS_STREAMS}
+    if step != want:
+        raise RuntimeError(f"tts-dev batch: wrapper launches {step}, want {want}")
+    tts_dev_counts = {k: v + step[k] for k, v in tts_dev_counts.items()}
+    notes = []
+    for s_, (r, p) in enumerate(zip(bres, rows)):
+        bb = backbones["Q4_K"]
+        bb.reset()
+        one = run_codebook_ar(AudioLM(reader, codec=csm, lm=lm), bb, p,
+                              max_steps=TTS_FRAMES, on_device=greedy,
+                              decode=False)
+        if r.pcm.shape != (TTS_FRAMES * csm.hop_size,) \
+                or not np.isfinite(r.pcm).all():
+            raise RuntimeError(f"tts-dev batch stream {s_}: pcm {r.pcm.shape}")
+        notes.append(same_or_near_tie(f"batch stream {s_}", r.codes, one.codes,
+                                      "Q4_K", p))
+    busy, kernels, products = replay_profile(
+        brunner, per_step * TTS_CHUNK)
+    if products != per_step * TTS_CHUNK:
+        raise RuntimeError(f"tts-dev batch: {products} packed-product launches "
+                           f"in a replay, want {per_step * TTS_CHUNK}")
+    replay = cuda_ms(brunner.run)
+    totals = []
+    for _ in range(1 + TTS_TIMED_RUNS):
+        t1 = time.perf_counter()
+        batch_request()
+        totals.append((time.perf_counter() - t1) * 1e3)
+    total = statistics.median(totals[1:])
+    tts_dev_times["batch"] = (replay / TTS_CHUNK, total, 1 - busy / replay)
+    log(f"[tts-dev] Q4_K batch of {TTS_STREAMS} streams, chunk {TTS_CHUNK} "
+        f"greedy: per stream vs its single-stream run: {notes}; one replay: "
+        f"{kernels} kernels, {products} q4_k_matmul at m = {TTS_STREAMS}, "
+        f"device busy {busy:.3f} ms of {replay:.3f} ms (idle share "
+        f"{1 - busy / replay:.3f}); per frame {replay / TTS_CHUNK:.3f} ms for "
+        f"{TTS_STREAMS} streams; request {total:.1f} ms, median of "
+        f"{TTS_TIMED_RUNS} after a warm-up ({TTS_STREAMS * 2000 / total:.2f}x "
+        f"realtime in all); wrapper launches {step} [{name_limit}]")
+    # one backbone step at m = 1, 8 and 32 rows (streams) as a captured
+    # graph: the packed products (Q4_K) against F.linear on the same
+    # weights dequantized to f32, the rest of the step the same; per-launch
+    # device time of the products by name under torch.profiler
+    from codec_tpu_torch.lm.backbone import backbone_step
+    from codec_tpu_torch.lm.fused_gen import Graphed
+
+    bb = backbones["Q4_K"]
+    dense = {**bb.params, "layers": [
+        {k: qmat.dequant_ref(v) if isinstance(v, dict) else v
+         for k, v in lw.items()} for lw in bb.params["layers"]]}
+    for m in (1, 8, 32):
+        kv = torch.zeros((m, bcfg.n_layers, 2, bcfg.n_kv_heads, ctx,
+                          bcfg.head_dim), device="cuda")
+        pos = torch.full((m,), TTS_PROMPT, dtype=torch.long, device="cuda")
+        x = randn((m, bcfg.hidden), torch.float32, SEED + 140 + m)
+        line = f"[tts-dev] backbone step m = {m} as a graph:"
+        for label, params in (("packed Q4_K", bb.params), ("F.linear f32", dense)):
+            g = Graphed(lambda p=params: backbone_step(p, kv, pos, x, bcfg, ctx,
+                                                       qmat.qmatmul),
+                        torch.device("cuda"), restore=(kv,))
+            g.run()
+            step_ms = cuda_ms(g.run)
+            busy, kernels, products = replay_profile(g)
+            line += (f" {label} {step_ms:.4f} ms a step (device busy "
+                     f"{busy:.4f}, {kernels} kernels")
+            if products:
+                per = profiled_ms(g.run, products,
+                                  lambda key: "matmul_kernel" in key)
+                line += f", {products} q4_k_matmul at {per:.4f} ms each"
+            line += ");"
+            del g
+        log(line + f" [{name_limit}]")
+    del dense
+
+    log(f"[tts-dev] main path launches (wrappers; the replays' kernels are "
+        f"counted above): {tts_dev_counts}; phase {time.monotonic() - t0:.1f} s")
+
     # -- 10. times -------------------------------------------------------------
+    log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
         f"runs after 2 warm-ups; turns plain, kernel, kernel, plain")
     times, extra = {}, {}
     for (b, h, t, d, w), dtype in [(s, torch.float32) for s in ATTN_SHAPES_F32[:3]] + \
-            [(ATTN_SHAPE_BF16, torch.bfloat16)]:
+            [(ATTN_SHAPE_BF16, dt) for dt in HALF_DTYPES]:
         q, k, v = (randn((b, h, t, d), dtype, SEED + j) for j in range(3))
         kern, plain, s = turns(lambda: flash_sdpa_window(q, k, v, window=w),
                                lambda: flash_sdpa_window_ref(q, k, v, window=w),
@@ -1611,7 +1980,7 @@ def main() -> int:
                 f"{'the chain' if row['gate_takes_chain'] else 'three units'}"
                 f", the faster in this run is the other")
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, *HALF_DTYPES):
         for bi, (c, t) in enumerate(SNAC_BLOCKS, start=1):
             p = dw_params(3, c, dtype, SEED + 90 + bi)
             x = randn((1, t, c), dtype, SEED + 100 + bi, scale=0.3)
@@ -1620,7 +1989,12 @@ def main() -> int:
             flop = sum(f for f, _ in flops)
             # the rows a loaded model passes (built once at load)
             vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
+            label = f"snac block {bi} C{c} T{t} {dtype}"
             with f32_precision(dtype == torch.float32):
+                settled(f"{label}: the kernels", seanet_cuda.snac_res_units(
+                    x, **p, vec=vec))
+                settled(f"{label}: the plain version",
+                        seanet_cuda.snac_res_chain_ref(x, **p))
                 kern, plain, s = turns(
                     lambda: seanet_cuda.snac_res_units(x, **p, vec=vec),
                     lambda: seanet_cuda.snac_res_chain_ref(x, **p))
@@ -1628,10 +2002,13 @@ def main() -> int:
                     f"three units as 3 N=1 launches {kern:.3f} ms "
                     f"({flop / kern / 1e9:.2f} TFLOP/s, "
                     f"{nbytes / kern / 1e6:.1f} GB/s, {b_ms / kern:.1%} of the "
-                    f"bound {b_ms:.4f} ms, {b_by}), plain {plain:.3f} ms "
+                    f"bound {b_ms:.4f} ms, {b_by}), plain"
+                    f" {plain:.3f} ms "
                     f"(samples k {s[0]:.3f} {s[1]:.3f}, p {s[2]:.3f} "
                     f"{s[3]:.3f})")
-            if seanet_cuda.dw_chain_tile(c, 7, DILATIONS, dtype, smem):
+            # SNAC's chain kernel (N > 1, on no request path) is f32/bf16
+            if dtype != torch.float16 and seanet_cuda.dw_chain_tile(
+                    c, 7, DILATIONS, dtype, smem):
                 chain = cuda_ms(lambda: snac_res_chain(x, **p))
                 line += f"; chain N=3 {chain:.3f} ms"
             if bi == 3 and dtype == torch.float32:
@@ -1944,6 +2321,7 @@ def main() -> int:
 
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
                    + tts_counts["flash_sdpa_window"]
+                   + tts_dev_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
                    + enc_counts["seanet_res_unit"],
@@ -1951,8 +2329,10 @@ def main() -> int:
                    + enc_counts["seanet_res_chain"],
                    "snac_res_chain": snac_counts["snac_res_chain"]
                    + enc_counts["snac_res_chain"],
-                   "q8_0_matmul": tts_counts["q8_0_matmul"],
-                   "q4_k_matmul": tts_counts["q4_k_matmul"],
+                   "q8_0_matmul": tts_counts["q8_0_matmul"]
+                   + tts_dev_counts["q8_0_matmul"],
+                   "q4_k_matmul": tts_counts["q4_k_matmul"]
+                   + tts_dev_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"],
                    "flash_sdpa_window (carried keys)": stream_launches}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",

@@ -43,9 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "length, one sync) instead of padding to one batch; "
                          "taken whenever the lengths differ")
     ap.add_argument("--dtype", default="auto",
-                    choices=["float32", "bfloat16", "auto"],
-                    help="compute dtype (float32 = parity, bfloat16 = fast, "
-                         "auto = follow checkpoint)")
+                    choices=["float32", "bfloat16", "float16", "auto"],
+                    help="compute dtype (float32 = parity, bfloat16 or "
+                         "float16 = fast, auto = follow checkpoint)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for the weights and the work")
     return ap

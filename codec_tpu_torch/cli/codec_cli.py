@@ -32,8 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--nq", type=int, default=0,
                        help="codebooks to use (0=all)")
         p.add_argument("--dtype", default="auto",
-                       choices=["float32", "bfloat16", "auto"],
-                       help="compute dtype (float32 = parity, bfloat16 = "
+                       choices=["float32", "bfloat16", "float16", "auto"],
+                       help="compute dtype (float32 = parity, bfloat16 or float16 = "
                             "fast, auto = follow checkpoint)")
         p.add_argument("--device", default="cuda",
                        help="torch device for the weights and the work")

@@ -3,10 +3,12 @@ port (counterpart of codec_tpu/cli/tts_cli.py).
 
 `synthesize` runs the codebook-AR flow of CSM-style models (a
 residual_depth_ar adaptor driven by a llama backbone GGUF with a baked
-SPM tokenizer) on the host sampling path. `--quant-exec` keeps a Q8_0 or
-Q4_K backbone's layer matrices packed on the device, multiplied by the
-dequantizing CUDA kernels. The other kinds and flows, and the flags
-below marked so, raise "not ported yet".
+SPM tokenizer) on the host sampling path, or with `--on-device` on the
+device: the whole frame with in-graph sampling, `--chunk-frames` K whole
+frames per device call (on CUDA one CUDA graph replay per chunk).
+`--quant-exec` keeps a Q8_0 or Q4_K backbone's layer matrices packed on
+the device, multiplied by the dequantizing CUDA kernels. The other kinds
+and flows, and the flags below marked so, raise "not ported yet".
 
 Usage:
   python -m codec_tpu_torch.cli.tts_cli info --model csm.gguf
@@ -15,6 +17,7 @@ Usage:
   python -m codec_tpu_torch.cli.tts_cli synthesize --model csm.gguf \
       --backbone bb.gguf --text "Hello there." --out o.wav \
       [--quant-exec] [--max-frames N] [--seed 0] [--device cuda|cpu]
+      [--on-device [--chunk-frames 8]]
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import sys
 import numpy as np
 
 # flags of the reference CLI whose paths are not ported yet
-_NOT_PORTED = {"on_device": "--on-device", "grammar": "--grammar",
-               "ref_audio": "--ref-audio", "stream": "--stream"}
+_NOT_PORTED = {"grammar": "--grammar", "ref_audio": "--ref-audio",
+               "stream": "--stream"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the codec, the adaptor and the "
                         "backbone (cuda or cpu)")
     p.add_argument("--on-device", action="store_true", dest="on_device",
-                   help="not ported yet")
+                   help="sample on the device (fused frame; the "
+                        "temperature/top-k chain then applies to every "
+                        "codebook, not just cb0) and chain --chunk-frames "
+                        "whole frames per device call")
+    p.add_argument("--chunk-frames", type=int, default=8,
+                   help="frames per device call (one CUDA graph replay) "
+                        "with --on-device")
     p.add_argument("--grammar", default="", help="not ported yet")
     p.add_argument("--ref-audio", dest="ref_audio", default=None,
                    help="not ported yet")
@@ -99,7 +108,8 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
                             prefill_bucket: int = 0, temperature=None,
                             top_k=None, top_p=None, min_p=None,
                             rep_penalty=None, quantized: bool = False,
-                            device="cuda"):
+                            device="cuda", on_device: bool = False,
+                            chunk_frames: int = 8):
     """Codebook-AR synthesize of a CSM-style model with the llama backbone
     (reference: tts-cli over tts_runner_synthesize → run_codebook_ar,
     tts_runner.cpp:707,1043; backbone n_embd check at :1096-1113).
@@ -107,13 +117,16 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
     `bb`: a loaded LlamaBackbone to reuse (its KV state is reset); by
     default one is loaded from `backbone_path` (packed when `quantized`).
     Sampler overrides (None = the model family's defaults) apply to cb0;
-    the depth codebooks are greedy, as in the reference.
+    the depth codebooks are greedy, as in the reference. `on_device`:
+    sample every codebook on the device with that chain (no repetition
+    penalty), `chunk_frames` frames per device call.
     → (pcm, n_frames, stop reason)."""
     from ..io.gguf import GGUFReader
     from ..lm.audio_lm import AudioLM
     from ..lm.backbone import create_backbone
     from ..lm.prompt_info import build_prompt_info
     from ..lm.tts_runner import SamplerChain, run_codebook_ar
+    from ..ops.sample import OnDeviceSampling
 
     audio_lm = AudioLM(reader, codec=model, device=device)
     pi = build_prompt_info(reader, audio_lm.lm.info)
@@ -134,14 +147,19 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
     print(f"backbone: {len(ids)} prompt tokens; "
           f"hidden={bb.cfg.hidden} layers={bb.cfg.n_layers}")
 
+    s_temp = pi.default_temperature if temperature is None else float(temperature)
+    s_top_k = pi.default_top_k if top_k is None else int(top_k)
+    s_top_p = pi.default_top_p if top_p is None else float(top_p)
+    s_min_p = 0.0 if min_p is None else float(min_p)
     chain = SamplerChain(
-        seed=seed,
-        temperature=pi.default_temperature if temperature is None else float(temperature),
-        top_k=pi.default_top_k if top_k is None else int(top_k),
-        top_p=pi.default_top_p if top_p is None else float(top_p),
-        min_p=0.0 if min_p is None else float(min_p),
-        repetition_penalty=pi.default_repetition_penalty
+        seed=seed, temperature=s_temp, top_k=s_top_k, top_p=s_top_p,
+        min_p=s_min_p, repetition_penalty=pi.default_repetition_penalty
         if rep_penalty is None else float(rep_penalty))
+    ods = None
+    if on_device:
+        ods = OnDeviceSampling(temperature=s_temp, top_k=s_top_k,
+                               top_p=s_top_p, min_p=s_min_p, seed=seed,
+                               chunk_frames=max(1, chunk_frames))
 
     def sampler(cb_idx, logits):
         return chain(logits) if cb_idx == 0 else int(logits.argmax())
@@ -154,7 +172,7 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
         prompt_embeds = list(bb.embed_tokens(ids))
     res = run_codebook_ar(audio_lm, bb, prompt_embeds,
                           max_steps=max_frames if max_frames > 0 else 512,
-                          sampler=sampler, pi=pi,
+                          sampler=sampler, pi=pi, on_device=ods,
                           prefill_bucket=prefill_bucket)
     print(f"backbone AR done: {res.n_steps} steps, "
           f"eos={res.stopped_by_eos}, codes {res.codes.shape}")
@@ -208,7 +226,8 @@ def _run(args) -> int:
         max_frames=args.max_frames, prefill_bucket=args.prefill_bucket,
         temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
         min_p=args.min_p, rep_penalty=args.rep_penalty,
-        quantized=args.quant_exec, device=args.device)
+        quantized=args.quant_exec, device=args.device,
+        on_device=args.on_device, chunk_frames=args.chunk_frames)
     write_wav(args.out, pcm, model.sample_rate)
     print(f"wrote {args.out}: {pcm.shape[0]} samples "
           f"({n_frames} frames, stop={stop})")

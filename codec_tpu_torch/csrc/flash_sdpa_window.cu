@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel codec_tpu/ops/attn_pallas.py::flash_sdpa_window
 // (_flash_kernel). q and o are contiguous [B*H, Tq, D], k and v [B*H, Tk, D]
-// with Tk >= Tq, in f32 or bf16, D 64 or 128; o has the input dtype. Query
+// with Tk >= Tq, in f32, bf16 or f16, D 64 or 128; o has the input dtype. Query
 // i sits at key position p = Tk - Tq + i and attends to key j iff
 // k_start <= j <= p  and  p - window < j  (window <= 0: no window). With
 // Tk == Tq and k_start == 0 that is causal self-attention; a streaming step
@@ -16,9 +16,10 @@
 //
 // Both products run on the tensor cores with mma.sync (tf32x3.cuh). f32:
 // QK^T and PV in split f32, three TF32 passes each (relative error near
-// 1e-6, the reference's Precision.HIGHEST). bf16: QK^T on m16n8k16 (exact
-// products, f32 sums); PV keeps P at f32 accuracy as the reference does
-// (f32 p times v at HIGHEST): P = P_hi + P_lo in bf16, two passes, V exact.
+// 1e-6, the reference's Precision.HIGHEST). bf16 and f16: QK^T on
+// m16n8k16 (exact products, f32 sums); PV keeps P at f32 accuracy as the
+// reference does (f32 p times v at HIGHEST): P = P_hi + P_lo in the input's
+// 16-bit type, two passes, V exact.
 //
 // What bounds it on this card: for the Mimi transformers (D 64, window
 // 250, T 500..1500, B*H 8..32) the work is small, 0.19 GFLOP at 20 s b1
@@ -49,6 +50,7 @@
 // (PERF.md §6 has its time beside its bound).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,10 +63,10 @@ namespace {
 using tf32x3::ldsm_x4;
 using tf32x3::ldsm_x4_trans;
 using tf32x3::mma_3x;
-using tf32x3::mma_bf16;
+using tf32x3::mma_16;
 using tf32x3::smem_u32;
 using tf32x3::split;
-using tf32x3::split_bf16;
+using tf32x3::split_16;
 
 constexpr int BK = 16;            // keys per tile
 constexpr float NEG_INF = -1e30f; // the masked logit of the reference
@@ -127,8 +129,10 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v, 
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <int D, typename T>
 __global__ void __launch_bounds__(Cfg<D, T>::NT)
@@ -239,8 +243,8 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int mt = 0; mt < MT; ++mt) {
           uint32_t a[4];
           ldsm_x4(a, qa + mt * kMtBytes + ks * 32);
-          mma_bf16(s[mt][0], a, b[0], b[1]);
-          mma_bf16(s[mt][1], a, b[2], b[3]);
+          mma_16<T>(s[mt][0], a, b[0], b[1]);
+          mma_16<T>(s[mt][1], a, b[2], b[3]);
         }
       }
     }
@@ -320,10 +324,10 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
       uint32_t ph[MT][4], pl[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        split_bf16(s[mt][0][0], s[mt][0][1], ph[mt][0], pl[mt][0]);
-        split_bf16(s[mt][0][2], s[mt][0][3], ph[mt][1], pl[mt][1]);
-        split_bf16(s[mt][1][0], s[mt][1][1], ph[mt][2], pl[mt][2]);
-        split_bf16(s[mt][1][2], s[mt][1][3], ph[mt][3], pl[mt][3]);
+        split_16<T>(s[mt][0][0], s[mt][0][1], ph[mt][0], pl[mt][0]);
+        split_16<T>(s[mt][0][2], s[mt][0][3], ph[mt][1], pl[mt][1]);
+        split_16<T>(s[mt][1][0], s[mt][1][1], ph[mt][2], pl[mt][2]);
+        split_16<T>(s[mt][1][2], s[mt][1][3], ph[mt][3], pl[mt][3]);
       }
       // V [key][d] through ldmatrix.trans: keys 8·(j & 1) + (lane & 7),
       // columns 8·(2·pair + (j >> 1))
@@ -334,10 +338,10 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ldsm_x4_trans(b, vbase + pair * 32);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * pair], pl[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * pair], ph[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * pair + 1], pl[mt], b[2], b[3]);
-          mma_bf16(acc[mt][2 * pair + 1], ph[mt], b[2], b[3]);
+          mma_16<T>(acc[mt][2 * pair], pl[mt], b[0], b[1]);
+          mma_16<T>(acc[mt][2 * pair], ph[mt], b[0], b[1]);
+          mma_16<T>(acc[mt][2 * pair + 1], pl[mt], b[2], b[3]);
+          mma_16<T>(acc[mt][2 * pair + 1], ph[mt], b[2], b[3]);
         }
       }
     }
@@ -444,17 +448,20 @@ cudaError_t launch(int dev, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // Dynamic shared memory of one block for head dim d and dtype (0 = float32,
-// 1 = bfloat16), in bytes; 0 for a pair the kernel does not take.
+// 1 = bfloat16, 2 = float16), in bytes; 0 for a pair the kernel does not take.
 extern "C" int codec_flash_sdpa_window_smem_bytes(int d, int dtype) {
   if (d == 64 && dtype == 0) return Cfg<64, float>::kTotal;
   if (d == 64 && dtype == 1) return Cfg<64, __nv_bfloat16>::kTotal;
+  if (d == 64 && dtype == 2) return Cfg<64, __half>::kTotal;
   if (d == 128 && dtype == 0) return Cfg<128, float>::kTotal;
   if (d == 128 && dtype == 1) return Cfg<128, __nv_bfloat16>::kTotal;
+  if (d == 128 && dtype == 2) return Cfg<128, __half>::kTotal;
   return 0;
 }
 
 // q, o [bh, t_q, d]; k, v [bh, t_k, d] with t_k >= t_q >= 1 and
-// 0 <= k_start <= t_k - t_q; dtype: 0 = float32, 1 = bfloat16; q, k, v, o
+// 0 <= k_start <= t_k - t_q; dtype: 0 = float32, 1 = bfloat16, 2 = float16;
+// q, k, v, o
 // 16-byte aligned. Returns a cudaError_t (0 = success).
 extern "C" int codec_flash_sdpa_window(const void* q, const void* k, const void* v, void* o,
                                        int bh, int t_q, int t_k, int k_start, int d,
@@ -471,10 +478,14 @@ extern "C" int codec_flash_sdpa_window(const void* q, const void* k, const void*
     return launch<64, float>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 64 && dtype == 1)
     return launch<64, __nv_bfloat16>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
+  if (d == 64 && dtype == 2)
+    return launch<64, __half>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 128 && dtype == 0)
     return launch<128, float>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   if (d == 128 && dtype == 1)
     return launch<128, __nv_bfloat16>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
+  if (d == 128 && dtype == 2)
+    return launch<128, __half>(dev, q, k, v, o, bh, t_q, t_k, k_start, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -215,6 +215,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
 // two adjacent values in one load (p 2-element aligned)
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -222,6 +225,9 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 // The snake of x, xs = Op(snake(x, a1)) (bf16: rounded to nearest even),
@@ -273,7 +279,7 @@ __global__ void __launch_bounds__(256) seanet_snake_kernel(const T* __restrict__
 // lie in [0, T) is taken by column pairs with no test per row.
 template <typename T, typename P, bool kPointwise, bool kSnac>
 __device__ __forceinline__ void unit_body(const UnitArgs& args) {
-  static_assert(sizeof(T) == sizeof(typename P::Op), "f32 on Fma, bf16 on Wg");
+  static_assert(sizeof(T) == sizeof(typename P::Op), "f32 on Fma, bf16 and f16 on Wg");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const int c_len = args.c, cw = args.cw, t_len = args.t_len;
@@ -716,51 +722,69 @@ struct SmemBytes {
   }
 };
 
+// The 16-bit tiles of dispatch_tile in operand type H (bf16 or f16)
+template <template <typename, typename> class Launch, typename H, typename Call>
+auto dispatch_tile16(const Call& c, int rows, int cols)
+    -> decltype(Launch<float, Fma<1>>::run(c)) {
+  using R = decltype(Launch<float, Fma<1>>::run(c));
+  if (rows == 128) {
+    switch (cols) {
+      case 64: return Launch<H, Wg<64, 1, H>>::run(c);
+      case 128: return Launch<H, Wg<128, 1, H>>::run(c);
+      case 192: return Launch<H, Wg<192, 1, H>>::run(c);
+    }
+  } else if (rows == 256 && cols == 128) {
+    return Launch<H, Wg<128, 2, H>>::run(c);
+  }
+  return static_cast<R>(cudaErrorInvalidValue);
+}
+
 // The tile (ops/seanet_cuda.py::unit_tile): rows per block and columns per
-// pass; f32 on Fma (256 x 64, 128 x 128, 64 x 256), bf16 on Wg (128 x 64,
-// 128 x 128, 128 x 192, 256 x 128): each the fastest at some DAC width,
-// batch or length on an H100 (tools/seanet_times.py --what tiles).
+// pass; f32 on Fma (256 x 64, 128 x 128, 64 x 256), bf16 and f16 on Wg (128
+// x 64, 128 x 128, 128 x 192, 256 x 128): each the fastest at some DAC
+// width, batch or length on an H100 (tools/seanet_times.py --what tiles;
+// f16 takes bf16's tiles: both are 2-byte operands).
 template <template <typename, typename> class Launch, typename Call>
 auto dispatch_tile(const Call& c, int rows, int cols, int dtype)
     -> decltype(Launch<float, Fma<1>>::run(c)) {
   using R = decltype(Launch<float, Fma<1>>::run(c));
-  using B = __nv_bfloat16;
   if (dtype == 0) {
     if (rows == 256 && cols == 64) return Launch<float, Fma<1>>::run(c);
     if (rows == 128 && cols == 128) return Launch<float, Fma<2>>::run(c);
     if (rows == 64 && cols == 256) return Launch<float, Fma<4>>::run(c);
-  } else if (dtype == 1 && rows == 128) {
-    switch (cols) {
-      case 64: return Launch<B, Wg<64, 1>>::run(c);
-      case 128: return Launch<B, Wg<128, 1>>::run(c);
-      case 192: return Launch<B, Wg<192, 1>>::run(c);
-    }
-  } else if (dtype == 1 && rows == 256 && cols == 128) {
-    return Launch<B, Wg<128, 2>>::run(c);
+  } else if (dtype == 1) {
+    return dispatch_tile16<Launch, __nv_bfloat16>(c, rows, cols);
+  } else if (dtype == 2) {
+    return dispatch_tile16<Launch, __half>(c, rows, cols);
   }
   return static_cast<R>(cudaErrorInvalidValue);
 }
 
 // SNAC's 1x1 tile (ops/seanet_cuda.py::snac_tile): f32 256 x 64 or 128 x
-// 128, bf16 128 x 64 or 128 x 128, the unit's tiles that won the SNAC sweep
-// (tools/seanet_times.py --what snac_tiles).
+// 128, bf16 and f16 128 x 64 or 128 x 128, the unit's tiles that won the
+// SNAC sweep (tools/seanet_times.py --what snac_tiles; f16 takes bf16's).
 template <template <typename, typename> class Launch, typename Call>
 auto dispatch_snac_tile(const Call& c, int rows, int cols, int dtype)
     -> decltype(Launch<float, Fma<1>>::run(c)) {
   using R = decltype(Launch<float, Fma<1>>::run(c));
   using B = __nv_bfloat16;
+  using H = __half;
   if (dtype == 0 && rows == 256 && cols == 64) return Launch<float, Fma<1>>::run(c);
   if (dtype == 0 && rows == 128 && cols == 128) return Launch<float, Fma<2>>::run(c);
   if (dtype == 1 && rows == 128 && cols == 64) return Launch<B, Wg<64, 1>>::run(c);
   if (dtype == 1 && rows == 128 && cols == 128) return Launch<B, Wg<128, 1>>::run(c);
+  if (dtype == 2 && rows == 128 && cols == 64) return Launch<H, Wg<64, 1, H>>::run(c);
+  if (dtype == 2 && rows == 128 && cols == 128) return Launch<H, Wg<128, 1, H>>::run(c);
   return static_cast<R>(cudaErrorInvalidValue);
 }
 
-// The chain's tile (ops/seanet_cuda.py::chain_block): bf16 128 x 64; f32
-// the unit's tile whose one pass covers C.
+// The chain's tile (ops/seanet_cuda.py::chain_block): bf16 and f16 128 x
+// 64; f32 the unit's tile whose one pass covers C.
 cudaError_t dispatch_chain(const ChainCall& c, int rows, int cols, int dtype) {
   using B = __nv_bfloat16;
+  using H = __half;
   if (dtype == 1 && rows == 128 && cols == 64) return ChainLaunch<B, Wg<64, 1>>::run(c);
+  if (dtype == 2 && rows == 128 && cols == 64) return ChainLaunch<H, Wg<64, 1, H>>::run(c);
   if (dtype == 0 && rows == 256 && cols == 64) return ChainLaunch<float, Fma<1>>::run(c);
   if (dtype == 0 && rows == 128 && cols == 128) return ChainLaunch<float, Fma<2>>::run(c);
   if (dtype == 0 && rows == 64 && cols == 256) return ChainLaunch<float, Fma<4>>::run(c);
@@ -776,7 +800,8 @@ bool weights_ok(int c, int cw, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; rows, cols: the tile (dispatch_tile);
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; rows, cols: the tile
+// (dispatch_tile);
 // xs, s: B T cw elements of x's dtype each (snake(x) and the snaked
 // hidden S); xs is dead once the dilated conv is done, so it may be out's
 // memory when cw = C; w1, w2 padded to cw channels. Three launches in

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,13 +22,19 @@ constexpr int kMaxUnits = 4;        // units one chain launch takes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half(v); }
 
-// v as the dtype T holds it: f32 unchanged, bf16 rounded to nearest even
+// v as the dtype T holds it: f32 unchanged, bf16 and f16 rounded to nearest
+// even
 template <typename T> __device__ __forceinline__ float round_to(float v) { return v; }
 template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+template <> __device__ __forceinline__ float round_to<__half>(float v) {
+  return __half2float(__float2half(v));
 }
 
 // sin^2(y): period-pi range reduction, odd Taylor series on [-pi/2, pi/2];

@@ -267,12 +267,26 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 __device__ __forceinline__ void store4(float* p, const float4& v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store4(__half* p, const float4& v) {
+  const __half2 lo = __floats2half2_rn(v.x, v.y);
+  const __half2 hi = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
@@ -444,12 +458,13 @@ extern "C" int codec_snac_dw(const void* x, const void* w1, const float* vec, vo
                              int dtype, void* stream) {
   if (!valid_shape(batch, t_len, c, k) || k > kDwMaxTaps || dilation < 1 || cw < c ||
       cw % 4 != 0 || rows < kDwOut * dilation || rows % (kDwOut * dilation) != 0 ||
-      reinterpret_cast<uintptr_t>(s) % 16 != 0 || (dtype != 0 && dtype != 1))
+      reinterpret_cast<uintptr_t>(s) % 16 != 0 || dtype < 0 || dtype > 2)
     return cudaErrorInvalidValue;
   const int elem = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
   const DwArgs a{x, w1, vec, s, t_len, c, cw, k, dilation, rows,
                  (c * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 2) return dispatch_dw<__half>(a, batch, st);
   return dtype == 0 ? dispatch_dw<float>(a, batch, st) : dispatch_dw<__nv_bfloat16>(a, batch, st);
 }
 

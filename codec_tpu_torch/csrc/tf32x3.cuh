@@ -13,7 +13,7 @@
 // every product is exact.
 //
 // Fragments follow the PTX ISA's mma.m16n8k8 (.tf32) and mma.m16n8k16
-// (.bf16) layouts, with g = lane / 4 and t = lane % 4:
+// (.bf16 and .f16) layouts, with g = lane / 4 and t = lane % 4:
 //   A (16 x 8, row)   a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
 //   B (8 x 8, col)    b0 (k = t, n = g)  b1 (k = t + 4, n = g)
 //   C (16 x 8)        c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)
@@ -24,7 +24,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tf32x3 {
 
@@ -97,6 +100,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a · b, one m16n8k16 f16 pass (exact products, f32 sums)
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the m16n8k16 pass of a 16-bit operand type T (bf16 or f16)
+template <typename T>
+__device__ __forceinline__ void mma_16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (std::is_same_v<T, __half>) mma_f16(c, a, b0, b1);
+  else mma_bf16(c, a, b0, b1);
+}
+
 // wgmma m64nNk8 TF32 with A (16 rows x 8 per warp, the m16n8k8 A
 // layout) from registers and B [N][k] K-major from shared memory through
 // desc: d += a · b. d[4i + 2h + e] is row g + 8h of the warp's 16, column
@@ -161,6 +182,27 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// two f32 → one f16x2 word (x in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_f16(float x, float y) {
+  const __half2 v = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x, y) → f16 hi and lo words: hi = f16(x), lo = f16(x - hi)
+__device__ __forceinline__ void split_f16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x, y);
+  const float2 hf = __half22float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_f16(x - hf.x, y - hf.y);
+}
+
+// the split of a 16-bit operand type T (bf16 or f16)
+template <typename T>
+__device__ __forceinline__ void split_16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  if constexpr (std::is_same_v<T, __half>) split_f16(x, y, hi, lo);
+  else split_bf16(x, y, hi, lo);
 }
 
 }  // namespace tf32x3

@@ -58,17 +58,26 @@ class AudioLM:
         return self.lm.info.n_codebook if self.lm else 1
 
     # -- per-step hooks ----------------------------------------------------
-    def observe_codes(self, codes: Sequence[int]) -> ObserveAction:
+    def observe_codes(self, codes: Sequence[int], last_hidden=None,
+                      compose: bool = True) -> ObserveAction:
         """Type C/D frame observe (reference: audio_lm_observe_codes):
         record the frame, stop on the EOS frame, else compose the next
-        backbone input into `next_embed`."""
+        backbone input into `next_embed`.
+
+        `compose=False` skips the compose (a device gather and a copy to
+        the host): callers whose feedback is composed on the device (the
+        generation chunk) pass it, and only the embed step advances.
+        `last_hidden` is accepted for the reference's signature and not
+        read by the codebook kinds."""
         codes = list(codes)
         self.frames.append(codes)
         if self.state is not None and self.state.step_is_eos(codes):
             return ObserveAction.STOP
         if self.lm is None:
             return ObserveAction.CONSUMED
-        self.next_embed = self.lm.compose_next_embd(codes, self._embed_step)
+        if compose:
+            self.next_embed = self.lm.compose_next_embd(codes,
+                                                        self._embed_step)
         self._embed_step += 1
         return ObserveAction.CONSUMED_EMBED
 

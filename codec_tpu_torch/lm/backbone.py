@@ -16,6 +16,13 @@ The KV cache is one preallocated [L, 2, n_kv, max_ctx, D] tensor that the
 forward updates in place at the new positions; attention reads keys
 [0, pos + T) only, which equals the reference's masked attention over
 the whole cache (its -1e30 logits give exp = 0 exactly).
+
+`backbone_step` is codec_tpu's form of one decode step for B streams: the
+positions are device tensors, the new keys are written at them by a
+scatter, and attention reads a fixed number of cache rows under the mask
+key_pos <= position. It has no host read and no shape that depends on a
+position, so lm/fused_gen.py can capture it in a CUDA graph; `step` and
+`prefill` stay the host path's.
 """
 
 from __future__ import annotations
@@ -223,6 +230,54 @@ def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
         mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, NEG_INF)
     for li, lw in enumerate(params["layers"]):
         x = layer_block(x, lw, kv[li], pos0, cfg, rope_cs, mask, qmm)
+    return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
+
+
+def backbone_step(params: Dict[str, Any], kv: torch.Tensor, pos: torch.Tensor,
+                  x: torch.Tensor, cfg: BackboneConfig, ctx: int,
+                  qmm: Callable = qmat.qmatmul) -> torch.Tensor:
+    """One decode step of B streams: x [B, hidden] at positions pos [B]
+    (int64, on the device); kv [B, L, 2, n_kv, >= ctx, D], each stream's
+    cache, updated in place: stream b's new key and value land at row
+    min(pos[b], ctx - 1), and its query attends rows [0, ctx) under the
+    mask key_pos <= pos[b] (codec_tpu/lm/backbone.py's mask over the whole
+    static cache, cut to the ctx rows a request can reach). The products
+    run at m = B. → hiddens [B, hidden] after the output norm."""
+    b = x.shape[0]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rope_cs = rope.rope_cos_sin(pos[:, None], hd, cfg.rope_theta,
+                                freq_factors=params["freq_factors"])
+    key_pos = torch.arange(ctx, device=x.device)
+    mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, NEG_INF)
+    rows = torch.arange(b, device=x.device)
+    w_pos = pos.clamp(max=ctx - 1)
+    for li, lw in enumerate(params["layers"]):
+        h = norms.rms_norm(x, lw["attn_norm"], cfg.rms_eps)
+        q, k, v = (_mm(h, lw[n], qmm) for n in ("q", "k", "v"))
+        if cfg.has_attn_bias:
+            q, k, v = q + lw["q_b"], k + lw["k_b"], v + lw["v_b"]
+        q = q.reshape(b, nh, 1, hd)
+        k = k.reshape(b, nkv, 1, hd)
+        v = v.reshape(b, nkv, hd)
+        if cfg.has_qk_norm:                   # per-head RMS over head_dim
+            q = norms.rms_norm(q, lw["q_norm"], cfg.rms_eps)
+            k = norms.rms_norm(k, lw["k_norm"], cfg.rms_eps)
+        q = rope.rotate(q, *rope_cs)
+        k = rope.rotate(k, *rope_cs)[:, :, 0]
+        keys, vals = kv[:, li, 0], kv[:, li, 1]     # [B, n_kv, max_ctx, D]
+        keys[rows, :, w_pos] = k
+        vals[rows, :, w_pos] = v
+        keys, vals = keys[:, :, None, :ctx], vals[:, :, None, :ctx]
+        # query head j reads kv head j // (nh / nkv), as jnp.repeat does
+        qg = q.reshape(b, nkv, nh // nkv, 1, hd)
+        logits = torch.matmul(qg.float(), keys.float().transpose(-1, -2))
+        logits = logits * hd ** -0.5 + mask[:, None, None, None, :]
+        w = torch.softmax(logits, dim=-1).to(vals.dtype)
+        att = torch.matmul(w, vals).reshape(b, nh * hd)
+        x = x + _mm(att, lw["o"], qmm)
+        h = norms.rms_norm(x, lw["ffn_norm"], cfg.rms_eps)
+        g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
+        x = x + _mm(g, lw["down"], qmm)
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
 
 

@@ -195,6 +195,25 @@ class LmState:
         self.frame_counter += 1
         return codes
 
+    def push_frame(self, codes: Sequence[int]) -> List[int]:
+        """Record one whole frame made on the device (the kind's fused
+        frame): checks the codes' ranges and advances the frame counter as
+        a begin → (logits / push) × N → finish cycle would. The
+        per-codebook machine stays the host-sampler and parity path."""
+        if self._phase != "idle":
+            raise LmStateError("push_frame: a per-codebook step is in flight")
+        codes = [int(c) for c in codes]
+        info = self.lm.info
+        if len(codes) != info.n_codebook:
+            raise LmError(f"push_frame: {len(codes)} codes != "
+                          f"{info.n_codebook}")
+        for k, c in enumerate(codes):
+            size = info.codebook_sizes[k]
+            if not (0 <= c < size):
+                raise LmError(f"code {c} out of range [0, {size}) for cb {k}")
+        self.frame_counter += 1
+        return codes
+
     def step_is_eos(self, codes: Sequence[int]) -> bool:
         """reference: codec_lm_step_is_eos — cb0 sentinel + min-step gate."""
         info = self.lm.info

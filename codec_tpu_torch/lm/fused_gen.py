@@ -1,0 +1,348 @@
+"""On-device chunked AR generation for codebook-AR TTS (counterpart of
+codec_tpu/lm/fused_gen.py's generation chunks).
+
+A chunk runs K whole frames on the device: the fused depth-AR frame with
+in-graph sampling (lm/residual_depth_ar.py::_build_frame) → the EOS gate →
+the feedback compose → one backbone step (lm/backbone.py::backbone_step),
+and packs the codes and the bookkeeping into one int32 tensor that the host
+reads with one copy. On CUDA a chunk is captured once as a CUDA graph over
+static buffers (hidden, positions, done flags, Gumbel noise, frame counters
+and the KV cache) and replayed; on the CPU it runs eagerly.
+
+codec_tpu's chunk is a `lax.while_loop` that leaves at EOS. A graph always
+runs its K frames, so EOS is data here: once a stream is done its hidden
+and position are held (`torch.where`), its later frames write their KV row
+at the held position, which the next real step there overwrites (as
+codec_tpu's batched chunk does for finished streams), and its code rows
+are zeros. The counts in the packed result are codec_tpu's: the frames up
+to and including the EOS frame, the position after the last feedback step.
+
+Packed layouts (codec_tpu's):
+  single stream: codes [K, n_cb] ++ [n_emitted, stopped, pos_after]
+  B streams:     codes [K, B, n_cb] ++ [n_iter] ++ done [B] ++ pos_after [B]
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from ..ops.sample import gumbel
+from .backbone import backbone_step
+
+_CTX_STEP = 64     # the attended cache rows are a multiple of this
+_KEEP = 4          # runners kept per backbone, frames per LM
+
+
+def _kept(owner, attr: str, key, make: Callable):
+    """owner.<attr>[key], made by make() when absent. At most _KEEP are
+    kept, the least recently used dropped first: its graph, the graph's
+    memory pool and, for a batch, its KV go with it."""
+    cache = owner.__dict__.setdefault(attr, OrderedDict())
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    while len(cache) >= _KEEP:
+        cache.popitem(last=False)
+    cache[key] = made = make()
+    return made
+
+
+def _chunk_loop(lm, bb_cfg, chain, n_frames: int, cb0_range, qmm: Callable,
+                clamp_pos: bool) -> Callable:
+    """The K-frame loop shared by both chunk forms: loop(params, kv, pos,
+    base_frame, h, noise, text_ctx, done, chains, ctx) → (codes [K, B,
+    n_cb], n_live [K, B] bool (the stream was not done when the frame
+    began), done [B], h' [B, hidden], pos' [B])."""
+    frame = lm._build_frame(chain, cb0_range=cb0_range)
+    compose = lm.compose_embd_fn()
+    info = lm.info
+    eos_code, eos_min = int(info.eos_code_c0), int(info.eos_min_step)
+    max_pos = int(bb_cfg.max_ctx) - 1
+
+    def loop(params, kv, pos, base_frame, h, noise, text_ctx, done, chains,
+             ctx: int):
+        rows, live = [], []
+        for i in range(n_frames):
+            codes = frame(h, noise[i], text_ctx, chains)           # [B, n_cb]
+            if eos_code >= 0:
+                is_eos = (codes[:, 0] == eos_code) & (base_frame + i >= eos_min)
+            else:
+                is_eos = torch.zeros_like(done)
+            emb = compose(codes).to(kv.dtype)
+            h2 = backbone_step(params, kv, pos, emb, bb_cfg, ctx, qmm)
+            live.append(~done)
+            rows.append(torch.where(done[:, None], 0, codes))
+            done = done | is_eos
+            h = torch.where(done[:, None], h, h2.float())
+            step = pos + 1
+            if clamp_pos:
+                step = step.clamp(max=max_pos)
+            pos = torch.where(done, pos, step)
+        return torch.stack(rows), torch.stack(live), done, h, pos
+
+    return loop
+
+
+def build_gen_chunk(lm, bb_cfg, chain: Optional[Tuple[float, int, float, float]],
+                    n_frames: int, cb0_range=None,
+                    qmm: Optional[Callable] = None) -> Callable:
+    """The single-stream chunk: chunk(params, kv [1, L, 2, n_kv, >= ctx, D],
+    pos [1], base_frame [1], h [1, hidden] f32, noise [K, 1, n_cb, W] f32,
+    text_ctx [1], ctx) → (packed int32 [K·n_cb + 3], h', pos'). `kv` is
+    updated in place; packed = codes.flatten() ++ [n_emitted, stopped,
+    pos_after], rows past n_emitted zero; `pos_after` is the position after
+    the last feedback step (the EOS frame takes none, as the host loop
+    breaks before `backbone.step`)."""
+    from ..ops import qmat
+
+    loop = _chunk_loop(lm, bb_cfg, chain, n_frames, cb0_range,
+                       qmm or qmat.qmatmul, clamp_pos=False)
+
+    def chunk(params, kv, pos, base_frame, h, noise, text_ctx, ctx: int):
+        done = torch.zeros_like(pos, dtype=torch.bool)
+        codes, live, done, h, pos = loop(params, kv, pos, base_frame, h,
+                                         noise, text_ctx, done, None, ctx)
+        meta = torch.stack([live.sum(), done[0].long(), pos[0]])
+        packed = torch.cat([codes.reshape(-1), meta]).to(torch.int32)
+        return packed, h, pos
+
+    return chunk
+
+
+def build_gen_chunk_batched(lm, bb_cfg,
+                            chain: Optional[Tuple[float, int, float, float]],
+                            n_frames: int, cb0_range=None,
+                            qmm: Optional[Callable] = None) -> Callable:
+    """B streams through one chunk, as one batch of tensors (the products
+    at m = B): chunk(params, kv [B, L, 2, n_kv, >= ctx, D], pos [B],
+    base_frame [B], h [B, hidden], noise [K, B, n_cb, W], text_ctx [B],
+    done0 [B] bool, chains [B, 4] or None, ctx) → (packed int32 [K·B·n_cb +
+    1 + 2B], h', pos') with packed = codes[K, B, n_cb].flatten() ++
+    [n_iter] ++ done[B] ++ pos_after[B]. Positions stop at max_ctx - 1.
+
+    `done0` carries the streams that already stopped (or empty slots) into
+    the chunk: they stay frozen, so a delay-tail flush later reads the KV
+    state of the frame they stopped at. `n_iter` counts the frames until
+    every stream is done. `chain=None` builds the chunk whose sampler chain
+    is data, `chains` [B, 4] (`ops.sample.sample_logits_dyn`)."""
+    from ..ops import qmat
+
+    loop = _chunk_loop(lm, bb_cfg, chain, n_frames, cb0_range,
+                       qmm or qmat.qmatmul, clamp_pos=True)
+
+    def chunk(params, kv, pos, base_frame, h, noise, text_ctx, done0, chains,
+              ctx: int):
+        codes, live, done, h, pos = loop(params, kv, pos, base_frame, h,
+                                         noise, text_ctx, done0, chains, ctx)
+        n_iter = live.any(dim=1).sum()[None]
+        packed = torch.cat([codes.reshape(-1), n_iter, done.long(), pos])
+        return packed.to(torch.int32), h, pos
+
+    return chunk
+
+
+class Graphed:
+    """fn() over static tensors, captured once as a CUDA graph.
+
+    `run()` calls fn eagerly on a CPU device; on CUDA the first call warms
+    fn up on a side stream (its kernels are built and cuBLAS initialised),
+    puts back the tensors in `restore` that the warm-up changed, captures
+    fn, and replays; later calls replay. The output is the graph's own
+    tensor, valid until the next replay. A failed capture raises."""
+
+    def __init__(self, fn: Callable, device: torch.device, restore=()):
+        self.fn, self.device, self.restore = fn, device, restore
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+
+    def eager(self):
+        with torch.inference_mode():
+            return self.fn()
+
+    def run(self):
+        if self.device.type != "cuda":
+            return self.eager()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        return self.out
+
+    def _capture(self) -> None:
+        saved = [t.clone() for t in self.restore]
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.eager()
+        current.wait_stream(side)
+        for t, s in zip(self.restore, saved):
+            t.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            self.out = self.fn()
+        self.graph = graph
+
+
+class ChunkRunner:
+    """One chunk's static buffers and its graph: B streams, K frames,
+    `ctx` attended cache rows. The host writes `h`, `pos`, `text_ctx`
+    once, and per chunk `base`, `done` and `noise`; `run()` advances `h`
+    and `pos` in place and returns the packed result (see the module
+    docstring). `kv` is the cache the chunk updates: the backbone's own
+    (single stream) or one owned here, [B, L, 2, n_kv, ctx, D]."""
+
+    def __init__(self, lm, backbone, chain, n_frames: int, cb0_range,
+                 batched: bool, b: int, ctx: int):
+        cfg, dev = backbone.cfg, backbone.device
+        self.k = n_frames
+        self.n_cb = lm.info.n_codebook
+        self.width = lm.noise_width()
+        self.h = torch.zeros((b, cfg.hidden), dtype=torch.float32, device=dev)
+        self.pos = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.base = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.text_ctx = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.noise = torch.zeros((n_frames, b, self.n_cb, self.width),
+                                 dtype=torch.float32, device=dev)
+        self.chains = (torch.zeros((b, 4), dtype=torch.float32, device=dev)
+                       if chain is None else None)
+        params, qmm = backbone.params, backbone.qmm
+        if batched:
+            self.kv = torch.zeros((b, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
+                                   cfg.head_dim), dtype=backbone.dtype,
+                                  device=dev)
+            chunk = build_gen_chunk_batched(lm, cfg, chain, n_frames,
+                                            cb0_range, qmm)
+
+            def step():
+                packed, h, pos = chunk(params, self.kv, self.pos, self.base,
+                                       self.h, self.noise, self.text_ctx,
+                                       self.done, self.chains, ctx)
+                self.h.copy_(h)
+                self.pos.copy_(pos)
+                return packed
+        else:
+            self.kv = backbone.kv[None]
+            chunk = build_gen_chunk(lm, cfg, chain, n_frames, cb0_range, qmm)
+
+            def step():
+                packed, h, pos = chunk(params, self.kv, self.pos, self.base,
+                                       self.h, self.noise, self.text_ctx, ctx)
+                self.h.copy_(h)
+                self.pos.copy_(pos)
+                return packed
+        self.graphed = Graphed(step, torch.device(dev), restore=(
+            self.h, self.pos, self.kv[..., :ctx, :]))
+
+    def draw_noise(self, generators, frames: int = 0) -> None:
+        """Fresh Gumbel noise for stream s's frames from generators[s], one
+        [n_cb, W] draw a frame (the per-frame path draws the same), or none
+        where generators[s] is None (greedy, or a stream that is done).
+        `frames`: draw only the first so many frames' rows (default K)."""
+        for s, gen in enumerate(generators):
+            if gen is not None:
+                self.noise[:frames or self.k, s] = torch.stack(
+                    [gumbel((self.n_cb, self.width), gen, self.noise.device)
+                     for _ in range(frames or self.k)])
+
+    def run(self) -> torch.Tensor:
+        return self.graphed.run()
+
+
+def init_rep_hist(lm, window: int, device=None):
+    """A fresh repetition-penalty history for a streaming chunk's carry:
+    (a -1-filled ring [n_cb, window], slot pointer 0) for window > 0, or a
+    seen-mask [n_cb, max vocab] for window < 0."""
+    n_cb = int(lm.info.n_codebook)
+    device = device or lm.device
+    if window > 0:
+        return (torch.full((n_cb, int(window)), -1, dtype=torch.int32,
+                           device=device), 0)
+    return torch.zeros((n_cb, max(lm.info.codebook_sizes)), dtype=torch.bool,
+                       device=device)
+
+
+def chunk_ctx(backbone, need: int) -> int:
+    """The cache rows a chunk attends: `need` rounded up to a multiple of
+    64 (so requests of similar lengths share a capture), at most max_ctx."""
+    return min(int(backbone.cfg.max_ctx), -(-int(need) // _CTX_STEP) * _CTX_STEP)
+
+
+def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
+                     temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 1.0, min_p: float = 0.0,
+                     cb0_range=None, batched: bool = False, b: int = 1,
+                     traced_chain: bool = False) -> ChunkRunner:
+    """The ChunkRunner of this (sampler chain, K, cb0_range, batch, ctx,
+    LM) on this backbone, built once and kept on the backbone (its graph
+    holds the backbone's weights and, for one stream, its KV cache). The
+    key also holds the KV cache's address and the TF32 settings the graph
+    was captured under. The backbone keeps the _KEEP runners used last
+    (a new sampler chain, length bucket or batch size past them drops the
+    oldest, its graph and its KV with it); `reset()` keeps them, so the
+    next request of the same shape replays without a capture.
+
+    `traced_chain=True` (batched only) ignores the chain statics: the
+    runner's `chains` [B, 4] carries each stream's chain."""
+    if traced_chain and not batched:
+        raise ValueError("traced_chain is a batched-chunk mode")
+    chain = None if traced_chain else (
+        float(temperature), int(top_k), float(top_p), float(min_p))
+    key = (id(lm), chain, int(n_frames), cb0_range, batched, int(b), int(ctx),
+           None if batched else backbone.kv.data_ptr(), repr(backbone.cfg),
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    # the LM rides along so that id(lm) is not reused while the entry lives
+    return _kept(backbone, "_gen_chunks", key, lambda: (lm, ChunkRunner(
+        lm, backbone, chain, int(n_frames), cb0_range, batched, int(b),
+        int(ctx))))[1]
+
+
+class FrameRunner:
+    """The per-frame path's frame over static buffers, for a backbone the
+    chunk cannot run (the host's Backbone protocol alone: its step stays
+    on the host), captured as a CUDA graph on the card: `h` [1, hidden],
+    `noise` [1, n_cb, W], `text_ctx` [1] in; `run()` → codes [1, n_cb]."""
+
+    def __init__(self, lm, chain, cb0_range):
+        dev = lm.device
+        info = lm.info
+        self.h = torch.zeros((1, info.hidden_dim), dtype=torch.float32,
+                             device=dev)
+        self.noise = torch.zeros((1, info.n_codebook, lm.noise_width()),
+                                 dtype=torch.float32, device=dev)
+        self.text_ctx = torch.zeros((1,), dtype=torch.long, device=dev)
+        frame = lm._build_frame(chain, cb0_range=cb0_range)
+        self.graphed = Graphed(lambda: frame(self.h, self.noise,
+                                             self.text_ctx), dev)
+
+    def draw_noise(self, gen) -> None:
+        self.noise[0] = gumbel(self.noise.shape[1:], gen, self.noise.device)
+
+    def run(self) -> torch.Tensor:
+        return self.graphed.run()
+
+
+def frame_cached(lm, *, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, min_p: float = 0.0,
+                 cb0_range=None) -> FrameRunner:
+    """The FrameRunner of this chain and cb0_range, kept on the LM (the
+    _KEEP used last)."""
+    chain = (float(temperature), int(top_k), float(top_p), float(min_p))
+    key = (chain, cb0_range, torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    return _kept(lm, "_frame_runners", key,
+                 lambda: FrameRunner(lm, chain, cb0_range))
+
+
+def supports_gen_chunk(lm: Any, backbone: Any) -> bool:
+    """The chunked loop needs a frame and a compose on the LM kind and a
+    backbone whose weights, KV cache and config it can run itself (the
+    tts_runner Backbone protocol alone, an opaque host LLM, cannot be
+    chained on the device)."""
+    return (hasattr(lm, "_build_frame") and hasattr(lm, "compose_embd_fn")
+            and hasattr(backbone, "params") and hasattr(backbone, "kv")
+            and hasattr(backbone, "cfg"))

@@ -15,16 +15,24 @@ Reference: src/lm/residual_depth_ar.cpp. Variants handled by flags:
   - optional qk-norm (Qwen3), RoPE NEOX/NORMAL or none, llama3 freq
     factors.
 
-Each depth step re-runs the full prefix (T <= n_codebook rows), as the
-reference's CPU path does. The prefix rows live on the device in a
-[n_codebook, row_dim] buffer: a pushed code writes its embedding row, and
-row k is read only by steps after it. The on-device frame loop
-(`fused_frame`) and the LFM2 compose table are not ported yet.
+Each depth step of the host step machine re-runs the growing prefix (T <=
+n_codebook rows), as the reference's CPU path does. The prefix rows live
+on the device in a [n_codebook, row_dim] buffer: a pushed code writes its
+embedding row, and row k is read only by steps after it.
+
+The on-device frame (`_build_frame`, codec_tpu's `fused_frame` and
+`fused_frame_batched` in one: B streams as one batch of tensors) runs a
+whole frame with in-graph sampling (ops/sample.py): the c0 head,
+then one full-prefix depth trunk over the fixed [n_codebook, row_dim]
+buffer per depth step (causal masking makes the unfilled rows inert), as
+codec_tpu's frame does. The fixed shapes and the absence of host reads are
+what let lm/fused_gen.py capture it in a CUDA graph. The LFM2 compose table
+is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,14 +40,35 @@ import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
 from ..ops import attn, norms, rope
+from ..ops.sample import mask_outside_range, sample_logits, sample_logits_dyn
 from .base import CodecLM, LmError, LmInfo, LmState, read_common_info, register_kind
 
 
 def _per_pos_linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """w: [out, in] shared or [N, out, in] per-pos; x: [T, in] → [T, out]."""
+    """w: [out, in] shared or [N, out, in] per-pos; x: [..., T, in] →
+    [..., T, out]."""
     if w.ndim == 2:
         return F.linear(x, w)
-    return torch.einsum("ti,toi->to", x, w[: x.shape[0]])
+    return torch.einsum("...ti,toi->...to", x, w[: x.shape[-2]])
+
+
+class FusedConsts(NamedTuple):
+    """What the on-device frame reads besides the layers: the heads
+    stacked and vocab-padded, each head's vocab, the per-head pre-norms
+    (None where a head has none), the embedding tables of the codes fed
+    back into the prefix (stacked, padded), the widths of the c0 and depth
+    logits, and the fixed prefix buffer's causal mask and RoPE."""
+    n: int                          # codebooks
+    off: int                        # 1 when c0 comes from the c0 head
+    n_dh: int                       # depth heads
+    heads: Optional[torch.Tensor]   # [n_dh, V, depth_hidden]
+    sizes: List[int]
+    pre_norms: List[Optional[torch.Tensor]]
+    tabs: Optional[torch.Tensor]    # [n - 1 - off, rows, row_dim]
+    c0_width: int
+    head_width: int
+    mask: torch.Tensor              # [n, n]
+    rope_cs: Optional[tuple]
 
 
 @register_kind("residual_depth_ar")
@@ -117,13 +146,20 @@ class ResidualDepthArLM(CodecLM):
                 lw["q_norm"] = g(f"{p}.q_norm.weight")
                 lw["k_norm"] = g(f"{p}.k_norm.weight")
             self.layers.append(lw)
+        self._fused_consts_cache: Optional[FusedConsts] = None
         return info
 
     # -- depth forward -----------------------------------------------------
-    def _depth_trunk(self, prefix: torch.Tensor, h_in: torch.Tensor) -> torch.Tensor:
-        """prefix [T, row_dim], h_in [hidden] → hidden rows [T, depth_hidden]
-        after the output norm (causal: row k depends on rows 0..k only)."""
-        t = prefix.shape[0]
+    def _depth_trunk(self, prefix: torch.Tensor, h_in: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     rope_cs: Optional[tuple] = None) -> torch.Tensor:
+        """prefix [..., T, row_dim], h_in [..., hidden] → hidden rows [..., T,
+        depth_hidden] after the output norm (causal: row k depends on rows
+        0..k only). mask and rope_cs: the T rows' causal mask and RoPE
+        angles, built here when not given."""
+        lead, t = prefix.shape[:-2], prefix.shape[-2]
+        prefix = prefix.reshape(-1, t, prefix.shape[-1])
+        b = prefix.shape[0]
         if not self.in_proj_per_pos:
             x = _per_pos_linear(self.in_proj, prefix) if self.in_proj is not None else prefix
             if self.in_proj is not None and self.in_proj_bias is not None:
@@ -131,15 +167,16 @@ class ResidualDepthArLM(CodecLM):
         else:
             x = prefix
             if self.in_proj is not None:
-                proj = torch.einsum("i,toi->to", h_in, self.in_proj[:t])
+                proj = torch.einsum("bi,toi->bto", h_in.reshape(b, -1),
+                                    self.in_proj[:t])
                 if self.in_proj_bias is not None:
-                    b = self.in_proj_bias
-                    proj = proj + (b[:t] if b.ndim == 2 else b)
+                    bias = self.in_proj_bias
+                    proj = proj + (bias[:t] if bias.ndim == 2 else bias)
                 x = x + proj
 
-        mask = attn.attn_mask(t, t, causal=True, device=prefix.device)
-        rope_cs = None
-        if self.use_rope:
+        if mask is None:
+            mask = attn.attn_mask(t, t, causal=True, device=prefix.device)
+        if rope_cs is None and self.use_rope:
             rope_cs = rope.rope_cos_sin(torch.arange(t, device=prefix.device),
                                         self.head_dim, self.rope_theta,
                                         freq_factors=self.freq_factors)
@@ -147,9 +184,9 @@ class ResidualDepthArLM(CodecLM):
         xb = x
         for lw in self.layers:
             h = norms.rms_norm(xb, lw["attn_norm"], self.rms_eps)
-            q = _per_pos_linear(lw["q"], h).reshape(t, nh, hd).transpose(0, 1)[None]
-            k = _per_pos_linear(lw["k"], h).reshape(t, nkv, hd).transpose(0, 1)[None]
-            v = _per_pos_linear(lw["v"], h).reshape(t, nkv, hd).transpose(0, 1)[None]
+            q = _per_pos_linear(lw["q"], h).reshape(b, t, nh, hd).transpose(1, 2)
+            k = _per_pos_linear(lw["k"], h).reshape(b, t, nkv, hd).transpose(1, 2)
+            v = _per_pos_linear(lw["v"], h).reshape(b, t, nkv, hd).transpose(1, 2)
             if self.has_qk_norm:
                 q = norms.rms_norm(q, lw["q_norm"], self.rms_eps)
                 k = norms.rms_norm(k, lw["k_norm"], self.rms_eps)
@@ -160,7 +197,7 @@ class ResidualDepthArLM(CodecLM):
                 k = torch.repeat_interleave(k, nh // nkv, dim=1)
                 v = torch.repeat_interleave(v, nh // nkv, dim=1)
             ctx = attn.sdpa(q, k, v, mask=mask)
-            ctx = ctx[0].transpose(0, 1).reshape(t, nh * hd)
+            ctx = ctx.transpose(1, 2).reshape(b, t, nh * hd)
             xb = xb + _per_pos_linear(lw["o"], ctx)
             m2 = norms.rms_norm(xb, lw["ffn_norm"], self.rms_eps)
             gate = F.silu(_per_pos_linear(lw["gate"], m2))
@@ -168,7 +205,7 @@ class ResidualDepthArLM(CodecLM):
             xb = xb + _per_pos_linear(lw["down"], gate * up)
         if self.output_norm is not None:
             xb = norms.rms_norm(xb, self.output_norm, self.rms_eps)
-        return xb
+        return xb.reshape(*lead, t, xb.shape[-1])
 
     def _depth_forward(self, prefix: torch.Tensor, h_in: torch.Tensor,
                        head_idx: int) -> torch.Tensor:
@@ -180,6 +217,120 @@ class ResidualDepthArLM(CodecLM):
         head = (self.flex_heads[head_idx] if self.flex_heads is not None
                 else self.depth_heads[head_idx])
         return head @ last
+
+    # -- fused on-device frame ----------------------------------------------
+    def _fused_consts(self) -> FusedConsts:
+        """The frame's stacked tables (built once; see FusedConsts)."""
+        c = self._fused_consts_cache
+        if c is not None:
+            return c
+        info = self.info
+        n = info.n_codebook
+        off = 0 if self.depth_emits_c0 else 1
+        n_dh = n - off
+        if self.flex_heads is not None:
+            heads = self.flex_heads
+        elif self.depth_heads:
+            vmax = max(int(w.shape[0]) for w in self.depth_heads)
+            heads = torch.stack([F.pad(w, (0, 0, 0, vmax - w.shape[0]))
+                                 for w in self.depth_heads])
+        else:
+            heads = None
+        pre_norms = [None] * n_dh
+        if self.has_pre_head_norm and self.heads_pre_norm:
+            pre_norms = list(self.heads_pre_norm)
+        # code i (off <= i <= n - 2) is embedded into prefix row i + 1
+        tabs = [self.audio_embds[i] for i in range(off, n - 1)]
+        if any(t is None for t in tabs):
+            raise LmError("fused frame: missing depth audio_embd table")
+        tabs_s = None
+        if tabs:
+            rmax = max(int(t.shape[0]) for t in tabs)
+            tabs_s = torch.stack([F.pad(t, (0, 0, 0, rmax - t.shape[0]))
+                                  for t in tabs])
+        dev = self.device
+        rope_cs = None
+        if self.use_rope:
+            rope_cs = rope.rope_cos_sin(torch.arange(n, device=dev),
+                                        self.head_dim, self.rope_theta,
+                                        freq_factors=self.freq_factors)
+        c = FusedConsts(
+            n=n, off=off, n_dh=n_dh, heads=heads,
+            sizes=list(info.codebook_sizes[off:]), pre_norms=pre_norms,
+            tabs=tabs_s,
+            c0_width=int(self.c0_head.shape[0]) if self.c0_head is not None else 0,
+            head_width=int(heads.shape[1]) if heads is not None else 0,
+            mask=attn.attn_mask(n, n, causal=True, device=dev),
+            rope_cs=rope_cs)
+        self._fused_consts_cache = c
+        return c
+
+    def noise_width(self) -> int:
+        """The last dim of the frame's Gumbel noise [..., n_codebook, W]:
+        the widest logits row (codebook k reads the first width of its
+        logits)."""
+        c = self._fused_consts()
+        return max(c.c0_width, c.head_width)
+
+    def _build_frame(self, chain, cb0_range=None) -> Callable:
+        """The batched frame for a sampler chain: frame(h [B, hidden] f32,
+        noise [B, n_codebook, noise_width()] f32, text_ctx [B] int64,
+        chains=None) → codes [B, n_codebook] int64, on the device with no
+        host read and no shape that depends on a value.
+
+        `chain` is (temperature, top_k, top_p, min_p), or None for the
+        chain as data: then `chains` [B, 4] gives each stream's row
+        (`sample_logits_dyn`). `cb0_range=(start, end, *extra)` masks the
+        c0 logits to the host RangeConstraint's set."""
+        c = self._fused_consts()
+        info = self.info
+        row_dim, hidden = info.audio_embed_dim, info.hidden_dim
+        if chain is None:
+            def sample(lg, g, cv):
+                return sample_logits_dyn(lg, g, cv)
+        else:
+            def sample(lg, g, cv):
+                return sample_logits(lg, g, temperature=chain[0],
+                                     top_k=chain[1], top_p=chain[2],
+                                     min_p=chain[3])
+        # the padded tail of each head's logits: -inf
+        valid = [None if size >= c.head_width else
+                 torch.arange(c.head_width, device=self.device) < size
+                 for size in c.sizes]
+
+        def frame(h, noise, text_ctx, chains=None):
+            b = h.shape[0]
+            buf = h.new_zeros((b, c.n, row_dim))
+            if not self.in_proj_per_pos:
+                buf[:, 0, :hidden] = h
+            elif self.c0_is_text:
+                buf[:, 0] = self.text_embd[text_ctx]
+            # c0_is_none: row 0 stays zero
+            codes = []
+            if not self.depth_emits_c0:
+                lg0 = F.linear(h, self.c0_head)
+                if cb0_range is not None:
+                    lg0 = mask_outside_range(lg0, cb0_range[0], cb0_range[1],
+                                             cb0_range[2:])
+                c0 = sample(lg0, noise[:, 0, :c.c0_width], chains)
+                codes.append(c0)
+                if c.n > 1:
+                    buf[:, 1] = self.audio_embds[0][c0]
+            for i in range(c.n_dh):
+                x = self._depth_trunk(buf, h, c.mask, c.rope_cs)
+                row = x[:, i + c.off]
+                if c.pre_norms[i] is not None:
+                    row = norms.rms_norm(row, c.pre_norms[i], self.rms_eps)
+                lg = F.linear(row, c.heads[i])
+                if valid[i] is not None:
+                    lg = torch.where(valid[i], lg, float("-inf"))
+                code = sample(lg, noise[:, i + c.off, :c.head_width], chains)
+                codes.append(code)
+                if c.tabs is not None and i < c.n_dh - 1:
+                    buf[:, i + c.off + 1] = c.tabs[i][code]
+            return torch.stack(codes, dim=1)
+
+        return frame
 
     # -- step machine hooks ------------------------------------------------
     def _begin(self, state: LmState, h: np.ndarray) -> None:
@@ -227,3 +378,20 @@ class ResidualDepthArLM(CodecLM):
             for g in torch.stack(rows).cpu().numpy():
                 out += g
         return out
+
+    def compose_embd_fn(self) -> Callable:
+        """The device form of compose_audio_embd for the generation chunk
+        (lm/fused_gen.py): codes [B, n_codebook] int64 → [B,
+        audio_embed_dim], the tables' rows summed in codebook order. Sampled
+        codes are in range, so the host path's -1 guard is not needed."""
+        live = [i for i, t in enumerate(self.audio_embds) if t is not None]
+        if not live:
+            raise LmError("compose_embd_fn: no audio embedding tables")
+
+        def compose(codes):
+            acc = self.audio_embds[live[0]][codes[:, live[0]]]
+            for i in live[1:]:
+                acc = acc + self.audio_embds[i][codes[:, i]]
+            return acc
+
+        return compose

@@ -20,7 +20,7 @@ import torch
 from ..kernels.build import launch_on
 from .attn import attn_mask, sdpa
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _BQ = 16                      # queries per block (csrc/flash_sdpa_window.cu)
 _MAX_Q_TILES = 65535          # gridDim.y limit
@@ -77,7 +77,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k_start!r}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_sdpa_window: dtype {q.dtype} not supported "
-                         f"(float32 or bfloat16)")
+                         f"(float32, bfloat16 or float16)")
     if shape[3] not in _HEAD_DIMS:
         raise ValueError(f"flash_sdpa_window: head dim {shape[3]} not "
                          f"supported {_HEAD_DIMS}")
@@ -98,7 +98,7 @@ def flash_sdpa_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k_start: int = 0) -> torch.Tensor:
     """Causal (+ optional sliding-window) attention.
 
-    q: [B, H, Tq, D], k, v: [B, H, Tk, D] with Tk >= Tq (f32 or bf16; D in
+    q: [B, H, Tq, D], k, v: [B, H, Tk, D] with Tk >= Tq (f32, bf16 or f16; D in
     {64, 128} on CUDA) → [B, H, Tq, D] in v's dtype. Query i sits at key
     position p = Tk - Tq + i and sees key j iff k_start <= j <= p and
     p - window < j; 0 <= k_start <= Tk - Tq. With Tk == Tq and k_start 0

@@ -28,19 +28,21 @@ import torch
 
 from . import act, conv
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PI = 3.14159265358979323846
 # The DAC kernels' tiles (csrc/seanet_res.cu, csrc/seanet_gemm.cuh), as
 # (rows, columns per output pass): a block, one per SM, is two consumer
 # warpgroups and one producer warpgroup. f32 (Fma): eight warp tiles of
-# 32 x 64, input chunks of 32. bf16 (Wg, wgmma): 64 or 128 rows per
-# warpgroup, passes of 64-192 columns (at most 128 accumulators a thread),
-# input chunks of 64. Each tile is the fastest at some DAC width, batch
-# (1, 4) or length (20 s, 2 s) on an H100 (PERF.md, tools/seanet_times.py
-# --what tiles).
+# 32 x 64, input chunks of 32. bf16 and f16 (Wg, wgmma): 64 or 128 rows
+# per warpgroup, passes of 64-192 columns (at most 128 accumulators a
+# thread), input chunks of 64. Each tile is the fastest at some DAC width,
+# batch (1, 4) or length (20 s, 2 s) on an H100 (PERF.md,
+# tools/seanet_times.py --what tiles); f16 starts from bf16's tiles (both
+# are 2-byte operands).
 _UNIT_TILES = {torch.float32: ((256, 64), (128, 128), (64, 256)),
                torch.bfloat16: ((128, 64), (128, 128), (128, 192), (256, 128))}
-_CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+_UNIT_TILES[torch.float16] = _UNIT_TILES[torch.bfloat16]
+_CHUNK = {torch.float32: 32, torch.bfloat16: 64, torch.float16: 64}
 _UNIT_STAGES, _CHAIN_STAGES = 4, 2      # weight stages of the TMA ring
 _BARRIER_BYTES = 1024
 _H100_SMEM = 232448     # opt-in shared memory per block (csrc: kSmemLimit)
@@ -66,6 +68,7 @@ _DW_MAX_TAPS = 7
 # that sweep
 _SNAC_TILES = {torch.float32: ((256, 64), (128, 128)),
                torch.bfloat16: ((128, 64), (128, 128))}
+_SNAC_TILES[torch.float16] = _SNAC_TILES[torch.bfloat16]
 _SNAC_X_SLOTS = 2
 _SNAC_PASS_COST = 0
 _SNAC_BLOCK_COST = 8192
@@ -81,6 +84,7 @@ _WIDE_C = 512
 # tile: (compiled widths, columns per width unit, rows per warp)
 _TILES = {"f32": ((1, 2, 3, 4, 6, 8), 32, 4), "f32 wide": ((4, 6, 8), 64, 8),
           "bf16": ((1, 2, 3, 4, 6), 64, 32)}
+_TILE_DTYPES = (torch.float32, torch.bfloat16)   # SNAC chain kernel (N > 1)
 _MAX_UNITS = 4
 # The chain's rows of state per block: at most 512 (more would leave a
 # narrow C too few blocks to fill the card).
@@ -135,8 +139,18 @@ def snac_dw_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     x's dtype: the snaked hidden S = snake(dwconv(snake(x, α1)) + b1, α2),
     [B, T, C]; w1 [K, C] the per-channel taps."""
     h = act.snake(x, a1, eps)
-    h = conv.conv1d(h, w1[:, None, :], b1, dilation=dilation,
-                    padding=_halo(w1.shape[0], dilation), groups=x.shape[-1])
+    # cuDNN's f16 depthwise conv faults on an H100 at SNAC's decoder block
+    # C256 T59904 (an illegal address, every run, with either input layout;
+    # tools/f16_probe.py): f16 on the card takes PyTorch's own kernel
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn and not (
+        x.is_cuda and x.dtype == torch.float16)
+    try:
+        h = conv.conv1d(h, w1[:, None, :], b1, dilation=dilation,
+                        padding=_halo(w1.shape[0], dilation),
+                        groups=x.shape[-1])
+    finally:
+        torch.backends.cudnn.enabled = cudnn
     return act.snake(h, a2, eps)
 
 
@@ -270,9 +284,9 @@ def _largest_tile(smem_bytes, smem_limit: int) -> int:
 
 def chain_block(c: int, dtype: torch.dtype) -> tuple:
     """The chain's product tile (csrc/seanet_res.cu::dispatch_chain): bf16
-    128 x 64; f32 one output pass, the narrowest of the unit's f32 tiles
-    that covers C (64, 128 or 256 columns), else the widest."""
-    if dtype == torch.bfloat16:
+    and f16 128 x 64; f32 one output pass, the narrowest of the unit's f32
+    tiles that covers C (64, 128 or 256 columns), else the widest."""
+    if dtype != torch.float32:
         return (128, 64)
     return next((tile for tile in sorted(_UNIT_TILES[dtype],
                                          key=lambda tile: tile[1])
@@ -291,13 +305,13 @@ def chain_tile(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
 
 def use_chain(c: int, k: int, dilations: Sequence[int], dtype: torch.dtype,
               smem_limit: int) -> bool:
-    """The gate: a block's units run as one chain launch only in bf16 and
-    where the chain's whole 512-row state fits (at the DAC widths: bf16
-    C64, the encoder's first block), else as one unit launch each. On an
-    H100 the chain lost to three unit launches at every DAC width where it
-    fits, in both dtypes, least at bf16 C64 (PERF.md): the gate keeps it
-    there, so that a DAC path still runs it."""
-    return (dtype == torch.bfloat16 and chain_tile(
+    """The gate: a block's units run as one chain launch only in a 16-bit
+    dtype (bf16 or f16) and where the chain's whole 512-row state fits (at
+    the DAC widths: C64, the encoder's first block), else as one unit
+    launch each. On an H100 the chain lost to three unit launches at every
+    DAC width where it fits, in f32 and bf16, least at bf16 C64 (PERF.md):
+    the gate keeps it there, so that a DAC path still runs it."""
+    return (dtype != torch.float32 and chain_tile(
         c, k, dilations, dtype, smem_limit) == _CHAIN_MAX_TILE)
 
 
@@ -448,7 +462,7 @@ def _check(what: str, x: torch.Tensor, w1s: torch.Tensor, w2s: torch.Tensor,
     x's dtype."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what}: dtype {x.dtype} not supported "
-                         f"(float32 or bfloat16)")
+                         f"(float32, bfloat16 or float16)")
     if x.ndim != 3 or x.shape[1] < 1 or not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"{what}: x must be [B, T, C] with T >= 1, "
                          f"got {tuple(x.shape)}")
@@ -555,7 +569,7 @@ def seanet_res_unit(x: torch.Tensor, alpha1: torch.Tensor, w1: torch.Tensor,
                     b1: torch.Tensor, alpha2: torch.Tensor, w2: torch.Tensor,
                     b2: torch.Tensor, dilation: int = 1, eps: float = 1e-9,
                     vec: torch.Tensor | None = None) -> torch.Tensor:
-    """One residual unit: x [B, T, C] (f32 or bf16) → [B, T, C]; vec: its
+    """One residual unit: x [B, T, C] (f32, bf16 or f16) → [B, T, C]; vec: its
     rows [1, 6, C] or [6, C] (unit_vec), else built here.
 
     Counts its kernel launches in `seanet_res_unit.launches`."""
@@ -584,7 +598,7 @@ def seanet_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                      b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
                      eps: float = 1e-9,
                      vec: torch.Tensor | None = None) -> torch.Tensor:
-    """N residual units in one pass: x [B, T, C] (f32 or bf16); w1s
+    """N residual units in one pass: x [B, T, C] (f32, bf16 or f16); w1s
     [N, K, C, C]; w2s [N, C, C]; alphas and biases [N, C]; vec their rows
     [N, 6, C] (unit_vec), else built here → [B, T, C]. The residual stays
     f32 across units. Raises on CUDA where not even 32 rows of the chain's
@@ -704,14 +718,15 @@ def snac_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                    b2s: torch.Tensor, dilations: Sequence[int] = (1, 3, 9),
                    eps: float = 1e-9,
                    vec: torch.Tensor | None = None) -> torch.Tensor:
-    """N depthwise residual units (SNAC): x [B, T, C] (f32 or bf16); w1s
+    """N depthwise residual units (SNAC): x [B, T, C] (f32, bf16 or f16); w1s
     [N, K, C] per-channel taps; w2s [N, C, C]; alphas and biases [N, C];
     vec their rows [N, 6, C] (unit_vec), else built here → [B, T, C]. With
     N = 1 (what a decode launches) two kernels in stream order: the
     depthwise pass writes the snaked hidden S once, then the 1x1 at
     `snac_tile` reads S and x (K <= 7). With N > 1 the chain kernel keeps
-    the residual in f32 in shared memory across units, and raises on CUDA
-    where not even 32 rows of that state fit (`dw_chain_tile`).
+    the residual in f32 in shared memory across units (f32 and bf16 only),
+    and raises on CUDA where not even 32 rows of that state fit
+    (`dw_chain_tile`).
 
     Counts its wrapper calls that launch in `snac_res_chain.launches`."""
     if x.device.type == "cpu":
@@ -731,6 +746,10 @@ def snac_res_chain(x: torch.Tensor, w1s: torch.Tensor, b1s: torch.Tensor,
                                           _sm_count(x.device.index or 0)))
         snac_res_chain.launches += 1
         return out
+    if x.dtype not in _TILE_DTYPES:
+        raise ValueError(f"snac_res_chain: the chain kernel (N > 1) takes "
+                         f"float32 or bfloat16, got {x.dtype}; run the "
+                         f"units one at a time (N = 1)")
     tile = dw_chain_tile(c, k, dilations, x.dtype,
                          smem_per_block(x.device.index or 0))
     if not tile:

@@ -33,12 +33,13 @@ class CodecError(ValueError):
 _DTYPE_ALIASES = {
     "float32": torch.float32, "f32": torch.float32,
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+    "float16": torch.float16, "f16": torch.float16,
 }
 
 
 def resolve_compute_dtype(spec, reader: Optional[GGUFReader] = None
                           ) -> torch.dtype:
-    """Resolve "float32" | "bfloat16" | "auto" | a torch dtype.
+    """Resolve "float32" | "bfloat16" | "float16" | "auto" | a torch dtype.
 
     "auto" follows the checkpoint by byte share: bfloat16 when 16-bit
     (F16/BF16) tensors hold more than half the bytes and nothing is
@@ -117,6 +118,28 @@ class CodecModel:
         self.exact_encode = self.compute_dtype == torch.float32
         self.metadata: Dict[str, Any] = dict(reader.kv)
         self._load(reader)
+
+    # -- metadata accessors (reference: codec_model_n_fft / win_length /
+    #    n_mels / name / n_tensors; -1 or "" when absent) ------------------
+    @property
+    def n_fft(self) -> int:
+        return int(self.metadata.get("codec.n_fft", -1))
+
+    @property
+    def win_length(self) -> int:
+        return int(self.metadata.get("codec.win_length", -1))
+
+    @property
+    def n_mels(self) -> int:
+        return int(self.metadata.get("codec.n_mels", -1))
+
+    @property
+    def name(self) -> str:
+        return str(self.metadata.get("general.name", ""))
+
+    @property
+    def n_tensors(self) -> int:
+        return len(self.reader.tensors) if self.reader is not None else 0
 
     # -- subclass hooks ----------------------------------------------------
     def _load(self, reader: GGUFReader) -> None:

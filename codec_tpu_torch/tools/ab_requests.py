@@ -7,17 +7,24 @@ DIR is the root of another tree (a `git archive` of an older commit,
 unpacked under build/ with its pyproject.toml). Its package is imported as
 `codec_tpu_torch_parent` beside this tree's `codec_tpu_torch`, each with
 its own kernel library, built under its own tree's build/. Random weights
-are written once with this tree's writers (seed 0): a full-width Mimi, a
-CSM codec (that Mimi and CSM-1B's depth decoder) and a Llama-3.2-1B-shaped
-Q4_K backbone; both trees load the same files.
+are written once with this tree's writers (seed 0): a full-width Mimi
+(with its encoder), DAC and SNAC, a CSM codec (that Mimi and CSM-1B's
+depth decoder) and a Llama-3.2-1B-shaped Q4_K backbone; both trees load
+the same files.
 
 Requests (--what): `f32` and `bf16`, the Mimi decode of 20 s b1 (host
 codes to host PCM; a sample is the median of --runs CUDA-event runs after
-two warm-ups); `tts`, one CSM TTS request as chip_smoke.py's
+two warm-ups); `encode`, the Mimi encode of 20 s b1 f32 (host PCM to host
+codes, timed as `f32`); `push` and `push_bf16`, one push of 1 frame on a
+warm b1 Mimi streaming decoder (timed as `f32`); `first_audio`, a fresh
+session's first push of 1 frame, opening included (a sample is one
+host-timed call); `dac` and `snac`, the DAC and SNAC decodes of 20 s b1
+f32 (timed as `f32`); `tts`, one CSM TTS request as chip_smoke.py's
 q4_k_bucket16 runs it (16 prompt tokens in one 16-row prefill bucket, 25
 greedy frames, the Mimi decode; a sample is one host-timed request);
 `tts_decode`, the CSM codec's decode of 25 frames b1, the part of a TTS
-request the Mimi kernels run (timed as `f32`). Pair i times every request in
+request the Mimi kernels run (timed as `f32`). Only the files the chosen
+requests read are written. Pair i times every request in
 both trees, the parent first when i is even and this tree first when it is
 odd, so neither tree always runs on a warmer card. Prints, per request, the
 median and quartiles of each tree's samples and the median of the pairs'
@@ -58,49 +65,94 @@ def import_tree(root: Path, name: str):
 
 
 NAMES = {"f32": "mimi decode 20s_b1_f32", "bf16": "mimi decode 20s_b1_bf16",
+         "encode": "mimi encode 20s_b1_f32",
+         "push": "mimi stream push 1 frame b1 f32",
+         "push_bf16": "mimi stream push 1 frame b1 bf16",
+         "first_audio": "mimi stream first push b1 f32",
+         "dac": "dac decode 20s_b1_f32", "snac": "snac decode 20s_b1_f32",
          "tts": "tts q4_k_bucket16", "tts_decode": "csm decode 25 frames b1 f32"}
+HOST_TIMED = ("tts", "first_audio")
+MIMI = ("f32", "bf16", "encode", "push", "push_bf16", "first_audio")
 
 
-def requests(pkg: str, paths: dict, rng_seed: int = 2) -> dict:
-    """name → a function that runs the request once, for package pkg."""
+def _codes(model, secs: int, rng_seed: int, multiple: int = 1) -> np.ndarray:
+    frames = secs * model.sample_rate // model.hop_size
+    frames -= frames % multiple
+    return np.random.default_rng(rng_seed).integers(
+        0, model.codebook_size, (1, frames, model.n_q)).astype(np.int32)
+
+
+def requests(pkg: str, paths: dict, what, rng_seed: int = 2) -> dict:
+    """name → a function that runs the request once, for package pkg (the
+    requests in `what`)."""
     top = importlib.import_module(pkg)
     sub = lambda m: importlib.import_module(f"{pkg}.{m}")   # noqa: E731
-    gguf, lm_mod = sub("io.gguf"), sub("lm")
-    audio_lm, backbone = sub("lm.audio_lm"), sub("lm.backbone")
-    runner = sub("lm.tts_runner")
+    out = {}
+    if any(w in MIMI for w in what):
+        mimi = {dt: top.load_model(paths["mimi"], compute_dtype=dt,
+                                   device="cuda")
+                for dt in ("float32", "bfloat16")}
+        m = mimi["float32"]
+        codes = _codes(m, 20, rng_seed)
+        pcm = (np.random.default_rng(rng_seed + 1).standard_normal(
+            (1, 20 * m.sample_rate)) * 0.3).astype(np.float32)
+        sessions = {dt: mimi[dt].streaming_decoder(batch=1) for dt in mimi}
+        pushed = {dt: [0] for dt in mimi}
 
-    mimi = {dt: top.load_model(paths["mimi"], compute_dtype=dt, device="cuda")
-            for dt in ("float32", "bfloat16")}
-    m = mimi["float32"]
-    frames = 20 * m.sample_rate // m.hop_size
-    codes = np.random.default_rng(rng_seed).integers(
-        0, m.codebook_size, (1, frames, m.n_q)).astype(np.int32)
+        def push(dt):
+            # one frame; the session starts again every 200 frames
+            if pushed[dt][0] == 200:
+                sessions[dt].reset()
+                pushed[dt][0] = 0
+            i = pushed[dt][0]
+            sessions[dt].push(codes[:, i:i + 1])
+            pushed[dt][0] += 1
 
-    csm = top.load_model(paths["csm"], device="cuda")
-    reader = gguf.GGUFReader(paths["csm"])
-    lm = lm_mod.create_lm(reader, device="cuda")
-    bb = backbone.create_backbone(paths["q4_k"], quantized=True, device="cuda")
-    prompt = list(bb.embed_tokens(np.random.default_rng(130).integers(
-        0, bb.cfg.vocab_size, PROMPT)))
+        def first_audio():
+            m.streaming_decoder(batch=1).push(codes[:, :1])
 
-    def tts():
-        bb.reset()
-        alm = audio_lm.AudioLM(reader, codec=csm, lm=lm)
-        res = runner.run_codebook_ar(alm, bb, prompt, max_steps=FRAMES,
-                                     decode=False, prefill_bucket=BUCKET)
-        pcm = runner._decode_transformed(alm, res.codes)
-        if res.codes.shape[0] != FRAMES or not np.isfinite(pcm).all():
-            raise RuntimeError(f"{pkg}: TTS gave codes {res.codes.shape}")
+        out.update({"f32": lambda: m.decode(codes),
+                    "bf16": lambda: mimi["bfloat16"].decode(codes),
+                    "encode": lambda: m.encode(pcm),
+                    "push": lambda: push("float32"),
+                    "push_bf16": lambda: push("bfloat16"),
+                    "first_audio": first_audio})
+    if "dac" in what:
+        dac = top.load_model(paths["dac"], device="cuda")
+        dcodes = _codes(dac, 20, rng_seed)
+        out["dac"] = lambda: dac.decode(dcodes)
+    if "snac" in what:
+        snac = top.load_model(paths["snac"], device="cuda")
+        scodes = _codes(snac, 20, rng_seed, multiple=snac.cfg.vq_strides[0])
+        out["snac"] = lambda: snac.decode(scodes)
+    if "tts" in what or "tts_decode" in what:
+        gguf, lm_mod = sub("io.gguf"), sub("lm")
+        audio_lm, backbone = sub("lm.audio_lm"), sub("lm.backbone")
+        runner = sub("lm.tts_runner")
+        csm = top.load_model(paths["csm"], device="cuda")
+        reader = gguf.GGUFReader(paths["csm"])
+        lm = lm_mod.create_lm(reader, device="cuda")
+        bb = backbone.create_backbone(paths["q4_k"], quantized=True,
+                                      device="cuda")
+        prompt = list(bb.embed_tokens(np.random.default_rng(130).integers(
+            0, bb.cfg.vocab_size, PROMPT)))
 
-    codes25 = codes[:, :FRAMES, :csm.n_q]
-    return {"f32": lambda: mimi["float32"].decode(codes),
-            "bf16": lambda: mimi["bfloat16"].decode(codes),
-            "tts": tts,
-            "tts_decode": lambda: csm.decode(codes25)}
+        def tts():
+            bb.reset()
+            alm = audio_lm.AudioLM(reader, codec=csm, lm=lm)
+            res = runner.run_codebook_ar(alm, bb, prompt, max_steps=FRAMES,
+                                         decode=False, prefill_bucket=BUCKET)
+            pcm = runner._decode_transformed(alm, res.codes)
+            if res.codes.shape[0] != FRAMES or not np.isfinite(pcm).all():
+                raise RuntimeError(f"{pkg}: TTS gave codes {res.codes.shape}")
+
+        codes25 = _codes(csm, 2, rng_seed)[:, :FRAMES]
+        out.update({"tts": tts, "tts_decode": lambda: csm.decode(codes25)})
+    return {w: out[w] for w in what}
 
 
 def sample_ms(name: str, fn, runs: int) -> float:
-    if name == "tts":
+    if name in HOST_TIMED:
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -131,20 +183,31 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = card()
     import_tree(Path(args.parent).resolve(), "codec_tpu_torch_parent")
+    from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.lm_init import (write_random_backbone_gguf,
                                                 write_random_csm_gguf)
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
 
     with tempfile.TemporaryDirectory(prefix="ab_requests_") as tmp:
         t0 = time.monotonic()
-        paths = {"mimi": Path(tmp) / "mimi.gguf",
-                 "csm": write_random_csm_gguf(Path(tmp) / "csm.gguf", seed=0),
-                 "q4_k": write_random_backbone_gguf(Path(tmp) / "q4_k.gguf",
-                                                    seed=0, qtype="Q4_K")}
-        write_random_mimi_gguf(paths["mimi"], seed=0, encoder=True)
+        paths = {}
+        if any(w in MIMI for w in what):
+            paths["mimi"] = Path(tmp) / "mimi.gguf"
+            write_random_mimi_gguf(paths["mimi"], seed=0, encoder=True)
+        if "dac" in what:
+            paths["dac"] = Path(tmp) / "dac.gguf"
+            write_random_dac_gguf(paths["dac"], seed=0)
+        if "snac" in what:
+            paths["snac"] = Path(tmp) / "snac.gguf"
+            write_random_snac_gguf(paths["snac"], seed=0)
+        if "tts" in what or "tts_decode" in what:
+            paths["csm"] = write_random_csm_gguf(Path(tmp) / "csm.gguf", seed=0)
+            paths["q4_k"] = write_random_backbone_gguf(
+                Path(tmp) / "q4_k.gguf", seed=0, qtype="Q4_K")
         print(f"wrote the GGUFs in {time.monotonic() - t0:.1f} s", flush=True)
-        trees = {"parent": requests("codec_tpu_torch_parent", paths),
-                 "change": requests("codec_tpu_torch", paths)}
+        trees = {"parent": requests("codec_tpu_torch_parent", paths, what),
+                 "change": requests("codec_tpu_torch", paths, what)}
     for reqs in trees.values():           # warm-up: build, autotune, caches
         for req in what:
             reqs[req]()

@@ -5,10 +5,11 @@ from __future__ import annotations
 
 import torch
 
-# H100 SXM data-sheet peaks (dense): f32 on the FMA units, bf16 on the
-# tensor cores, "tf32" the tensor cores' TF32 rate (the split-f32 kernels
+# H100 SXM data-sheet peaks (dense): f32 on the FMA units, bf16 and f16 on
+# the tensor cores, "tf32" the tensor cores' TF32 rate (the split-f32 kernels
 # run each f32 product as three TF32 passes, csrc/tf32x3.cuh), and HBM3
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, "tf32": 495e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 
 

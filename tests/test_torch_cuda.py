@@ -15,6 +15,9 @@ from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                            flash_sdpa_window_ref)
 
 pytestmark = pytest.mark.cuda
+# the kernels' dtypes: f16 takes bf16's bounds (both 16-bit operands; f16
+# rounds finer)
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -76,7 +79,18 @@ def test_kernel_matches_plain_bf16(dev, b, h, t, d, w):
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,d,w", [(1, 8, 500, 128, 250)] + ATTN_SHAPES)
+def test_kernel_matches_plain_f16(dev, b, h, t, d, w):
+    q, k, v = _qkv((b, h, t, d), torch.float16, dev, seed=1)
+    got = flash_sdpa_window(q, k, v, window=w)
+    want = flash_sdpa_window_ref(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and got.shape == want.shape
+    # bf16's bound
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [64, 128])
 def test_kernel_two_launches_are_bit_identical(dev, dtype, d):
     """No atomics and a fixed merge order: the same inputs give the same
@@ -160,7 +174,7 @@ def test_kernel_rejects_what_it_does_not_take(dev, case):
     if case == "head_dim":
         q, k, v = (x[..., :32].contiguous() for x in (q, k, v))
     elif case == "dtype":
-        q, k, v = (x.half() for x in (q, k, v))
+        q, k, v = (x.double() for x in (q, k, v))
     elif case == "layout":
         q = q.transpose(2, 3).contiguous().transpose(2, 3)   # T == D here
     else:
@@ -233,7 +247,7 @@ def _chain_ref(x, p):
     return seanet_cuda.seanet_res_chain_ref(x, **p, dilations=DILS)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,c,d", [
     (1, 20, 96, 9),        # T below the halo
     (2, 100, 16, 3),       # B = 2, a ragged last tile
@@ -262,7 +276,7 @@ def test_res_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,c", [
     (1, 20, 192),          # T far below the chain's halo of 39
     (2, 100, 96),
@@ -329,8 +343,8 @@ def test_res_kernels_reject_what_they_do_not_take(dev, case):
     elif case == "no_bias":
         p["b1s"] = None
     elif case == "dtype":
-        x = x.half()
-        p = {k: v.half() for k, v in p.items()}
+        x = x.double()
+        p = {k: v.double() for k, v in p.items()}
     elif case == "layout":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
     else:
@@ -471,7 +485,7 @@ SNAC_UNIT_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,c,d", SNAC_UNIT_SHAPES)
 def test_dw_pass_matches_plain(dev, dtype, b, t, c, d):
     """The depthwise pass alone (x → the snaked hidden S) against
@@ -515,7 +529,7 @@ def test_dw_pass_at_other_tap_counts(dev, dtype, k):
     _hold_dw(got, want, dtype, 2 ** -8, 1e-4, 0.99999)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,c,d", SNAC_UNIT_SHAPES + [
     (1, 30001, 64, 9),     # T long enough for the larger 1x1 tiles
     (1, 20001, 128, 1),
@@ -541,6 +555,27 @@ def test_snac_unit_kernel_matches_plain(dev, dtype, b, t, c, d):
     vec = seanet_cuda.unit_vec(p["a1s"], p["b1s"], p["a2s"], p["b2s"])
     assert torch.equal(got, seanet_cuda.snac_res_chain(x, **p, dilations=(d,),
                                                        vec=vec))
+
+
+@pytest.mark.parametrize("c,t", [(256, 59904), (128, 239616)])
+def test_plain_f16_unit_at_the_decoder_blocks(dev, c, t):
+    """The plain f16 unit at SNAC decoder blocks: cuDNN's f16 depthwise
+    conv faults at C256 T59904 (tools/f16_probe.py), so snac_dw_ref takes
+    PyTorch's own kernel for f16 on the card. It finishes, leaves cuDNN on
+    for what follows, and agrees with the plain f32 unit on the same
+    inputs at the 16-bit bounds."""
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    p = _dw_params(1, c, torch.float16, dev, seed=c)
+    x = _x((1, t, c), torch.float16, dev, seed=9) * 0.3
+    got = seanet_cuda.snac_res_chain_ref(x, **p, dilations=(1,))
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.enabled
+    with f32_precision(True):
+        want = seanet_cuda.snac_res_chain_ref(
+            x.float(), **{k: v.float() for k, v in p.items()}, dilations=(1,))
+    assert got.dtype == torch.float16
+    _hold_dw(got, want, torch.float16, 3e-2, 8e-2, 0.9995)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -581,8 +616,8 @@ def test_dw_kernel_rejects_what_it_does_not_take(dev, case):
     elif case == "no_bias":
         p["b2s"] = None
     elif case == "dtype":
-        x = x.half()
-        p = {k: v.half() for k, v in p.items()}
+        x = x.double()
+        p = {k: v.double() for k, v in p.items()}
     elif case == "layout":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
@@ -944,7 +979,7 @@ def test_rvq_kernel_rejects_what_it_does_not_take(dev, case):
 
 # the encoders' widths: DAC's units at C = 64 (T = n) and 512 (T = n/40),
 # SNAC's at C = 48 (T = n, no multiple of the 32-channel staging) and 384
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,c", [(4000, 64), (300, 512)])
 def test_res_units_at_the_dac_encoder_widths(dev, dtype, t, c):
     p = _res_params(3, c, dtype, dev, seed=c)
@@ -953,7 +988,7 @@ def test_res_units_at_the_dac_encoder_widths(dev, dtype, t, c):
     _check_against_plain(got, x, p, dtype, _chain_ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,c", [(4100, 48), (500, 384)])
 def test_dw_units_at_the_snac_encoder_widths(dev, dtype, t, c):
     from codec_tpu_torch.runtime.model import f32_precision
@@ -1188,3 +1223,179 @@ def test_streaming_on_card_uses_kernels_and_matches_cpu(dev, encoder_ggufs):
     got = np.concatenate(chunks)
     want = cpu.encode(pcm)
     assert_codes(got, want, model_margin(cpu, pcm, want, got))
+
+
+# -- float16 requests, and the on-device TTS loop as CUDA graphs ---------------
+
+@pytest.mark.parametrize("arch", ["mimi", "dac", "snac"])
+def test_f16_decode_on_card_uses_kernels(dev, arch, small_gguf, small_dac_gguf,
+                                         small_snac_gguf):
+    """An f16 decode launches the f16 instances (every launch the f32
+    decode makes) and agrees with the f32 decode at the bf16 tests' bound
+    (corr > 0.99)."""
+    import codec_tpu_torch
+
+    path = {"mimi": small_gguf, "dac": small_dac_gguf,
+            "snac": small_snac_gguf}[arch]
+    cols = 3 if arch == "snac" else 4
+    codes = np.random.default_rng(5).integers(0, 64, (1, 24, cols)).astype(np.int32)
+    wrappers = [flash_sdpa_window, seanet_cuda.seanet_res_unit,
+                seanet_cuda.seanet_res_chain, seanet_cuda.snac_res_chain]
+    out = {}
+    for dtype in ("float16", "float32"):
+        model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
+                                           device="cuda")
+        before = [w.launches for w in wrappers]
+        out[dtype] = model.decode(codes)
+        ran = sum(w.launches - b for w, b in zip(wrappers, before))
+        assert ran > 0, dtype
+    got, want = out["float16"], out["float32"]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99
+
+
+@pytest.fixture(scope="module")
+def tts_files(tmp_path_factory):
+    import dataclasses
+
+    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B, DepthConfig,
+                                                byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_gguf,
+                                                write_random_csm_gguf)
+    from codec_tpu_torch.models.mimi import MimiConfig
+
+    tmp = tmp_path_factory.mktemp("tts")
+    model = write_random_csm_gguf(
+        tmp / "csm.gguf", seed=1, num_filters=8,
+        mimi_cfg=MimiConfig(n_q=4, codebook_size=64, codebook_dim=32,
+                            hidden=64, n_layers=1, n_heads=1, head_dim=64,
+                            intermediate=128, window=40),
+        dcfg=DepthConfig(hidden=256, depth_hidden=64, layers=1, heads=2,
+                         kv_heads=1, head_dim=32, ffn=128, n_codebook=4,
+                         vocab=64))
+    bb = write_random_backbone_gguf(
+        tmp / "bb.gguf", seed=2, spm_b64=spm_model_b64(byte_fallback_vocab()),
+        cfg=dataclasses.replace(LLAMA_3_2_1B, hidden=256, n_layers=2, n_heads=4,
+                                n_kv_heads=2, head_dim=64, ffn_dim=512,
+                                vocab_size=300, max_ctx=96))
+    return model, bb
+
+
+def _tts(tts_files):
+    import codec_tpu_torch
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+
+    model, bb = tts_files
+    reader = GGUFReader(model)
+    return (reader, codec_tpu_torch.load_model(model, device="cuda"),
+            create_lm(reader, device="cuda"),
+            LlamaBackbone(bb, quantized=True, device="cuda"))
+
+
+@pytest.mark.parametrize("chain", [dict(), dict(temperature=0.8, top_k=5)])
+def test_gen_chunk_graph_equals_eager(dev, tts_files, chain):
+    """A captured chunk's replay gives the eager chunk's packed result,
+    hidden and position bit for bit, from the same state; the graph holds
+    7 q4_k_matmul launches a layer a frame (counted as it is captured)."""
+    from codec_tpu_torch.lm.fused_gen import gen_chunk_cached
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul
+
+    reader, codec, lm, bb = _tts(tts_files)
+    bb.reset()
+    h = bb.prefill(bb.embed_tokens([3, 17, 42, 99]))
+    runner = gen_chunk_cached(lm, bb, n_frames=4, ctx=64, **chain)
+    runner.h.copy_(torch.as_tensor(h).reshape(1, -1))
+    runner.pos.fill_(bb.pos)
+    runner.draw_noise([torch.Generator(device="cuda").manual_seed(3)
+                       if chain else None])
+    state = [t.clone() for t in (runner.h, runner.pos, runner.kv)]
+    eager = runner.graphed.eager().clone()
+    after = [t.clone() for t in (runner.h, runner.pos)]
+    for t, s in zip((runner.h, runner.pos, runner.kv), state):
+        t.copy_(s)
+    before = q4_k_matmul.launches
+    graph = runner.run().clone()
+    assert q4_k_matmul.launches - before == 7 * 2 * 4 * 2   # warm-up + capture
+    torch.cuda.synchronize()
+    assert torch.equal(eager, graph)
+    assert torch.equal(after[0], runner.h) and torch.equal(after[1], runner.pos)
+    before = q4_k_matmul.launches
+    runner.run()                                 # a replay: no wrapper calls
+    assert q4_k_matmul.launches == before
+
+
+class _HostOnly:
+    """The tts_runner Backbone protocol alone over a LlamaBackbone: the
+    chunk cannot run it, so its frames take fused_gen.FrameRunner."""
+
+    def __init__(self, bb):
+        self.bb = bb
+
+    def step(self, embed):
+        return self.bb.step(embed)
+
+
+def test_on_device_greedy_equals_host_on_card(dev, tts_files):
+    """Greedy codes of the chunked device path (K = 1, 3, 4) and of the
+    per-frame path a host-only backbone takes equal the host path's on
+    the card."""
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.tts_runner import run_codebook_ar
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+
+    reader, codec, lm, bb = _tts(tts_files)
+    prompt = list(bb.embed_tokens([3, 17, 42, 99, 150, 7]))
+
+    def run(ods, backbone=bb):
+        bb.reset()
+        return run_codebook_ar(AudioLM(reader, codec=codec, lm=lm), backbone,
+                               prompt, max_steps=7, on_device=ods)
+
+    host = run(None)
+    for k in (1, 3, 4):
+        got = run(OnDeviceSampling(chunk_frames=k))
+        np.testing.assert_array_equal(got.codes, host.codes)
+        assert got.pcm.shape == host.pcm.shape and np.isfinite(got.pcm).all()
+    got = run(OnDeviceSampling(), backbone=_HostOnly(bb))
+    np.testing.assert_array_equal(got.codes, host.codes)
+    assert lm._frame_runners
+    a = run(OnDeviceSampling(temperature=0.8, top_k=5, chunk_frames=1, seed=4))
+    b = run(OnDeviceSampling(temperature=0.8, top_k=5, chunk_frames=4, seed=4))
+    np.testing.assert_array_equal(a.codes, b.codes)
+
+
+def test_batch_on_card_equals_single_streams(dev, tts_files):
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.tts_runner import (run_codebook_ar,
+                                               run_codebook_ar_batch)
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+
+    reader, codec, lm, bb = _tts(tts_files)
+    prompts = [[5, 9, 200, 31], [44, 2, 17, 80, 9, 100], [250, 1, 3]]
+    embeds = [list(bb.embed_tokens(p)) for p in prompts]
+    ods = OnDeviceSampling(temperature=0.8, top_k=5, chunk_frames=3, seed=21)
+    got = run_codebook_ar_batch([AudioLM(reader, codec=codec, lm=lm)
+                                 for _ in prompts], bb, embeds, ods, max_steps=6)
+    for s, e in enumerate(embeds):
+        bb.reset()
+        one = run_codebook_ar(AudioLM(reader, codec=codec, lm=lm), bb, e,
+                              max_steps=6, on_device=OnDeviceSampling(
+                                  temperature=0.8, top_k=5, chunk_frames=3,
+                                  seed=21 + s))
+        np.testing.assert_array_equal(got[s].codes, one.codes)
+
+
+def test_tts_cli_on_device_on_card(dev, tts_files, tmp_path):
+    from codec_tpu_torch.cli.tts_cli import main
+    from codec_tpu_torch.io.wav import read_wav
+
+    model, bb = tts_files
+    out = tmp_path / "o.wav"
+    assert main(["synthesize", "--model", str(model), "--backbone", str(bb),
+                 "--text", "hello there", "--out", str(out), "--max-frames",
+                 "5", "--quant-exec", "--on-device", "--chunk-frames", "4"]) == 0
+    pcm, sr = read_wav(out)
+    assert sr == 24000 and pcm.shape == (5 * 1920, 1)

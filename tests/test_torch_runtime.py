@@ -277,3 +277,87 @@ def test_cli_batch_decode_latents_and_unported_flags(models, tmp_path,
                      str(tmp_path / "x"), "--device", "cpu", flag,
                      "2"]) == 1
         assert "not ported yet" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# float16 compute and the metadata accessors
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def f16_models(tmp_path_factory):
+    """Small random Mimi, DAC and SNAC files with their encoders, loaded by
+    codec_tpu in float16 and by the port in float16 and float32."""
+    d = tmp_path_factory.mktemp("f16")
+    mimi_init.write_random_mimi_gguf(d / "mimi.gguf", seed=5, cfg=SMALL,
+                                     num_filters=8, encoder=True)
+    dac_init.write_random_dac_gguf(d / "dac.gguf", seed=5, decoder_dim=32,
+                                   cfg=dac.DacConfig(n_q=4, codebook_size=64),
+                                   encoder=True)
+    snac_init.write_random_snac_gguf(d / "snac.gguf", seed=5, decoder_dim=32,
+                                     cfg=snac.SnacConfig(codebook_size=64),
+                                     encoder=True)
+    return {arch: {"jax": codec_tpu.load_model(d / f"{arch}.gguf",
+                                               compute_dtype="float16"),
+                   "port": codec_tpu_torch.load_model(
+                       d / f"{arch}.gguf", compute_dtype="f16", device="cpu"),
+                   "f32": codec_tpu_torch.load_model(d / f"{arch}.gguf",
+                                                     device="cpu")}
+            for arch in ("mimi", "dac", "snac")}
+
+
+def test_float16_aliases_resolve():
+    from codec_tpu.runtime.model import resolve_compute_dtype as jax_resolve
+    from codec_tpu_torch.runtime.model import resolve_compute_dtype
+
+    for spec in ("float16", "f16", "F16", torch.float16):
+        assert resolve_compute_dtype(spec) == torch.float16
+    for spec in ("float16", "f16"):
+        assert np.dtype(jax_resolve(spec)) == np.float16
+
+
+@pytest.mark.parametrize("arch,cols", [("mimi", 4), ("dac", 4), ("snac", 3)])
+def test_float16_decode_matches_jax(f16_models, arch, cols):
+    """The port's f16 decode against codec_tpu's f16 and the port's f32,
+    at the bf16 tests' bound (corr > 0.99); the weights are f16 (with f32
+    rows the kernels read), none bf16."""
+    m = f16_models[arch]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    dtypes = {t.dtype for t in leaves(m["port"].params) if t.is_floating_point()}
+    assert m["port"].compute_dtype == torch.float16
+    assert torch.float16 in dtypes and torch.bfloat16 not in dtypes
+    codes = _codes((8, cols), 64, 21)
+    got = m["port"].decode(codes)
+    want, f32 = m["jax"].decode(codes), m["f32"].decode(codes)
+    assert got.dtype == np.float32 and got.shape == want.shape == f32.shape
+    assert np.isfinite(got).all()
+    assert np.corrcoef(got, want)[0, 1] > 0.99
+    assert np.corrcoef(got, f32)[0, 1] > 0.99
+
+
+@pytest.mark.parametrize("arch", ["mimi", "dac", "snac"])
+def test_float16_encode_matches_jax(f16_models, arch):
+    """f16 encodes: codec_tpu's f16 codes' shape and range, and (tiny
+    random models, f16 sums) at least 90% of its codes."""
+    m = f16_models[arch]
+    pcm = (np.random.default_rng(22).standard_normal(8 * m["port"].hop_size)
+           * 0.3).astype(np.float32)
+    got, want = m["port"].encode(pcm), m["jax"].encode(pcm)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert got.min() >= 0 and got.max() < 64
+    assert (got == want).mean() >= 0.9
+
+
+@pytest.mark.parametrize("arch", ["mimi", "dac", "snac"])
+def test_metadata_accessors_match_jax(models, arch):
+    port, ref = models[arch]["port"], models[arch]["jax"]
+    for attr in ("n_fft", "win_length", "n_mels", "name", "n_tensors"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
+    assert port.n_tensors == len(port.reader.tensors) > 0
+    assert (port.n_fft, port.win_length, port.n_mels) == (-1, -1, -1)

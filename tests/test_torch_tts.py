@@ -305,12 +305,18 @@ def test_eos_drop_and_delay_flush_match(files, eos_code, delays):
 
 
 def test_run_codebook_ar_rejects_unported_paths(engines):
+    """Grammars still raise; on-device sampling runs (its parity with
+    codec_tpu is tests/test_torch_fused.py's)."""
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+
     port, _ = engines
     alm = AudioLM(port["reader"], codec=port["codec"], lm=port["lm"])
     bb = port["bb"]["Q8_0"]
-    with pytest.raises(ValueError, match="on-device"):
-        tts_runner.run_codebook_ar(alm, bb, [np.zeros(256, np.float32)],
-                                   on_device=object())
+    bb.reset()
+    res = tts_runner.run_codebook_ar(alm, bb, [np.zeros(256, np.float32)],
+                                     max_steps=2, decode=False,
+                                     on_device=OnDeviceSampling(chunk_frames=2))
+    assert res.codes.shape == (2, DEPTH.n_codebook) and res.n_steps == 2
     with pytest.raises(ValueError, match="grammar"):
         tts_runner.run_codebook_ar(alm, bb, [np.zeros(256, np.float32)],
                                    grammar='root ::= "a"')
@@ -347,7 +353,7 @@ def test_cli_errors(files, tmp_path, capsys):
     base = ["synthesize", "--model", str(model), "--text", "hi", "--out",
             str(tmp_path / "o.wav"), "--device", "cpu", "--max-frames", "2"]
     cases = [(["--backbone", str(small)], "backbone hidden 64 != codec.lm hidden 256"),
-             (["--backbone", str(bbs["Q8_0"]), "--on-device"], "--on-device: not ported yet"),
+             (["--backbone", str(bbs["Q8_0"]), "--stream"], "--stream: not ported yet"),
              (["--backbone", str(bbs["Q8_0"]), "--grammar", "x"], "--grammar: not ported yet"),
              ([], "needs a backbone")]
     for extra, msg in cases:
