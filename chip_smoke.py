@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero before the last line):
      launches a request makes, each launch settled (synchronized) before
      the next so that a fault is charged to the launch that made it, the
      RVQ search also on integer-valued inputs and duplicated rows, where
-     it must agree bit for bit)
+     it must agree bit for bit; at WavTokenizer's V 4096 also with each
+     block's second row tile a copy of its first)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16 and in f16) with every launch count set to 0 just
@@ -56,6 +57,22 @@ Phases (any failure raises and exits non-zero before the last line):
      saturation; decode_many over three Mimi sequences of two lengths and
      decode_async + PendingPcm.gather over two DAC requests, each output
      held against its own decode
+  8b. the iSTFT-head codecs: write full-width random WavTokenizer (with
+     its encoder), Soprano and XY-Tokenizer (with its encoder) GGUFs, load
+     each on the card (f32, bf16, f16) and on the CPU (f32); WavTokenizer
+     decode 20 s b1 and b4 f32, b1 bf16 and f16, 200 s b4 f16 (60 000
+     frames, where cuDNN's f16 depthwise conv faults), encode 20 s b1 f32 and
+     bf16; Soprano decode_latent 20 s b1 f32, bf16 and f16; XY decode 20 s
+     b1 f32, bf16 and f16 and 40 s b1 f32 (two decode windows), encode
+     20 s b1 f32; each with
+     the launch counts set to 0 just before and read just after (decodes
+     none, encodes one rvq_encode_fused: WavTokenizer's a request, XY's a
+     row), checked for shape, finite
+     samples and saturation (codes: range), each f32 decode held against
+     the same function on the CPU from the same file, each f16 decode
+     against the same decode with cuDNN off, each f32 encode's
+     codes against the plain search on the card (near-tie rule), one
+     encode → decode round trip per encoding arch, and each request timed
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
@@ -221,10 +238,16 @@ Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 # rows (the lower copy must win), must give the plain version's codes bit
 # for bit; normal inputs equal codes, or each differing frame's first
 # differing level an f64 near-tie (relative distance margin < 1e-4) in at
-# most max(2, N/100) frames
+# most max(2, N/100) frames.
+# The iSTFT-head codecs' searches at 20 s b1: WavTokenizer (one 4096 x 512
+# codebook: each of a cluster's 8 blocks scores two 256-row tiles a level)
+# and XY-Tokenizer (8 x 1024 x 512); the WavTokenizer shape also with
+# "seam" inputs (each block's second tile a copy of its first: the lower
+# copy must win across the tile seam, bit for bit)
+RVQ_ISTFT_SHAPES = [(1, 1500, 512, 1, 4096), (1, 250, 512, 8, 1024)]
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
-              (1, 250, 512, 4, 2048), (1, 1, 256, 1, 2048),
+              (1, 250, 512, 4, 2048), *RVQ_ISTFT_SHAPES, (1, 1, 256, 1, 2048),
               (1, 1, 256, 31, 2048), (1, 5, 256, 31, 2048)]
 RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
 NEAR_TIE = 1e-4
@@ -263,6 +286,32 @@ STREAM_TIMED_STEPS = 30
 STREAM_ATTN_SHAPES = [(1, 8, 2, 251, 64, 250, 0), (1, 8, 2, 251, 64, 250, 249),
                       (1, 8, 10, 259, 64, 250, 0), (4, 8, 2, 251, 64, 250, 0)]
 STREAM_ATTN_MAIN = (1, 8, 2, 251, 64, 250, 0)   # the kernels line's shape
+# -- the iSTFT-head codecs at full width (phase 8b): (arch, name, seconds,
+# batch, compute dtype); each decode launches none of the port's kernels,
+# each encode one rvq_encode_fused (WavTokenizer's a request, XY's a row,
+# as codec_tpu encodes it row by row). The 40 s XY decode crosses a
+# decode window (375 codes, the post-RVQ positional rows); the 200 s b4
+# f16 decode runs its ConvNeXt depthwise convs at 60 000 frames, where
+# cuDNN's f16 kernel (which blocks.depthwise_conv goes around) faults
+ISTFT_DECODES = [("wavtokenizer", "20s_b1_f32", 20, 1, "float32"),
+                 ("wavtokenizer", "20s_b4_f32", 20, 4, "float32"),
+                 ("wavtokenizer", "20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("wavtokenizer", "20s_b1_f16", 20, 1, "float16"),
+                 ("wavtokenizer", "200s_b4_f16", 200, 4, "float16"),
+                 ("soprano", "20s_b1_f32", 20, 1, "float32"),
+                 ("soprano", "20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("soprano", "20s_b1_f16", 20, 1, "float16"),
+                 ("xy_tokenizer", "20s_b1_f32", 20, 1, "float32"),
+                 ("xy_tokenizer", "20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("xy_tokenizer", "20s_b1_f16", 20, 1, "float16"),
+                 ("xy_tokenizer", "40s_b1_f32", 40, 1, "float32")]
+# f16 20 s decodes: alternating pairs of the request as it runs (its
+# ConvNeXt depthwise convs around cuDNN) and with them on cuDNN (each side
+# a median of TIMED_RUNS)
+F16_DW_PAIRS = 6
+ISTFT_ENCODES = [("wavtokenizer", "20s_b1_f32", 20, 1, "float32"),
+                 ("wavtokenizer", "20s_b1_bf16", 20, 1, "bfloat16"),
+                 ("xy_tokenizer", "20s_b1_f32", 20, 1, "float32")]
 
 
 def log(msg: str) -> None:
@@ -414,12 +463,16 @@ def rvq_inputs(b, t, d, n_q, v, kind, seed):
     """x [b, t, d], codebooks [n_q, v, d] f32 on the card: "int" small
     integers (every product and sum exact in f32, many exact ties); "dup"
     the same with row v + V/2 a copy of row v; "normal" N(0, 1) frames,
-    N(0, 0.5) codebooks; "tiny" normal frames near 0."""
+    N(0, 0.5) codebooks; "tiny" normal frames near 0; "seam" integers with
+    each block's second 256-row tile (rows per + 256 ..., per = V/8 rows a
+    block) a copy of its first."""
     rng = np.random.default_rng(seed)
-    if kind in ("int", "dup"):
+    if kind in ("int", "dup", "seam"):
         x, cb = rng.integers(-3, 4, (b, t, d)), rng.integers(-3, 4, (n_q, v, d))
         if kind == "dup":
             cb[:, v // 2: 2 * (v // 2)] = cb[:, : v // 2]
+        for blk in range(0, v, -(-v // 8)) if kind == "seam" else ():
+            cb[:, blk + 256: blk + 512] = cb[:, blk: blk + 256]
     else:
         x = rng.standard_normal((b, t, d)) * (1e-3 if kind == "tiny" else 1.0)
         cb = rng.standard_normal((n_q, v, d)) * 0.5
@@ -533,6 +586,246 @@ def profiled_step(fn, tries: int = 3):
 
 def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
+    """Phase 8b: write full-width random WavTokenizer (with its encoder),
+    Soprano and XY-Tokenizer (with its encoder) GGUFs, load each with
+    load_model on the card in f32, bf16 and f16 and on the CPU in f32, and run
+    ISTFT_DECODES and ISTFT_ENCODES with every launch count set to 0 just
+    before each request and read just after (decodes: none of the port's
+    kernels; encodes: one rvq_encode_fused, WavTokenizer's a request,
+    XY's a row). Each output is checked
+    for shape, finite samples (codes: range) and saturation; each f32
+    decode against the same port function on the CPU from the same file
+    (corr > 0.99999, max abs err <= 1e-4 x peak); each f16 decode against
+    the plain f16 path, the same decode with cuDNN off (PyTorch's own conv
+    kernels; phases 4-6's f16 bound, corr > 0.9995) and against the f32
+    model on the card (corr > 0.9999), and (20 s) timed in alternating
+    pairs against the same with its depthwise convs on cuDNN; each f32
+    encode's codes
+    against the plain RVQ search on the card (the near-tie rule); one
+    encode → decode round trip an encoding arch. Each request's median
+    time (CUDA events). → this phase's launch counts."""
+    import codec_tpu_torch
+    from codec_tpu_torch.dsp.audio import whisper_mel_padded
+    from codec_tpu_torch.models import wavtokenizer as wt
+    from codec_tpu_torch.ops import blocks
+    from codec_tpu_torch.models import xy_tokenizer as xy
+    from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
+    from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
+    from codec_tpu_torch.models.xy_init import write_random_xy_gguf
+    from codec_tpu_torch.ops.rvq import rvq_encode
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    t_phase = time.monotonic()
+    models = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_istft_") as tmp:
+        paths = {a: Path(tmp) / f"{a}_random.gguf"
+                 for a in ("wavtokenizer", "soprano", "xy_tokenizer")}
+        t0 = time.monotonic()
+        write_random_wt_gguf(paths["wavtokenizer"], seed=SEED, encoder=True)
+        write_random_soprano_gguf(paths["soprano"], seed=SEED)
+        write_random_xy_gguf(paths["xy_tokenizer"], seed=SEED, encoder=True)
+        log("[istft] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
+            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        for arch, path in paths.items():
+            for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
+                            ("cuda", "float16"), ("cpu", "float32")):
+                models[arch, dev, dt] = codec_tpu_torch.load_model(
+                    path, compute_dtype=dt, device=dev)
+        torch.cuda.synchronize()
+    log(f"[istft] load_model x3 archs, card f32 + bf16 + f16 and CPU f32, in "
+        f"{time.monotonic() - t0:.2f} s")
+    wcfg = models["wavtokenizer", "cuda", "float32"].cfg
+    scfg = models["soprano", "cuda", "float32"].cfg
+    xm = models["xy_tokenizer", "cuda", "float32"]
+    log(f"[istft] WavTokenizer: {wcfg}; Soprano: {scfg}; XY-Tokenizer: "
+        f"{xm.cfg}, decode window {xm.chunk_codes} codes; parameters "
+        + ", ".join(f"{a} {sum(t.numel() for t in _tensors(models[a, 'cpu', 'float32'].params)) / 1e6:.1f} M"
+                    for a in paths))
+
+    rng = np.random.default_rng(SEED + 300)
+
+    def request(arch, secs, batch):
+        """The inputs of one decode request and the samples it gives."""
+        m = models[arch, "cuda", "float32"]
+        if arch == "soprano":
+            frames = secs * m.sample_rate // (m.hop_size * scfg.upscale) + 1
+            z = rng.standard_normal((batch, frames, m.latent_dim)).astype(
+                np.float32)
+            return z, scfg.upscale * (frames - 1) * m.hop_size
+        frames = secs * m.sample_rate // m.hop_size
+        codes = rng.integers(0, m.codebook_size, (batch, frames, m.n_q)
+                             ).astype(np.int32)
+        n = frames * m.hop_size
+        if arch == "xy_tokenizer":
+            n += m.cfg.vocos_hop * -(-frames // m.chunk_codes)
+        return codes, n
+
+    def decode(model, x):
+        return (model.decode_latent(x) if model.arch == "soprano"
+                else model.decode(x))
+
+    phase_counts = dict(none)
+    for arch, name, secs, batch, dt in ISTFT_DECODES:
+        model = models[arch, "cuda", dt]
+        x, n = request(arch, secs, batch)
+        zero_counts()
+        pcm = decode(model, x)
+        if counts() != none:
+            raise RuntimeError(f"{arch} decode {name}: launches {counts()}, "
+                               f"want none")
+        if pcm.shape != (batch, n) or pcm.dtype != np.float32:
+            raise RuntimeError(f"{arch} decode {name}: pcm {pcm.shape} "
+                               f"{pcm.dtype}, want {(batch, n)} float32")
+        if not np.isfinite(pcm).all():
+            raise RuntimeError(f"{arch} decode {name}: non-finite samples")
+        sat = float((np.abs(pcm) > 0.99).mean())
+        if not sat < 0.01:
+            raise RuntimeError(f"{arch} decode {name}: {sat:.2%} of samples "
+                               f"saturated")
+        line = (f"[istft] {arch} decode {name}: launches none; pcm "
+                f"{pcm.shape} finite, peak {np.abs(pcm).max():.4f}, std "
+                f"{pcm.std():.4f}, share |pcm| > 0.99: {sat:.2e}")
+        if dt == "float32":
+            ref = decode(models[arch, "cpu", dt], x)
+            c = corr(pcm, ref)
+            err, peak = np.abs(pcm - ref).max(), np.abs(ref).max()
+            if not (c > 0.99999 and err <= 1e-4 * peak):
+                raise RuntimeError(f"{arch} decode {name}: corr {c}, max abs "
+                                   f"err {err} (peak {peak}) vs the CPU")
+            line += (f"; vs the same function on the CPU: corr {c:.9f}, max "
+                     f"abs err {err:.3e} ({err / peak:.2e} of peak {peak:.4f})")
+        else:
+            line += (f"; vs the f32 model on the card: corr "
+                     f"{corr(pcm, decode(models[arch, 'cuda', 'float32'], x)):.6f}")
+        if dt == "float16":
+            cudnn, torch.backends.cudnn.enabled = (
+                torch.backends.cudnn.enabled, False)
+            try:
+                ref = decode(model, x)
+            finally:
+                torch.backends.cudnn.enabled = cudnn
+            c = corr(pcm, ref)
+            c32 = corr(pcm, decode(models[arch, "cuda", "float32"], x))
+            if not (np.isfinite(ref).all() and c > CHAIN_BF16["corr"]
+                    and c32 > 0.9999):
+                raise RuntimeError(f"{arch} decode {name}: corr {c} vs the "
+                                   f"plain f16 path with cuDNN off, {c32} vs "
+                                   f"the f32 model")
+            line += (f"; vs the f16 path with cuDNN off on the card: corr "
+                     f"{c:.9f}, max abs err {np.abs(pcm - ref).max():.3e}")
+            if secs * batch <= 20:
+                # what going around cuDNN costs, in turns: the request as it
+                # runs against the same with its depthwise convs on cuDNN
+                # (which faults past ~60 000 frames, so 20 s b1 only)
+                def on_cudnn():
+                    keep = blocks.depthwise_conv
+                    blocks.depthwise_conv = lambda h, w, b: F.conv1d(
+                        h.transpose(1, 2), w, b,
+                        padding=(w.shape[-1] - 1) // 2,
+                        groups=h.shape[-1]).transpose(1, 2)
+                    try:
+                        return decode(model, x)
+                    finally:
+                        blocks.depthwise_conv = keep
+                pairs = []
+                for i in range(F16_DW_PAIRS):
+                    if i % 2:
+                        b_ms = cuda_ms(on_cudnn)
+                        a_ms = cuda_ms(lambda: decode(model, x))
+                    else:
+                        a_ms = cuda_ms(lambda: decode(model, x))
+                        b_ms = cuda_ms(on_cudnn)
+                    pairs.append((a_ms, b_ms))
+                line += (f"; as it runs vs its depthwise convs on cuDNN, "
+                         f"{F16_DW_PAIRS} alternating pairs: "
+                         f"{statistics.median(a for a, _ in pairs):.3f} vs "
+                         f"{statistics.median(b for _, b in pairs):.3f} ms, "
+                         f"faster in {sum(a < b for a, b in pairs)} of "
+                         f"{F16_DW_PAIRS}")
+        ms = cuda_ms(lambda: decode(model, x))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+
+    def latent(arch, model, pcm_row):
+        """The f32 model's latent before the search, on the card."""
+        with torch.inference_mode(), f32_precision(True):
+            if arch == "wavtokenizer":
+                x = torch.from_numpy(pcm_row[None]).cuda()
+                return wt.wt_encode_latent_fn(model.params, x)[0].float()
+            c = model.cfg
+            mel, n_frames = whisper_mel_padded(
+                pcm_row, c.encode_sample_rate, c.mel_n_fft, c.mel_hop,
+                c.mel_n_mels, c.encoder_downsample_rate)
+            n_valid = min(n_frames, len(pcm_row) // c.mel_hop)
+            x = torch.from_numpy(np.ascontiguousarray(mel.T[None])).cuda()
+            return xy.xy_encode_latent_fn(model.params, x, c, n_valid)[0]
+
+    for arch, name, secs, batch, dt in ISTFT_ENCODES:
+        model = models[arch, "cuda", dt]
+        rate = model.encode_sample_rate or model.sample_rate
+        pcm = (rng.standard_normal((batch, secs * rate)) * 0.3).astype(
+            np.float32)
+        zero_counts()
+        codes = model.encode(pcm)
+        step = counts()
+        want_launches = batch if arch == "xy_tokenizer" else 1
+        if step != {**none, "rvq_encode_fused": want_launches}:
+            raise RuntimeError(f"{arch} encode {name}: launches {step}, want "
+                               f"{want_launches} rvq_encode_fused")
+        phase_counts["rvq_encode_fused"] += want_launches
+        frames = (secs * rate // (model.cfg.encoder_downsample_rate
+                                  if arch == "xy_tokenizer" else model.hop_size))
+        if codes.shape != (batch, frames, model.n_q) or codes.dtype != np.int32:
+            raise RuntimeError(f"{arch} encode {name}: codes {codes.shape} "
+                               f"{codes.dtype}, want {(batch, frames, model.n_q)}")
+        if codes.min() < 0 or codes.max() >= model.codebook_size:
+            raise RuntimeError(f"{arch} encode {name}: codes out of range")
+        distinct = [len(np.unique(codes[..., q])) for q in range(model.n_q)]
+        line = (f"[istft] {arch} encode {name}: launches {step['rvq_encode_fused']} "
+                f"rvq_encode_fused; codes {codes.shape} in range, distinct "
+                f"codes per level {distinct}")
+        if dt == "float32":
+            ties = []
+            search = model.params["search"]
+            for bi in range(batch):
+                z = latent(arch, model, pcm[bi])
+                want = rvq_encode(z[None].contiguous(), search["cb"],
+                                  search["norms"])[0].cpu().numpy()
+                z64, cb64 = f64(z), f64(search["cb"])
+                ties += near_ties(codes[bi], want, lambda fr, q: euclid_margin(
+                    z64[fr], cb64, want[fr, :q], codes[bi, fr, q], want[fr, q]))
+            line += ("; equal to the plain search on the card" if not ties
+                     else f"; vs the plain search on the card: {len(ties)} "
+                     f"frames differ, each a near-tie (margins "
+                     f"{', '.join(f'{m:.1e}' for _, _, m in ties)})")
+            zero_counts()
+            back = model.decode(codes)
+            if counts() != none or not np.isfinite(back).all():
+                raise RuntimeError(f"{arch}: encode → decode gave launches "
+                                   f"{counts()}, finite "
+                                   f"{np.isfinite(back).all()}")
+            line += f"; encode → decode round trip: pcm {back.shape} finite"
+        ms = cuda_ms(lambda: model.encode(pcm))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+    del models
+    torch.cuda.empty_cache()
+    log(f"[istft] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
 
 
 class Recorder:
@@ -890,16 +1183,17 @@ def main() -> int:
     # distance margin at a frame where its codes differ (0.0: none differ)
     rvq_cases = [(shape, kind) for shape in RVQ_SHAPES
                  for kind in ("int", "dup", "normal")]
-    rvq_cases.append(((1, 300, 64, 3, 5), "tiny"))
+    rvq_cases += [((1, 300, 64, 3, 5), "tiny"), (RVQ_ISTFT_SHAPES[0], "seam")]
     for i, ((b, t, d, n_q, v), kind) in enumerate(rvq_cases):
         x, cb = rvq_inputs(b, t, d, n_q, v, kind, SEED + 190 + i)
         got = rvq_encode_fused(x, cb).cpu().numpy().reshape(b * t, n_q)
         want = rvq_encode(x, cb).cpu().numpy().reshape(b * t, n_q)
         label = f"rvq_encode_fused N{b * t} D{d} n_q{n_q} V{v} {kind}"
-        if got.min() < 0 or got.max() >= (v // 2 if kind == "dup" else v):
+        if got.min() < 0 or got.max() >= (v // 2 if kind == "dup" else v) \
+                or (kind == "seam" and (got % -(-v // 8)).max() >= 256):
             raise RuntimeError(f"{label}: a code past V or past the lower "
                                f"copy of a duplicated row")
-        if kind in ("int", "dup"):
+        if kind in ("int", "dup", "seam"):
             if not np.array_equal(got, want):
                 raise RuntimeError(f"{label}: {(got != want).sum()} codes "
                                    f"differ from the plain version's")
@@ -1496,6 +1790,10 @@ def main() -> int:
     log(f"[runtime] dac decode_async x2 ({', '.join(str(len(x)) for x in dseqs)} "
         f"frames) + PendingPcm.gather: " + "; ".join(held(f"decode_async {i}", g, dac_f32.decode(s))
                     for i, (g, s) in enumerate(zip(gathered, dseqs))))
+
+    # -- 8b. the iSTFT-head codecs ----------------------------------------------
+    log(f"[phase] 8b starts at {time.monotonic() - t_start:.1f} s")
+    istft_counts = istft_codecs(name_limit, zero_counts, counts, none)
 
     # -- 9. the CSM TTS path ---------------------------------------------------
     log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")
@@ -2161,9 +2459,10 @@ def main() -> int:
             log(line + f" [{name_limit}]")
 
     # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4,
-    # and a streaming encode's 1- and 5-frame acoustic pushes), with the
-    # norms given, as the model passes them from load
-    for b, t, d, n_q, v in RVQ_SHAPES[:3] + RVQ_SHAPES[-2:]:
+    # and a streaming encode's 1- and 5-frame acoustic pushes) and the
+    # iSTFT-head codecs' (WavTokenizer's and XY-Tokenizer's 20 s b1), with
+    # the norms given, as the model passes them from load
+    for b, t, d, n_q, v in RVQ_SHAPES[:3] + RVQ_ISTFT_SHAPES + RVQ_SHAPES[-2:]:
         x, cb = rvq_inputs(b, t, d, n_q, v, "normal", SEED + 210)
         nrm = codebook_norms(cb)
         kern, plain, s = turns(lambda: rvq_encode_fused(x, cb, norms=nrm),
@@ -2333,7 +2632,8 @@ def main() -> int:
                    + tts_dev_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"],
-                   "rvq_encode_fused": enc_counts["rvq_encode_fused"],
+                   "rvq_encode_fused": enc_counts["rvq_encode_fused"]
+                   + istft_counts["rvq_encode_fused"],
                    "flash_sdpa_window (carried keys)": stream_launches}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),

@@ -69,15 +69,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _read_pcm(model, path) -> np.ndarray:
-    """Mono PCM from a WAV at the model's sample rate: mono PCM16 stays
-    int16 (encode converts it on the device), anything else becomes mono
-    float32."""
+    """Mono PCM from a WAV at the rate the model encodes
+    (`encode_sample_rate` where it has one, e.g. XY-Tokenizer's 16 kHz,
+    else `sample_rate`): mono PCM16 stays int16 (encode converts it on the
+    device), anything else becomes mono float32."""
     from ..io.wav import read_wav, to_mono
+    from ..runtime.model import CodecError
 
     x, sr = read_wav(path, keep_i16=True)
-    if sr != model.sample_rate:
-        raise ValueError(f"input sample rate {sr} != model "
-                         f"{model.sample_rate}")
+    want = getattr(model, "encode_sample_rate", 0) or model.sample_rate
+    if sr != want:
+        raise CodecError(f"input sample rate {sr} != model {want}")
     if x.dtype == np.int16:
         if x.shape[1] == 1:
             return x[:, 0]

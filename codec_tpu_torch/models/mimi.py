@@ -173,8 +173,7 @@ def _search_state(p: Dict[str, Any]) -> None:
     tensor itself; a bf16 model keeps an f32 copy."""
     for group in ("sem", "acu"):
         if f"cb_{group}" in p:
-            cb = p[f"cb_{group}"].float().contiguous()
-            p[f"{group}_search"] = {"cb": cb, "norms": rvq.codebook_norms(cb)}
+            p[f"{group}_search"] = rvq.search_state(p[f"cb_{group}"])
 
 
 def params_from_jax(tree: Dict[str, Any], dtype=torch.float32,

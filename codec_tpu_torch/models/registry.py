@@ -41,7 +41,25 @@ def _dac():
     return DacCodec
 
 
+@register("wavtokenizer", "wavtokenizer_large", "wavtokenizer-large")
+def _wavtokenizer():
+    from .wavtokenizer import WavTokenizerCodec
+    return WavTokenizerCodec
+
+
 @register("snac", "snac_24khz")
 def _snac():
     from .snac import SnacCodec
     return SnacCodec
+
+
+@register("soprano")
+def _soprano():
+    from .soprano import SopranoCodec
+    return SopranoCodec
+
+
+@register("xy_tokenizer", "xy-tokenizer")
+def _xy():
+    from .xy_tokenizer import XyTokenizerCodec
+    return XyTokenizerCodec

@@ -14,6 +14,10 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * (2.0 ** -0.5)))
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
 def snake(x: torch.Tensor, alpha: torch.Tensor,
           eps: float = 1e-9) -> torch.Tensor:
     """Snake x + sin²(αx)/(α+eps) (DAC), α per channel on the last dim."""

@@ -16,10 +16,29 @@ zeros, or copies of the edge frames with pad_mode="replicate".
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def no_cudnn_for_f16(x: torch.Tensor):
+    """cuDNN off while a float16 depthwise conv of x runs on the card, and
+    back as it was after. cuDNN's f16 depthwise conv (cuDNN 9.2, H100) hits
+    an illegal address: at SNAC's decoder block C256 T59904 in every run,
+    and from about 60 000 frames (B x T) at every ConvNeXt width of the
+    iSTFT-head codecs (C256-C768, k3 and k7); bf16 and f32 ran clean
+    (tools/f16_probe.py). At 20 s requests it was no faster than
+    PyTorch's own kernel (chip_smoke.py phase 8b)."""
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn and not (
+        x.is_cuda and x.dtype == torch.float16)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = cudnn
 
 
 def _causal_pads(t: int, k: int, stride: int, dilation: int) -> tuple:

@@ -22,6 +22,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return x * torch.rsqrt(ms + eps) * gamma
 
 
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               n_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over [B, T, C]: each channel group normalised over (T,
+    group), then the per-channel affine. (The aten op: F.group_norm
+    refuses a group of one value, which normalises to 0.)"""
+    y = torch.group_norm(x.transpose(1, 2), n_groups, gamma, beta, eps)
+    return y.transpose(1, 2)
+
+
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize over the trailing (channel) dim (cosine RVQ)."""
     n = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))

@@ -20,6 +20,14 @@ def codebook_norms(codebooks: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(codebooks.float()), dim=-1)
 
 
+def search_state(codebooks: torch.Tensor) -> dict:
+    """What an encoder's search takes, built once at load: {"cb": the
+    codebooks in f32, contiguous (an f32 model's own tensor; a 16-bit model
+    keeps an f32 copy), "norms": their codebook_norms}."""
+    cb = codebooks.float().contiguous()
+    return {"cb": cb, "norms": codebook_norms(cb)}
+
+
 def rvq_layer_encode(residual: torch.Tensor, codebook: torch.Tensor,
                      norms: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -139,18 +139,10 @@ def snac_dw_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     x's dtype: the snaked hidden S = snake(dwconv(snake(x, α1)) + b1, α2),
     [B, T, C]; w1 [K, C] the per-channel taps."""
     h = act.snake(x, a1, eps)
-    # cuDNN's f16 depthwise conv faults on an H100 at SNAC's decoder block
-    # C256 T59904 (an illegal address, every run, with either input layout;
-    # tools/f16_probe.py): f16 on the card takes PyTorch's own kernel
-    cudnn = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = cudnn and not (
-        x.is_cuda and x.dtype == torch.float16)
-    try:
+    with conv.no_cudnn_for_f16(x):
         h = conv.conv1d(h, w1[:, None, :], b1, dilation=dilation,
                         padding=_halo(w1.shape[0], dilation),
                         groups=x.shape[-1])
-    finally:
-        torch.backends.cudnn.enabled = cudnn
     return act.snake(h, a2, eps)
 
 

@@ -98,6 +98,9 @@ class CodecModel:
 
     # Subclasses set these after load:
     sample_rate: int = 0
+    # the rate encode takes where it differs from sample_rate (XY-Tokenizer:
+    # 16 kHz in, 24 kHz out); 0: encode takes sample_rate
+    encode_sample_rate: int = 0
     hop_size: int = 1
     n_q: int = 0
     codebook_size: int = 0

@@ -1,14 +1,18 @@
 """Where a decode's device time goes: one warm request under torch.profiler.
 
-    python -m codec_tpu_torch.tools.profile_decode [dac|mimi|snac] \
-        [--seconds 20]
+    python -m codec_tpu_torch.tools.profile_decode \
+        [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer] [--seconds 20] \
+        [--encode]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
     python -m codec_tpu_torch.tools.profile_decode mimi_stream
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
 unprofiled and one profiled decode (SNAC: the frame count rounded down
-to a multiple of 4). Prints the card's name and power limit, the
+to a multiple of 4; Soprano: `decode_latent` of as many latent frames).
+With `--encode`, the same for `encode` of N(0, 0.3) PCM at the rate the
+model encodes (b1 f32, b1 bf16, b4 f32; the file holds the encoder).
+Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
 kernels with the most device time. Needs a CUDA device.
@@ -47,10 +51,10 @@ def _card() -> str:
                           text=True, check=True, timeout=60).stdout.strip()
 
 
-def _timed_decode(model, codes) -> float:
+def _timed(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.decode(codes)
+    fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
@@ -157,11 +161,15 @@ def _stream_push(top: int, card: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_decode")
     ap.add_argument("arch", nargs="?", default="dac",
-                    choices=["dac", "mimi", "snac", "csm", "mimi_stream"])
+                    choices=["dac", "mimi", "snac", "wavtokenizer",
+                             "soprano", "xy_tokenizer", "csm",
+                             "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
                     help="csm: the backbone's packed type")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--encode", action="store_true",
+                    help="profile encode(pcm) instead of decode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device")
@@ -171,6 +179,9 @@ def main(argv=None) -> int:
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
     from codec_tpu_torch.models.snac_init import write_random_snac_gguf
+    from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
+    from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
+    from codec_tpu_torch.models.xy_init import write_random_xy_gguf
 
     card = _card()
     print(f"card: {card}")
@@ -180,28 +191,49 @@ def main(argv=None) -> int:
     if args.arch == "mimi_stream":
         _stream_push(args.top, card)
         return 0
+    if args.encode and args.arch == "soprano":
+        raise SystemExit("profile_decode: Soprano has no encoder")
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
         path = Path(tmp) / f"{args.arch}.gguf"
-        {"dac": write_random_dac_gguf, "mimi": write_random_mimi_gguf,
-         "snac": write_random_snac_gguf}[args.arch](path, seed=0)
+        write = {"dac": write_random_dac_gguf, "mimi": write_random_mimi_gguf,
+                 "snac": write_random_snac_gguf,
+                 "wavtokenizer": write_random_wt_gguf,
+                 "soprano": write_random_soprano_gguf,
+                 "xy_tokenizer": write_random_xy_gguf}[args.arch]
+        write(path, seed=0, **({"encoder": True} if args.encode else {}))
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
                                                device="cuda")
-            frames = args.seconds * model.sample_rate // model.hop_size
-            if args.arch == "snac":
-                frames -= frames % model.cfg.vq_strides[0]
-            codes = rng.integers(0, model.codebook_size,
-                                 (batch, frames, model.n_q)).astype(np.int32)
+            if args.encode:
+                rate = model.encode_sample_rate or model.sample_rate
+                pcm = (rng.standard_normal((batch, args.seconds * rate))
+                       * 0.3).astype(np.float32)
+                run = lambda: model.encode(pcm)           # noqa: E731
+            elif args.arch == "soprano":
+                frames = args.seconds * model.sample_rate // (
+                    model.hop_size * model.cfg.upscale) + 1
+                z = rng.standard_normal((batch, frames, model.latent_dim)
+                                        ).astype(np.float32)
+                run = lambda: model.decode_latent(z)      # noqa: E731
+            else:
+                frames = args.seconds * model.sample_rate // model.hop_size
+                if args.arch == "snac":
+                    frames -= frames % model.cfg.vq_strides[0]
+                codes = rng.integers(0, model.codebook_size,
+                                     (batch, frames, model.n_q)
+                                     ).astype(np.int32)
+                run = lambda: model.decode(codes)         # noqa: E731
             for _ in range(2):
-                model.decode(codes)
-            latency = _timed_decode(model, codes)
+                run()
+            latency = _timed(run)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall = _timed_decode(model, codes)
+                wall = _timed(run)
             kernels = _kernel_times(prof)
             busy = sum(ms for _, ms, _ in kernels)
-            print(f"\n== {args.arch} {args.seconds} s b{batch} {dtype}: "
+            print(f"\n== {args.arch} {'encode' if args.encode else 'decode'} "
+                  f"{args.seconds} s b{batch} {dtype}: "
                   f"latency {latency:.2f} ms, profiled {wall:.2f} ms, device "
                   f"busy {busy:.2f} ms, idle share {1 - busy / latency:.3f} "
                   f"[{card}]")

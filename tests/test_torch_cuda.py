@@ -861,13 +861,16 @@ def _rvq_inputs(b, t, d, n_q, v, dev, kind, seed=0):
 # wrapper), V above 8 x 256 (several row tiles per block); N 1, N no
 # multiple of the frame group, V below the cluster size, D 32, D 96, D no
 # multiple of 8; D 512 and 2560 (8 frames a cluster, the winners' rows
-# read from L2)
+# read from L2); the iSTFT-head codecs' 20 s b1 searches: WavTokenizer (one
+# 4096 x 512 codebook, two 256-row tiles a block) and XY-Tokenizer (8 x 1024
+# x 512)
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
               (2, 33, 30, 3, 70), (1, 40, 64, 2, 5000), (1, 1, 32, 3, 64),
               (1, 1, 256, 31, 2048), (3, 17, 96, 2, 300), (1, 50, 36, 3, 6),
               (1, 70, 20, 2, 2049), (1, 250, 512, 4, 2048),
-              (1, 20, 2560, 2, 300)]
+              (1, 20, 2560, 2, 300), (1, 1500, 512, 1, 4096),
+              (1, 250, 512, 8, 1024)]
 
 
 @pytest.mark.parametrize("kind", ["int", "normal", "dup"])
@@ -931,6 +934,30 @@ def test_rvq_layout_and_plan_match_the_card(dev):
         frames = rvq_cuda.plan(n, d, smem_per_block(0))
         assert rvq_cuda.held_clusters(0, frames, d) >= 1
         assert rvq_cuda.smem_bytes(frames, d) <= smem_per_block(0)
+
+
+@pytest.mark.parametrize("b,t,d,n_q,v", [(1, 1500, 512, 1, 4096),
+                                         (1, 300, 64, 3, 4100)])
+def test_rvq_kernel_lowest_index_wins_across_the_tile_seam(dev, b, t, d, n_q,
+                                                           v):
+    """Each block's second 256-row tile a copy of its first (V/8 rows a
+    block): every exact tie spans the seam, the running best carries over
+    it, and the first tile's row must win, bit for bit as the plain search
+    (integer-valued inputs: exact products)."""
+    from codec_tpu_torch.ops import rvq
+    from codec_tpu_torch.ops.rvq_cuda import CLUSTER, TILE_V, rvq_encode_fused
+
+    x, cb = _rvq_inputs(b, t, d, n_q, v, dev, "int", seed=v)
+    copied = torch.zeros(v, dtype=torch.bool, device=dev)
+    for lo in range(0, v, -(-v // CLUSTER)):
+        n = min(TILE_V, v - lo - TILE_V)
+        cb[:, lo + TILE_V: lo + TILE_V + n] = cb[:, lo: lo + n]
+        copied[lo + TILE_V: lo + TILE_V + n] = True
+    got = rvq_encode_fused(x, cb)
+    want = rvq.rvq_encode(x, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not copied[got.long()].any()         # no copy beat its original
 
 
 def test_rvq_kernel_never_picks_rows_past_v(dev):
@@ -1064,6 +1091,145 @@ def test_encode_on_card_uses_kernels_and_matches_cpu(dev, encoder_ggufs, arch,
     assert got.shape == want.shape
     assert_codes(got, want, model_margin(cpu, pcm, want, got))
     assert np.isfinite(gpu.decode(got)).all()
+
+
+@pytest.fixture(scope="module")
+def istft_ggufs(tmp_path_factory):
+    """Small random WavTokenizer and XY-Tokenizer files with encoders and a
+    small Soprano (the CPU tests' widths)."""
+    import dataclasses
+
+    from codec_tpu_torch.models import soprano_init, wavtokenizer_init, xy_init
+    from codec_tpu_torch.models.xy_tokenizer import XyConfig
+
+    d = tmp_path_factory.mktemp("istft")
+    wavtokenizer_init.write_random_wt_gguf(
+        d / "wavtokenizer.gguf", seed=3, encoder=True, codebook_size=256,
+        codebook_dim=64, dim=64, intermediate=96, n_convnext=2, n_fft=480,
+        enc_filters=4)
+    soprano_init.write_random_soprano_gguf(
+        d / "soprano.gguf", seed=3, cfg=dataclasses.replace(
+            soprano_init.SOPRANO_1_1, decoder_dim=64, intermediate_dim=96,
+            num_layers=2))
+    xy_init.write_random_xy_gguf(
+        d / "xy_tokenizer.gguf", seed=3, encoder=True, cfg=XyConfig(
+            n_layers=2, adapter_layers=1, d_model=64, n_heads=2,
+            vocos_blocks=2, latent_dim=256, codebook_dim=64,
+            codebook_size=128), ffn_dim=128, vocos_dim=64,
+        vocos_intermediate=128, enc_pos=500, post_pos=20, dec_pos=100)
+    return d
+
+
+@pytest.mark.parametrize("arch", ["wavtokenizer", "soprano", "xy_tokenizer"])
+def test_istft_codecs_on_card_match_cpu(dev, istft_ggufs, arch):
+    """f32 decodes (XY across decode windows) on the card launch none of
+    the port's kernels and give the CPU's samples; encodes launch one
+    rvq_encode_fused a row and give the CPU's codes under the near-tie
+    rule."""
+    import codec_tpu_torch
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from encode_ties import assert_codes, euclid_margin, f64
+
+    path = istft_ggufs / f"{arch}.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    rng = np.random.default_rng(11)
+    before = rvq_encode_fused.launches
+    if arch == "soprano":
+        z = rng.standard_normal((2, 40, 512)).astype(np.float32)
+        got, want = gpu.decode_latent(z), cpu.decode_latent(z)
+    else:
+        codes = rng.integers(0, gpu.codebook_size, (2, 45, gpu.n_q))
+        got, want = gpu.decode(codes), cpu.decode(codes)
+    assert rvq_encode_fused.launches == before
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+    if arch == "soprano":
+        return
+    rate = gpu.encode_sample_rate or gpu.sample_rate
+    pcm = (rng.standard_normal((2, rate * 2 + 77)) * 0.3).astype(np.float32)
+    got = gpu.encode(pcm)
+    assert rvq_encode_fused.launches == before + (1 if arch == "wavtokenizer"
+                                                  else 2)
+    want = cpu.encode(pcm)
+    assert got.shape == want.shape and got.dtype == np.int32
+    cb = f64(cpu.params["cb"])
+    for i in range(2):
+        lat = f64(_istft_latent(cpu, pcm[i]))
+        assert_codes(got[i], want[i], lambda fr, q: euclid_margin(
+            lat[fr], cb, want[i, fr, :q], got[i, fr, q], want[i, fr, q]))
+
+
+@pytest.mark.parametrize("b,t,c,k", [(1, 1500, 768, 7), (4, 15000, 768, 7),
+                                     (1, 62450, 768, 3), (4, 30000, 512, 7)])
+def test_f16_depthwise_conv_on_card(dev, b, t, c, k):
+    """ConvNeXt's f16 depthwise conv on the card (PyTorch's own kernel) at
+    a 20 s request and at lengths where cuDNN's f16 kernel faults: the f32
+    conv's values, cuDNN left on as it was."""
+    from codec_tpu_torch.ops import blocks
+
+    g = torch.Generator(device=dev).manual_seed(t + c)
+    x = torch.randn((b, t, c), device=dev, generator=g)
+    w = torch.randn((c, 1, k), device=dev, generator=g) * k ** -0.5
+    bias = torch.randn(c, device=dev, generator=g) * 0.1
+    got = blocks.depthwise_conv(x.half(), w.half(), bias.half())
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.enabled
+    want = blocks.depthwise_conv(x, w, bias)
+    assert got.dtype == torch.float16 and got.shape == want.shape
+    assert float((got.float() - want).abs().max()) <= 1e-2 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["wavtokenizer", "soprano", "xy_tokenizer"])
+def test_istft_codecs_f16_on_card(dev, istft_ggufs, arch):
+    """f16 decodes on the card against the same decode with cuDNN off
+    (phases 4-6's f16 bound, corr > 0.9995) and against the f32 decode on
+    the CPU (the bf16 tests' corr > 0.99)."""
+    import codec_tpu_torch
+
+    path = istft_ggufs / f"{arch}.gguf"
+    gpu = codec_tpu_torch.load_model(path, compute_dtype="f16", device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    rng = np.random.default_rng(12)
+    if arch == "soprano":
+        x = rng.standard_normal((2, 40, 512)).astype(np.float32)
+        run = lambda m: m.decode_latent(x)                # noqa: E731
+    else:
+        x = rng.integers(0, gpu.codebook_size, (2, 45, gpu.n_q))
+        run = lambda m: m.decode(x)                       # noqa: E731
+    got = run(gpu)
+    cudnn, torch.backends.cudnn.enabled = torch.backends.cudnn.enabled, False
+    try:
+        plain = run(gpu)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    want = run(cpu)
+    assert got.shape == plain.shape == want.shape
+    assert np.isfinite(got).all() and np.isfinite(plain).all()
+    assert np.corrcoef(got.ravel(), plain.ravel())[0, 1] > 0.9995
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99
+
+
+def _istft_latent(model, pcm_row):
+    """A WavTokenizer or XY-Tokenizer model's latent before its search, for
+    one PCM row."""
+    from codec_tpu_torch.dsp.audio import whisper_mel_padded
+    from codec_tpu_torch.models import wavtokenizer, xy_tokenizer
+
+    with torch.inference_mode():
+        if model.arch == "wavtokenizer":
+            return wavtokenizer.wt_encode_latent_fn(
+                model.params, torch.from_numpy(pcm_row[None]))[0]
+        c = model.cfg
+        mel, n_frames = whisper_mel_padded(
+            pcm_row, c.encode_sample_rate, c.mel_n_fft, c.mel_hop,
+            c.mel_n_mels, c.encoder_downsample_rate)
+        n_valid = min(n_frames, len(pcm_row) // c.mel_hop)
+        return xy_tokenizer.xy_encode_latent_fn(
+            model.params, torch.from_numpy(np.ascontiguousarray(mel.T[None])),
+            c, n_valid)[0]
 
 
 def test_cli_encode_and_e2e_on_card(dev, encoder_ggufs, tmp_path):

@@ -211,11 +211,11 @@ def test_encode_matches_hf_directly(tiny):
 
 
 def test_unported_arch_raises(tmp_path):
-    w = GGUFWriter(tmp_path / "wavtokenizer.gguf", "wavtokenizer")
+    w = GGUFWriter(tmp_path / "neucodec.gguf", "neucodec")
     w.add_tensor("x", np.zeros(4, np.float32))
     w.write()
-    with pytest.raises(CodecError, match="'wavtokenizer' is not yet ported"):
-        codec_tpu_torch.load_model(tmp_path / "wavtokenizer.gguf",
+    with pytest.raises(CodecError, match="'neucodec' is not yet ported"):
+        codec_tpu_torch.load_model(tmp_path / "neucodec.gguf",
                                    device="cpu")
 
 
