@@ -73,6 +73,20 @@ Phases (any failure raises and exits non-zero before the last line):
      against the same decode with cuDNN off, each f32 encode's
      codes against the plain search on the card (near-tie rule), one
      encode → decode round trip per encoding arch, and each request timed
+  8c. the windowed-transformer codecs: write full-width random
+     Qwen3-TTS-Tokenizer (with its Mimi encoder; window 72) and Pocket-Mimi
+     (with its encoder) GGUFs, load each on the card (f32, bf16, f16);
+     Qwen3 decode 20 s b1 f32, bf16 and f16, b4 f32, and b1 f32 with the
+     window off (full causal), encode 20 s b1 f32 and bf16; Pocket
+     decode_latent 20 s b1 f32, bf16 and f16, b4 f32, 60 s b1 f32,
+     encode_latent 20 s b1 f32 (a ragged tail), and latent streams of 20 s
+     b1 f32 in pushes of 1 and 5 frames; each with the launch counts set to
+     0 just before and read just after (exactly one flash_sdpa_window per
+     transformer layer: Qwen3 8 a decode, 8 + 2 rvq_encode_fused an encode;
+     Pocket 2 a call and a push), each f32 output held against the same
+     function with the plain attention (and the plain search) on the card,
+     each f16 decode against the plain path in f16, each stream against
+     decode_latent of the whole stream, and each request and push timed
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
@@ -112,7 +126,9 @@ Phases (any failure raises and exits non-zero before the last line):
      streaming sessions' pushes (median event time, x realtime, time to
      first audio, one push's device busy time, idle share and launches
      under torch.profiler) and the attention with carried keys beside its
-     plain version, SDPA with the same mask and its bound
+     plain version, SDPA with the same mask and its bound; the windowed
+     codecs' attention shapes (Qwen3 H16 T250 with and without its window,
+     Pocket T4000 w250, Pocket's pushes with carried keys) the same way
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -139,9 +155,15 @@ TIMED_RUNS = 10
 # at 20 s b1, 60 s b1 and 20 s b4, pure causal, and D=128 with a small
 # window; bounds of tests/test_attn_pallas.py (f32 atol 2e-5 rtol 1e-5,
 # bf16 atol 3e-2)
+# the windowed codecs' (phase 8c): Qwen3-TTS-Tokenizer's decoder at 20 s
+# (16 heads, full causal and its 72-frame window) and Pocket-Mimi's 200 Hz
+# transformer at 20 s (T 4000 against its 250-frame window); timed in
+# phase 10 beside SDPA with the same mask and their bound
+WINDOWED_ATTN_SHAPES = [(1, 16, 250, 64, None), (1, 16, 250, 64, 72),
+                        (1, 8, 4000, 64, 250)]
 ATTN_SHAPES_F32 = [(1, 8, 500, 64, 250), (1, 8, 1500, 64, 250),
                    (4, 8, 500, 64, 250), (1, 2, 300, 64, None),
-                   (1, 2, 256, 128, 16)]
+                   (1, 2, 256, 128, 16), *WINDOWED_ATTN_SHAPES]
 ATTN_SHAPE_BF16 = (1, 8, 500, 64, 250)
 ATTN_F32_TOL = dict(atol=2e-5, rtol=1e-5)
 ATTN_BF16_ATOL = 3e-2
@@ -245,9 +267,13 @@ Q4K_LOAD_LIMIT = 2.5e9                  # bytes a Q4_K backbone load may add
 # "seam" inputs (each block's second tile a copy of its first: the lower
 # copy must win across the tile seam, bit for bit)
 RVQ_ISTFT_SHAPES = [(1, 1500, 512, 1, 4096), (1, 250, 512, 8, 1024)]
+# Qwen3-TTS-Tokenizer's encode at 20 s b1: its Mimi encoder's acoustic
+# search (15 levels; the semantic one is Mimi's N250 n_q1 shape)
+RVQ_QWEN3 = (1, 250, 256, 15, 2048)
 RVQ_SHAPES = [(1, 250, 256, 31, 2048), (1, 250, 256, 1, 2048),
               (4, 250, 256, 31, 2048), (1, 7, 32, 4, 64), (1, 130, 96, 3, 100),
-              (1, 250, 512, 4, 2048), *RVQ_ISTFT_SHAPES, (1, 1, 256, 1, 2048),
+              (1, 250, 512, 4, 2048), *RVQ_ISTFT_SHAPES, RVQ_QWEN3,
+              (1, 1, 256, 1, 2048),
               (1, 1, 256, 31, 2048), (1, 5, 256, 31, 2048)]
 RVQ_MAIN = (1, 250, 256, 31, 2048)      # the kernels line's shape
 NEAR_TIE = 1e-4
@@ -283,8 +309,12 @@ STREAM_TIMED_STEPS = 30
 # a 1-frame step (2 queries against 249 carried keys and their own) at
 # stream start (k_start 249: every carried slot masked) and past it
 # (k_start 0), a 5-frame step and the b4 step
+# and Pocket-Mimi's pushes of 1 and 5 latent frames (16 and 80 queries at
+# 200 Hz against 249 carried keys; the 1-frame push also at stream start)
 STREAM_ATTN_SHAPES = [(1, 8, 2, 251, 64, 250, 0), (1, 8, 2, 251, 64, 250, 249),
-                      (1, 8, 10, 259, 64, 250, 0), (4, 8, 2, 251, 64, 250, 0)]
+                      (1, 8, 10, 259, 64, 250, 0), (4, 8, 2, 251, 64, 250, 0),
+                      (1, 8, 16, 265, 64, 250, 0), (1, 8, 16, 265, 64, 250, 249),
+                      (1, 8, 80, 329, 64, 250, 0)]
 STREAM_ATTN_MAIN = (1, 8, 2, 251, 64, 250, 0)   # the kernels line's shape
 # -- the iSTFT-head codecs at full width (phase 8b): (arch, name, seconds,
 # batch, compute dtype); each decode launches none of the port's kernels,
@@ -312,6 +342,32 @@ F16_DW_PAIRS = 6
 ISTFT_ENCODES = [("wavtokenizer", "20s_b1_f32", 20, 1, "float32"),
                  ("wavtokenizer", "20s_b1_bf16", 20, 1, "bfloat16"),
                  ("xy_tokenizer", "20s_b1_f32", 20, 1, "float32")]
+# -- the windowed-transformer codecs at full width (phase 8c): (arch, name,
+# seconds, batch, compute dtype). Qwen3-TTS-Tokenizer's decoder transformer
+# runs at 12.5 Hz over a 72-frame window (one more decode with the window
+# off: full causal attention); Pocket-Mimi's at 200 Hz (T 4000 a 20 s
+# request, 12000 at 60 s) over its 250-frame window. Each layer launches
+# flash_sdpa_window: Qwen3 8 a decode, 8 + 2 rvq_encode_fused an encode;
+# Pocket 2 a decode_latent, encode_latent and push
+Q3T_WINDOW = 72
+WINDOWED_DECODES = [("qwen3", "20s_b1_f32", 20, 1, "float32"),
+                    ("qwen3", "20s_b1_bf16", 20, 1, "bfloat16"),
+                    ("qwen3", "20s_b1_f16", 20, 1, "float16"),
+                    ("qwen3", "20s_b4_f32", 20, 4, "float32"),
+                    ("pocket", "20s_b1_f32", 20, 1, "float32"),
+                    ("pocket", "20s_b1_bf16", 20, 1, "bfloat16"),
+                    ("pocket", "20s_b1_f16", 20, 1, "float16"),
+                    ("pocket", "20s_b4_f32", 20, 4, "float32"),
+                    ("pocket", "60s_b1_f32", 60, 1, "float32")]
+WINDOWED_ENCODES = [("qwen3", "20s_b1_f32", 20, 1, "float32"),
+                    ("qwen3", "20s_b1_bf16", 20, 1, "bfloat16"),
+                    ("pocket", "20s_b1_f32", 20, 1, "float32")]
+# samples past 20 s in the Pocket encode: a ragged tail, its valid-length path
+POCKET_TAIL = 733
+# Pocket-Mimi's latent streams (the Pocket-TTS vocoder): (name, seconds,
+# batch, compute dtype, latent frames a push)
+POCKET_STREAMS = [("20s_b1_f32_c1", 20, 1, "float32", 1),
+                  ("20s_b1_f32_c5", 20, 1, "float32", 5)]
 
 
 def log(msg: str) -> None:
@@ -516,6 +572,41 @@ def near_ties(got, want, margin_fn):
                                f"relative margin {m:.3e}")
         out.append((int(fr), q, m))
     return out
+
+
+def mimi_margin(p, mcfg, lat, want, got):
+    """margin_fn (near_ties) of one row of a Mimi encoder's codes: lat
+    [T, hidden] f64, the latent before the semantic and acoustic input
+    projections; p and mcfg the encoder's parameters and config."""
+    groups = [(f64(p["sem_ip"]), f64(p["cb_sem"]), 0),
+              (f64(p["acu_ip"]), f64(p["cb_acu"]), mcfg.n_sem)]
+
+    def margin(fr, q):
+        ip, cb, base = groups[q >= mcfg.n_sem]
+        return euclid_margin(lat[fr] @ ip.T, cb, want[fr, base:q],
+                             got[fr, q], want[fr, q])
+    return margin
+
+
+def stream(session, x, chunk, want_step, axis, counts, push_s=None):
+    """Pushes x in chunks along axis, each push's launches read from
+    counts() and checked against want_step → (the concatenated outputs,
+    the launches read, summed over the pushes). With a list push_s, each
+    push's host seconds are appended to it."""
+    outs, read = [], dict.fromkeys(want_step, 0)
+    for lo in range(0, x.shape[axis], chunk):
+        part = np.take(x, range(lo, min(lo + chunk, x.shape[axis])), axis=axis)
+        before = counts()
+        t0 = time.perf_counter()
+        outs.append(session.push(part))
+        if push_s is not None:
+            push_s.append(time.perf_counter() - t0)
+        step = {k: v - before[k] for k, v in counts().items()}
+        if step != want_step:
+            raise RuntimeError(f"stream step at {lo}: launches {step}, "
+                               f"want {want_step}")
+        read = {k: read[k] + v for k, v in step.items()}
+    return np.concatenate(outs, axis=axis), read
 
 
 def f64(t):
@@ -816,6 +907,272 @@ def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     del models
     torch.cuda.empty_cache()
     log(f"[istft] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts
+
+
+def windowed_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
+    """Phase 8c: write full-width random Qwen3-TTS-Tokenizer (with its Mimi
+    encoder) and Pocket-Mimi (with its encoder) GGUFs, load each with
+    load_model on the card in f32, bf16 and f16, and run WINDOWED_DECODES,
+    one Qwen3 decode with its window taken off (full causal attention),
+    WINDOWED_ENCODES and POCKET_STREAMS, with every launch count set to 0
+    just before each request and read just after (each push's read just
+    before and after it, the warm first push's too): exactly one
+    flash_sdpa_window per transformer layer (Qwen3 decode 8, encode 8 + 2
+    rvq_encode_fused; Pocket 2 per decode_latent, encode_latent and push).
+    Each output is checked for shape, finite samples and saturation; each
+    f32 decode against the same function with the plain attention on the
+    card (corr > 0.99999, max abs err <= 1e-4 x peak), each f16 decode
+    against the plain path in f16 (corr > 0.9995); the f32 Qwen3 codes
+    against the plain path (plain attention, plain search) under the
+    near-tie rule, the f32 Pocket latents against the plain path at 1e-4 x
+    peak, each f32 stream against decode_latent of the whole stream on the
+    card. Each request's median time (CUDA events), each stream's push
+    time (median, host clock around a push that ends in its copy to the
+    host) and time to first audio. → this phase's launch counts (the
+    streams' under "flash_sdpa_window (carried keys)")."""
+    import dataclasses
+
+    import codec_tpu_torch
+    from codec_tpu_torch.models import mimi, pocket_mimi, qwen3_tts
+    from codec_tpu_torch.models.pocket_init import write_random_pocket_gguf
+    from codec_tpu_torch.models.qwen3_tts_init import write_random_q3t_gguf
+    from codec_tpu_torch.ops.attn_cuda import flash_sdpa_window_ref
+    from codec_tpu_torch.ops.rvq import rvq_encode
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    t_phase = time.monotonic()
+    models = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_windowed_") as tmp:
+        paths = {"qwen3": Path(tmp) / "qwen3_random.gguf",
+                 "pocket": Path(tmp) / "pocket_random.gguf"}
+        t0 = time.monotonic()
+        write_random_q3t_gguf(paths["qwen3"], seed=SEED)
+        write_random_pocket_gguf(paths["pocket"], seed=SEED)
+        log("[windowed] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
+            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        for arch, path in paths.items():
+            for dt in ("float32", "bfloat16", "float16"):
+                models[arch, dt] = codec_tpu_torch.load_model(
+                    path, compute_dtype=dt, device="cuda")
+        torch.cuda.synchronize()
+    q3m, pmm = models["qwen3", "float32"], models["pocket", "float32"]
+    if q3m.cfg.window != Q3T_WINDOW or not (q3m.has_encoder
+                                            and pmm.has_encoder):
+        raise RuntimeError(f"windowed: Qwen3 window {q3m.cfg.window}, "
+                           f"encoders {q3m.has_encoder} {pmm.has_encoder}")
+    log(f"[windowed] load_model x2 archs, f32 + bf16 + f16 on the card, in "
+        f"{time.monotonic() - t0:.2f} s; Qwen3-TTS-Tokenizer: {q3m.cfg}, "
+        f"encoder {q3m.enc_cfg}; Pocket-Mimi: {pmm.cfg}; parameters "
+        + ", ".join(f"{a} {sum(t.numel() for t in _tensors(models[a, 'float32'].params)) / 1e6:.1f} M"
+                    for a in paths) + f" (+ Qwen3's encoder "
+        f"{sum(t.numel() for t in _tensors(q3m.enc_params)) / 1e6:.1f} M)")
+
+    layers = {"qwen3": q3m.cfg.n_layers, "pocket": pmm.cfg.tf_layers}
+    rng = np.random.default_rng(SEED + 600)
+
+    def inputs(arch, secs, batch):
+        m = models[arch, "float32"]
+        frames = secs * m.sample_rate // m.hop_size
+        if arch == "qwen3":
+            return rng.integers(0, m.codebook_size, (batch, frames, m.n_q)
+                                ).astype(np.int32)
+        return rng.standard_normal((batch, frames, m.latent_dim)).astype(
+            np.float32)
+
+    def run(model, x):
+        return (model.decode(x) if model.arch == "qwen3_tts_tokenizer"
+                else model.decode_latent(x))
+
+    def plain(model, x):
+        """The decode function with the plain attention, on the card."""
+        with model._decoding():
+            if model.arch == "qwen3_tts_tokenizer":
+                pcm = qwen3_tts.q3t_decode_fn(
+                    model.params, torch.from_numpy(x.astype(np.int64)).cuda(),
+                    model.cfg, attention=flash_sdpa_window_ref)
+            else:
+                pcm = pocket_mimi.pocket_decode_latent_fn(
+                    model.params, torch.from_numpy(x).to(
+                        "cuda", model.compute_dtype), model.cfg,
+                    attention=flash_sdpa_window_ref)
+            return pcm.float().cpu().numpy()
+
+    def held(label, got, want, bound_corr, peak_bound=True):
+        c = corr(got, want)
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if not (np.isfinite(want).all() and c > bound_corr
+                and (not peak_bound or err <= 1e-4 * peak)):
+            raise RuntimeError(f"{label}: corr {c}, max abs err {err} (peak "
+                               f"{peak})")
+        return (f"corr {c:.9f}, max abs err {err:.3e} ({err / peak:.2e} of "
+                f"peak {peak:.4f})")
+
+    phase_counts = dict(none, **{"flash_sdpa_window (carried keys)": 0})
+    requests = [(a, n, s, b, dt, None) for a, n, s, b, dt in WINDOWED_DECODES]
+    requests.append(("qwen3", "20s_b1_f32_full_causal", 20, 1, "float32",
+                     dataclasses.replace(q3m.cfg, window=None)))
+    for arch, name, secs, batch, dt, cfg in requests:
+        model = models[arch, dt]
+        keep = model.cfg
+        model.cfg = cfg or keep
+        try:
+            x = inputs(arch, secs, batch)
+            zero_counts()
+            pcm = run(model, x)
+            step = counts()
+            want_step = {**none, "flash_sdpa_window": layers[arch]}
+            if step != want_step:
+                raise RuntimeError(f"{arch} decode {name}: launches {step}, "
+                                   f"want {want_step}")
+            phase_counts["flash_sdpa_window"] += layers[arch]
+            n = x.shape[1] * model.hop_size
+            if pcm.shape != (batch, n) or pcm.dtype != np.float32 \
+                    or not np.isfinite(pcm).all():
+                raise RuntimeError(f"{arch} decode {name}: pcm {pcm.shape} "
+                                   f"{pcm.dtype}, want {(batch, n)} finite "
+                                   f"float32")
+            sat = float((np.abs(pcm) > 0.99).mean())
+            if not sat < 0.01:
+                raise RuntimeError(f"{arch} decode {name}: {sat:.2%} of "
+                                   f"samples saturated")
+            line = (f"[windowed] {arch} decode {name} (window "
+                    f"{model.cfg.window if arch == 'qwen3' else model.cfg.tf_context}): "
+                    f"launches {layers[arch]} flash_sdpa_window; pcm "
+                    f"{pcm.shape} finite, peak {np.abs(pcm).max():.4f}, std "
+                    f"{pcm.std():.4f}, share |pcm| > 0.99: {sat:.2e}")
+            if dt == "float32":
+                line += "; vs the plain attention on the card: " + held(
+                    f"{arch} decode {name}", pcm, plain(model, x), 0.99999)
+            elif dt == "float16":
+                line += "; vs the plain path in f16 on the card: " + held(
+                    f"{arch} decode {name}", pcm, plain(model, x),
+                    CHAIN_BF16["corr"], peak_bound=False)
+            if dt != "float32":
+                line += (f"; vs the f32 model: corr "
+                         f"{corr(pcm, run(models[arch, 'float32'], x)):.6f}")
+            ms = cuda_ms(lambda: run(model, x))
+            log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}),"
+                f" {secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+        finally:
+            model.cfg = keep
+
+    for arch, name, secs, batch, dt in WINDOWED_ENCODES:
+        model = models[arch, dt]
+        n = secs * model.sample_rate + (POCKET_TAIL if arch == "pocket" else 0)
+        pcm = (rng.standard_normal((batch, n)) * 0.3).astype(np.float32)
+        frames = -(-n // model.hop_size)
+        zero_counts()
+        out = model.encode(pcm) if arch == "qwen3" else model.encode_latent(pcm)
+        step = counts()
+        if arch == "qwen3":
+            want_step = {**none, "flash_sdpa_window": model.enc_cfg.n_layers,
+                         "rvq_encode_fused": 2}
+            want_shape, want_dtype = (batch, frames, model.n_q), np.int32
+        else:
+            want_step = {**none, "flash_sdpa_window": layers[arch]}
+            want_shape, want_dtype = (batch, frames, model.latent_dim), np.float32
+        if step != want_step:
+            raise RuntimeError(f"{arch} encode {name}: launches {step}, want "
+                               f"{want_step}")
+        for k in ("flash_sdpa_window", "rvq_encode_fused"):
+            phase_counts[k] += want_step[k]
+        if out.shape != want_shape or out.dtype != want_dtype \
+                or not np.isfinite(out).all():
+            raise RuntimeError(f"{arch} encode {name}: {out.shape} "
+                               f"{out.dtype}, want {want_shape} {want_dtype}")
+        line = (f"[windowed] {arch} encode {name} ({n} samples): launches "
+                f"{step['flash_sdpa_window']} flash_sdpa_window + "
+                f"{step['rvq_encode_fused']} rvq_encode_fused; {out.shape}")
+        x = torch.from_numpy(pcm).cuda()
+        if arch == "qwen3":
+            if out.min() < 0 or out.max() >= model.codebook_size:
+                raise RuntimeError(f"qwen3 encode {name}: codes out of range")
+            line += (f" in range, distinct codes per level "
+                     f"{[len(np.unique(out[..., q])) for q in range(model.n_q)]}")
+        if arch == "qwen3" and dt == "float32":
+            with torch.inference_mode(), f32_precision(True):
+                want = mimi.mimi_encode_fn(
+                    model.enc_params, x, model.enc_cfg,
+                    attention=flash_sdpa_window_ref,
+                    quantize=rvq_encode).cpu().numpy()
+                lat = f64(mimi.mimi_encode_latent_fn(
+                    model.enc_params, x, model.enc_cfg,
+                    attention=flash_sdpa_window_ref))
+            ties = [t for bi in range(batch) for t in near_ties(
+                out[bi], want[bi], mimi_margin(model.enc_params,
+                                               model.enc_cfg, lat[bi],
+                                               want[bi], out[bi]))]
+            line += ("; equal to the plain path's on the card" if not ties
+                     else f"; vs the plain path on the card: {len(ties)} "
+                     f"frames differ, each a near-tie (margins "
+                     f"{', '.join(f'{m:.1e}' for _, _, m in ties)})")
+            zero_counts()
+            back = model.decode(out)
+            if counts() != {**none, "flash_sdpa_window": layers[arch]} \
+                    or not np.isfinite(back).all():
+                raise RuntimeError(f"qwen3: encode → decode gave launches "
+                                   f"{counts()}, finite "
+                                   f"{np.isfinite(back).all()}")
+            phase_counts["flash_sdpa_window"] += layers[arch]
+            line += f"; encode → decode round trip: pcm {back.shape} finite"
+        elif arch == "pocket" and dt == "float32":
+            xp = F.pad(x, (0, frames * model.hop_size - n))
+            with torch.inference_mode(), f32_precision(True):
+                want = pocket_mimi.pocket_encode_latent_fn(
+                    model.params, xp, model.cfg, n_valid=n,
+                    attention=flash_sdpa_window_ref).cpu().numpy()
+            line += "; vs the plain attention on the card: " + held(
+                f"pocket encode {name}", out, want, 0.99999)
+        ms = cuda_ms(lambda: model.encode(pcm) if arch == "qwen3"
+                     else model.encode_latent(pcm))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+
+    push_step = {**none, "flash_sdpa_window": layers["pocket"]}
+
+    def first_audio(model, batch, z, chunk, push_s):
+        """Opens a session and pushes z through it in chunks → (pcm, the
+        launches read, the host seconds from the open to the first push's
+        PCM)."""
+        t0 = time.perf_counter()
+        session = model.streaming_decoder(batch=batch)
+        open_s = time.perf_counter() - t0
+        pcm, read = stream(session, z, chunk, push_step, 1, counts, push_s)
+        return pcm, read, open_s + push_s[0]
+
+    for name, secs, batch, dt, chunk in POCKET_STREAMS:
+        model = models["pocket", dt]
+        z = inputs("pocket", secs, batch)
+        push_s = []
+        # the process's first push of this shape opens the stream
+        pcm, read, ttfa_cold = first_audio(model, batch, z, chunk, push_s)
+        full = model.decode_latent(z)
+        steady = statistics.median(push_s[2:]) * 1e3
+        # a session opened once this push shape has run (its convs' plans
+        # and allocations warm): open it and push its first chunk
+        _, warm, ttfa_warm = first_audio(model, batch, z[:, :chunk],
+                                           chunk, [])
+        phase_counts["flash_sdpa_window (carried keys)"] += (
+            read["flash_sdpa_window"] + warm["flash_sdpa_window"])
+        log(f"[windowed] pocket stream {name}: {len(push_s)} pushes of {chunk} "
+            f"latent frame(s) ({model.cfg.resample_stride * chunk} queries "
+            f"against {model.cfg.tf_context - 1} carried keys), launches per "
+            f"push {layers['pocket']} flash_sdpa_window; "
+            f"pcm {pcm.shape} finite; vs decode_latent of the whole stream "
+            f"on the card: " + held(f"pocket stream {name}", pcm, full,
+                                    0.99999)
+            + f"; push {steady:.3f} ms (median after 2, host clock), "
+            f"{chunk * 80 / steady:.1f}x realtime; time to first audio "
+            f"(open a session, push its first chunk) {ttfa_cold * 1e3:.3f} ms "
+            f"the first time in the process, {ttfa_warm * 1e3:.3f} ms once "
+            f"warm [{name_limit}]")
+    del models
+    torch.cuda.empty_cache()
+    log(f"[windowed] main path launches: {phase_counts}; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return phase_counts
 
@@ -1589,14 +1946,7 @@ def main() -> int:
         """margin_fn (near_ties) at one batch row: lat [T, C] f64."""
         p, mcfg = model.params, model.cfg
         if arch == "mimi":
-            groups = [(f64(p["sem_ip"]), f64(p["cb_sem"]), 0),
-                      (f64(p["acu_ip"]), f64(p["cb_acu"]), mcfg.n_sem)]
-
-            def margin(fr, q):
-                ip, cb, base = groups[q >= mcfg.n_sem]
-                return euclid_margin(lat[fr] @ ip.T, cb, want[fr, base:q],
-                                     got[fr, q], want[fr, q])
-            return margin
+            return mimi_margin(p, mcfg, lat, want, got)
         vq = {k: f64(v) for k, v in p["vq"].items()}
         if arch == "dac":
             def margin(fr, q):
@@ -1672,30 +2022,15 @@ def main() -> int:
     srng = np.random.default_rng(SEED + 400)
     stream_codes, stream_pcm, stream_launches = {}, {}, 0
 
-    def stream(session, x, chunk, want_step, axis):
-        """Pushes x in chunks along axis, each push's launches checked
-        against want_step → the concatenated outputs."""
-        outs = []
-        for lo in range(0, x.shape[axis], chunk):
-            before = counts()
-            outs.append(session.push(np.take(x, range(lo, min(
-                lo + chunk, x.shape[axis])), axis=axis)))
-            step = {k: v - before[k] for k, v in counts().items()}
-            if step != want_step:
-                raise RuntimeError(f"stream step at {lo}: launches {step}, "
-                                   f"want {want_step}")
-        return np.concatenate(outs, axis=axis)
-
     for name, secs, batch, dt, chunk in STREAM_DECODES:
         model = mimi_models[dt]
         frames = secs * cfg.sample_rate // cfg.hop_size
         codes = srng.integers(0, cfg.codebook_size,
                               (batch, frames, cfg.n_q)).astype(np.int32)
         stream_codes[name] = codes
-        zero_counts()
-        pcm = stream(model.streaming_decoder(batch=batch), codes, chunk,
-                     dec_step, axis=1)
-        stream_launches += flash_sdpa_window.launches
+        pcm, read = stream(model.streaming_decoder(batch=batch), codes,
+                           chunk, dec_step, 1, counts)
+        stream_launches += read["flash_sdpa_window"]
         want_shape = (batch, frames * cfg.hop_size)
         if pcm.shape != want_shape or pcm.dtype != np.float32 \
                 or not np.isfinite(pcm).all():
@@ -1729,10 +2064,9 @@ def main() -> int:
         pcm = (srng.standard_normal((batch, secs * cfg.sample_rate))
                * 0.3).astype(np.float32)
         stream_pcm[name] = pcm
-        zero_counts()
-        codes = stream(model.streaming_encoder(batch=batch), pcm,
-                       chunk * cfg.hop_size, enc_step, axis=1)
-        stream_launches += flash_sdpa_window.launches
+        codes, read = stream(model.streaming_encoder(batch=batch), pcm,
+                             chunk * cfg.hop_size, enc_step, 1, counts)
+        stream_launches += read["flash_sdpa_window"]
         want = model.encode(pcm)
         if codes.shape != want.shape or codes.dtype != np.int32:
             raise RuntimeError(f"mimi stream encode {name}: codes "
@@ -1794,6 +2128,10 @@ def main() -> int:
     # -- 8b. the iSTFT-head codecs ----------------------------------------------
     log(f"[phase] 8b starts at {time.monotonic() - t_start:.1f} s")
     istft_counts = istft_codecs(name_limit, zero_counts, counts, none)
+
+    # -- 8c. the windowed-transformer codecs -------------------------------------
+    log(f"[phase] 8c starts at {time.monotonic() - t_start:.1f} s")
+    windowed_counts = windowed_codecs(name_limit, zero_counts, counts, none)
 
     # -- 9. the CSM TTS path ---------------------------------------------------
     log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")
@@ -2259,6 +2597,38 @@ def main() -> int:
                      f"{fmt_ms(extra['flash_sdpa_window']['device_ms'])}")
         log(line + f" [{name_limit}]")
 
+    # the windowed codecs' attention (phase 8c's shapes): kernel and plain in
+    # turns, F.scaled_dot_product_attention with the same mask, device time
+    # (torch.profiler), and the bound of the kernel's passes (f32: three
+    # TF32 passes a product; 16-bit: one for QK^T, two for PV) beside the
+    # bytes' alone
+    for b, h, t, d, w in WINDOWED_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn((b, h, t, d), dtype, SEED + 700 + j)
+                       for j in range(3))
+            kern, plain, smp = turns(
+                lambda: flash_sdpa_window(q, k, v, window=w),
+                lambda: flash_sdpa_window_ref(q, k, v, window=w), reps=20)
+            i = torch.arange(t, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - (w or t))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band), reps=20)
+            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w))
+            work = attn_work(b, h, t, d, w, dtype)
+            flop = work[0][0][0]
+            passes = ([(3 * flop, "tf32")] if dtype == torch.float32
+                      else [(3 * flop // 2, dtype)])
+            b_ms, b_by = least_time(passes, work[1])
+            log(f"[time] flash_sdpa_window B{b} H{h} T{t} D{d} w{w} "
+                f"{str(dtype)[6:]}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
+                f"(samples k {smp[0]:.4f} {smp[1]:.4f}, p {smp[2]:.4f} "
+                f"{smp[3]:.4f}), F.scaled_dot_product_attention with the same "
+                f"mask {lib:.4f} ms, device time (torch.profiler) "
+                f"{fmt_ms(dev)}; bound {b_ms:.5f} ms ({b_by}; the kernel's "
+                f"passes), bytes alone {least_time([], work[1])[0]:.5f} ms"
+                + (f", f32 FMA {least_time(*work)[0]:.5f} ms"
+                   if dtype == torch.float32 else "") + f" [{name_limit}]")
+
     # the DAC residual units at every decoder and encoder width, d = 1, 3
     # and 9, in f32 and bf16, and the chain against three unit launches
     # (tools/seanet_times.py); the kernels line takes the f32 unit at block
@@ -2462,7 +2832,8 @@ def main() -> int:
     # and a streaming encode's 1- and 5-frame acoustic pushes) and the
     # iSTFT-head codecs' (WavTokenizer's and XY-Tokenizer's 20 s b1), with
     # the norms given, as the model passes them from load
-    for b, t, d, n_q, v in RVQ_SHAPES[:3] + RVQ_ISTFT_SHAPES + RVQ_SHAPES[-2:]:
+    for b, t, d, n_q, v in (RVQ_SHAPES[:3] + [RVQ_QWEN3] + RVQ_ISTFT_SHAPES
+                            + RVQ_SHAPES[-2:]):
         x, cb = rvq_inputs(b, t, d, n_q, v, "normal", SEED + 210)
         nrm = codebook_norms(cb)
         kern, plain, s = turns(lambda: rvq_encode_fused(x, cb, norms=nrm),
@@ -2621,7 +2992,8 @@ def main() -> int:
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
                    + tts_counts["flash_sdpa_window"]
                    + tts_dev_counts["flash_sdpa_window"]
-                   + enc_counts["flash_sdpa_window"],
+                   + enc_counts["flash_sdpa_window"]
+                   + windowed_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
                    + enc_counts["seanet_res_unit"],
                    "seanet_res_chain": dac_counts["seanet_res_chain"]
@@ -2633,8 +3005,10 @@ def main() -> int:
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
-                   + istft_counts["rvq_encode_fused"],
-                   "flash_sdpa_window (carried keys)": stream_launches}
+                   + istft_counts["rvq_encode_fused"]
+                   + windowed_counts["rvq_encode_fused"],
+                   "flash_sdpa_window (carried keys)": stream_launches
+                   + windowed_counts["flash_sdpa_window (carried keys)"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",

@@ -251,10 +251,12 @@ def _layer_rest(x: torch.Tensor, a: torch.Tensor, lw: Dict[str, torch.Tensor],
 
 def _transformer(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
                  cfg: MimiConfig,
-                 attention: Optional[Callable] = None) -> torch.Tensor:
-    """x: [B, T, C] through the layers in order."""
+                 attention: Optional[Callable] = None,
+                 neox: bool = True) -> torch.Tensor:
+    """x: [B, T, C] through the layers in order (RoPE NEOX, or NORMAL with
+    neox=False, as Pocket-Mimi's)."""
     rope_fn = partial(rope.apply_rope, theta=cfg.rope_theta,
-                      freq_scale=cfg.freq_scale)
+                      freq_scale=cfg.freq_scale, neox=neox)
     for lw in layers:
         h = norms.layer_norm(x, lw["inln_w"], lw["inln_b"], cfg.norm_eps)
         a = attn.mha(h, lw["q_w"], lw["k_w"], lw["v_w"], lw["o_w"],
@@ -372,7 +374,8 @@ def mimi_quantize(params: Dict[str, Any], latent: torch.Tensor,
 
 def _transformer_stream(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
                         cfg: MimiConfig, kv: List[torch.Tensor], pos0: int,
-                        attention: Optional[Callable] = None):
+                        attention: Optional[Callable] = None,
+                        neox: bool = True):
     """x: [B, Tc, C] at absolute positions pos0 + arange(Tc); kv: per layer
     [2, B, H, W-1, D], the post-RoPE keys and values of the W-1 positions
     before pos0 (slots for positions before 0 are masked) → (y [B, Tc, C],
@@ -381,7 +384,7 @@ def _transformer_stream(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
     Each layer attends the chunk's queries to the carried keys and its own
     through `attention(q, k, v, window=, k_start=)` (default the CUDA
     kernel's wrapper, attn_cuda.flash_sdpa_window; k and v are W-1 + Tc
-    long, query i at key position W-1 + i)."""
+    long, query i at key position W-1 + i). RoPE as in _transformer."""
     from ..ops.attn_cuda import flash_sdpa_window
 
     attention = attention or flash_sdpa_window
@@ -399,12 +402,12 @@ def _transformer_stream(x: torch.Tensor, layers: List[Dict[str, torch.Tensor]],
         def heads(w):
             return F.linear(hn, w).reshape(b, tc, h, d).transpose(1, 2)
 
-        q = rope.rotate(heads(lw["q_w"]), cos, sin)
+        q = rope.rotate(heads(lw["q_w"]), cos, sin, neox)
         # the carried keys and values, then the chunk's: [2, B, H, W-1+Tc, D]
         ctx = torch.empty((2, b, h, w1 + tc, d), dtype=kv_l.dtype,
                           device=x.device)
         ctx[:, :, :, :w1] = kv_l
-        ctx[0, :, :, w1:] = rope.rotate(heads(lw["k_w"]), cos, sin)
+        ctx[0, :, :, w1:] = rope.rotate(heads(lw["k_w"]), cos, sin, neox)
         ctx[1, :, :, w1:] = heads(lw["v_w"])
         a = attention(q.contiguous(), ctx[0], ctx[1], window=cfg.window,
                       k_start=k_start)

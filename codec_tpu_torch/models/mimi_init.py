@@ -148,8 +148,22 @@ def add_random_mimi(wr: GGUFWriter, seed: int = 0,
         add_wb(f"dec.l{li + 1}.block.1.conv", stage["r1"])
         add_wb(f"dec.l{li + 1}.block.3.conv", stage["r2"])
     add_wb("dec.l14.conv", params["dec_l14"])
-    if not encoder:
-        return
+    if encoder:
+        add_mimi_encoder(wr, params)
+
+
+def add_mimi_encoder(wr: GGUFWriter, params: Dict[str, Any]) -> None:
+    """Add the encoder half of Mimi parameters (this package's layout) to
+    an open writer under the Mimi wire names (not the codebooks)."""
+
+    def add(name, x):
+        wr.add_tensor(name, x.detach().float().cpu().numpy(), "F32")
+
+    def add_wb(name, layer):
+        add(f"{name}.w", layer["w"])
+        if layer["b"] is not None:
+            add(f"{name}.b", layer["b"])
+
     add_wb("enc.l0.conv", params["enc_l0"])
     for li, stage in zip((1, 4, 7, 10), params["enc_stages"]):
         add_wb(f"enc.l{li}.block.1.conv", stage["r1"])

@@ -9,6 +9,7 @@ import torch
 
 from ..io.gguf import GGUFReader
 from ..runtime.model import CodecError, CodecModel, f32_precision
+from ..runtime.session import StreamSession
 from .mimi import (MimiConfig, load_mimi_params, mimi_decode_fn,
                    mimi_decode_stream_init, mimi_decode_stream_step,
                    mimi_encode_fn, mimi_encode_stream_init,
@@ -55,36 +56,15 @@ class MimiCodec(CodecModel):
         return MimiStreamingEncoder(self, n_q=n_q, batch=batch)
 
 
-class _Session:
-    """What both directions share: n_q and batch checked, the state on the
-    model's device (models/mimi.py), reset()."""
+class _Session(StreamSession):
+    """A Mimi session: n_q checked against the model's, then the shared
+    session (runtime/session.py)."""
 
     def __init__(self, model: MimiCodec, n_q: int, batch: int, init):
         if not 0 <= n_q <= model.n_q:
             raise CodecError(f"n_q must be 0 or in [1, {model.n_q}]")
-        if batch < 1:
-            raise CodecError(f"batch must be >= 1, got {batch}")
-        self.model = model
         self.n_q = n_q if n_q > 0 else model.n_q
-        self.batch = batch
-        self._init = init
-        self.reset()
-
-    def reset(self) -> None:
-        """Start a new stream: zero carries, position 0."""
-        with torch.inference_mode():
-            self.state = self._init(self.model.params, self.model.cfg,
-                                    self.batch)
-
-    def _batched(self, x: np.ndarray, ndim: int, what: str):
-        """x with the batch axis → (x [B, ...], squeeze)."""
-        squeeze = x.ndim == ndim - 1
-        if squeeze:
-            x = x[None]
-        if x.ndim != ndim or x.shape[0] != self.batch:
-            raise CodecError(f"bad {what} shape {x.shape} for a session of "
-                             f"batch {self.batch}")
-        return x, squeeze
+        super().__init__(model, batch, init)
 
 
 class MimiStreamingDecoder(_Session):

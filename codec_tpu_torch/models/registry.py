@@ -63,3 +63,15 @@ def _soprano():
 def _xy():
     from .xy_tokenizer import XyTokenizerCodec
     return XyTokenizerCodec
+
+
+@register("qwen3_tts_tokenizer", "qwen3-tts-tokenizer", "qwen3")
+def _qwen3():
+    from .qwen3_tts import Qwen3TTSTokenizerCodec
+    return Qwen3TTSTokenizerCodec
+
+
+@register("pocket_mimi", "pocket-mimi", "pocket_tts")
+def _pocket():
+    from .pocket_mimi import PocketMimiCodec
+    return PocketMimiCodec

@@ -65,26 +65,35 @@ def mha(x: torch.Tensor, wq, wk, wv, wo, n_heads: int,
         rope_fn: Optional[Callable] = None, causal: bool = True,
         window: Optional[int] = None,
         n_valid: Optional[torch.Tensor] = None,
-        attention: Optional[Callable] = None) -> torch.Tensor:
-    """Multi-head self-attention over [B, T, C].
+        attention: Optional[Callable] = None,
+        bq=None, bk=None, bv=None, bo=None,
+        n_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """Multi-head self-attention over [B, T, C], with grouped KV heads
+    (n_kv_heads dividing n_heads: head h reads KV head h // rep) and
+    optional biases added after each product.
 
-    Linear weights are [out, in]; y = x @ w.T. `attention` replaces the
+    Linear weights are [out, in]; y = x @ w.T + b. `attention` replaces the
     causal attention function (default `attn_cuda.flash_sdpa_window`) with
     another of the same signature, e.g. its plain version, so a caller can
     compare the two on the same weights."""
     from .attn_cuda import flash_sdpa_window
 
     b, t, _ = x.shape
+    n_kv = n_kv_heads or n_heads
     d = wq.shape[0] // n_heads
 
-    def heads(w):
-        return torch.nn.functional.linear(x, w).reshape(
-            b, t, n_heads, d).transpose(1, 2)
+    def heads(w, bias, n):
+        return torch.nn.functional.linear(x, w, bias).reshape(
+            b, t, n, d).transpose(1, 2)
 
-    q, k, v = heads(wq), heads(wk), heads(wv)
+    q, k, v = heads(wq, bq, n_heads), heads(wk, bk, n_kv), heads(wv, bv, n_kv)
     if rope_fn is not None:
         q = rope_fn(q)
         k = rope_fn(k)
+    if n_kv != n_heads:
+        rep = n_heads // n_kv
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
     if causal and n_valid is None:
         attend = attention or flash_sdpa_window
         ctx = attend(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -94,4 +103,4 @@ def mha(x: torch.Tensor, wq, wk, wv, wo, n_heads: int,
                       device=x.device)
         ctx = sdpa(q, k, v, mask=m)
     ctx = ctx.transpose(1, 2).reshape(b, t, n_heads * d)
-    return torch.nn.functional.linear(ctx, wo)
+    return torch.nn.functional.linear(ctx, wo, bo)

@@ -52,10 +52,10 @@ def _cf(x: torch.Tensor) -> torch.Tensor:
 
 def conv1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, stride: int = 1,
-                     dilation: int = 1, pad_mode: str = "zeros"
-                     ) -> torch.Tensor:
-    """Causal conv, channels-first. x: [B, C_in, T], w: [C_out, C_in, K];
-    pad_mode "zeros" or "replicate"."""
+                     dilation: int = 1, pad_mode: str = "zeros",
+                     groups: int = 1) -> torch.Tensor:
+    """Causal conv, channels-first. x: [B, C_in, T], w: [C_out,
+    C_in/groups, K]; pad_mode "zeros" or "replicate"."""
     pad_left, pad_right = _causal_pads(x.shape[-1], w.shape[-1], stride,
                                        dilation)
     if pad_mode == "replicate":
@@ -64,7 +64,7 @@ def conv1d_causal_cf(x: torch.Tensor, w: torch.Tensor,
         x = F.pad(x, (pad_left, pad_right))
     else:
         raise ValueError(f"unknown pad_mode {pad_mode!r}")
-    return F.conv1d(x, w, b, stride=stride, dilation=dilation)
+    return F.conv1d(x, w, b, stride=stride, dilation=dilation, groups=groups)
 
 
 def convtr1d_causal_cf(x: torch.Tensor, w: torch.Tensor,

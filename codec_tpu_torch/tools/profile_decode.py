@@ -1,17 +1,18 @@
 """Where a decode's device time goes: one warm request under torch.profiler.
 
     python -m codec_tpu_torch.tools.profile_decode \
-        [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer] [--seconds 20] \
-        [--encode]
+        [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer|qwen3|pocket] \
+        [--seconds 20] [--encode]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
     python -m codec_tpu_torch.tools.profile_decode mimi_stream
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
 unprofiled and one profiled decode (SNAC: the frame count rounded down
-to a multiple of 4; Soprano: `decode_latent` of as many latent frames).
-With `--encode`, the same for `encode` of N(0, 0.3) PCM at the rate the
-model encodes (b1 f32, b1 bf16, b4 f32; the file holds the encoder).
+to a multiple of 4; Soprano and Pocket-Mimi: `decode_latent` of as many
+N(0, 1) latent frames). With `--encode`, the same for `encode` (Pocket-Mimi:
+`encode_latent`) of N(0, 0.3) PCM at the rate the model encodes (b1 f32,
+b1 bf16, b4 f32; the file holds the encoder).
 Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
@@ -162,8 +163,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="profile_decode")
     ap.add_argument("arch", nargs="?", default="dac",
                     choices=["dac", "mimi", "snac", "wavtokenizer",
-                             "soprano", "xy_tokenizer", "csm",
-                             "mimi_stream"])
+                             "soprano", "xy_tokenizer", "qwen3", "pocket",
+                             "csm", "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
                     help="csm: the backbone's packed type")
@@ -178,6 +179,8 @@ def main(argv=None) -> int:
     import codec_tpu_torch
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.pocket_init import write_random_pocket_gguf
+    from codec_tpu_torch.models.qwen3_tts_init import write_random_q3t_gguf
     from codec_tpu_torch.models.snac_init import write_random_snac_gguf
     from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
     from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
@@ -200,7 +203,9 @@ def main(argv=None) -> int:
                  "snac": write_random_snac_gguf,
                  "wavtokenizer": write_random_wt_gguf,
                  "soprano": write_random_soprano_gguf,
-                 "xy_tokenizer": write_random_xy_gguf}[args.arch]
+                 "xy_tokenizer": write_random_xy_gguf,
+                 "qwen3": write_random_q3t_gguf,
+                 "pocket": write_random_pocket_gguf}[args.arch]
         write(path, seed=0, **({"encoder": True} if args.encode else {}))
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
@@ -209,10 +214,17 @@ def main(argv=None) -> int:
                 rate = model.encode_sample_rate or model.sample_rate
                 pcm = (rng.standard_normal((batch, args.seconds * rate))
                        * 0.3).astype(np.float32)
-                run = lambda: model.encode(pcm)           # noqa: E731
+                encode = (model.encode_latent if args.arch == "pocket"
+                          else model.encode)
+                run = lambda: encode(pcm)                 # noqa: E731
             elif args.arch == "soprano":
                 frames = args.seconds * model.sample_rate // (
                     model.hop_size * model.cfg.upscale) + 1
+                z = rng.standard_normal((batch, frames, model.latent_dim)
+                                        ).astype(np.float32)
+                run = lambda: model.decode_latent(z)      # noqa: E731
+            elif args.arch == "pocket":
+                frames = args.seconds * model.sample_rate // model.hop_size
                 z = rng.standard_normal((batch, frames, model.latent_dim)
                                         ).astype(np.float32)
                 run = lambda: model.decode_latent(z)      # noqa: E731

@@ -55,6 +55,11 @@ ATTN_SHAPES = [
     (8, 8, 100, 64, 50),
     (2, 2, 150, 128, 40),
     (1, 1, 1, 128, None),
+    # Qwen3-TTS-Tokenizer's decoder at 20 s (16 heads, full causal and its
+    # 72-frame window) and Pocket-Mimi's 200 Hz transformer at 20 s
+    (1, 16, 250, 64, None),
+    (1, 16, 250, 64, 72),
+    (1, 8, 4000, 64, 250),
 ]
 
 
@@ -1258,6 +1263,8 @@ STREAM_ATTN = [(tq, extra, w, ks)
                for tq in (1, 2, 8, 33)
                for extra, w in ((249, 250), (19, 20), (249, 20), (19, 250))
                for ks in (0, extra // 2, extra)]
+# Pocket-Mimi's pushes of 1 and 5 latent frames: 16 and 80 queries at 200 Hz
+STREAM_ATTN += [(tq, 249, 250, ks) for tq in (16, 80) for ks in (0, 124, 249)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1565,3 +1572,107 @@ def test_tts_cli_on_device_on_card(dev, tts_files, tmp_path):
                  "5", "--quant-exec", "--on-device", "--chunk-frames", "4"]) == 0
     pcm, sr = read_wav(out)
     assert sr == 24000 and pcm.shape == (5 * 1920, 1)
+
+
+# -- the windowed-transformer codecs: Qwen3-TTS-Tokenizer and Pocket-Mimi ----
+# small files at the kernel's head dim (64): Qwen3 with 2 heads over 1 KV
+# head, biases and a window of 5 frames, its Mimi encoder as SMALL; Pocket
+# with a 12-frame context (pushes and decodes reach past it)
+
+@pytest.fixture(scope="module")
+def windowed_ggufs(tmp_path_factory):
+    import dataclasses
+
+    from codec_tpu_torch.models.mimi import MimiConfig
+    from codec_tpu_torch.models.pocket_init import (POCKET_TTS,
+                                                    write_random_pocket_gguf)
+    from codec_tpu_torch.models.qwen3_tts_init import (QWEN3_TTS_12HZ,
+                                                       write_random_q3t_gguf)
+
+    d = tmp_path_factory.mktemp("windowed")
+    write_random_q3t_gguf(
+        d / "qwen3.gguf", seed=5, cfg=dataclasses.replace(
+            QWEN3_TTS_12HZ, n_q=4, codebook_size=64, codebook_dim=32,
+            latent_dim=64, hidden=64, n_layers=2, n_heads=2, n_kv_heads=1,
+            head_dim=64, intermediate=128, decoder_dim=64, window=5),
+        enc_cfg=MimiConfig(**SMALL), num_filters=8)
+    write_random_pocket_gguf(
+        d / "pocket.gguf", seed=5, cfg=dataclasses.replace(
+            POCKET_TTS, outer_dim=128, tf_heads=2, tf_context=12),
+        channels=(128, 64, 32, 16), ffn=256)
+    return d
+
+
+def _held(got, want):
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+
+
+def test_qwen3_on_card_uses_kernels_and_matches_cpu(dev, windowed_ggufs):
+    """A decode launches the attention once per pre-transformer layer (also
+    with the window taken off), an encode once per Mimi encoder layer and
+    the RVQ search twice; samples and codes agree with the port on the CPU
+    (which the CPU tests hold against codec_tpu)."""
+    import dataclasses
+
+    import codec_tpu_torch
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+    from encode_ties import assert_codes, mimi_margin
+
+    path = windowed_ggufs / "qwen3.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    codes = np.random.default_rng(12).integers(0, 64, (2, 20, 4)).astype(
+        np.int32)
+    for window in (5, None):
+        for m in (gpu, cpu):
+            m.cfg = dataclasses.replace(m.cfg, window=window)
+        before = flash_sdpa_window.launches
+        got = gpu.decode(codes)
+        assert flash_sdpa_window.launches == before + 2
+        _held(got, cpu.decode(codes))
+    pcm = (np.random.default_rng(13).standard_normal((2, 1920 * 6 + 517))
+           * 0.3).astype(np.float32)
+    before = (flash_sdpa_window.launches, rvq_encode_fused.launches)
+    got = gpu.encode(pcm)
+    assert (flash_sdpa_window.launches - before[0],
+            rvq_encode_fused.launches - before[1]) == (SMALL["n_layers"], 2)
+    want = cpu.encode(pcm)
+    for i in range(2):
+        assert_codes(got[i], want[i], mimi_margin(
+            cpu.enc_params, cpu.enc_cfg, pcm[i], want[i], got[i]))
+
+
+def test_pocket_on_card_uses_kernels_and_matches_cpu(dev, windowed_ggufs):
+    """decode_latent, encode_latent (a ragged length: the valid-length
+    path) and each push of a 1-frame stream launch the attention once per
+    transformer layer (16 queries against 11 carried keys a push: context
+    12; STREAM_ATTN holds the full width's 249) and agree with the port on
+    the CPU; the stream also with the full call."""
+    import codec_tpu_torch
+
+    path = windowed_ggufs / "pocket.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    z = (np.random.default_rng(14).standard_normal((2, 20, 32)) * 0.5
+         ).astype(np.float32)
+    before = flash_sdpa_window.launches
+    got = gpu.decode_latent(z)
+    assert flash_sdpa_window.launches == before + 2
+    _held(got, cpu.decode_latent(z))
+    pcm = (np.random.default_rng(15).standard_normal(1920 * 5 + 733) * 0.3
+           ).astype(np.float32)
+    before = flash_sdpa_window.launches
+    mu = gpu.encode_latent(pcm)
+    assert flash_sdpa_window.launches == before + 2
+    want = cpu.encode_latent(pcm)
+    assert mu.shape == want.shape == (6, 32)
+    assert np.abs(mu - want).max() <= 1e-4 * np.abs(want).max()
+    session, outs = gpu.streaming_decoder(batch=2), []
+    for t in range(20):
+        before = flash_sdpa_window.launches
+        outs.append(session.push(z[:, t:t + 1]))
+        assert flash_sdpa_window.launches == before + 2
+    streamed = np.concatenate(outs, axis=1)
+    _held(streamed, got)
