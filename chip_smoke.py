@@ -87,6 +87,20 @@ Phases (any failure raises and exits non-zero before the last line):
      function with the plain attention (and the plain search) on the card,
      each f16 decode against the plain path in f16, each stream against
      decode_latent of the whole stream, and each request and push timed
+  8d. the NeuCodec family: write full-width random NeuCodec (decoder
+     only), DistillNeuCodec (the same decoder and the distill encoder) and
+     XCodec2 (with its encoder) GGUFs, load each on the card (f32, bf16,
+     f16) and on the CPU (f32); NeuCodec decode 20 s b1 and b4 f32, b1 bf16
+     and f16 (the base file's encode must raise CodecError); the distill
+     decode 20 s b1 f32, equal to the base file's bit for bit; distill
+     encode 20 s of 16 kHz b1 f32 and bf16; XCodec2 decode 20 s b1 and b4
+     f32, b1 bf16 and f16, encode 20 s b1 f32 and bf16; each with the
+     launch counts set to 0 just before and read just after (none), checked
+     for shape, finite samples and saturation (codes: range), each f32
+     decode held against the same function on the CPU, each f16 decode
+     against the f32 model on the card, each f32 encode against the CPU on
+     a 4 s request run both ways (the FSQ near-tie rule), one encode →
+     decode round trip an encoding arch, and each request timed
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
@@ -136,6 +150,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -368,6 +383,29 @@ POCKET_TAIL = 733
 # batch, compute dtype, latent frames a push)
 POCKET_STREAMS = [("20s_b1_f32_c1", 20, 1, "float32", 1),
                   ("20s_b1_f32_c5", 20, 1, "float32", 5)]
+# -- the NeuCodec family at full width (phase 8d): (arch, name, seconds,
+# batch, compute dtype). NeuCodec decodes 50 codes a second to 24 kHz,
+# XCodec2 to 16 kHz; DistillNeuCodec and XCodec2 encode 16 kHz PCM. None
+# of these requests launches a kernel of the port (their attentions are
+# non-causal, biased or relative-key: the plain sdpa). The distill file's
+# decoder is the base file's (one seed): its decode must be the base's bit
+# for bit
+NEU_DECODES = [("neucodec", "20s_b1_f32", 20, 1, "float32"),
+               ("neucodec", "20s_b4_f32", 20, 4, "float32"),
+               ("neucodec", "20s_b1_bf16", 20, 1, "bfloat16"),
+               ("neucodec", "20s_b1_f16", 20, 1, "float16"),
+               ("distill_neucodec", "20s_b1_f32", 20, 1, "float32"),
+               ("xcodec2", "20s_b1_f32", 20, 1, "float32"),
+               ("xcodec2", "20s_b4_f32", 20, 4, "float32"),
+               ("xcodec2", "20s_b1_bf16", 20, 1, "bfloat16"),
+               ("xcodec2", "20s_b1_f16", 20, 1, "float16")]
+NEU_ENCODES = [("distill_neucodec", "20s_b1_f32", 20, 1, "float32"),
+               ("distill_neucodec", "20s_b1_bf16", 20, 1, "bfloat16"),
+               ("xcodec2", "20s_b1_f32", 20, 1, "float32"),
+               ("xcodec2", "20s_b1_bf16", 20, 1, "bfloat16")]
+# an f32 encode is held against the CPU on a request of this length, run
+# both ways (the 20 s encodes' CPU runs would take tens of seconds each)
+NEU_CPU_ENCODE_SECONDS = 4
 
 
 def log(msg: str) -> None:
@@ -1175,6 +1213,222 @@ def windowed_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     log(f"[windowed] main path launches: {phase_counts}; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return phase_counts
+
+
+def fsq_near_ties(got, want, z):
+    """FSQ codes [T, 1] against the reference's, digit by digit (base 4, 8
+    digits): equal, or at most max(2, digits / 50) differ, each where the
+    reference's f64 twice-bounded latent z [T, 8] lies within 1e-3 of a
+    half (tests/fsq_ties.py's rule) → [(frame, digit, |frac − 0.5|)]."""
+    half_l = 3.0 * (1 + 1e-3) / 2.0
+    shift = math.atanh(0.5 / half_l)
+    zb = half_l * np.tanh(half_l * np.tanh(np.asarray(z, np.float64) + shift)
+                          - 0.5 + shift) - 0.5
+    gd, wd = ((np.asarray(c).reshape(-1, 1).astype(np.int64)
+               // 4 ** np.arange(8)) % 4 for c in (got, want))
+    bad = np.argwhere(gd != wd)
+    if len(bad) > max(2, gd.size // 50):
+        raise RuntimeError(f"{len(bad)}/{gd.size} FSQ digits differ")
+    out = []
+    for fr, d in bad:
+        frac = abs(zb[fr, d] - np.floor(zb[fr, d]) - 0.5)
+        if not frac < 1e-3:
+            raise RuntimeError(f"FSQ frame {fr} digit {d}: |frac - 0.5| "
+                               f"{frac:.2e}, not a tie")
+        out.append((int(fr), int(d), float(frac)))
+    return out
+
+
+def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
+    """Phase 8d: write a full-width random NeuCodec GGUF (decoder only), a
+    DistillNeuCodec GGUF (the same seed's decoder and the distill encoder)
+    and an XCodec2 GGUF (decoder and encoder), load each with load_model on
+    the card in f32, bf16 and f16 and on the CPU in f32, and run
+    NEU_DECODES and NEU_ENCODES with every launch count set to 0 just
+    before each request and read just after (none: no kernel of the port
+    is on these paths). The base file's encode must raise CodecError. Each
+    output is checked for shape, finite samples and saturation (codes:
+    shape and range); each f32 decode against the same port function on
+    the CPU from the same file (corr > 0.99999, max abs err <= 1e-4 x
+    peak), the distill decode against the base file's bit for bit, each f16
+    decode against the f32 model on the card (corr > 0.9999); each f32
+    encode against the CPU on a NEU_CPU_ENCODE_SECONDS request run both
+    ways (the FSQ near-tie rule: fsq_near_ties); one encode → decode round
+    trip an encoding arch. Each request's median time (CUDA events, 10
+    after 2 warm-ups). → this phase's launch counts (all 0)."""
+    import codec_tpu_torch
+    from codec_tpu_torch import CodecError
+    from codec_tpu_torch.models import neucodec as neu
+    from codec_tpu_torch.models import xcodec2 as x2
+    from codec_tpu_torch.models.neucodec_init import write_random_neu_gguf
+    from codec_tpu_torch.models.xcodec2_init import write_random_x2_gguf
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    t_phase = time.monotonic()
+    models = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_neu_") as tmp:
+        paths = {a: Path(tmp) / f"{a}_random.gguf"
+                 for a in ("neucodec", "distill_neucodec", "xcodec2")}
+        t0 = time.monotonic()
+        write_random_neu_gguf(paths["neucodec"], seed=SEED)
+        write_random_neu_gguf(paths["distill_neucodec"], seed=SEED,
+                              encoder=True)
+        write_random_x2_gguf(paths["xcodec2"], seed=SEED, encoder=True)
+        log("[neu] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
+            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        for arch, path in paths.items():
+            for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
+                            ("cuda", "float16"), ("cpu", "float32")):
+                models[arch, dev, dt] = codec_tpu_torch.load_model(
+                    path, compute_dtype=dt, device=dev)
+        torch.cuda.synchronize()
+    base, dm, xm = (models[a, "cuda", "float32"] for a in paths)
+    if base.has_encoder or not (dm.has_encoder and xm.has_encoder):
+        raise RuntimeError(f"neu: encoders {base.has_encoder} "
+                           f"{dm.has_encoder} {xm.has_encoder}")
+    try:
+        base.encode(np.zeros(16000, np.float32))
+        raise RuntimeError("neu: the base NeuCodec encoded")
+    except CodecError as e:
+        refused = str(e)
+
+    def n_params(m):
+        return sum(t.numel() for t in _tensors(
+            [m.params, getattr(m, "enc_params", {})])) / 1e6
+
+    log(f"[neu] load_model x3 files, card f32 + bf16 + f16 and CPU f32, in "
+        f"{time.monotonic() - t0:.2f} s; NeuCodec {base.cfg}; distill "
+        f"encoder {dm.enc_cfg}; XCodec2 {xm.cfg}, encoder {xm.enc_cfg}; "
+        f"parameters " + ", ".join(f"{a} {n_params(models[a, 'cpu', 'float32']):.1f} M"
+                                   for a in paths)
+        + f"; the base file's encode raises CodecError: {refused!r}")
+
+    rng = np.random.default_rng(SEED + 700)
+    base_out = {}
+    for arch, name, secs, batch, dt in NEU_DECODES:
+        model = models[arch, "cuda", dt]
+        frames = secs * model.sample_rate // model.hop_size
+        codes = (base_out["codes"] if arch == "distill_neucodec" else
+                 rng.integers(0, model.codebook_size, (batch, frames, 1)
+                              ).astype(np.int32))
+        zero_counts()
+        pcm = model.decode(codes)
+        if counts() != none:
+            raise RuntimeError(f"{arch} decode {name}: launches {counts()}, "
+                               f"want none")
+        n = frames * model.hop_size
+        if pcm.shape != (batch, n) or pcm.dtype != np.float32:
+            raise RuntimeError(f"{arch} decode {name}: pcm {pcm.shape} "
+                               f"{pcm.dtype}, want {(batch, n)} float32")
+        if not np.isfinite(pcm).all():
+            raise RuntimeError(f"{arch} decode {name}: non-finite samples")
+        sat = float((np.abs(pcm) > 0.99).mean())
+        if not sat < 0.01:
+            raise RuntimeError(f"{arch} decode {name}: {sat:.2%} of samples "
+                               f"saturated")
+        line = (f"[neu] {arch} decode {name}: launches none; pcm {pcm.shape} "
+                f"finite, peak {np.abs(pcm).max():.4f}, std {pcm.std():.4f}, "
+                f"share |pcm| > 0.99: {sat:.2e}")
+        if arch == "neucodec" and (batch, dt) == (1, "float32"):
+            base_out.update(codes=codes, pcm=pcm)
+        if arch == "distill_neucodec":
+            if not np.array_equal(pcm, base_out["pcm"]):
+                raise RuntimeError("distill decode differs from the base "
+                                   "file's")
+            line += "; equal to the base file's decode bit for bit"
+        if dt == "float32":
+            ref = models[arch, "cpu", dt].decode(codes)
+            c = corr(pcm, ref)
+            err, peak = np.abs(pcm - ref).max(), np.abs(ref).max()
+            if not (c > 0.99999 and err <= 1e-4 * peak):
+                raise RuntimeError(f"{arch} decode {name}: corr {c}, max abs "
+                                   f"err {err} (peak {peak}) vs the CPU")
+            line += (f"; vs the same function on the CPU: corr {c:.9f}, max "
+                     f"abs err {err:.3e} ({err / peak:.2e} of peak {peak:.4f})")
+        else:
+            c = corr(pcm, models[arch, "cuda", "float32"].decode(codes))
+            if dt == "float16" and not c > 0.9999:
+                raise RuntimeError(f"{arch} decode {name}: corr {c} vs the "
+                                   f"f32 model on the card")
+            line += f"; vs the f32 model on the card: corr {c:.6f}"
+        ms = cuda_ms(lambda: model.decode(codes))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+
+    def latent(model, row):
+        """The FSQ latent (before the bound) of one encode row, as the
+        model computes it."""
+        with torch.inference_mode(), f32_precision(model.exact_encode):
+            if model.arch == "xcodec2":
+                mel = model.mel(row)
+                n = min(len(row) // model.hop_size, mel.shape[0])
+                x, m = (torch.from_numpy(np.ascontiguousarray(a[None])).to(
+                    model.device, model.compute_dtype) for a in (row, mel))
+                return x2.x2_encode_latent_fn(model.enc_params, x, m, n,
+                                              model.enc_cfg)[0]
+            (row_pad, sem), = neu.encode_rows(row[None])
+            x, s = (torch.from_numpy(np.ascontiguousarray(a[None])).to(
+                model.device, model.compute_dtype) for a in (row_pad, sem))
+            return neu.neu_encode_latent_fn(model.enc_params, x, s,
+                                            model.enc_cfg)[0]
+
+    for arch, name, secs, batch, dt in NEU_ENCODES:
+        model = models[arch, "cuda", dt]
+        rate = 16000
+        pcm = (rng.standard_normal((batch, secs * rate)) * 0.3).astype(
+            np.float32)
+        zero_counts()
+        codes = model.encode(pcm)
+        if counts() != none:
+            raise RuntimeError(f"{arch} encode {name}: launches {counts()}, "
+                               f"want none")
+        if arch == "xcodec2":         # T = min(n // hop, the mel frames)
+            ec = model.enc_cfg
+            frames = min(secs * rate // model.hop_size,
+                         ((secs * rate - ec.mel_win) // ec.mel_hop + 1)
+                         // ec.mel_stride)
+        else:                          # n padded up to a multiple of 320
+            frames = secs * rate // 320 + 1
+        if codes.shape != (batch, frames, 1) or codes.dtype != np.int32:
+            raise RuntimeError(f"{arch} encode {name}: codes {codes.shape} "
+                               f"{codes.dtype}, want {(batch, frames, 1)}")
+        if codes.min() < 0 or codes.max() >= model.codebook_size:
+            raise RuntimeError(f"{arch} encode {name}: codes out of range")
+        dig = (codes.reshape(-1, 1).astype(np.int64) // 4 ** np.arange(8)) % 4
+        line = (f"[neu] {arch} encode {name}: launches none; codes "
+                f"{codes.shape} in range, {len(np.unique(codes))} distinct, "
+                f"levels used per digit "
+                f"{[len(np.unique(dig[:, d])) for d in range(8)]}")
+        if dt == "float32":
+            short = pcm[:1, :NEU_CPU_ENCODE_SECONDS * rate]
+            got = model.encode(short)[0]
+            cpu = models[arch, "cpu", dt]
+            want = cpu.encode(short)[0]
+            ties = ([] if np.array_equal(got, want) else
+                    fsq_near_ties(got, want, f64(latent(cpu, short[0]))))
+            line += (f"; {NEU_CPU_ENCODE_SECONDS} s b1 vs the same function "
+                     f"on the CPU: " + ("codes equal" if not ties else
+                                        f"{len(ties)} FSQ digits differ, each "
+                                        f"a near-tie (|frac - 0.5| "
+                                        f"{', '.join(f'{t[2]:.1e}' for t in ties)})"))
+            zero_counts()
+            back = model.decode(codes)
+            if (counts() != none or not np.isfinite(back).all()
+                    or back.shape != (batch, frames * model.hop_size)):
+                raise RuntimeError(f"{arch}: encode → decode gave launches "
+                                   f"{counts()}, pcm {back.shape}, finite "
+                                   f"{np.isfinite(back).all()}")
+            line += f"; encode → decode round trip: pcm {back.shape} finite"
+        ms = cuda_ms(lambda: model.encode(pcm))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+    del models
+    torch.cuda.empty_cache()
+    log(f"[neu] main path launches: none; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return dict(none)
 
 
 def _tensors(tree):
@@ -2132,6 +2386,10 @@ def main() -> int:
     # -- 8c. the windowed-transformer codecs -------------------------------------
     log(f"[phase] 8c starts at {time.monotonic() - t_start:.1f} s")
     windowed_counts = windowed_codecs(name_limit, zero_counts, counts, none)
+
+    # -- 8d. the NeuCodec family ------------------------------------------------
+    log(f"[phase] 8d starts at {time.monotonic() - t_start:.1f} s")
+    neu_codecs(name_limit, zero_counts, counts, none)
 
     # -- 9. the CSM TTS path ---------------------------------------------------
     log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")

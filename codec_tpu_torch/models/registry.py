@@ -75,3 +75,21 @@ def _qwen3():
 def _pocket():
     from .pocket_mimi import PocketMimiCodec
     return PocketMimiCodec
+
+
+@register("neucodec")
+def _neucodec():
+    from .neucodec import NeuCodec
+    return NeuCodec
+
+
+@register("distill_neucodec", "distill-neucodec")
+def _distill_neucodec():
+    from .neucodec import DistillNeuCodec
+    return DistillNeuCodec
+
+
+@register("xcodec2", "x-codec2", "x_codec2")
+def _xcodec2():
+    from .xcodec2 import XCodec2
+    return XCodec2

@@ -6,7 +6,10 @@ softmax are float32 whatever the compute dtype.
 Dispatch in `mha`: causal self-attention without `n_valid` goes to
 `attn_cuda.flash_sdpa_window`, which launches the CUDA kernel for a CUDA
 tensor (any T, any window) and runs its plain version for a CPU tensor.
-Non-causal attention and attention with `n_valid` use the masked `sdpa`.
+Non-causal attention and attention with `n_valid` use the masked `sdpa`,
+as do the attentions no Pallas kernel of codec_tpu covers: a per-head
+additive bias (`sdpa(bias=)`, the distill encoder's block-local attention)
+and Shaw relative keys (`sdpa_rel_key`, the W2V-BERT conformer).
 """
 
 from __future__ import annotations
@@ -47,17 +50,53 @@ def attn_mask(t_q: int, t_k: int, causal: bool = True,
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: Optional[float] = None,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         mask: Optional[torch.Tensor] = None,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q, k, v: [B, H, T, D] → [B, H, T_q, D] in v's dtype.
 
-    mask: additive [T_q, T_k] / [B, T_q, T_k]. The logits are float32
-    products of the inputs (exact for bf16)."""
+    mask: additive [T_q, T_k] / [B, T_q, T_k]; bias: additive per-head
+    [H, T_q, T_k] (may hold -inf where a key is hidden, as long as every
+    query sees one key). The logits are float32 products of the inputs
+    (exact for bf16)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
-        logits = logits + (mask if mask.ndim == 2 else mask[:, None])
+        logits += mask if mask.ndim == 2 else mask[:, None]
+    if bias is not None:
+        logits += bias
     w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(w, v)
+
+
+def sdpa_rel_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dist_emb: torch.Tensor, left_max: int, right_max: int,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Shaw relative-key attention (the W2V-BERT conformer's; counterpart
+    of codec_tpu/ops/attn.py::sdpa_rel_key). q, k, v: [B, H, T, D];
+    dist_emb: [left_max + right_max + 1, D] → [B, H, T, D] in v's dtype.
+
+    logits = (q·kᵀ + q·E[bucket]ᵀ) · scale, the scale applied after the
+    add (HF Wav2Vec2Bert "relative_key"), bucket(tq, tk) = clamp(tk − tq,
+    −left_max, right_max) + left_max; softmax in float32.
+
+    codec_tpu gathers E[bucket] into [T, T, D] (256 MB a layer at T 1000,
+    D 64 in f32, which the card would hold) and contracts q with it. Here
+    q·Eᵀ is [B, H, T, L+R+1] and its [T, T] scores are gathered by bucket:
+    the same dot products (each a D-long sum of the same terms), without
+    the [T, T, D] tensor. Only the [B, H, T, T] logits are held."""
+    t = q.shape[-2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    pos = torch.arange(t, device=q.device)
+    bucket = (pos[None, :] - pos[:, None]).clamp(-left_max, right_max) \
+        + left_max                                          # [T_q, T_k]
+    qf = q.float()
+    rel = torch.matmul(qf, dist_emb.float().t())            # [B, H, T, L+R+1]
+    logits = torch.matmul(qf, k.float().transpose(-1, -2))
+    logits += torch.take_along_dim(
+        rel, bucket.expand(*rel.shape[:-2], t, t), dim=-1)
+    w = torch.softmax(logits * scale, dim=-1).to(v.dtype)
     return torch.matmul(w, v)
 
 

@@ -1,8 +1,8 @@
 """Where a decode's device time goes: one warm request under torch.profiler.
 
     python -m codec_tpu_torch.tools.profile_decode \
-        [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer|qwen3|pocket] \
-        [--seconds 20] [--encode]
+        [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer|qwen3|pocket|
+         neucodec|distill_neucodec|xcodec2] [--seconds 20] [--encode]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
     python -m codec_tpu_torch.tools.profile_decode mimi_stream
 
@@ -12,7 +12,9 @@ unprofiled and one profiled decode (SNAC: the frame count rounded down
 to a multiple of 4; Soprano and Pocket-Mimi: `decode_latent` of as many
 N(0, 1) latent frames). With `--encode`, the same for `encode` (Pocket-Mimi:
 `encode_latent`) of N(0, 0.3) PCM at the rate the model encodes (b1 f32,
-b1 bf16, b4 f32; the file holds the encoder).
+b1 bf16, b4 f32; the file holds the encoder; DistillNeuCodec: 16 kHz,
+the rate its model, as codec_tpu's, leaves undeclared; the base NeuCodec
+has no encoder).
 Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
@@ -164,6 +166,7 @@ def main(argv=None) -> int:
     ap.add_argument("arch", nargs="?", default="dac",
                     choices=["dac", "mimi", "snac", "wavtokenizer",
                              "soprano", "xy_tokenizer", "qwen3", "pocket",
+                             "neucodec", "distill_neucodec", "xcodec2",
                              "csm", "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
@@ -179,6 +182,8 @@ def main(argv=None) -> int:
     import codec_tpu_torch
     from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.neucodec_init import write_random_neu_gguf
+    from codec_tpu_torch.models.xcodec2_init import write_random_x2_gguf
     from codec_tpu_torch.models.pocket_init import write_random_pocket_gguf
     from codec_tpu_torch.models.qwen3_tts_init import write_random_q3t_gguf
     from codec_tpu_torch.models.snac_init import write_random_snac_gguf
@@ -194,8 +199,8 @@ def main(argv=None) -> int:
     if args.arch == "mimi_stream":
         _stream_push(args.top, card)
         return 0
-    if args.encode and args.arch == "soprano":
-        raise SystemExit("profile_decode: Soprano has no encoder")
+    if args.encode and args.arch in ("soprano", "neucodec"):
+        raise SystemExit(f"profile_decode: {args.arch} has no encoder")
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
         path = Path(tmp) / f"{args.arch}.gguf"
@@ -205,13 +210,18 @@ def main(argv=None) -> int:
                  "soprano": write_random_soprano_gguf,
                  "xy_tokenizer": write_random_xy_gguf,
                  "qwen3": write_random_q3t_gguf,
-                 "pocket": write_random_pocket_gguf}[args.arch]
+                 "pocket": write_random_pocket_gguf,
+                 "neucodec": write_random_neu_gguf,
+                 "distill_neucodec": lambda p, seed, encoder=True:
+                     write_random_neu_gguf(p, seed, encoder=True),
+                 "xcodec2": write_random_x2_gguf}[args.arch]
         write(path, seed=0, **({"encoder": True} if args.encode else {}))
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
                                                device="cuda")
             if args.encode:
-                rate = model.encode_sample_rate or model.sample_rate
+                rate = (16000 if args.arch == "distill_neucodec" else
+                        model.encode_sample_rate or model.sample_rate)
                 pcm = (rng.standard_normal((batch, args.seconds * rate))
                        * 0.3).astype(np.float32)
                 encode = (model.encode_latent if args.arch == "pocket"

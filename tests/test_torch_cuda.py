@@ -1676,3 +1676,158 @@ def test_pocket_on_card_uses_kernels_and_matches_cpu(dev, windowed_ggufs):
         assert flash_sdpa_window.launches == before + 2
     streamed = np.concatenate(outs, axis=1)
     _held(streamed, got)
+
+
+@pytest.fixture(scope="module")
+def neu_ggufs(tmp_path_factory):
+    """Small random DistillNeuCodec and XCodec2 files (the CPU tests'
+    widths: tests/test_torch_neucodec.py, tests/test_torch_xcodec2.py)."""
+    import dataclasses
+
+    from codec_tpu_torch.models import neucodec_init, xcodec2_init
+    from codec_tpu_torch.models.neucodec import NeuEncConfig
+    from codec_tpu_torch.models.xcodec2 import X2EncConfig
+
+    d = tmp_path_factory.mktemp("neu")
+    neucodec_init.write_random_neu_gguf(
+        d / "distill_neucodec.gguf", seed=4, n_fft=128, mlp=64, encoder=True,
+        cfg=dataclasses.replace(neucodec_init.NEUCODEC, hop_size=32,
+                                vq_dim=24, hidden_dim=32, num_layers=2,
+                                num_heads=2, head_dim=16),
+        enc_cfg=NeuEncConfig(
+            hubert_hidden=8, hubert_heads=2, hubert_intermediate=16,
+            hubert_layers=2, hubert_pos_k=4, hubert_pos_groups=2,
+            hubert_conv_dim=(8, 8, 8), hubert_conv_kernel=(10, 4, 8),
+            hubert_conv_stride=(10, 4, 8), distill_heads=2, down_window=8,
+            local_window=4),
+        dim=8, branch=2, first=4, dpb=6, fsq_out=12, sem_out=12)
+    xcodec2_init.write_random_x2_gguf(
+        d / "xcodec2.gguf", seed=4, n_fft=640, mlp=64, encoder=True,
+        cfg=dataclasses.replace(xcodec2_init.XCODEC2, vq_dim=24,
+                                hidden_dim=32, num_layers=2, num_heads=2,
+                                head_dim=16),
+        enc_cfg=X2EncConfig(
+            w2v_layers=2, w2v_hidden=32, w2v_heads=2, w2v_head_dim=16,
+            w2v_left_max=4, w2v_right_max=2, w2v_dw_kernel=7,
+            w2v_input_dim=16, mel_n_fft=64, mel_win=64, mel_hop=160,
+            mel_n_mels=8, mel_stride=2), ngf=2, w2v_ffn=64)
+    return d
+
+
+def _all_launches():
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
+    from codec_tpu_torch.ops.rvq_cuda import rvq_encode_fused
+
+    return [f.launches for f in (
+        flash_sdpa_window, seanet_cuda.seanet_res_unit,
+        seanet_cuda.seanet_res_chain, seanet_cuda.snac_res_chain,
+        q4_k_matmul, q8_0_matmul, rvq_encode_fused)]
+
+
+@pytest.mark.parametrize("arch", ["distill_neucodec", "xcodec2"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_neu_codecs_on_card_match_cpu(dev, neu_ggufs, arch, dtype):
+    """Decodes and encodes on the card launch none of the port's kernels.
+    f32: decodes give the CPU's samples (corr > 0.99999, max abs err <=
+    1e-4 x peak; decode_async and decode_many their own decodes), encodes
+    the CPU's codes under the FSQ near-tie rule. f16
+    (its depthwise convs without cuDNN): decodes against the f32 decode on
+    the CPU at corr > 0.9999, encodes in range."""
+    import codec_tpu_torch
+    from codec_tpu_torch.models import neucodec as neu
+    from codec_tpu_torch.models import xcodec2 as x2
+    from fsq_ties import assert_fsq_codes
+
+    path = neu_ggufs / f"{arch}.gguf"
+    gpu = codec_tpu_torch.load_model(path, compute_dtype=dtype, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    rng = np.random.default_rng(21)
+    codes = rng.integers(0, 4 ** 8, (2, 37, 1)).astype(np.int32)
+    pcm = (rng.standard_normal((2, 16000 + 1234)) * 0.3).astype(np.float32)
+    before = _all_launches()
+    got, got_codes = gpu.decode(codes), gpu.encode(pcm)
+    assert _all_launches() == before
+    want, want_codes = cpu.decode(codes), cpu.encode(pcm)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert got_codes.shape == want_codes.shape and got_codes.dtype == np.int32
+    corr = np.corrcoef(got.ravel(), want.ravel())[0, 1]
+    if dtype == "float16":
+        assert corr > 0.9999
+        assert 0 <= got_codes.min() and got_codes.max() < 4 ** 8
+        return
+    assert corr > 0.99999
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    np.testing.assert_array_equal(gpu.decode_async(codes).result(), got)
+    for o, g in zip(gpu.decode_many([codes[0], codes[1, :20]]),
+                    (got[0], gpu.decode(codes[1, :20]))):
+        assert o.shape == g.shape
+        assert np.abs(o - g).max() <= 1e-4 * np.abs(g).max()
+    for i in range(2):
+        with torch.inference_mode():
+            if arch == "xcodec2":
+                mel = cpu.mel(pcm[i])
+                n = min(len(pcm[i]) // 320, mel.shape[0])
+                z = x2.x2_encode_latent_fn(
+                    cpu.enc_params, torch.from_numpy(pcm[i][None]),
+                    torch.from_numpy(mel[None]), n, cpu.enc_cfg)[0]
+            else:
+                (row, sem), = neu.encode_rows(pcm[i][None])
+                z = neu.neu_encode_latent_fn(
+                    cpu.enc_params, torch.from_numpy(row[None]),
+                    torch.from_numpy(sem[None]), cpu.enc_cfg)[0]
+        assert_fsq_codes(got_codes[i], want_codes[i], z.numpy())
+
+
+@pytest.mark.parametrize("b,c,t", [(1, 48, 160000), (1, 96, 80000),
+                                   (4, 192, 20000)])
+def test_f16_alias_fir_on_card(dev, b, c, t):
+    """The alias-free snake-beta in f16 (up step at t, down step at 2t
+    frames, both past cuDNN's faulting f16 lengths) runs clean without
+    cuDNN and gives the f32 op's values; cuDNN is left as it was."""
+    from codec_tpu_torch.models.xcodec2_init import kaiser_sinc_filter
+    from codec_tpu_torch.ops.alias_act import (alias_free_snake_beta_cf,
+                                               polyphase_up_taps)
+
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn((b, c, t), device=dev, generator=g)
+    a = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+    ib = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+    k = torch.from_numpy(kaiser_sinc_filter()).to(dev)
+    up = polyphase_up_taps(k)
+    got = alias_free_snake_beta_cf(x.half(), a.half(), ib.half(), k, up)
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.enabled
+    want = alias_free_snake_beta_cf(x, a, ib, k, up)
+    assert got.dtype == torch.float16 and got.shape == want.shape == x.shape
+    assert float((got.float() - want).abs().max()) <= 1e-2 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("b,t", [(1, 320000), (1, 80000)])
+def test_f16_distill_unit_on_card(dev, b, t):
+    """The distill unit (its depthwise k7 at the PCM rate of a 20 s
+    request, and a block later) in f16 on the card: the f32 unit's values
+    at the f16 bound, cuDNN left as it was."""
+    from codec_tpu_torch.models import neucodec as neu
+
+    g = torch.Generator(device=dev).manual_seed(t)
+    c = 512
+    u = {"dw_w": torch.randn((c, 1, 7), device=dev, generator=g) * 7 ** -0.5,
+         "dw_b": 0.01 * torch.randn(c, device=dev, generator=g),
+         "pw1_w": torch.randn((2 * c, c), device=dev, generator=g) * c ** -0.5,
+         "pw1_b": 0.01 * torch.randn(2 * c, device=dev, generator=g),
+         "alpha": 1 + 0.1 * torch.randn(2 * c, device=dev, generator=g),
+         "grn_g": 0.1 * torch.randn(2 * c, device=dev, generator=g),
+         "grn_b": 0.01 * torch.randn(2 * c, device=dev, generator=g),
+         "pw2_w": torch.randn((c, 2 * c), device=dev, generator=g)
+         * 0.3 * (2 * c) ** -0.5,
+         "pw2_b": 0.01 * torch.randn(c, device=dev, generator=g)}
+    x = torch.randn((b, t, c), device=dev, generator=g)
+    with torch.inference_mode():
+        got = neu._base_unit_fwd(x.half(), {k: v.half() for k, v in u.items()})
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.enabled
+        want = neu._base_unit_fwd(x, u)
+    assert got.dtype == torch.float16 and torch.isfinite(got).all()
+    assert float((got.float() - want).abs().max()) <= 2e-2 * float(
+        want.abs().max())
