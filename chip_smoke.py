@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero before the last line):
      and no HMMA in the RVQ search; the RVQ search's cluster occupancy
   3. each kernel against its plain PyTorch version on the card, in f32,
      bf16 and f16 where it takes them (the attention also with carried
-     keys, at the streaming steps' shapes; the residual units also at
+     keys, at the streaming steps' shapes, and at MOSS's four stages
+     against the banded plain version; the residual units also at
      every DAC and SNAC decoder and encoder block's shape (f16: the
      decoder blocks, where its requests run it), unit by unit in the
      launches a request makes, each launch settled (synchronized) before
@@ -101,6 +102,24 @@ Phases (any failure raises and exits non-zero before the last line):
      against the f32 model on the card, each f32 encode against the CPU on
      a 4 s request run both ways (the FSQ near-tie rule), one encode →
      decode round trip an encoding arch, and each request timed
+  8e. the last small codecs: write full-width random MOSS-Audio-Tokenizer
+     (48 kHz stereo, with its encoder), NeMo nano codec (with its encoder),
+     BlueMagpie AudioVAE (with its encoder) and Chatterbox S3T GGUFs, load
+     each on the card (f32, bf16, f16) and on the CPU (f32); MOSS decode
+     20 s b1 and b4 f32, b1 bf16 and f16, encode 20 s of stereo b1 f32 and
+     bf16 and 20 s + 733 samples f32 (tail rows past the true length);
+     NeMo decode 20 s b1 and b4 f32, b1 bf16 and f16, encode 20 s b1 f32
+     and bf16; BlueMagpie decode_latent 20 s b1 and b4 f32, b1 bf16 and
+     f16 (its depthwise convs at 960 000 frames without cuDNN),
+     encode_latent 20 s of 16 kHz b1 f32 and bf16; S3T encode 20 s of
+     16 kHz b1 and b2 f32, b1 bf16; each with the launch counts set to 0
+     just before and read just after (MOSS 15 flash_sdpa_window a request,
+     one a transformer layer; the others none), checked for shape, finite
+     samples and saturation (codes: range), each f32 MOSS request held
+     against the banded plain attention on the card, each f32 request of
+     the four against the CPU on 4 s of it (S3T: all 20 s), each f16
+     decode against the f32 model, one encode → decode round trip per arch
+     that decodes, and each request timed
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
      Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
@@ -142,7 +161,10 @@ Phases (any failure raises and exits non-zero before the last line):
      under torch.profiler) and the attention with carried keys beside its
      plain version, SDPA with the same mask and its bound; the windowed
      codecs' attention shapes (Qwen3 H16 T250 with and without its window,
-     Pocket T4000 w250, Pocket's pushes with carried keys) the same way
+     Pocket T4000 w250, Pocket's pushes with carried keys) the same way;
+     MOSS's four (T 250 w125, T 2500 w12, T 15 000 w75, T 120 000 w600)
+     beside the banded plain version, SDPA with the band mask where that
+     mask fits, and the bound
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -179,6 +201,12 @@ WINDOWED_ATTN_SHAPES = [(1, 16, 250, 64, None), (1, 16, 250, 64, 72),
 ATTN_SHAPES_F32 = [(1, 8, 500, 64, 250), (1, 8, 1500, 64, 250),
                    (4, 8, 500, 64, 250), (1, 2, 300, 64, None),
                    (1, 2, 256, 128, 16), *WINDOWED_ATTN_SHAPES]
+# MOSS-Audio-Tokenizer's four transformer stages at 20 s of 48 kHz stereo
+# (phase 8e): T 250 w125, T 2500 w12 (a window below the kernel's 16-query
+# block), T 15 000 w75, T 120 000 w600; heads of 64. The plain version is
+# banded (the full mask at T 120 000 would need 173 GB of logits)
+MOSS_ATTN_SHAPES = [(1, 12, 250, 64, 125), (1, 12, 2500, 64, 12),
+                    (1, 6, 15000, 64, 75), (1, 3, 120000, 64, 600)]
 ATTN_SHAPE_BF16 = (1, 8, 500, 64, 250)
 ATTN_F32_TOL = dict(atol=2e-5, rtol=1e-5)
 ATTN_BF16_ATOL = 3e-2
@@ -406,6 +434,43 @@ NEU_ENCODES = [("distill_neucodec", "20s_b1_f32", 20, 1, "float32"),
 # an f32 encode is held against the CPU on a request of this length, run
 # both ways (the 20 s encodes' CPU runs would take tens of seconds each)
 NEU_CPU_ENCODE_SECONDS = 4
+
+# -- the last small codecs at full width (phase 8e): (arch, kind, name,
+# seconds, batch, compute dtype, samples past the seconds). MOSS decodes
+# codes to 48 kHz stereo and encodes stereo PCM (one stream a call), each
+# transformer layer one flash_sdpa_window launch: 2 + 4 + 6 + 3 = 15 a
+# decode, 3 + 6 + 4 + 2 = 15 an encode (the 733 samples past 20 s give
+# tail rows, which run on the masked sdpa after the kernel). NeMo decodes
+# codes and encodes PCM at 22.05 kHz, BlueMagpie decodes latents to 48 kHz
+# and encodes 16 kHz PCM, S3T encodes 16 kHz PCM: no kernel of the port
+SMALL_REQUESTS = [
+    ("moss", "decode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("moss", "decode", "20s_b4_f32", 20, 4, "float32", 0),
+    ("moss", "decode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("moss", "decode", "20s_b1_f16", 20, 1, "float16", 0),
+    ("moss", "encode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("moss", "encode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("moss", "encode", "20s+733_b1_f32", 20, 1, "float32", 733),
+    ("nemo", "decode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("nemo", "decode", "20s_b4_f32", 20, 4, "float32", 0),
+    ("nemo", "decode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("nemo", "decode", "20s_b1_f16", 20, 1, "float16", 0),
+    ("nemo", "encode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("nemo", "encode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("bluemagpie", "decode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("bluemagpie", "decode", "20s_b4_f32", 20, 4, "float32", 0),
+    ("bluemagpie", "decode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("bluemagpie", "decode", "20s_b1_f16", 20, 1, "float16", 0),
+    ("bluemagpie", "encode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("bluemagpie", "encode", "20s_b1_bf16", 20, 1, "bfloat16", 0),
+    ("s3t", "encode", "20s_b1_f32", 20, 1, "float32", 0),
+    ("s3t", "encode", "20s_b2_f32", 20, 2, "float32", 0),
+    ("s3t", "encode", "20s_b1_bf16", 20, 1, "bfloat16", 0)]
+MOSS_LAYERS = 15                 # flash_sdpa_window launches a request
+# f32 requests are held against the CPU on this many seconds of the same
+# input (MOSS, NeMo and BlueMagpie: the 20 s CPU runs would take tens of
+# seconds); S3T's CPU encode takes the whole 20 s in about a second
+SMALL_CPU_SECONDS = {"moss": 4, "nemo": 4, "bluemagpie": 4, "s3t": 20}
 
 
 def log(msg: str) -> None:
@@ -1431,6 +1496,318 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     return dict(none)
 
 
+def level_near_ties(got, want, x1, levels):
+    """Mixed-radix FSQ codes [T, G] (NeMo's) against the reference's,
+    digit by digit: equal, or at most max(2, digits / 50) differ, each
+    where the reference's f64 value before the round x1 [T, G, d] lies
+    within 1e-3 of a half (tests/fsq_ties.py's rule) → [(frame, group,
+    digit, |frac − 0.5|)]."""
+    lv = np.asarray(levels, np.int64)
+    base = np.concatenate([[1], np.cumprod(lv[:-1])])
+    gd, wd = ((np.asarray(c, np.int64)[..., None] // base) % lv
+              for c in (got, want))
+    bad = np.argwhere(gd != wd)
+    if len(bad) > max(2, gd.size // 50):
+        raise RuntimeError(f"{len(bad)}/{gd.size} FSQ digits differ")
+    out = []
+    for fr, g, d in bad:
+        v = float(x1[fr, g, d])
+        frac = abs(v - math.floor(v) - 0.5)
+        if not frac < 1e-3:
+            raise RuntimeError(f"FSQ frame {fr} group {g} digit {d}: "
+                               f"|frac - 0.5| {frac:.2e}, not a tie")
+        out.append((int(fr), int(g), int(d), frac))
+    return out
+
+
+def ternary_near_ties(got, want, q):
+    """S3T tokens [T, 1] against the reference's, ternary digit by digit:
+    equal, or at most max(2, digits / 50) differ, each where the
+    reference's bounded value q [T, 8] lies within 1e-3 of ±0.5 →
+    [(frame, digit, ||q| − 0.5|)]."""
+    gd, wd = ((np.asarray(c, np.int64).reshape(-1, 1) // 3 ** np.arange(8))
+              % 3 for c in (got, want))
+    bad = np.argwhere(gd != wd)
+    if len(bad) > max(2, gd.size // 50):
+        raise RuntimeError(f"{len(bad)}/{gd.size} ternary digits differ")
+    out = []
+    for fr, d in bad:
+        gap = abs(abs(float(q[fr, d])) - 0.5)
+        if not gap < 1e-3:
+            raise RuntimeError(f"S3T frame {fr} digit {d}: q {q[fr, d]}, "
+                               f"not a tie")
+        out.append((int(fr), int(d), gap))
+    return out
+
+
+def moss_margin(p, lat, want, got):
+    """margin_fn (near_ties) of MOSS's cosine LFQ: lat [T, rvq] f64, the
+    quantizer's input; the residual before level q is what want's own
+    earlier levels leave."""
+    lv = [{k: f64(v) for k, v in q.items()} for q in p["q"]]
+
+    def margin(fr, q):
+        r = lat[fr].copy()
+        for i in range(q):
+            r -= lv[i]["cb"][want[fr, i]] @ lv[i]["out_w"].T + lv[i]["out_b"]
+        z = r @ lv[q]["in_w"].T + lv[q]["in_b"]
+        return cosine_margin(z, lv[q]["cb"], got[fr, q], want[fr, q])
+    return margin
+
+
+def small_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
+    """Phase 8e: write full-width random MOSS-Audio-Tokenizer (stereo, with
+    its encoder), NeMo nano codec (with its encoder), BlueMagpie AudioVAE
+    (with its encoder) and Chatterbox S3T GGUFs, load each with load_model
+    on the card in f32, bf16 and f16 and on the CPU in f32, and run
+    SMALL_REQUESTS with every launch count set to 0 just before each
+    request and read just after (MOSS exactly MOSS_LAYERS
+    flash_sdpa_window a request, the others none). Each output is checked
+    for shape, finite samples and saturation (codes: shape and range);
+    each f32 MOSS request against the same function with the banded plain
+    attention on the card (corr > 0.99999, max abs err <= 1e-4 x peak;
+    codes under the cosine near-tie rule), each f32 request of the four
+    archs against the same function on the CPU from the same file on
+    SMALL_CPU_SECONDS of the same input (codes: NeMo's and S3T's FSQ
+    near-tie rules, MOSS's cosine one), each f16 decode against the f32
+    model on the card (corr > 0.999); one encode → decode round trip per
+    arch that decodes. Each request's median time (CUDA events, 10 after
+    2 warm-ups). → this phase's launch counts."""
+    import codec_tpu_torch
+    from codec_tpu_torch.models import bluemagpie, chatterbox_s3t, moss_audio
+    from codec_tpu_torch.models import nemo_nano
+    from codec_tpu_torch.models.bluemagpie_init import write_random_bm_gguf
+    from codec_tpu_torch.models.moss_init import write_random_moss_gguf
+    from codec_tpu_torch.models.nemo_init import LEVELS, write_random_nemo_gguf
+    from codec_tpu_torch.models.s3t_init import write_random_s3t_gguf
+    from codec_tpu_torch.ops.attn_cuda import flash_sdpa_window_ref
+    from codec_tpu_torch.runtime.model import f32_precision
+
+    t_phase = time.monotonic()
+    models = {}
+    writers = {"moss": write_random_moss_gguf, "nemo": write_random_nemo_gguf,
+               "bluemagpie": write_random_bm_gguf,
+               "s3t": write_random_s3t_gguf}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as tmp:
+        paths = {a: Path(tmp) / f"{a}_random.gguf" for a in writers}
+        t0 = time.monotonic()
+        for arch, write in writers.items():
+            kw = {} if arch == "s3t" else {"encoder": True}
+            write(paths[arch], seed=SEED, **kw)
+        log("[small] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
+            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        for arch, path in paths.items():
+            for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
+                            ("cuda", "float16"), ("cpu", "float32")):
+                models[arch, dev, dt] = codec_tpu_torch.load_model(
+                    path, compute_dtype=dt, device=dev)
+        torch.cuda.synchronize()
+    mm = models["moss", "cuda", "float32"]
+    if not all(models[a, "cuda", "float32"].has_encoder for a in writers) \
+            or mm.expected_channels != 2:
+        raise RuntimeError("small: an encoder is missing, or MOSS is not "
+                           "stereo")
+    log(f"[small] load_model x4 files, card f32 + bf16 + f16 and CPU f32, in "
+        f"{time.monotonic() - t0:.2f} s; MOSS {mm.cfg}; NeMo "
+        f"{models['nemo', 'cuda', 'float32'].cfg}; BlueMagpie "
+        f"{models['bluemagpie', 'cuda', 'float32'].cfg}; S3T "
+        f"{models['s3t', 'cuda', 'float32'].cfg}; parameters " + ", ".join(
+            f"{a} {sum(t.numel() for t in _tensors(models[a, 'cpu', 'float32'].params)) / 1e6:.1f} M"
+            for a in writers))
+
+    rng = np.random.default_rng(SEED + 800)
+    phase_counts = dict(none)
+
+    def rate(model, kind):
+        return (model.sample_rate if kind == "decode"
+                else model.encode_sample_rate or model.sample_rate)
+
+    def make_input(arch, kind, secs, batch, extra, model):
+        if kind == "decode":
+            frames = secs * model.sample_rate // model.hop_size
+            if arch == "bluemagpie":
+                return rng.standard_normal((batch, frames, model.latent_dim)
+                                           ).astype(np.float32)
+            return rng.integers(0, model.codebook_size,
+                                (batch, frames, model.n_q)).astype(np.int32)
+        n = secs * rate(model, kind) + extra
+        if arch == "moss":                 # one stereo stream a call
+            return (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
+        return (rng.standard_normal((batch, n)) * 0.3).astype(np.float32)
+
+    def call(model, arch, kind):
+        if arch == "bluemagpie":
+            return model.decode_latent if kind == "decode" else \
+                model.encode_latent
+        return model.decode if kind == "decode" else model.encode
+
+    def cut(x, arch, kind, model, secs):
+        """The first `secs` seconds of a request's input (a MOSS encode's
+        samples past its seconds kept)."""
+        if kind == "decode":
+            return x[:, : secs * model.sample_rate // model.hop_size]
+        if arch == "moss":
+            return x[: secs * rate(model, kind) + (len(x) % model.hop_size)]
+        return x[:, : secs * rate(model, kind)]
+
+    def held(label, got, want, bound_corr=0.99999, peak_bound=True):
+        c = corr(got, want)
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if not (np.isfinite(want).all() and c > bound_corr
+                and (not peak_bound or err <= 1e-4 * peak)):
+            raise RuntimeError(f"{label}: corr {c}, max abs err {err} (peak "
+                               f"{peak})")
+        return (f"corr {c:.9f}, max abs err {err:.3e} ({err / peak:.2e} of "
+                f"peak {peak:.4f})")
+
+    def codes_held(arch, model, x, got, want):
+        """Codes of the f32 request on `model` (the CPU) against `got`
+        under the arch's near-tie rule → the note."""
+        if np.array_equal(got, want):
+            return "codes equal"
+        with torch.inference_mode(), f32_precision(True):
+            if arch == "moss":
+                flat = np.pad(x, ((0, (-len(x)) % model.hop_size), (0, 0)))
+                lat = f64(moss_audio.moss_encode_latent_fn(
+                    model.params, torch.from_numpy(flat.reshape(1, -1)).to(
+                        model.device), model.cfg, x.size)[0])
+                ties = near_ties(got, want, moss_margin(model.params, lat,
+                                                        want, got))
+            elif arch == "nemo":
+                z = nemo_nano.nemo_encode_latent_fn(
+                    model.params, torch.from_numpy(x).to(model.device),
+                    model.cfg).double()
+                f = {k: f64(v) for k, v in model.params["fsq"].items()}
+                zg = z.cpu().numpy().reshape(*z.shape[:2], model.n_q, -1)
+                x1 = np.tanh(zg + f["in_shift"]) * f["out_scale"] \
+                    - f["out_offset"]
+                ties = [t for b in range(len(got)) for t in level_near_ties(
+                    got[b], want[b], x1[b], LEVELS)]
+            else:
+                ties = []
+                for b in range(len(got)):
+                    mel = torch.from_numpy(model.log_mel(x[b])[None])
+                    q = f64(chatterbox_s3t.s3t_latent_fn(
+                        model.params, mel.to(model.device), model.cfg)[0])
+                    ties += ternary_near_ties(got[b], want[b], q)
+        return f"{len(ties)} differ, each a near-tie ({ties})"
+
+    for arch, kind, name, secs, batch, dt, extra in SMALL_REQUESTS:
+        model = models[arch, "cuda", dt]
+        fn = call(model, arch, kind)
+        x = make_input(arch, kind, secs, batch, extra, model)
+        zero_counts()
+        out = fn(x)
+        step = counts()
+        want_step = {**none, "flash_sdpa_window":
+                     MOSS_LAYERS if arch == "moss" else 0}
+        if step != want_step:
+            raise RuntimeError(f"{arch} {kind} {name}: launches {step}, "
+                               f"want {want_step}")
+        phase_counts["flash_sdpa_window"] += want_step["flash_sdpa_window"]
+        if kind == "decode":
+            n = x.shape[1] * model.hop_size
+            want_shape = (batch, n, 2) if arch == "moss" else (batch, n)
+        elif arch == "bluemagpie":
+            want_shape = (batch, x.shape[1] // model.cfg.encode_hop,
+                          model.latent_dim)
+        elif arch == "moss":
+            want_shape = (-(-len(x) // model.hop_size), model.n_q)
+        elif arch == "nemo":
+            want_shape = (batch, x.shape[1] // model.hop_size, model.n_q)
+        else:
+            want_shape = (batch, -(-x.shape[1] // 640), 1)
+        if out.shape != want_shape or not np.isfinite(out).all():
+            raise RuntimeError(f"{arch} {kind} {name}: {out.shape}, want "
+                               f"{want_shape} finite")
+        line = (f"[small] {arch} {kind} {name}: launches "
+                f"{step['flash_sdpa_window']} flash_sdpa_window; {out.shape}")
+        if out.dtype == np.int32:
+            if out.min() < 0 or out.max() >= model.codebook_size:
+                raise RuntimeError(f"{arch} {kind} {name}: codes out of range")
+            line += (f" in range, {len(np.unique(out.reshape(-1, out.shape[-1]), axis=0))}"
+                     f" distinct code rows")
+        else:
+            if out.dtype != np.float32:
+                raise RuntimeError(f"{arch} {kind} {name}: dtype {out.dtype}")
+            line += f" finite, peak {np.abs(out).max():.4f}, std {out.std():.4f}"
+            if kind == "decode":
+                sat = float((np.abs(out) > 0.99).mean())
+                if not sat < 0.01:
+                    raise RuntimeError(f"{arch} decode {name}: {sat:.2%} of "
+                                       f"samples saturated")
+                line += f", share |pcm| > 0.99: {sat:.2e}"
+        if dt == "float32":
+            if arch == "moss":
+                with model._decoding():
+                    if kind == "decode":
+                        plain = moss_audio.moss_decode_fn(
+                            model.params, torch.from_numpy(
+                                x.astype(np.int64)).cuda(), model.cfg,
+                            attention=flash_sdpa_window_ref)
+                        plain = plain.float().cpu().numpy().reshape(out.shape)
+                        line += ("; vs the banded plain attention on the "
+                                 "card: " + held(f"moss decode {name}", out,
+                                                 plain))
+                    else:
+                        flat = np.pad(x, ((0, (-len(x)) % model.hop_size),
+                                          (0, 0))).reshape(1, -1)
+                        xt = torch.from_numpy(flat).cuda()
+                        plain = moss_audio.moss_encode_fn(
+                            model.params, xt, model.cfg, x.size,
+                            attention=flash_sdpa_window_ref)[0].to(
+                                torch.int32).cpu().numpy()
+                        lat = f64(moss_audio.moss_encode_latent_fn(
+                            model.params, xt, model.cfg, x.size,
+                            attention=flash_sdpa_window_ref)[0])
+                        ties = near_ties(out, plain, moss_margin(
+                            model.params, lat, plain, out))
+                        line += ("; vs the banded plain attention on the "
+                                 "card: " + ("codes equal" if not ties else
+                                             f"{len(ties)} frames differ, "
+                                             f"each a near-tie {ties}"))
+            cpu = models[arch, "cpu", "float32"]
+            cs = SMALL_CPU_SECONDS[arch]
+            xs = cut(x, arch, kind, model, cs)
+            got_s = fn(xs)
+            want_s = call(cpu, arch, kind)(xs)
+            if got_s.dtype == np.int32:
+                note = codes_held(arch, cpu, xs, got_s, want_s)
+            else:
+                note = held(f"{arch} {kind} {name} vs the CPU", got_s, want_s)
+            line += f"; {cs} s of it vs the same function on the CPU: {note}"
+            if kind == "encode" and arch != "s3t":
+                zero_counts()
+                back = (model.decode_latent(out) if arch == "bluemagpie"
+                        else model.decode(out))
+                if counts() != {**none, "flash_sdpa_window":
+                                MOSS_LAYERS if arch == "moss" else 0} \
+                        or not np.isfinite(back).all():
+                    raise RuntimeError(f"{arch}: encode → decode gave "
+                                       f"launches {counts()}, finite "
+                                       f"{np.isfinite(back).all()}")
+                phase_counts["flash_sdpa_window"] += \
+                    counts()["flash_sdpa_window"]
+                line += f"; encode → decode round trip: {back.shape} finite"
+        elif kind == "decode":
+            c = corr(out, call(models[arch, "cuda", "float32"], arch,
+                               kind)(x))
+            if dt == "float16" and not c > 0.999:
+                raise RuntimeError(f"{arch} decode {name}: corr {c} vs the "
+                                   f"f32 model on the card")
+            line += f"; vs the f32 model on the card: corr {c:.6f}"
+        ms = cuda_ms(lambda: fn(x))
+        log(line + f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
+            f"{secs * batch / (ms / 1e3):.1f}x realtime [{name_limit}]")
+    del models
+    torch.cuda.empty_cache()
+    log(f"[small] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -1605,6 +1982,8 @@ def main() -> int:
     max_err = {name: 0.0 for name in wrappers}
     cases = [(s, torch.float32) for s in ATTN_SHAPES_F32]
     cases += [(ATTN_SHAPE_BF16, dt) for dt in HALF_DTYPES]
+    cases += [(s, dt) for s in MOSS_ATTN_SHAPES
+              for dt in (torch.float32, *HALF_DTYPES)]
     for i, ((b, h, t, d, w), dtype) in enumerate(cases):
         q, k, v = (randn((b, h, t, d), dtype, SEED + 3 * i + j) for j in range(3))
         got = settled(f"flash_sdpa_window B{b} H{h} T{t} D{d} {dtype}",
@@ -2391,6 +2770,10 @@ def main() -> int:
     log(f"[phase] 8d starts at {time.monotonic() - t_start:.1f} s")
     neu_codecs(name_limit, zero_counts, counts, none)
 
+    # -- 8e. the last small codecs ----------------------------------------------
+    log(f"[phase] 8e starts at {time.monotonic() - t_start:.1f} s")
+    small_counts = small_codecs(name_limit, zero_counts, counts, none)
+
     # -- 9. the CSM TTS path ---------------------------------------------------
     log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")
     t0 = time.monotonic()
@@ -2887,6 +3270,46 @@ def main() -> int:
                 + (f", f32 FMA {least_time(*work)[0]:.5f} ms"
                    if dtype == torch.float32 else "") + f" [{name_limit}]")
 
+    # MOSS's attention (phase 8e's shapes) the same way; SDPA with the band
+    # mask only where its mask fits (T <= 15 000: its memory-efficient
+    # kernel takes the mask as an additive tensor of the inputs' dtype,
+    # [T, T]; at T 120 000 that is 57.6 GB in f32, and the math path's
+    # logits 172.8 GB)
+    for b, h, t, d, w in MOSS_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (randn((b, h, t, d), dtype, SEED + 900 + j)
+                       for j in range(3))
+            kern, plain, smp = turns(
+                lambda: flash_sdpa_window(q, k, v, window=w),
+                lambda: flash_sdpa_window_ref(q, k, v, window=w),
+                reps=20 if t <= 2500 else 1)
+            if t <= 15000:
+                i = torch.arange(t, device="cuda")
+                band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+                lib = (f"{cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band), reps=20 if t <= 2500 else 1):.4f} ms")
+                del band
+            else:
+                lib = (f"not run: its [T, T] mask is {t * t * dtype.itemsize / 1e9:.1f}"
+                       f" GB as an additive {str(dtype)[6:]} tensor, the "
+                       f"math path's f32 logits {b * h * t * t * 4 / 1e9:.1f} GB")
+            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w),
+                            n=10 if t > 15000 else 50)
+            work = attn_work(b, h, t, d, w, dtype)
+            flop = work[0][0][0]
+            passes = ([(3 * flop, "tf32")] if dtype == torch.float32
+                      else [(3 * flop // 2, dtype)])
+            b_ms, b_by = least_time(passes, work[1])
+            log(f"[time] flash_sdpa_window MOSS B{b} H{h} T{t} D{d} w{w} "
+                f"{str(dtype)[6:]}: kernel {kern:.4f} ms, banded plain "
+                f"{plain:.4f} ms (samples k {smp[0]:.4f} {smp[1]:.4f}, p "
+                f"{smp[2]:.4f} {smp[3]:.4f}), F.scaled_dot_product_attention "
+                f"with the same mask {lib}, device time (torch.profiler) "
+                f"{fmt_ms(dev)}; bound {b_ms:.5f} ms ({b_by}; the kernel's "
+                f"passes; {b_ms / kern:.1%} of it), bytes alone "
+                f"{least_time([], work[1])[0]:.5f} ms [{name_limit}]")
+            del q, k, v
+    torch.cuda.empty_cache()
+
     # the DAC residual units at every decoder and encoder width, d = 1, 3
     # and 9, in f32 and bf16, and the chain against three unit launches
     # (tools/seanet_times.py); the kernels line takes the f32 unit at block
@@ -3251,7 +3674,8 @@ def main() -> int:
                    + tts_counts["flash_sdpa_window"]
                    + tts_dev_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"]
-                   + windowed_counts["flash_sdpa_window"],
+                   + windowed_counts["flash_sdpa_window"]
+                   + small_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
                    + enc_counts["seanet_res_unit"],
                    "seanet_res_chain": dac_counts["seanet_res_chain"]

@@ -1,8 +1,9 @@
 """codec_tpu_torch — the codec engine on PyTorch and CUDA (NVIDIA Hopper).
 
 The PyTorch port of codec_tpu, which stays the reference it is held
-against. Mimi, DAC and SNAC encode and decode, and CSM-style TTS
-(codec_tpu_torch.lm), are ported so far:
+against. 15 of codec_tpu's 16 codec archs (all but Chatterbox S3G; see
+models/registry.py), Mimi's and Pocket-Mimi's streaming sessions and
+CSM-style TTS (codec_tpu_torch.lm) are ported so far:
 
     model = codec_tpu_torch.load_model("mimi.gguf", device="cuda")
     codes = model.encode(pcm)          # pcm [n] → [ceil(n/hop), n_q] int32

@@ -93,3 +93,27 @@ def _distill_neucodec():
 def _xcodec2():
     from .xcodec2 import XCodec2
     return XCodec2
+
+
+@register("moss_audio_tokenizer", "moss-audio-tokenizer", "moss_audio")
+def _moss():
+    from .moss_audio import MossAudioCodec
+    return MossAudioCodec
+
+
+@register("nemo_nano_codec", "nemo-nano-codec", "nemo")
+def _nemo():
+    from .nemo_nano import NemoNanoCodec
+    return NemoNanoCodec
+
+
+@register("bluemagpie_audiovae", "bluemagpie-audiovae")
+def _bluemagpie():
+    from .bluemagpie import BlueMagpieAudioVAE
+    return BlueMagpieAudioVAE
+
+
+@register("chatterbox_s3t", "chatterbox-s3t", "s3t")
+def _s3t():
+    from .chatterbox_s3t import ChatterboxS3T
+    return ChatterboxS3T

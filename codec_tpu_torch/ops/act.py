@@ -14,6 +14,17 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * (2.0 ** -0.5)))
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximated GELU (torch's gelu(approximate="tanh"), ggml_gelu),
+    written out as the JAX package writes it."""
+    return 0.5 * x * (1.0 + torch.tanh(
+        0.7978845608028654 * (x + 0.044715 * x ** 3)))
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 

@@ -24,19 +24,40 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _BQ = 16                      # queries per block (csrc/flash_sdpa_window.cu)
 _MAX_Q_TILES = 65535          # gridDim.y limit
+MAX_T = _BQ * _MAX_Q_TILES    # the most queries one launch takes
+REF_BLOCK = 512               # queries per step of the plain version
 
 
 def flash_sdpa_window_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           window: Optional[int] = None,
-                          k_start: int = 0) -> torch.Tensor:
+                          k_start: int = 0,
+                          block: int = REF_BLOCK) -> torch.Tensor:
     """Plain version: the masked sdpa with a causal (+ window) mask, query i
-    at key position Tk - Tq + i, keys before k_start masked."""
+    at key position Tk - Tq + i, keys before k_start masked.
+
+    Banded: each block of `block` queries, at key positions p0 .. p1 - 1,
+    meets only the keys its rows can see, [max(k_start, p0 - window + 1),
+    p1), under the same mask cut to that band. The keys left out are those
+    the full mask hides, whose softmax weights are exactly 0, so each row
+    is the same function of the same logits; memory is O(Tq·(block +
+    window)) instead of O(Tq·Tk) (3 heads at T 120 000 would need 173 GB
+    of logits in one piece)."""
     t_q, t_k = q.shape[-2], k.shape[-2]
-    return sdpa(q, k, v, scale=scale,
-                mask=attn_mask(t_q, t_k, causal=True, window=window,
-                               device=q.device, q_off=t_k - t_q,
-                               k_start=k_start))
+    if t_q == 0:
+        return torch.empty(*q.shape[:-1], v.shape[-1], dtype=v.dtype,
+                           device=q.device)
+    outs = []
+    for i0 in range(0, t_q, block):
+        i1 = min(i0 + block, t_q)
+        p0, p1 = t_k - t_q + i0, t_k - t_q + i1
+        lo = k_start if window is None else max(k_start, p0 - window + 1)
+        outs.append(sdpa(q[..., i0:i1, :], k[..., lo:p1, :],
+                         v[..., lo:p1, :], scale=scale,
+                         mask=attn_mask(i1 - i0, p1 - lo, causal=True,
+                                        window=window, device=q.device,
+                                        q_off=p0 - lo)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
 @functools.cache
@@ -86,7 +107,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"flash_sdpa_window: window must be None or a "
                          f"positive int, got {window!r}")
-    if not (1 <= shape[2] <= _BQ * _MAX_Q_TILES and k.shape[2] < 2 ** 31
+    if not (1 <= shape[2] <= MAX_T and k.shape[2] < 2 ** 31
             and 1 <= shape[0] * shape[1] < 2 ** 31):
         raise ValueError(f"flash_sdpa_window: shape {tuple(shape)} out of "
                          f"the kernel's range")

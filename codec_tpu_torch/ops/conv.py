@@ -148,23 +148,34 @@ def conv1d_causal_stream_replicate_cf(x: torch.Tensor, w: torch.Tensor,
                                    dilation=dilation)
 
 
+def _grouped(x: torch.Tensor, groups: int):
+    """The cuDNN guard of a grouped (depthwise) conv of channels-last x:
+    no_cudnn_for_f16 where groups > 1, else nothing."""
+    return no_cudnn_for_f16(x) if groups > 1 else contextlib.nullcontext()
+
+
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            stride: int = 1, dilation: int = 1, padding: int = 0,
            groups: int = 1) -> torch.Tensor:
     """Standard conv. x: [B, T, C_in], w: [K, C_in/groups, C_out] (a
-    depthwise conv: [K, 1, C] with groups=C)."""
-    y = F.conv1d(_cf(x), w.permute(2, 1, 0), b, stride=stride,
-                 padding=padding, dilation=dilation, groups=groups)
+    depthwise conv: [K, 1, C] with groups=C, run without cuDNN in float16
+    on the card: no_cudnn_for_f16)."""
+    with _grouped(x, groups):
+        y = F.conv1d(_cf(x), w.permute(2, 1, 0), b, stride=stride,
+                     padding=padding, dilation=dilation, groups=groups)
     return _cf(y)
 
 
 def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None, stride: int = 1,
-                  dilation: int = 1, pad_mode: str = "zeros") -> torch.Tensor:
-    """Causal conv. x: [B, T, C_in], w: [K, C_in, C_out]; pad_mode "zeros"
-    or "replicate"."""
-    return _cf(conv1d_causal_cf(_cf(x), w.permute(2, 1, 0), b, stride=stride,
-                                dilation=dilation, pad_mode=pad_mode))
+                  dilation: int = 1, pad_mode: str = "zeros",
+                  groups: int = 1) -> torch.Tensor:
+    """Causal conv. x: [B, T, C_in], w: [K, C_in/groups, C_out]; pad_mode
+    "zeros" or "replicate". A grouped (depthwise) conv runs as conv1d's."""
+    with _grouped(x, groups):
+        return _cf(conv1d_causal_cf(_cf(x), w.permute(2, 1, 0), b,
+                                    stride=stride, dilation=dilation,
+                                    pad_mode=pad_mode, groups=groups))
 
 
 def convtr1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

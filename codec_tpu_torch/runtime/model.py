@@ -107,6 +107,10 @@ class CodecModel:
     latent_dim: int = 0
     has_encoder: bool = False
     has_decoder: bool = True
+    # PCM channels a decode gives and an encode takes (MOSS-Audio-Tokenizer:
+    # 2, interleaved into one stream); a decode of C > 1 channels returns
+    # [B, samples, C]
+    expected_channels: int = 1
     # causal archs decode exactly T*hop samples and are cropped to them;
     # a non-causal arch (symmetric padding) keeps its whole output
     causal_time: bool = True
@@ -204,8 +208,11 @@ class CodecModel:
         else:
             c = c.to(self.device)
         pcm = self._decode_impl(c, use_nq)
+        nch = self.expected_channels
         if self.causal_time:
-            pcm = pcm[:, :codes.shape[1] * self.hop_size]
+            pcm = pcm[:, :codes.shape[1] * self.hop_size * nch]
+        if nch > 1:
+            pcm = pcm.reshape(pcm.shape[0], -1, nch)
         return self._fmt_out(pcm, pcm_format), squeeze
 
     @contextlib.contextmanager
@@ -218,7 +225,8 @@ class CodecModel:
     def decode(self, codes, n_q: int = 0,
                pcm_format: str = "f32") -> np.ndarray:
         """codes: [T, Q] or [B, T, Q] int → pcm [T*hop] / [B, T*hop] on the
-        host; float32, or int16 with pcm_format="i16".
+        host ([.., T*hop, channels] for a multi-channel model); float32, or
+        int16 with pcm_format="i16".
 
         n_q=0 means all model codebooks (or all the codes carry, if fewer).
         Logs the JAX package's perf phases (runtime/perf_log.py)."""

@@ -2,19 +2,21 @@
 
     python -m codec_tpu_torch.tools.profile_decode \
         [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer|qwen3|pocket|
-         neucodec|distill_neucodec|xcodec2] [--seconds 20] [--encode]
+         neucodec|distill_neucodec|xcodec2|moss|nemo|bluemagpie|s3t]
+        [--seconds 20] [--encode]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
     python -m codec_tpu_torch.tools.profile_decode mimi_stream
 
 Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
 unprofiled and one profiled decode (SNAC: the frame count rounded down
-to a multiple of 4; Soprano and Pocket-Mimi: `decode_latent` of as many
-N(0, 1) latent frames). With `--encode`, the same for `encode` (Pocket-Mimi:
-`encode_latent`) of N(0, 0.3) PCM at the rate the model encodes (b1 f32,
-b1 bf16, b4 f32; the file holds the encoder; DistillNeuCodec: 16 kHz,
-the rate its model, as codec_tpu's, leaves undeclared; the base NeuCodec
-has no encoder).
+to a multiple of 4; Soprano, Pocket-Mimi and BlueMagpie: `decode_latent`
+of as many N(0, 1) latent frames; MOSS: 48 kHz stereo). With `--encode`,
+the same for `encode` (Pocket-Mimi and BlueMagpie: `encode_latent`) of
+N(0, 0.3) PCM at the rate the model encodes (b1 f32, b1 bf16, b4 f32; the
+file holds the encoder; DistillNeuCodec: 16 kHz, the rate its model, as
+codec_tpu's, leaves undeclared; MOSS: one stereo stream a call, so no b4;
+the base NeuCodec, Soprano and S3T's decode are not there).
 Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
@@ -167,7 +169,8 @@ def main(argv=None) -> int:
                     choices=["dac", "mimi", "snac", "wavtokenizer",
                              "soprano", "xy_tokenizer", "qwen3", "pocket",
                              "neucodec", "distill_neucodec", "xcodec2",
-                             "csm", "mimi_stream"])
+                             "moss", "nemo", "bluemagpie", "s3t", "csm",
+                             "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
                     help="csm: the backbone's packed type")
@@ -190,6 +193,10 @@ def main(argv=None) -> int:
     from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
     from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
     from codec_tpu_torch.models.xy_init import write_random_xy_gguf
+    from codec_tpu_torch.models.bluemagpie_init import write_random_bm_gguf
+    from codec_tpu_torch.models.moss_init import write_random_moss_gguf
+    from codec_tpu_torch.models.nemo_init import write_random_nemo_gguf
+    from codec_tpu_torch.models.s3t_init import write_random_s3t_gguf
 
     card = _card()
     print(f"card: {card}")
@@ -201,6 +208,8 @@ def main(argv=None) -> int:
         return 0
     if args.encode and args.arch in ("soprano", "neucodec"):
         raise SystemExit(f"profile_decode: {args.arch} has no encoder")
+    if not args.encode and args.arch == "s3t":
+        raise SystemExit("profile_decode: s3t has no decoder (--encode)")
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory(prefix="profile_decode_") as tmp:
         path = Path(tmp) / f"{args.arch}.gguf"
@@ -214,17 +223,26 @@ def main(argv=None) -> int:
                  "neucodec": write_random_neu_gguf,
                  "distill_neucodec": lambda p, seed, encoder=True:
                      write_random_neu_gguf(p, seed, encoder=True),
-                 "xcodec2": write_random_x2_gguf}[args.arch]
+                 "xcodec2": write_random_x2_gguf,
+                 "moss": write_random_moss_gguf,
+                 "nemo": write_random_nemo_gguf,
+                 "bluemagpie": write_random_bm_gguf,
+                 "s3t": lambda p, seed, encoder=True:
+                     write_random_s3t_gguf(p, seed)}[args.arch]
         write(path, seed=0, **({"encoder": True} if args.encode else {}))
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
+            if args.encode and args.arch == "moss" and batch > 1:
+                continue
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
                                                device="cuda")
             if args.encode:
                 rate = (16000 if args.arch == "distill_neucodec" else
                         model.encode_sample_rate or model.sample_rate)
-                pcm = (rng.standard_normal((batch, args.seconds * rate))
-                       * 0.3).astype(np.float32)
-                encode = (model.encode_latent if args.arch == "pocket"
+                shape = ((args.seconds * rate, 2) if args.arch == "moss"
+                         else (batch, args.seconds * rate))
+                pcm = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+                encode = (model.encode_latent
+                          if args.arch in ("pocket", "bluemagpie")
                           else model.encode)
                 run = lambda: encode(pcm)                 # noqa: E731
             elif args.arch == "soprano":
@@ -233,7 +251,7 @@ def main(argv=None) -> int:
                 z = rng.standard_normal((batch, frames, model.latent_dim)
                                         ).astype(np.float32)
                 run = lambda: model.decode_latent(z)      # noqa: E731
-            elif args.arch == "pocket":
+            elif args.arch in ("pocket", "bluemagpie"):
                 frames = args.seconds * model.sample_rate // model.hop_size
                 z = rng.standard_normal((batch, frames, model.latent_dim)
                                         ).astype(np.float32)

@@ -45,3 +45,30 @@ def assert_fsq_codes(got, want, z) -> int:
         frac = abs(zb[fr, d] - np.floor(zb[fr, d]) - 0.5)
         assert frac < 1e-3, f"frame {fr} digit {d}: |frac - 0.5| = {frac:.2e}"
     return len(bad)
+
+
+def level_digits(codes, levels) -> np.ndarray:
+    """Mixed-radix FSQ codes [..., G] (NeMo's: digit i of a code is
+    (code // Π levels[:i]) % levels[i]) → digits [..., G, d]."""
+    lv = np.asarray(levels, np.int64)
+    base = np.concatenate([[1], np.cumprod(lv[:-1])])
+    return (np.asarray(codes, np.int64)[..., None] // base) % lv
+
+
+def assert_level_codes(got, want, x1, levels) -> int:
+    """got, want: int32 codes [T, G] of a mixed-radix FSQ; x1: the
+    reference side's value before the round [T, G, d] (f64). The digits
+    are equal, or at most max(2, digits / 50) differ, each where x1 lies
+    within 1e-3 of a half. → how many digits differ."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == np.int32, \
+        (got.shape, want.shape, got.dtype)
+    gd, wd = level_digits(got, levels), level_digits(want, levels)
+    bad = np.argwhere(gd != wd)
+    assert len(bad) <= max(2, gd.size // 50), \
+        f"{len(bad)}/{gd.size} FSQ digits differ: not tie noise"
+    for fr, g, d in bad:
+        v = float(x1[fr, g, d])
+        frac = abs(v - np.floor(v) - 0.5)
+        assert frac < 1e-3, f"frame {fr} group {g} digit {d}: |frac - 0.5| = {frac:.2e}"
+    return len(bad)

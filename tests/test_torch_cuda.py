@@ -1831,3 +1831,200 @@ def test_f16_distill_unit_on_card(dev, b, t):
     assert got.dtype == torch.float16 and torch.isfinite(got).all()
     assert float((got.float() - want).abs().max()) <= 2e-2 * float(
         want.abs().max())
+
+
+# MOSS-Audio-Tokenizer's four transformer stages at 20 s of 48 kHz stereo
+# (heads of 64): T 250 w125, T 2500 w12 (a window below the kernel's
+# 16-query block), T 15 000 w75, T 120 000 w600
+MOSS_ATTN = [(1, 12, 250, 64, 125), (1, 12, 2500, 64, 12),
+             (1, 6, 15000, 64, 75), (1, 3, 120000, 64, 600)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,t,d,w", MOSS_ATTN)
+def test_kernel_matches_banded_plain_at_moss_shapes(dev, b, h, t, d, w,
+                                                    dtype):
+    """The kernel against its banded plain version (the full mask at T
+    120 000 would need 173 GB of logits): f32 atol 2e-5 rtol 1e-5, 16-bit
+    atol 3e-2."""
+    q, k, v = _qkv((b, h, t, d), dtype, dev, seed=t)
+    got = flash_sdpa_window(q, k, v, window=w)
+    want = flash_sdpa_window_ref(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("t,n_valid,w", [(15000, 14941, 75), (2500, 2491, 12),
+                                         (250, 249, 125), (40, 3, 2)])
+def test_moss_tail_split_on_card_matches_masked_form(dev, t, n_valid, w):
+    """window_attention on the card (the kernel for the rows before
+    n_valid, the masked sdpa after) against the whole masked form with
+    codec_tpu's mask (attn_mask + the n_valid term), f32."""
+    from codec_tpu_torch.models.moss_audio import window_attention
+    from codec_tpu_torch.ops.attn import NEG_INF, attn_mask, sdpa
+
+    q, k, v = _qkv((1, 2, t, 64), torch.float32, dev, seed=n_valid)
+    before = flash_sdpa_window.launches
+    got = window_attention(q, k, v, w, n_valid)
+    assert flash_sdpa_window.launches == before + 1
+    kj = torch.arange(t, device=dev)[None]
+    rows = slice(max(0, n_valid - 300), t)
+    m = attn_mask(t, t, window=w, device=dev)[rows] + torch.where(
+        kj < n_valid, 0.0, NEG_INF)
+    want = sdpa(q[:, :, rows], k, v, mask=m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, :, rows], want, atol=2e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def small_ggufs(tmp_path_factory):
+    """Small random MOSS (stereo, heads of 64: the kernel's), NeMo nano,
+    BlueMagpie and S3T files."""
+    import dataclasses
+
+    from codec_tpu_torch.models import (bluemagpie_init, moss_init,
+                                        nemo_init, s3t_init)
+    from codec_tpu_torch.models.moss_audio import MossModuleCfg as M
+
+    d = tmp_path_factory.mktemp("small4")
+    sr = 24000
+
+    def stage(i, o, dur, layers):
+        return M(1, 1, i, o, 128, 2, layers, dur, 10000.0)
+
+    moss_cfg = dataclasses.replace(
+        moss_init.MOSS_FULL, sample_rate=sr, hop_size=8, n_q=4,
+        codebook_size=64, latent_dim=32, rvq_dim=32,
+        enc_modules=(M(0, 4), stage(4, 128, 24 / (2 * sr), 2), M(0, 4),
+                     stage(512, 32, 8 * 16 / (2 * sr), 1)),
+        dec_modules=(stage(32, 512, 8 * 16 / (2 * sr), 1), M(0, 4),
+                     stage(128, 4, 24 / (2 * sr), 2), M(0, 4)))
+    moss_init.write_random_moss_gguf(d / "moss.gguf", seed=5, cfg=moss_cfg,
+                                     encoder=True)
+    nemo_init.write_random_nemo_gguf(
+        d / "nemo.gguf", seed=5, encoder=True, levels=(5, 4), enc_base=4,
+        dec_base=64, cfg=dataclasses.replace(
+            nemo_init.NEMO_NANO, n_q=2, codebook_size=20, codebook_dim=2,
+            latent_dim=4))
+    bluemagpie_init.write_random_bm_gguf(
+        d / "bluemagpie.gguf", seed=5, encoder=True, decoder_dim=32,
+        encoder_dim=8, cfg=dataclasses.replace(
+            bluemagpie_init.BLUEMAGPIE, latent_dim=8, decoder_rates=(2, 3),
+            encoder_rates=(2, 2), decode_hop=6, encode_hop=4))
+    s3t_init.write_random_s3t_gguf(
+        d / "s3t.gguf", seed=5, cfg=dataclasses.replace(
+            s3t_init.S3T, n_mels=8, hidden=128, n_heads=2, n_layers=2,
+            fsmn_kernel=5, n_fft=64, win_length=64))
+    return d
+
+
+def test_moss_on_card_uses_kernel_and_matches_cpu(dev, small_ggufs):
+    """One flash_sdpa_window a transformer layer (3 a decode, 3 an encode,
+    the tail rows on the masked sdpa); f32 decodes as the CPU's (corr >
+    0.99999, 1e-4 x peak), encodes the CPU's codes (a non-hop-multiple
+    length: the tail split), f16 decodes at corr > 0.999 to f32."""
+    import codec_tpu_torch
+
+    path = small_ggufs / "moss.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    f16 = codec_tpu_torch.load_model(path, compute_dtype="f16", device="cuda")
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 64, (2, 40, 4)).astype(np.int32)
+    pcm = (rng.standard_normal((8 * 37 + 5, 2)) * 0.3).astype(np.float32)
+    before = _all_launches()
+    got = gpu.decode(codes)
+    assert _all_launches()[0] == before[0] + 3
+    got_codes = gpu.encode(pcm)
+    assert _all_launches()[0] == before[0] + 6
+    assert _all_launches()[1:] == before[1:]
+    want = cpu.decode(codes)
+    assert got.shape == want.shape == (2, 320, 2)
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    np.testing.assert_array_equal(got_codes, cpu.encode(pcm))
+    half = f16.decode(codes)
+    assert np.corrcoef(half.ravel(), got.ravel())[0, 1] > 0.999
+
+
+def test_moss_request_past_the_kernel_raises_before_any_launch(dev):
+    """At full width (48 kHz stereo, 16 samples a token at the first
+    stage) a request past 174.72 s of stereo, or 2184 codes, raises
+    CodecError at the entry, with no launch."""
+    import tempfile
+    from pathlib import Path
+
+    import codec_tpu_torch
+    from codec_tpu_torch import CodecError
+    from codec_tpu_torch.models.moss_init import write_random_moss_gguf
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "moss.gguf"
+        write_random_moss_gguf(path, seed=0, encoder=True)
+        m = codec_tpu_torch.load_model(path, device="cuda")
+    before = flash_sdpa_window.launches
+    with pytest.raises(CodecError, match="8386560 samples a channel"):
+        m.encode(np.zeros((8386560 + 1, 2), np.float32))
+    with pytest.raises(CodecError, match="2184 codes"):
+        m.decode(np.zeros((2185, 16), np.int32))
+    assert flash_sdpa_window.launches == before
+
+
+@pytest.mark.parametrize("arch", ["nemo", "bluemagpie", "s3t"])
+def test_small_codecs_on_card_launch_nothing_and_match_cpu(dev, small_ggufs,
+                                                           arch):
+    """NeMo decode and encode, BlueMagpie decode_latent and encode_latent,
+    S3T encode on the card: none of the port's kernels; f32 as the CPU's
+    (outputs corr > 0.99999 and 1e-4 x peak, codes equal)."""
+    import codec_tpu_torch
+
+    path = small_ggufs / f"{arch}.gguf"
+    gpu = codec_tpu_torch.load_model(path, device="cuda")
+    cpu = codec_tpu_torch.load_model(path, device="cpu")
+    rng = np.random.default_rng(9)
+    before = _all_launches()
+    if arch == "nemo":
+        x = rng.integers(0, 20, (2, 5, 2)).astype(np.int32)
+        pcm = (rng.standard_normal((2, 1764 * 3)) * 0.1).astype(np.float32)
+        outs = [(gpu.decode(x), cpu.decode(x)),
+                (gpu.encode(pcm), cpu.encode(pcm))]
+    elif arch == "bluemagpie":
+        z = rng.standard_normal((2, 50, 8)).astype(np.float32)
+        pcm = (rng.standard_normal((2, 400)) * 0.1).astype(np.float32)
+        outs = [(gpu.decode_latent(z), cpu.decode_latent(z)),
+                (gpu.encode_latent(pcm), cpu.encode_latent(pcm))]
+    else:
+        pcm = (rng.standard_normal((2, 16000 + 77)) * 0.3).astype(np.float32)
+        outs = [(gpu.encode(pcm), cpu.encode(pcm))]
+    assert _all_launches() == before
+    for got, want in outs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if got.dtype == np.int32:
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.99999
+            assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_bluemagpie_f16_decode_past_cudnn_fault_lengths(dev, small_ggufs):
+    """BlueMagpie's f16 decode_latent with its last stage at 72 000 frames
+    (a causal depthwise conv where cuDNN's f16 kernel faults) runs clean
+    without cuDNN and holds to the f32 decode; cuDNN is left as it was."""
+    import codec_tpu_torch
+
+    path = small_ggufs / "bluemagpie.gguf"
+    f16 = codec_tpu_torch.load_model(path, compute_dtype="f16", device="cuda")
+    f32 = codec_tpu_torch.load_model(path, device="cuda")
+    z = np.random.default_rng(10).standard_normal((1, 12000, 8)).astype(
+        np.float32)
+    got = f16.decode_latent(z)
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.enabled
+    want = f32.decode_latent(z)
+    assert got.shape == want.shape == (1, 72000) and np.isfinite(got).all()
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999

@@ -211,12 +211,12 @@ def test_encode_matches_hf_directly(tiny):
 
 
 def test_unported_arch_raises(tmp_path):
-    w = GGUFWriter(tmp_path / "moss.gguf", "moss_audio_tokenizer")
+    w = GGUFWriter(tmp_path / "s3g.gguf", "chatterbox_s3g")
     w.add_tensor("x", np.zeros(4, np.float32))
     w.write()
     with pytest.raises(CodecError,
-                       match="'moss_audio_tokenizer' is not yet ported"):
-        codec_tpu_torch.load_model(tmp_path / "moss.gguf", device="cpu")
+                       match="'chatterbox_s3g' is not yet ported"):
+        codec_tpu_torch.load_model(tmp_path / "s3g.gguf", device="cpu")
 
 
 def test_bfloat16_compute_decodes(tiny):
