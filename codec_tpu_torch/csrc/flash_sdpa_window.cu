@@ -152,9 +152,11 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* k_s = reinterpret_cast<T*>(mine);                       // [2][16][kRow]
   T* v_s = k_s + 2 * BK * kRow;                              // [2][16][kRow]
 
-  const size_t q_base = static_cast<size_t>(blockIdx.x) * t_q * D;
-  const size_t k_base = static_cast<size_t>(blockIdx.x) * t_k * D;
-  const int q0 = blockIdx.y * BQ, q_off = t_k - t_q;   // query i at key q_off + i
+  // the query tile on the grid's x dimension (2^31 - 1 tiles; its y
+  // dimension would stop at 65 535, 1 048 560 queries), the (b, h) row on y
+  const size_t q_base = static_cast<size_t>(blockIdx.y) * t_q * D;
+  const size_t k_base = static_cast<size_t>(blockIdx.y) * t_k * D;
+  const int q0 = blockIdx.x * BQ, q_off = t_k - t_q;   // query i at key q_off + i
   // key tiles that intersect the band of this query tile, dealt to the
   // warps round-robin
   const int k_first = window > 0 ? max(q_off + q0 - window + 1, k_start) : k_start;
@@ -394,9 +396,9 @@ flash_sdpa_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* acc0 = reinterpret_cast<const float*>(smem + C::kQ + C::kStats);
   // the output rows' base, read again from %ctaid rather than kept live
   // across the key loop: kept, it made the f32 D 128 instance spill
-  uint32_t bx;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
-  const size_t o_base = static_cast<size_t>(bx) * t_q * D;
+  uint32_t by;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+  const size_t o_base = static_cast<size_t>(by) * t_q * D;
   for (int e = tid; e < BQ * D / 4; e += NT) {
     const int row = e / (D / 4), col = 4 * (e % (D / 4)), t = q0 + row;
     if (t >= t_q) continue;
@@ -438,7 +440,8 @@ cudaError_t launch(int dev, const void* q, const void* k, const void* v, void* o
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) opted[dev] = true;
   }
-  const dim3 grid(bh, (t_q + C::BQ - 1) / C::BQ);
+  if (bh > 65535) return cudaErrorInvalidValue;   // gridDim.y
+  const dim3 grid((t_q - 1) / C::BQ + 1, bh);
   kernel<<<grid, C::NT, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                       static_cast<const T*>(v), static_cast<T*>(o), t_q, t_k,
                                       k_start, window, scale);
@@ -459,7 +462,7 @@ extern "C" int codec_flash_sdpa_window_smem_bytes(int d, int dtype) {
   return 0;
 }
 
-// q, o [bh, t_q, d]; k, v [bh, t_k, d] with t_k >= t_q >= 1 and
+// q, o [bh, t_q, d]; k, v [bh, t_k, d] with 1 <= bh <= 65535, t_k >= t_q >= 1 and
 // 0 <= k_start <= t_k - t_q; dtype: 0 = float32, 1 = bfloat16, 2 = float16;
 // q, k, v, o
 // 16-byte aligned. Returns a cudaError_t (0 = success).

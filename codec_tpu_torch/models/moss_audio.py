@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
 from ..ops import act, attn, norms, rope
-from ..ops.attn_cuda import MAX_T, flash_sdpa_window
+from ..ops.attn_cuda import flash_sdpa_window
 from ..runtime.model import CodecError, CodecModel, f32_precision
 from ..runtime.perf_log import perf_scope
 
@@ -369,42 +369,6 @@ def moss_decode_fn(params: Dict[str, Any], codes: torch.Tensor,
     return x[..., 0]
 
 
-def enc_fold(cfg: MossConfig) -> int:
-    """Samples a token at the encoder's first transformer stage, the one
-    with the most tokens."""
-    fold = 1
-    for mod in cfg.enc_modules:
-        if mod.kind == 1:
-            break
-        fold *= mod.patch
-    return fold
-
-
-def dec_unfold(cfg: MossConfig) -> int:
-    """Tokens a code at the decoder's last transformer stage, the one with
-    the most tokens."""
-    grow = out = 1
-    for mod in cfg.dec_modules:
-        if mod.kind == 0:
-            grow *= mod.patch
-        else:
-            out = grow
-    return out
-
-
-def longest_encode(cfg: MossConfig, channels: int) -> int:
-    """The most samples a channel an encode of `channels` interleaved
-    channels takes on the card: after its pad to a hop multiple, the first
-    stage's tokens stay within one attention launch (attn_cuda.MAX_T)."""
-    return MAX_T * enc_fold(cfg) // channels // cfg.hop_size * cfg.hop_size
-
-
-def longest_decode(cfg: MossConfig) -> int:
-    """The most codes a decode takes on the card (the last stage's tokens
-    within one attention launch)."""
-    return MAX_T // dec_unfold(cfg)
-
-
 class MossAudioCodec(CodecModel):
     arch = "moss_audio_tokenizer"
     causal_time = True         # fully causal transformer stacks
@@ -423,18 +387,6 @@ class MossAudioCodec(CodecModel):
         self.has_encoder = "q_input_proj_w" in self.params
         self.has_decoder = True
 
-    def _check_length(self, n: int, most: int, unit: str,
-                      seconds: float) -> None:
-        """On the card, raises CodecError before any launch when a request
-        of n codes (samples a channel) is past `most`: a transformer stage
-        would get more queries than one attention launch takes
-        (attn_cuda.MAX_T)."""
-        if self.device.type == "cuda" and n > most:
-            raise CodecError(
-                f"{self.arch}: {n} {unit} is past the longest request the "
-                f"attention kernel takes on the card, {most} {unit} "
-                f"({seconds:.2f} s)")
-
     def _use_nq(self, n_q: int, have: int) -> int:
         """A decode reads every level whatever n_q asks, as codec_tpu's."""
         super()._use_nq(n_q, self.n_q)
@@ -444,9 +396,6 @@ class MossAudioCodec(CodecModel):
         return self.n_q
 
     def _decode_impl(self, codes: torch.Tensor, n_q: int) -> torch.Tensor:
-        most = longest_decode(self.cfg)
-        self._check_length(codes.shape[1], most, "codes",
-                           most * self.hop_size / self.sample_rate)
         return moss_decode_fn(self.params, codes, self.cfg)
 
     def encode(self, pcm, n_q: int = 0) -> np.ndarray:
@@ -482,9 +431,6 @@ class MossAudioCodec(CodecModel):
                 f"multiple of the encoder's {fold} samples a code (a mono "
                 f"stream on a {self.cfg.number_channels}-channel model)")
         n_valid = per_ch * nch if self.cfg.channel_interleave else per_ch
-        most = longest_encode(self.cfg, nch)
-        self._check_length(per_ch, most, "samples a channel",
-                           most / self.sample_rate)
         x = torch.from_numpy(np.ascontiguousarray(flat[None]))
         with perf_scope("encode_total", self.arch), torch.inference_mode(), \
                 f32_precision(self.exact_encode):

@@ -1,5 +1,5 @@
 """Arch-string → model-class registry (counterpart of
-codec_tpu/models/registry.py). Only the archs ported so far are listed."""
+codec_tpu/models/registry.py): every arch and alias of codec_tpu's."""
 
 from __future__ import annotations
 
@@ -117,3 +117,9 @@ def _bluemagpie():
 def _s3t():
     from .chatterbox_s3t import ChatterboxS3T
     return ChatterboxS3T
+
+
+@register("chatterbox_s3g", "chatterbox-s3g", "s3g")
+def _s3g():
+    from .chatterbox_s3g import ChatterboxS3G
+    return ChatterboxS3G

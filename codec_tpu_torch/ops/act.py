@@ -29,6 +29,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x·tanh(softplus(x)), softplus as log(eˣ + 1) = logaddexp(x, 0), as
+    the JAX package writes it (not F.mish)."""
+    return x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+
+
 def snake(x: torch.Tensor, alpha: torch.Tensor,
           eps: float = 1e-9) -> torch.Tensor:
     """Snake x + sin²(αx)/(α+eps) (DAC), α per channel on the last dim."""

@@ -8,14 +8,16 @@ Dispatch in `mha`: causal self-attention without `n_valid` goes to
 tensor (any T, any window) and runs its plain version for a CPU tensor.
 Non-causal attention and attention with `n_valid` use the masked `sdpa`,
 as do the attentions no Pallas kernel of codec_tpu covers: a per-head
-additive bias (`sdpa(bias=)`, the distill encoder's block-local attention)
-and Shaw relative keys (`sdpa_rel_key`, the W2V-BERT conformer).
+additive bias (`sdpa(bias=)`, the distill encoder's block-local attention),
+Shaw relative keys (`sdpa_rel_key`, the W2V-BERT conformer) and ESPnet
+relative positions (`sdpa_rel_pos`, the S3Gen flow encoder's conformer).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -96,6 +98,49 @@ def sdpa_rel_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.matmul(qf, k.float().transpose(-1, -2))
     logits += torch.take_along_dim(
         rel, bucket.expand(*rel.shape[:-2], t, t), dim=-1)
+    w = torch.softmax(logits * scale, dim=-1).to(v.dtype)
+    return torch.matmul(w, v)
+
+
+def espnet_rel_pos_emb(t: int, d_model: int, device=None) -> torch.Tensor:
+    """ESPnet RelPositionalEncoding table [2t-1, d_model] float32 for
+    positions t-1, ..., 0, ..., -(t-1), sin and cos interleaved (counterpart
+    of codec_tpu/ops/attn.py::espnet_rel_pos_emb, whose f32 frequency step
+    -2·log(10000)/d this rounds as it does)."""
+    half = d_model // 2
+    step = np.float32(-2.0) * np.log(np.float32(10000.0)) / np.float32(d_model)
+    pos = (t - 1) - torch.arange(2 * t - 1, dtype=torch.float32, device=device)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                      * float(step))
+    ang = pos[:, None] * freqs[None, :]                       # [2t-1, half]
+    return torch.stack([torch.sin(ang), torch.cos(ang)],
+                       dim=-1).reshape(2 * t - 1, d_model)
+
+
+def sdpa_rel_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 p: torch.Tensor, pos_bias_u: torch.Tensor,
+                 pos_bias_v: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """ESPnet RelPositionMultiHeadedAttention (Transformer-XL style; the
+    S3Gen flow encoder's conformer; counterpart of
+    codec_tpu/ops/attn.py::sdpa_rel_pos). q, k, v: [B, H, T, D]; p: [1 or
+    B, H, 2T-1, D], the projected rel-pos table (row r is relative position
+    (T-1) - r); pos_bias_u, pos_bias_v: [H, D] → [B, H, T, D] in v's dtype.
+
+    logits = ((q+u)·kᵀ + rel_shift((q+v)·pᵀ)) · scale with rel_shift
+    gathering [q, (T-1) - (k - q)]; unmasked; products and softmax in
+    float32. (q+v)·pᵀ is [B, H, T, 2T-1]: 144 MB f32 at B1 H8 T1500."""
+    t = q.shape[-2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q_u = (q + pos_bias_u[None, :, None, :]).float()
+    q_v = (q + pos_bias_v[None, :, None, :]).float()
+    logits = torch.matmul(q_u, k.float().transpose(-1, -2))
+    bd = torch.matmul(q_v, p.float().transpose(-1, -2))      # [B, H, T, 2T-1]
+    pos = torch.arange(t, device=q.device)
+    idx = (t - 1) - (pos[None, :] - pos[:, None])            # [T_q, T_k]
+    logits += torch.take_along_dim(bd, idx.expand(*bd.shape[:-2], t, t),
+                                   dim=-1)
     w = torch.softmax(logits * scale, dim=-1).to(v.dtype)
     return torch.matmul(w, v)
 

@@ -22,9 +22,7 @@ from .attn import attn_mask, sdpa
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
-_BQ = 16                      # queries per block (csrc/flash_sdpa_window.cu)
-_MAX_Q_TILES = 65535          # gridDim.y limit
-MAX_T = _BQ * _MAX_Q_TILES    # the most queries one launch takes
+_MAX_BH = 65535               # gridDim.y, the (b, h) rows a launch takes
 REF_BLOCK = 512               # queries per step of the plain version
 
 
@@ -107,8 +105,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"flash_sdpa_window: window must be None or a "
                          f"positive int, got {window!r}")
-    if not (1 <= shape[2] <= MAX_T and k.shape[2] < 2 ** 31
-            and 1 <= shape[0] * shape[1] < 2 ** 31):
+    if not (1 <= shape[2] and k.shape[2] < 2 ** 31
+            and 1 <= shape[0] * shape[1] <= _MAX_BH):
         raise ValueError(f"flash_sdpa_window: shape {tuple(shape)} out of "
                          f"the kernel's range")
 

@@ -23,6 +23,7 @@ import torch
 
 from ..io.gguf import (GGML_TYPE_BF16, GGML_TYPE_F16, GGML_TYPE_F32,
                        GGUFReader)
+from . import op_profile
 from .perf_log import perf_scope
 
 
@@ -92,9 +93,19 @@ def f32_precision(enabled: bool = True):
 
 class CodecModel:
     """Base class; per-arch subclasses live in codec_tpu_torch/models/ and
-    are listed in models/registry.py."""
+    are listed in models/registry.py. Each entry (op_profile.ENTRIES), the
+    base class's and any an arch overrides, runs under the per-op profiler
+    while $CODEC_OP_PROFILE or $CODEC_OP_PROFILE_TRACE is set
+    (runtime/op_profile.py)."""
 
     arch: str = ""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for entry in op_profile.ENTRIES:
+            if entry in cls.__dict__:
+                setattr(cls, entry,
+                        op_profile.profiled(entry, cls.__dict__[entry]))
 
     # Subclasses set these after load:
     sample_rate: int = 0
@@ -340,6 +351,11 @@ class CodecModel:
             if n_samples is not None:
                 pcm = pcm[:, :n_samples]
             return self._fmt_out(pcm, pcm_format).cpu().numpy()
+
+
+for _entry in op_profile.ENTRIES:
+    setattr(CodecModel, _entry,
+            op_profile.profiled(_entry, CodecModel.__dict__[_entry]))
 
 
 class PendingPcm:

@@ -1,7 +1,8 @@
 """The Mimi path's two split-f32 kernels and its requests on the card.
 
     python -m codec_tpu_torch.tools.mimi_times [--json out.json]
-        [--what attn,rvq,requests,attn_tiles] [--runs 10] [--tag LABEL]
+        [--what attn,rvq,requests,attn_tiles,moss_attn] [--runs 10]
+        [--tag LABEL]
         [--gguf mimi.gguf]
 
 `attn`: `flash_sdpa_window` at chip_smoke.py's timed shapes (B1 H8 T500,
@@ -13,7 +14,10 @@ n_q 31 and n_q 1, N 1000 n_q 31; D 256, V 2048), with the norms given
 where the wrapper takes them (as a model passes them from load) and
 without. `requests`: Mimi 20 s encodes (b1 and b4 f32) and decodes (20 s
 b4 and 60 s b1 f32, 20 s b1 f32 and bf16) through load_model on a
-full-width random Mimi with its encoder (seed 0). `attn_tiles` (this tree
+full-width random Mimi with its encoder (seed 0). `moss_attn`: the
+kernel at MOSS-Audio-Tokenizer's four stages (20 s of 48 kHz stereo, D 64:
+H12 T250 w125, H12 T2500 w12, H6 T15000 w75, H3 T120000 w600) in f32 and
+bf16, CUDA-event time and device time only. `attn_tiles` (this tree
 only): a copy of csrc/flash_sdpa_window.cu under build/, its Cfg's
 query m-tiles per block at D 64 and warps per block set to each pair of
 ATTN_TILES, built by nvcc and timed by
@@ -56,7 +60,9 @@ DECODES = [("decode 20s_b1_f32", 20, 1, "float32"),
            ("decode 20s_b4_f32", 20, 4, "float32"),
            ("decode 60s_b1_f32", 60, 1, "float32"),
            ("decode 20s_b1_bf16", 20, 1, "bfloat16")]
-WHAT = ("attn", "rvq", "requests", "attn_tiles")
+MOSS_ATTN_SHAPES = [(1, 12, 250, 64, 125), (1, 12, 2500, 64, 12),
+                    (1, 6, 15000, 64, 75), (1, 3, 120000, 64, 600)]
+WHAT = ("attn", "rvq", "requests", "attn_tiles", "moss_attn")
 # (query m-tiles per block at D 64, warps per block): the kernel's pick first
 ATTN_TILES = [(2, 4), (1, 4), (2, 8), (1, 8)]
 # the two lines of csrc/flash_sdpa_window.cu's Cfg a sweep copy rewrites,
@@ -151,6 +157,31 @@ def attn_rows(runs: int = 10, log=print, tag: str = ""):
             f"{_fmt(dev)}, plain {plain:.4f} ms, SDPA with the band mask "
             f"{lib:.4f} ms, bound {bound:.4f} ms (the kernel's passes), "
             f"{bound_fma:.4f} ms (one pass at the type's rate)")
+    return rows
+
+
+def moss_attn_rows(runs: int = 10, log=print, tag: str = ""):
+    from codec_tpu_torch.ops.attn_cuda import flash_sdpa_window
+
+    rows = []
+    for (b, h, t, d, w) in MOSS_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(0)
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (b, h, t, d)).astype(np.float32)).to("cuda", dtype)
+                for _ in range(3))
+
+            def kernel():
+                return flash_sdpa_window(q, k, v, window=w)
+
+            ms = cuda_ms(kernel, runs, reps=20 if t <= 2500 else 1)
+            dev = device_ms(kernel, calls=20 if t <= 15000 else 5)
+            row = dict(kind="moss_attn", shape=[b, h, t, d, w],
+                       dtype=str(dtype)[6:], ms=ms, device_ms=dev)
+            rows.append(row)
+            log(f"[time]{tag} flash_sdpa_window MOSS B{b} H{h} T{t} D{d} "
+                f"w{w} {row['dtype']}: {ms:.4f} ms (events), device "
+                f"{_fmt(dev)}")
     return rows
 
 
@@ -312,6 +343,8 @@ def main(argv=None) -> int:
         rows += request_rows(args.runs, log, tag, args.gguf)
     if "attn_tiles" in what:
         rows += attn_tile_rows(args.runs, log, tag)
+    if "moss_attn" in what:
+        rows += moss_attn_rows(args.runs, log, tag)
     if args.json:
         Path(args.json).write_text(json.dumps({"card": name, "rows": rows},
                                               indent=1))

@@ -2,7 +2,7 @@
 
     python -m codec_tpu_torch.tools.profile_decode \
         [dac|mimi|snac|wavtokenizer|soprano|xy_tokenizer|qwen3|pocket|
-         neucodec|distill_neucodec|xcodec2|moss|nemo|bluemagpie|s3t]
+         neucodec|distill_neucodec|xcodec2|moss|nemo|bluemagpie|s3t|s3g]
         [--seconds 20] [--encode]
     python -m codec_tpu_torch.tools.profile_decode csm [--qtype Q4_K]
     python -m codec_tpu_torch.tools.profile_decode mimi_stream
@@ -11,12 +11,14 @@ Writes a full-width random model (seed 0) to a temporary directory, runs
 two warm-up decodes per request (b1 f32, b1 bf16, b4 f32), then one
 unprofiled and one profiled decode (SNAC: the frame count rounded down
 to a multiple of 4; Soprano, Pocket-Mimi and BlueMagpie: `decode_latent`
-of as many N(0, 1) latent frames; MOSS: 48 kHz stereo). With `--encode`,
+of as many N(0, 1) latent frames; MOSS: 48 kHz stereo; Chatterbox S3Gen:
+the seconds of speech tokens after its builtin 10 s prompt, b1 only, one
+sequence a decode). With `--encode`,
 the same for `encode` (Pocket-Mimi and BlueMagpie: `encode_latent`) of
 N(0, 0.3) PCM at the rate the model encodes (b1 f32, b1 bf16, b4 f32; the
 file holds the encoder; DistillNeuCodec: 16 kHz, the rate its model, as
 codec_tpu's, leaves undeclared; MOSS: one stereo stream a call, so no b4;
-the base NeuCodec, Soprano and S3T's decode are not there).
+the base NeuCodec, Soprano, S3Gen and S3T's decode are not there).
 Prints the card's name and power limit, the
 latency, the device busy time (the kernels' self time, aten ops
 excluded), the idle share against the unprofiled latency, and the
@@ -169,7 +171,8 @@ def main(argv=None) -> int:
                     choices=["dac", "mimi", "snac", "wavtokenizer",
                              "soprano", "xy_tokenizer", "qwen3", "pocket",
                              "neucodec", "distill_neucodec", "xcodec2",
-                             "moss", "nemo", "bluemagpie", "s3t", "csm",
+                             "moss", "nemo", "bluemagpie", "s3t", "s3g",
+                             "csm",
                              "mimi_stream"])
     ap.add_argument("--seconds", type=int, default=20)
     ap.add_argument("--qtype", default="Q4_K", choices=["Q4_K", "Q8_0"],
@@ -196,6 +199,7 @@ def main(argv=None) -> int:
     from codec_tpu_torch.models.bluemagpie_init import write_random_bm_gguf
     from codec_tpu_torch.models.moss_init import write_random_moss_gguf
     from codec_tpu_torch.models.nemo_init import write_random_nemo_gguf
+    from codec_tpu_torch.models.s3g_init import write_random_s3g_gguf
     from codec_tpu_torch.models.s3t_init import write_random_s3t_gguf
 
     card = _card()
@@ -206,7 +210,7 @@ def main(argv=None) -> int:
     if args.arch == "mimi_stream":
         _stream_push(args.top, card)
         return 0
-    if args.encode and args.arch in ("soprano", "neucodec"):
+    if args.encode and args.arch in ("soprano", "neucodec", "s3g"):
         raise SystemExit(f"profile_decode: {args.arch} has no encoder")
     if not args.encode and args.arch == "s3t":
         raise SystemExit("profile_decode: s3t has no decoder (--encode)")
@@ -228,10 +232,12 @@ def main(argv=None) -> int:
                  "nemo": write_random_nemo_gguf,
                  "bluemagpie": write_random_bm_gguf,
                  "s3t": lambda p, seed, encoder=True:
-                     write_random_s3t_gguf(p, seed)}[args.arch]
+                     write_random_s3t_gguf(p, seed),
+                 "s3g": write_random_s3g_gguf}[args.arch]
         write(path, seed=0, **({"encoder": True} if args.encode else {}))
         for dtype, batch in (("float32", 1), ("bfloat16", 1), ("float32", 4)):
-            if args.encode and args.arch == "moss" and batch > 1:
+            if batch > 1 and (args.arch == "s3g" or (
+                    args.encode and args.arch == "moss")):
                 continue
             model = codec_tpu_torch.load_model(path, compute_dtype=dtype,
                                                device="cuda")

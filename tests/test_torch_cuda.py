@@ -172,11 +172,14 @@ def test_cli_decode_on_card(dev, small_gguf, tmp_path):
     assert sr == 24000 and x.shape == (25 * 1920, 1)
 
 
-@pytest.mark.parametrize("case", ["head_dim", "dtype", "layout", "window"])
+@pytest.mark.parametrize("case", ["head_dim", "dtype", "layout", "window",
+                                  "rows"])
 def test_kernel_rejects_what_it_does_not_take(dev, case):
     q, k, v = _qkv((1, 2, 64, 64), torch.float32, dev)
     kw = {"window": 16}
-    if case == "head_dim":
+    if case == "rows":           # B*H past the grid's y dimension (65 535)
+        q = k = v = torch.zeros((2, 32768, 1, 64), device=dev)
+    elif case == "head_dim":
         q, k, v = (x[..., :32].contiguous() for x in (q, k, v))
     elif case == "dtype":
         q, k, v = (x.double() for x in (q, k, v))
@@ -1317,8 +1320,8 @@ def test_carried_key_shapes_the_kernel_rejects_raise(dev):
 
 @pytest.fixture(scope="module")
 def parent_attention():
-    """An older commit's kernel entry (q, k, v of one length), for the
-    bit-for-bit check of Tk == Tq: CODEC_PARENT_TREE names an unpacked
+    """An older commit's kernel entry, called with q, k, v of one length,
+    for the bit-for-bit check of Tk == Tq: CODEC_PARENT_TREE names an unpacked
     `git archive` of that commit; its csrc/flash_sdpa_window.cu is built
     with the port's nvcc flags. Skips when the variable is unset."""
     import ctypes
@@ -1338,9 +1341,17 @@ def parent_attention():
                     "-o", str(out), str(csrc / "flash_sdpa_window.cu")],
                    check=True, capture_output=True)
     fn = ctypes.CDLL(str(out)).codec_flash_sdpa_window
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    return fn
+    # an entry with carried keys takes (bh, t_q, t_k, k_start, d, window),
+    # an older one (bh, t, d, window)
+    carried = "int k_start, int d" in (csrc / "flash_sdpa_window.cu").read_text()
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+        6 if carried else 4) + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+    def call(q, k, v, o, bh, t, d, w, scale, dtype, stream):
+        lengths = (bh, t, t, 0) if carried else (bh, t)
+        return fn(q, k, v, o, *lengths, d, w, scale, dtype, stream)
+
+    return call
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1952,27 +1963,84 @@ def test_moss_on_card_uses_kernel_and_matches_cpu(dev, small_ggufs):
     assert np.corrcoef(half.ravel(), got.ravel())[0, 1] > 0.999
 
 
-def test_moss_request_past_the_kernel_raises_before_any_launch(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_past_65535_query_tiles(dev, dtype):
+    """Tq 1 200 000 at D 64 w600 (75 000 query tiles of 16, past what
+    gridDim.y would take): the kernel against its banded plain version, f32
+    atol 2e-5 rtol 1e-5, bf16 atol 3e-2."""
+    q, k, v = _qkv((1, 1, 1200000, 64), dtype, dev, seed=12)
+    got = flash_sdpa_window(q, k, v, window=600)
+    want = flash_sdpa_window_ref(q, k, v, window=600)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=0)
+
+
+def test_moss_requests_past_174_s_run_on_the_kernel(dev):
     """At full width (48 kHz stereo, 16 samples a token at the first
-    stage) a request past 174.72 s of stereo, or 2184 codes, raises
-    CodecError at the entry, with no launch."""
+    stage) a decode of 2185 codes and an encode of 8 386 561 samples a
+    channel (past 174.72 s of stereo, where the first stage has more than
+    65 535 query tiles of 16) run on the card: the right shape, finite,
+    one flash_sdpa_window launch a transformer layer (15 a request)."""
     import tempfile
     from pathlib import Path
 
     import codec_tpu_torch
-    from codec_tpu_torch import CodecError
     from codec_tpu_torch.models.moss_init import write_random_moss_gguf
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "moss.gguf"
         write_random_moss_gguf(path, seed=0, encoder=True)
         m = codec_tpu_torch.load_model(path, device="cuda")
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, m.codebook_size, (2185, m.n_q)).astype(np.int32)
     before = flash_sdpa_window.launches
-    with pytest.raises(CodecError, match="8386560 samples a channel"):
-        m.encode(np.zeros((8386560 + 1, 2), np.float32))
-    with pytest.raises(CodecError, match="2184 codes"):
-        m.decode(np.zeros((2185, 16), np.int32))
-    assert flash_sdpa_window.launches == before
+    pcm = m.decode(codes)
+    assert flash_sdpa_window.launches == before + 15
+    assert pcm.shape == (2185 * m.hop_size, 2) and np.isfinite(pcm).all()
+    x = (rng.standard_normal((8386561, 2)) * 0.3).astype(np.float32)
+    got = m.encode(x)
+    assert flash_sdpa_window.launches == before + 30
+    assert got.shape == (-(-8386561 // m.hop_size), m.n_q)
+    assert got.min() >= 0 and got.max() < m.codebook_size
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_s3g_on_card_launches_nothing_and_matches_cpu(dev, tmp_path, dtype):
+    """Chatterbox S3Gen on a small file (a 10-token prompt): no kernel of
+    the port; f32 as the CPU's (corr > 0.99999, max abs err <= 1e-4 x
+    peak), bf16 against the f32 card decode (corr > 0.99)."""
+    import dataclasses
+
+    import codec_tpu_torch
+    from codec_tpu_torch.models.s3g_init import S3G, write_random_s3g_gguf
+
+    cfg = dataclasses.replace(S3G, mel_dim=8, spk_dim=12, enc_hidden=32,
+                              attn_heads=2, attn_head_dim=16, enc_layers=2,
+                              enc_up_layers=1, cfm_mid_blocks=2,
+                              cfm_transformers=1)
+    path = tmp_path / "s3g.gguf"
+    write_random_s3g_gguf(path, seed=0, cfg=cfg, ff=64, cfm_ch=24, ted=48,
+                          cfm_ff=64, hift_ch=(16, 8, 4, 2), prompt_tokens=10)
+    gpu = codec_tpu_torch.load_model(path, compute_dtype=dtype, device="cuda")
+    codes = np.random.default_rng(11).integers(0, 6561, (40, 1)).astype(
+        np.int32)
+    before = _all_launches()
+    got = gpu.decode(codes)
+    assert _all_launches() == before
+    if dtype == "float32":
+        want = codec_tpu_torch.load_model(path, device="cpu").decode(codes)
+        assert np.corrcoef(got, want)[0, 1] > 0.99999
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    else:
+        want = codec_tpu_torch.load_model(path, device="cuda").decode(codes)
+        assert np.corrcoef(got, want)[0, 1] > 0.99
+    assert got.shape == want.shape == (2 * 50 * 480 - 20 * 480,)
+    assert np.isfinite(got).all()
 
 
 @pytest.mark.parametrize("arch", ["nemo", "bluemagpie", "s3t"])

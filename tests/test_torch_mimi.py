@@ -211,12 +211,13 @@ def test_encode_matches_hf_directly(tiny):
 
 
 def test_unported_arch_raises(tmp_path):
-    w = GGUFWriter(tmp_path / "s3g.gguf", "chatterbox_s3g")
+    """Every arch of codec_tpu is ported, so a made-up one stands in."""
+    w = GGUFWriter(tmp_path / "other.gguf", "no_such_codec")
     w.add_tensor("x", np.zeros(4, np.float32))
     w.write()
     with pytest.raises(CodecError,
-                       match="'chatterbox_s3g' is not yet ported"):
-        codec_tpu_torch.load_model(tmp_path / "s3g.gguf", device="cpu")
+                       match="'no_such_codec' is not yet ported"):
+        codec_tpu_torch.load_model(tmp_path / "other.gguf", device="cpu")
 
 
 def test_bfloat16_compute_decodes(tiny):
