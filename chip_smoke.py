@@ -26,7 +26,9 @@ Phases (any failure raises and exits non-zero before the last line):
      the next so that a fault is charged to the launch that made it, the
      RVQ search also on integer-valued inputs and duplicated rows, where
      it must agree bit for bit; at WavTokenizer's V 4096 also with each
-     block's second row tile a copy of its first)
+     block's second row tile a copy of its first; the packed products also
+     at the MOSS-TTSD backbone's four layer shapes at m = 1 and 8, with
+     the launch plan each takes)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16 and in f16) with every launch count set to 0 just
@@ -156,6 +158,26 @@ Phases (any failure raises and exits non-zero before the last line):
      per-frame and request times and a replay's idle share; one backbone
      step as a graph at m = 1, 8 and 32, packed Q4_K against F.linear on
      the dequantized weights
+  9c. the LM flows past CSM's at full width (models/lm_tts_init.py):
+     Pocket-TTS (flow_lm over Pocket-Mimi with its encoder), MOSS-TTSD
+     (parallel_heads_delay over XY-Tokenizer and a Q4_K Qwen3-1.7B-wide
+     backbone cut to 4 of its 28 layers) and BlueMagpie
+     (continuous_latent_cfm over the AudioVAE and an f32 backbone of
+     hidden 1024 cut to 4 of 24 layers), each loaded on the card (f32;
+     Pocket's codec also bf16) and on the CPU (f32); each request with the
+     launch counts set to 0 just before and read just after. Pocket:
+     run_flow_synthesize of 125 frames batch, streamed, with a 5 s voice
+     prompt and with the bf16 codec (flash_sdpa_window 2 a decode_latent,
+     a push and an encode_latent), streamed PCM against batch, the first
+     16 frames' latents and EOS logits and their decode against the CPU's
+     with the same noise; MOSS: 25 greedy frames on the host path
+     (q4_k_matmul 7 a layer a backbone call) and in on-device chunks of 8
+     (one CUDA graph replay each, its products counted under the
+     profiler), codes against the CPU's and each other (near-tie rule);
+     BlueMagpie: 10 patches through run_continuous with fixed noise against
+     the CPU (FSQ near-tie rule), PCM shape and finite samples; ms a frame
+     and a patch, time to first audio, one frame, replay and patch under
+     torch.profiler
   10. CUDA-event times (median of >= 10 runs after warm-up), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
@@ -166,7 +188,8 @@ Phases (any failure raises and exits non-zero before the last line):
      times of the packed products from torch.profiler, warm (one matrix
      again and again), cold (cycling over the loaded backbones' 16 layers
      of each shape) at m = 1 and 16, and
-     one backbone forward's 112 products; per-request TTS times (median of 3 runs after one
+     one backbone forward's 112 products, and at the MOSS-TTSD backbone's
+     four shapes at m = 1 and 8 beside F.linear and the bound; per-request TTS times (median of 3 runs after one
      warm-up); per-request encode times (median of 10 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
      (norms given, as a model passes them) beside a second bound, three
@@ -505,6 +528,29 @@ S3G_LEAST_LAUNCHES = 15000
 # input (MOSS, NeMo and BlueMagpie: the 20 s CPU runs would take tens of
 # seconds); S3T's CPU encode takes the whole 20 s in about a second
 SMALL_CPU_SECONDS = {"moss": 4, "nemo": 4, "bluemagpie": 4, "s3t": 20}
+# -- the LM flows past CSM's at full width (phase 9c). Pocket-TTS: 125
+# frames (10 s of speech at 12.5 Hz; EOS held off by min_len, random
+# weights' EOS being arbitrary) in batch, streamed and with a 5 s voice
+# prompt; its first 16 frames held against the CPU with the CPU's noise.
+# MOSS-TTSD: 25 greedy frames, its Qwen3-1.7B-wide backbone cut to 4 of 28
+# layers, Q4_K packed, the prompt prefilled in buckets of 64, the
+# on-device chunk at 8 frames. BlueMagpie: 10 patches of 4 latent frames
+# (10 Euler steps, 9 after the zero-init skip) with the state's fixed
+# noise, its hidden-1024 backbone cut to 4 of 24 layers
+LM_TEXT = "Hello there, this is the port speaking on the card."
+POCKET_TTS_FRAMES, POCKET_TTS_REF_SECONDS, POCKET_TTS_CPU_FRAMES = 125, 5, 16
+MOSS_TTSD_FRAMES, MOSS_TTSD_LAYERS, MOSS_TTSD_BUCKET = 25, 4, 64
+MOSS_TTSD_CHUNK = 8
+BM_TTS_PATCHES, BM_BACKBONE_LAYERS = 10, 4
+# AR drift between the card's and the CPU's f32 sums: latents and EOS
+# logits within this share of their peak (Pocket's 16 frames, BlueMagpie's
+# patches before any FSQ near-tie); decodes of the same latents corr >
+# 0.99999, of each side's own latents > 0.9999
+LM_AR_REL = 1e-3
+# -- the packed products at the MOSS-TTSD backbone's (Qwen3-1.7B's) layer
+# shapes (out, in): q/o, k/v, gate/up, down, at m = 1 and 8
+QWEN3_QMAT_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144)]
+QWEN3_QMAT_MS = (1, 8)
 
 
 def log(msg: str) -> None:
@@ -2043,6 +2089,527 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
     return dict(none)
 
 
+def lm_flows(name_limit: str, zero_counts, counts, none: dict,
+             dev: str = "cuda", sizes=None) -> dict:
+    """Phase 9c: the three LM flows past CSM's, each written at full width
+    (models/lm_tts_init.py) and run through the entry points a user calls,
+    with every launch count set to 0 just before each request and read just
+    after; the card's results held against the CPU's on the same file.
+      - Pocket-TTS (flow_lm over Pocket-Mimi, f32 and a bf16 codec):
+        run_flow_synthesize batch, streamed, with a voice prompt, and bf16
+        (flash_sdpa_window: 2 a decode_latent, 2 a push, 2 an
+        encode_latent); streamed PCM against batch; the first 16 frames'
+        latents and EOS logits against the CPU's with the same host noise,
+        the decode of those latents against the CPU's; ms an AR frame,
+        time to first audio, x realtime; one frame under the profiler.
+      - MOSS-TTSD (parallel_heads_delay over a Q4_K Qwen3 backbone and
+        XY-Tokenizer): 25 greedy frames on the host path (q4_k_matmul: 7 a
+        layer a backbone call) and on the device in chunks (one replay a
+        chunk, its products counted under the profiler), codes against
+        the CPU's and each other (near-tie rule); ms a frame.
+      - BlueMagpie (continuous_latent_cfm over an f32 backbone and the
+        AudioVAE): 10 patches through run_continuous with the state's
+        fixed noise, latents against the CPU's (FSQ near-tie rule), PCM
+        shape and finite samples; ms a patch; one patch under the
+        profiler.
+    `dev` and `sizes` (the writers' keyword arguments, the requests'
+    lengths) let the phase run small on the CPU
+    (tests/test_torch_flow_lm.py), where the plain versions count nothing
+    and the launch counts are those the card is held to. → (launch counts,
+    times)."""
+    import dataclasses
+
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import (flow_prepare_text,
+                                             run_flow_synthesize)
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import create_backbone
+    from codec_tpu_torch.lm.fused_gen import chunk_ctx, gen_chunk_cached
+    from codec_tpu_torch.lm.prompt_info import build_prompt_info
+    from codec_tpu_torch.lm.spm import SpmUnigram
+    from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
+                                               run_codebook_ar,
+                                               run_continuous)
+    from codec_tpu_torch.models import lm_tts_init as lti
+    from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_ggufs)
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def held(label, got, want, rel):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if got.shape != want.shape or not np.isfinite(got).all() \
+                or not err <= rel * peak:
+            raise RuntimeError(f"{label}: shape {got.shape} vs {want.shape}, "
+                               f"max abs err {err} (peak {peak}, bound "
+                               f"{rel} x peak)")
+        return err / peak
+
+    def launches(label, want):
+        """The counts since zero_counts(), which must be `want` (a CPU
+        rehearsal runs the plain versions, which count nothing)."""
+        want = {**none, **want}
+        got = counts() if cuda else want
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got}, want {want}")
+        return got
+
+    def frame_profile(fn):
+        """(device busy ms, kernels, wall ms, idle share) of one call, the
+        wall time of a call without the profiler; None ("not measured") on
+        the CPU or when 5 traces in a row hold no device time (the card's
+        machine's profiler loses events now and then)."""
+        if not cuda:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t) * 1e3
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                fn()
+                sync()
+            kern = [e for e in trace.key_averages()
+                    if e.self_device_time_total > 0
+                    and not e.key.startswith(("aten::", "Memcpy", "Memset"))]
+            if kern:
+                busy = sum(e.self_device_time_total for e in kern) / 1e3
+                return (busy, sum(e.count for e in kern), wall,
+                        max(0.0, 1 - busy / wall))
+        return None
+
+    def fmt_prof(p):
+        if p is None:
+            return "not measured"
+        return (f"{p[1]} kernels, device busy {p[0]:.3f} ms of {p[2]:.3f} ms "
+                f"(idle share {p[3]:.3f})")
+
+    t_phase = time.monotonic()
+    carried = "flash_sdpa_window (carried keys)"
+    phase_counts, times = dict(none, **{carried: 0}), {}
+    spm = spm_model_b64(byte_fallback_vocab())
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lm_")
+    try:
+        d = Path(tmp.name)
+        t0 = time.monotonic()
+        pt_path = lti.write_pocket_tts_gguf(d / "pocket_tts_random.gguf",
+                                            seed=SEED, **sizes.get("pocket", {}))
+        ttsd_path = lti.write_moss_ttsd_gguf(
+            d / "moss_ttsd_random.gguf", seed=SEED,
+            **sizes.get("moss", {"phd": lti.PhdConfig(
+                eos_min_step=MOSS_TTSD_FRAMES)}))
+        qcfg = sizes.get("qwen3", dataclasses.replace(
+            lti.QWEN3_1_7B, n_layers=MOSS_TTSD_LAYERS))
+        q_path = write_random_backbone_ggufs(
+            {"Q4_K": d / "qwen3_Q4_K.gguf"}, seed=SEED + 1, cfg=qcfg,
+            rope_scaling=None, spm_b64=spm)["Q4_K"]
+        bm_path = lti.write_bluemagpie_tts_gguf(
+            d / "bluemagpie_tts_random.gguf", seed=SEED,
+            **sizes.get("bluemagpie", {}))
+        mcfg = sizes.get("minicpm", dataclasses.replace(
+            lti.MINICPM4_0_5B, n_layers=BM_BACKBONE_LAYERS))
+        m_path = write_random_backbone_ggufs(
+            {"F32": d / "minicpm_F32.gguf"}, seed=SEED + 2, cfg=mcfg,
+            rope_scaling=None, spm_b64=spm)["F32"]
+        paths = (pt_path, ttsd_path, q_path, bm_path, m_path)
+        log("[lm] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
+            + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        load = codec_tpu_torch.load_model
+        pt = {dt: load(pt_path, compute_dtype=dt, device=dev)
+              for dt in ("float32", "bfloat16")}
+        pt_cpu = load(pt_path, device="cpu")
+        pt_reader = GGUFReader(pt_path)
+        flm, flm_cpu = (create_lm(pt_reader, device=x) for x in (dev, "cpu"))
+        xy = load(ttsd_path, device=dev)
+        ttsd_reader = GGUFReader(ttsd_path)
+        plm, plm_cpu = (create_lm(ttsd_reader, device=x) for x in (dev, "cpu"))
+        qbb, qbb_cpu = (create_backbone(q_path, quantized=True, device=x)
+                        for x in (dev, "cpu"))
+        vae, vae_cpu = (load(bm_path, device=x) for x in (dev, "cpu"))
+        bm_reader = GGUFReader(bm_path)
+        clm, clm_cpu = (create_lm(bm_reader, device=x) for x in (dev, "cpu"))
+        mbb, mbb_cpu = (create_backbone(m_path, device=x)
+                        for x in (dev, "cpu"))
+        sync()
+    finally:
+        tmp.cleanup()
+    log(f"[lm] loaded (card f32, Pocket also bf16; CPU f32) in "
+        f"{time.monotonic() - t0:.2f} s: Pocket-TTS flow_lm d_model "
+        f"{flm.d_model}, {flm.n_layers} layers, {flm.n_heads} heads x "
+        f"{flm.head_dim}, ldim {flm.ldim}, flow {flm.flow_dim} x "
+        f"{flm.flow_depth}, {flm.lsd_steps} LSD steps; MOSS-TTSD "
+        f"{plm.info.n_codebook} heads of {plm.info.codebook_sizes} (tied), "
+        f"backbone hidden {qbb.cfg.hidden}, {qbb.cfg.n_layers} layers, "
+        f"{qbb.cfg.n_heads} heads x {qbb.cfg.head_dim}, {qbb.cfg.n_kv_heads} "
+        f"KV heads, FFN {qbb.cfg.ffn_dim}, qk-norm {qbb.cfg.has_qk_norm}, "
+        f"vocab {qbb.cfg.vocab_size}; BlueMagpie CFM hidden {clm.h_barbet}, "
+        f"h_vox {clm.h_vox}, LocDiT {clm.n_locdit} / LocEnc {clm.n_locenc} x "
+        f"{clm.h_dit}, RALM {clm.n_ralm} x {clm.h_vox}, {clm.n_heads} / "
+        f"{clm.n_kv} heads x {clm.head_dim}, patch {clm.patch_size} x "
+        f"{clm.latent_dim}, backbone hidden {mbb.cfg.hidden}, "
+        f"{mbb.cfg.n_layers} layers")
+
+    # -- Pocket-TTS ------------------------------------------------------------
+    frames = sizes.get("pocket_frames", POCKET_TTS_FRAMES)
+    hop, sr = pt["float32"].hop_size, pt["float32"].sample_rate
+    audio_s = frames * hop / sr
+    rng = np.random.default_rng(SEED + 1000)
+    ref = (rng.standard_normal(int(sizes.get(
+        "ref_seconds", POCKET_TTS_REF_SECONDS) * sr)) * 0.1).astype(np.float32)
+
+    class FirstPush:
+        """The model with its streaming decoder's first push timed."""
+
+        def __init__(self, model):
+            self.model, self.first = model, None
+
+        def __getattr__(self, name):
+            return getattr(self.model, name)
+
+        def streaming_decoder(self):
+            sess, outer = self.model.streaming_decoder(), self
+
+            class Timed:
+                def push(self, z):
+                    out = sess.push(z)
+                    if outer.first is None:
+                        outer.first = time.perf_counter()
+                    return out
+            return Timed()
+
+    def flow_request(dt="float32", stream=False, ref_pcm=None, model=None):
+        t = time.perf_counter()
+        pcm, n, stop = run_flow_synthesize(
+            model or pt[dt], flm, LM_TEXT, seed=SEED, ref_pcm=ref_pcm,
+            max_frames=frames, min_len=frames, stream=stream)
+        total = time.perf_counter() - t
+        if (n, stop) != (frames, "max_frames") or pcm.shape != (frames * hop,) \
+                or not np.isfinite(pcm).all():
+            raise RuntimeError(f"pocket-tts {dt} stream={stream}: {n} frames, "
+                               f"stop {stop}, pcm {pcm.shape}")
+        return pcm, total, t
+
+    pocket_runs = {}
+    for name, kw, want in (
+            ("batch f32", {}, 2), ("stream f32", {"stream": True}, 2 * frames),
+            ("voice prompt f32", {"ref_pcm": ref}, 4),
+            ("batch bf16", {"dt": "bfloat16"}, 2)):
+        zero_counts()
+        pcm, total, _ = flow_request(**kw)
+        got = launches(f"pocket-tts {name}", {"flash_sdpa_window": want})
+        # a push's launches take the window's carried keys (the kernels
+        # line's second attention row)
+        phase_counts[carried if "stream" in kw else "flash_sdpa_window"] += want
+        pocket_runs[name] = pcm
+        log(f"[lm] pocket-tts {name}: {frames} frames, pcm {pcm.shape} finite, "
+            f"peak {np.abs(pcm).max():.4f}; launches {want} "
+            f"flash_sdpa_window; {total:.3f} s")
+    c_stream = corr(pocket_runs["stream f32"], pocket_runs["batch f32"])
+    c_bf16 = corr(pocket_runs["batch bf16"], pocket_runs["batch f32"])
+    if not (c_stream > 0.99999 and c_bf16 > 0.99):
+        raise RuntimeError(f"pocket-tts: streamed vs batch corr {c_stream}, "
+                           f"bf16 vs f32 corr {c_bf16}")
+    # the card's first frames against the CPU's, the same host noise
+    ids = flm.tokenize(flow_prepare_text(LM_TEXT)[0])
+    n_cpu = min(POCKET_TTS_CPU_FRAMES, frames)
+    noises = (np.random.default_rng(SEED).standard_normal((n_cpu, flm.ldim))
+              * math.sqrt(flm.temperature)).astype(np.float32)
+    outs = []
+    for lm_ in (flm, flm_cpu):
+        st = lm_.new_state()
+        lm_.flow_prefill(st, ids)
+        outs.append(lm_.flow_run(st, noises))
+    (lat, eos), (lat_c, eos_c) = outs
+    lat_rel = max(held(f"pocket-tts frame {i} latent", lat[i], lat_c[i],
+                       LM_AR_REL) for i in range(n_cpu))
+    eos_err = float(np.abs(eos - eos_c).max())
+    if not eos_err <= LM_AR_REL * max(1.0, float(np.abs(eos_c).max())):
+        raise RuntimeError(f"pocket-tts EOS logits card vs CPU: {eos_err}")
+    z = flm.denorm_latent(lat_c)
+    zero_counts()
+    dec = pt["float32"].decode_latent(z)
+    launches("pocket-tts decode_latent", {"flash_sdpa_window": 2})
+    c_dec = corr(dec, pt_cpu.decode_latent(z))
+    if not c_dec > 0.99999:
+        raise RuntimeError(f"pocket-tts decode card vs CPU: corr {c_dec}")
+    # times: an AR frame (16 frames a flow_run call, one copy to the host),
+    # a request, time to first audio when streaming
+    st = flm.new_state()
+    ar = []
+    for _ in range(4):
+        flm.flow_reset(st)
+        flm.flow_prefill(st, ids)
+        t = time.perf_counter()
+        flm.flow_run(st, noises)
+        ar.append((time.perf_counter() - t) * 1e3 / n_cpu)
+    ar_ms = statistics.median(ar[1:])
+    reqs, ttfa = [], []
+    for _ in range(3):
+        reqs.append(flow_request()[1])
+        timed = FirstPush(pt["float32"])
+        _, _, t_start = flow_request(stream=True, model=timed)
+        ttfa.append((timed.first - t_start) * 1e3)
+    req_s, ttfa_ms = statistics.median(reqs), statistics.median(ttfa)
+    flm.flow_reset(st)
+    flm.flow_prefill(st, ids)
+    prof = frame_profile(lambda: flm.flow_step(st, noise=noises[0]))
+    times["pocket"] = dict(ar_ms=ar_ms, request_s=req_s, ttfa_ms=ttfa_ms,
+                           xrt=audio_s / req_s, profile=prof)
+    log(f"[lm] pocket-tts: streamed vs batch corr {c_stream:.9f}, bf16 codec "
+        f"vs f32 corr {c_bf16:.6f}; first {n_cpu} frames vs the CPU (same "
+        f"noise): latents max rel err {lat_rel:.2e}, EOS logits max abs err "
+        f"{eos_err:.2e}; decode of those latents card vs CPU corr "
+        f"{c_dec:.9f}; AR {ar_ms:.3f} ms a frame ({n_cpu} frames a flow_run, "
+        f"median of 3), request {req_s * 1e3:.1f} ms for {audio_s:.0f} s "
+        f"({audio_s / req_s:.2f}x realtime, median of 3), time to first "
+        f"audio streaming {ttfa_ms:.1f} ms (median of 3); one AR frame "
+        f"(flow_step) under torch.profiler: {fmt_prof(prof)} [{name_limit}]")
+
+    # -- MOSS-TTSD -------------------------------------------------------------
+    n_fr = sizes.get("moss_frames", MOSS_TTSD_FRAMES)
+    pi = build_prompt_info(ttsd_reader, plm.info)
+    tok = SpmUnigram.from_b64(spm)            # the backbones' baked vocab
+    ttsd_ids = tok.encode(pi.prompt_prefix + LM_TEXT + pi.prompt_suffix)
+    per_call = 7 * qbb.cfg.n_layers
+    cb0 = (pi.cb0_speech_range_start, pi.cb0_speech_range_end)
+
+    def ttsd_request(lm_, codec_, bb_, on_device=None, decode=True):
+        bb_.reset()
+        alm = AudioLM(ttsd_reader, codec=codec_, lm=lm_)
+        rows = [alm.compose_prompt_embd(t) for t in ttsd_ids]
+        rec = Recorder(bb_) if on_device is None else bb_
+        t = time.perf_counter()
+        res = run_codebook_ar(alm, rec, rows, max_steps=n_fr, pi=pi,
+                              on_device=on_device, decode=False,
+                              prefill_bucket=MOSS_TTSD_BUCKET)
+        gen = time.perf_counter() - t
+        if res.codes.shape != (n_fr, plm.info.n_codebook) \
+                or res.stopped_by_eos:
+            raise RuntimeError(f"moss-ttsd: codes {res.codes.shape}, eos "
+                               f"{res.stopped_by_eos}")
+        t = time.perf_counter()
+        pcm = _decode_transformed(alm, res.codes) if decode else None
+        return res, pcm, rec, gen, time.perf_counter() - t
+
+    def same_or_tie(label, got, want, rec):
+        """Equal codes, or the first difference a near-tie on the card's
+        host path (relative top-2 margin of that head's masked logits)."""
+        diff = np.argwhere(got != want)
+        if not len(diff):
+            return "codes equal"
+        f, k = (int(v) for v in diff[0])
+        h = torch.as_tensor(rec.calls[f][2]).to(dev)
+        lg = (plm.heads[k] @ h).float().cpu().numpy()
+        if k == 0:
+            keep = np.zeros(lg.shape, bool)
+            keep[cb0[0]:cb0[1]] = True
+            if plm.info.eos_code_c0 >= 0:
+                keep[plm.info.eos_code_c0] = True
+            lg = np.where(keep, lg, -np.inf)
+        top = np.sort(lg)[-2:]
+        margin = float((top[1] - top[0]) / abs(top[1]))
+        if not margin < NEAR_TIE:
+            raise RuntimeError(f"moss-ttsd {label}: codes first differ at "
+                               f"frame {f} codebook {k}, margin {margin}")
+        return (f"codes first differ at frame {f} codebook {k}: a near-tie "
+                f"(relative top-2 margin {margin:.2e})")
+
+    # the packed products launch the kernel at m <= 32 (ops/qmat.py): the
+    # steps, not a prefill of the whole prompt's rows, which dequantizes
+    pre_launches = per_call if len(ttsd_ids) <= 32 else 0
+    zero_counts()
+    res, pcm, rec, gen_s, dec_s = ttsd_request(plm, xy, qbb)
+    calls = len(rec.calls) - 1
+    got = launches("moss-ttsd host", {"q4_k_matmul": per_call * calls
+                                      + pre_launches})
+    for k in got:
+        phase_counts[k] += got[k]
+    if not np.isfinite(pcm).all():
+        raise RuntimeError("moss-ttsd: pcm not finite")
+    cres, _, _, cpu_s, _ = ttsd_request(plm_cpu, None, qbb_cpu,
+                                        decode=False)
+    note_cpu = same_or_tie("card vs CPU", res.codes, cres.codes, rec)
+    pre_s = rec.calls[0][3]
+    host_ms = (gen_s - pre_s) / n_fr * 1e3
+    # the device path: chunks of MOSS_TTSD_CHUNK frames, one replay each
+    ods = OnDeviceSampling(chunk_frames=MOSS_TTSD_CHUNK)
+    ttsd_request(plm, xy, qbb, on_device=ods)                    # captures
+    zero_counts()
+    dres, dpcm, _, dgen_s, _ = ttsd_request(plm, xy, qbb, on_device=ods)
+    got = launches("moss-ttsd device", {"q4_k_matmul": pre_launches})
+    for k in got:
+        phase_counts[k] += got[k]
+    note_dev = same_or_tie("device vs host", dres.codes, res.codes, rec)
+    line = (f"[lm] moss-ttsd {n_fr} greedy frames, prompt {len(ttsd_ids)} "
+            f"tokens (one bucketed prefill): host path launches "
+            f"{per_call * calls + pre_launches} q4_k_matmul ({calls} backbone "
+            f"steps; the prefill's {len(ttsd_ids)} rows "
+            f"{'launch' if pre_launches else 'dequantize'}), pcm "
+            f"{pcm.shape} finite; card vs CPU: {note_cpu} (CPU "
+            f"{cpu_s:.1f} s); device path (chunks of "
+            f"{MOSS_TTSD_CHUNK}): {note_dev}, wrapper launches "
+            f"{pre_launches} q4_k_matmul (the chunks are replays); host path "
+            f"{host_ms:.3f} ms a frame (backbone step, 8 heads, host "
+            f"sampling, compose), device path {dgen_s / n_fr * 1e3:.3f} ms "
+            f"a frame (the request's generation / frames), XY decode "
+            f"{dec_s * 1e3:.1f} ms")
+    times["moss"] = dict(host_ms=host_ms, dev_ms=dgen_s / n_fr * 1e3)
+    if cuda:
+        runner = gen_chunk_cached(
+            plm, qbb, n_frames=MOSS_TTSD_CHUNK,
+            ctx=chunk_ctx(qbb, len(ttsd_ids) + -(-n_fr // MOSS_TTSD_CHUNK)
+                          * MOSS_TTSD_CHUNK + 1),
+            cb0_range=(*cb0, plm.info.eos_code_c0))
+        replay = cuda_ms(runner.run)
+        from torch.profiler import ProfilerActivity, profile
+
+        # CUPTI drops records now and then from a trace of a replay (135 of
+        # 224 products once): up to 6 traces, the first that shows every
+        # product, else the fullest
+        want_p, best = per_call * MOSS_TTSD_CHUNK, None
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                runner.run()
+                torch.cuda.synchronize()
+            kern = [e for e in trace.key_averages()
+                    if e.self_device_time_total > 0
+                    and not e.key.startswith("aten::")]
+            got_p = (sum(e.self_device_time_total for e in kern) / 1e3,
+                     sum(e.count for e in kern),
+                     sum(e.count for e in kern if "matmul_kernel" in e.key))
+            if best is None or got_p[2] > best[2]:
+                best = got_p
+            if got_p[2] == want_p:
+                break
+        busy, kernels, products = best
+        times["moss"].update(replay_frame_ms=replay / MOSS_TTSD_CHUNK,
+                             idle=1 - busy / replay)
+        line += (f"; one replay {replay:.3f} ms ({replay / MOSS_TTSD_CHUNK:.3f}"
+                 f" ms a frame), {kernels} kernels, {products} q4_k_matmul "
+                 f"(want {want_p}"
+                 + ("" if products == want_p else
+                    "; the profiler lost records in 6 traces")
+                 + f"), device busy {busy:.3f} ms (idle share "
+                 f"{1 - busy / replay:.3f})")
+        h0 = rec.calls[-1][2]
+        st = plm.new_state()
+
+        def host_frame():
+            st.reset()
+            st.step_begin(h0)
+            for _ in range(plm.info.n_codebook):
+                lg, _ = st.step_logits()
+                st.step_push_code(int(np.argmax(lg)))
+            st.step_finish()
+        times["moss"]["heads"] = frame_profile(host_frame)
+        line += f"; the 8 heads of one host frame: {fmt_prof(times['moss']['heads'])}"
+    log(line + f" [{name_limit}]")
+
+    # -- BlueMagpie ------------------------------------------------------------
+    n_p = sizes.get("bm_patches", BM_TTS_PATCHES)
+    bm_pi = build_prompt_info(bm_reader, clm.info)
+    bm_ids = tok.encode(bm_pi.prompt_prefix + LM_TEXT + bm_pi.prompt_suffix)
+
+    def bm_request(lm_, vae_, bb_):
+        bb_.reset()
+        alm = AudioLM(bm_reader, codec=vae_, lm=lm_)
+        rec = Recorder(bb_)
+        t = time.perf_counter()
+        res = run_continuous(alm, rec, list(bb_.embed_tokens(bm_ids)),
+                             max_steps=n_p, min_len=n_p, decode=False)
+        gen = time.perf_counter() - t
+        if res.codes.shape != (n_p * lm_.patch_size, lm_.latent_dim) \
+                or res.stopped_by_eos:
+            raise RuntimeError(f"bluemagpie: latents {res.codes.shape}, stop "
+                               f"{res.stopped_by_eos}")
+        return res, rec, gen
+
+    def fsq_vals(lm_, h):
+        with torch.inference_mode():
+            x = lm_._lin(lm_.w["fsq_in"], lm_._tslm_adapter(
+                torch.as_tensor(np.asarray(h, np.float32)).to(lm_.device)))
+            return f64(torch.tanh(x) * lm_.fsq_scale)
+
+    zero_counts()
+    bres, brec, bgen_s = bm_request(clm, vae, mbb)
+    launches("bluemagpie", {})
+    t = time.perf_counter()
+    bpcm = vae.decode_latent(bres.codes)
+    vae_ms = (time.perf_counter() - t) * 1e3
+    want_len = bres.codes.shape[0] * vae.cfg.decode_hop
+    if bpcm.shape != (want_len,) or not np.isfinite(bpcm).all():
+        raise RuntimeError(f"bluemagpie pcm {bpcm.shape}, want ({want_len},)")
+    cbres, cbrec, cbgen_s = bm_request(clm_cpu, vae_cpu, mbb_cpu)
+    # the patches before the first FSQ near-tie (step k reads the k-th
+    # hidden from the prompt's last row on)
+    n_pr = len(bm_ids)
+    tie = None
+    for k in range(n_p):
+        a = fsq_vals(clm, brec.calls[n_pr - 1 + k][2])
+        b = fsq_vals(clm_cpu, cbrec.calls[n_pr - 1 + k][2])
+        bad = np.flatnonzero(np.round(a) != np.round(b))
+        if len(bad):
+            frac = np.abs(b[bad] - np.floor(b[bad]) - 0.5)
+            if not (frac < 1e-3).all():
+                raise RuntimeError(f"bluemagpie patch {k}: FSQ digits {bad} "
+                                   f"differ, not near-ties ({frac})")
+            tie = k
+            break
+    rows = (n_p if tie is None else tie) * clm.patch_size
+    b_rel = held("bluemagpie latents card vs CPU", bres.codes[:rows],
+                 cbres.codes[:rows], LM_AR_REL) if rows else 0.0
+    c_bm = None
+    if tie is None:
+        c_bm = corr(bpcm, vae_cpu.decode_latent(cbres.codes))
+        if not c_bm > 0.9999:
+            raise RuntimeError(f"bluemagpie PCM card vs CPU corr {c_bm}")
+    bb_s = sum(c[3] for c in brec.calls[n_pr:])
+    patch_ms = (bgen_s - sum(c[3] for c in brec.calls)) / n_p * 1e3
+    st = clm.new_state()
+    h0 = brec.calls[-1][2]
+    prof = frame_profile(lambda: clm.step_generate(st, h0))
+    times["bluemagpie"] = dict(patch_ms=patch_ms,
+                               step_ms=bb_s / max(1, n_p - 1) * 1e3,
+                               profile=prof)
+    log(f"[lm] bluemagpie {n_p} patches ({bres.codes.shape[0]} latent frames, "
+        f"prompt {n_pr} tokens): launches none; pcm {bpcm.shape} finite, "
+        f"peak {np.abs(bpcm).max():.4f}; latents card vs CPU (same noise): "
+        + (f"max rel err {b_rel:.2e} over all {n_p} patches, PCM corr "
+           f"{c_bm:.9f}" if tie is None else
+           f"max rel err {b_rel:.2e} over the {tie} patches before an FSQ "
+           f"near-tie at patch {tie}")
+        + f" (CPU {cbgen_s:.1f} s); {patch_ms:.2f} ms a patch (CFM step, "
+        f"{clm.n_locdit}-layer LocDiT x 2 x 9 Euler steps, LocEnc, RALM), "
+        f"backbone step {times['bluemagpie']['step_ms']:.3f} ms, AudioVAE "
+        f"decode {vae_ms:.1f} ms; one patch (step_generate) under "
+        f"torch.profiler: {fmt_prof(prof)} [{name_limit}]")
+    del pt, pt_cpu, flm, flm_cpu, xy, plm, plm_cpu, qbb, qbb_cpu
+    del vae, vae_cpu, clm, clm_cpu, mbb, mbb_cpu
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[lm] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts, times
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2109,9 +2676,10 @@ def main() -> int:
     from codec_tpu_torch.ops.sample import OnDeviceSampling
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar)
-    from codec_tpu_torch.models.lm_init import (write_random_backbone_gguf,
+    from codec_tpu_torch.models.lm_init import (write_random_backbone_ggufs,
                                                 write_random_csm_gguf)
     from codec_tpu_torch.ops import qmat
+    from codec_tpu_torch.ops import qmat_cuda
     from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
     from codec_tpu_torch.models import mimi
     from codec_tpu_torch.ops.rvq import rvq_encode
@@ -2495,6 +3063,33 @@ def main() -> int:
                                        f"weights bit for bit")
             log(f"[kernel] {name} out {out_d} in {in_d}: 32 one-hot rows give "
                 f"the dequantized weights bit for bit, f32 and bf16 x")
+            del dense
+    # the MOSS-TTSD backbone's (Qwen3-1.7B's) layer shapes at m = 1 and 8,
+    # each with the launch plan it takes
+    for out_d, in_d in QWEN3_QMAT_SHAPES:
+        w = qrng.standard_normal((out_d, in_d), dtype=np.float32) * 0.02
+        for name, quantize, pack in (
+                ("q8_0_matmul", quantize_q8_0, qmat.pack_q8_0),
+                ("q4_k_matmul", quantize_q4_k, qmat.pack_q4_k)):
+            if (name, out_d, in_d) not in qmat_weights:     # q/o: above
+                qmat_weights[name, out_d, in_d] = qmat.to_device(pack(
+                    np.frombuffer(quantize(w), np.uint8), w.shape), "cuda")
+            qt = qmat_weights[name, out_d, in_d]
+            dense = qmat.dequant_ref(qt)
+            for m in QWEN3_QMAT_MS:
+                x = randn((m, in_d), torch.float32, SEED + 170 + m)
+                got = settled(f"{name} {out_d}x{in_d} m{m}",
+                              packed_product(name, x, qt))
+                want = x @ dense.T
+                err = (got - want).abs().max().item()
+                peak = want.abs().max().item()
+                if not err <= 1e-4 * peak:
+                    raise RuntimeError(f"{name} {out_d}x{in_d} m{m}: max abs "
+                                       f"err {err} (peak {peak})")
+                max_err[name] = max(max_err[name], err)
+                log(f"[kernel] {name} Qwen3 out {out_d} in {in_d} m{m} f32: "
+                    f"max abs err {err:.3e} (peak {peak:.3f}; bound 1e-4 "
+                    f"peak) ok; plan {qmat_cuda.plan(name[:4], m, in_d, out_d)}")
             del dense
 
     # -- 4, 5. full-width models through load_model ---------------------------
@@ -3036,9 +3631,11 @@ def main() -> int:
     try:
         csm_path = write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
                                          seed=SEED)
-        bb_paths = {q: write_random_backbone_gguf(
-            Path(tmp.name) / f"backbone_{q}.gguf", seed=SEED, qtype=q)
-            for q in ("Q4_K", "Q8_0")}
+        # one draw of the weights for both types, quantized on a pool of
+        # threads
+        bb_paths = write_random_backbone_ggufs(
+            {q: Path(tmp.name) / f"backbone_{q}.gguf" for q in ("Q4_K", "Q8_0")},
+            seed=SEED)
         log("[tts] wrote " + ", ".join(
             f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
             for path in [csm_path, *bb_paths.values()])
@@ -3452,6 +4049,10 @@ def main() -> int:
     log(f"[tts-dev] main path launches (wrappers; the replays' kernels are "
         f"counted above): {tts_dev_counts}; phase {time.monotonic() - t0:.1f} s")
 
+    # -- 9c. the LM flows past CSM's: Pocket-TTS, MOSS-TTSD, BlueMagpie ---------
+    log(f"[phase] 9c starts at {time.monotonic() - t_start:.1f} s")
+    lm_counts, _ = lm_flows(name_limit, zero_counts, counts, none)
+
     # -- 10. times -------------------------------------------------------------
     log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
@@ -3645,6 +4246,26 @@ def main() -> int:
             if (out_d, in_d) == QMAT_MAIN:
                 times[name] = (dev[0] or k_ev, dev[1] or p_ev, b_ms, b_by,
                                dev[2] or l_ev)
+            del dense
+
+    # the packed products at the MOSS-TTSD backbone's shapes, m = 1 and 8:
+    # device time (torch.profiler) of the kernel and of F.linear on the
+    # dequantized f32 weight, each beside the bound
+    for out_d, in_d in QWEN3_QMAT_SHAPES:
+        for name in ("q8_0_matmul", "q4_k_matmul"):
+            qt = qmat_weights[name, out_d, in_d]
+            dense = qmat.dequant_ref(qt)
+            for m in QWEN3_QMAT_MS:
+                x = randn((m, in_d), torch.float32, SEED + 180 + m)
+                k_ms = device_ms(lambda: packed_product(name, x, qt))
+                l_ms = device_ms(lambda: F.linear(x, dense))
+                b_ms, b_by = least_time(*qmat_work(out_d, in_d, m, qt))
+                log(f"[time] {name} Qwen3 out {out_d} in {in_d} m{m} f32: "
+                    f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
+                    f"dequantized f32 weight {fmt_ms(l_ms)}; bound "
+                    f"{b_ms:.4f} ms ({b_by})"
+                    + (f", {b_ms / k_ms:.1%} of it" if k_ms else "")
+                    + f" [{name_limit}]")
             del dense
 
     # the packed products cold, as a forward finds them: each shape's line
@@ -3938,6 +4559,7 @@ def main() -> int:
 
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
                    + tts_counts["flash_sdpa_window"]
+                   + lm_counts["flash_sdpa_window"]
                    + tts_dev_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"]
                    + windowed_counts["flash_sdpa_window"]
@@ -3949,14 +4571,17 @@ def main() -> int:
                    "snac_res_chain": snac_counts["snac_res_chain"]
                    + enc_counts["snac_res_chain"],
                    "q8_0_matmul": tts_counts["q8_0_matmul"]
-                   + tts_dev_counts["q8_0_matmul"],
+                   + tts_dev_counts["q8_0_matmul"]
+                   + lm_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
-                   + tts_dev_counts["q4_k_matmul"],
+                   + tts_dev_counts["q4_k_matmul"]
+                   + lm_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
                    + windowed_counts["rvq_encode_fused"],
                    "flash_sdpa_window (carried keys)": stream_launches
-                   + windowed_counts["flash_sdpa_window (carried keys)"]}
+                   + windowed_counts["flash_sdpa_window (carried keys)"]
+                   + lm_counts["flash_sdpa_window (carried keys)"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",

@@ -556,6 +556,33 @@ def _str_bytes(s: str) -> bytes:
     return _u64(len(b)) + b
 
 
+def encode_tensor(arr: np.ndarray, st_dtype: Optional[str] = None
+                  ) -> Tuple[int, List[int], bytes]:
+    """An array in a storage type (F32, F16, BF16, I32, Q8_0, Q4_K, Q5_K;
+    default from its dtype) → (ggml type, shape, data bytes)."""
+    arr = np.ascontiguousarray(arr)
+    if st_dtype is None:
+        st_dtype = {"float32": "F32", "float16": "F16", "int32": "I32"}.get(str(arr.dtype))
+        if st_dtype is None:
+            raise ValueError(f"unsupported dtype {arr.dtype}")
+    t = NAME_TO_TYPE[st_dtype]
+    if t == GGML_TYPE_F32:
+        data = arr.astype(np.float32).tobytes()
+    elif t == GGML_TYPE_F16:
+        data = arr.astype(np.float16).tobytes()
+    elif t == GGML_TYPE_BF16:
+        data = _f32_to_bf16_bits(arr).tobytes()
+    elif t == GGML_TYPE_I32:
+        data = arr.astype(np.int32).tobytes()
+    elif t in _QUANT:
+        if arr.shape[-1] % _BLOCK_ELEMS[t]:
+            raise ValueError(f"{st_dtype} needs last dim % {_BLOCK_ELEMS[t]} == 0 ({arr.shape})")
+        data = _QUANT[t](arr)
+    else:
+        raise ValueError(f"unsupported storage type {st_dtype}")
+    return t, list(arr.shape), data
+
+
 class GGUFWriter:
     """Minimal GGUF v3 writer for converter output (KV + tensors, 32-byte aligned)."""
 
@@ -583,27 +610,15 @@ class GGUFWriter:
             self.kv.append((key, KV_ARRAY, (KV_UINT32, [int(x) for x in arr.tolist()])))
 
     def add_tensor(self, name: str, arr: np.ndarray, st_dtype: Optional[str] = None) -> None:
-        arr = np.ascontiguousarray(arr)
-        if st_dtype is None:
-            st_dtype = {"float32": "F32", "float16": "F16", "int32": "I32"}.get(str(arr.dtype))
-            if st_dtype is None:
-                raise ValueError(f"unsupported dtype {arr.dtype} for {name}")
-        t = NAME_TO_TYPE[st_dtype]
-        if t == GGML_TYPE_F32:
-            data = arr.astype(np.float32).tobytes()
-        elif t == GGML_TYPE_F16:
-            data = arr.astype(np.float16).tobytes()
-        elif t == GGML_TYPE_BF16:
-            data = _f32_to_bf16_bits(arr).tobytes()
-        elif t == GGML_TYPE_I32:
-            data = arr.astype(np.int32).tobytes()
-        elif t in _QUANT:
-            if arr.shape[-1] % _BLOCK_ELEMS[t]:
-                raise ValueError(f"{st_dtype} needs last dim % {_BLOCK_ELEMS[t]} == 0 ({name}: {arr.shape})")
-            data = _QUANT[t](arr)
-        else:
-            raise ValueError(f"unsupported storage type {st_dtype}")
-        self.tensors.append((name, t, list(arr.shape), data))
+        try:
+            self.add_encoded(name, encode_tensor(arr, st_dtype))
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+
+    def add_encoded(self, name: str, encoded: Tuple[int, List[int], bytes]) -> None:
+        """Add a tensor already encoded by `encode_tensor` (which can run
+        on another thread)."""
+        self.tensors.append((name, *encoded))
 
     def _encode_kv(self, key: str, t: int, v: Any) -> bytes:
         out = bytearray()

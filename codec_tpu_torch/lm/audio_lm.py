@@ -1,11 +1,11 @@
 """audio_lm — generic audio-LM host hooks (counterpart of
-codec_tpu/lm/audio_lm.py): the codes→PCM decode transform, and the Type
-C/D frame observe and feedback compose of codebook-AR kinds.
+codec_tpu/lm/audio_lm.py): the codes→PCM decode transform, the Type C/D
+frame observe and feedback compose of codebook-AR kinds, and the
+continuous-latent observe of CFM kinds (patches and the stop flag).
 
 Reference behavior: common/audio_lm.cpp + common/codec_common.h. The host
-owns the backbone decode loop and sampling. The modality bits, the Type
-A/B token observe and the continuous-latent hooks wait for the kinds and
-flows that use them.
+owns the backbone decode loop and sampling. The modality bits and the Type
+A/B token observe wait for the flows that use them.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ class AudioLM:
     # -- lifecycle ---------------------------------------------------------
     def reset(self) -> None:
         self.frames: List[List[int]] = []        # accumulated [T][n_cb] codes
+        self.latents: List[np.ndarray] = []      # continuous patches
         self.next_embed: Optional[np.ndarray] = None
         self._embed_step = 0
         self.state = self.lm.new_state() if self.lm is not None else None
@@ -56,6 +57,10 @@ class AudioLM:
     @property
     def n_codebook(self) -> int:
         return self.lm.info.n_codebook if self.lm else 1
+
+    @property
+    def is_continuous(self) -> bool:
+        return bool(self.lm and self.lm.info.is_continuous)
 
     # -- per-step hooks ----------------------------------------------------
     def observe_codes(self, codes: Sequence[int], last_hidden=None,
@@ -80,6 +85,36 @@ class AudioLM:
                                                         self._embed_step)
         self._embed_step += 1
         return ObserveAction.CONSUMED_EMBED
+
+    # -- continuous-latent hooks (CFM kinds) --------------------------------
+    def set_continuous_params(self, cfg_value: float = 2.0,
+                              n_timesteps: int = 10, min_len: int = -1) -> None:
+        """reference: audio_lm_set_continuous_params. min_len >= 0
+        overrides the stop head's guard for this context's state."""
+        self._cfg_value = cfg_value
+        self._n_timesteps = n_timesteps
+        if min_len >= 0 and self.state is not None:
+            self.lm.set_min_len(self.state, min_len)
+
+    def text_prefill(self, hiddens: np.ndarray) -> None:
+        """Prime the continuous kind's RALM over the prompt prefix
+        (reference: audio_lm_text_prefill)."""
+        if not self.is_continuous:
+            raise ValueError("text_prefill requires a continuous-latent kind")
+        self.lm.text_prefill(self.state, hiddens)
+
+    def observe_hidden(self, hidden: np.ndarray, noise=None) -> ObserveAction:
+        """Continuous-latent per-step observe: one step_generate; the patch
+        joins `latents`, the feedback becomes `next_embed`."""
+        if not self.is_continuous:
+            raise ValueError("observe_hidden requires a continuous-latent kind")
+        patch, stop, feedback = self.lm.step_generate(
+            self.state, hidden, cfg_value=getattr(self, "_cfg_value", 2.0),
+            n_timesteps=getattr(self, "_n_timesteps", 10), noise=noise)
+        self.latents.append(np.asarray(patch).reshape(
+            -1, self.lm.info.latent_dim))
+        self.next_embed = feedback
+        return ObserveAction.STOP if stop else ObserveAction.CONSUMED_EMBED
 
     # -- composed prompt rows (merged-cb0 models) ---------------------------
     @property

@@ -3,10 +3,12 @@ codec_tpu/lm/base.py).
 
 The host LLM is never part of the adaptor: the boundary is data (a
 backbone hidden in, logits or codes out), and sampling is the caller's
-job. Each kind registers its class under its `codec.lm.kind` string.
-Ported kinds: residual_depth_ar (CSM-style). The other kinds of the
-reference (parallel_heads_delay, flow_lm, continuous_latent_cfm) raise
-"not ported yet".
+job. Each kind registers its class under its `codec.lm.kind` string:
+
+  parallel_heads_delay  — N parallel heads off one hidden (MOSS-TTSD)
+  residual_depth_ar     — c0 head + small depth transformer (CSM-style)
+  continuous_latent_cfm — VoxCPM / BlueMagpie CFM diffusion patches
+  flow_lm               — Pocket-TTS self-contained AR + flow head
 
 State-machine invariants (reference: lm.cpp:563-705): exactly one
 step_begin, then (step_logits, step_push_code) × n_codebook in order, then
@@ -50,7 +52,6 @@ class LmInfo:
 
 
 _KIND_REGISTRY: Dict[str, Callable] = {}
-_NOT_PORTED = ("parallel_heads_delay", "flow_lm", "continuous_latent_cfm")
 
 
 def register_kind(kind: str):
@@ -69,10 +70,21 @@ def create_lm(reader: GGUFReader, device="cuda") -> Optional["CodecLM"]:
     kind = reader.get_str("codec.lm.kind")
     cls = _KIND_REGISTRY.get(kind)
     if cls is None:
-        if kind in _NOT_PORTED:
-            raise LmError(f"codec.lm.kind {kind!r} is not ported yet")
         raise LmError(f"unrecognised codec.lm.kind: {kind!r}")
     return cls(reader, device=device)
+
+
+def tensors_from_tree(tree, device="cpu"):
+    """A codec_tpu weight tree (dicts and lists of NumPy arrays, or
+    anything np.asarray takes; None where a tensor is absent) → the same
+    tree of f32 tensors on `device` (the kinds' `params_from_jax`)."""
+    if isinstance(tree, dict):
+        return {k: tensors_from_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tensors_from_tree(v, device) for v in tree]
+    if tree is None:
+        return None
+    return torch.from_numpy(np.array(tree, np.float32)).to(device)
 
 
 def read_common_info(r: GGUFReader, kind: str) -> LmInfo:

@@ -339,10 +339,12 @@ def frame_cached(lm, *, temperature: float = 0.0, top_k: int = 0,
 
 
 def supports_gen_chunk(lm: Any, backbone: Any) -> bool:
-    """The chunked loop needs a frame and a compose on the LM kind and a
-    backbone whose weights, KV cache and config it can run itself (the
-    tts_runner Backbone protocol alone, an opaque host LLM, cannot be
+    """The chunked loop needs a frame and a compose on the LM kind (and
+    its `gen_chunk_ok()`, false where the feedback depends on the step)
+    and a backbone whose weights, KV cache and config it can run itself
+    (the tts_runner Backbone protocol alone, an opaque host LLM, cannot be
     chained on the device)."""
     return (hasattr(lm, "_build_frame") and hasattr(lm, "compose_embd_fn")
+            and getattr(lm, "gen_chunk_ok", lambda: True)()
             and hasattr(backbone, "params") and hasattr(backbone, "kv")
             and hasattr(backbone, "cfg"))

@@ -11,9 +11,11 @@ Ported flows: run_codebook_ar (CSM / Qwen3-TTS / MOSS-TTSD, Type C/D) on
 its host path and on the device (`on_device`: the fused frame with
 in-graph sampling, one frame or a chunk of K frames per device call, each
 a CUDA graph replay on the card; lm/fused_gen.py), with the delay-tail
-flush and the EOS-frame drop; and run_codebook_ar_batch, B streams through
-one batched chunk. GBNF grammars raise "not ported yet", and so do the
-other flows (continuous, Chatterbox, realtime streaming, LFM2).
+flush and the EOS-frame drop; run_codebook_ar_batch, B streams through
+one batched chunk; and run_continuous (BlueMagpie continuous-latent CFM),
+one step per call. GBNF grammars, the continuous chunk (chunk_steps > 1)
+and the other flows (Chatterbox, realtime streaming, LFM2) raise "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -364,6 +366,61 @@ def run_codebook_ar(
             audio_lm, backbone,
             _device_sampler(on_device, gen) if device else sampler, steps)
     return _finish(audio_lm, stopped, steps, n_speech, decode, n_q)
+
+
+def run_continuous(
+    audio_lm: AudioLM,
+    backbone: Backbone,
+    prompt_embeds: Sequence[np.ndarray],
+    max_steps: int = 1024,
+    prefill_hiddens=None,
+    decode: bool = True,
+    chunk_steps: int = 1,
+    min_len: int = -1,
+) -> SynthesisResult:
+    """Continuous-latent flow (reference: run_continuous,
+    tts_runner.cpp:450): the optional RALM text prefill over prompt
+    hiddens, the prompt through the backbone one step a row, then per step:
+    backbone hidden → step_generate (patch, stop, feedback embedding) →
+    the feedback as the next backbone input. `min_len >= 0` overrides the
+    GGUF's stop-head guard (the stop flag is ignored before that many
+    patches; reference --min-len). The noise is the state's host
+    generator's, as codec_tpu draws it.
+
+    → SynthesisResult whose `codes` are the latents [n_steps · patch,
+    latent_dim] and `pcm` their decode_latent. `chunk_steps > 1` (several
+    steps per device call, codec_tpu's build_continuous_chunk) is not
+    ported yet and raises."""
+    if audio_lm.lm is None or not audio_lm.is_continuous:
+        raise ValueError("run_continuous requires a continuous-latent codec_lm")
+    if chunk_steps > 1:
+        raise ValueError("the continuous chunk (chunk_steps > 1, "
+                         "--on-device) is not ported yet")
+    audio_lm.reset()
+    if min_len >= 0:
+        audio_lm.lm.set_min_len(audio_lm.state, int(min_len))
+    if prefill_hiddens is not None:
+        audio_lm.text_prefill(np.asarray(prefill_hiddens, np.float32))
+    h = None
+    for e in prompt_embeds:
+        h = backbone.step(np.asarray(e, np.float32))
+    if h is None:
+        raise ValueError("prompt_embeds must contain at least one embedding")
+
+    # the first step always runs (it may be the primed one), as codec_tpu's
+    stopped = audio_lm.observe_hidden(h) is ObserveAction.STOP
+    steps = 1
+    while steps < max_steps and not stopped:
+        h = backbone.step(audio_lm.next_embed)
+        stopped = audio_lm.observe_hidden(h) is ObserveAction.STOP
+        steps += 1
+    latents = (np.concatenate(audio_lm.latents, axis=0) if audio_lm.latents
+               else np.zeros((0, audio_lm.lm.info.latent_dim), np.float32))
+    pcm = None
+    if decode and audio_lm.codec is not None and len(latents):
+        pcm = audio_lm.codec.decode_latent(latents)
+    return SynthesisResult(codes=latents, pcm=pcm, n_steps=steps,
+                           stopped_by_eos=stopped)
 
 
 def slice_slot(arr: torch.Tensor, s: int) -> torch.Tensor:

@@ -82,9 +82,11 @@ def random_bm_params(draw: Draw, cfg: BmVaeConfig, decoder_dim: int,
 def write_random_bm_gguf(path: Union[str, Path], seed: int = 0,
                          cfg: BmVaeConfig = BLUEMAGPIE,
                          decoder_dim: int = 2048, encoder_dim: int = 128,
-                         encoder: bool = False) -> None:
+                         encoder: bool = False, extra=None) -> None:
     """A BlueMagpie AudioVAE GGUF (F32) with random weights from `seed`,
-    decode-only or with the encoder (the hops follow the rates)."""
+    decode-only or with the encoder (the hops follow the rates).
+    `extra(writer)` adds more KVs and tensors (an LM adaptor) before the
+    file is written."""
     draw = Draw(np.random.default_rng(seed))
     random_bm_params(draw, cfg, decoder_dim, encoder_dim, encoder)
     wr = GGUFWriter(path, "bluemagpie_audiovae")
@@ -105,4 +107,6 @@ def write_random_bm_gguf(path: Union[str, Path], seed: int = 0,
     wr.add_array("bluemagpie.encoder_rates", list(cfg.encoder_rates))
     for name, arr in draw.p.items():
         wr.add_tensor(name, arr, "F32")
+    if extra is not None:
+        extra(wr)
     wr.write()

@@ -18,14 +18,16 @@ from __future__ import annotations
 
 import base64
 import math
+import os
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ..io.gguf import GGUFWriter
+from ..io.gguf import GGUFWriter, encode_tensor
 from ..lm.backbone import BackboneConfig
 from .mimi import MimiConfig
 from .mimi_init import add_random_mimi
@@ -115,6 +117,20 @@ def write_random_backbone_gguf(path: Union[str, Path], seed: int = 0,
     so one seed gives the same weights in every type. `rope_scaling`
     (llama3) bakes `backbone.rope_freq_factors`; `spm_b64` bakes a
     tokenizer (`spm_model_b64`)."""
+    return write_random_backbone_ggufs({qtype: path}, seed, cfg,
+                                       rope_scaling, spm_b64)[qtype]
+
+
+def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
+                                seed: int = 0,
+                                cfg: BackboneConfig = LLAMA_3_2_1B,
+                                rope_scaling: Optional[dict] = LLAMA3_SCALING,
+                                spm_b64: str = "") -> Dict[str, Path]:
+    """write_random_backbone_gguf for several layer-matrix types at once
+    ({qtype: path}): the weights are drawn once and each file gets them in
+    its type, the same files as one call per type. The matrices are
+    quantized on a pool of threads (NumPy leaves the GIL in its array
+    loops) while the next ones are drawn."""
     if cfg.n_experts:
         raise ValueError("write_random_backbone_gguf: MoE is not supported")
     rng = np.random.default_rng(seed)
@@ -123,45 +139,74 @@ def write_random_backbone_gguf(path: Union[str, Path], seed: int = 0,
         return rng.standard_normal(shape, dtype=np.float32) * scale + off
 
     h, nh, nkv, hd = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    wr = GGUFWriter(path, "llama_backbone")
-    for key, val in (("hidden_dim", h), ("n_layers", cfg.n_layers),
-                     ("n_heads", nh), ("n_kv_heads", nkv), ("head_dim", hd),
-                     ("ffn_dim", cfg.ffn_dim), ("vocab_size", cfg.vocab_size),
-                     ("max_ctx", cfg.max_ctx)):
-        wr.add_int32(f"backbone.{key}", val)
-    wr.add_float32("backbone.rope_theta", cfg.rope_theta)
-    wr.add_float32("backbone.rms_eps", cfg.rms_eps)
-    wr.add_bool("backbone.qk_norm", cfg.has_qk_norm)
-    wr.add_bool("backbone.attn_bias", cfg.has_attn_bias)
-    wr.add_bool("backbone.tied_lm_head", cfg.tied_lm_head)
-    if spm_b64:
-        wr.add_string("backbone.tokenizer.spm_b64", spm_b64)
+    writers = {q: GGUFWriter(p, "llama_backbone") for q, p in paths.items()}
+    for wr in writers.values():
+        for key, val in (("hidden_dim", h), ("n_layers", cfg.n_layers),
+                         ("n_heads", nh), ("n_kv_heads", nkv), ("head_dim", hd),
+                         ("ffn_dim", cfg.ffn_dim),
+                         ("vocab_size", cfg.vocab_size),
+                         ("max_ctx", cfg.max_ctx)):
+            wr.add_int32(f"backbone.{key}", val)
+        wr.add_float32("backbone.rope_theta", cfg.rope_theta)
+        wr.add_float32("backbone.rms_eps", cfg.rms_eps)
+        wr.add_bool("backbone.qk_norm", cfg.has_qk_norm)
+        wr.add_bool("backbone.attn_bias", cfg.has_attn_bias)
+        wr.add_bool("backbone.tied_lm_head", cfg.tied_lm_head)
+        if spm_b64:
+            wr.add_string("backbone.tokenizer.spm_b64", spm_b64)
 
-    wr.add_tensor("backbone.tok_embd", w(cfg.vocab_size, h), "F16")
-    wr.add_tensor("backbone.out_norm.w", w(h, off=1.0), "F32")
-    if not cfg.tied_lm_head:
-        wr.add_tensor("backbone.lm_head.w", w(cfg.vocab_size, h), "F16")
-    if rope_scaling is not None:
-        wr.add_tensor("backbone.rope_freq_factors",
-                      llama3_freq_factors(hd, cfg.rope_theta, rope_scaling),
-                      "F32")
-    for i in range(cfg.n_layers):
-        pre = f"backbone.l{i}."
-        wr.add_tensor(pre + "attn_norm.w", w(h, off=1.0), "F32")
-        for name, shape in (("q", (nh * hd, h)), ("k", (nkv * hd, h)),
-                            ("v", (nkv * hd, h)), ("o", (h, nh * hd))):
-            wr.add_tensor(f"{pre}{name}.w", w(*shape), qtype)
-            if cfg.has_attn_bias and name != "o":
-                wr.add_tensor(f"{pre}{name}.b", w(shape[0]), "F32")
-        if cfg.has_qk_norm:
-            wr.add_tensor(pre + "q_norm.w", w(hd, off=1.0), "F32")
-            wr.add_tensor(pre + "k_norm.w", w(hd, off=1.0), "F32")
-        wr.add_tensor(pre + "ffn_norm.w", w(h, off=1.0), "F32")
-        for name, shape in (("gate", (cfg.ffn_dim, h)), ("up", (cfg.ffn_dim, h)),
-                            ("down", (h, cfg.ffn_dim))):
-            wr.add_tensor(f"{pre}{name}.w", w(*shape), qtype)
-    wr.write()
-    return Path(path)
+    # (name, future or array, storage type per qtype) in file order
+    queue = []
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+    def add(name, arr, storage=None):
+        for q in writers:
+            st = storage or q
+            if st in ("F32", "F16"):
+                queue.append((q, name, arr, st))
+            else:
+                queue.append((q, name, pool.submit(encode_tensor, arr, st), st))
+        while len(queue) > 64:
+            _flush_one()
+
+    def _flush_one():
+        q, name, item, st = queue.pop(0)
+        if hasattr(item, "result"):
+            writers[q].add_encoded(name, item.result())
+        else:
+            writers[q].add_tensor(name, item, st)
+
+    try:
+        add("backbone.tok_embd", w(cfg.vocab_size, h), "F16")
+        add("backbone.out_norm.w", w(h, off=1.0), "F32")
+        if not cfg.tied_lm_head:
+            add("backbone.lm_head.w", w(cfg.vocab_size, h), "F16")
+        if rope_scaling is not None:
+            add("backbone.rope_freq_factors",
+                llama3_freq_factors(hd, cfg.rope_theta, rope_scaling), "F32")
+        for i in range(cfg.n_layers):
+            pre = f"backbone.l{i}."
+            add(pre + "attn_norm.w", w(h, off=1.0), "F32")
+            for name, shape in (("q", (nh * hd, h)), ("k", (nkv * hd, h)),
+                                ("v", (nkv * hd, h)), ("o", (h, nh * hd))):
+                add(f"{pre}{name}.w", w(*shape))
+                if cfg.has_attn_bias and name != "o":
+                    add(f"{pre}{name}.b", w(shape[0]), "F32")
+            if cfg.has_qk_norm:
+                add(pre + "q_norm.w", w(hd, off=1.0), "F32")
+                add(pre + "k_norm.w", w(hd, off=1.0), "F32")
+            add(pre + "ffn_norm.w", w(h, off=1.0), "F32")
+            for name, shape in (("gate", (cfg.ffn_dim, h)),
+                                ("up", (cfg.ffn_dim, h)),
+                                ("down", (h, cfg.ffn_dim))):
+                add(f"{pre}{name}.w", w(*shape))
+        while queue:
+            _flush_one()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for wr in writers.values():
+        wr.write()
+    return {q: Path(p) for q, p in paths.items()}
 
 
 def add_random_depth_adaptor(wr: GGUFWriter, seed: int = 0,

@@ -116,9 +116,11 @@ def random_pocket_params(cfg: PocketMimiConfig = POCKET_TTS, seed: int = 0,
 def write_random_pocket_gguf(path: Union[str, Path], seed: int = 0,
                              cfg: PocketMimiConfig = POCKET_TTS,
                              channels: Sequence[int] = POCKET_CHANNELS,
-                             ffn: int = 2048, encoder: bool = True) -> None:
+                             ffn: int = 2048, encoder: bool = True,
+                             extra=None) -> None:
     """A Pocket-Mimi GGUF (F32) with random weights from `seed`: the
-    decoder, and with `encoder` the encoder."""
+    decoder, and with `encoder` the encoder. `extra(writer)` adds more KVs
+    and tensors (an LM adaptor) before the file is written."""
     wr = GGUFWriter(path, "pocket_mimi")
     wr.add_name("Pocket-Mimi")
     for key, val in (("codec.sample_rate", cfg.sample_rate),
@@ -142,4 +144,6 @@ def write_random_pocket_gguf(path: Union[str, Path], seed: int = 0,
     for name, arr in random_pocket_params(cfg, seed, channels, ffn,
                                           encoder).items():
         wr.add_tensor(name, arr, "F32")
+    if extra is not None:
+        extra(wr)
     wr.write()

@@ -132,10 +132,11 @@ def random_xy_params(cfg: XyConfig = XyConfig(), seed: int = 0,
 
 def write_random_xy_gguf(path: Union[str, Path], seed: int = 0,
                          cfg: XyConfig = XyConfig(), encoder: bool = False,
-                         **widths) -> None:
+                         extra=None, **widths) -> None:
     """An XY-Tokenizer GGUF (F32) with random weights from `seed`
     (`widths`: random_xy_params's keyword arguments), decode-only or with
-    the encoder."""
+    the encoder. `extra(writer)` adds more KVs and tensors (an LM adaptor)
+    before the file is written."""
     params = random_xy_params(cfg, seed, encoder=encoder, **widths)
     wr = GGUFWriter(path, "xy_tokenizer")
     wr.add_name("XY-Tokenizer")
@@ -166,4 +167,6 @@ def write_random_xy_gguf(path: Union[str, Path], seed: int = 0,
     wr.add_bool("codec.has_decoder", True)
     for name, arr in params.items():
         wr.add_tensor(name, arr, "F32")
+    if extra is not None:
+        extra(wr)
     wr.write()

@@ -182,13 +182,44 @@ def test_rda_state_machine_errors(tmp_path):
 
 
 def test_unported_kind_raises(tmp_path):
-    path = tmp_path / "flow.gguf"
+    """Every kind codec_tpu registers loads in the port (a small file of
+    each, the same LmInfo as codec_tpu's); an unknown kind raises."""
+    from codec_tpu.lm.base import _KIND_REGISTRY as jax_kinds
+    from codec_tpu_torch.models import lm_tts_init as lti
+
+    writers = {
+        "residual_depth_ar": None,
+        "flow_lm": lambda w: lti.add_flow_lm(w, 0, lti.FlowLmConfig(
+            d_model=32, n_layers=1, n_heads=2, head_dim=16, ffn=64, ldim=8,
+            flow_dim=16, flow_depth=1, n_bins=20, lsd_steps=1)),
+        "parallel_heads_delay": lambda w: lti.add_phd(w, 0, lti.PhdConfig(
+            hidden=32, n_codebook=3, text_vocab=40, audio_vocab=9,
+            speech_start=10, speech_end=18, speech_pad=8, eos_code_c0=5)),
+        "continuous_latent_cfm": lambda w: lti.add_cfm(w, 0, lti.CfmConfig(
+            hidden=16, h_vox=16, h_enc=16, h_dit=16, latent_dim=4,
+            patch_size=2, n_heads=2, n_kv=1, head_dim=8, n_locenc=1,
+            n_locdit=1, n_ralm=1, ffn_mult=2, rope_rows=16))}
+    assert sorted(writers) == sorted(jax_kinds)
+    for kind, add in writers.items():
+        path = tmp_path / f"{kind}.gguf"
+        if add is None:
+            _rda_gguf(path, "csm")
+        else:
+            w = GGUFWriter(path, "mimi")
+            add(w)
+            w.write()
+        lm = create_lm(GGUFReader(path), device="cpu")
+        ref = jax_create_lm(JaxReader(str(path)))
+        assert type(lm).__name__ == type(ref).__name__
+        assert lm.info.kind == kind
+        assert dataclasses.asdict(lm.info) == dataclasses.asdict(ref.info)
+    path = tmp_path / "unknown.gguf"
     w = GGUFWriter(path, "pocket_mimi")
     w.add_bool("codec.lm.has_adaptor", True)
-    w.add_string("codec.lm.kind", "flow_lm")
+    w.add_string("codec.lm.kind", "sparse_heads")
     w.add_tensor("x", np.zeros(4, np.float32))
     w.write()
-    with pytest.raises(LmError, match="not ported yet"):
+    with pytest.raises(LmError, match="unrecognised codec.lm.kind"):
         create_lm(GGUFReader(path), device="cpu")
 
 
@@ -353,13 +384,17 @@ def test_cli_errors(files, tmp_path, capsys):
     base = ["synthesize", "--model", str(model), "--text", "hi", "--out",
             str(tmp_path / "o.wav"), "--device", "cpu", "--max-frames", "2"]
     cases = [(["--backbone", str(small)], "backbone hidden 64 != codec.lm hidden 256"),
-             (["--backbone", str(bbs["Q8_0"]), "--stream"], "--stream: not ported yet"),
              (["--backbone", str(bbs["Q8_0"]), "--grammar", "x"], "--grammar: not ported yet"),
-             ([], "needs a backbone")]
+             ([], "kind 'residual_depth_ar' needs a backbone")]
     for extra, msg in cases:
         assert main(base + extra) == 1
         assert msg in capsys.readouterr().err
     assert not (tmp_path / "o.wav").exists()
+    # --stream streams Pocket-TTS only: a backbone flow ignores it, as
+    # codec_tpu's does
+    assert main(base + ["--backbone", str(bbs["Q8_0"]), "--stream"]) == 0
+    assert "backbone AR done: 2 steps" in capsys.readouterr().out
+    assert (tmp_path / "o.wav").exists()
 
 
 def test_hidden_mismatch_raises_value_error(files):
