@@ -27,8 +27,9 @@ Phases (any failure raises and exits non-zero before the last line):
      RVQ search also on integer-valued inputs and duplicated rows, where
      it must agree bit for bit; at WavTokenizer's V 4096 also with each
      block's second row tile a copy of its first; the packed products also
-     at the MOSS-TTSD backbone's four layer shapes at m = 1 and 8, with
-     the launch plan each takes)
+     at the MOSS-TTSD backbone's four layer shapes at m = 1 and 8 and the
+     Chatterbox T3 backbone's three at m = 1 and 2, with the launch plan
+     each takes)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16 and in f16) with every launch count set to 0 just
@@ -175,10 +176,29 @@ Phases (any failure raises and exits non-zero before the last line):
      (one CUDA graph replay each, its products counted under the
      profiler), codes against the CPU's and each other (near-tie rule);
      BlueMagpie: 10 patches through run_continuous with fixed noise against
-     the CPU (FSQ near-tie rule), PCM shape and finite samples; ms a frame
-     and a patch, time to first audio, one frame, replay and patch under
-     torch.profiler
-  10. CUDA-event times (median of >= 10 runs after warm-up), each kernel
+     the CPU (FSQ near-tie rule), PCM shape and finite samples, and the
+     same request with --on-device (chunks of 8 patches, one graph replay
+     each) against it on the card within 1e-5 of peak (FSQ near-tie rule),
+     the stop head's stop at the same patch both ways, a replay against the
+     eager run of the same chunk bit for bit; ms a frame and a patch, time
+     to first audio, one frame, replay and patch under torch.profiler
+  9d. the Chatterbox TTS path at full width (models/chatterbox_init.py):
+     the full-width S3Gen with a T3 section (text vocab 704, speech vocab
+     8194, the perceiver and the VoiceEncoder) and a Llama-520M backbone
+     (30 layers of 1024) in Q4_K, loaded packed and dense f32 on the card
+     and dense on the CPU; tts_cli's run_chatterbox_synthesize on the host
+     path (f32) and with --on-device --quant-exec (chunks of 8), 50 greedy
+     frames at CFG weight 0.5 into the S3Gen decode (PCM length and
+     finite samples; the prefill's q4_k_matmul launches counted, 210 a
+     lane a prompt row at m = 1); run_chatterbox's codes on the card
+     against the CPU, each device chunk (f32, Q4_K) against the host path
+     (near-tie rule on the CFG logits); one chunk run eagerly (210 a frame
+     at m = 2, counted) and its replay against it bit for bit;
+     run_chatterbox(ref_pcm=) with a 10 s 16 kHz voice, the VoiceEncoder's
+     embedding and conditioning rows, and a Qwen3-TTS ECAPA embedding of
+     10 s of 24 kHz, against the CPU (1e-5 of peak); ms a frame host and
+     chunked, the S3Gen share, a frame and a replay under torch.profiler
+  10. CUDA-event times (median of TIMED_RUNS = 5 after 2 warm-ups), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
      the same function; the DAC residual unit at every decoder and
@@ -189,8 +209,9 @@ Phases (any failure raises and exits non-zero before the last line):
      again and again), cold (cycling over the loaded backbones' 16 layers
      of each shape) at m = 1 and 16, and
      one backbone forward's 112 products, and at the MOSS-TTSD backbone's
-     four shapes at m = 1 and 8 beside F.linear and the bound; per-request TTS times (median of 3 runs after one
-     warm-up); per-request encode times (median of 10 after 2 warm-ups);
+     four shapes at m = 1 and 8 and the Chatterbox T3 backbone's three at
+     m = 1 and 2 beside F.linear and the bound; per-request TTS times (median of 2 runs after one
+     warm-up); per-request encode times (median of 5 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
      (norms given, as a model passes them) beside a second bound, three
      TF32 passes per f32 product at the tensor cores' TF32 rate; the
@@ -225,7 +246,9 @@ import torch
 import torch.nn.functional as F
 
 SEED = 0
-TIMED_RUNS = 10
+# CUDA-event timings: the median of this many runs after 2 warm-ups (5 keeps
+# the whole smoke near 700 s on an H100 host, near 1000 s on one 1.5x slower)
+TIMED_RUNS = 5
 
 # -- flash_sdpa_window: (B, H, T, D, window): the Mimi decoder transformer
 # at 20 s b1, 60 s b1 and 20 s b4, pure causal, and D=128 with a small
@@ -328,7 +351,7 @@ FLUSH_BYTES = 64 * 2 ** 20
 # is a 16-token prompt (ids from SEED) to 25 greedy frames (2 s at 12.5 Hz)
 TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
                 ("q8_0_per_token", "Q8_0", 0)]
-TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 3
+TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 2
 # -- the on-device TTS path: chunks of 8 frames (one CUDA graph each),
 # greedy in Q4_K and Q8_0, one sampled request, one batch of 4 streams;
 # greedy codes equal the host path's or first differ at a near-tie (top-2
@@ -542,15 +565,39 @@ POCKET_TTS_FRAMES, POCKET_TTS_REF_SECONDS, POCKET_TTS_CPU_FRAMES = 125, 5, 16
 MOSS_TTSD_FRAMES, MOSS_TTSD_LAYERS, MOSS_TTSD_BUCKET = 25, 4, 64
 MOSS_TTSD_CHUNK = 8
 BM_TTS_PATCHES, BM_BACKBONE_LAYERS = 10, 4
+# phase 9d's BlueMagpie request with --on-device: chunks of 8 patches (one
+# CUDA graph replay each), its latents within this share of their peak of
+# the eager path's on the card with the same noise (f32, TF32 off; the
+# backbone step is another reduction than the host step's)
+BM_CHUNK, BM_DEVICE_REL = 8, 1e-5
 # AR drift between the card's and the CPU's f32 sums: latents and EOS
 # logits within this share of their peak (Pocket's 16 frames, BlueMagpie's
 # patches before any FSQ near-tie); decodes of the same latents corr >
 # 0.99999, of each side's own latents > 0.9999
 LM_AR_REL = 1e-3
+# -- phase 9d, the Chatterbox TTS path at full width (models/chatterbox_init
+# .py): T3 over a Llama-520M backbone (Q4_K; its dense f32 form for the
+# host path and the CPU) into the full-width S3Gen. Greedy requests of
+# CBX_FRAMES speech tokens (2 s of speech at 25 Hz) at CFG weight 0.5, the
+# device path in chunks of CBX_CHUNK frames; a 10 s 16 kHz voice prompt
+# through the VoiceEncoder (CBX_VOICE_FRAMES frames); a Qwen3-TTS ECAPA
+# embedding of 10 s of 24 kHz. Speaker embeddings on the card within
+# SPEAKER_REL of their peak of the CPU's (f32, TF32 off)
+CBX_FRAMES, CBX_CHUNK, CBX_VOICE_FRAMES = 50, 8, 10
+# the direct run_chatterbox requests prefill each lane's prompt in one
+# forward padded to this bucket (the CLI's requests step it per token)
+CBX_BUCKET = 128
+CBX_VOICE_SECONDS = ECAPA_SECONDS = 10
+SPEAKER_REL = 1e-5
 # -- the packed products at the MOSS-TTSD backbone's (Qwen3-1.7B's) layer
 # shapes (out, in): q/o, k/v, gate/up, down, at m = 1 and 8
 QWEN3_QMAT_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144)]
 QWEN3_QMAT_MS = (1, 8)
+# and at the Chatterbox T3 backbone's (Llama-520M's): q/k/v/o, gate/up,
+# down, at m = 1 (a host step, one CFG lane) and 2 (the device chunk's
+# step, both lanes as one batch)
+T3_QMAT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096)]
+T3_QMAT_MS = (1, 2)
 
 
 def log(msg: str) -> None:
@@ -1412,7 +1459,7 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     decode against the f32 model on the card (corr > 0.9999); each f32
     encode against the CPU on a NEU_CPU_ENCODE_SECONDS request run both
     ways (the FSQ near-tie rule: fsq_near_ties); one encode → decode round
-    trip an encoding arch. Each request's median time (CUDA events, 10
+    trip an encoding arch. Each request's median time (CUDA events, 5
     after 2 warm-ups). → this phase's launch counts (all 0)."""
     import codec_tpu_torch
     from codec_tpu_torch import CodecError
@@ -1664,7 +1711,7 @@ def small_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     SMALL_CPU_SECONDS of the same input (codes: NeMo's and S3T's FSQ
     near-tie rules, MOSS's cosine one), each f16 decode against the f32
     model on the card (corr > 0.999); one encode → decode round trip per
-    arch that decodes. Each request's median time (CUDA events, 10 after
+    arch that decodes. Each request's median time (CUDA events, 5 after
     2 warm-ups). → this phase's launch counts."""
     import codec_tpu_torch
     from codec_tpu_torch.models import bluemagpie, chatterbox_s3t, moss_audio
@@ -1945,7 +1992,7 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
         against the same decode on the CPU (S3G_F32_GATE);
       - S3G_SECONDS of speech b1 in f32 and bf16: shape, finite samples,
         the share clipped at ±0.99; bf16 against f32 (corr >
-        S3G_BF16_CORR); each request's median time (CUDA events, 10 after 2
+        S3G_BF16_CORR); each request's median time (CUDA events, 5 after 2
         warm-ups), x realtime, one call's device busy time, idle share and
         top kernels under torch.profiler;
       - the NSF phase of the 20 s request's f0 summed in float32 on the
@@ -2089,6 +2136,43 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
     return dict(none)
 
 
+def call_profile(fn, cuda: bool):
+    """(device busy ms, kernels, wall ms, idle share) of one call, the wall
+    time of a call without the profiler; None ("not measured") on the CPU
+    or when 5 traces in a row hold no device time (CUPTI's trace loses
+    events now and then)."""
+    if not cuda:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in trace.key_averages()
+                if e.self_device_time_total > 0
+                and not e.key.startswith(("aten::", "Memcpy", "Memset"))]
+        if kern:
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            return (busy, sum(e.count for e in kern), wall,
+                    max(0.0, 1 - busy / wall))
+    return None
+
+
+def fmt_profile(p) -> str:
+    if p is None:
+        return "not measured"
+    return (f"{p[1]} kernels, device busy {p[0]:.3f} ms of {p[2]:.3f} ms "
+            f"(idle share {p[3]:.3f})")
+
+
 def lm_flows(name_limit: str, zero_counts, counts, none: dict,
              dev: str = "cuda", sizes=None) -> dict:
     """Phase 9c: the three LM flows past CSM's, each written at full width
@@ -2165,39 +2249,9 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
         return got
 
     def frame_profile(fn):
-        """(device busy ms, kernels, wall ms, idle share) of one call, the
-        wall time of a call without the profiler; None ("not measured") on
-        the CPU or when 5 traces in a row hold no device time (the card's
-        machine's profiler loses events now and then)."""
-        if not cuda:
-            return None
-        from torch.profiler import ProfilerActivity, profile
+        return call_profile(fn, cuda)
 
-        fn()
-        sync()
-        t = time.perf_counter()
-        fn()
-        sync()
-        wall = (time.perf_counter() - t) * 1e3
-        for _ in range(5):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as trace:
-                fn()
-                sync()
-            kern = [e for e in trace.key_averages()
-                    if e.self_device_time_total > 0
-                    and not e.key.startswith(("aten::", "Memcpy", "Memset"))]
-            if kern:
-                busy = sum(e.self_device_time_total for e in kern) / 1e3
-                return (busy, sum(e.count for e in kern), wall,
-                        max(0.0, 1 - busy / wall))
-        return None
-
-    def fmt_prof(p):
-        if p is None:
-            return "not measured"
-        return (f"{p[1]} kernels, device busy {p[0]:.3f} ms of {p[2]:.3f} ms "
-                f"(idle share {p[3]:.3f})")
+    fmt_prof = fmt_profile
 
     t_phase = time.monotonic()
     carried = "flash_sdpa_window (carried keys)"
@@ -2589,6 +2643,9 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     times["bluemagpie"] = dict(patch_ms=patch_ms,
                                step_ms=bb_s / max(1, n_p - 1) * 1e3,
                                profile=prof)
+    dev_line = bm_on_device(clm, vae, mbb, bm_reader, bm_ids, bres.codes,
+                            brec, n_p, fsq_vals, launches,
+                            times["bluemagpie"], cuda)
     log(f"[lm] bluemagpie {n_p} patches ({bres.codes.shape[0]} latent frames, "
         f"prompt {n_pr} tokens): launches none; pcm {bpcm.shape} finite, "
         f"peak {np.abs(bpcm).max():.4f}; latents card vs CPU (same noise): "
@@ -2600,12 +2657,403 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
         f"{clm.n_locdit}-layer LocDiT x 2 x 9 Euler steps, LocEnc, RALM), "
         f"backbone step {times['bluemagpie']['step_ms']:.3f} ms, AudioVAE "
         f"decode {vae_ms:.1f} ms; one patch (step_generate) under "
-        f"torch.profiler: {fmt_prof(prof)} [{name_limit}]")
+        f"torch.profiler: {fmt_prof(prof)}; {dev_line} [{name_limit}]")
     del pt, pt_cpu, flm, flm_cpu, xy, plm, plm_cpu, qbb, qbb_cpu
     del vae, vae_cpu, clm, clm_cpu, mbb, mbb_cpu
     if cuda:
         torch.cuda.empty_cache()
     log(f"[lm] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts, times
+
+
+def bm_on_device(clm, vae, mbb, bm_reader, bm_ids, want, brec, n_p, fsq_vals,
+                 launches, times, cuda) -> str:
+    """Phase 9d's BlueMagpie request with --on-device (run_continuous with
+    chunk_steps=BM_CHUNK: the first patch per step, then K-step chunks, on
+    the card one graph replay each) against the eager path's request on
+    the card (`want`, its latents; `brec`, its Recorder) with the same
+    noise: latents within BM_DEVICE_REL of peak up to the first FSQ
+    near-tie (a digit of round(tanh(x)·9) within 1e-3 of a half on the
+    eager side), then the stop at the same patch in a request that lets the
+    stop head end it, one replay against the eager run of the same chunk
+    bit for bit, and the replay's time, kernels and idle share. → a log
+    line's part."""
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.tts_runner import run_continuous
+
+    def request(bb_, min_len, chunk):
+        bb_.reset()
+        alm = AudioLM(bm_reader, codec=vae, lm=clm)
+        t = time.perf_counter()
+        res = run_continuous(alm, bb_, list(bb_.embed_tokens(bm_ids)),
+                             max_steps=n_p, min_len=min_len, decode=False,
+                             chunk_steps=chunk)
+        return res, time.perf_counter() - t
+
+    res, gen_s = request(mbb, n_p, BM_CHUNK)        # captures its graph
+    launches("bluemagpie on-device", {})
+    n_pr = len(bm_ids)
+    peak = float(np.abs(want).max())
+    err = np.abs(res.codes - want).reshape(n_p, -1).max(axis=1)
+    bad = np.flatnonzero(err > BM_DEVICE_REL * peak)
+    note = f"latents within {err.max() / peak:.2e} of peak over all {n_p}"
+    if len(bad):
+        k = int(bad[0])
+        v = fsq_vals(clm, brec.calls[n_pr - 1 + k][2])
+        frac = np.abs(v - np.floor(v) - 0.5)
+        if not frac.min() < 1e-3:
+            raise RuntimeError(f"bluemagpie on-device: patch {k} off by "
+                               f"{err[k]} (peak {peak}), no FSQ near-tie")
+        note = (f"latents within {err[:k].max() / peak if k else 0:.2e} of "
+                f"peak over the {k} patches before an FSQ near-tie")
+    # the stop head ends both requests at the same patch
+    host_stop = request(mbb, -1, 1)[0]
+    dev_stop = request(mbb, -1, BM_CHUNK)[0]
+    if (dev_stop.n_steps, dev_stop.stopped_by_eos) != \
+            (host_stop.n_steps, host_stop.stopped_by_eos):
+        raise RuntimeError(f"bluemagpie stop: on-device {dev_stop.n_steps} "
+                           f"{dev_stop.stopped_by_eos}, eager "
+                           f"{host_stop.n_steps} {host_stop.stopped_by_eos}")
+    times["dev_request_s"] = gen_s
+    line = (f"on-device (chunks of {BM_CHUNK} patches): {note}, stop at "
+            f"patch {dev_stop.n_steps} ({'stop head' if dev_stop.stopped_by_eos else 'max'}) "
+            f"as the eager path; the request (the prompt's host steps, one "
+            f"eager patch, the capture) {gen_s:.3f} s")
+    if cuda:
+        runner = next(reversed(mbb._cont_chunks.values()))[1]
+        saved = [t.clone() for t in runner.graphed.restore]
+        a = runner.run().clone()
+        for t, s in zip(runner.graphed.restore, saved):
+            t.copy_(s)
+        b = runner.graphed.eager().clone()
+        if not torch.equal(a, b):
+            raise RuntimeError("bluemagpie chunk: replay != eager run")
+        replay = cuda_ms(runner.run, runs=5)
+        prof = call_profile(runner.run, cuda)
+        times.update(replay_patch_ms=replay / BM_CHUNK, replay_profile=prof)
+        line += (f"; one replay equals its eager run bit for bit, "
+                 f"{replay:.3f} ms ({replay / BM_CHUNK:.3f} ms a patch), "
+                 f"under torch.profiler: {fmt_profile(prof)}")
+    return line
+
+
+def _moved(tree, dev):
+    """A parameter tree with every tensor moved to `dev`."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_moved(v, dev) for v in tree]
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
+                    dev: str = "cuda", sizes=None) -> dict:
+    """Phase 9d: the Chatterbox TTS path at full width (text → T3 → S3
+    speech tokens → S3Gen → PCM) through the entry points a user calls,
+    with every launch count set to 0 just before each request and read
+    just after:
+      - tts_cli's run_chatterbox_synthesize on the host path (the dense f32
+        backbone, two lanes a step, host sampling; launches none) and with
+        --on-device --quant-exec (Q4_K packed: the prompt's per-token
+        prefill launches q4_k_matmul 7 a layer a lane a row at m = 1, the
+        chunks are replays), each request's PCM checked for length and
+        finite samples, its S3Gen decode timed;
+      - run_chatterbox's greedy codes on the card's host path against the
+        CPU's on the same weights, the device chunk (dense and Q4_K)
+        against the host path (the near-tie rule on the CFG logits of the
+        recorded hiddens); one chunk run eagerly (q4_k_matmul 7 a layer a
+        frame at m = 2, counted) and its replay bit for bit against it;
+      - run_chatterbox(ref_pcm=) with a 10 s 16 kHz voice (the
+        VoiceEncoder's embedding and the conditioning rows against the
+        CPU's, SPEAKER_REL of peak);
+      - a Qwen3-TTS ECAPA embedding (create_speaker_encoder) of 10 s of
+        24 kHz against the CPU's.
+    Times: ms a frame on the host path and in the chunk (a replay / K),
+    each frame under torch.profiler (busy, idle share), the S3Gen share of
+    a request. `dev` and `sizes` let the phase run small on the CPU
+    (tests/test_torch_chatterbox.py). → (launch counts, times)."""
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import run_chatterbox_synthesize
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm, create_speaker_encoder
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.chatterbox_t3 import ChatterboxT3
+    from codec_tpu_torch.lm.tts_runner import run_chatterbox
+    from codec_tpu_torch.models import chatterbox_init as cbi
+    from codec_tpu_torch.models.lm_init import write_random_backbone_ggufs
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+    frames = sizes.get("frames", CBX_FRAMES)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches(label, want):
+        want = {**none, **want}
+        got = counts() if cuda else want
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got}, want {want}")
+        return got
+
+    def held(label, got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if got.shape != want.shape or not err <= SPEAKER_REL * peak:
+            raise RuntimeError(f"{label}: shape {got.shape} vs {want.shape}, "
+                               f"max abs err {err} (peak {peak})")
+        return err / peak
+
+    t_phase = time.monotonic()
+    phase_counts, times = dict(none), {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cbx_")
+    try:
+        d = Path(tmp.name)
+        t0 = time.monotonic()
+        path = cbi.write_chatterbox_tts_gguf(d / "chatterbox_random.gguf",
+                                             seed=SEED,
+                                             **sizes.get("chatterbox", {}))
+        bcfg = sizes.get("backbone", cbi.LLAMA_520M)
+        q_path = write_random_backbone_ggufs(
+            {"Q4_K": d / "t3_Q4_K.gguf"}, seed=SEED + 3, cfg=bcfg,
+            rope_scaling=cbi.T3_ROPE_SCALING)["Q4_K"]
+        e_path = cbi.write_qwen3_speaker_gguf(d / "ecapa_random.gguf",
+                                              seed=SEED + 4,
+                                              **sizes.get("ecapa", {}))
+        log("[cbx] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
+            for p in (path, q_path, e_path))
+            + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        reader, e_reader = GGUFReader(path), GGUFReader(e_path)
+        s3g = codec_tpu_torch.load_model(path, device=dev)
+        t3, t3_cpu = (ChatterboxT3(reader, device=x) for x in (dev, "cpu"))
+        lm, lm_cpu = (create_lm(reader, device=x) for x in (dev, "cpu"))
+        bb_cpu = create_backbone(q_path, device="cpu")       # dequantized
+        bb = LlamaBackbone.from_params(bb_cpu.cfg, _moved(bb_cpu.params, dev))
+        bb_q = create_backbone(q_path, quantized=True, device=dev)
+        ecapa, ecapa_cpu = (create_speaker_encoder(e_reader, device=x)
+                            for x in (dev, "cpu"))
+        sync()
+    finally:
+        tmp.cleanup()
+    cfg = bb.cfg
+    per_step = 7 * cfg.n_layers
+    log(f"[cbx] loaded in {time.monotonic() - t0:.2f} s (S3Gen and T3 on the "
+        f"card f32; the backbone dense f32 on the card and the CPU, Q4_K "
+        f"packed on the card): T3 text vocab {t3.info.text_vocab_size}, "
+        f"speech vocab {t3.info.speech_vocab_size}, {len(t3.text_pos_emb)} "
+        f"text / {len(t3.speech_pos_emb)} speech positions; backbone hidden "
+        f"{cfg.hidden}, {cfg.n_layers} layers, {cfg.n_heads} heads x "
+        f"{cfg.head_dim} ({cfg.n_kv_heads} KV), FFN {cfg.ffn_dim}, rope "
+        f"theta {cfg.rope_theta:g} (llama3 factor 8); VoiceEncoder "
+        f"{t3.speaker.cfg.n_mels} mels, LSTM {t3.speaker.cfg.num_layers} x "
+        f"{t3.speaker.cfg.hidden_size}; ECAPA channels "
+        f"{ecapa.cfg.enc_channels}, embedding {ecapa.cfg.enc_dim}")
+
+    head = np.asarray(reader.get("lm.heads_0.weight"), np.float64)
+    greedy = lambda lg: int(np.argmax(lg))
+    second = {}
+
+    def lanes(b, record=False):
+        """Both CFG lanes over b's weights (lane 1 made once a backbone)."""
+        b.reset()
+        other = second.setdefault(id(b), LlamaBackbone.from_params(
+            b.cfg, b.params, b.dtype, b.qmm))
+        other.reset()
+        return [Recorder(b), Recorder(other)] if record else [b, other]
+
+    def request(t3_, lm_, b, on_device=None, record=False, n=frames,
+                ref_pcm=None):
+        ls = lanes(b, record)
+        t = time.perf_counter()
+        res = run_chatterbox(AudioLM(reader, lm=lm_), t3_, ls, LM_TEXT,
+                             max_frames=n, cfg_weight=0.5, sampler=greedy,
+                             on_device=on_device, decode=False,
+                             ref_pcm=ref_pcm, prefill_bucket=CBX_BUCKET)
+        return res, ls, time.perf_counter() - t
+
+    rows = t3.build_prompt(t3.tokenize(LM_TEXT)).shape[1]
+
+    def same_or_tie(label, got, want, rec):
+        """Equal codes, or the first difference a near-tie of the CFG
+        logits on the recorded hiddens of `want`'s run."""
+        n = min(len(got), len(want))
+        diff = np.flatnonzero(got[:n, 0] != want[:n, 0])
+        if not len(diff) and len(got) == len(want):
+            return "codes equal"
+        f = int(diff[0]) if len(diff) else n
+        # a lane's calls: its bucketed prefill, then one step a frame
+        hs = [np.asarray(r.calls[f][2], np.float64) for r in rec]
+        cond, unc = head @ hs[0], head @ hs[1]
+        top = np.sort(cond + 0.5 * (cond - unc))[-2:]
+        margin = float((top[1] - top[0]) / abs(top[1]))
+        if not margin < NEAR_TIE:
+            raise RuntimeError(f"chatterbox {label}: codes first differ at "
+                               f"frame {f}, margin {margin}")
+        return (f"codes first differ at frame {f}: a near-tie (relative "
+                f"top-2 margin {margin:.2e})")
+
+    # -- tts_cli's function: the host path and --on-device --quant-exec ------
+    # the CLI's function loads its own adaptor a call, so its chunk is a new
+    # graph: its warm-up runs the chunk once and its capture records it
+    # (both launch through the wrappers); the replays count nothing
+    graph_launches = 2 * per_step * CBX_CHUNK
+    cli = {}
+    for name, b, kw, want in (
+            ("host f32", bb, {}, {}),
+            ("on-device Q4_K", bb_q, dict(on_device=True,
+                                          chunk_frames=CBX_CHUNK),
+             {"q4_k_matmul": 2 * rows * per_step + graph_launches})):
+        sync()
+        zero_counts()
+        t = time.perf_counter()
+        pcm, n, stop = run_chatterbox_synthesize(
+            s3g, reader, None, LM_TEXT, seed=SEED, max_frames=frames,
+            temperature=0.0, device=dev, bb=b, **kw)
+        sync()
+        total = time.perf_counter() - t
+        got = launches(f"chatterbox {name}", want)
+        for k in got:
+            phase_counts[k] += got[k]
+        if (n, stop) != (frames, "max_frames") \
+                or pcm.shape != (frames * s3g.hop_size,) \
+                or not np.isfinite(pcm).all():
+            raise RuntimeError(f"chatterbox {name}: {n} frames, stop {stop}, "
+                               f"pcm {pcm.shape}")
+        cli[name] = (total, pcm)
+    codes = np.random.default_rng(SEED).integers(0, t3.info.start_speech_token,
+                                                 (frames, 1))
+    dec = []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        s3g.decode(codes)
+        sync()
+        dec.append(time.perf_counter() - t)
+    dec_s = statistics.median(dec)
+
+    # -- codes: card host vs CPU, the chunk (dense, Q4_K) vs the host path ----
+    host, hrec, host_s = request(t3, lm, bb, record=True)
+    cpu, crec, cpu_s = request(t3_cpu, lm_cpu, bb_cpu, record=True)
+    note_cpu = same_or_tie("card vs CPU", host.codes, cpu.codes, crec)
+    prefill_s = sum(r.calls[0][3] for r in hrec)
+    host_ms = (host_s - prefill_s) / frames * 1e3
+    ods = OnDeviceSampling(chunk_frames=CBX_CHUNK)
+    notes = {}
+    for name, b in (("f32", bb), ("Q4_K", bb_q)):
+        # this run captures the chunk's graph (the warm-up's state restored)
+        res, _, gen_s = request(t3, lm, b, on_device=ods)
+        notes[name] = (same_or_tie(f"device {name} vs host", res.codes,
+                                   host.codes, hrec), gen_s)
+    line = (f"[cbx] {frames} greedy frames, prompt {rows} rows a lane (34 "
+            f"conditioning, {rows - 38} text + 2, 2 BOS): tts_cli host f32 "
+            f"{cli['host f32'][0]:.3f} s (the T3, adaptor and lane loads and "
+            f"the one-shot chunk capture included), launches none; "
+            f"on-device Q4_K "
+            f"{cli['on-device Q4_K'][0]:.3f} s, launches "
+            f"{2 * rows * per_step + graph_launches} q4_k_matmul (the "
+            f"per-token prefill, 2 lanes x {rows} rows x {per_step} at m = 1, "
+            f"and the new graph's warm-up and capture, 2 x {per_step} x "
+            f"{CBX_CHUNK} at m = 2; the chunks are replays); pcm "
+            f"{(frames * s3g.hop_size,)} finite; S3Gen decode of "
+            f"{frames} tokens {dec_s * 1e3:.1f} ms (median of 3), "
+            f"{dec_s / cli['host f32'][0]:.1%} of the host request, "
+            f"{dec_s / cli['on-device Q4_K'][0]:.1%} of the on-device one; "
+            f"card host vs CPU: {note_cpu} (CPU {cpu_s:.1f} s); device "
+            f"chunks of {CBX_CHUNK} vs host: f32 {notes['f32'][0]}, Q4_K "
+            f"{notes['Q4_K'][0]}; host path {host_ms:.3f} ms a frame (2 "
+            f"lane steps, the head, host sampling; the 2 lanes' prefills in "
+            f"buckets of {CBX_BUCKET} {prefill_s:.3f} s), device request "
+            f"{notes['Q4_K'][1]:.3f} s Q4_K, {notes['f32'][1]:.3f} s f32 "
+            f"(the prefill and the chunk's capture included)")
+    times.update(host_ms=host_ms, dec_ms=dec_s * 1e3,
+                 request_s={k: v[0] for k, v in cli.items()})
+
+    # one chunk eagerly (its m = 2 launches counted) and its replay
+    runner = next(reversed(bb_q._cbx_chunks.values()))[2]
+    saved = [t.clone() for t in runner.graphed.restore]
+    zero_counts()
+    eager = runner.graphed.eager().clone()
+    got = launches("chatterbox chunk (eager)",
+                   {"q4_k_matmul": per_step * CBX_CHUNK})
+    for k in got:
+        phase_counts[k] += got[k]
+    line += (f"; one Q4_K chunk run eagerly launches {per_step * CBX_CHUNK} "
+             f"q4_k_matmul at m = 2")
+    if cuda:
+        for t, sv in zip(runner.graphed.restore, saved):
+            t.copy_(sv)
+        if not torch.equal(runner.run(), eager):
+            raise RuntimeError("chatterbox chunk: replay != eager run")
+        line += ", its replay equals it bit for bit"
+        for name, b in (("f32", bb), ("Q4_K", bb_q)):
+            rn = next(reversed(b._cbx_chunks.values()))[2]
+            replay = cuda_ms(rn.run, runs=5)
+            prof = call_profile(rn.run, cuda)
+            times[f"replay_{name}"] = (replay / CBX_CHUNK, prof)
+            line += (f"; {name} replay {replay:.3f} ms ({replay / CBX_CHUNK:.3f}"
+                     f" ms a frame), {fmt_profile(prof)}")
+        ls = lanes(bb)
+        h0 = hrec[0].calls[-1][2]
+        alm = AudioLM(reader, lm=lm)
+
+        def host_frame():
+            st = alm.state
+            for lane in ls:
+                st.step_begin(h0)
+                st.step_logits()
+                st.step_push_code(0)
+                st.step_finish()
+                lane.step(t3.compose_speech_embd(5, 1))
+        times["host_profile"] = call_profile(host_frame, cuda)
+        line += (f"; one host frame (2 lane steps and heads): "
+                 f"{fmt_profile(times['host_profile'])}")
+    log(line + f" [{name_limit}]")
+
+    # -- a voice prompt through the VoiceEncoder ------------------------------
+    vr = np.random.default_rng(SEED + 2000)
+    voice = (vr.standard_normal(int(sizes.get("voice_seconds",
+                                               CBX_VOICE_SECONDS) * 16000))
+             * 0.1).astype(np.float32)
+    emb = t3.speaker.embed_ref(voice)
+    e_rel = held("VoiceEncoder embedding card vs CPU", emb,
+                 t3_cpu.speaker.embed_ref(voice))
+    toks = t3.builtin_cond_tokens
+    c_rel = held("conditioning rows card vs CPU",
+                 t3.speaker.cond_emb(emb, toks, 0.5),
+                 t3_cpu.speaker.cond_emb(emb, toks, 0.5))
+    zero_counts()
+    vres, _, v_s = request(t3, lm, bb, n=CBX_VOICE_FRAMES, ref_pcm=voice)
+    launches("chatterbox voice prompt", {})
+    if vres.codes.shape != (CBX_VOICE_FRAMES, 1):
+        raise RuntimeError(f"chatterbox voice prompt: codes {vres.codes.shape}")
+    # -- the Qwen3-TTS ECAPA embedding ----------------------------------------
+    er = np.random.default_rng(SEED + 2001)
+    ref24 = (er.standard_normal(int(sizes.get("ecapa_seconds", ECAPA_SECONDS)
+                                    * ecapa.cfg.sample_rate))
+             * 0.1).astype(np.float32)
+    sync()
+    t = time.perf_counter()
+    row = ecapa.encode(ref24)
+    ecapa_ms = (time.perf_counter() - t) * 1e3
+    x_rel = held("ECAPA embedding card vs CPU", row, ecapa_cpu.encode(ref24))
+    log(f"[cbx] VoiceEncoder on a {len(voice) / 16000:.0f} s 16 kHz voice: "
+        f"embedding card vs CPU {e_rel:.2e} of peak, conditioning rows "
+        f"{c_rel:.2e}; run_chatterbox(ref_pcm=) {CBX_VOICE_FRAMES} frames "
+        f"in {v_s:.3f} s, launches none; Qwen3-TTS ECAPA on "
+        f"{len(ref24) / ecapa.cfg.sample_rate:.0f} s of 24 kHz: row "
+        f"{row.shape}, card vs CPU {x_rel:.2e} of peak, {ecapa_ms:.1f} ms "
+        f"(mel on the host included) [{name_limit}]")
+    del s3g, t3, t3_cpu, lm, lm_cpu, bb, bb_cpu, bb_q, ecapa, ecapa_cpu, second
+    del runner
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[cbx] main path launches: {phase_counts}; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return phase_counts, times
 
@@ -3064,9 +3512,12 @@ def main() -> int:
             log(f"[kernel] {name} out {out_d} in {in_d}: 32 one-hot rows give "
                 f"the dequantized weights bit for bit, f32 and bf16 x")
             del dense
-    # the MOSS-TTSD backbone's (Qwen3-1.7B's) layer shapes at m = 1 and 8,
-    # each with the launch plan it takes
-    for out_d, in_d in QWEN3_QMAT_SHAPES:
+    # the MOSS-TTSD backbone's (Qwen3-1.7B's) layer shapes at m = 1 and 8
+    # and the Chatterbox T3 backbone's (Llama-520M's) at m = 1 and 2, each
+    # with the launch plan it takes
+    for out_d, in_d, ms, tag in (
+            [(o, i, QWEN3_QMAT_MS, "Qwen3") for o, i in QWEN3_QMAT_SHAPES]
+            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]):
         w = qrng.standard_normal((out_d, in_d), dtype=np.float32) * 0.02
         for name, quantize, pack in (
                 ("q8_0_matmul", quantize_q8_0, qmat.pack_q8_0),
@@ -3076,7 +3527,7 @@ def main() -> int:
                     np.frombuffer(quantize(w), np.uint8), w.shape), "cuda")
             qt = qmat_weights[name, out_d, in_d]
             dense = qmat.dequant_ref(qt)
-            for m in QWEN3_QMAT_MS:
+            for m in ms:
                 x = randn((m, in_d), torch.float32, SEED + 170 + m)
                 got = settled(f"{name} {out_d}x{in_d} m{m}",
                               packed_product(name, x, qt))
@@ -3087,7 +3538,7 @@ def main() -> int:
                     raise RuntimeError(f"{name} {out_d}x{in_d} m{m}: max abs "
                                        f"err {err} (peak {peak})")
                 max_err[name] = max(max_err[name], err)
-                log(f"[kernel] {name} Qwen3 out {out_d} in {in_d} m{m} f32: "
+                log(f"[kernel] {name} {tag} out {out_d} in {in_d} m{m} f32: "
                     f"max abs err {err:.3e} (peak {peak:.3f}; bound 1e-4 "
                     f"peak) ok; plan {qmat_cuda.plan(name[:4], m, in_d, out_d)}")
             del dense
@@ -4053,6 +4504,10 @@ def main() -> int:
     log(f"[phase] 9c starts at {time.monotonic() - t_start:.1f} s")
     lm_counts, _ = lm_flows(name_limit, zero_counts, counts, none)
 
+    # -- 9d. Chatterbox TTS: T3 on Llama-520M into S3Gen; the speaker encoders
+    log(f"[phase] 9d starts at {time.monotonic() - t_start:.1f} s")
+    cbx_counts, _ = chatterbox_flow(name_limit, zero_counts, counts, none)
+
     # -- 10. times -------------------------------------------------------------
     log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
     log(f"[time] card: {name_limit}; CUDA events, median of {TIMED_RUNS} "
@@ -4248,22 +4703,31 @@ def main() -> int:
                                dev[2] or l_ev)
             del dense
 
-    # the packed products at the MOSS-TTSD backbone's shapes, m = 1 and 8:
-    # device time (torch.profiler) of the kernel and of F.linear on the
-    # dequantized f32 weight, each beside the bound
-    for out_d, in_d in QWEN3_QMAT_SHAPES:
+    # the packed products at the MOSS-TTSD backbone's shapes, m = 1 and 8,
+    # and at the Chatterbox T3 backbone's, m = 1 and 2: device time
+    # (torch.profiler) of the kernel and of F.linear on the dequantized f32
+    # weight, each beside the bound
+    for out_d, in_d, ms, tag in (
+            [(o, i, QWEN3_QMAT_MS, "Qwen3") for o, i in QWEN3_QMAT_SHAPES]
+            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]):
         for name in ("q8_0_matmul", "q4_k_matmul"):
             qt = qmat_weights[name, out_d, in_d]
             dense = qmat.dequant_ref(qt)
-            for m in QWEN3_QMAT_MS:
+            for m in ms:
                 x = randn((m, in_d), torch.float32, SEED + 180 + m)
-                k_ms = device_ms(lambda: packed_product(name, x, qt))
-                l_ms = device_ms(lambda: F.linear(x, dense))
+                kern = lambda: packed_product(name, x, qt)
+                lib = lambda: F.linear(x, dense)
+                k_ms, l_ms = device_ms(kern), device_ms(lib)
+                # CUDA events of back-to-back calls beside them (the
+                # wrapper's host time included; the profiler's trace of
+                # F.linear at these shapes loses records now and then)
+                k_ev, l_ev = cuda_ms(kern, reps=20), cuda_ms(lib, reps=20)
                 b_ms, b_by = least_time(*qmat_work(out_d, in_d, m, qt))
-                log(f"[time] {name} Qwen3 out {out_d} in {in_d} m{m} f32: "
+                log(f"[time] {name} {tag} out {out_d} in {in_d} m{m} f32: "
                     f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
-                    f"dequantized f32 weight {fmt_ms(l_ms)}; bound "
-                    f"{b_ms:.4f} ms ({b_by})"
+                    f"dequantized f32 weight {fmt_ms(l_ms)}; CUDA events a "
+                    f"call kernel {k_ev:.4f} ms, F.linear {l_ev:.4f} ms; "
+                    f"bound {b_ms:.4f} ms ({b_by})"
                     + (f", {b_ms / k_ms:.1%} of it" if k_ms else "")
                     + f" [{name_limit}]")
             del dense
@@ -4572,10 +5036,10 @@ def main() -> int:
                    + enc_counts["snac_res_chain"],
                    "q8_0_matmul": tts_counts["q8_0_matmul"]
                    + tts_dev_counts["q8_0_matmul"]
-                   + lm_counts["q8_0_matmul"],
+                   + lm_counts["q8_0_matmul"] + cbx_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"]
-                   + lm_counts["q4_k_matmul"],
+                   + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
                    + windowed_counts["rvq_encode_fused"],

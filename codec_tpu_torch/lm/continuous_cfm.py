@@ -12,12 +12,15 @@ Each AR step, on the device:
   LocEnc(patch) → feedback (enc_to_tslm for the backbone, enc_to_lm for RALM)
 
 The RALM KV cache is one [L, 2, n_kv, max_T, D] tensor written in place;
-a step attends slots [0, kv_pos] (codec_tpu's -1e30 mask gives the rest
-zero weight). The guided and unguided LocDiT passes of an Euler step run
-as one batch of two. The patch, the RALM feedback and the prefill rows
-stay on the device from one step to the next; the host reads one packed
-[patch ; stop logits ; feedback] row a step. Teacher forcing and fixed
-noise are the reference's parity hooks (codec_lm_set_teacher_patch).
+a step writes slot kv_pos and attends all max_T slots under codec_tpu's
+-1e30 mask key <= kv_pos, with kv_pos a device tensor: a step
+(`_generate`) has no host read and no shape that depends on the position,
+so lm/fused_gen.py::build_continuous_chunk can capture K of them in a CUDA
+graph. The guided and unguided LocDiT passes of an Euler step run as one
+batch of two. The patch, the RALM feedback and the prefill rows stay on
+the device from one step to the next; the host reads one packed [patch ;
+stop logits ; feedback] row a step. Teacher forcing and fixed noise are
+the reference's parity hooks (codec_lm_set_teacher_patch).
 """
 
 from __future__ import annotations
@@ -213,13 +216,14 @@ class ContinuousLatentCfmLM(CodecLM):
         x = x + F.linear(self._attend(q, k, v, mask), blk["o"])
         return x + self._mlp(blk, norms.rms_norm(x, blk["ln2"], self.eps))
 
-    def _ralm_step(self, x, blk, kv, kv_pos: int):
+    def _ralm_step(self, x, blk, kv, kv_pos, mask):
         """One incremental RALM token (causal, no rope). x [1, h_vox]; kv
-        [2, n_kv, max_T, D] written at slot kv_pos."""
+        [2, n_kv, max_T, D] written at slot kv_pos ([1] int64, on the
+        device); mask [1, max_T] additive (keys <= kv_pos)."""
         q, k, v = self._qkv(blk, norms.rms_norm(x, blk["ln1"], self.eps))
-        kv[0, :, kv_pos] = k[:, 0]
-        kv[1, :, kv_pos] = v[:, 0]
-        ctx = self._attend(q, kv[0, :, : kv_pos + 1], kv[1, :, : kv_pos + 1])
+        kv[0][:, kv_pos] = k
+        kv[1][:, kv_pos] = v
+        ctx = self._attend(q, kv[0], kv[1], mask)
         x = x + F.linear(ctx, blk["o"])
         return x + self._mlp(blk, norms.rms_norm(x, blk["ln2"], self.eps))
 
@@ -264,25 +268,31 @@ class ContinuousLatentCfmLM(CodecLM):
                 self._lin(self.w["enc_to_lm"], cls))
 
     # -- step --------------------------------------------------------------
-    def _step(self, ks, h_in, z, sched, cfg_value: float, le_override):
-        """One generation step on the device → (patch [P, D], fb_lm
-        [h_vox], packed [P·D + 2 + h_barbet]). Advances the KV cache unless
-        the step is the primed one after text_prefill."""
+    def _generate(self, kv, kv_pos, h_in, prev_fb_lm, prev_patch, z, sched,
+                  cfg_value: float, primed=None, le_override=None):
+        """One generation step on the device (codec_tpu's _step_fn): kv
+        [L, 2, n_kv, max_T, D] written at kv_pos ([1] int64 on the device,
+        at most max_T - 1) unless `primed` = (prefill_lm, prefill_res) is
+        given → (patch [P, D], fb_lm [h_vox], packed [P·D + 2 +
+        h_barbet]). No host read: the continuous chunk captures it."""
         tsin, dtsin, dts = sched
-        if ks["primed"]:
-            lm_hidden, residual = ks["prefill_lm"], ks["prefill_res"]
+        if primed is not None:
+            lm_hidden, residual = primed
         else:
             lm_hidden = self._fsq(self._tslm_adapter(h_in))
             x = self._lin(self.w["fusion"],
-                          torch.cat([lm_hidden, ks["prev_fb_lm"]]))[None]
-            for blk, kv in zip(self.w["ralm"], ks["kv"]):
-                x = self._ralm_step(x, blk, kv, ks["kv_pos"])
+                          torch.cat([lm_hidden, prev_fb_lm]))[None]
+            key_pos = torch.arange(self.max_T, device=kv_pos.device)
+            mask = torch.where(key_pos[None, :] <= kv_pos[:, None], 0.0,
+                               -1e30)
+            for blk, kv_l in zip(self.w["ralm"], kv):
+                x = self._ralm_step(x, blk, kv_l, kv_pos, mask)
             residual = norms.rms_norm(x[0], self.w["ralm_norm"], self.eps)
 
         mu = torch.stack([self._lin(self.w["lm_to_dit"], lm_hidden),
                           self._lin(self.w["res_to_dit"], residual)])
         mu2 = torch.stack([mu, torch.zeros_like(mu)])    # guided, unguided
-        cond_h = self._lin(self.w["locdit_cond"], ks["prev_patch"])
+        cond_h = self._lin(self.w["locdit_cond"], prev_patch)
         dt_emb = self._time_mlp("dtime_mlp", dtsin)
         x = z
         for s in range(tsin.shape[0]):
@@ -299,6 +309,15 @@ class ContinuousLatentCfmLM(CodecLM):
         fb_tslm, fb_lm = self._locenc_feedback(
             x if le_override is None else le_override)
         return x, fb_lm, torch.cat([x.reshape(-1), stop_logits, fb_tslm])
+
+    def _step(self, ks, h_in, z, sched, cfg_value: float, le_override):
+        """`_generate` on a state's kind_state (the host path's step)."""
+        primed = ((ks["prefill_lm"], ks["prefill_res"]) if ks["primed"]
+                  else None)
+        kv_pos = torch.tensor([ks["kv_pos"]], device=self.device)
+        return self._generate(ks["kv"], kv_pos, h_in, ks["prev_fb_lm"],
+                              ks["prev_patch"], z, sched, cfg_value, primed,
+                              le_override)
 
     # -- state / public API ------------------------------------------------
     def new_state(self) -> LmState:

@@ -27,7 +27,9 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.sample import gumbel
 from .backbone import backbone_step
@@ -348,3 +350,286 @@ def supports_gen_chunk(lm: Any, backbone: Any) -> bool:
             and getattr(lm, "gen_chunk_ok", lambda: True)()
             and hasattr(backbone, "params") and hasattr(backbone, "kv")
             and hasattr(backbone, "cfg"))
+
+
+# -- the continuous-latent chunk (BlueMagpie / VoxCPM) -------------------------
+
+def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float,
+                           qmm: Optional[Callable] = None) -> Callable:
+    """K steps of the continuous-latent (CFM) flow in one device call
+    (codec_tpu/lm/fused_gen.py::build_continuous_chunk): per step one CFM
+    step (`lm._generate` at primed=False: 9 Euler steps × 2 LocDiT passes
+    + the RALM KV step + the feedbacks) → the stop gate (the stop head's
+    argmax, taken only once patch_index > min_len, as step_generate's host
+    gate) → one backbone step on the fb_tslm feedback.
+
+    chunk(params, bb_kv [1, L, 2, n_kv, >= ctx, D], pos [1], h [1, hidden],
+    kv (the RALM cache), kv_pos [1], patch_index [1], min_len [1],
+    prev_patch [P, D], prev_fb_lm [h_vox], noise [K, P, D], ctx) →
+    (packed f32 [K·P·D + h_barbet + 3], h', pos', kv_pos', patch_index',
+    prev_patch', prev_fb_lm'); bb_kv and kv are written in place. packed =
+    patches.flatten() ++ the last step's fb_tslm ++ [n_emitted, stopped,
+    pos_after], codec_tpu's layout.
+
+    codec_tpu's loop leaves at the stop; a graph runs all K steps, so the
+    stop is data: once stopped, the hidden, the positions, patch_index and
+    the carried patch and feedback are held (`torch.where`), the later
+    steps' patch rows are zeros and their cache writes land at the held
+    slots (the run ends there)."""
+    from ..ops import qmat
+
+    qmm = qmm or qmat.qmatmul
+    k_steps = int(n_steps)
+    max_slot = int(lm.max_T) - 1
+
+    def chunk(params, bb_kv, pos, h, kv, kv_pos, patch_index, min_len,
+              prev_patch, prev_fb_lm, noise, ctx: int):
+        done = torch.zeros_like(pos, dtype=torch.bool)
+        fb_last = None
+        rows, live = [], []
+        for i in range(k_steps):
+            patch, fb_lm, packed = lm._generate(
+                kv, kv_pos.clamp(max=max_slot), h[0], prev_fb_lm, prev_patch,
+                noise[i], sched, cfg_value)
+            pd = patch.numel()
+            stop_lg, fb_tslm = packed[pd:pd + 2], packed[pd + 2:]
+            stop = (stop_lg[1] > stop_lg[0]) & (patch_index > min_len)
+            live.append(~done)
+            rows.append(torch.where(done, 0.0, patch.reshape(-1)))
+            fb_last = fb_tslm if fb_last is None else torch.where(
+                done, fb_last, fb_tslm)
+            prev_patch = torch.where(done, prev_patch, patch)
+            prev_fb_lm = torch.where(done, prev_fb_lm, fb_lm)
+            kv_pos = torch.where(done, kv_pos, kv_pos + 1)
+            patch_index = torch.where(done, patch_index, patch_index + 1)
+            done = done | stop
+            h2 = backbone_step(params, bb_kv, pos, fb_tslm[None].to(bb_kv.dtype),
+                               bb_cfg, ctx, qmm)
+            h = torch.where(done[:, None], h, h2.float())
+            pos = torch.where(done, pos, pos + 1)
+        meta = torch.stack([torch.stack(live).sum(), done[0].long(),
+                            pos[0]]).float()
+        packed = torch.cat([torch.stack(rows).reshape(-1), fb_last, meta])
+        return packed, h, pos, kv_pos, patch_index, prev_patch, prev_fb_lm
+
+    return chunk
+
+
+class ContinuousRunner:
+    """The continuous chunk's static buffers and its graph: the backbone
+    hidden `h` [1, hidden] and position `pos` [1], the CFM state (the RALM
+    cache `kv`, `kv_pos`, `patch_index`, `min_len`, `prev_patch`,
+    `prev_fb_lm`) and the host-drawn `noise` [K, P, D]. `load` copies a
+    state's kind_state in, `store` copies it back; `run()` advances the
+    buffers in place and returns the packed result."""
+
+    def __init__(self, lm, backbone, n_steps: int, n_timesteps: int,
+                 cfg_value: float, ctx: int):
+        dev = backbone.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.k = int(n_steps)
+        self.h = zeros(1, backbone.cfg.hidden)
+        self.pos = zeros(1, dtype=torch.long)
+        self.kv = zeros(lm.n_ralm, 2, lm.n_kv, lm.max_T, lm.head_dim)
+        self.kv_pos = zeros(1, dtype=torch.long)
+        self.patch_index = zeros(1, dtype=torch.long)
+        self.min_len = zeros(1, dtype=torch.long)
+        self.prev_patch = zeros(lm.patch_size, lm.latent_dim)
+        self.prev_fb_lm = zeros(lm.h_vox)
+        self.noise = zeros(self.k, lm.patch_size, lm.latent_dim)
+        chunk = build_continuous_chunk(lm, backbone.cfg, self.k,
+                                       lm.schedule(int(n_timesteps)),
+                                       float(cfg_value), backbone.qmm)
+        params, bb_kv = backbone.params, backbone.kv[None]
+        state = (self.pos, self.kv_pos, self.patch_index, self.prev_patch,
+                 self.prev_fb_lm)
+
+        def step():
+            packed, h, *rest = chunk(params, bb_kv, self.pos, self.h, self.kv,
+                                     self.kv_pos, self.patch_index,
+                                     self.min_len, self.prev_patch,
+                                     self.prev_fb_lm, self.noise, ctx)
+            self.h.copy_(h)
+            for buf, new in zip(state, rest):
+                buf.copy_(new)
+            return packed
+
+        self.graphed = Graphed(step, torch.device(dev), restore=(
+            self.h, *state, self.kv, bb_kv[..., :ctx, :]))
+
+    def load(self, ks, h, pos: int, min_len: int) -> None:
+        """A CFM state (kind_state) after its first step, the backbone
+        hidden that the next step reads, the backbone's position."""
+        self.h.copy_(torch.as_tensor(np.asarray(h, np.float32)).reshape(1, -1))
+        self.pos.fill_(int(pos))
+        self.kv.copy_(ks["kv"])
+        self.kv_pos.fill_(int(ks["kv_pos"]))
+        self.patch_index.fill_(int(ks["patch_index"]))
+        self.min_len.fill_(int(min_len))
+        self.prev_patch.copy_(ks["prev_patch"])
+        self.prev_fb_lm.copy_(ks["prev_fb_lm"])
+
+    def store(self, ks) -> None:
+        """The device half of the CFM state back into a kind_state."""
+        ks["kv"].copy_(self.kv)
+        ks["prev_patch"] = self.prev_patch.clone()
+        ks["prev_fb_lm"] = self.prev_fb_lm.clone()
+
+    def run(self) -> torch.Tensor:
+        return self.graphed.run()
+
+
+def continuous_chunk_cached(lm, backbone, *, n_steps: int, n_timesteps: int,
+                            cfg_value: float, ctx: int) -> ContinuousRunner:
+    """The ContinuousRunner of this (K, Euler steps, CFG value, ctx, LM) on
+    this backbone, built once and kept on the backbone (the _KEEP used
+    last; its graph holds the backbone's weights and KV cache, whose
+    address is in the key with the TF32 settings)."""
+    key = (id(lm), int(n_steps), int(n_timesteps), float(cfg_value), int(ctx),
+           backbone.kv.data_ptr(), repr(backbone.cfg),
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    return _kept(backbone, "_cont_chunks", key, lambda: (lm, ContinuousRunner(
+        lm, backbone, n_steps, n_timesteps, cfg_value, ctx)))[1]
+
+
+# -- the Chatterbox T3 chunk -----------------------------------------------------
+
+def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
+                           rep_pen: float, n_frames: int, *, n_seq: int,
+                           cfg_weight: float, stop_token: int, n_pos: int,
+                           qmm: Optional[Callable] = None) -> Callable:
+    """K frames of the Chatterbox T3 CFG loop in one device call
+    (codec_tpu/lm/fused_gen.py::build_chatterbox_chunk; host loop
+    lm/tts_runner.run_chatterbox). Per frame: the speech head on both
+    lanes' hiddens → cond + w·(cond − uncond) → the T3 sampler chain
+    (repetition penalty over the unbounded history, a [V] seen mask, then
+    temperature → top_k → min_p → top_p with host-drawn Gumbel noise;
+    greedy argmax at temperature <= 0) → the stop on `stop_token` → the
+    speech embedding of the code plus the position row step + 1 (none
+    past the table, as codec_tpu clips it) → one backbone step of the
+    lanes as a batch of `n_seq` (the products at m = n_seq).
+
+    chunk(params, head [V, hidden], speech_emb [V, hidden], pos_emb [P,
+    hidden], kv [S, L, 2, n_kv, >= ctx, D], pos [S], step [1], h [S,
+    hidden] f32, noise [K, V], seen [V] bool, ctx) → (packed int32 [K + 4],
+    h', pos', step', seen'); kv is written in place. packed = codes ++
+    [n_emitted, stopped, pos_after, step_after]: rows past the stop are
+    zeros, and after it the hiddens, positions, step and seen mask are
+    held (the stop is data, as in the codebook chunks)."""
+    from ..ops import qmat
+    from ..ops.sample import apply_repetition_penalty, sample_logits
+
+    qmm = qmm or qmat.qmatmul
+    k_frames, cfg_w, stop = int(n_frames), float(cfg_weight), int(stop_token)
+    greedy = chain[0] <= 0.0
+    use_pen = (not greedy) and rep_pen != 1.0
+
+    def chunk(params, head, speech_emb, pos_emb, kv, pos, step, h, noise,
+              seen, ctx: int):
+        done = torch.zeros_like(step, dtype=torch.bool)
+        codes, live = [], []
+        idx = torch.arange(seen.shape[0], device=seen.device)
+        for i in range(k_frames):
+            lg = F.linear(h, head)                               # [S, V]
+            # [1, V]: the code stays a [1] tensor (a 0-d index would be
+            # read on the host)
+            logits = (lg[:1] + cfg_w * (lg[:1] - lg[1:]) if n_seq == 2
+                      else lg[:1])
+            if greedy:
+                code = torch.argmax(logits, dim=-1)
+            else:
+                pl = apply_repetition_penalty(logits, seen, rep_pen) \
+                    if use_pen else logits
+                code = sample_logits(pl, noise[i:i + 1],
+                                     temperature=chain[0], top_k=chain[1],
+                                     top_p=chain[2], min_p=chain[3])
+            live.append(~done)
+            codes.append(torch.where(done, 0, code))
+            seen = seen | ((idx == code) & ~done)
+            done = done | (code == stop)
+            nxt = step + 1
+            emb = speech_emb[code] + torch.where(
+                nxt[:, None] < n_pos, pos_emb[nxt.clamp(0, n_pos - 1)], 0.0)
+            h2 = backbone_step(params, kv, pos,
+                               emb.expand(n_seq, -1).to(kv.dtype), bb_cfg,
+                               ctx, qmm)
+            h = torch.where(done, h, h2.float())
+            pos = torch.where(done, pos, pos + 1)
+            step = torch.where(done, step, nxt)
+        meta = torch.stack([torch.stack(live).sum(), done[0].long(), pos[0],
+                            step[0]])
+        packed = torch.cat([torch.stack(codes).reshape(-1), meta])
+        return packed.to(torch.int32), h, pos, step, seen
+
+    return chunk
+
+
+class ChatterboxRunner:
+    """The Chatterbox chunk's static buffers and its graph: both lanes' KV
+    caches as one [S, L, 2, n_kv, ctx, D] tensor (owned here; the host
+    copies each lane's prefill in), their hiddens `h` [S, hidden] and
+    position `pos` [S], the frame index `step` [1], the sampler's `seen`
+    mask [V] and the host-drawn Gumbel `noise` [K, V]. `run()` advances
+    them in place and returns the packed result."""
+
+    def __init__(self, head, speech_emb, pos_emb, backbone, chain,
+                 rep_pen: float, n_frames: int, n_seq: int, cfg_weight: float,
+                 stop_token: int, ctx: int):
+        cfg, dev = backbone.cfg, backbone.device
+        self.k, self.vocab = int(n_frames), int(head.shape[0])
+        self.kv = torch.zeros((n_seq, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
+                               cfg.head_dim), dtype=backbone.dtype, device=dev)
+        self.h = torch.zeros((n_seq, cfg.hidden), dtype=torch.float32,
+                             device=dev)
+        self.pos = torch.zeros((n_seq,), dtype=torch.long, device=dev)
+        self.step = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.seen = torch.zeros((self.vocab,), dtype=torch.bool, device=dev)
+        self.noise = torch.zeros((self.k, self.vocab), dtype=torch.float32,
+                                 device=dev)
+        chunk = build_chatterbox_chunk(
+            cfg, chain, rep_pen, self.k, n_seq=n_seq, cfg_weight=cfg_weight,
+            stop_token=stop_token, n_pos=int(pos_emb.shape[0]),
+            qmm=backbone.qmm)
+        params = backbone.params
+        state = (self.h, self.pos, self.step, self.seen)
+
+        def run():
+            packed, *new = chunk(params, head, speech_emb, pos_emb, self.kv,
+                                 self.pos, self.step, self.h, self.noise,
+                                 self.seen, ctx)
+            for buf, t in zip(state, new):
+                buf.copy_(t)
+            return packed
+
+        self.graphed = Graphed(run, torch.device(dev),
+                               restore=(*state, self.kv))
+
+    def draw_noise(self, gen: torch.Generator) -> None:
+        """Fresh Gumbel noise for the K frames, one [V] draw a frame."""
+        self.noise.copy_(gumbel((self.k, self.vocab), gen, self.noise.device))
+
+    def run(self) -> torch.Tensor:
+        return self.graphed.run()
+
+
+def chatterbox_chunk_cached(lm, t3, backbone, *, chain, rep_pen: float,
+                            n_frames: int, n_seq: int, cfg_weight: float,
+                            ctx: int) -> ChatterboxRunner:
+    """The ChatterboxRunner of this (sampler chain, penalty, K, lanes, CFG
+    weight, ctx, T3) on this backbone (whose weights both lanes share), kept
+    on the backbone (the _KEEP used last)."""
+    key = (id(lm), id(t3), tuple(chain), float(rep_pen), int(n_frames),
+           int(n_seq), float(cfg_weight), int(ctx), repr(backbone.cfg),
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    speech_emb, pos_emb = t3.speech_tables(backbone.device)
+
+    def make():
+        return (lm, t3, ChatterboxRunner(
+            lm.heads[0], speech_emb, pos_emb, backbone, chain, rep_pen,
+            n_frames, n_seq, cfg_weight, t3.info.stop_speech_token, ctx))
+    return _kept(backbone, "_cbx_chunks", key, make)[2]

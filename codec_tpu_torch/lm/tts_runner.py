@@ -8,14 +8,16 @@ samples with a caller-supplied sampler on the host, and drives the
 codec_lm step machine.
 
 Ported flows: run_codebook_ar (CSM / Qwen3-TTS / MOSS-TTSD, Type C/D) on
-its host path and on the device (`on_device`: the fused frame with
-in-graph sampling, one frame or a chunk of K frames per device call, each
-a CUDA graph replay on the card; lm/fused_gen.py), with the delay-tail
-flush and the EOS-frame drop; run_codebook_ar_batch, B streams through
-one batched chunk; and run_continuous (BlueMagpie continuous-latent CFM),
-one step per call. GBNF grammars, the continuous chunk (chunk_steps > 1)
-and the other flows (Chatterbox, realtime streaming, LFM2) raise "not
-ported yet".
+its host path (with a GBNF grammar on cb0, lm/gbnf.py) and on the device
+(`on_device`: the fused frame with in-graph sampling, one frame or a chunk
+of K frames per device call, each a CUDA graph replay on the card;
+lm/fused_gen.py), with the delay-tail flush and the EOS-frame drop;
+run_codebook_ar_batch, B streams through one batched chunk;
+run_continuous (BlueMagpie continuous-latent CFM), one step a call or K
+steps a CUDA-graph chunk; and run_chatterbox (the Chatterbox T3 CFG loop:
+one backbone per lane on the host, or both lanes as one batch in
+CUDA-graph chunks). The realtime-streaming and LFM2 flows are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -116,6 +118,20 @@ class SamplerChain:
         code = int(self.rng.choice(len(probs), p=probs))
         self.history.append(code)
         return code
+
+
+class T3Sampler(SamplerChain):
+    """Chatterbox T3 preset: penalties (full history, BOS-seeded) → temp →
+    min_p → top_p (reference: tts_runner.cpp:965-975)."""
+
+    def __init__(self, seed: int = 0xC0DEC1AB, temperature: float = 0.8,
+                 top_p: float = 1.0, min_p: float = 0.05,
+                 repetition_penalty: float = 1.2,
+                 seed_token: Optional[int] = None):
+        super().__init__(seed=seed, temperature=temperature, top_k=0,
+                         top_p=top_p, min_p=min_p,
+                         repetition_penalty=repetition_penalty,
+                         repetition_window=-1, seed_token=seed_token)
 
 
 class RangeConstraint:
@@ -241,6 +257,7 @@ def run_codebook_ar(
     on_device: Optional[OnDeviceSampling] = None,
     grammar: str = "",
     prefill_bucket: int = 0,
+    token_pieces: Optional[Sequence[str]] = None,
 ) -> SynthesisResult:
     """Type C/D AR loop (reference: run_codebook_ar, tts_runner.cpp:707).
 
@@ -248,8 +265,13 @@ def run_codebook_ar(
     sample / push × n_cb → finish) → EOS check → compose the next backbone
     input. `prefill_bucket > 0`: whole-prompt bucketed prefill (see
     `prefill_prompt`). `pi` (PromptInfo) with a cb0 speech range set
-    range-constrains cb0 sampling (MOSS-TTSD). `grammar` is not ported yet
-    and raises.
+    range-constrains cb0 sampling (MOSS-TTSD).
+
+    `grammar` + `token_pieces`: a GBNF constraint on the cb0 sampler
+    (reference: tts_runner.h:64-73, never on the audio-codebook heads;
+    lm/gbnf.py's pushdown matcher); `token_pieces[i]` is token i's
+    detokenized text. It takes precedence over the range constraint and
+    forces the host sampling path (`on_device` is then not used).
 
     `on_device` (ops.sample.OnDeviceSampling): the whole frame (every
     codebook and its sampling, the cb0 range in-graph) runs on the device
@@ -263,10 +285,28 @@ def run_codebook_ar(
     so both paths draw the same stream."""
     if audio_lm.lm is None:
         raise ValueError("model has no codec_lm adaptor")
-    if grammar:
-        raise ValueError("grammar-constrained sampling is not ported yet")
+    if grammar and token_pieces is None:
+        raise ValueError(
+            "grammar requires token_pieces (the per-token detokenized "
+            "strings); without them the constraint would be silently "
+            "dropped")
     cb0_range = _cb0_range(pi)
-    if cb0_range is not None:
+    if grammar:
+        from .gbnf import GrammarSampler
+
+        base = sampler
+        eog = (pi.eos_code_c0,) if pi is not None and pi.eos_code_c0 >= 0 \
+            else ()
+        gs = GrammarSampler(grammar, token_pieces,
+                            lambda lg, _b=base: _b(0, lg), eog_tokens=eog)
+
+        def sampler(cb, lg, _gs=gs, _b=base):
+            if cb != 0:
+                return _b(cb, lg)
+            tok = _gs(lg)
+            _gs.accept(tok)                  # cb0 picks are always pushed
+            return tok
+    elif cb0_range is not None:
         base = sampler
         rc = RangeConstraint(lambda lg: base(0, lg), cb0_range[0],
                              cb0_range[1], extra=(pi.eos_code_c0,))
@@ -275,7 +315,8 @@ def run_codebook_ar(
     audio_lm.reset()
     st = audio_lm.state
     lm = audio_lm.lm
-    device = on_device is not None and hasattr(lm, "_build_frame")
+    device = on_device is not None and hasattr(lm, "_build_frame") \
+        and not grammar
     gen = None
     if device:
         from .fused_gen import (chunk_ctx, frame_cached, gen_chunk_cached,
@@ -387,15 +428,19 @@ def run_continuous(
     patches; reference --min-len). The noise is the state's host
     generator's, as codec_tpu draws it.
 
+    `chunk_steps > 1` with a backbone the chunk can run (weights, KV cache
+    and config: LlamaBackbone) chains K whole steps (CFM step + stop gate
+    + backbone step) per device call, on CUDA one replay of a captured
+    graph (lm/fused_gen.py::build_continuous_chunk), after the first
+    post-prefill step, which runs per step (it may be the primed one).
+    Each chunk draws its K noises [K, P, D] from the state's generator, as
+    codec_tpu does, so the latents are those of K single steps with the
+    same noise.
+
     → SynthesisResult whose `codes` are the latents [n_steps · patch,
-    latent_dim] and `pcm` their decode_latent. `chunk_steps > 1` (several
-    steps per device call, codec_tpu's build_continuous_chunk) is not
-    ported yet and raises."""
+    latent_dim] and `pcm` their decode_latent."""
     if audio_lm.lm is None or not audio_lm.is_continuous:
         raise ValueError("run_continuous requires a continuous-latent codec_lm")
-    if chunk_steps > 1:
-        raise ValueError("the continuous chunk (chunk_steps > 1, "
-                         "--on-device) is not ported yet")
     audio_lm.reset()
     if min_len >= 0:
         audio_lm.lm.set_min_len(audio_lm.state, int(min_len))
@@ -406,11 +451,53 @@ def run_continuous(
         h = backbone.step(np.asarray(e, np.float32))
     if h is None:
         raise ValueError("prompt_embeds must contain at least one embedding")
+    lm = audio_lm.lm
+    use_chunk = chunk_steps > 1 and hasattr(backbone, "params") \
+        and hasattr(backbone, "kv") and hasattr(backbone, "cfg")
 
-    # the first step always runs (it may be the primed one), as codec_tpu's
+    # the first step always runs per step (it may be the primed one), as
+    # codec_tpu's
     stopped = audio_lm.observe_hidden(h) is ObserveAction.STOP
     steps = 1
-    while steps < max_steps and not stopped:
+    if use_chunk and not stopped and steps < max_steps:
+        from .base import LmError
+        from .fused_gen import chunk_ctx, continuous_chunk_cached
+
+        ks = audio_lm.state.kind_state
+        k = int(chunk_steps)
+        p, d, hb = lm.patch_size, lm.latent_dim, lm.h_barbet
+        pd = p * d
+        h = backbone.step(audio_lm.next_embed)
+        runs = -(-(max_steps - steps) // k) * k
+        runner = continuous_chunk_cached(
+            lm, backbone, n_steps=k,
+            n_timesteps=getattr(audio_lm, "_n_timesteps", 10),
+            cfg_value=getattr(audio_lm, "_cfg_value", 2.0),
+            ctx=chunk_ctx(backbone, backbone.pos + runs + 1))
+        runner.load(ks, h, backbone.pos,
+                    ks["min_len"] if ks["min_len"] >= 0 else lm.min_len)
+        while steps < max_steps and not stopped:
+            if ks["kv_pos"] >= lm.max_T:
+                raise LmError("RALM KV cache full")
+            runner.noise.copy_(torch.from_numpy(np.stack(
+                [ks["rng"].standard_normal((p, d)) for _ in range(k)]
+            ).astype(np.float32)))
+            arr = runner.run().cpu().numpy()
+            n_emit, done = int(arr[-3]), bool(arr[-2])
+            backbone.pos = int(arr[-1])
+            if n_emit == 0:
+                break
+            take = min(n_emit, max_steps - steps, lm.max_T - ks["kv_pos"])
+            patches = arr[: k * pd].reshape(k, p, d)
+            audio_lm.latents.extend(patches[i].copy() for i in range(take))
+            steps += take
+            ks["kv_pos"] += n_emit
+            ks["patch_index"] += n_emit
+            ks["fb_tslm"] = arr[k * pd: k * pd + hb].copy()
+            audio_lm.next_embed = ks["fb_tslm"]
+            stopped = done and take == n_emit
+        runner.store(ks)
+    while not use_chunk and steps < max_steps and not stopped:
         h = backbone.step(audio_lm.next_embed)
         stopped = audio_lm.observe_hidden(h) is ObserveAction.STOP
         steps += 1
@@ -421,6 +508,157 @@ def run_continuous(
         pcm = audio_lm.codec.decode_latent(latents)
     return SynthesisResult(codes=latents, pcm=pcm, n_steps=steps,
                            stopped_by_eos=stopped)
+
+
+def run_chatterbox(
+    audio_lm: AudioLM,
+    t3,
+    backbones: Sequence[Backbone],
+    text: str,
+    max_frames: int = 1024,
+    cfg_weight: float = 0.5,
+    sampler: Optional[Callable[[np.ndarray], int]] = None,
+    speaker_emb=None,
+    ref_speech_tokens=None,
+    ref_pcm=None,
+    emotion: Optional[float] = None,
+    decode: bool = True,
+    on_device: Optional[OnDeviceSampling] = None,
+    prefill_bucket: int = 0,
+) -> SynthesisResult:
+    """Chatterbox T3 flow (reference: run_chatterbox, tts_runner.cpp:876).
+
+    `t3` is a ChatterboxT3; `backbones` holds one Backbone per CFG lane
+    (the reference multiplexes lanes through llama seq-ids; here each lane
+    owns a backbone with its own KV state, and may share weights with the
+    others: LlamaBackbone.from_params). Per frame on the host: the speech
+    head's logits per lane through the codec_lm step machine → CFG combine
+    cond + w·(cond − uncond) → sample → stop on stop_speech_token → the
+    next speech embedding fed to every lane. `cfg_weight` 0 runs one lane.
+
+    `on_device` with backbones the chunk can run: the loop runs as K-frame
+    device chunks (lm/fused_gen.py::build_chatterbox_chunk; on CUDA one
+    graph replay a chunk): the lanes ride as one batch through the first
+    backbone's weights, the T3 sampler chain (repetition penalty,
+    temperature, top_k, min_p, top_p from `on_device`; greedy at
+    temperature <= 0) runs in the graph on Gumbel noise drawn from a
+    torch.Generator seeded by on_device.seed; `sampler` is then unused.
+    `prefill_bucket` buckets each lane's prompt prefill either way."""
+    text_ids = t3.tokenize(text)
+    prompt = t3.build_prompt(text_ids, cfg_weight=cfg_weight,
+                             speaker_emb=speaker_emb,
+                             ref_speech_tokens=ref_speech_tokens,
+                             ref_pcm=ref_pcm, emotion=emotion)
+    n_seq = prompt.shape[0]
+    if len(backbones) < n_seq:
+        raise ValueError(f"chatterbox needs {n_seq} backbone lanes "
+                         f"(cfg_weight={cfg_weight})")
+    if sampler is None:
+        sampler = T3Sampler(seed_token=t3.info.start_speech_token)
+
+    hiddens = [prefill_prompt(backbones[s], list(prompt[s]),
+                              bucket=prefill_bucket) for s in range(n_seq)]
+
+    if on_device is not None and all(
+            hasattr(b, "params") and hasattr(b, "kv") and hasattr(b, "cfg")
+            for b in backbones[:n_seq]):
+        return _run_chatterbox_chunked(
+            audio_lm, t3, backbones[:n_seq], hiddens, on_device,
+            max_frames=max_frames, cfg_weight=cfg_weight, decode=decode)
+
+    def speech_logits(h):
+        st = audio_lm.state
+        st.step_begin(np.asarray(h, np.float32))
+        logits, _ = st.step_logits()
+        st.step_push_code(0)
+        st.step_finish()
+        return logits
+
+    audio_lm.reset()
+    codes: List[int] = []
+    stopped = False
+    steps = 0
+    for step in range(max_frames):
+        cond = speech_logits(hiddens[0])
+        logits = cond
+        if n_seq == 2:
+            uncond = speech_logits(hiddens[1])
+            logits = cond + cfg_weight * (cond - uncond)
+        code = sampler(np.asarray(logits))
+        steps += 1
+        if code == t3.info.stop_speech_token:
+            stopped = True
+            break
+        if code < t3.info.start_speech_token:
+            codes.append(code)
+        nb = t3.compose_speech_embd(code, step + 1)
+        hiddens = [backbones[s].step(nb) for s in range(n_seq)]
+    return _chatterbox_result(audio_lm, codes, steps, stopped, decode)
+
+
+def _chatterbox_result(audio_lm, codes, steps, stopped, decode):
+    codes_arr = np.asarray(codes, np.int32).reshape(-1, 1)
+    pcm = None
+    if decode and audio_lm.codec is not None and len(codes_arr):
+        pcm = _decode_transformed(audio_lm, codes_arr)
+    return SynthesisResult(codes=codes_arr, pcm=pcm, n_steps=steps,
+                           stopped_by_eos=stopped)
+
+
+def _run_chatterbox_chunked(audio_lm, t3, backbones, hiddens,
+                            on_device: OnDeviceSampling, *,
+                            max_frames: int, cfg_weight: float,
+                            decode: bool) -> SynthesisResult:
+    """The chunked device loop of run_chatterbox (contract there): the
+    lanes' caches are copied once into the runner's [S, ...] cache; the
+    sampler's unbounded repetition history is a [V] seen mask on the
+    device, seeded with the BOS speech token (T3Sampler's seed_token)."""
+    from .fused_gen import chatterbox_chunk_cached, chunk_ctx
+
+    info = t3.info
+    n_seq = len(backbones)
+    k = max(2, int(on_device.chunk_frames))
+    chain = (float(on_device.temperature), int(on_device.top_k),
+             float(on_device.top_p), float(on_device.min_p))
+    bb = backbones[0]
+    pos = int(bb.pos)
+    runs = -(-max_frames // k) * k
+    ctx = chunk_ctx(bb, pos + runs + 1)
+    runner = chatterbox_chunk_cached(
+        audio_lm.lm, t3, bb, chain=chain,
+        rep_pen=float(on_device.repetition_penalty), n_frames=k,
+        n_seq=n_seq, cfg_weight=cfg_weight, ctx=ctx)
+    for s, lane in enumerate(backbones):
+        runner.kv[s].copy_(lane.kv[..., :ctx, :])
+    runner.h.copy_(torch.as_tensor(np.stack(
+        [np.asarray(x, np.float32) for x in hiddens])))
+    runner.pos.fill_(pos)
+    runner.seen.zero_()
+    runner.seen[info.start_speech_token] = True
+    gen = (torch.Generator(device=runner.h.device).manual_seed(on_device.seed)
+           if chain[0] > 0.0 else None)
+
+    audio_lm.reset()
+    codes: List[int] = []
+    stopped = False
+    steps = 0
+    while not stopped and steps < max_frames:
+        runner.step.fill_(steps)
+        if gen is not None:
+            runner.draw_noise(gen)
+        arr = runner.run().cpu().numpy()
+        n_emit = int(arr[k])
+        if n_emit == 0:
+            break
+        for i in range(min(n_emit, max_frames - steps)):
+            code = int(arr[i])
+            steps += 1
+            if code == info.stop_speech_token:
+                stopped = True
+                break
+            if code < info.start_speech_token:
+                codes.append(code)
+    return _chatterbox_result(audio_lm, codes, steps, stopped, decode)
 
 
 def slice_slot(arr: torch.Tensor, s: int) -> torch.Tensor:

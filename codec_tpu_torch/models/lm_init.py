@@ -109,23 +109,25 @@ def write_random_backbone_gguf(path: Union[str, Path], seed: int = 0,
                                qtype: str = "Q4_K",
                                cfg: BackboneConfig = LLAMA_3_2_1B,
                                rope_scaling: Optional[dict] = LLAMA3_SCALING,
-                               spm_b64: str = "") -> Path:
+                               spm_b64: str = "", bpe_zb64: str = "") -> Path:
     """A llama_backbone GGUF with random weights from `seed`: the layer
     matrices in `qtype` (Q4_K, Q8_0 or F32; Q4_K needs every matrix's
     input width to be a multiple of 256), tok_embd (and an untied lm_head)
     in F16, norms and biases in F32. The draws do not depend on `qtype`,
     so one seed gives the same weights in every type. `rope_scaling`
-    (llama3) bakes `backbone.rope_freq_factors`; `spm_b64` bakes a
-    tokenizer (`spm_model_b64`)."""
+    (llama3) bakes `backbone.rope_freq_factors`; `spm_b64` bakes an SPM
+    tokenizer (`spm_model_b64`), `bpe_zb64` a byte-level BPE one (a
+    tokenizer.json in lm/bpe.py's KV form, BpeByteLevel.json_to_zb64)."""
     return write_random_backbone_ggufs({qtype: path}, seed, cfg,
-                                       rope_scaling, spm_b64)[qtype]
+                                       rope_scaling, spm_b64, bpe_zb64)[qtype]
 
 
 def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
                                 seed: int = 0,
                                 cfg: BackboneConfig = LLAMA_3_2_1B,
                                 rope_scaling: Optional[dict] = LLAMA3_SCALING,
-                                spm_b64: str = "") -> Dict[str, Path]:
+                                spm_b64: str = "",
+                                bpe_zb64: str = "") -> Dict[str, Path]:
     """write_random_backbone_gguf for several layer-matrix types at once
     ({qtype: path}): the weights are drawn once and each file gets them in
     its type, the same files as one call per type. The matrices are
@@ -154,6 +156,8 @@ def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
         wr.add_bool("backbone.tied_lm_head", cfg.tied_lm_head)
         if spm_b64:
             wr.add_string("backbone.tokenizer.spm_b64", spm_b64)
+        if bpe_zb64:
+            wr.add_string("backbone.tokenizer.bpe_json_zb64", bpe_zb64)
 
     # (name, future or array, storage type per qtype) in file order
     queue = []

@@ -204,10 +204,13 @@ def write_random_s3g_gguf(path: Union[str, Path], seed: int = 0,
                           cfm_ch: int = 256, ted: int = 1024,
                           cfm_ff: int = 1024,
                           hift_ch: Sequence[int] = (512, 256, 128, 64),
-                          prompt_tokens: int = PROMPT_TOKENS) -> None:
+                          prompt_tokens: int = PROMPT_TOKENS,
+                          extra=None) -> None:
     """A Chatterbox S3Gen GGUF (F32, decoder only, builtin conditioning)
     with random weights from `seed`; the prompt is `prompt_tokens` random
-    speech tokens and 2 × as many mel frames."""
+    speech tokens and 2 × as many mel frames. `extra(writer)` adds more
+    KVs and tensors (the T3 section: chatterbox_init.py) before the
+    file is written."""
     rng = np.random.default_rng(seed)
     P = _Draws(rng)
     prompt = rng.integers(0, cfg.codebook_size, prompt_tokens)
@@ -240,4 +243,6 @@ def write_random_s3g_gguf(path: Union[str, Path], seed: int = 0,
     wr.add_array("chatterbox_s3g.cond.prompt_token", [int(t) for t in prompt])
     for name, arr in P.p.items():
         wr.add_tensor(name, arr, "F32")
+    if extra is not None:
+        extra(wr)
     wr.write()

@@ -165,6 +165,9 @@ class OnDeviceSampling:
     min_p: float = 0.0
     seed: int = 0xC0DEC1AB
     chunk_frames: int = 1
+    # the Chatterbox chunk's repetition penalty over its whole history; the
+    # codebook-AR chunks take none
+    repetition_penalty: float = 1.0
 
     def chain_vec(self) -> np.ndarray:
         """This config's chain as the f32[4] row `sample_logits_dyn` takes."""

@@ -252,9 +252,16 @@ def test_errors(tiny, engines):
         lm.text_prefill(lm.new_state(), np.zeros((lm.max_T + 1, HB), np.float32))
     port = engines[0]
     alm = AudioLM(port["reader"], codec=port["codec"], lm=port["lm"])
-    with pytest.raises(ValueError, match="not ported yet"):
-        tts_runner.run_continuous(alm, port["bb"], [np.zeros(CFM.hidden)],
-                                  chunk_steps=4)
+    # a backbone with only the host step cannot be chained: chunk_steps
+    # then runs one step a call
+    port["bb"].reset()
+    one = tts_runner.run_continuous(alm, _Rec(port["bb"]),
+                                    [np.zeros(CFM.hidden)], max_steps=3,
+                                    min_len=3, chunk_steps=4, decode=False)
+    port["bb"].reset()
+    want = tts_runner.run_continuous(alm, port["bb"], [np.zeros(CFM.hidden)],
+                                     max_steps=3, min_len=3, decode=False)
+    np.testing.assert_array_equal(one.codes, want.codes)
     with pytest.raises(LmError, match="continuous kinds"):
         alm.state.step_is_eos([1])
 
@@ -277,9 +284,11 @@ def _continuous(eng, ids, **kw):
     eng["bb"].reset()
     alm = alm_cls(eng["reader"], codec=eng["codec"], lm=eng["lm"])
     alm.set_continuous_params(n_timesteps=kw.pop("timesteps", 10))
-    rec = _Rec(eng["bb"])
+    # the chunk needs the backbone itself (its hiddens are not recorded)
+    rec = _Rec(eng["bb"]) if kw.get("chunk_steps", 1) == 1 else eng["bb"]
     res = run(alm, rec, list(eng["bb"].embed_tokens(ids)), **kw)
-    return res, rec.hs
+    eng["last_state"] = alm.state.kind_state
+    return res, getattr(rec, "hs", None)
 
 
 @pytest.mark.parametrize("case", ["guarded", "stop_head"])
@@ -310,9 +319,89 @@ def test_run_continuous_matches(engines, case):
     assert _corr(got.pcm, want.pcm) > 0.9999
 
 
+@pytest.mark.parametrize("case", ["guarded", "stop_head"])
+def test_chunk_equals_single_steps_and_codec_tpu(engines, case):
+    """run_continuous(chunk_steps=4) (the first step per step, then chunks
+    of K = 4 steps, eagerly on the CPU) against the port's single steps
+    with the same noise (bit for bit) and codec_tpu's chunked run
+    (build_continuous_chunk): latents, steps, the stop (the stop head's
+    stop lands inside a chunk), and the state after it."""
+    port, ref = engines
+    ids = list(np.random.default_rng(9).integers(0, BB.vocab_size, 6))
+    kw = dict(max_steps=9, timesteps=6,
+              min_len=9 if case == "guarded" else -1)
+    one, hs = _continuous(port, ids, **dict(kw))
+    st_one = port["last_state"]
+    got, _ = _continuous(port, ids, chunk_steps=4, **dict(kw))
+    st_got = port["last_state"]
+    want, _ = _continuous(ref, ids, chunk_steps=4, **dict(kw))
+    np.testing.assert_array_equal(got.codes, one.codes)
+    assert (got.n_steps, got.stopped_by_eos) == (one.n_steps,
+                                                 one.stopped_by_eos)
+    for key in ("kv_pos", "patch_index"):
+        assert st_got[key] == st_one[key]
+    np.testing.assert_array_equal(st_got["fb_tslm"], st_one["fb_tslm"])
+    for key in ("prev_patch", "prev_fb_lm"):
+        assert torch.equal(st_got[key], st_one[key]), key
+    # the RALM cache up to the position (the held steps after a stop write
+    # the next slot, which nothing reads)
+    n = st_one["kv_pos"]
+    assert torch.equal(st_got["kv"][..., :n, :], st_one["kv"][..., :n, :])
+    steps = min(got.n_steps, want.n_steps)
+    tie = next((k for k, h in enumerate(hs[len(ids) - 1:][:steps])
+                if not _fsq_same(port["lm"], ref["lm"], h)), None)
+    rows = (steps if tie is None else tie) * CFM.patch_size
+    _close(got.codes[:rows], want.codes[:rows])
+    if tie is None:
+        assert (got.n_steps, got.stopped_by_eos) == (want.n_steps,
+                                                     want.stopped_by_eos)
+    if case == "guarded":
+        assert got.n_steps == 9 and not got.stopped_by_eos
+    else:
+        assert got.stopped_by_eos and (got.n_steps - 1) % 4 != 0
+
+
+def test_chunk_runner_packed_layout(engines):
+    """One chunk of K = 4 from a state after its first step: codec_tpu's
+    packed layout (patches, the last step's fb_tslm, [n_emitted, stopped,
+    pos_after]), n_emitted = 4 without a stop, the runner's buffers
+    advanced in place, and a second runner of the same key the same
+    object."""
+    from codec_tpu_torch.lm.fused_gen import continuous_chunk_cached
+
+    port, _ = engines
+    lm, bb = port["lm"], port["bb"]
+    bb.reset()
+    alm = AudioLM(port["reader"], codec=port["codec"], lm=lm)
+    alm.set_continuous_params(n_timesteps=4)
+    h = None
+    for e in bb.embed_tokens([5, 9, 11]):
+        h = bb.step(e)
+    lm.set_min_len(alm.state, 100)
+    alm.observe_hidden(h)
+    h = bb.step(alm.next_embed)
+    kw = dict(n_steps=4, n_timesteps=4, cfg_value=2.0, ctx=64)
+    runner = continuous_chunk_cached(lm, bb, **kw)
+    assert continuous_chunk_cached(lm, bb, **kw) is runner
+    ks = alm.state.kind_state
+    runner.load(ks, h, bb.pos, 100)
+    rng = np.random.default_rng(3)
+    runner.noise.copy_(torch.from_numpy(rng.standard_normal(
+        (4, CFM.patch_size, CFM.latent_dim)).astype(np.float32)))
+    arr = runner.run().numpy()
+    pd = CFM.patch_size * CFM.latent_dim
+    assert arr.shape == (4 * pd + CFM.hidden + 3,)
+    assert list(arr[-3:]) == [4, 0, bb.pos + 4]
+    assert int(runner.kv_pos[0]) == ks["kv_pos"] + 4
+    assert int(runner.patch_index[0]) == ks["patch_index"] + 4
+    np.testing.assert_array_equal(runner.prev_patch.numpy().ravel(),
+                                  arr[3 * pd: 4 * pd])
+
+
 def test_cli_synthesize_matches_reference(files, tmp_path, capsys):
     """tts-cli-torch synthesize on the BlueMagpie file with --min-len and
-    --timesteps, against codec_tpu's CLI; --on-device raises."""
+    --timesteps, against codec_tpu's CLI; --on-device (the continuous
+    chunk) gives the same PCM."""
     model, bb = files
     args = ["synthesize", "--model", str(model), "--backbone", str(bb),
             "--text", "hello there", "--max-frames", "5", "--min-len", "5",
@@ -326,5 +415,7 @@ def test_cli_synthesize_matches_reference(files, tmp_path, capsys):
     assert sr == jsr == 48000 and got.shape == want.shape == (5 * 2 * 6, 1)
     assert _corr(got, want) > 0.9999
     assert main(args + ["--out", str(tmp_path / "x.wav"), "--device", "cpu",
-                        "--on-device"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+                        "--on-device", "--chunk-frames", "2"]) == 0
+    assert "continuous AR done: 5 steps" in capsys.readouterr().out
+    dev, _ = read_wav(tmp_path / "x.wav")
+    np.testing.assert_array_equal(dev, got)

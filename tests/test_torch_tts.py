@@ -336,8 +336,9 @@ def test_eos_drop_and_delay_flush_match(files, eos_code, delays):
 
 
 def test_run_codebook_ar_rejects_unported_paths(engines):
-    """Grammars still raise; on-device sampling runs (its parity with
-    codec_tpu is tests/test_torch_fused.py's)."""
+    """A grammar without its token pieces raises, as codec_tpu's does (the
+    grammar flow is tests/test_torch_gbnf.py's); on-device sampling runs
+    (its parity with codec_tpu is tests/test_torch_fused.py's)."""
     from codec_tpu_torch.ops.sample import OnDeviceSampling
 
     port, _ = engines
@@ -384,7 +385,8 @@ def test_cli_errors(files, tmp_path, capsys):
     base = ["synthesize", "--model", str(model), "--text", "hi", "--out",
             str(tmp_path / "o.wav"), "--device", "cpu", "--max-frames", "2"]
     cases = [(["--backbone", str(small)], "backbone hidden 64 != codec.lm hidden 256"),
-             (["--backbone", str(bbs["Q8_0"]), "--grammar", "x"], "--grammar: not ported yet"),
+             (["--backbone", str(bbs["Q8_0"]), "--grammar", "x"],
+              "GBNF parse error at line 1: expected ::= after 'x'"),
              ([], "kind 'residual_depth_ar' needs a backbone")]
     for extra, msg in cases:
         assert main(base + extra) == 1
