@@ -140,7 +140,8 @@ Phases (any failure raises and exits non-zero before the last line):
      port's float64 sum
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
      residual_depth_ar adaptor at CSM-1B's depth-decoder widths) and
-     Llama-3.2-1B-shaped backbones in Q4_K and Q8_0, load each backbone
+     backbones at Llama-3.2-1B's widths cut to 4 of its 16 layers in Q4_K
+     and Q8_0, load each backbone
      packed on the card (the memory it adds is checked), and run three
      requests of a 16-token prompt to 25 greedy frames (Q4_K per-token
      prefill, Q4_K prefill in one bucket of 16, Q8_0 per-token) through
@@ -155,7 +156,7 @@ Phases (any failure raises and exits non-zero before the last line):
      captured CUDA graph; the captured chunk against the eager chunk bit
      for bit, greedy codes against the host path's (and each batched
      stream against its single-stream run) equal or first differing at a
-     near-tie, 896 packed-product launches in one replay (torch.profiler),
+     near-tie, 224 packed-product launches in one replay (torch.profiler),
      per-frame and request times and a replay's idle share; one backbone
      step as a graph at m = 1, 8 and 32, packed Q4_K against F.linear on
      the dequantized weights
@@ -198,6 +199,24 @@ Phases (any failure raises and exits non-zero before the last line):
      embedding and conditioning rows, and a Qwen3-TTS ECAPA embedding of
      10 s of 24 kHz, against the CPU (1e-5 of peak); ms a frame host and
      chunked, the S3Gen share, a frame and a replay under torch.profiler
+  9e. the rest of the LM layer at full width (models/lm_tts_init.py):
+     LFM2-Audio (its depthformer and compose table over the full-width
+     Mimi; a llama backbone at LFM2-1.2B's widths, 4 of 16 layers, Q4_K and
+     Q8_0) and MOSS-TTS-Realtime (its local transformer and compose table
+     over the full-width MOSS-Audio-Tokenizer; phase 9c's Qwen3 backbone),
+     each through tts_cli's branch: 25 greedy frames on the host path
+     (q4_k_matmul 7 a layer a step; flash_sdpa_window 8 in the Mimi decode,
+     15 in the MOSS decode) and in chunks of 8 (one replay each, its
+     products counted under the profiler), card vs CPU and chunks vs host
+     path (near-tie rule), a replay against the eager chunk bit for bit, one
+     LFM2 request on Q8_0, one sampled realtime request with repetition
+     penalty 1.2 over 16 codes (its ring after the first chunk, its codes
+     against the CPU's with the same host noise); a Qwen3-MoE backbone
+     (Qwen3-30B-A3B's widths, 2 of 48 layers: attention Q4_K, 128 experts
+     dense) teacher-forced against the CPU (1e-5 of peak; q4_k_matmul 4 a
+     layer a call) and a MOSS-TTSD request over it against the CPU; ms a
+     frame host and replayed, kernels a frame, idle share, time to first
+     audio, a frame and a replay under torch.profiler
   10. CUDA-event times (median of TIMED_RUNS = 5 after 2 warm-ups), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
@@ -206,11 +225,12 @@ Phases (any failure raises and exits non-zero before the last line):
      unit launches at C96, C64 and C128 (tools/seanet_times.py); SNAC's
      four decoder blocks' three units beside their bound; device
      times of the packed products from torch.profiler, warm (one matrix
-     again and again), cold (cycling over the loaded backbones' 16 layers
+     again and again), cold (cycling over the loaded backbones' 4 layers
      of each shape) at m = 1 and 16, and
-     one backbone forward's 112 products, and at the MOSS-TTSD backbone's
-     four shapes at m = 1 and 8 and the Chatterbox T3 backbone's three at
-     m = 1 and 2 beside F.linear and the bound; per-request TTS times (median of 2 runs after one
+     one backbone forward's 28 products, and at the MOSS-TTSD backbone's
+     four shapes at m = 1 and 8, the Chatterbox T3 backbone's three at
+     m = 1 and 2 and the Qwen3-MoE attention's q and o at m = 1 and 8
+     beside F.linear and the bound; per-request TTS times (median of 2 runs after one
      warm-up); per-request encode times (median of 5 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
      (norms given, as a model passes them) beside a second bound, three
@@ -348,10 +368,12 @@ FORWARD_ORDER = ("q", "k", "v", "o", "gate", "up", "down")
 L2_BYTES = 50 * 2 ** 20
 FLUSH_BYTES = 64 * 2 ** 20
 # -- the CSM TTS path: (name, backbone qtype, prefill bucket); each request
-# is a 16-token prompt (ids from SEED) to 25 greedy frames (2 s at 12.5 Hz)
+# is a 16-token prompt (ids from SEED) to 25 greedy frames (2 s at 12.5 Hz);
+# the backbone is Llama-3.2-1B's widths cut to TTS_LAYERS of its 16 layers
+# (28 packed products a forward, 224 in a replay of 8 frames)
 TTS_REQUESTS = [("q4_k_per_token", "Q4_K", 0), ("q4_k_bucket16", "Q4_K", 16),
                 ("q8_0_per_token", "Q8_0", 0)]
-TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS = 16, 25, 2
+TTS_PROMPT, TTS_FRAMES, TTS_TIMED_RUNS, TTS_LAYERS = 16, 25, 2, 4
 # -- the on-device TTS path: chunks of 8 frames (one CUDA graph each),
 # greedy in Q4_K and Q8_0, one sampled request, one batch of 4 streams;
 # greedy codes equal the host path's or first differ at a near-tie (top-2
@@ -598,6 +620,36 @@ QWEN3_QMAT_MS = (1, 8)
 # step, both lanes as one batch)
 T3_QMAT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096)]
 T3_QMAT_MS = (1, 2)
+# and at the Qwen3-MoE backbone's (Qwen3-30B-A3B's) attention shapes that
+# no other backbone has: q (32 heads x 128 from 2048) and o, at m = 1 and 8
+MOE_QMAT_SHAPES = [(4096, 2048), (2048, 4096)]
+MOE_QMAT_MS = (1, 8)
+# -- phase 9e, the rest of the LM layer at full width (models/lm_tts_init.py):
+# LFM2-Audio (its depthformer and compose table over the full-width Mimi's 8
+# first codebooks; a llama backbone at LFM2-1.2B's widths cut to 4 of 16
+# layers, Q4_K, and Q8_0 for one request), MOSS-TTS-Realtime (its local
+# transformer and compose table over the full-width MOSS-Audio-Tokenizer;
+# phase 9c's Qwen3-1.7B-wide Q4_K backbone, 4 of 28 layers) and a Qwen3-MoE
+# backbone (Qwen3-30B-A3B's widths cut to 2 of 48 layers: attention Q4_K,
+# router and 128 experts dense) under phase 9c's MOSS-TTSD file. Greedy
+# requests of FLOW_FRAMES frames (EOS held off past them), the prompts
+# prefilled in one forward padded to FLOW_BUCKET rows, the device paths in
+# chunks of FLOW_CHUNK frames (one replay each); the CPU's requests (the
+# same files, f32) run the first FLOW_CPU_FRAMES frames. LFM2's text phase
+# is cut to LFM2_TEXT_TOKENS greedy tokens (codec.lm.max_text_tokens; 64 is
+# the published default). The sampled realtime request: the family's chain
+# (temperature 0.8, top_k 30, top_p 0.6) with repetition penalty 1.2 over
+# 16 codes a codebook, RT_SAMPLED_FRAMES frames on the card, its first frames
+# on the CPU in a chunk of FLOW_CPU_FRAMES (the noise is drawn on the host,
+# one draw a frame, so both draw the same).
+FLOW_FRAMES, FLOW_CHUNK, FLOW_BUCKET, FLOW_CPU_FRAMES = 25, 8, 64, 4
+LFM2_LAYERS, LFM2_TEXT_TOKENS = 4, 4
+RT_SAMPLED = dict(temperature=0.8, top_k=30, top_p=0.6,
+                  repetition_penalty=1.2, repetition_window=16, seed=7)
+RT_SAMPLED_FRAMES = 24
+# the MoE backbone's hiddens on the card within MOE_REL of their peak of the
+# CPU's, teacher-forced over a MOE_PROMPT-row prefill and MOE_STEPS steps
+MOE_LAYERS, MOE_PROMPT, MOE_STEPS, MOE_REL = 2, 16, 8, 1e-5
 
 
 def log(msg: str) -> None:
@@ -2174,7 +2226,7 @@ def fmt_profile(p) -> str:
 
 
 def lm_flows(name_limit: str, zero_counts, counts, none: dict,
-             dev: str = "cuda", sizes=None) -> dict:
+             dev: str = "cuda", sizes=None, reuse=None) -> dict:
     """Phase 9c: the three LM flows past CSM's, each written at full width
     (models/lm_tts_init.py) and run through the entry points a user calls,
     with every launch count set to 0 just before each request and read just
@@ -2199,8 +2251,10 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     `dev` and `sizes` (the writers' keyword arguments, the requests'
     lengths) let the phase run small on the CPU
     (tests/test_torch_flow_lm.py), where the plain versions count nothing
-    and the launch counts are those the card is held to. → (launch counts,
-    times)."""
+    and the launch counts are those the card is held to. `reuse`, a dict,
+    receives what phase 9e reuses: the MOSS-TTSD adaptor, codec and prompt
+    ("ttsd") and the Qwen3 backbone on the card and the CPU ("qwen3").
+    → (launch counts, times)."""
     import dataclasses
 
     import codec_tpu_torch
@@ -2658,6 +2712,9 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
         f"backbone step {times['bluemagpie']['step_ms']:.3f} ms, AudioVAE "
         f"decode {vae_ms:.1f} ms; one patch (step_generate) under "
         f"torch.profiler: {fmt_prof(prof)}; {dev_line} [{name_limit}]")
+    if reuse is not None:
+        reuse["ttsd"] = (ttsd_reader, plm, plm_cpu, xy, ttsd_ids, pi)
+        reuse["qwen3"] = (qbb, qbb_cpu)
     del pt, pt_cpu, flm, flm_cpu, xy, plm, plm_cpu, qbb, qbb_cpu
     del vae, vae_cpu, clm, clm_cpu, mbb, mbb_cpu
     if cuda:
@@ -3058,6 +3115,625 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
     return phase_counts, times
 
 
+def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
+                  reuse: dict, dev: str = "cuda", sizes=None) -> tuple:
+    """Phase 9e: the rest of the LM layer, each written at full width and
+    run through the entry points a user calls (the tts-cli branch
+    `run_text_audio_flow`, run_codebook_ar, the backbone), every launch
+    count set to 0 just before a request and read just after; the card's
+    results held against the CPU's on the same files.
+      - LFM2-Audio: the sequential flow, greedy (a short text phase, then
+        FLOW_FRAMES frames), on the host path (q4_k_matmul: 7 a layer a
+        backbone step; flash_sdpa_window: 8 in the Mimi decode) and in
+        chunks (the products of one replay counted under the profiler);
+        one Q8_0 request; card vs CPU and chunks vs host path under the
+        near-tie rule; the captured chunk against the eager chunk bit for
+        bit.
+      - MOSS-TTS-Realtime: the streaming interleave the same way
+        (flash_sdpa_window: 15 in the MOSS decode), and a sampled request
+        with the repetition penalty: its ring after the first chunk equals
+        the window of the host SamplerChain's history over the same codes,
+        and the card's codes equal the CPU's or first differ at a near-tie
+        of the penalized, filtered, noised logits.
+      - Qwen3-MoE: the backbone's hiddens on the card against the CPU,
+        teacher-forced (q4_k_matmul: 4 a layer a call), and a MOSS-TTSD
+        request on the host path over it, its codes against the CPU's.
+    `reuse` holds phase 9c's MOSS-TTSD pieces and Qwen3 backbones
+    (lm_flows(reuse=)). `dev` and `sizes` (the writers' configurations and
+    the requests' lengths) let the phase run small on the CPU
+    (tests/test_torch_realtime.py), where the plain versions count nothing
+    and the launch counts are those the card is held to. → (launch counts,
+    times)."""
+    import dataclasses
+
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import run_text_audio_flow
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.fused_gen import chunk_ctx, gen_chunk_cached
+    from codec_tpu_torch.lm.prompt_info import build_prompt_info
+    from codec_tpu_torch.lm.spm import SpmUnigram
+    from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
+                                               run_codebook_ar,
+                                               run_realtime_streaming)
+    from codec_tpu_torch.models import lm_tts_init as lti
+    from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_ggufs)
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+    n_fr = sizes.get("frames", FLOW_FRAMES)
+    n_cpu = sizes.get("cpu_frames", FLOW_CPU_FRAMES)
+    k_ch = sizes.get("chunk", FLOW_CHUNK)
+    bucket = sizes.get("bucket", FLOW_BUCKET)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches(label, want):
+        """The counts since zero_counts(), which must be `want` (a CPU
+        rehearsal runs the plain versions, which count nothing)."""
+        want = {**none, **want}
+        got = counts() if cuda else want
+        if got != want:
+            raise RuntimeError(f"{label}: launches {got}, want {want}")
+        for key in got:
+            phase_counts[key] += got[key]
+        return got
+
+    def near_tie(label, got, want, lm, hiddens):
+        """Greedy codes equal, or the first difference (frame f, codebook k)
+        a near-tie of want's run: the relative top-2 margin of codebook k's
+        logits on the card's host step machine at frame f's hidden, want's
+        codes of that frame pushed before it → a note."""
+        diff = np.argwhere(got != want[: len(got)])
+        if not len(diff):
+            return "codes equal"
+        f, k = (int(v) for v in diff[0])
+        st = lm.new_state()
+        st.step_begin(hiddens[f])
+        for j in range(k):
+            st.step_logits()
+            st.step_push_code(int(want[f, j]))
+        top = np.sort(np.asarray(st.step_logits()[0], np.float64))[-2:]
+        margin = float((top[1] - top[0]) / abs(top[1]))
+        if not margin < NEAR_TIE:
+            raise RuntimeError(f"{label}: codes first differ at frame {f} "
+                               f"codebook {k}, relative top-2 margin {margin}")
+        return (f"codes first differ at frame {f} codebook {k}: a near-tie "
+                f"(relative top-2 margin {margin:.2e})")
+
+    def frame_hiddens(rec, frames):
+        """The hidden each frame of a host-path run read: the backbone call
+        before it (every frame is followed by one step)."""
+        return [c[2] for c in rec.calls[-frames - 1:-1]]
+
+    def replay_check(label, runner, restore):
+        """The captured chunk against the eager chunk from the same state
+        (the end of the last request, its position moved back a chunk):
+        packed result and every state tensor bit for bit. On the CPU both
+        run eagerly."""
+        runner.pos.sub_(runner.k)
+        saved = [t.clone() for t in restore]
+        eager = runner.graphed.eager().clone()
+        after = [t.clone() for t in restore]
+        for t, v in zip(restore, saved):
+            t.copy_(v)
+        graph = runner.run().clone()
+        sync()
+        if not (torch.equal(eager, graph)
+                and all(torch.equal(a, t) for a, t in zip(after, restore))):
+            raise RuntimeError(f"{label}: the captured chunk's packed result "
+                               f"or state differ from the eager chunk's")
+        for t, v in zip(restore, saved):
+            t.copy_(v)
+
+    def replay_profile(runner, want_products):
+        """Replay ms, and one replay under torch.profiler: (device busy ms,
+        kernels, q4_k_matmul launches), the first of up to 6 traces that
+        shows every product (CUPTI drops records now and then), else the
+        fullest; None on the CPU."""
+        if not cuda:
+            return None, None
+        from torch.profiler import ProfilerActivity, profile
+
+        replay = cuda_ms(runner.run)
+        best = None
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                runner.run()
+                torch.cuda.synchronize()
+            kern = [e for e in trace.key_averages()
+                    if e.self_device_time_total > 0
+                    and not e.key.startswith(("aten::", "Memcpy", "Memset"))]
+            got = (sum(e.self_device_time_total for e in kern) / 1e3,
+                   sum(e.count for e in kern),
+                   sum(e.count for e in kern if "matmul_kernel" in e.key))
+            if best is None or got[2] > best[2]:
+                best = got
+            if got[2] == want_products:
+                break
+        return replay, best
+
+    t_phase = time.monotonic()
+    phase_counts, times = dict(none), {}
+    spm = spm_model_b64(byte_fallback_vocab())
+    tok = SpmUnigram.from_b64(spm)
+    ttsd_reader, plm, plm_cpu, xy, ttsd_ids, ttsd_pi = reuse["ttsd"]
+    qbb, qbb_cpu = reuse["qwen3"]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_rest_")
+    try:
+        d = Path(tmp.name)
+        t0 = time.monotonic()
+        lfm2_cfg = sizes.get("lfm2", lti.Lfm2Config(
+            eos_min_step=n_fr, max_text_tokens=LFM2_TEXT_TOKENS))
+        lfm2_path = lti.write_lfm2_audio_gguf(d / "lfm2_audio_random.gguf",
+                                              seed=SEED, lfm2=lfm2_cfg,
+                                              **sizes.get("mimi", {}))
+        lbb_paths = write_random_backbone_ggufs(
+            {q: d / f"lfm2_{q}.gguf" for q in ("Q4_K", "Q8_0")},
+            seed=SEED + 3, rope_scaling=None, spm_b64=spm,
+            cfg=sizes.get("lfm2_bb", dataclasses.replace(
+                lti.LFM2_1_2B, n_layers=LFM2_LAYERS)))
+        rt_path = lti.write_moss_realtime_gguf(
+            d / "moss_realtime_random.gguf", seed=SEED,
+            rt=sizes.get("rt", lti.RealtimeConfig(eos_min_step=n_fr)),
+            **sizes.get("moss", {}))
+        moe_path = write_random_backbone_ggufs(
+            {"Q4_K": d / "qwen3moe_Q4_K.gguf"}, seed=SEED + 4,
+            rope_scaling=None, spm_b64=spm,
+            cfg=sizes.get("moe", dataclasses.replace(
+                lti.QWEN3_30B_A3B, n_layers=MOE_LAYERS)))["Q4_K"]
+        paths = (lfm2_path, *lbb_paths.values(), rt_path, moe_path)
+        log("[rest] wrote " + ", ".join(
+            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
+            + f" in {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        load = codec_tpu_torch.load_model
+        mimi, mimi_cpu = (load(lfm2_path, device=x) for x in (dev, "cpu"))
+        lfm2_reader = GGUFReader(lfm2_path)
+        lbb = {q: create_backbone(p, quantized=True, device=dev)
+               for q, p in lbb_paths.items()}
+        # the CPU's copy dense: the same dequantized weights, dequantized
+        # once at load instead of a call at a time by the plain product
+        lbb_cpu = create_backbone(lbb_paths["Q4_K"], device="cpu")
+        moss, moss_cpu = (load(rt_path, device=x) for x in (dev, "cpu"))
+        rt_reader = GGUFReader(rt_path)
+        # the MoE read once (3.5 GB), its tensors copied to the card
+        moe_cpu = create_backbone(moe_path, quantized=True, device="cpu")
+        moe = LlamaBackbone.from_params(moe_cpu.cfg,
+                                        _moved(moe_cpu.params, dev))
+        sync()
+    finally:
+        tmp.cleanup()
+    llm, rlm = (create_lm(r, device=dev) for r in (lfm2_reader, rt_reader))
+    mcfg = moe.cfg
+    log(f"[rest] loaded (card and CPU, f32) in {time.monotonic() - t0:.2f} s: "
+        f"LFM2-Audio depthformer {llm.depth_layers} layers at "
+        f"{llm.depth_hidden}, {llm.n_heads} heads x {llm.head_dim}, "
+        f"{llm.n_kv_heads} KV heads, {llm.info.n_codebook} codebooks x "
+        f"{llm.info.codebook_sizes[0]}, compose table "
+        f"{tuple(llm.compose_table.shape)}, backbone hidden "
+        f"{lbb['Q4_K'].cfg.hidden}, {lbb['Q4_K'].cfg.n_layers} layers, vocab "
+        f"{lbb['Q4_K'].cfg.vocab_size}; MOSS-TTS-Realtime local transformer "
+        f"{rlm.depth_layers} layers at {rlm.depth_hidden}, {rlm.n_heads} heads "
+        f"x {rlm.head_dim}, {rlm.info.n_codebook} codebooks x "
+        f"{rlm.info.codebook_sizes[0]}, compose table "
+        f"{tuple(rlm.compose_table.shape)}, backbone {qbb.cfg.n_layers} "
+        f"layers; Qwen3-MoE hidden {mcfg.hidden}, {mcfg.n_layers} layers, "
+        f"{mcfg.n_heads} heads x {mcfg.head_dim}, {mcfg.n_kv_heads} KV heads, "
+        f"{mcfg.n_experts} experts ({mcfg.n_experts_used} used) of "
+        f"{mcfg.moe_ffn_dim}, vocab {mcfg.vocab_size}")
+
+    # -- LFM2-Audio and MOSS-TTS-Realtime ---------------------------------------
+    flows = {"lfm2": dict(lm=llm, lm_cpu=create_lm(lfm2_reader, device="cpu"),
+                          codec=mimi, bb=lbb["Q4_K"], bb_cpu=lbb_cpu,
+                          reader=lfm2_reader, attn=MIMI_LAYERS),
+             "rt": dict(lm=rlm, lm_cpu=create_lm(rt_reader, device="cpu"),
+                        codec=moss, bb=qbb, bb_cpu=qbb_cpu, reader=rt_reader,
+                        attn=MOSS_LAYERS)}
+    for fl in flows.values():
+        fl["pi"] = build_prompt_info(fl["reader"], fl["lm"].info)
+        fl["ids"] = tok.encode(fl["pi"].prompt_prefix + LM_TEXT
+                               + fl["pi"].prompt_suffix)
+
+    def request(name, bb, frames, on_device=False, cpu=False, decode=True,
+                pi=None, chunk=None, **chain):
+        """One request → (result, seconds): through the tts-cli branch
+        (run_text_audio_flow), except the realtime host path, which that
+        branch samples at the family's chain: there run_realtime_streaming
+        with greedy samplers."""
+        fl = flows[name]
+        lm = fl["lm_cpu" if cpu else "lm"]
+        a = AudioLM(fl["reader"], codec=fl["codec"] if decode else None, lm=lm)
+        getattr(bb, "bb", bb).reset()
+        pi = pi or fl["pi"]
+        t = time.perf_counter()
+        if name == "rt" and not on_device:
+            split = max(1, len(fl["ids"]) - pi.prefill_text_len)
+            res = run_realtime_streaming(
+                a, bb, lambda x: bb.embed_tokens([x])[0], fl["ids"][:split],
+                fl["ids"][split:], pi, max_frames=frames,
+                samplers=[lambda lg: int(np.argmax(lg))] * lm.info.n_codebook,
+                prefill_bucket=bucket)
+        else:
+            res = run_text_audio_flow(a, bb, pi, fl["ids"], max_steps=frames,
+                                      on_device=on_device,
+                                      chunk_frames=chunk or k_ch,
+                                      prefill_bucket=bucket, **chain)
+        sync()
+        return res, time.perf_counter() - t
+
+    def calls_of(rec, bucket=bucket):
+        """(backbone steps, prefill calls that launch the kernel: their
+        bucket-padded rows m <= 32) of a recorded request."""
+        steps = sum(1 for c in rec.calls if c[0] == "step")
+        pre = sum(1 for c in rec.calls if c[0] == "prefill"
+                  and -(-len(c[1]) // bucket) * bucket <= 32)
+        return steps, pre
+
+    greedy = dict(temperature=0.0)
+    for name, fl in flows.items():
+        label = {"lfm2": "lfm2-audio", "rt": "moss-realtime"}[name]
+        lm, bb = fl["lm"], fl["bb"]
+        per_step = 7 * bb.cfg.n_layers
+        # the host path on the card, every backbone call recorded
+        rec = Recorder(bb)
+        zero_counts()
+        res, host_s = request(name, rec, n_fr, **greedy)
+        n_steps, n_pre = calls_of(rec)
+        got = launches(f"{label} host", {
+            "q4_k_matmul": per_step * (n_steps + n_pre),
+            "flash_sdpa_window": fl["attn"]})
+        hop = fl["codec"].hop_size
+        if res.codes.shape != (n_fr, lm.info.n_codebook) \
+                or res.stopped_by_eos or res.pcm.shape[0] != n_fr * hop \
+                or not np.isfinite(res.pcm).all():
+            raise RuntimeError(f"{label}: codes {res.codes.shape}, eos "
+                               f"{res.stopped_by_eos}, pcm {res.pcm.shape}")
+        hid = frame_hiddens(rec, n_fr)
+        n_text = len(rec.calls) - 1 - n_fr      # LFM2: text + audio_start steps
+        pre_s = sum(c[3] for c in rec.calls[:1 + n_text])
+        host_ms = (host_s - pre_s) / n_fr * 1e3
+        # the CPU's host path, its first frames
+        crec = Recorder(fl["bb_cpu"])
+        cres, cpu_s = request(name, crec, n_cpu, cpu=True, decode=False,
+                              **greedy)
+        for a, b in zip(rec.calls[:1 + n_text], crec.calls[:1 + n_text]):
+            if not np.array_equal(a[1], b[1]):
+                raise RuntimeError(f"{label}: the prompt's or the text "
+                                   f"phase's rows on the card differ from the "
+                                   f"CPU's")
+        note_cpu = near_tie(f"{label} card vs CPU", cres.codes, res.codes, lm,
+                            hid)
+        # the device path: chunks of k_ch frames, one replay each
+        request(name, bb, n_fr, on_device=True, decode=False, **greedy)
+        zero_counts()
+        dres, dev_s = request(name, bb, n_fr, on_device=True, **greedy)
+        launches(f"{label} device", {"q4_k_matmul": per_step * (n_text + n_pre),
+                                     "flash_sdpa_window": fl["attn"]})
+        note_dev = near_tie(f"{label} device vs host", dres.codes, res.codes,
+                            lm, hid)
+        pos0 = len(rec.calls[0][1]) + n_text
+        ctx = chunk_ctx(bb, pos0 + -(-n_fr // k_ch) * k_ch + 1)
+        # the request's runner: the family's chain at temperature 0 (and the
+        # realtime one's penalty over its window)
+        pi = fl["pi"]
+        chain = dict(temperature=0.0, top_k=pi.default_top_k,
+                     top_p=pi.default_top_p)
+        if name == "lfm2":
+            runner = gen_chunk_cached(lm, bb, n_frames=k_ch, ctx=ctx, **chain)
+            state = (runner.h, runner.pos, runner.kv[..., :ctx, :])
+        else:
+            runner = gen_chunk_cached(
+                lm, bb, n_frames=k_ch, ctx=ctx, stream=True,
+                rep=(pi.default_repetition_penalty, pi.repetition_window),
+                **chain)
+            state = (runner.h, runner.pos, *runner.hist,
+                     runner.kv[..., :ctx, :])
+        if cuda and runner.graphed.graph is None:
+            raise RuntimeError(f"{label}: the request's chunk was not captured")
+        replay_check(label, runner, state)
+        want_p = per_step * k_ch
+        replay, prof = replay_profile(runner, want_p)
+        # time to first audio: the prompt's prefill (and the text phase),
+        # one replay, the decode of its frames
+        t = time.perf_counter()
+        _decode_transformed(AudioLM(fl["reader"], codec=fl["codec"], lm=lm),
+                            dres.codes[:k_ch])
+        sync()
+        first_dec = time.perf_counter() - t
+        times[name] = dict(host_ms=host_ms, dev_ms=dev_s / n_fr * 1e3)
+        line = (f"[rest] {label} {n_fr} greedy frames, prompt "
+                f"{len(fl['ids'])} tokens (one forward of "
+                f"{-(-len(fl['ids']) // bucket) * bucket} rows)"
+                + (f", {n_text - 1} text tokens and audio_start" if name ==
+                   "lfm2" else "") + f": host path launches "
+                f"{got['q4_k_matmul']} q4_k_matmul ({per_step} a step, "
+                f"{n_steps} steps) and {got['flash_sdpa_window']} "
+                f"flash_sdpa_window in the decode, pcm {res.pcm.shape} finite; "
+                f"card vs CPU ({n_cpu} frames, {cpu_s:.1f} s): {note_cpu}; "
+                f"device path (chunks of {k_ch}): {note_dev}, captured chunk "
+                f"== eager chunk bit for bit; host path {host_ms:.3f} ms a "
+                f"frame (backbone step, {lm.info.n_codebook} depth steps, "
+                f"host sampling, compose), device path "
+                f"{times[name]['dev_ms']:.3f} ms a frame (the whole request, "
+                f"its prompt and decode included, / frames)")
+        if prof is not None:
+            busy, kernels, products = prof
+            ttfa = pre_s * 1e3 + replay + first_dec * 1e3
+            times[name].update(replay_frame_ms=replay / k_ch,
+                               idle=1 - busy / replay, ttfa_ms=ttfa,
+                               kernels_frame=kernels / k_ch)
+            h0 = hid[-1]
+
+            def host_frame(lm=lm, h0=h0):
+                st = lm.new_state()
+                st.step_begin(h0)
+                while st.step_pending:
+                    lg, _ = st.step_logits()
+                    st.step_push_code(int(np.argmax(lg)))
+                st.step_finish()
+            fprof = call_profile(host_frame, cuda)
+            line += (f"; one replay {replay:.3f} ms ({replay / k_ch:.3f} ms a "
+                     f"frame), {kernels} kernels ({kernels / k_ch:.0f} a "
+                     f"frame), {products} q4_k_matmul (want {want_p}"
+                     + ("" if products == want_p else
+                        "; the profiler lost records in 6 traces")
+                     + f"), device busy {busy:.3f} ms (idle share "
+                     f"{1 - busy / replay:.3f}); time to first audio "
+                     f"{ttfa:.1f} ms (prompt"
+                     + (" and text phase" if name == "lfm2" else "")
+                     + f" {pre_s * 1e3:.1f} ms, one replay, the decode of "
+                     f"{k_ch} frames {first_dec * 1e3:.1f} ms); one host "
+                     f"frame's depth steps under torch.profiler: "
+                     f"{fmt_profile(fprof)}")
+        log(line + f" [{name_limit}]")
+        fl.update(codes=res.codes)
+
+    # one LFM2 request over the Q8_0 backbone (host path)
+    rec = Recorder(lbb["Q8_0"])
+    zero_counts()
+    res, _ = request("lfm2", rec, n_fr, **greedy)
+    n_steps, n_pre = calls_of(rec)
+    got = launches("lfm2-audio Q8_0", {
+        "q8_0_matmul": 7 * lbb["Q8_0"].cfg.n_layers * (n_steps + n_pre),
+        "flash_sdpa_window": MIMI_LAYERS})
+    if res.codes.shape != (n_fr, llm.info.n_codebook) \
+            or not np.isfinite(res.pcm).all():
+        raise RuntimeError(f"lfm2-audio Q8_0: codes {res.codes.shape}")
+    log(f"[rest] lfm2-audio Q8_0 backbone: {got['q8_0_matmul']} q8_0_matmul, "
+        f"pcm {res.pcm.shape} finite; "
+        f"{(res.codes != flows['lfm2']['codes']).mean():.1%} of the codes "
+        f"differ from the Q4_K backbone's (the same draws in another type) "
+        f"[{name_limit}]")
+
+    # the sampled realtime request: its first chunk, its whole length, and
+    # its first frames on the CPU, all from one seed (the noise drawn on the
+    # host, one draw a frame, so a chunk of another length draws the same)
+    fl = flows["rt"]
+    w = RT_SAMPLED["repetition_window"]
+    pi_s = dataclasses.replace(fl["pi"], repetition_window=w)
+    chain = dict(temperature=RT_SAMPLED["temperature"],
+                 top_k=RT_SAMPLED["top_k"], top_p=RT_SAMPLED["top_p"])
+    sampled = dict(chain, rep_penalty=RT_SAMPLED["repetition_penalty"],
+                   seed=RT_SAMPLED["seed"], pi=pi_s)
+    first, _ = request("rt", qbb, k_ch, on_device=True, decode=False,
+                       **sampled)
+    runner = gen_chunk_cached(
+        rlm, qbb, n_frames=k_ch, ctx=chunk_ctx(qbb, len(fl["ids"]) + k_ch + 1),
+        stream=True, rep=(RT_SAMPLED["repetition_penalty"], w), **chain)
+    ring, ptr = runner.hist
+    for cb in range(rlm.info.n_codebook):
+        want = chain_history(first.codes[:, cb], w)
+        slots = [(int(ptr[0]) + j) % w for j in range(w)]
+        held = [int(v) for v in ring[cb, slots].tolist() if v >= 0]
+        if held != want:
+            raise RuntimeError(f"moss-realtime sampled: the ring of codebook "
+                               f"{cb} after the first chunk holds {held}, the "
+                               f"host chain {want}")
+    zero_counts()
+    sres, _ = request("rt", qbb, RT_SAMPLED_FRAMES, on_device=True, **sampled)
+    launches("moss-realtime sampled", {"flash_sdpa_window": MOSS_LAYERS})
+    if not np.array_equal(sres.codes[:k_ch], first.codes):
+        raise RuntimeError("moss-realtime sampled: one seed, other codes")
+    cres, cpu_s = request("rt", qbb_cpu, n_cpu, on_device=True, cpu=True,
+                          decode=False, chunk=n_cpu, **sampled)
+    note = sampled_tie(rlm, qbb, fl["reader"], fl["ids"], pi_s, cres.codes,
+                       sres.codes, bucket)
+    log(f"[rest] moss-realtime sampled (temperature "
+        f"{RT_SAMPLED['temperature']}, top_k {RT_SAMPLED['top_k']}, top_p "
+        f"{RT_SAMPLED['top_p']}, repetition penalty "
+        f"{RT_SAMPLED['repetition_penalty']} over {w} codes, seed "
+        f"{RT_SAMPLED['seed']}): the first chunk's ring equals the host "
+        f"chain's window of its codes; {RT_SAMPLED_FRAMES} frames on the card, "
+        f"{(sres.codes[:n_fr] != fl['codes'][:len(sres.codes)]).mean():.1%} "
+        f"of its first {min(n_fr, len(sres.codes))} frames' codes other than "
+        f"greedy's; card vs CPU (its first {n_cpu} frames, one chunk, "
+        f"{cpu_s:.1f} s): {note} [{name_limit}]")
+
+    # -- Qwen3-MoE ----------------------------------------------------------------
+    per_moe = 4 * mcfg.n_layers
+    rng = np.random.default_rng(SEED + 140)
+    ids = rng.integers(0, mcfg.vocab_size, sizes.get("moe_prompt", MOE_PROMPT)
+                       + sizes.get("moe_steps", MOE_STEPS))
+    n_p = sizes.get("moe_prompt", MOE_PROMPT)
+    rows = moe.embed_tokens(ids)
+    hs = {}
+    for side, bb in (("card", moe), ("cpu", moe_cpu)):
+        bb.reset()
+        if side == "card":
+            zero_counts()
+        t = time.perf_counter()
+        out = [bb.prefill(rows[:n_p], bucket=n_p)]
+        out += [bb.step(r) for r in rows[n_p:]]
+        sync()
+        hs[side] = (np.stack(out), time.perf_counter() - t)
+        if side == "card":
+            got = launches("qwen3-moe hiddens", {
+                "q4_k_matmul": per_moe * (1 + len(rows) - n_p)})
+    err = float(np.abs(hs["card"][0] - hs["cpu"][0]).max())
+    peak = float(np.abs(hs["cpu"][0]).max())
+    if not err <= MOE_REL * peak:
+        raise RuntimeError(f"qwen3-moe: hiddens on the card vs the CPU max abs "
+                           f"err {err} (peak {peak}, bound {MOE_REL} x peak)")
+
+    def ttsd(lm_, codec_, bb_, frames):
+        """A MOSS-TTSD request over `bb_` on the host path, recorded."""
+        bb_.reset()
+        a = AudioLM(ttsd_reader, codec=codec_, lm=lm_)
+        r = Recorder(bb_)
+        t = time.perf_counter()
+        out = run_codebook_ar(a, r, [a.compose_prompt_embd(i) for i in ttsd_ids],
+                              max_steps=frames, pi=ttsd_pi, decode=False,
+                              prefill_bucket=MOSS_TTSD_BUCKET)
+        pcm = _decode_transformed(a, out.codes) if codec_ is not None else None
+        sync()
+        return out, pcm, r, time.perf_counter() - t
+
+    zero_counts()
+    tres, tpcm, trec, tts_s = ttsd(plm, xy, moe, n_fr)
+    steps_m, pre_m = calls_of(trec, MOSS_TTSD_BUCKET)
+    got = launches("moss-ttsd on qwen3-moe", {"q4_k_matmul": per_moe
+                                              * (steps_m + pre_m)})
+    if tres.codes.shape != (n_fr, plm.info.n_codebook) or tres.stopped_by_eos \
+            or not np.isfinite(tpcm).all():
+        raise RuntimeError(f"moss-ttsd on qwen3-moe: codes {tres.codes.shape}")
+    cres, _, _, cpu_s = ttsd(plm_cpu, None, moe_cpu, n_fr)
+    cb0 = (ttsd_pi.cb0_speech_range_start, ttsd_pi.cb0_speech_range_end)
+    diff = np.argwhere(cres.codes != tres.codes)
+    note = "codes equal"
+    if len(diff):
+        f, k = (int(v) for v in diff[0])
+        h = torch.as_tensor(trec.calls[f][2]).to(dev)
+        lg = (plm.heads[k] @ h).float().cpu().numpy()
+        if k == 0:
+            keep = np.zeros(lg.shape, bool)
+            keep[cb0[0]:cb0[1]] = True
+            keep[plm.info.eos_code_c0] = True
+            lg = np.where(keep, lg, -np.inf)
+        top = np.sort(lg)[-2:]
+        margin = float((top[1] - top[0]) / abs(top[1]))
+        if not margin < NEAR_TIE:
+            raise RuntimeError(f"moss-ttsd on qwen3-moe: codes first differ at "
+                               f"frame {f} codebook {k}, margin {margin}")
+        note = (f"codes first differ at frame {f} codebook {k}: a near-tie "
+                f"(relative top-2 margin {margin:.2e})")
+    step_ms = statistics.mean(c[3] for c in trec.calls[1:]) * 1e3
+    expert_b = 3 * mcfg.n_experts * mcfg.moe_ffn_dim * mcfg.hidden
+    times["moe"] = dict(step_ms=step_ms, prefill_ms=trec.calls[0][3] * 1e3)
+    line = (f"[rest] qwen3-moe: hiddens on the card vs the CPU (a {n_p}-row "
+            f"prefill and {len(rows) - n_p} steps, teacher-forced) max abs err "
+            f"{err:.3e} (peak {peak:.3f}, {err / peak:.2e} of it; bound "
+            f"{MOE_REL}), {got['q4_k_matmul']} q4_k_matmul ({per_moe} a call "
+            f"of {mcfg.n_layers} layers: q, k, v, o; experts dense); "
+            f"moss-ttsd {n_fr} greedy frames over it on the host path: "
+            f"{per_moe * (steps_m + pre_m)} q4_k_matmul, pcm {tpcm.shape} "
+            f"finite, card vs CPU: {note} (CPU {cpu_s:.1f} s); backbone step "
+            f"{step_ms:.3f} ms (the chosen experts gathered: "
+            f"{mcfg.n_experts_used} of {mcfg.n_experts} a token), the "
+            f"{len(ttsd_ids)}-row prompt's prefill (every expert, the dense "
+            f"form) {times['moe']['prefill_ms']:.1f} ms; experts "
+            f"{expert_b / 1e6:.0f} M parameters a layer, "
+            f"{expert_b * 4 / 1e9:.2f} GB f32 on the card; all 48 layers "
+            f"{48 * expert_b * 2 / 1e9:.1f} GB in bf16 (not run)")
+    if cuda:
+        x = rows[n_p]
+        sprof = call_profile(lambda: moe.step(x), cuda)
+        times["moe"]["profile"] = sprof
+        line += f"; one step under torch.profiler: {fmt_profile(sprof)}"
+    log(line + f" [{name_limit}]")
+    del mimi, mimi_cpu, lbb, lbb_cpu, moss, moss_cpu, moe, moe_cpu, flows
+    del llm, rlm, runner
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[rest] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts, times
+
+
+def chain_history(codes, window: int) -> list:
+    """What a host SamplerChain with this repetition window holds for the
+    penalty after it picked `codes` (its history's last `window`)."""
+    from codec_tpu_torch.lm.tts_runner import SamplerChain
+
+    chain = SamplerChain(temperature=0.0, repetition_window=window)
+    for c in codes:
+        lg = np.zeros(int(c) + 1)
+        lg[int(c)] = 1.0
+        chain(lg)
+    return chain.history[-window:]
+
+
+def sampled_tie(lm, bb, reader, ids, pi, got, want, bucket) -> str:
+    """Sampled realtime codes `got` (the CPU's) against `want` (the card's,
+    the chain of RT_SAMPLED): equal, or the first difference (frame f,
+    codebook k) a near-tie of the card's sampling objective there: the
+    host path teacher-forced on want's codes (run_realtime_streaming with
+    samplers that replay them, keeping the logits of (f, k)), the
+    repetition penalty over the ring of want's codes of codebook k before
+    f (empty slots marking the last id, as the chunk's ring does), then
+    temperature, top_k and top_p, plus the noise the request drew for
+    (f, k) → a note."""
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.tts_runner import run_realtime_streaming
+    from codec_tpu_torch.ops import sample as smp
+
+    diff = np.argwhere(got != want[: len(got)])
+    if not len(diff):
+        return "codes equal"
+    f, k = (int(v) for v in diff[0])
+    kept = {}
+
+    class Replay:
+        def __init__(self, cb):
+            self.cb, self.n = cb, 0
+
+        def __call__(self, lg):
+            if (self.n, self.cb) == (f, k):
+                kept["lg"] = np.asarray(lg, np.float32)
+            self.n += 1
+            return int(want[self.n - 1, self.cb])
+
+    n_cb = lm.info.n_codebook
+    bb.reset()
+    split = max(1, len(ids) - pi.prefill_text_len)
+    run_realtime_streaming(
+        AudioLM(reader, codec=None, lm=lm), bb,
+        lambda t: bb.embed_tokens([t])[0], ids[:split], ids[split:], pi,
+        max_frames=f + 1, samplers=[Replay(cb) for cb in range(n_cb)],
+        decode=False, prefill_bucket=bucket)
+    w = RT_SAMPLED["repetition_window"]
+    ring = [-1] * w
+    for i in range(f):
+        ring[i % w] = int(want[i, k])
+    lg = torch.from_numpy(kept["lg"])
+    seen = smp.seen_mask_from_ring(torch.tensor(ring),
+                                   max(lm.info.codebook_sizes))
+    lg = smp.apply_repetition_penalty(lg, seen[: lg.shape[0]],
+                                      RT_SAMPLED["repetition_penalty"])
+    lg = smp._apply_top_p(smp._apply_top_k(lg / RT_SAMPLED["temperature"],
+                                           RT_SAMPLED["top_k"]),
+                          RT_SAMPLED["top_p"])
+    gen = torch.Generator().manual_seed(RT_SAMPLED["seed"])
+    for _ in range(f + 1):
+        noise = smp.gumbel((n_cb, lm.noise_width()), gen, "cpu")
+    obj = (lg + noise[k, : lg.shape[0]]).double().numpy()
+    top = np.sort(obj[np.isfinite(obj)])[-2:]
+    margin = float((top[1] - top[0]) / abs(top[1]))
+    if not margin < NEAR_TIE:
+        raise RuntimeError(f"moss-realtime sampled: card and CPU codes first "
+                           f"differ at frame {f} codebook {k}, relative "
+                           f"top-2 margin {margin}")
+    return (f"codes first differ at frame {f} codebook {k}: a near-tie "
+            f"(relative top-2 margin {margin:.2e})")
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -3069,10 +3745,16 @@ def _tensors(tree):
 class Recorder:
     """The Backbone protocol around a LlamaBackbone that records each call:
     (kind, input rows, returned hidden, host seconds). Every call ends in
-    a copy of the hidden to the host, so its time covers the device work."""
+    a copy of the hidden to the host, so its time covers the device work.
+    It shows the backbone's `params` and `embed_tokens` (the flows read the
+    text table) but not its cache: no chunk runs on it."""
 
     def __init__(self, bb):
         self.bb, self.calls = bb, []
+        self.params = bb.params
+
+    def embed_tokens(self, ids):
+        return self.bb.embed_tokens(ids)
 
     def step(self, embed):
         t = time.perf_counter()
@@ -3089,6 +3771,8 @@ class Recorder:
 
 
 def main() -> int:
+    import dataclasses
+
     t_start = time.monotonic()
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3124,7 +3808,8 @@ def main() -> int:
     from codec_tpu_torch.ops.sample import OnDeviceSampling
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar)
-    from codec_tpu_torch.models.lm_init import (write_random_backbone_ggufs,
+    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B,
+                                                write_random_backbone_ggufs,
                                                 write_random_csm_gguf)
     from codec_tpu_torch.ops import qmat
     from codec_tpu_torch.ops import qmat_cuda
@@ -3512,12 +4197,14 @@ def main() -> int:
             log(f"[kernel] {name} out {out_d} in {in_d}: 32 one-hot rows give "
                 f"the dequantized weights bit for bit, f32 and bf16 x")
             del dense
-    # the MOSS-TTSD backbone's (Qwen3-1.7B's) layer shapes at m = 1 and 8
-    # and the Chatterbox T3 backbone's (Llama-520M's) at m = 1 and 2, each
-    # with the launch plan it takes
+    # the MOSS-TTSD backbone's (Qwen3-1.7B's) layer shapes at m = 1 and 8,
+    # the Chatterbox T3 backbone's (Llama-520M's) at m = 1 and 2 and the
+    # Qwen3-MoE attention's q and o at m = 1 and 8, each with the launch
+    # plan it takes
     for out_d, in_d, ms, tag in (
             [(o, i, QWEN3_QMAT_MS, "Qwen3") for o, i in QWEN3_QMAT_SHAPES]
-            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]):
+            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]
+            + [(o, i, MOE_QMAT_MS, "MoE") for o, i in MOE_QMAT_SHAPES]):
         w = qrng.standard_normal((out_d, in_d), dtype=np.float32) * 0.02
         for name, quantize, pack in (
                 ("q8_0_matmul", quantize_q8_0, qmat.pack_q8_0),
@@ -4083,10 +4770,11 @@ def main() -> int:
         csm_path = write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
                                          seed=SEED)
         # one draw of the weights for both types, quantized on a pool of
-        # threads
+        # threads; Llama-3.2-1B's widths, TTS_LAYERS of its 16 layers
         bb_paths = write_random_backbone_ggufs(
             {q: Path(tmp.name) / f"backbone_{q}.gguf" for q in ("Q4_K", "Q8_0")},
-            seed=SEED)
+            seed=SEED, cfg=dataclasses.replace(LLAMA_3_2_1B,
+                                               n_layers=TTS_LAYERS))
         log("[tts] wrote " + ", ".join(
             f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
             for path in [csm_path, *bb_paths.values()])
@@ -4227,7 +4915,7 @@ def main() -> int:
     # run_codebook_ar(on_device=...) at the full CSM width: the prompt's
     # per-token prefill on the host path, then chunks of TTS_CHUNK frames,
     # each one replay of a captured graph (fused frame with in-graph
-    # sampling, EOS gate, feedback compose, backbone step: 112 packed
+    # sampling, EOS gate, feedback compose, backbone step: 28 packed
     # products a frame), one copy of the packed codes a chunk, and the Mimi
     # decode. A first request captures the graph; the checked request's
     # wrapper counts are then the prefill's products and the decode's
@@ -4278,7 +4966,7 @@ def main() -> int:
         """One replay under torch.profiler → (device busy ms, kernel
         launches, packed-product launches) from the trace's kernels. A
         replay runs every node of its graph, but CUPTI drops a few records
-        now and then from a trace of ~62 000 kernels (885 of 896 products
+        now and then from a trace of many kernels (885 of 896 products
         once): with `want`, up to four replays are traced and the first
         that shows `want` products (else the fullest) is returned."""
         from torch.profiler import ProfilerActivity, profile
@@ -4502,11 +5190,19 @@ def main() -> int:
 
     # -- 9c. the LM flows past CSM's: Pocket-TTS, MOSS-TTSD, BlueMagpie ---------
     log(f"[phase] 9c starts at {time.monotonic() - t_start:.1f} s")
-    lm_counts, _ = lm_flows(name_limit, zero_counts, counts, none)
+    reuse = {}
+    lm_counts, _ = lm_flows(name_limit, zero_counts, counts, none,
+                            reuse=reuse)
 
     # -- 9d. Chatterbox TTS: T3 on Llama-520M into S3Gen; the speaker encoders
     log(f"[phase] 9d starts at {time.monotonic() - t_start:.1f} s")
     cbx_counts, _ = chatterbox_flow(name_limit, zero_counts, counts, none)
+
+    # -- 9e. LFM2-Audio, MOSS-TTS-Realtime, the Qwen3-MoE backbone ---------------
+    log(f"[phase] 9e starts at {time.monotonic() - t_start:.1f} s")
+    rest_counts, _ = rest_lm_flows(name_limit, zero_counts, counts, none,
+                                   reuse)
+    del reuse
 
     # -- 10. times -------------------------------------------------------------
     log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
@@ -4704,12 +5400,14 @@ def main() -> int:
             del dense
 
     # the packed products at the MOSS-TTSD backbone's shapes, m = 1 and 8,
-    # and at the Chatterbox T3 backbone's, m = 1 and 2: device time
-    # (torch.profiler) of the kernel and of F.linear on the dequantized f32
-    # weight, each beside the bound
+    # at the Chatterbox T3 backbone's, m = 1 and 2, and at the Qwen3-MoE
+    # attention's q and o, m = 1 and 8: device time (torch.profiler) of the
+    # kernel and of F.linear on the dequantized f32 weight, each beside the
+    # bound
     for out_d, in_d, ms, tag in (
             [(o, i, QWEN3_QMAT_MS, "Qwen3") for o, i in QWEN3_QMAT_SHAPES]
-            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]):
+            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]
+            + [(o, i, MOE_QMAT_MS, "MoE") for o, i in MOE_QMAT_SHAPES]):
         for name in ("q8_0_matmul", "q4_k_matmul"):
             qt = qmat_weights[name, out_d, in_d]
             dense = qmat.dequant_ref(qt)
@@ -4733,10 +5431,10 @@ def main() -> int:
             del dense
 
     # the packed products cold, as a forward finds them: each shape's line
-    # cycles over the 16 layers' matrices of that shape in the loaded
+    # cycles over the TTS_LAYERS layers' matrices of that shape in the loaded
     # backbone (a 64 MB buffer written between launches where the cycle
     # would stay in L2), at m = 1 and m = 16 (a bucketed prefill); then one
-    # forward's 112 products at m = 1 in forward order. Device times by the
+    # forward's 7 x TTS_LAYERS products at m = 1 in forward order. Device times by the
     # kernel's name under torch.profiler, F.linear on the same dequantized
     # f32 weights measured the same way
     cold = {}
@@ -5025,6 +5723,7 @@ def main() -> int:
                    + tts_counts["flash_sdpa_window"]
                    + lm_counts["flash_sdpa_window"]
                    + tts_dev_counts["flash_sdpa_window"]
+                   + rest_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"]
                    + windowed_counts["flash_sdpa_window"]
                    + small_counts["flash_sdpa_window"],
@@ -5036,10 +5735,12 @@ def main() -> int:
                    + enc_counts["snac_res_chain"],
                    "q8_0_matmul": tts_counts["q8_0_matmul"]
                    + tts_dev_counts["q8_0_matmul"]
-                   + lm_counts["q8_0_matmul"] + cbx_counts["q8_0_matmul"],
+                   + lm_counts["q8_0_matmul"] + cbx_counts["q8_0_matmul"]
+                   + rest_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"]
-                   + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"],
+                   + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"]
+                   + rest_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
                    + windowed_counts["rvq_encode_fused"],

@@ -2,13 +2,16 @@
 
 Ported: the four adaptor kinds (residual_depth_ar, parallel_heads_delay,
 continuous_latent_cfm, flow_lm), the llama-family backbone with packed
-Q8_0/Q4_K weights (backbone.py), the codebook-AR flow
+Q8_0/Q4_K weights and the Qwen3-MoE FFN (backbone.py), the codebook-AR flow
 (tts_runner.run_codebook_ar, on the host or on the device in CUDA-graph
 chunks, fused_gen.py, with GBNF grammars, gbnf.py;
 tts_runner.run_codebook_ar_batch), the continuous-latent flow
 (tts_runner.run_continuous, one step a call or K steps a CUDA-graph chunk)
 and the Chatterbox T3 flow (chatterbox_t3.py, tts_runner.run_chatterbox:
-both CFG lanes on the host or as one batch in CUDA-graph chunks), the two
+both CFG lanes on the host or as one batch in CUDA-graph chunks),
+MOSS-TTS-Realtime's streaming interleave and LFM2-Audio's sequential flow
+(tts_runner.run_realtime_streaming, run_lfm2_sequential: on the host or in
+CUDA-graph chunks, the realtime one with its repetition penalty), the two
 speaker encoders (`create_speaker_encoder`) and the backbones' SPM and
 byte-level BPE tokenizers (spm.py, bpe.py). FlowLM needs no backbone:
 cli/tts_cli.py::run_flow_synthesize drives it."""

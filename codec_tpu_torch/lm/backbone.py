@@ -3,14 +3,15 @@
 
 Loaded from a backbone GGUF (codec_tpu/convert/backbone.py's `backbone.*`
 schema). Covers Llama 3.x (CSM: llama3 rope scaling through baked freq
-factors), Qwen3 (per-head q/k RMS norm, optional attention bias) and
-plain Llama/Qwen2. A MoE backbone raises: its sparse FFN is not ported
-yet.
+factors), Qwen3 (per-head q/k RMS norm, optional attention bias),
+Qwen3-MoE (the sparse FFN of `_moe_ffn`: a softmax router, top-k experts,
+their SwiGLUs summed with the routing weights) and plain Llama/Qwen2.
 
 Layer matrices are dense [out, in] tensors, or with `quantized=True` the
 Q8_0/Q4_K blocks of the GGUF packed for ops/qmat.py and multiplied by the
 dequantizing CUDA kernels (csrc/qmat.cu) without ever being dequantized
-in device memory. Norms and embeddings stay dense.
+in device memory. Norms, embeddings, the MoE router and the stacked
+experts stay dense (codec_tpu's packed products cover 2-D matrices only).
 
 The KV cache is one preallocated [L, 2, n_kv, max_ctx, D] tensor that the
 forward updates in place at the new positions; attention reads keys
@@ -38,7 +39,9 @@ from ..io.gguf import GGUFReader
 from ..ops import norms, qmat, rope
 
 NEG_INF = -1e30
-_MATRICES = ("q", "k", "v", "o", "gate", "up", "down")
+_ATTN = ("q", "k", "v", "o")
+_FFN = ("gate", "up", "down")
+_EXPERTS = ("router", "gate_exps", "up_exps", "down_exps")
 
 
 @dataclass
@@ -85,20 +88,16 @@ class BackboneConfig:
         )
 
 
-def _dense_only(cfg: BackboneConfig) -> None:
-    if cfg.n_experts:
-        raise ValueError(f"MoE backbone ({cfg.n_experts} experts): the sparse "
-                         f"FFN is not ported yet")
-
-
 def load_backbone_params(r: GGUFReader, cfg: BackboneConfig,
                          dtype=torch.float32, quantized: bool = False,
                          device="cuda") -> Dict[str, Any]:
     """Parameters on `device`: {"tok_embd", "out_norm", "freq_factors"
     (f32 or None), "lm_head" (untied only), "layers": one dict per layer}.
     quantized=True keeps Q8_0/Q4_K layer matrices packed (dicts of
-    ops/qmat.py); F16/F32 matrices load dense in `dtype` either way."""
-    _dense_only(cfg)
+    ops/qmat.py); F16/F32 matrices load dense in `dtype` either way. A MoE
+    layer has the router [E, hidden] and the stacked experts gate_exps /
+    up_exps [E, moe_ffn, hidden] and down_exps [E, hidden, moe_ffn], dense
+    in `dtype`, in place of gate / up / down."""
 
     def get(name, required=True):
         if not r.has_tensor(name):
@@ -121,7 +120,11 @@ def load_backbone_params(r: GGUFReader, cfg: BackboneConfig,
     p["layers"] = []
     for i in range(cfg.n_layers):
         pre = f"backbone.l{i}."
-        lw = {k: get_mat(f"{pre}{k}.w") for k in _MATRICES}
+        lw = {k: get_mat(f"{pre}{k}.w") for k in _ATTN}
+        if cfg.n_experts:
+            lw.update({k: get(f"{pre}{k}.w") for k in _EXPERTS})
+        else:
+            lw.update({k: get_mat(f"{pre}{k}.w") for k in _FFN})
         lw["attn_norm"] = get(pre + "attn_norm.w")
         lw["ffn_norm"] = get(pre + "ffn_norm.w")
         if cfg.has_attn_bias:
@@ -139,8 +142,8 @@ def params_from_reference(cfg: BackboneConfig, tree: Dict[str, Any],
     """codec_tpu's `load_backbone_params` tree as NumPy arrays (layers
     stacked [L, ...]; packed matrices as dicts in its group-minor column
     order) → this package's parameters, packed matrices repacked into the
-    natural order bit for bit (ops/qmat.natural_order)."""
-    _dense_only(cfg)
+    natural order bit for bit (ops/qmat.natural_order); a MoE tree's
+    stacked experts [L, E, ...] split per layer."""
 
     def dense(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
@@ -173,13 +176,56 @@ def _mm(h: torch.Tensor, w, qmm: Callable) -> torch.Tensor:
     return F.linear(h, w)
 
 
+def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any],
+             cfg: BackboneConfig) -> torch.Tensor:
+    """Qwen3-MoE sparse FFN over h [T, hidden] (codec_tpu/lm/backbone.py::
+    _moe_ffn; HF Qwen3MoeSparseMoeBlock): the router's softmax in f32 →
+    the n_experts_used most probable experts (equal probabilities: the
+    lower expert index first, as lax.top_k; a stable sort gives that) →
+    their weights renormalized to sum 1 when norm_topk_prob → the weighted
+    sum of the chosen experts' SwiGLUs.
+
+    codec_tpu computes every expert and contracts with a routing matrix
+    that is zero off the chosen ones. Where the chosen (token, expert)
+    pairs are fewer than the experts (a decode step: T · k < E) this form
+    gathers the chosen experts' matrices and runs those alone, the same
+    sum over the same terms (k of E experts' bytes a token); else it runs
+    codec_tpu's dense form."""
+    t, k = h.shape[0], cfg.n_experts_used
+    probs = torch.softmax(F.linear(h, lw["router"]).float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    if cfg.norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    if t * k < cfg.n_experts:
+        g = torch.einsum("th,tkfh->tkf", h, lw["gate_exps"][topi])
+        u = torch.einsum("th,tkfh->tkf", h, lw["up_exps"][topi])
+        y = torch.einsum("tkf,tkhf->tkh", F.silu(g) * u, lw["down_exps"][topi])
+        return torch.einsum("tk,tkh->th", topv.to(y.dtype), y)
+    w = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
+                    device=h.device).scatter(1, topi, topv)
+    g = torch.einsum("th,efh->tef", h, lw["gate_exps"])
+    u = torch.einsum("th,efh->tef", h, lw["up_exps"])
+    y = torch.einsum("tef,ehf->teh", F.silu(g) * u, lw["down_exps"])
+    return torch.einsum("te,teh->th", w.to(y.dtype), y)
+
+
+def _ffn(h: torch.Tensor, lw: Dict[str, Any], cfg: BackboneConfig,
+         qmm: Callable) -> torch.Tensor:
+    """The layer's FFN over h [T, hidden]: SwiGLU, or the MoE's."""
+    if cfg.n_experts:
+        return _moe_ffn(h, lw, cfg)
+    g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
+    return _mm(g, lw["down"], qmm)
+
+
 def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
                 pos0: int, cfg: BackboneConfig, rope_cs, mask,
                 qmm: Callable = qmat.qmatmul) -> torch.Tensor:
     """One decoder layer over xb [T, hidden] at positions pos0..pos0+T-1:
     attention against this layer's cache kv_l [2, n_kv, max_ctx, D] (the
-    new keys and values are written into it in place) + SwiGLU FFN.
-    rope_cs: (cos, sin) of the positions; mask: additive [T, pos0+T] or
+    new keys and values are written into it in place) + the FFN (SwiGLU,
+    or the MoE's). rope_cs: (cos, sin) of the positions; mask: additive [T, pos0+T] or
     None (one query sees every key)."""
     t = xb.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -209,9 +255,8 @@ def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
     ctx = torch.matmul(w, vals).reshape(nh, t, hd).transpose(0, 1)
     xb = xb + _mm(ctx.reshape(t, nh * hd), lw["o"], qmm)
 
-    h = norms.rms_norm(xb, lw["ffn_norm"], cfg.rms_eps)
-    g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
-    return xb + _mm(g, lw["down"], qmm)
+    return xb + _ffn(norms.rms_norm(xb, lw["ffn_norm"], cfg.rms_eps), lw, cfg,
+                     qmm)
 
 
 def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
@@ -275,9 +320,8 @@ def backbone_step(params: Dict[str, Any], kv: torch.Tensor, pos: torch.Tensor,
         w = torch.softmax(logits, dim=-1).to(vals.dtype)
         att = torch.matmul(w, vals).reshape(b, nh * hd)
         x = x + _mm(att, lw["o"], qmm)
-        h = norms.rms_norm(x, lw["ffn_norm"], cfg.rms_eps)
-        g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
-        x = x + _mm(g, lw["down"], qmm)
+        x = x + _ffn(norms.rms_norm(x, lw["ffn_norm"], cfg.rms_eps), lw, cfg,
+                     qmm)
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
 
 

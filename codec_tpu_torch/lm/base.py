@@ -180,6 +180,12 @@ class LmState:
         self.lm._begin(self, h)
         self._phase = "begun"
 
+    @property
+    def step_pending(self) -> bool:
+        """True while codebooks remain in the current frame (reference:
+        codec_lm_step_pending, lm.cpp:592)."""
+        return self._phase in ("begun", "await_push")
+
     def step_logits(self) -> Tuple[np.ndarray, int]:
         """→ (logits[codebook_sizes[k]], cb_idx)."""
         if self._phase != "begun":

@@ -5,7 +5,9 @@ A chunk runs K whole frames on the device: the fused depth-AR frame with
 in-graph sampling (lm/residual_depth_ar.py::_build_frame) → the EOS gate →
 the feedback compose → one backbone step (lm/backbone.py::backbone_step),
 and packs the codes and the bookkeeping into one int32 tensor that the host
-reads with one copy. On CUDA a chunk is captured once as a CUDA graph over
+reads with one copy. The realtime-streaming chunk (`build_stream_chunk`)
+adds a per-codebook repetition-penalty history and a text token per frame
+to the feedback. On CUDA a chunk is captured once as a CUDA graph over
 static buffers (hidden, positions, done flags, Gumbel noise, frame counters
 and the KV cache) and replayed; on the CPU it runs eagerly.
 
@@ -243,11 +245,12 @@ class ChunkRunner:
         """Fresh Gumbel noise for stream s's frames from generators[s], one
         [n_cb, W] draw a frame (the per-frame path draws the same), or none
         where generators[s] is None (greedy, or a stream that is done).
-        `frames`: draw only the first so many frames' rows (default K)."""
+        Each draw is on the generator's device, then copied in. `frames`:
+        draw only the first so many frames' rows (default K)."""
         for s, gen in enumerate(generators):
             if gen is not None:
                 self.noise[:frames or self.k, s] = torch.stack(
-                    [gumbel((self.n_cb, self.width), gen, self.noise.device)
+                    [gumbel((self.n_cb, self.width), gen, gen.device)
                      for _ in range(frames or self.k)])
 
     def run(self) -> torch.Tensor:
@@ -256,15 +259,140 @@ class ChunkRunner:
 
 def init_rep_hist(lm, window: int, device=None):
     """A fresh repetition-penalty history for a streaming chunk's carry:
-    (a -1-filled ring [n_cb, window], slot pointer 0) for window > 0, or a
-    seen-mask [n_cb, max vocab] for window < 0."""
+    (a -1-filled ring [n_cb, window] int32, slot pointer [1] int64 0) for
+    window > 0, or a seen-mask [n_cb, max vocab] bool for window <= 0."""
     n_cb = int(lm.info.n_codebook)
     device = device or lm.device
     if window > 0:
         return (torch.full((n_cb, int(window)), -1, dtype=torch.int32,
-                           device=device), 0)
+                           device=device),
+                torch.zeros((1,), dtype=torch.long, device=device))
     return torch.zeros((n_cb, max(lm.info.codebook_sizes)), dtype=torch.bool,
                        device=device)
+
+
+def _hist_leaves(hist) -> tuple:
+    """A repetition history's tensors (the ring and its pointer, or the
+    seen mask)."""
+    return tuple(hist) if isinstance(hist, tuple) else (hist,)
+
+
+def build_stream_chunk(lm, bb_cfg, chain: Tuple[float, int, float, float],
+                       rep: Tuple[float, int], n_frames: int,
+                       qmm: Optional[Callable] = None) -> Callable:
+    """K frames of the realtime streaming interleave in one device call
+    (codec_tpu/lm/fused_gen.py::build_stream_chunk; host loop
+    lm/tts_runner.run_realtime_streaming). Per frame: the repetition-
+    penalized frame (`lm._build_frame(chain, rep=rep)`, its history carried
+    from frame to frame) → the EOS gate → the backbone input
+    tok_embd[text_sched[i]] + compose(codes), the text side of the
+    interleave scheduled by the host → one backbone step.
+
+    chunk(params, kv [1, L, 2, n_kv, >= ctx, D], pos [1], base_frame [1],
+    h [1, hidden] f32, noise [K, 1, n_cb, W] f32, hist, text_sched [K]
+    int64, ctx) → (packed int32 [K·n_cb + 3], h', pos', hist'); kv is
+    written in place. packed = codes.flatten() ++ [n_emitted, stopped,
+    pos_after], codec_tpu's layout. The EOS frame's codes enter the
+    history, as codec_tpu's loop keeps its frame's history; after it the
+    hidden, the position and the history are held, the code rows are
+    zeros, and the held steps write the backbone cache slot at the held
+    position, which nothing reads (the run ends there)."""
+    from ..ops import qmat
+
+    qmm = qmm or qmat.qmatmul
+    frame = lm._build_frame(chain, rep=rep)
+    compose = lm.compose_embd_fn()
+    info = lm.info
+    eos_code, eos_min = int(info.eos_code_c0), int(info.eos_min_step)
+    k_frames = int(n_frames)
+
+    def chunk(params, kv, pos, base_frame, h, noise, hist, text_sched,
+              ctx: int):
+        tok_embd = params["tok_embd"]
+        text_ctx = torch.zeros_like(pos)
+        done = torch.zeros_like(pos, dtype=torch.bool)
+        rows, live = [], []
+        for i in range(k_frames):
+            codes, new_hist = frame(h, noise[i], text_ctx, hist)
+            if eos_code >= 0:
+                is_eos = (codes[:, 0] == eos_code) & (base_frame + i >= eos_min)
+            else:
+                is_eos = torch.zeros_like(done)
+            # a [1] index: a 0-d one would be read on the host
+            emb = (tok_embd[text_sched[i:i + 1]].float()
+                   + compose(codes)).to(kv.dtype)
+            h2 = backbone_step(params, kv, pos, emb, bb_cfg, ctx, qmm)
+            live.append(~done)
+            rows.append(torch.where(done[:, None], 0, codes))
+            hist = (tuple(torch.where(done, a, b) for a, b in
+                          zip(hist, new_hist)) if isinstance(hist, tuple)
+                    else torch.where(done, hist, new_hist))
+            done = done | is_eos
+            h = torch.where(done[:, None], h, h2.float())
+            pos = torch.where(done, pos, pos + 1)
+        meta = torch.stack([torch.stack(live).sum(), done[0].long(), pos[0]])
+        packed = torch.cat([torch.stack(rows).reshape(-1), meta])
+        return packed.to(torch.int32), h, pos, hist
+
+    return chunk
+
+
+class StreamRunner:
+    """The realtime-streaming chunk's static buffers and its graph (one
+    stream, K frames, `ctx` attended cache rows): the hidden `h` [1,
+    hidden] and position `pos` [1], written once a request; the frame
+    counter `base` [1], the text schedule `text_sched` [K] int64 and the
+    Gumbel `noise` [K, 1, n_cb, W], written before each replay; the
+    repetition history `hist` (init_rep_hist's form, reset by
+    `reset_hist`). `run()` advances h, pos and hist in place and returns
+    the packed result; `kv` is the backbone's cache."""
+
+    def __init__(self, lm, backbone, chain, rep, n_frames: int, ctx: int):
+        cfg, dev = backbone.cfg, backbone.device
+        self.k = int(n_frames)
+        self.n_cb = lm.info.n_codebook
+        self.width = lm.noise_width()
+        self.h = torch.zeros((1, cfg.hidden), dtype=torch.float32, device=dev)
+        self.pos = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.base = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.text_sched = torch.zeros((self.k,), dtype=torch.long, device=dev)
+        self.noise = torch.zeros((self.k, 1, self.n_cb, self.width),
+                                 dtype=torch.float32, device=dev)
+        self.hist = init_rep_hist(lm, int(rep[1]), dev)
+        self._fresh = tuple(t.clone() for t in _hist_leaves(self.hist))
+        self.kv = backbone.kv[None]
+        chunk = build_stream_chunk(lm, cfg, chain, rep, self.k, backbone.qmm)
+        params = backbone.params
+
+        def step():
+            packed, h, pos, hist = chunk(params, self.kv, self.pos, self.base,
+                                         self.h, self.noise, self.hist,
+                                         self.text_sched, ctx)
+            self.h.copy_(h)
+            self.pos.copy_(pos)
+            for buf, t in zip(_hist_leaves(self.hist), _hist_leaves(hist)):
+                buf.copy_(t)
+            return packed
+
+        self.graphed = Graphed(step, torch.device(dev), restore=(
+            self.h, self.pos, *_hist_leaves(self.hist), self.kv[..., :ctx, :]))
+
+    def reset_hist(self) -> None:
+        """An empty repetition history (a request's start)."""
+        for buf, t in zip(_hist_leaves(self.hist), self._fresh):
+            buf.copy_(t)
+
+    def draw_noise(self, gen, frames: int = 0) -> None:
+        """Fresh Gumbel noise from `gen`, one [n_cb, W] draw a frame on the
+        generator's device, copied in (the first `frames` frames only,
+        default K)."""
+        n = frames or self.k
+        self.noise[:n, 0] = torch.stack(
+            [gumbel((self.n_cb, self.width), gen, gen.device)
+             for _ in range(n)])
+
+    def run(self) -> torch.Tensor:
+        return self.graphed.run()
 
 
 def chunk_ctx(backbone, need: int) -> int:
@@ -277,9 +405,12 @@ def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
                      temperature: float = 0.0, top_k: int = 0,
                      top_p: float = 1.0, min_p: float = 0.0,
                      cb0_range=None, batched: bool = False, b: int = 1,
-                     traced_chain: bool = False) -> ChunkRunner:
+                     traced_chain: bool = False, stream: bool = False,
+                     rep: Optional[Tuple[float, int]] = None):
     """The ChunkRunner of this (sampler chain, K, cb0_range, batch, ctx,
-    LM) on this backbone, built once and kept on the backbone (its graph
+    LM) on this backbone, or with `stream` the StreamRunner of this (chain,
+    rep = (penalty, window), default (1.0, 0), K, ctx, LM): built once and
+    kept on the backbone (its graph
     holds the backbone's weights and, for one stream, its KV cache). The
     key also holds the KV cache's address and the TF32 settings the graph
     was captured under. The backbone keeps the _KEEP runners used last
@@ -291,16 +422,26 @@ def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
     runner's `chains` [B, 4] carries each stream's chain."""
     if traced_chain and not batched:
         raise ValueError("traced_chain is a batched-chunk mode")
+    if stream and (batched or cb0_range is not None):
+        raise ValueError("the stream chunk is one stream with no cb0 range")
     chain = None if traced_chain else (
         float(temperature), int(top_k), float(top_p), float(min_p))
+    rep = (float(rep[0]), int(rep[1])) if rep is not None else (1.0, 0)
     key = (id(lm), chain, int(n_frames), cb0_range, batched, int(b), int(ctx),
+           stream, rep if stream else None,
            None if batched else backbone.kv.data_ptr(), repr(backbone.cfg),
            torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
+    if stream:
+        def make():
+            return StreamRunner(lm, backbone, chain, rep, int(n_frames),
+                                int(ctx))
+    else:
+        def make():
+            return ChunkRunner(lm, backbone, chain, int(n_frames), cb0_range,
+                               batched, int(b), int(ctx))
     # the LM rides along so that id(lm) is not reused while the entry lives
-    return _kept(backbone, "_gen_chunks", key, lambda: (lm, ChunkRunner(
-        lm, backbone, chain, int(n_frames), cb0_range, batched, int(b),
-        int(ctx))))[1]
+    return _kept(backbone, "_gen_chunks", key, lambda: (lm, make()))[1]
 
 
 class FrameRunner:

@@ -6,12 +6,15 @@ codec_tpu/lm/residual_depth_ar.py's host path.
 Reference: src/lm/residual_depth_ar.cpp. Variants handled by flags:
   - shared in_proj (CSM / Qwen3-TTS): prefix rows in hidden_dim space,
     one 2D in_proj (or identity) applied to every row.
-  - per-pos in_proj (Moshi): prefix rows already in depth_hidden space;
-    position p adds in_proj[p] @ h_in (+ bias[p]); pos 0 is
-    text_embd[text_token].
+  - per-pos in_proj (Moshi / LFM2-Audio): prefix rows already in
+    depth_hidden space; position p adds in_proj[p] @ h_in (+ bias[p]);
+    pos 0 is text_embd[text_token] (Moshi) or zero (LFM2).
   - depth_emits_c0: all N codebooks come from the depth decoder.
   - heads: per-cb 2D `lm.depth.heads_{i}` or one 3D `lm.depth.heads`
-    sliced per position; optional per-head pre-norm.
+    sliced per position; optional per-head pre-norm (LFM2).
+  - a backbone-side compose table (LFM2-Audio, MOSS-TTS-Realtime):
+    `lm.compose.audio_embd` [n_cb · stride, hidden]; the next backbone
+    input sums its rows codes[i] + i · stride instead of the depth tables.
   - optional qk-norm (Qwen3), RoPE NEOX/NORMAL or none, llama3 freq
     factors.
 
@@ -26,8 +29,9 @@ whole frame with in-graph sampling (ops/sample.py): the c0 head,
 then one full-prefix depth trunk over the fixed [n_codebook, row_dim]
 buffer per depth step (causal masking makes the unfilled rows inert), as
 codec_tpu's frame does. The fixed shapes and the absence of host reads are
-what let lm/fused_gen.py capture it in a CUDA graph. The LFM2 compose table
-is not ported yet.
+what let lm/fused_gen.py capture it in a CUDA graph. Its repetition-penalty
+form (`_build_frame(rep=)`, codec_tpu's `_build_frame_rp`) carries a
+per-codebook history for the realtime-streaming chunk.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
 from ..ops import attn, norms, rope
-from ..ops.sample import mask_outside_range, sample_logits, sample_logits_dyn
+from ..ops.sample import (apply_repetition_penalty, mask_outside_range,
+                          sample_logits, sample_logits_dyn,
+                          seen_mask_from_ring)
 from .base import CodecLM, LmError, LmInfo, LmState, read_common_info, register_kind
 
 
@@ -103,9 +109,6 @@ class ResidualDepthArLM(CodecLM):
         self.c0_is_none = modality == "none"
         if self.c0_is_text or self.c0_is_none:
             self.depth_emits_c0 = True
-        if r.has_tensor("lm.compose.audio_embd.weight"):
-            raise LmError("residual_depth_ar: the LFM2 compose table "
-                          "(lm.compose.audio_embd) is not ported yet")
 
         # audio_embds[i] embeds c_i (prefix row i+1 uses table i; compose
         # sums all N); the last table may be absent (Moshi)
@@ -146,6 +149,12 @@ class ResidualDepthArLM(CodecLM):
                 lw["q_norm"] = g(f"{p}.q_norm.weight")
                 lw["k_norm"] = g(f"{p}.k_norm.weight")
             self.layers.append(lw)
+        # the backbone-side compose table (LFM2-Audio, MOSS-TTS-Realtime):
+        # code c of codebook i is row c + i * stride
+        self.compose_table = gopt("lm.compose.audio_embd.weight")
+        self.compose_stride = r.get_i32(
+            "codec.lm.compose.codebook_stride",
+            r.get_i32("codec.lm.residual.compose_codebook_stride", 0))
         self._fused_consts_cache: Optional[FusedConsts] = None
         return info
 
@@ -272,7 +281,7 @@ class ResidualDepthArLM(CodecLM):
         c = self._fused_consts()
         return max(c.c0_width, c.head_width)
 
-    def _build_frame(self, chain, cb0_range=None) -> Callable:
+    def _build_frame(self, chain, cb0_range=None, rep=None) -> Callable:
         """The batched frame for a sampler chain: frame(h [B, hidden] f32,
         noise [B, n_codebook, noise_width()] f32, text_ctx [B] int64,
         chains=None) → codes [B, n_codebook] int64, on the device with no
@@ -281,24 +290,40 @@ class ResidualDepthArLM(CodecLM):
         `chain` is (temperature, top_k, top_p, min_p), or None for the
         chain as data: then `chains` [B, 4] gives each stream's row
         (`sample_logits_dyn`). `cb0_range=(start, end, *extra)` masks the
-        c0 logits to the host RangeConstraint's set."""
+        c0 logits to the host RangeConstraint's set. `rep=(penalty,
+        window)` builds the repetition-penalized frame instead
+        (`_build_frame_rp`)."""
+        if rep is not None:
+            return self._build_frame_rp(chain, rep)
+        return self._frame_fn(chain, cb0_range)
+
+    def _frame_fn(self, chain, cb0_range=None, penalty: float = 1.0) -> Callable:
+        """_build_frame's frame; with `penalty` != 1 it takes `seen` [n_cb,
+        max vocab] bool too and penalizes each codebook's seen ids on the
+        raw logits before the chain (ops/sample.apply_repetition_penalty)."""
         c = self._fused_consts()
         info = self.info
         row_dim, hidden = info.audio_embed_dim, info.hidden_dim
         if chain is None:
-            def sample(lg, g, cv):
+            def draw(lg, g, cv):
                 return sample_logits_dyn(lg, g, cv)
         else:
-            def sample(lg, g, cv):
+            def draw(lg, g, cv):
                 return sample_logits(lg, g, temperature=chain[0],
                                      top_k=chain[1], top_p=chain[2],
                                      min_p=chain[3])
+
+        def sample(lg, g, cv, seen, k):
+            if seen is not None:
+                lg = apply_repetition_penalty(lg, seen[k, : lg.shape[-1]],
+                                              penalty)
+            return draw(lg, g, cv)
         # the padded tail of each head's logits: -inf
         valid = [None if size >= c.head_width else
                  torch.arange(c.head_width, device=self.device) < size
                  for size in c.sizes]
 
-        def frame(h, noise, text_ctx, chains=None):
+        def frame(h, noise, text_ctx, chains=None, seen=None):
             b = h.shape[0]
             buf = h.new_zeros((b, c.n, row_dim))
             if not self.in_proj_per_pos:
@@ -312,7 +337,7 @@ class ResidualDepthArLM(CodecLM):
                 if cb0_range is not None:
                     lg0 = mask_outside_range(lg0, cb0_range[0], cb0_range[1],
                                              cb0_range[2:])
-                c0 = sample(lg0, noise[:, 0, :c.c0_width], chains)
+                c0 = sample(lg0, noise[:, 0, :c.c0_width], chains, seen, 0)
                 codes.append(c0)
                 if c.n > 1:
                     buf[:, 1] = self.audio_embds[0][c0]
@@ -324,13 +349,52 @@ class ResidualDepthArLM(CodecLM):
                 lg = F.linear(row, c.heads[i])
                 if valid[i] is not None:
                     lg = torch.where(valid[i], lg, float("-inf"))
-                code = sample(lg, noise[:, i + c.off, :c.head_width], chains)
+                code = sample(lg, noise[:, i + c.off, :c.head_width], chains,
+                              seen, i + c.off)
                 codes.append(code)
                 if c.tabs is not None and i < c.n_dh - 1:
                     buf[:, i + c.off + 1] = c.tabs[i][code]
             return torch.stack(codes, dim=1)
 
         return frame
+
+    def _build_frame_rp(self, chain, rep) -> Callable:
+        """The repetition-penalized frame of the realtime-streaming chunk
+        (codec_tpu's `_build_frame_rp`), one stream: frame(h [1, hidden],
+        noise [1, n_codebook, W], text_ctx [1], hist) → (codes [1,
+        n_codebook], hist'). `rep = (penalty, window)`. For window > 0 hist
+        is (rings [n_codebook, window] int, ptr [1] int64): each codebook's
+        last `window` codes in a ring whose empty slots hold -1, frame f
+        writing slot f % window; for window < 0 a seen mask [n_codebook,
+        max vocab] bool of every code so far (ops/sample.py and
+        fused_gen.init_rep_hist make both). The penalty hits the raw logits
+        before the chain only when temperature > 0, penalty != 1 and window
+        != 0, the host SamplerChain's rule; the history advances either
+        way, so one state shape serves greedy and sampled runs. As in
+        codec_tpu, an empty ring slot marks id vocab - 1 as seen
+        (seen_mask_from_ring)."""
+        pen, window = float(rep[0]), int(rep[1])
+        vmax = max(self.info.codebook_sizes)
+        use_pen = chain[0] > 0.0 and pen != 1.0 and window != 0
+        frame = self._frame_fn(chain, penalty=pen)
+
+        def frame_rp(h, noise, text_ctx, hist):
+            if window > 0:
+                rings, ptr = hist
+                seen = seen_mask_from_ring(rings, vmax) if use_pen else None
+            else:
+                seen = hist if use_pen else None
+            codes = frame(h, noise, text_ctx, seen=seen)
+            row = codes[0]
+            if window > 0:
+                slot = torch.arange(window, device=rings.device) == ptr % window
+                rings = torch.where(slot[None, :], row[:, None].to(rings.dtype),
+                                    rings)
+                return codes, (rings, ptr + 1)
+            hit = torch.arange(hist.shape[-1], device=hist.device) == row[:, None]
+            return codes, hist | hit
+
+        return frame_rp
 
     # -- step machine hooks ------------------------------------------------
     def _begin(self, state: LmState, h: np.ndarray) -> None:
@@ -367,9 +431,21 @@ class ResidualDepthArLM(CodecLM):
         return embd[code].cpu().numpy()
 
     def compose_audio_embd(self, codes: Sequence[int]) -> np.ndarray:
-        """Sum of the codes' embedding rows (-1 skips a codebook): one
-        gather and one copy to the host, then the reference's f32 sum in
-        codebook order."""
+        """The next backbone input of a frame: the compose table's rows
+        codes[i] + i · stride summed (a file with the table; a zero row
+        when no code is live), else the depth tables' rows of the codes
+        summed. A negative code skips its codebook. One gather and one copy
+        to the host, then codec_tpu's f32 sums: the table's rows by
+        `rows.sum(axis=0)`, the depth tables' in codebook order."""
+        if self.compose_table is not None:
+            idx = [int(c) + i * self.compose_stride
+                   for i, c in enumerate(codes) if c >= 0]
+            if not idx:
+                return np.zeros((self.info.compose_audio_embed_dim,),
+                                np.float32)
+            rows = self.compose_table[torch.as_tensor(
+                idx, device=self.compose_table.device)]
+            return rows.cpu().numpy().sum(axis=0)
         out = np.zeros((self.info.audio_embed_dim,), np.float32)
         rows = [self.audio_embds[i][c] for i, c in enumerate(codes)
                 if c >= 0 and i < len(self.audio_embds)
@@ -381,9 +457,19 @@ class ResidualDepthArLM(CodecLM):
 
     def compose_embd_fn(self) -> Callable:
         """The device form of compose_audio_embd for the generation chunk
-        (lm/fused_gen.py): codes [B, n_codebook] int64 → [B,
-        audio_embed_dim], the tables' rows summed in codebook order. Sampled
+        (lm/fused_gen.py): codes [B, n_codebook] int64 → [B, width], the
+        rows gathered (table[codes + i · stride] with a compose table, else
+        the depth tables') and summed in f32 with no host read. Sampled
         codes are in range, so the host path's -1 guard is not needed."""
+        if self.compose_table is not None:
+            table, n = self.compose_table, self.info.n_codebook
+            offs = torch.arange(n, device=table.device) * int(self.compose_stride)
+
+            def compose_table(codes):
+                return table[codes + offs].float().sum(dim=1)
+
+            return compose_table
+
         live = [i for i, t in enumerate(self.audio_embds) if t is not None]
         if not live:
             raise LmError("compose_embd_fn: no audio embedding tables")

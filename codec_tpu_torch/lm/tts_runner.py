@@ -16,8 +16,10 @@ run_codebook_ar_batch, B streams through one batched chunk;
 run_continuous (BlueMagpie continuous-latent CFM), one step a call or K
 steps a CUDA-graph chunk; and run_chatterbox (the Chatterbox T3 CFG loop:
 one backbone per lane on the host, or both lanes as one batch in
-CUDA-graph chunks). The realtime-streaming and LFM2 flows are not ported
-yet.
+CUDA-graph chunks); run_realtime_streaming (MOSS-TTS-Realtime's text⊕audio
+interleave, with a per-codebook repetition penalty) and run_lfm2_sequential
+(LFM2-Audio's text phase, then codebook-AR audio), each on the host path or
+in K-frame CUDA-graph chunks.
 """
 
 from __future__ import annotations
@@ -508,6 +510,260 @@ def run_continuous(
         pcm = audio_lm.codec.decode_latent(latents)
     return SynthesisResult(codes=latents, pcm=pcm, n_steps=steps,
                            stopped_by_eos=stopped)
+
+
+def _observe_chunk(audio_lm: AudioLM, arr: np.ndarray, k: int, steps: int,
+                   max_frames: int):
+    """The frames of one packed single-stream chunk into the context: each
+    recorded (compose=False: the chunk composed the feedback itself) until
+    the EOS frame, which counts no step, or `max_frames` steps. →
+    (n_emitted, frames taken, steps, stopped)."""
+    st, n_cb = audio_lm.state, audio_lm.n_codebook
+    n_emit = int(arr[-3])
+    taken = 0
+    for row in arr[: k * n_cb].reshape(k, n_cb)[:n_emit]:
+        codes = st.push_frame(row)
+        if audio_lm.observe_codes(codes, compose=False) is ObserveAction.STOP:
+            return n_emit, taken, steps, True
+        steps += 1
+        taken += 1
+        if steps >= max_frames:
+            break
+    return n_emit, taken, steps, False
+
+
+def _chunk_sampling(lm, on_device: Optional[OnDeviceSampling], backbone):
+    """The chunk length of an on-device request, 1 (the host path) without
+    `on_device` or for a backbone the chunk cannot run (the host's Backbone
+    protocol alone), and the Generator of its noise (None when greedy): a
+    CPU one, so a request draws the same noise on every device (each chunk
+    copies its K frames' draws to the card)."""
+    from .fused_gen import supports_gen_chunk
+
+    k = int(on_device.chunk_frames or 1) if on_device is not None else 1
+    if k <= 1 or not supports_gen_chunk(lm, backbone):
+        return 1, None
+    gen = (torch.Generator().manual_seed(on_device.seed)
+           if on_device.temperature > 0.0 else None)
+    return k, gen
+
+
+def run_realtime_streaming(
+    audio_lm: AudioLM,
+    backbone: Backbone,
+    text_embd_fn: Callable[[int], np.ndarray],
+    ctx_tokens: Sequence[int],
+    text_tokens: Sequence[int],
+    pi,
+    max_frames: int = 1024,
+    samplers: Optional[Sequence[Callable[[np.ndarray], int]]] = None,
+    decode: bool = True,
+    on_device: Optional[OnDeviceSampling] = None,
+    prefill_bucket: int = 0,
+) -> SynthesisResult:
+    """MOSS-TTS-Realtime streaming interleave (reference:
+    run_realtime_streaming, tts_runner.cpp:490). Each backbone input row is
+    text_embd[token] + compose_audio_embd(codes): the context tokens with
+    the audio channel padded (pi.audio_pad_code, composed like any code),
+    the first pi.prefill_text_len spoken tokens likewise with the BOS code
+    on cb0 of the last, then one spoken token per generated frame (then
+    pi.text_pad_id once the text runs out). `samplers`: one host sampler a
+    codebook (default: a SamplerChain each at pi's defaults, with its
+    repetition penalty over pi.repetition_window codes).
+
+    `on_device` with chunk_frames > 1 and a backbone the chunk can run:
+    the frames run as K-frame device chunks (lm/fused_gen.py::
+    build_stream_chunk; on CUDA one graph replay a chunk): the frame with
+    the per-codebook repetition penalty of on_device.repetition_penalty
+    over on_device.repetition_window codes, its history on the device, the
+    text⊕audio compose and the backbone step; the host writes each chunk's
+    K text tokens. `samplers` is then unused, and `text_embd_fn` must be
+    the backbone's tok_embd lookup (the chunk reads the table). The noise
+    comes from a CPU torch.Generator seeded by on_device.seed, one [n_cb,
+    W] draw a frame."""
+    if audio_lm.lm is None:
+        raise ValueError("model has no codec_lm adaptor")
+    audio_lm.reset()
+    lm = audio_lm.lm
+    n_cb = audio_lm.n_codebook
+    pad_codes = [pi.audio_pad_code] * n_cb
+    if samplers is None:
+        samplers = [SamplerChain(temperature=pi.default_temperature,
+                                 top_k=pi.default_top_k, top_p=pi.default_top_p,
+                                 repetition_penalty=pi.default_repetition_penalty,
+                                 repetition_window=pi.repetition_window)
+                    for _ in range(n_cb)]
+
+    def compose_row(text_tok: int, codes) -> np.ndarray:
+        return (np.asarray(text_embd_fn(text_tok), np.float32)
+                + lm.compose_audio_embd(codes))
+
+    prefill_n = min(pi.prefill_text_len, len(text_tokens))
+    pad_row = lm.compose_audio_embd(pad_codes)
+    rows = [np.asarray(text_embd_fn(tok), np.float32) + pad_row
+            for tok in list(ctx_tokens) + list(text_tokens[:prefill_n - 1])]
+    if prefill_n:
+        rows.append(compose_row(text_tokens[prefill_n - 1],
+                                [pi.bos_code_c0] + pad_codes[1:]))
+    if not rows:
+        raise ValueError("empty context tokens")
+    h = prefill_prompt(backbone, rows, bucket=prefill_bucket)
+
+    st = audio_lm.state
+    text_idx = prefill_n
+    stopped = False
+    steps = 0
+    k, gen = _chunk_sampling(lm, on_device, backbone)
+    if k > 1:
+        from .fused_gen import chunk_ctx, gen_chunk_cached
+
+        runs = -(-max_frames // k) * k
+        runner = gen_chunk_cached(
+            lm, backbone, n_frames=k,
+            ctx=chunk_ctx(backbone, backbone.pos + runs + 1), stream=True,
+            rep=(on_device.repetition_penalty, on_device.repetition_window),
+            temperature=on_device.temperature, top_k=on_device.top_k,
+            top_p=on_device.top_p, min_p=on_device.min_p)
+        runner.h.copy_(torch.as_tensor(np.asarray(h, np.float32)).reshape(1, -1))
+        runner.pos.fill_(backbone.pos)
+        runner.reset_hist()
+        pos = backbone.pos
+        while steps < max_frames and not stopped:
+            runner.text_sched.copy_(torch.as_tensor(
+                [text_tokens[text_idx + j] if text_idx + j < len(text_tokens)
+                 else pi.text_pad_id for j in range(k)]))
+            runner.base.fill_(st.frame_counter)
+            if gen is not None:
+                runner.draw_noise(gen)
+            arr = runner.run().cpu().numpy()
+            pos = int(arr[-1])
+            n_emit, taken, steps, stopped = _observe_chunk(
+                audio_lm, arr, k, steps, max_frames)
+            if n_emit == 0:                      # no progress: bail out
+                break
+            text_idx += taken
+        backbone.pos = pos                       # the chunk wrote its cache
+        max_frames = 0                           # skip the per-frame loop
+
+    for _ in range(max_frames):
+        st.step_begin(np.asarray(h, np.float32))
+        for _cb in range(n_cb):
+            logits, cb_idx = st.step_logits()
+            st.step_push_code(samplers[cb_idx](logits))
+        codes = st.step_finish()
+        if audio_lm.observe_codes(codes, compose=False) is ObserveAction.STOP:
+            stopped = True
+            break
+        steps += 1
+        text_tok = (text_tokens[text_idx] if text_idx < len(text_tokens)
+                    else pi.text_pad_id)
+        text_idx += 1
+        h = backbone.step(compose_row(text_tok, codes))
+    return _finish(audio_lm, stopped, steps, None, decode, 0)
+
+
+def run_lfm2_sequential(
+    audio_lm: AudioLM,
+    backbone: Backbone,
+    text_embd_table,
+    prompt_tokens: Sequence[int],
+    pi,
+    max_frames: int = 1024,
+    sampler: Optional[Callable[[np.ndarray], int]] = None,
+    decode: bool = True,
+    on_device: Optional[OnDeviceSampling] = None,
+    prefill_bucket: int = 0,
+) -> SynthesisResult:
+    """LFM2-Audio sequential text→audio (reference: run_lfm2_sequential,
+    tts_runner.cpp:609): the prompt through the backbone (a token a step,
+    as codec_tpu, or `prefill_bucket` > 0: one padded forward,
+    `prefill_prompt`),
+    then the text phase free-runs on the tied-embedding logits
+    table @ hidden (one product where the table lives; only the logits
+    reach the host sampler) until pi.audio_start_id, or returns no codes at
+    pi.text_end_id, for at most pi.max_text_tokens; then codebook-AR
+    frames until EOS, the next backbone input the frame's compose
+    (the compose table's rows). One sampler drives both phases.
+
+    `text_embd_table` [vocab, hidden]: the backbone's tok_embd (a tensor on
+    its device, or an array). `on_device` with chunk_frames > 1 and a
+    backbone the chunk can run: the audio phase runs as K-frame device
+    chunks (lm/fused_gen.py; on CUDA one graph replay a chunk), the compose
+    table's device form as the feedback, the noise from a CPU
+    torch.Generator seeded by on_device.seed; `sampler` drives only the
+    text phase."""
+    if audio_lm.lm is None:
+        raise ValueError("model has no codec_lm adaptor")
+    audio_lm.reset()
+    lm = audio_lm.lm
+    table = torch.as_tensor(text_embd_table)
+    if sampler is None:
+        sampler = SamplerChain(temperature=pi.default_temperature,
+                               top_k=pi.default_top_k, top_p=pi.default_top_p)
+
+    def row(tok: int) -> np.ndarray:
+        return table[int(tok)].float().cpu().numpy()
+
+    if not len(prompt_tokens):
+        raise ValueError("empty prompt tokens")
+    h = prefill_prompt(backbone, list(table[torch.as_tensor(
+        list(prompt_tokens), device=table.device)].float().cpu().numpy()),
+        bucket=prefill_bucket)
+
+    for _ in range(pi.max_text_tokens):
+        hd = torch.as_tensor(np.asarray(h, np.float32)).to(table.device,
+                                                           table.dtype)
+        tok = sampler((table @ hd).float().cpu().numpy())
+        if tok == pi.audio_start_id:
+            break
+        if tok == pi.text_end_id:
+            return SynthesisResult(codes=np.zeros((0, audio_lm.n_codebook),
+                                                  np.int32),
+                                   pcm=None, n_steps=0, stopped_by_eos=True)
+        h = backbone.step(row(tok))
+    h = backbone.step(row(pi.audio_start_id))
+
+    st = audio_lm.state
+    stopped = False
+    steps = 0
+    k, gen = _chunk_sampling(lm, on_device, backbone)
+    if k > 1:
+        from .fused_gen import chunk_ctx, gen_chunk_cached
+
+        runs = -(-max_frames // k) * k
+        runner = gen_chunk_cached(
+            lm, backbone, n_frames=k,
+            ctx=chunk_ctx(backbone, backbone.pos + runs + 1),
+            temperature=on_device.temperature, top_k=on_device.top_k,
+            top_p=on_device.top_p, min_p=on_device.min_p)
+        runner.h.copy_(torch.as_tensor(np.asarray(h, np.float32)).reshape(1, -1))
+        runner.pos.fill_(backbone.pos)
+        runner.text_ctx.fill_(0)
+        pos = backbone.pos
+        while steps < max_frames and not stopped:
+            runner.base.fill_(st.frame_counter)
+            runner.draw_noise([gen])
+            arr = runner.run().cpu().numpy()
+            pos = int(arr[-1])
+            n_emit, _, steps, stopped = _observe_chunk(audio_lm, arr, k,
+                                                       steps, max_frames)
+            if n_emit == 0:                      # no progress: bail out
+                break
+        backbone.pos = pos                       # the chunk wrote its cache
+        max_frames = 0                           # skip the per-frame loop
+
+    for _ in range(max_frames):
+        st.step_begin(np.asarray(h, np.float32))
+        for _cb in range(audio_lm.n_codebook):
+            logits, _ = st.step_logits()
+            st.step_push_code(sampler(logits))
+        codes = st.step_finish()
+        if audio_lm.observe_codes(codes, compose=False) is ObserveAction.STOP:
+            stopped = True
+            break
+        steps += 1
+        h = backbone.step(lm.compose_audio_embd(codes))
+    return _finish(audio_lm, stopped, steps, None, decode, 0)
 
 
 def run_chatterbox(

@@ -117,7 +117,13 @@ def write_random_backbone_gguf(path: Union[str, Path], seed: int = 0,
     so one seed gives the same weights in every type. `rope_scaling`
     (llama3) bakes `backbone.rope_freq_factors`; `spm_b64` bakes an SPM
     tokenizer (`spm_model_b64`), `bpe_zb64` a byte-level BPE one (a
-    tokenizer.json in lm/bpe.py's KV form, BpeByteLevel.json_to_zb64)."""
+    tokenizer.json in lm/bpe.py's KV form, BpeByteLevel.json_to_zb64).
+    A config with n_experts > 0 writes a Qwen3-MoE backbone
+    (codec_tpu/convert/backbone.py's names and KVs): per layer the router
+    [E, hidden] in F32 and the stacked experts gate_exps / up_exps [E,
+    moe_ffn, hidden] and down_exps [E, hidden, moe_ffn] in F16, whatever
+    `qtype` (codec_tpu loads experts dense), in place of gate / up /
+    down."""
     return write_random_backbone_ggufs({qtype: path}, seed, cfg,
                                        rope_scaling, spm_b64, bpe_zb64)[qtype]
 
@@ -133,8 +139,6 @@ def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
     its type, the same files as one call per type. The matrices are
     quantized on a pool of threads (NumPy leaves the GIL in its array
     loops) while the next ones are drawn."""
-    if cfg.n_experts:
-        raise ValueError("write_random_backbone_gguf: MoE is not supported")
     rng = np.random.default_rng(seed)
 
     def w(*shape, scale=0.02, off=0.0):
@@ -154,6 +158,11 @@ def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
         wr.add_bool("backbone.qk_norm", cfg.has_qk_norm)
         wr.add_bool("backbone.attn_bias", cfg.has_attn_bias)
         wr.add_bool("backbone.tied_lm_head", cfg.tied_lm_head)
+        if cfg.n_experts:
+            wr.add_int32("backbone.n_experts", cfg.n_experts)
+            wr.add_int32("backbone.n_experts_used", cfg.n_experts_used)
+            wr.add_bool("backbone.norm_topk_prob", cfg.norm_topk_prob)
+            wr.add_int32("backbone.moe_ffn_dim", cfg.moe_ffn_dim)
         if spm_b64:
             wr.add_string("backbone.tokenizer.spm_b64", spm_b64)
         if bpe_zb64:
@@ -166,11 +175,13 @@ def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
     def add(name, arr, storage=None):
         for q in writers:
             st = storage or q
-            if st in ("F32", "F16"):
+            if st in ("F32", "F16") and arr.nbytes < 2 ** 24:
                 queue.append((q, name, arr, st))
             else:
                 queue.append((q, name, pool.submit(encode_tensor, arr, st), st))
-        while len(queue) > 64:
+        # a MoE layer's stacked experts are 0.4-0.8 GB drawn: encode them
+        # and keep no more than one draw in flight
+        while len(queue) > (1 if arr.nbytes >= 2 ** 28 else 64):
             _flush_one()
 
     def _flush_one():
@@ -200,6 +211,14 @@ def write_random_backbone_ggufs(paths: Dict[str, Union[str, Path]],
                 add(pre + "q_norm.w", w(hd, off=1.0), "F32")
                 add(pre + "k_norm.w", w(hd, off=1.0), "F32")
             add(pre + "ffn_norm.w", w(h, off=1.0), "F32")
+            if cfg.n_experts:
+                e, f = cfg.n_experts, cfg.moe_ffn_dim
+                add(pre + "router.w", w(e, h), "F32")
+                for name, shape in (("gate_exps", (e, f, h)),
+                                    ("up_exps", (e, f, h)),
+                                    ("down_exps", (e, h, f))):
+                    add(f"{pre}{name}.w", w(*shape), "F16")
+                continue
             for name, shape in (("gate", (cfg.ffn_dim, h)),
                                 ("up", (cfg.ffn_dim, h)),
                                 ("down", (h, cfg.ffn_dim))):

@@ -28,6 +28,34 @@ Widths default to the published ones:
     of hidden 1024 (MiniCPM4-0.5B's widths: 24 layers, 16 heads x 64, 2 KV
     heads, ffn 4096, vocabulary 73 448).
 
+  - LFM2-Audio (LiquidAI/LFM2-Audio-1.5B, config.json): residual_depth_ar
+    with per-position in_proj (and bias), per-head pre-norms, no output
+    norm, qk-norm, interleaved RoPE theta 1e6 and c0 modality "none"
+    (codec_tpu/convert/lm_adaptor.py:479-553): the depthformer at dim
+    1024, 6 layers, 32 heads x 32, 8 KV heads (the converter's :486-487),
+    its FFN width 4096 assumed (config.json omits it; the converter reads
+    it from w1), 8 codebooks of 2048 + 1 (EOS) codes, the backbone-side
+    compose table [8 x 2049, 2048], over lfm hidden 2048 and the
+    full-width Mimi of mimi_init.py (its 8 first codebooks). Its backbone
+    is llama-style at LFM2-1.2B's widths (LFM2_1_2B; codec_tpu's
+    create_backbone runs llama decoders only, not LFM2's short-conv
+    blocks): hidden 2048, 16 layers, 32 heads x 64, 8 KV heads, ffn 8192,
+    vocabulary 65 536, qk-norm, RoPE theta 1e6.
+  - MOSS-TTS-Realtime: residual_depth_ar with c0 modality "none"
+    (lm_adaptor.py:559-620) over a Qwen3-1.7B-wide backbone (QWEN3_1_7B),
+    16 codebooks of 1024 codes + pad (1024), BOS (1025) and EOS (1026)
+    over the full-width MOSS-Audio-Tokenizer of moss_init.py, the compose
+    table [16 x 1027, 2048]. The local transformer's widths are assumed
+    (the repo holds no published config): 4 layers, 8 heads x 128, 2 KV
+    heads, ffn 4096, qk-norm, RoPE theta 1e6, at the backbone's hidden 2048
+    (the converter writes no in_proj, so the local hidden must be the
+    backbone's).
+  - Qwen3-MoE (Qwen/Qwen3-30B-A3B, config.json; QWEN3_30B_A3B): hidden
+    2048, 48 layers, 32 heads x 128, 4 KV heads, 128 experts of which 8
+    are used, moe_intermediate_size 768, norm_topk_prob, qk-norm, RoPE
+    theta 1e6, vocabulary 151 936, untied head; written by
+    lm_init.write_random_backbone_gguf. Its hidden equals MOSS-TTSD's.
+
 Matrices are drawn at 1/sqrt(fan-in) (heads at 3/sqrt(fan-in), so their
 logits are peaked), norm scales N(1, 0.02), biases N(0, 0.02); adaptor
 tensors are written F16 (as the reference's converters write them), the
@@ -42,7 +70,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 
@@ -50,6 +78,10 @@ from ..io.gguf import GGUFWriter, encode_tensor
 from ..lm.backbone import BackboneConfig
 from .bluemagpie_init import BLUEMAGPIE, write_random_bm_gguf
 from .lm_init import byte_fallback_vocab, spm_model_b64
+from .mimi import MimiConfig
+from .mimi_init import add_random_mimi
+from .moss_audio import MossConfig
+from .moss_init import MOSS_FULL, write_random_moss_gguf
 from .pocket_init import POCKET_CHANNELS, POCKET_TTS, write_random_pocket_gguf
 from .xy_init import write_random_xy_gguf
 
@@ -57,6 +89,15 @@ QWEN3_1_7B = BackboneConfig(
     hidden=2048, n_layers=28, n_heads=16, n_kv_heads=8, head_dim=128,
     ffn_dim=6144, vocab_size=152697, rope_theta=1000000.0, rms_eps=1e-6,
     max_ctx=2048, has_qk_norm=True, tied_lm_head=True)
+LFM2_1_2B = BackboneConfig(
+    hidden=2048, n_layers=16, n_heads=32, n_kv_heads=8, head_dim=64,
+    ffn_dim=8192, vocab_size=65536, rope_theta=1000000.0, rms_eps=1e-5,
+    max_ctx=2048, has_qk_norm=True, tied_lm_head=True)
+QWEN3_30B_A3B = BackboneConfig(
+    hidden=2048, n_layers=48, n_heads=32, n_kv_heads=4, head_dim=128,
+    ffn_dim=6144, vocab_size=151936, rope_theta=1000000.0, rms_eps=1e-6,
+    max_ctx=2048, has_qk_norm=True, tied_lm_head=False, n_experts=128,
+    n_experts_used=8, norm_topk_prob=True, moe_ffn_dim=768)
 MINICPM4_0_5B = BackboneConfig(
     hidden=1024, n_layers=24, n_heads=16, n_kv_heads=2, head_dim=64,
     ffn_dim=4096, vocab_size=73448, rope_theta=10000.0, rms_eps=1e-5,
@@ -91,6 +132,44 @@ class PhdConfig:
     speech_pad: int = 1024
     eos_code_c0: int = 152694
     eos_min_step: int = 0
+
+
+@dataclass(frozen=True)
+class Lfm2Config:
+    """An LFM2-Audio residual_depth_ar adaptor's widths and ids
+    (LFM2-Audio-1.5B's; the FFN width is assumed). `audio_start_id`,
+    `text_end_id` and `max_text_tokens` are the text phase's (codec.lm.*
+    KVs the converter leaves to PromptInfo's defaults)."""
+    hidden: int = 2048            # the backbone's (lfm hidden)
+    depth_hidden: int = 1024
+    layers: int = 6
+    heads: int = 32
+    kv_heads: int = 8
+    ffn: int = 4096
+    n_codebook: int = 8
+    audio_vocab: int = 2049       # 2048 codes + EOS
+    eos_min_step: int = 0
+    audio_start_id: int = 128
+    text_end_id: int = 7
+    max_text_tokens: int = 64
+
+
+@dataclass(frozen=True)
+class RealtimeConfig:
+    """A MOSS-TTS-Realtime residual_depth_ar adaptor's widths and ids (the
+    local transformer's widths assumed)."""
+    hidden: int = 2048            # the backbone's = the local transformer's
+    layers: int = 4
+    heads: int = 8
+    kv_heads: int = 2
+    head_dim: int = 128
+    ffn: int = 4096
+    n_codebook: int = 16
+    audio_vocab: int = 1027       # 1024 codes, pad 1024, BOS 1025, EOS 1026
+    audio_eos_token: Optional[int] = None     # None: audio_vocab - 1
+    eos_min_step: int = 0
+    prefill_text_len: int = 12
+    text_pad: int = 151655
 
 
 @dataclass(frozen=True)
@@ -269,6 +348,131 @@ def add_phd(wr: GGUFWriter, seed: int = 0, cfg: PhdConfig = PhdConfig()) -> None
             d.add(f"lm.audio_embd_{i}.weight", d.mat(v, h, gain=3.0))
 
 
+def _depth_kvs(wr: GGUFWriter, layers, hidden, heads, kv_heads, head_dim,
+               ffn, eps, **flags) -> None:
+    """The residual_depth_ar depth KVs (lm_adaptor.py's _depth_meta)."""
+    for key, val in (("depth_layers", layers), ("depth_hidden", hidden),
+                     ("depth_n_heads", heads), ("depth_n_kv_heads", kv_heads),
+                     ("depth_head_dim", head_dim),
+                     ("depth_intermediate", ffn)):
+        wr.add_uint32(f"codec.lm.residual.{key}", val)
+    wr.add_float32("codec.lm.residual.depth_rms_norm_eps", eps)
+    wr.add_float32("codec.lm.residual.depth_rope_theta", 1000000.0)
+    for k, v in flags.items():
+        if isinstance(v, bool):
+            wr.add_bool(f"codec.lm.residual.{k}", v)
+        else:
+            wr.add_string(f"codec.lm.residual.{k}", v)
+
+
+def _depth_layers(d: _Draw, layers, hidden, heads, kv_heads, head_dim,
+                  ffn) -> None:
+    for li in range(layers):
+        p = f"lm.depth.blk_{li}"
+        d.add(f"{p}.attn_norm.weight", d.vec(hidden, mean=1.0))
+        d.add(f"{p}.q.weight", d.mat(heads * head_dim, hidden))
+        d.add(f"{p}.k.weight", d.mat(kv_heads * head_dim, hidden))
+        d.add(f"{p}.v.weight", d.mat(kv_heads * head_dim, hidden))
+        d.add(f"{p}.o.weight", d.mat(hidden, heads * head_dim))
+        d.add(f"{p}.q_norm.weight", d.vec(head_dim, mean=1.0))
+        d.add(f"{p}.k_norm.weight", d.vec(head_dim, mean=1.0))
+        d.add(f"{p}.ffn_norm.weight", d.vec(hidden, mean=1.0))
+        d.add(f"{p}.ffn_gate.weight", d.mat(ffn, hidden))
+        d.add(f"{p}.ffn_up.weight", d.mat(ffn, hidden))
+        d.add(f"{p}.ffn_down.weight", d.mat(hidden, ffn))
+
+
+def add_lfm2(wr: GGUFWriter, seed: int = 0, cfg: Lfm2Config = Lfm2Config()) -> None:
+    """Add an LFM2-Audio residual_depth_ar adaptor (F16; biases and norms
+    too) to an open codec writer: the KVs and tensor names of
+    codec_tpu/convert/lm_adaptor.py::dump_lfm2_audio, plus the text
+    phase's ids. The compose table is drawn at 0.5 / sqrt(n_codebook) a
+    row, so a frame's sum has about the scale of a unit-RMS embedding."""
+    n, v, dh, bh = cfg.n_codebook, cfg.audio_vocab, cfg.depth_hidden, cfg.hidden
+    hd = dh // cfg.heads
+    wr.add_bool("codec.lm.has_adaptor", True)
+    wr.add_string("codec.lm.kind", "residual_depth_ar")
+    wr.add_string("codec.lm.host_arch", "lfm2")
+    wr.add_uint32("codec.lm.hidden_dim", bh)
+    wr.add_uint32("codec.lm.audio_embed_dim", dh)
+    wr.add_uint32("codec.lm.n_codebook", n)
+    wr.add_array("codec.lm.codebook_sizes", [v] * n)
+    wr.add_array("codec.lm.delay_pattern", [0] * n)
+    wr.add_bool("codec.lm.parallel.tied_heads_to_embd", False)
+    wr.add_int32("codec.lm.eos_code_c0", v - 1)
+    wr.add_int32("codec.lm.eos_min_step", cfg.eos_min_step)
+    wr.add_int32("codec.lm.audio_start_id", cfg.audio_start_id)
+    wr.add_int32("codec.lm.text_end_id", cfg.text_end_id)
+    wr.add_int32("codec.lm.max_text_tokens", cfg.max_text_tokens)
+    _depth_kvs(wr, cfg.layers, dh, cfg.heads, cfg.kv_heads, hd, cfg.ffn, 1e-5,
+               depth_has_in_proj=True, depth_has_qk_norm=True,
+               depth_has_output_norm=False, depth_use_rope=True,
+               depth_rope_interleaved=True, depth_in_proj_per_pos=True,
+               depth_in_proj_has_bias=True, depth_has_pre_head_norm=True,
+               depth_emits_c0=True, weight_layout="shared",
+               c0_input_modality="none")
+    wr.add_uint32("codec.lm.residual.depth_max_position", 128000)
+    wr.add_uint32("codec.lm.compose.audio_embed_dim", bh)
+    wr.add_uint32("codec.lm.compose.codebook_stride", v)
+    with _Draw(wr, seed) as d:
+        d.add("lm.depth.in_proj.weight", d._normal((n, dh, bh),
+                                                   1.0 / math.sqrt(bh)))
+        d.add("lm.depth.in_proj.bias", d.vec((n, dh)))
+        d.add("lm.compose.audio_embd.weight",
+              d.vec((n * v, bh), std=0.5 / math.sqrt(n)))
+        for i in range(n):
+            d.add(f"lm.depth.audio_embd_{i}.weight", d.vec((v, dh), std=1.0))
+            d.add(f"lm.depth.heads_{i}.weight", d.mat(v, dh, gain=3.0))
+            d.add(f"lm.depth.heads_{i}_norm.weight", d.vec(dh, mean=1.0))
+        _depth_layers(d, cfg.layers, dh, cfg.heads, cfg.kv_heads, hd, cfg.ffn)
+
+
+def add_realtime(wr: GGUFWriter, seed: int = 0,
+                 cfg: RealtimeConfig = RealtimeConfig()) -> None:
+    """Add a MOSS-TTS-Realtime residual_depth_ar adaptor (F16) to an open
+    codec writer: the KVs and tensor names of codec_tpu/convert/
+    lm_adaptor.py::dump_moss_tts_realtime (the last depth table a copy of
+    the one before it, the converter's placeholder), plus the streaming
+    KVs PromptInfo reads (audio pad, text pad, prefill length)."""
+    n, v, h = cfg.n_codebook, cfg.audio_vocab, cfg.hidden
+    wr.add_bool("codec.lm.has_adaptor", True)
+    wr.add_string("codec.lm.kind", "residual_depth_ar")
+    wr.add_string("codec.lm.host_arch", "qwen3")
+    wr.add_uint32("codec.lm.hidden_dim", h)
+    wr.add_uint32("codec.lm.audio_embed_dim", h)
+    wr.add_uint32("codec.lm.n_codebook", n)
+    wr.add_array("codec.lm.codebook_sizes", [v] * n)
+    wr.add_array("codec.lm.delay_pattern", [0] * n)
+    wr.add_bool("codec.lm.parallel.tied_heads_to_embd", False)
+    wr.add_int32("codec.lm.eos_code_c0", v - 1 if cfg.audio_eos_token is None
+                 else cfg.audio_eos_token)
+    wr.add_int32("codec.lm.eos_min_step", cfg.eos_min_step)
+    wr.add_int32("codec.lm.bos_code_c0", v - 2)
+    wr.add_int32("codec.lm.audio_pad_token", v - 3)
+    wr.add_int32("codec.lm.text_pad", cfg.text_pad)
+    wr.add_int32("codec.lm.compose.prefill_text_len", cfg.prefill_text_len)
+    _depth_kvs(wr, cfg.layers, h, cfg.heads, cfg.kv_heads, cfg.head_dim,
+               cfg.ffn, 1e-6, depth_has_in_proj=False, depth_has_qk_norm=True,
+               depth_use_rope=True, depth_emits_c0=True,
+               weight_layout="shared", c0_input_modality="none")
+    wr.add_uint32("codec.lm.residual.depth_max_position", 33)
+    wr.add_string("codec.lm.depth.arch", "qwen3")
+    wr.add_bool("codec.lm.compose.text_externally_added", True)
+    wr.add_uint32("codec.lm.compose.audio_embed_dim", h)
+    wr.add_uint32("codec.lm.compose.codebook_stride", v)
+    with _Draw(wr, seed) as d:
+        tables = [d.vec((v, h), std=1.0) for _ in range(n - 1)]
+        for i in range(n):
+            d.add(f"lm.depth.audio_embd_{i}.weight", tables[min(i, n - 2)])
+        for i in range(n):
+            d.add(f"lm.depth.heads_{i}.weight", d.mat(v, h, gain=3.0))
+        _depth_layers(d, cfg.layers, h, cfg.heads, cfg.kv_heads, cfg.head_dim,
+                      cfg.ffn)
+        d.add("lm.depth.output_norm.weight", d.vec(h, mean=1.0))
+        d.add("lm.compose.audio_embd.weight",
+              d.vec((n * v, h), std=0.5 / math.sqrt(n)))
+
+
 def add_cfm(wr: GGUFWriter, seed: int = 0, cfg: CfmConfig = CfmConfig()) -> None:
     """Add a BlueMagpie continuous_latent_cfm adaptor (F16) to an open codec
     writer: host_arch barbet, the TSLM adapter and FSQ, RALM, LocDiT and
@@ -392,3 +596,27 @@ def write_bluemagpie_tts_gguf(path: Union[str, Path], seed: int = 0,
                          extra=lambda wr: add_cfm(wr, seed + 1, cfm))
     return Path(path)
 
+
+
+def write_lfm2_audio_gguf(path: Union[str, Path], seed: int = 0,
+                          lfm2: Lfm2Config = Lfm2Config(),
+                          mimi_cfg: MimiConfig = MimiConfig(),
+                          num_filters: int = 64) -> Path:
+    """LFM2-Audio: the random Mimi (decoder only, F32) and an LFM2
+    residual_depth_ar adaptor from seed + 1."""
+    wr = GGUFWriter(path, "mimi")
+    wr.add_name("LFM2-Audio")
+    add_random_mimi(wr, seed, mimi_cfg, num_filters)
+    add_lfm2(wr, seed + 1, lfm2)
+    wr.write()
+    return Path(path)
+
+
+def write_moss_realtime_gguf(path: Union[str, Path], seed: int = 0,
+                             rt: RealtimeConfig = RealtimeConfig(),
+                             moss_cfg: MossConfig = MOSS_FULL) -> Path:
+    """MOSS-TTS-Realtime: the random MOSS-Audio-Tokenizer (decoder only,
+    F32) and a realtime residual_depth_ar adaptor from seed + 1."""
+    write_random_moss_gguf(path, seed, cfg=moss_cfg,
+                           extra=lambda wr: add_realtime(wr, seed + 1, rt))
+    return Path(path)

@@ -103,9 +103,10 @@ def random_moss_params(draw: Draw, cfg: MossConfig, encoder: bool) -> None:
 
 def write_random_moss_gguf(path: Union[str, Path], seed: int = 0,
                            cfg: MossConfig = MOSS_FULL,
-                           encoder: bool = False) -> None:
+                           encoder: bool = False, extra=None) -> None:
     """A MOSS-Audio-Tokenizer GGUF (F32) with random weights from `seed`,
-    decode-only or with the encoder."""
+    decode-only or with the encoder. `extra(writer)`, when given, adds to
+    the open writer before it is written (an LM adaptor)."""
     draw = Draw(np.random.default_rng(seed))
     random_moss_params(draw, cfg, encoder)
     wr = GGUFWriter(path, "moss_audio_tokenizer")
@@ -136,4 +137,6 @@ def write_random_moss_gguf(path: Union[str, Path], seed: int = 0,
                      [float(m.max_period) for m in mods])
     for name, arr in draw.p.items():
         wr.add_tensor(name, arr, "F32")
+    if extra is not None:
+        extra(wr)
     wr.write()

@@ -165,9 +165,12 @@ class OnDeviceSampling:
     min_p: float = 0.0
     seed: int = 0xC0DEC1AB
     chunk_frames: int = 1
-    # the Chatterbox chunk's repetition penalty over its whole history; the
+    # the repetition penalty of the Chatterbox chunk (over its whole
+    # history) and the realtime-streaming chunk (over the last
+    # `repetition_window` frames per codebook, < 0 all, 0 none); the other
     # codebook-AR chunks take none
     repetition_penalty: float = 1.0
+    repetition_window: int = 0
 
     def chain_vec(self) -> np.ndarray:
         """This config's chain as the f32[4] row `sample_logits_dyn` takes."""

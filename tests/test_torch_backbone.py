@@ -128,20 +128,136 @@ def test_from_params_shares_weights(tmp_path):
     assert a.kv is not b.kv
 
 
-def test_moe_backbone_raises(tmp_path):
-    path = tmp_path / "moe.gguf"
-    w = GGUFWriter(path, "llama_backbone")
-    for k, v in (("hidden_dim", 64), ("n_layers", 1), ("n_heads", 4),
-                 ("n_kv_heads", 2), ("head_dim", 16), ("ffn_dim", 128),
-                 ("vocab_size", 8), ("n_experts", 4), ("n_experts_used", 2)):
-        w.add_int32(f"backbone.{k}", v)
-    w.add_tensor("backbone.tok_embd", np.zeros((8, 64), np.float32))
-    w.write()
-    with pytest.raises(ValueError, match="MoE"):
-        LlamaBackbone(path, device="cpu")
-    with pytest.raises(ValueError, match="MoE"):
-        write_random_backbone_gguf(tmp_path / "x.gguf",
-                                   cfg=dataclasses.replace(SMALL, n_experts=2))
+MOE = dataclasses.replace(QWEN3, has_attn_bias=False, n_experts=8,
+                          n_experts_used=2, moe_ffn_dim=32)
+# (id, qtype, quantized, config): the attention packed or dense; codec_tpu
+# loads the experts dense either way
+MOE_CASES = [
+    ("f32-norm", "F32", False, MOE),
+    ("f32-raw", "F32", False, dataclasses.replace(MOE, norm_topk_prob=False)),
+    ("q4_k-packed", "Q4_K", True,
+     dataclasses.replace(MOE, hidden=256, head_dim=64, n_experts=16,
+                         n_experts_used=4)),
+]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=[c[0] for c in MOE_CASES])
+def test_moe_backbone_matches_reference(tmp_path, case):
+    """A Qwen3-MoE backbone: a 6-token prefill (T·k >= E: codec_tpu's dense
+    form), 4 steps (the gathered form) and a bucketed prefill against
+    codec_tpu at rtol = atol = 1e-5."""
+    _, qtype, quantized, cfg = case
+    path = _write(tmp_path, qtype, False, cfg)
+    port = LlamaBackbone(path, quantized=quantized, device="cpu")
+    ref = JaxBackbone(str(path), quantized=quantized)
+    lw = port.params["layers"][0]
+    assert isinstance(lw["q"], dict) == quantized and "gate" not in lw
+    assert tuple(lw["gate_exps"].shape) == (cfg.n_experts, cfg.moe_ffn_dim,
+                                           cfg.hidden)
+    rng = np.random.default_rng(3)
+    prompt = (rng.standard_normal((6, cfg.hidden)) * 0.3).astype(np.float32)
+    np.testing.assert_allclose(port.prefill(prompt), ref.prefill(prompt), **TOL)
+    for _ in range(4):
+        x = (rng.standard_normal(cfg.hidden) * 0.3).astype(np.float32)
+        np.testing.assert_allclose(port.step(x), ref.step(x), **TOL)
+    port.reset()
+    ref.reset()
+    np.testing.assert_allclose(port.prefill(prompt[:3], bucket=8),
+                               ref.prefill(prompt[:3], bucket=8), **TOL)
+
+
+@pytest.mark.parametrize("t", [1, 2, 8], ids=["gather", "gather-t2", "dense"])
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "raw"])
+def test_moe_ffn_matches_reference(t, norm):
+    """_moe_ffn on T tokens (T·k < E gathers the chosen experts; else the
+    dense form), the top-k weights renormalized or not, against codec_tpu's
+    _moe_ffn at rtol = atol = 1e-5; both forms against each other."""
+    import jax.numpy as jnp
+
+    from codec_tpu.lm.backbone import _moe_ffn as jax_moe_ffn
+    from codec_tpu_torch.lm.backbone import _moe_ffn
+
+    cfg = dataclasses.replace(MOE, n_experts=8, n_experts_used=3,
+                              norm_topk_prob=norm)
+    rng = np.random.default_rng(4)
+    lw = {"router": rng.standard_normal((8, 64)) * 0.5,
+          "gate_exps": rng.standard_normal((8, 32, 64)) * 0.2,
+          "up_exps": rng.standard_normal((8, 32, 64)) * 0.2,
+          "down_exps": rng.standard_normal((8, 64, 32)) * 0.2}
+    lw = {k: v.astype(np.float32) for k, v in lw.items()}
+    h = (rng.standard_normal((t, 64))).astype(np.float32)
+    tw = {k: torch.from_numpy(v) for k, v in lw.items()}
+    got = _moe_ffn(torch.from_numpy(h), tw, cfg).numpy()
+    want = np.asarray(jax_moe_ffn(jnp.asarray(h), {k: jnp.asarray(v)
+                                                   for k, v in lw.items()}, cfg))
+    np.testing.assert_allclose(got, want, **TOL)
+    # the other form on the same tokens: one token at a time gathers, all
+    # eight at once run dense
+    one = np.concatenate([_moe_ffn(torch.from_numpy(h[i:i + 1]), tw,
+                                   cfg).numpy() for i in range(t)])
+    np.testing.assert_allclose(one, got, **TOL)
+
+
+def test_moe_tie_rule_matches_reference():
+    """Equal router probabilities at the k-th place: the lower expert index
+    is taken, as lax.top_k takes it (a stable descending sort)."""
+    import jax.numpy as jnp
+
+    from codec_tpu.lm.backbone import _moe_ffn as jax_moe_ffn
+    from codec_tpu_torch.lm.backbone import _moe_ffn
+
+    cfg = dataclasses.replace(MOE, n_experts=6, n_experts_used=2)
+    rng = np.random.default_rng(5)
+    # experts 1, 3 and 4 tie for the top: 1 and 3 are taken
+    router = np.zeros((6, 64), np.float32)
+    router[[1, 3, 4], 0] = 1.0
+    lw = {"router": router,
+          "gate_exps": rng.standard_normal((6, 32, 64)).astype(np.float32),
+          "up_exps": rng.standard_normal((6, 32, 64)).astype(np.float32),
+          "down_exps": rng.standard_normal((6, 64, 32)).astype(np.float32)}
+    h = np.zeros((1, 64), np.float32)
+    h[0, 0], h[0, 1:] = 2.0, rng.standard_normal(63)
+    got = _moe_ffn(torch.from_numpy(h), {k: torch.from_numpy(v)
+                                         for k, v in lw.items()}, cfg).numpy()
+    want = np.asarray(jax_moe_ffn(jnp.asarray(h), {k: jnp.asarray(v)
+                                                   for k, v in lw.items()}, cfg))
+    np.testing.assert_allclose(got, want, **TOL)
+    taken = dict(lw, gate_exps=lw["gate_exps"].copy())
+    taken["gate_exps"][4] = 0.0            # expert 4 is not taken: no change
+    np.testing.assert_array_equal(_moe_ffn(
+        torch.from_numpy(h), {k: torch.from_numpy(v) for k, v in
+                              taken.items()}, cfg).numpy(), got)
+
+
+def test_moe_writer_and_carry_over(tmp_path):
+    """The MoE writer's KVs and tensors (F32 router, F16 stacked experts, no
+    dense FFN) as codec_tpu reads them, and codec_tpu's stacked [L, E, ...]
+    tree carried across equal to the port's load."""
+    import jax
+
+    cfg = MOE_CASES[2][3]
+    path = _write(tmp_path, "Q4_K", False, cfg)
+    r = GGUFReader(path)
+    assert r.tensors["backbone.l0.router.w"].type_name == "F32"
+    assert r.tensors["backbone.l1.down_exps.w"].type_name == "F16"
+    assert "backbone.l0.gate.w" not in r.tensors
+    got = dataclasses.asdict(BackboneConfig.from_gguf(r))
+    jbb = JaxBackbone(str(path))
+    assert got == dataclasses.asdict(jbb.cfg)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_load_params(JaxReader(str(path)), jbb.cfg,
+                                    quantized=True))
+    assert tree["layers"]["gate_exps"].shape == (cfg.n_layers, cfg.n_experts,
+                                                 cfg.moe_ffn_dim, cfg.hidden)
+    mine = params_from_reference(cfg, tree)
+    want = load_backbone_params(r, cfg, quantized=True, device="cpu")
+    for lg, lw in zip(mine["layers"], want["layers"]):
+        assert sorted(lg) == sorted(lw)
+        for k, v in lw.items():
+            if isinstance(v, dict):
+                assert all(torch.equal(lg[k][n], v[n]) for n in v), k
+            else:
+                assert torch.equal(lg[k], v), k
 
 
 def test_not_a_backbone_and_context_full(tmp_path):

@@ -2096,3 +2096,143 @@ def test_bluemagpie_f16_decode_past_cudnn_fault_lengths(dev, small_ggufs):
     want = f32.decode_latent(z)
     assert got.shape == want.shape == (1, 72000) and np.isfinite(got).all()
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.999
+
+
+@pytest.fixture(scope="module")
+def rest_files(tmp_path_factory):
+    """Small LFM2-Audio and MOSS-TTS-Realtime files, their backbones (Q4_K;
+    hidden 256) and a small Qwen3-MoE backbone (Q4_K attention)."""
+    import dataclasses
+
+    from codec_tpu_torch.models import lm_tts_init as lti
+    from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_gguf)
+    from codec_tpu_torch.models.mimi import MimiConfig
+    from codec_tpu_torch.models.moss_audio import MossConfig, MossModuleCfg
+
+    tmp = tmp_path_factory.mktemp("rest")
+    spm = spm_model_b64(byte_fallback_vocab())
+    small = dict(hidden=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64,
+                 ffn_dim=512, vocab_size=300, max_ctx=256)
+    lfm2 = lti.write_lfm2_audio_gguf(
+        tmp / "lfm2.gguf", seed=1, num_filters=8,
+        lfm2=lti.Lfm2Config(hidden=256, depth_hidden=64, layers=1, heads=2,
+                            kv_heads=1, ffn=128, n_codebook=4, audio_vocab=65,
+                            eos_min_step=30, audio_start_id=298,
+                            text_end_id=299, max_text_tokens=2),
+        mimi_cfg=MimiConfig(n_q=4, codebook_size=64, codebook_dim=32,
+                            hidden=64, n_layers=1, n_heads=1, head_dim=64,
+                            intermediate=128, window=40))
+
+    def stage(i, o, dur):
+        return MossModuleCfg(1, 1, i, o, 64, 1, 1, dur, 10000.0)
+    moss = MossConfig(sample_rate=24000, hop_size=4, n_q=4, codebook_size=16,
+                      codebook_dim=8, latent_dim=64, rvq_dim=16,
+                      number_channels=1,
+                      enc_modules=(MossModuleCfg(0, 2), stage(2, 64, 0.001),
+                                   MossModuleCfg(0, 2), stage(128, 64, 0.002)),
+                      dec_modules=(stage(64, 128, 0.002), MossModuleCfg(0, 2),
+                                   stage(64, 2, 0.001), MossModuleCfg(0, 2)))
+    rt = lti.write_moss_realtime_gguf(
+        tmp / "rt.gguf", seed=2, moss_cfg=moss,
+        rt=lti.RealtimeConfig(hidden=256, layers=1, heads=2, kv_heads=1,
+                              head_dim=64, ffn=128, n_codebook=4,
+                              audio_vocab=19, eos_min_step=30, text_pad=0))
+    bbs = {name: write_random_backbone_gguf(
+        tmp / f"{name}.gguf", seed=3, spm_b64=spm, rope_scaling=None,
+        cfg=dataclasses.replace(cfg, **small))
+        for name, cfg in (("lfm2_bb", lti.LFM2_1_2B),
+                          ("qwen3", lti.QWEN3_1_7B),
+                          ("moe", dataclasses.replace(
+                              lti.QWEN3_30B_A3B, n_experts=16,
+                              n_experts_used=4, moe_ffn_dim=64)))}
+    return lfm2, rt, bbs
+
+
+def _rest_request(path, bb_path, dev, on_device, frames=6, **chain):
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import run_text_audio_flow
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.lm.prompt_info import build_prompt_info
+
+    reader = GGUFReader(path)
+    alm = AudioLM(reader, codec=codec_tpu_torch.load_model(path, device=dev),
+                  device=dev)
+    bb = LlamaBackbone(bb_path, quantized=True, device=dev)
+    pi = build_prompt_info(reader, alm.lm.info)
+    return run_text_audio_flow(alm, bb, pi, [3, 17, 42, 99, 150, 7],
+                               max_steps=frames, on_device=on_device,
+                               chunk_frames=4, **chain), bb, alm.lm
+
+
+@pytest.mark.parametrize("flow", ["lfm2", "rt"])
+def test_text_audio_flows_on_card(dev, rest_files, flow):
+    """LFM2-Audio greedy and MOSS-TTS-Realtime (its host path at the
+    family's sampler chain, NumPy's draws; its chunks greedy and sampled
+    with the penalty, the noise drawn on the host) through the tts-cli
+    branch: the card's codes equal the CPU's on the host path and in chunks
+    of 4 (CUDA graphs on the card); LFM2's chunks equal its host path."""
+    lfm2, rt, bbs = rest_files
+    path, bb = (lfm2, bbs["lfm2_bb"]) if flow == "lfm2" else (rt, bbs["qwen3"])
+    chains = [dict(temperature=0.0)]
+    if flow == "rt":
+        chains.append(dict(temperature=0.8, top_k=5, rep_penalty=1.3))
+    host = _rest_request(path, bb, "cuda", False, temperature=0.0)[0]
+    assert host.codes.shape == (6, 4) and np.isfinite(host.pcm).all()
+    np.testing.assert_array_equal(
+        _rest_request(path, bb, "cpu", False, temperature=0.0)[0].codes,
+        host.codes)
+    for chain in chains:
+        got = _rest_request(path, bb, "cuda", True, **chain)[0]
+        want = _rest_request(path, bb, "cpu", True, **chain)[0]
+        np.testing.assert_array_equal(got.codes, want.codes)
+        assert np.isfinite(got.pcm).all()
+        if flow == "lfm2":
+            np.testing.assert_array_equal(got.codes, host.codes)
+
+
+def test_stream_chunk_graph_equals_eager(dev, rest_files):
+    """The realtime stream chunk's replay gives the eager chunk's packed
+    result, hidden, position and repetition ring bit for bit."""
+    from codec_tpu_torch.lm.fused_gen import chunk_ctx, gen_chunk_cached
+
+    _, rt, bbs = rest_files
+    _, bb, lm = _rest_request(rt, bbs["qwen3"], "cuda", True, frames=4,
+                              temperature=0.8, top_k=5, rep_penalty=1.3)
+    runner = gen_chunk_cached(lm, bb, n_frames=4,
+                              ctx=chunk_ctx(bb, 6 + 4 + 1), stream=True,
+                              rep=(1.3, 50), temperature=0.8, top_k=5,
+                              top_p=0.6)
+    assert runner.graphed.graph is not None
+    state = (runner.h, runner.pos, *runner.hist, runner.kv)
+    saved = [t.clone() for t in state]
+    eager = runner.graphed.eager().clone()
+    after = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    graph = runner.run().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, graph)
+    assert all(torch.equal(a, t) for a, t in zip(after, state))
+
+
+def test_moe_backbone_on_card_equals_cpu(dev, rest_files):
+    """The Qwen3-MoE backbone on the card (its attention packed, its experts
+    dense): a prefill of 8 rows (the dense form) and 4 steps (the gathered
+    experts) within 1e-5 of the CPU's peak, 4 q4_k_matmul a layer a call."""
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul
+
+    _, _, bbs = rest_files
+    card = LlamaBackbone(bbs["moe"], quantized=True, device="cuda")
+    cpu = LlamaBackbone(bbs["moe"], quantized=True, device="cpu")
+    rows = card.embed_tokens(np.arange(12) * 7)
+    before = q4_k_matmul.launches
+    got = [card.prefill(rows[:8])] + [card.step(r) for r in rows[8:]]
+    assert q4_k_matmul.launches - before == 4 * 2 * 5
+    want = [cpu.prefill(rows[:8])] + [cpu.step(r) for r in rows[8:]]
+    got, want = np.stack(got), np.stack(want)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
