@@ -26,10 +26,11 @@ Phases (any failure raises and exits non-zero before the last line):
      the next so that a fault is charged to the launch that made it, the
      RVQ search also on integer-valued inputs and duplicated rows, where
      it must agree bit for bit; at WavTokenizer's V 4096 also with each
-     block's second row tile a copy of its first; the packed products also
-     at the MOSS-TTSD backbone's four layer shapes at m = 1 and 8 and the
-     Chatterbox T3 backbone's three at m = 1 and 2, with the launch plan
-     each takes)
+     block's second row tile a copy of its first; the packed products at
+     m = 1, 4, 8, 16 and 32 on the Llama-3.2-1B shapes, also at the
+     MOSS-TTSD backbone's four layer shapes at m = 1 and 8 and the
+     Chatterbox T3 backbone's three at m = 1, 2 and 8, with the launch
+     plan each takes)
   4. Mimi: write a full-width random Mimi GGUF, load it with load_model,
      and decode requests through it (20 s b1, 60 s b1, 20 s b4 in f32,
      20 s b1 in bf16 and in f16) with every launch count set to 0 just
@@ -212,26 +213,49 @@ Phases (any failure raises and exits non-zero before the last line):
      LFM2 request on Q8_0, one sampled realtime request with repetition
      penalty 1.2 over 16 codes (its ring after the first chunk, its codes
      against the CPU's with the same host noise); a Qwen3-MoE backbone
-     (Qwen3-30B-A3B's widths, 2 of 48 layers: attention Q4_K, 128 experts
+     (Qwen3-30B-A3B's widths, 1 of 48 layers: attention Q4_K, 128 experts
      dense) teacher-forced against the CPU (1e-5 of peak; q4_k_matmul 4 a
      layer a call) and a MOSS-TTSD request over it against the CPU; ms a
      frame host and replayed, kernels a frame, idle share, time to first
      audio, a frame and a replay under torch.profiler
+  9f. serving (codec_tpu_torch/serve) over the files of phases 9, 9c and
+     9d, each server in this process on 127.0.0.1, every response 200:
+     the codec endpoints on the CSM file's Mimi (/health; /decode of 20 s
+     byte-equal to model.decode(pcm_format="i16"), 8 flash_sdpa_window;
+     /decode_stream in pushes of 25 frames within phase 8's stream bound
+     of it;
+     /batch_decode of 4 mixed lengths; /encode of 20 s equal to
+     model.encode, 8 + 2 rvq_encode_fused); /decode requests running while
+     the engine's server is built and captures its graph; a greedy
+     25-frame /synthesize on the serialized server (Q4_K --quant-exec,
+     on_device, chunks of 8) against the 4-slot engine (equal bytes, else
+     the library calls' codes first differ at a near-tie); 8 concurrent
+     sampled requests over the 4 slots, two replayed alone byte-equal; a
+     streamed engine request (time to first audio); one Q8_0 engine
+     request; /synthesize_batch of 4 CSM texts and of 4 Chatterbox texts
+     (greedy, CFG 0.5), each stream against its single-stream chunked run
+     (near-tie rule); a streamed Pocket-TTS /synthesize; each request's
+     launch counts exact (its graph's capture run beforehand); the
+     engine's ms a chunk and frames a second at 1, 2 and 4 active slots,
+     one engine step under torch.profiler, q4_k_matmul launches by row
+     bucket in one replay of the engine's graph (m = 4), the CSM batch's
+     (m = 4) and the Chatterbox batch's (m = 8)
   10. CUDA-event times (median of TIMED_RUNS = 5 after 2 warm-ups), each kernel
      beside its plain version, its bound on this card and, for the
      attention and the packed products, one PyTorch call that computes
      the same function; the DAC residual unit at every decoder and
-     encoder width, d = 1, 3, 9, f32 and bf16, and the chain against three
-     unit launches at C96, C64 and C128 (tools/seanet_times.py); SNAC's
+     encoder width, d = 1, f32 and bf16, and the chain against three unit
+     launches at C96, C64 and C128 (tools/seanet_times.py, medians of
+     TIMED_RUNS); SNAC's
      four decoder blocks' three units beside their bound; device
-     times of the packed products from torch.profiler, warm (one matrix
-     again and again), cold (cycling over the loaded backbones' 4 layers
+     times of the packed products from torch.profiler, warm on the gate
+     shape at m = 1, cold (cycling over the loaded backbones' 4 layers
      of each shape) at m = 1 and 16, and
-     one backbone forward's 28 products, and at the MOSS-TTSD backbone's
-     four shapes at m = 1 and 8, the Chatterbox T3 backbone's three at
-     m = 1 and 2 and the Qwen3-MoE attention's q and o at m = 1 and 8
-     beside F.linear and the bound; per-request TTS times (median of 2 runs after one
-     warm-up); per-request encode times (median of 5 after 2 warm-ups);
+     one backbone forward's 28 products, and at the Llama-3.2-1B shapes at
+     m = 4 and 8 and the Chatterbox T3 backbone's three at m = 8 (the
+     serving rows) beside F.linear and the bound; the Q4_K per-token TTS
+     request's time (median of 2 runs after phase 9's); per-request
+     encode times (median of 5 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
      (norms given, as a model passes them) beside a second bound, three
      TF32 passes per f32 product at the tensor cores' TF32 rate; the
@@ -242,8 +266,8 @@ Phases (any failure raises and exits non-zero before the last line):
      codecs' attention shapes (Qwen3 H16 T250 with and without its window,
      Pocket T4000 w250, Pocket's pushes with carried keys) the same way;
      MOSS's four (T 250 w125, T 2500 w12, T 15 000 w75, T 120 000 w600)
-     and its 200 s stage (T 1 200 000 w600) beside the banded plain
-     version, SDPA with the band mask where that mask fits, and the bound;
+     beside the banded plain version, SDPA with the band mask where that
+     mask fits, and the bound;
      at n_q 1 the RVQ search also beside one cuBLAS product and an argmax
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
@@ -354,13 +378,16 @@ SNAC_REQUESTS = [("20s_b1_f32", 20, 1, "float32"),
                  ("20s_b1_f16", 20, 1, "float16")]
 
 # -- q8_0_matmul / q4_k_matmul: the Llama-3.2-1B backbone's matrices
-# (out, in) q/o, k/v, gate/up and down, at m = 1, 16 and 32 rows with x in
+# (out, in) q/o, k/v, gate/up and down, at m = 1, 4 (the serving engine's
+# and /synthesize_batch's step over 4 streams), 8, 16 and 32 rows with x in
 # f32 and at m = 1 in bf16. The kernel and its plain version multiply the
 # same dequantized weights in f32 with sums in another order: max abs err
 # <= 1e-4 * max|plain|. One-hot rows must give the dequantized weights bit
 # for bit.
 QMAT_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
-QMAT_MS = (1, 16, 32)
+QMAT_MS = (1, 4, 8, 16, 32)
+# timed in phase 10 beside F.linear and the bound at the serving rows
+QMAT_SERVE_MS = (4, 8)
 QMAT_MAIN = (8192, 2048)                # gate/up, the kernels' line shape
 SHAPE_NAMES = {(2048, 2048): "q/o", (512, 2048): "k/v", (8192, 2048): "gate/up",
                (2048, 8192): "down"}
@@ -611,15 +638,29 @@ CBX_FRAMES, CBX_CHUNK, CBX_VOICE_FRAMES = 50, 8, 10
 CBX_BUCKET = 128
 CBX_VOICE_SECONDS = ECAPA_SECONDS = 10
 SPEAKER_REL = 1e-5
+# -- phase 9f, serving (codec_tpu_torch/serve): servers in this process
+# over phase 9's CSM file and backbones, phase 9d's Chatterbox files and
+# phase 9c's Pocket-TTS file. The codec endpoints on SERVE_SECONDS of codes
+# (/decode_stream in pushes of SERVE_STREAM_CHUNK frames); greedy requests
+# of SERVE_FRAMES frames, serialized (on_device, chunks of TTS_CHUNK) and
+# through a SERVE_SLOTS-slot engine; SERVE_CONCURRENT sampled requests at
+# once; the engine's chunk timed over SERVE_TIMED steps at 1, 2 and 4
+# active slots; /synthesize_batch of SERVE_SLOTS CSM texts and of
+# SERVE_SLOTS Chatterbox texts (SERVE_CBX_FRAMES frames, CFG 0.5: the
+# products at m = 8)
+SERVE_SLOTS, SERVE_FRAMES, SERVE_SECONDS, SERVE_STREAM_CHUNK = 4, 25, 20, 25
+SERVE_CONCURRENT, SERVE_TIMED, SERVE_CBX_FRAMES = 8, 5, 24
+SERVE_TEXTS = ("hello there", "hello", "there hello there", "he lo he")
 # -- the packed products at the MOSS-TTSD backbone's (Qwen3-1.7B's) layer
 # shapes (out, in): q/o, k/v, gate/up, down, at m = 1 and 8
 QWEN3_QMAT_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144)]
 QWEN3_QMAT_MS = (1, 8)
 # and at the Chatterbox T3 backbone's (Llama-520M's): q/k/v/o, gate/up,
-# down, at m = 1 (a host step, one CFG lane) and 2 (the device chunk's
-# step, both lanes as one batch)
+# down, at m = 1 (a host step, one CFG lane), 2 (the device chunk's step,
+# both lanes as one batch) and 8 (/synthesize_batch's chunk: 4 streams x
+# 2 lanes)
 T3_QMAT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096)]
-T3_QMAT_MS = (1, 2)
+T3_QMAT_MS = (1, 2, 8)
 # and at the Qwen3-MoE backbone's (Qwen3-30B-A3B's) attention shapes that
 # no other backbone has: q (32 heads x 128 from 2048) and o, at m = 1 and 8
 MOE_QMAT_SHAPES = [(4096, 2048), (2048, 4096)]
@@ -630,7 +671,7 @@ MOE_QMAT_MS = (1, 8)
 # layers, Q4_K, and Q8_0 for one request), MOSS-TTS-Realtime (its local
 # transformer and compose table over the full-width MOSS-Audio-Tokenizer;
 # phase 9c's Qwen3-1.7B-wide Q4_K backbone, 4 of 28 layers) and a Qwen3-MoE
-# backbone (Qwen3-30B-A3B's widths cut to 2 of 48 layers: attention Q4_K,
+# backbone (Qwen3-30B-A3B's widths cut to 1 of 48 layers: attention Q4_K,
 # router and 128 experts dense) under phase 9c's MOSS-TTSD file. Greedy
 # requests of FLOW_FRAMES frames (EOS held off past them), the prompts
 # prefilled in one forward padded to FLOW_BUCKET rows, the device paths in
@@ -649,7 +690,7 @@ RT_SAMPLED = dict(temperature=0.8, top_k=30, top_p=0.6,
 RT_SAMPLED_FRAMES = 24
 # the MoE backbone's hiddens on the card within MOE_REL of their peak of the
 # CPU's, teacher-forced over a MOE_PROMPT-row prefill and MOE_STEPS steps
-MOE_LAYERS, MOE_PROMPT, MOE_STEPS, MOE_REL = 2, 16, 8, 1e-5
+MOE_LAYERS, MOE_PROMPT, MOE_STEPS, MOE_REL = 1, 16, 8, 1e-5
 
 
 def log(msg: str) -> None:
@@ -974,6 +1015,16 @@ def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
+def write_files(*jobs):
+    """Run the zero-argument writers at once, a thread each (their random
+    draws, quantization and file writes leave the GIL) → their results in
+    order; a writer's error raises here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return [f.result() for f in [pool.submit(job) for job in jobs]]
+
+
 def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     """Phase 8b: write full-width random WavTokenizer (with its encoder),
     Soprano and XY-Tokenizer (with its encoder) GGUFs, load each with
@@ -1010,9 +1061,12 @@ def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
         paths = {a: Path(tmp) / f"{a}_random.gguf"
                  for a in ("wavtokenizer", "soprano", "xy_tokenizer")}
         t0 = time.monotonic()
-        write_random_wt_gguf(paths["wavtokenizer"], seed=SEED, encoder=True)
-        write_random_soprano_gguf(paths["soprano"], seed=SEED)
-        write_random_xy_gguf(paths["xy_tokenizer"], seed=SEED, encoder=True)
+        write_files(
+            lambda: write_random_wt_gguf(paths["wavtokenizer"], seed=SEED,
+                                         encoder=True),
+            lambda: write_random_soprano_gguf(paths["soprano"], seed=SEED),
+            lambda: write_random_xy_gguf(paths["xy_tokenizer"], seed=SEED,
+                                         encoder=True))
         log("[istft] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
             for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
@@ -1243,8 +1297,9 @@ def windowed_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
         paths = {"qwen3": Path(tmp) / "qwen3_random.gguf",
                  "pocket": Path(tmp) / "pocket_random.gguf"}
         t0 = time.monotonic()
-        write_random_q3t_gguf(paths["qwen3"], seed=SEED)
-        write_random_pocket_gguf(paths["pocket"], seed=SEED)
+        write_files(lambda: write_random_q3t_gguf(paths["qwen3"], seed=SEED),
+                    lambda: write_random_pocket_gguf(paths["pocket"],
+                                                     seed=SEED))
         log("[windowed] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
             for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
@@ -1527,10 +1582,12 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
         paths = {a: Path(tmp) / f"{a}_random.gguf"
                  for a in ("neucodec", "distill_neucodec", "xcodec2")}
         t0 = time.monotonic()
-        write_random_neu_gguf(paths["neucodec"], seed=SEED)
-        write_random_neu_gguf(paths["distill_neucodec"], seed=SEED,
-                              encoder=True)
-        write_random_x2_gguf(paths["xcodec2"], seed=SEED, encoder=True)
+        write_files(
+            lambda: write_random_neu_gguf(paths["neucodec"], seed=SEED),
+            lambda: write_random_neu_gguf(paths["distill_neucodec"],
+                                          seed=SEED, encoder=True),
+            lambda: write_random_x2_gguf(paths["xcodec2"], seed=SEED,
+                                         encoder=True))
         log("[neu] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
             for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
@@ -1783,9 +1840,11 @@ def small_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as tmp:
         paths = {a: Path(tmp) / f"{a}_random.gguf" for a in writers}
         t0 = time.monotonic()
-        for arch, write in writers.items():
-            kw = {} if arch == "s3t" else {"encoder": True}
-            write(paths[arch], seed=SEED, **kw)
+        write_files(*[
+            (lambda a=arch, w=write: w(paths[a], seed=SEED,
+                                       **({} if a == "s3t"
+                                          else {"encoder": True})))
+            for arch, write in writers.items()])
         log("[small] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
             for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
@@ -2225,6 +2284,19 @@ def fmt_profile(p) -> str:
             f"(idle share {p[3]:.3f})")
 
 
+def _cleanup(tmp, reuse=None, key: str = "", keep=()):
+    """Remove a phase's temporary files, or with `reuse` keep the files in
+    `keep` for phase 9f (reuse[key] = (tmp, *keep); the directory goes when
+    that entry does) and remove the rest."""
+    if reuse is None:
+        tmp.cleanup()
+        return
+    for p in Path(tmp.name).iterdir():
+        if p not in keep:
+            p.unlink()
+    reuse[key] = (tmp, *keep)
+
+
 def lm_flows(name_limit: str, zero_counts, counts, none: dict,
              dev: str = "cuda", sizes=None, reuse=None) -> dict:
     """Phase 9c: the three LM flows past CSM's, each written at full width
@@ -2253,7 +2325,8 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     (tests/test_torch_flow_lm.py), where the plain versions count nothing
     and the launch counts are those the card is held to. `reuse`, a dict,
     receives what phase 9e reuses: the MOSS-TTSD adaptor, codec and prompt
-    ("ttsd") and the Qwen3 backbone on the card and the CPU ("qwen3").
+    ("ttsd") and the Qwen3 backbone on the card and the CPU ("qwen3"); and
+    phase 9f's Pocket-TTS file ("pocket" = (its directory, the file)).
     → (launch counts, times)."""
     import dataclasses
 
@@ -2315,25 +2388,27 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     try:
         d = Path(tmp.name)
         t0 = time.monotonic()
-        pt_path = lti.write_pocket_tts_gguf(d / "pocket_tts_random.gguf",
-                                            seed=SEED, **sizes.get("pocket", {}))
-        ttsd_path = lti.write_moss_ttsd_gguf(
-            d / "moss_ttsd_random.gguf", seed=SEED,
-            **sizes.get("moss", {"phd": lti.PhdConfig(
-                eos_min_step=MOSS_TTSD_FRAMES)}))
         qcfg = sizes.get("qwen3", dataclasses.replace(
             lti.QWEN3_1_7B, n_layers=MOSS_TTSD_LAYERS))
-        q_path = write_random_backbone_ggufs(
-            {"Q4_K": d / "qwen3_Q4_K.gguf"}, seed=SEED + 1, cfg=qcfg,
-            rope_scaling=None, spm_b64=spm)["Q4_K"]
-        bm_path = lti.write_bluemagpie_tts_gguf(
-            d / "bluemagpie_tts_random.gguf", seed=SEED,
-            **sizes.get("bluemagpie", {}))
         mcfg = sizes.get("minicpm", dataclasses.replace(
             lti.MINICPM4_0_5B, n_layers=BM_BACKBONE_LAYERS))
-        m_path = write_random_backbone_ggufs(
-            {"F32": d / "minicpm_F32.gguf"}, seed=SEED + 2, cfg=mcfg,
-            rope_scaling=None, spm_b64=spm)["F32"]
+        pt_path, ttsd_path, q_path, bm_path, m_path = write_files(
+            lambda: lti.write_pocket_tts_gguf(
+                d / "pocket_tts_random.gguf", seed=SEED,
+                **sizes.get("pocket", {})),
+            lambda: lti.write_moss_ttsd_gguf(
+                d / "moss_ttsd_random.gguf", seed=SEED,
+                **sizes.get("moss", {"phd": lti.PhdConfig(
+                    eos_min_step=MOSS_TTSD_FRAMES)})),
+            lambda: write_random_backbone_ggufs(
+                {"Q4_K": d / "qwen3_Q4_K.gguf"}, seed=SEED + 1, cfg=qcfg,
+                rope_scaling=None, spm_b64=spm)["Q4_K"],
+            lambda: lti.write_bluemagpie_tts_gguf(
+                d / "bluemagpie_tts_random.gguf", seed=SEED,
+                **sizes.get("bluemagpie", {})),
+            lambda: write_random_backbone_ggufs(
+                {"F32": d / "minicpm_F32.gguf"}, seed=SEED + 2, cfg=mcfg,
+                rope_scaling=None, spm_b64=spm)["F32"])
         paths = (pt_path, ttsd_path, q_path, bm_path, m_path)
         log("[lm] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
@@ -2357,7 +2432,7 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
                         for x in (dev, "cpu"))
         sync()
     finally:
-        tmp.cleanup()
+        _cleanup(tmp, reuse, "pocket", (pt_path,))
     log(f"[lm] loaded (card f32, Pocket also bf16; CPU f32) in "
         f"{time.monotonic() - t0:.2f} s: Pocket-TTS flow_lm d_model "
         f"{flm.d_model}, {flm.n_layers} layers, {flm.n_heads} heads x "
@@ -2805,7 +2880,7 @@ def _moved(tree, dev):
 
 
 def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
-                    dev: str = "cuda", sizes=None) -> dict:
+                    dev: str = "cuda", sizes=None, reuse=None) -> dict:
     """Phase 9d: the Chatterbox TTS path at full width (text → T3 → S3
     speech tokens → S3Gen → PCM) through the entry points a user calls,
     with every launch count set to 0 just before each request and read
@@ -2829,7 +2904,9 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
     Times: ms a frame on the host path and in the chunk (a replay / K),
     each frame under torch.profiler (busy, idle share), the S3Gen share of
     a request. `dev` and `sizes` let the phase run small on the CPU
-    (tests/test_torch_chatterbox.py). → (launch counts, times)."""
+    (tests/test_torch_chatterbox.py). `reuse`, a dict, receives phase 9f's
+    files: "cbx" = (their directory, the Chatterbox file, the Q4_K
+    backbone). → (launch counts, times)."""
     import codec_tpu_torch
     from codec_tpu_torch.cli.tts_cli import run_chatterbox_synthesize
     from codec_tpu_torch.io.gguf import GGUFReader
@@ -2871,16 +2948,17 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
     try:
         d = Path(tmp.name)
         t0 = time.monotonic()
-        path = cbi.write_chatterbox_tts_gguf(d / "chatterbox_random.gguf",
-                                             seed=SEED,
-                                             **sizes.get("chatterbox", {}))
         bcfg = sizes.get("backbone", cbi.LLAMA_520M)
-        q_path = write_random_backbone_ggufs(
-            {"Q4_K": d / "t3_Q4_K.gguf"}, seed=SEED + 3, cfg=bcfg,
-            rope_scaling=cbi.T3_ROPE_SCALING)["Q4_K"]
-        e_path = cbi.write_qwen3_speaker_gguf(d / "ecapa_random.gguf",
-                                              seed=SEED + 4,
-                                              **sizes.get("ecapa", {}))
+        path, q_path, e_path = write_files(
+            lambda: cbi.write_chatterbox_tts_gguf(
+                d / "chatterbox_random.gguf", seed=SEED,
+                **sizes.get("chatterbox", {})),
+            lambda: write_random_backbone_ggufs(
+                {"Q4_K": d / "t3_Q4_K.gguf"}, seed=SEED + 3, cfg=bcfg,
+                rope_scaling=cbi.T3_ROPE_SCALING)["Q4_K"],
+            lambda: cbi.write_qwen3_speaker_gguf(
+                d / "ecapa_random.gguf", seed=SEED + 4,
+                **sizes.get("ecapa", {})))
         log("[cbx] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
             for p in (path, q_path, e_path))
@@ -2897,7 +2975,7 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
                             for x in (dev, "cpu"))
         sync()
     finally:
-        tmp.cleanup()
+        _cleanup(tmp, reuse, "cbx", (path, q_path))
     cfg = bb.cfg
     per_step = 7 * cfg.n_layers
     log(f"[cbx] loaded in {time.monotonic() - t0:.2f} s (S3Gen and T3 on the "
@@ -3272,23 +3350,24 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
         t0 = time.monotonic()
         lfm2_cfg = sizes.get("lfm2", lti.Lfm2Config(
             eos_min_step=n_fr, max_text_tokens=LFM2_TEXT_TOKENS))
-        lfm2_path = lti.write_lfm2_audio_gguf(d / "lfm2_audio_random.gguf",
-                                              seed=SEED, lfm2=lfm2_cfg,
-                                              **sizes.get("mimi", {}))
-        lbb_paths = write_random_backbone_ggufs(
-            {q: d / f"lfm2_{q}.gguf" for q in ("Q4_K", "Q8_0")},
-            seed=SEED + 3, rope_scaling=None, spm_b64=spm,
-            cfg=sizes.get("lfm2_bb", dataclasses.replace(
-                lti.LFM2_1_2B, n_layers=LFM2_LAYERS)))
-        rt_path = lti.write_moss_realtime_gguf(
-            d / "moss_realtime_random.gguf", seed=SEED,
-            rt=sizes.get("rt", lti.RealtimeConfig(eos_min_step=n_fr)),
-            **sizes.get("moss", {}))
-        moe_path = write_random_backbone_ggufs(
-            {"Q4_K": d / "qwen3moe_Q4_K.gguf"}, seed=SEED + 4,
-            rope_scaling=None, spm_b64=spm,
-            cfg=sizes.get("moe", dataclasses.replace(
-                lti.QWEN3_30B_A3B, n_layers=MOE_LAYERS)))["Q4_K"]
+        lfm2_path, lbb_paths, rt_path, moe_path = write_files(
+            lambda: lti.write_lfm2_audio_gguf(
+                d / "lfm2_audio_random.gguf", seed=SEED, lfm2=lfm2_cfg,
+                **sizes.get("mimi", {})),
+            lambda: write_random_backbone_ggufs(
+                {q: d / f"lfm2_{q}.gguf" for q in ("Q4_K", "Q8_0")},
+                seed=SEED + 3, rope_scaling=None, spm_b64=spm,
+                cfg=sizes.get("lfm2_bb", dataclasses.replace(
+                    lti.LFM2_1_2B, n_layers=LFM2_LAYERS))),
+            lambda: lti.write_moss_realtime_gguf(
+                d / "moss_realtime_random.gguf", seed=SEED,
+                rt=sizes.get("rt", lti.RealtimeConfig(eos_min_step=n_fr)),
+                **sizes.get("moss", {})),
+            lambda: write_random_backbone_ggufs(
+                {"Q4_K": d / "qwen3moe_Q4_K.gguf"}, seed=SEED + 4,
+                rope_scaling=None, spm_b64=spm,
+                cfg=sizes.get("moe", dataclasses.replace(
+                    lti.QWEN3_30B_A3B, n_layers=MOE_LAYERS)))["Q4_K"])
         paths = (lfm2_path, *lbb_paths.values(), rt_path, moe_path)
         log("[rest] wrote " + ", ".join(
             f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
@@ -3304,7 +3383,7 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
         lbb_cpu = create_backbone(lbb_paths["Q4_K"], device="cpu")
         moss, moss_cpu = (load(rt_path, device=x) for x in (dev, "cpu"))
         rt_reader = GGUFReader(rt_path)
-        # the MoE read once (3.5 GB), its tensors copied to the card
+        # the MoE read once, its tensors copied to the card
         moe_cpu = create_backbone(moe_path, quantized=True, device="cpu")
         moe = LlamaBackbone.from_params(moe_cpu.cfg,
                                         _moved(moe_cpu.params, dev))
@@ -3657,6 +3736,688 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
     return phase_counts, times
 
 
+def _near_tie_csm(label, lm, bb, prompt, got, want):
+    """got == want, or the first difference (frame f, codebook k) is a
+    near-tie: the relative top-2 margin of those logits on `bb`'s host path,
+    teacher-forced on want's codes before it → a note for the log."""
+    from codec_tpu_torch.lm.tts_runner import prefill_prompt
+
+    diff = np.argwhere(got != want) if got.shape == want.shape else None
+    if diff is not None and not len(diff):
+        return f"codes equal ({got.shape})"
+    if diff is None or not len(diff):
+        raise RuntimeError(f"{label}: codes {got.shape} vs {want.shape}")
+    f, k = (int(v) for v in diff[0])
+    bb.reset()
+    h = prefill_prompt(bb, prompt)
+    for i in range(f):
+        h = bb.step(lm.compose_audio_embd([int(c) for c in want[i]]))
+    st = lm.new_state()
+    st.step_begin(h)
+    for j in range(k):
+        st.step_logits()
+        st.step_push_code(int(want[f, j]))
+    top = np.sort(st.step_logits()[0])[-2:]
+    margin = float((top[1] - top[0]) / abs(top[1]))
+    if not margin < NEAR_TIE:
+        raise RuntimeError(f"{label}: codes first differ at frame {f} "
+                           f"codebook {k}, relative top-2 margin {margin:.3e}")
+    return (f"codes first differ at frame {f} codebook {k}: a near-tie, "
+            f"relative top-2 margin {margin:.3e} (allowed)")
+
+
+def _mb_launches(keys_counts, kind: str) -> dict:
+    """{m bucket: launches} of the packed product `kind` (q4_k / q8_0) in a
+    profiler's (kernel name, count) pairs: the kernel's first template
+    argument is its row bucket (csrc/qmat.cu: 1, 2, 4, 8, 16 or 32)."""
+    out = {}
+    for key, n in keys_counts:
+        m = (re.search(rf"{kind}_matmul_kernel<(?:(?:true|false), )?(\d+)", key)
+             or re.search(rf"{kind}_matmul_kernelI(?:Lb[01]E)?Li(\d+)E", key))
+        if m:
+            out[int(m.group(1))] = out.get(int(m.group(1)), 0) + n
+    return out
+
+
+def _profile_mb(fn, kind: str, mb: int, want: int):
+    """One call of fn under torch.profiler → (device busy ms, kernels,
+    {row bucket: launches} of the packed product `kind`, its device µs a
+    launch at bucket `mb`). A trace is taken again (up to three) while it
+    shows fewer than `want` launches at `mb` (CUPTI drops a record now and
+    then); the fullest is returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages() if e.self_device_time_total > 0
+                and not e.key.startswith(("aten::", "Memcpy", "Memset"))]
+        at_mb = [(n, t) for k, n, t in kern
+                 if _mb_launches([(k, n)], kind).get(mb)]
+        got = (sum(t for _, _, t in kern) / 1e3, sum(n for _, n, _ in kern),
+               _mb_launches([(k, n) for k, n, _ in kern], kind),
+               sum(t for _, t in at_mb) / max(1, sum(n for n, _ in at_mb)))
+        if best is None or got[2].get(mb, 0) > best[2].get(mb, 0):
+            best = got
+        if got[2].get(mb, 0) >= want:
+            break
+    return best
+
+
+def serving(name_limit: str, zero_counts, counts, none: dict, paths: dict,
+            dev: str = "cuda", sizes=None) -> tuple:
+    """Phase 9f: the HTTP server and the continuous-batching engine
+    (codec_tpu_torch/serve) on the card, over the files phases 9, 9c and
+    9d wrote (paths: "csm", "Q4_K", "Q8_0", "cbx", "cbx_bb", "pocket"):
+    each server in this process on 127.0.0.1 (port 0), every response
+    200, every request's launch counts set to 0 just before and read just
+    after (its first run of a new graph shape beforehand, uncounted).
+      - codec endpoints (the CSM file's Mimi, f32): /health; /decode of 20 s
+        of codes byte-equal to model.decode(pcm_format="i16") (8
+        flash_sdpa_window); /decode_stream in chunks of 25 frames within
+        the stream bound of it (8 with carried keys a push: max abs err
+        <= 1e-4 x peak, corr > 0.99999); /batch_decode of 4 mixed lengths,
+        each within it of its /decode; /encode of a 20 s WAV equal to
+        model.encode (8 + 2 rvq_encode_fused);
+      - while the engine's server is built (its graph captured), /decode
+        requests run on the other server: all 200 and equal;
+      - serialized against continuous (Q4_K, --quant-exec, 4 slots, chunks
+        of 8): a greedy 25-frame /synthesize on both, equal bytes, else the
+        codes of a library ContinuousBatcher and run_codebook_ar first
+        differ at a near-tie and each response is its codes' decode; 8
+        concurrent sampled requests over the 4 slots, two replayed alone
+        byte-equal; one streamed request (time to first audio, within the
+        stream bound of its plain response); one request on the Q8_0
+        backbone;
+      - /synthesize_batch: 4 CSM texts greedy and 4 Chatterbox texts greedy
+        with CFG (m = 8 in the T3 graph), each stream's codes (the library
+        call the endpoint makes) against its single-stream chunked run
+        (near-tie rule), the responses' frame counts and stops equal;
+      - a streamed /synthesize on the Pocket-TTS server (2
+        flash_sdpa_window with carried keys a frame).
+    Measured: each endpoint's latency, the engine's ms a chunk and frames
+    a second at 1, 2 and 4 active slots, one engine step under
+    torch.profiler, q4_k_matmul launches by row bucket in a replay of the
+    engine's graph (m = 4), the CSM batch's (m = 4) and the Chatterbox
+    batch's (m = 8). `dev` and `sizes` let it run small on the CPU
+    (tests/test_torch_serve.py), where the plain versions count nothing
+    and the launch counts are those the card is held to.
+    → (launch counts, times)."""
+    import base64
+    import http.client
+    import threading
+
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
+                                               run_chatterbox,
+                                               run_chatterbox_batch,
+                                               run_codebook_ar,
+                                               run_codebook_ar_batch)
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+    from codec_tpu_torch.serve.cont_batch import ContinuousBatcher
+    from codec_tpu_torch.serve.server import (CodecHTTPServer, _pcm16,
+                                              _wav_header)
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+    frames = sizes.get("frames", SERVE_FRAMES)
+    secs = sizes.get("seconds", SERVE_SECONDS)
+    carried = "flash_sdpa_window (carried keys)"
+    phase_counts, times = dict(none, **{carried: 0}), {}
+    t_phase = time.monotonic()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches(label, want):
+        """The counts since zero_counts() against `want`; the request's
+        attention launches are `want`'s plain ones plus its carried-key
+        ones (one wrapper counts both). On the CPU the plain versions count
+        nothing: `want` is what the card is held to."""
+        want = {**none, **want}
+        n_carried = want.pop(carried, 0)
+        total = dict(want, flash_sdpa_window=want.get("flash_sdpa_window", 0)
+                     + n_carried)
+        got = {**total, **counts()} if cuda else total
+        if got != total:
+            raise RuntimeError(f"serve {label}: launches {got}, want {total} "
+                               f"({n_carried} of the attention's with "
+                               f"carried keys)")
+        for k, v in want.items():
+            phase_counts[k] = phase_counts.get(k, 0) + v
+        phase_counts[carried] += n_carried
+
+    def post(srv, path, body, first_byte=False):
+        """→ (status, body bytes, seconds, seconds to the first PCM
+        bytes after the WAV header when `first_byte`)."""
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+        t = time.perf_counter()
+        conn.request("POST", path, body=data)
+        r = conn.getresponse()
+        ttfb = None
+        if first_byte and r.status == 200:
+            head = r.read(44)
+            first = r.read(2)
+            ttfb = time.perf_counter() - t
+            out = head + first + r.read()
+        else:
+            out = r.read()
+        conn.close()
+        if r.status != 200:
+            raise RuntimeError(f"serve {path}: status {r.status}: "
+                               f"{out[:300]!r}")
+        return r.status, out, time.perf_counter() - t, ttfb
+
+    def pcm_of(wav: bytes) -> np.ndarray:
+        return np.frombuffer(wav[44:], dtype="<i2").astype(np.int32)
+
+    def lsb(label, a: bytes, b: bytes) -> int:
+        """The largest difference of two PCM16 responses in LSB, held to
+        phase 8's bound of a stream against its whole decode: corr >
+        0.99999 and max abs err <= 1e-4 x peak (at least 1 LSB; on the card
+        the attention's tiles follow the push's length, so the sums run in
+        another order than the whole decode's)."""
+        x, y = pcm_of(a), pcm_of(b)
+        if x.shape != y.shape or not len(x):
+            raise RuntimeError(f"serve {label}: PCM {x.shape} vs {y.shape}")
+        err, peak = int(np.abs(x - y).max()), int(np.abs(y).max())
+        if err and not (corr(x, y) > 0.99999 and err <= max(1, 1e-4 * peak)):
+            raise RuntimeError(f"serve {label}: {err} LSB from its reference "
+                               f"(peak {peak}, corr {corr(x, y)})")
+        return err
+
+    def start(srv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+
+    servers = []
+    try:
+        # -- the serialized server: the codec endpoints and the backbone --
+        t0 = time.monotonic()
+        ser = start(CodecHTTPServer(str(paths["csm"]), port=0,
+                                    backbone_path=str(paths["Q4_K"]),
+                                    quant_exec=True, device=dev))
+        servers.append(ser)
+        sync()
+        model, lm, bb = ser.model, ser.lm, ser.backbone
+        per_step = 7 * bb.cfg.n_layers
+        log(f"[serve] serialized server (CSM Mimi f32 + Q4_K backbone "
+            f"packed, {bb.cfg.n_layers} layers) up in "
+            f"{time.monotonic() - t0:.2f} s on port {ser.port}")
+        conn = http.client.HTTPConnection(ser.host, ser.port, timeout=60)
+        conn.request("GET", "/health")
+        r = conn.getresponse()
+        health = json.loads(r.read())
+        conn.close()
+        if r.status != 200 or health["arch"] != model.arch:
+            raise RuntimeError(f"serve /health: {r.status} {health}")
+
+        rng = np.random.default_rng(SEED + 900)
+        n_fr = secs * model.sample_rate // model.hop_size
+        codes = rng.integers(0, model.codebook_size, (n_fr, model.n_q))
+        lat = {}
+        post(ser, "/decode", {"codes": codes[:8].tolist()})     # warm
+        zero_counts()
+        _, wav, lat["/decode"], _ = post(ser, "/decode",
+                                         {"codes": codes.tolist()})
+        launches("/decode", {"flash_sdpa_window": MIMI_LAYERS})
+        want = model.decode(codes.astype(np.int32), pcm_format="i16")
+        if wav[44:] != want.astype("<i2").tobytes():
+            raise RuntimeError("serve /decode: bytes differ from "
+                               "model.decode(pcm_format='i16')")
+        chunk = SERVE_STREAM_CHUNK
+        n_push = -(-n_fr // chunk)
+        zero_counts()
+        _, swav, lat["/decode_stream"], ttfb = post(
+            ser, "/decode_stream", {"codes": codes.tolist(),
+                                    "chunk_frames": chunk}, first_byte=True)
+        launches("/decode_stream", {carried: MIMI_LAYERS * n_push})
+        d_stream = lsb("/decode_stream vs /decode", swav, wav)
+        lens = [n_fr, n_fr // 2, n_fr, max(1, n_fr // 4)]
+        seqs = [rng.integers(0, model.codebook_size, (t, model.n_q))
+                for t in lens]
+        zero_counts()
+        _, body, lat["/batch_decode"], _ = post(
+            ser, "/batch_decode", {"sequences": [s.tolist() for s in seqs]})
+        launches("/batch_decode",
+                 {"flash_sdpa_window": MIMI_LAYERS * len(set(lens))})
+        d_batch = 0
+        for s, w in zip(seqs, json.loads(body)["wavs"]):
+            one = post(ser, "/decode", {"codes": s.tolist()})[1]
+            d_batch = max(d_batch, lsb("/batch_decode vs /decode",
+                                       base64.b64decode(w), one))
+        pcm = (np.clip(rng.standard_normal(secs * model.sample_rate) * 0.1,
+                       -1, 1) * 32767).astype("<i2")
+        wav_in = _wav_header(len(pcm), model.sample_rate) + pcm.tobytes()
+        n_warm = 4 * model.hop_size
+        post(ser, "/encode", _wav_header(n_warm, model.sample_rate)
+             + pcm[:n_warm].tobytes())                           # warm
+        zero_counts()
+        _, body, lat["/encode"], _ = post(ser, "/encode", wav_in)
+        launches("/encode", {"flash_sdpa_window": MIMI_LAYERS,
+                             "rvq_encode_fused": 2})
+        enc = np.asarray(json.loads(body)["codes"])
+        if not np.array_equal(enc, model.encode(pcm)):
+            raise RuntimeError("serve /encode: codes differ from model.encode")
+        log(f"[serve] codec endpoints: /decode {secs} s byte-equal to "
+            f"model.decode (i16); /decode_stream in {n_push} pushes of "
+            f"{chunk} frames {d_stream} LSB from it, first audio after "
+            f"{ttfb * 1e3:.1f} ms; /batch_decode of {lens} frames at most "
+            f"{d_batch} LSB from each /decode; /encode of {secs} s equal to "
+            f"model.encode {enc.shape}; latency ms "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in lat.items())
+            + f"; at {time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- the engine's server, built while /decode requests run --------
+        stop, during, errors = threading.Event(), [], []
+
+        def decodes():
+            while not stop.is_set():
+                try:
+                    during.append(post(ser, "/decode",
+                                       {"codes": codes[:50].tolist()})[1])
+                except Exception as e:                # noqa: BLE001
+                    errors.append(e)
+                    return
+        t = threading.Thread(target=decodes)
+        t.start()
+        t0 = time.monotonic()
+        try:
+            cont = start(CodecHTTPServer(
+                str(paths["csm"]), port=0, backbone_path=str(paths["Q4_K"]),
+                quant_exec=True, cont_batch=SERVE_SLOTS,
+                chunk_frames=TTS_CHUNK, device=dev))
+            servers.append(cont)
+            sync()
+        finally:
+            stop.set()
+            t.join(timeout=600)
+        build_s = time.monotonic() - t0
+        if errors or not during or any(w != during[0] for w in during):
+            raise RuntimeError(f"serve: {len(during)} /decode requests "
+                               f"while the engine was built, not all equal, "
+                               f"errors {errors}")
+        log(f"[serve] engine server ({SERVE_SLOTS} slots, chunks of "
+            f"{TTS_CHUNK}) built and its graph captured in {build_s:.2f} s "
+            f"while {len(during)} /decode requests ran on the other server, "
+            f"all 200 and equal; at {time.monotonic() - t_phase:.1f} s")
+
+        # -- serialized against continuous, greedy --------------------------
+        greedy = {"text": SERVE_TEXTS[0], "seed": SEED, "max_frames": frames,
+                  "temperature": 0.0}
+        tok = cont._cont_tok
+        pi = cont._cont_pi
+        prompt_len = {x: len(tok.encode(pi.prompt_prefix + x
+                                        + pi.prompt_suffix))
+                      for x in SERVE_TEXTS}
+        want_ser = {"flash_sdpa_window": MIMI_LAYERS,
+                    "q4_k_matmul": per_step * prompt_len[SERVE_TEXTS[0]]}
+        # the serialized server's first on_device request captures its
+        # chunk: the capture's warm-up and recording launch through the
+        # wrappers (2 x 28 x 8), the replays count nothing
+        graph = 2 * per_step * TTS_CHUNK
+        zero_counts()
+        _, wav_ser, lat["/synthesize serialized"], _ = post(
+            ser, "/synthesize", dict(greedy, on_device=True,
+                                     chunk_frames=TTS_CHUNK))
+        launches("/synthesize serialized (its capture)",
+                 dict(want_ser, q4_k_matmul=want_ser["q4_k_matmul"] + graph))
+        zero_counts()
+        _, wav_cont, lat["/synthesize engine"], _ = post(
+            cont, "/synthesize", greedy)
+        launches("/synthesize engine", want_ser)
+        prompt = list(bb.embed_tokens(tok.encode(
+            pi.prompt_prefix + SERVE_TEXTS[0] + pi.prompt_suffix)))
+        gods = OnDeviceSampling(chunk_frames=TTS_CHUNK)
+        lane = LlamaBackbone.from_params(bb.cfg, bb.params, bb.dtype, bb.qmm)
+        if wav_ser == wav_cont:
+            note = "equal bytes"
+        else:
+            # the library calls the two endpoints make, on the same weights:
+            # their codes first differ at a near-tie, and each response is
+            # its call's decode
+            eng = ContinuousBatcher(lane, lm, n_slots=SERVE_SLOTS,
+                                    on_device=gods, pi=pi, decode=False)
+            h = eng.submit(AudioLM(ser.reader, codec=model, lm=lm), prompt,
+                           seed=SEED, max_steps=frames)
+            eng.drain()
+            e_res = h.wait(timeout=0)
+            bb.reset()
+            s_res = run_codebook_ar(AudioLM(ser.reader, codec=model, lm=lm),
+                                    bb, prompt, max_steps=frames, pi=pi,
+                                    on_device=gods, decode=False)
+            note = "bytes differ; library codes: " + _near_tie_csm(
+                "serve engine vs serialized", lm, bb, prompt, e_res.codes,
+                s_res.codes)
+            for label, w, res in (("engine", wav_cont, e_res),
+                                  ("serialized", wav_ser, s_res)):
+                if w[44:] != _pcm16(_decode_transformed(
+                        AudioLM(ser.reader, codec=model, lm=lm), res.codes)):
+                    raise RuntimeError(f"serve {label}: the response is not "
+                                       f"its library call's decode")
+        log(f"[serve] greedy {frames}-frame /synthesize, serialized "
+            f"(on_device, chunks of {TTS_CHUNK}) against the engine: {note}; "
+            f"at {time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- 8 concurrent sampled requests over the 4 slots -----------------
+        reqs = [{"text": SERVE_TEXTS[i % len(SERVE_TEXTS)], "seed": 100 + i,
+                 "max_frames": frames} for i in range(SERVE_CONCURRENT)]
+        out = {}
+
+        def worker(i):
+            out[i] = post(cont, "/synthesize", reqs[i])
+        zero_counts()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=worker, args=(i,))
+              for i in range(len(reqs))]
+        for x in ts:
+            x.start()
+        for x in ts:
+            x.join(timeout=600)
+        conc_s = time.perf_counter() - t0
+        if sorted(out) != list(range(len(reqs))):
+            raise RuntimeError(f"serve concurrent: {len(out)} of {len(reqs)} "
+                               f"answered")
+        launches("/synthesize x8 concurrent", {
+            "flash_sdpa_window": MIMI_LAYERS * len(reqs),
+            "q4_k_matmul": per_step * sum(prompt_len[r["text"]]
+                                          for r in reqs)})
+        for i in (0, len(reqs) - 1):
+            again = post(cont, "/synthesize", reqs[i])[1]
+            if again != out[i][1]:
+                raise RuntimeError(f"serve concurrent request {i}: replayed "
+                                   f"alone it gives other bytes")
+        lat["/synthesize engine x8"] = conc_s
+        log(f"[serve] {len(reqs)} concurrent sampled /synthesize (chain of "
+            f"the family, distinct seeds) over {SERVE_SLOTS} slots: all 200 "
+            f"in {conc_s * 1e3:.1f} ms ({len(reqs) * frames / conc_s:.1f} "
+            f"frames/s); requests 0 and {len(reqs) - 1} replayed alone give "
+            f"the same bytes; per request "
+            + ", ".join(f"{out[i][2] * 1e3:.0f}" for i in sorted(out))
+            + f" ms; at {time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- one streamed engine request ------------------------------------
+        sreq = dict(reqs[0], seed=7)
+        plain = post(cont, "/synthesize", sreq)[1]
+        n_push = -(-(len(plain) - 44) // 2 // model.hop_size // TTS_CHUNK)
+        zero_counts()
+        _, swav, lat["/synthesize engine stream"], ttfa = post(
+            cont, "/synthesize", dict(sreq, stream=True), first_byte=True)
+        # the engine decodes the whole request at its end (as codec_tpu's
+        # does, streamed or not) beside the handler's pushes
+        launches("/synthesize engine stream", {
+            "flash_sdpa_window": MIMI_LAYERS,
+            "q4_k_matmul": per_step * prompt_len[sreq["text"]],
+            carried: MIMI_LAYERS * n_push})
+        d_st = lsb("streamed vs plain /synthesize", swav, plain)
+        times["ttfa_ms"] = ttfa * 1e3
+        # the same request submitted to the engine directly: when it was
+        # admitted (its prompt prefilled) and when its first frame came
+        seen = []
+        t = time.perf_counter()
+        h = cont._cont_batcher.submit(
+            AudioLM(cont.reader, codec=model, lm=cont.lm), list(
+                bb.embed_tokens(tok.encode(pi.prompt_prefix + sreq["text"]
+                                           + pi.prompt_suffix))),
+            seed=sreq["seed"], max_steps=frames,
+            frame_cb=lambda c: seen.append(time.perf_counter()))
+        h.wait(timeout=600)
+        done_s = time.perf_counter() - t
+        log(f"[serve] streamed engine /synthesize: time to first audio "
+            f"{ttfa * 1e3:.1f} ms, {d_st} LSB from its plain response, "
+            f"{n_push} pushes of up to {TTS_CHUNK} frames; the same request "
+            f"submitted directly: admitted after "
+            f"{(h.admitted_at - h.submitted_at) * 1e3:.1f} ms, its first frame "
+            f"after {(seen[0] - t) * 1e3:.1f} ms, done after "
+            f"{done_s * 1e3:.1f} ms; at {time.monotonic() - t_phase:.1f} s "
+            f"[{name_limit}]")
+
+        # -- one request on the Q8_0 backbone -------------------------------
+        t0 = time.monotonic()
+        q8 = start(CodecHTTPServer(
+            str(paths["csm"]), port=0, backbone_path=str(paths["Q8_0"]),
+            quant_exec=True, device=dev))
+        servers.append(q8)
+        zero_counts()
+        _, wav_q8, lat["/synthesize Q8_0"], _ = post(
+            q8, "/synthesize", dict(greedy, max_frames=TTS_CHUNK))
+        # the host path: a step a prompt row and a step a frame
+        launches("/synthesize Q8_0", {
+            "flash_sdpa_window": MIMI_LAYERS,
+            "q8_0_matmul": per_step * (prompt_len[SERVE_TEXTS[0]]
+                                       + TTS_CHUNK)})
+        if len(wav_q8) != 44 + 2 * TTS_CHUNK * model.hop_size:
+            raise RuntimeError(f"serve Q8_0: {len(wav_q8)} bytes")
+        q8.shutdown()
+        servers.remove(q8)
+        log(f"[serve] Q8_0 server (--quant-exec) up and a greedy {TTS_CHUNK}-frame "
+            f"/synthesize on its host path 200 in {time.monotonic() - t0:.2f} "
+            f"s (the request {lat['/synthesize Q8_0'] * 1e3:.1f} ms); at "
+            f"{time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- the engine's chunk at 1, 2 and 4 active slots ------------------
+        # the engine server's own batcher (its thread stopped: no request
+        # is left for it), its default chain (sampled)
+        cont.cont_engine.stop()
+        eng = cont._cont_batcher
+        rate, prof = {}, None
+        for n_act in (1, 2, SERVE_SLOTS):
+            hs = [eng.submit(AudioLM(cont.reader, codec=model, lm=cont.lm),
+                             prompt,
+                             seed=200 + i,
+                             max_steps=TTS_CHUNK * (SERVE_TIMED + 2))
+                  for i in range(n_act)]
+            eng.step()                                  # admissions
+            samples = []
+            for _ in range(SERVE_TIMED):
+                sync()
+                t = time.perf_counter()
+                eng.step()
+                sync()
+                samples.append(time.perf_counter() - t)
+            ms = statistics.median(samples) * 1e3
+            rate[n_act] = (ms, n_act * TTS_CHUNK / ms * 1e3)
+            if n_act == SERVE_SLOTS and cuda:
+                # one step, its replay and host work, in one trace
+                prof = _profile_mb(eng.step, "q4_k", 4, per_step * TTS_CHUNK)
+            eng.drain()
+            for x in hs:
+                x.wait(timeout=0)
+        times["engine"] = rate
+        line = (f"[serve] engine chunk (the engine server's batcher, its "
+                f"default chain, host clock, median of {SERVE_TIMED} steps): "
+                + "; ".join(f"{n} active {ms:.2f} ms a chunk, {fps:.1f} "
+                            f"frames/s" for n, (ms, fps) in rate.items()))
+        if prof is not None:
+            busy, n_kern, mb, mb_us = prof
+            step_ms = rate[SERVE_SLOTS][0]
+            times["engine_mb"] = mb
+            if mb.get(4, 0) != per_step * TTS_CHUNK:
+                raise RuntimeError(f"serve engine step: q4_k_matmul by row "
+                                   f"bucket {mb}, want {per_step * TTS_CHUNK} "
+                                   f"at m = 4")
+            line += (f"; one step at {SERVE_SLOTS} active under torch.profiler:"
+                     f" {n_kern} kernels ({n_kern / TTS_CHUNK:.0f} a frame), "
+                     f"device busy {busy:.3f} ms (idle share "
+                     f"{max(0.0, 1 - busy / step_ms):.3f} of the timed step), "
+                     f"q4_k_matmul by row bucket {mb}, {mb_us:.2f} µs a "
+                     f"launch at m = 4")
+        log(line + f"; at {time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- /synthesize_batch: 4 CSM texts, greedy -------------------------
+        breq = {"texts": SERVE_TEXTS[:SERVE_SLOTS], "seed": SEED,
+                "max_frames": frames, "chunk_frames": TTS_CHUNK,
+                "sampling": [{"temperature": 0.0}] * SERVE_SLOTS}
+        zero_counts()
+        _, body, lat["/synthesize_batch CSM"], _ = post(
+            ser, "/synthesize_batch", breq)
+        # its first request captures the batched chunk (m = 4)
+        launches("/synthesize_batch CSM (its capture)", {
+            "flash_sdpa_window": MIMI_LAYERS * SERVE_SLOTS,
+            "q4_k_matmul": per_step * sum(prompt_len[x]
+                                          for x in breq["texts"]) + graph})
+        got = json.loads(body)
+        prompts = [list(bb.embed_tokens(tok.encode(
+            pi.prompt_prefix + x + pi.prompt_suffix))) for x in breq["texts"]]
+        shared = ser._shared_lm
+        # each stream's single-stream chunked run: the serialized greedy
+        # request's chain on its LM (its graph); equal bytes mean equal
+        # codes (the decode is deterministic), else the codes of the
+        # library call the endpoint makes first differ at a near-tie
+        ser_ods = OnDeviceSampling(temperature=0.0, top_k=pi.default_top_k,
+                                   top_p=pi.default_top_p,
+                                   chunk_frames=TTS_CHUNK)
+        ones, lib, notes = [], None, []
+        for p in prompts:
+            bb.reset()
+            ones.append(run_codebook_ar(
+                AudioLM(ser.reader, codec=model, lm=lm), bb, p,
+                max_steps=frames, pi=pi, on_device=ser_ods))
+        for i, (w, one) in enumerate(zip(got["wavs"], ones)):
+            if base64.b64decode(w)[44:] == _pcm16(one.pcm) \
+                    and got["n_frames"][i] == len(one.codes):
+                notes.append("equal bytes")
+                continue
+            if lib is None:
+                lib = run_codebook_ar_batch(
+                    [AudioLM(ser.reader, codec=model, lm=shared)
+                     for _ in prompts], bb, prompts,
+                    OnDeviceSampling(chunk_frames=TTS_CHUNK),
+                    max_steps=frames, pi=pi, decode=False,
+                    sampling=[OnDeviceSampling(chunk_frames=TTS_CHUNK)]
+                    * SERVE_SLOTS)
+            notes.append(_near_tie_csm(f"serve batch stream {i}", shared, bb,
+                                       prompts[i], lib[i].codes, one.codes))
+        log(f"[serve] /synthesize_batch of {SERVE_SLOTS} CSM texts greedy: "
+            f"200 in {lat['/synthesize_batch CSM'] * 1e3:.1f} ms, frames "
+            f"{got['n_frames']}; each stream vs its single-stream chunked run: "
+            f"{notes}; at {time.monotonic() - t_phase:.1f} s [{name_limit}]")
+
+        # -- /synthesize_batch: 4 Chatterbox texts, greedy with CFG ----------
+        t0 = time.monotonic()
+        cbx = start(CodecHTTPServer(str(paths["cbx"]), port=0,
+                                    backbone_path=str(paths["cbx_bb"]),
+                                    quant_exec=True, prefill_bucket=CBX_BUCKET,
+                                    device=dev))
+        servers.append(cbx)
+        cframes = sizes.get("cbx_frames", SERVE_CBX_FRAMES)
+        creq = {"texts": SERVE_TEXTS[:SERVE_SLOTS], "seed": SEED,
+                "max_frames": cframes, "chunk_frames": CBX_CHUNK,
+                "sampling": [{"temperature": 0.0}] * SERVE_SLOTS}
+        c_step = 7 * cbx.backbone.cfg.n_layers
+        zero_counts()
+        _, body, lat["/synthesize_batch Chatterbox"], _ = post(
+            cbx, "/synthesize_batch", creq)
+        # each lane's prompt prefills in one forward of CBX_BUCKET rows (past
+        # the kernels' 32, so the dequantized product); the first request
+        # captures the chunk (its warm-up and recording at m = 8), the
+        # replays count nothing
+        launches("/synthesize_batch Chatterbox (its capture)",
+                 {"q4_k_matmul": 2 * c_step * CBX_CHUNK})
+        got = json.loads(body)
+        t3, cbb, clm = cbx._t3, cbx.backbone, cbx._shared_lm
+        cods = OnDeviceSampling(temperature=0.0, chunk_frames=CBX_CHUNK,
+                                repetition_penalty=1.2, repetition_window=-1,
+                                seed=SEED)
+        lib = run_chatterbox_batch(
+            [AudioLM(cbx.reader, lm=clm) for _ in creq["texts"]], t3, cbb,
+            creq["texts"], cods, max_frames=cframes, decode=False,
+            prefill_bucket=CBX_BUCKET)
+        head = np.asarray(cbx.reader.get("lm.heads_0.weight"), np.float64)
+        notes = []
+        for i, (text, r) in enumerate(zip(creq["texts"], lib)):
+            if (got["n_frames"][i], got["stops"][i]) != (
+                    len(r.codes), "eos" if r.stopped_by_eos else "max_frames"):
+                raise RuntimeError(f"serve cbx stream {i}: the response's "
+                                   f"frames and stop differ from the library "
+                                   f"call's")
+            lanes = [cbb, LlamaBackbone.from_params(cbb.cfg, cbb.params,
+                                                    cbb.dtype, cbb.qmm)]
+            for x in lanes:
+                x.reset()
+            one = run_chatterbox(AudioLM(cbx.reader, lm=clm), t3, lanes, text,
+                                 max_frames=cframes, on_device=cods,
+                                 decode=False, prefill_bucket=CBX_BUCKET)
+            if np.array_equal(r.codes, one.codes):
+                notes.append("equal")
+                continue
+            n = min(len(r.codes), len(one.codes))
+            diff = np.flatnonzero(r.codes[:n, 0] != one.codes[:n, 0])
+            f = int(diff[0]) if len(diff) else n
+            rec = [Recorder(x) for x in lanes]
+            for x in lanes:
+                x.reset()
+            host = run_chatterbox(AudioLM(cbx.reader, lm=clm), t3, rec, text,
+                                  max_frames=f + 1,
+                                  sampler=lambda lg: int(np.argmax(lg)),
+                                  decode=False, prefill_bucket=CBX_BUCKET)
+            if not np.array_equal(host.codes[:f], one.codes[:f]):
+                raise RuntimeError(f"serve cbx stream {i}: differs from its "
+                                   f"single-stream run at frame {f}, and the "
+                                   f"host path before it")
+            hs = [np.asarray(x.calls[f][2], np.float64) for x in rec]
+            cond, unc = head @ hs[0], head @ hs[1]
+            top = np.sort(cond + 0.5 * (cond - unc))[-2:]
+            margin = float((top[1] - top[0]) / abs(top[1]))
+            if not margin < NEAR_TIE:
+                raise RuntimeError(f"serve cbx stream {i}: first differs at "
+                                   f"frame {f}, margin {margin:.3e}")
+            notes.append(f"frame {f} a near-tie ({margin:.2e})")
+        mb = {}
+        if cuda:
+            ckey = [k for k in cbb._cbx_chunks if k[8] == SERVE_SLOTS]
+            _, _, mb, mb_us = _profile_mb(cbb._cbx_chunks[ckey[-1]][2].run,
+                                          "q4_k", 8, c_step * CBX_CHUNK)
+            if mb.get(8, 0) != c_step * CBX_CHUNK:
+                raise RuntimeError(f"serve cbx batch replay: q4_k_matmul by "
+                                   f"row bucket {mb}, want "
+                                   f"{c_step * CBX_CHUNK} at m = 8")
+        times["cbx_mb"] = mb
+        log(f"[serve] Chatterbox server up in {time.monotonic() - t0:.2f} s "
+            f"(prefill in buckets of {CBX_BUCKET}); /synthesize_batch of "
+            f"{SERVE_SLOTS} texts greedy, CFG 0.5: 200 in "
+            f"{lat['/synthesize_batch Chatterbox'] * 1e3:.1f} ms, frames "
+            f"{got['n_frames']}, stops {got['stops']}; each stream vs its "
+            f"single-stream chunk: {notes}; one replay's q4_k_matmul by row "
+            f"bucket {mb} ({SERVE_SLOTS} streams x 2 lanes"
+            + (f", {mb_us:.2f} µs a launch at m = 8" if mb else "") + "); at "
+            f"{time.monotonic() - t_phase:.1f} s [{name_limit}]")
+        cbx.shutdown()
+        servers.remove(cbx)
+
+        # -- the flow path: a streamed /synthesize on Pocket-TTS ------------
+        pt = start(CodecHTTPServer(str(paths["pocket"]), port=0, device=dev))
+        servers.append(pt)
+        preq = {"text": SERVE_TEXTS[0], "seed": SEED, "max_frames": frames,
+                "stream": True}
+        post(pt, "/synthesize", dict(preq, max_frames=2))          # warm
+        zero_counts()
+        _, fwav, lat["/synthesize flow stream"], f_ttfa = post(
+            pt, "/synthesize", preq, first_byte=True)
+        n_flow = (len(fwav) - 44) // 2 // pt.model.hop_size
+        launches("/synthesize flow stream",
+                 {carried: pt.model.cfg.tf_layers * n_flow})
+        if n_flow < 1:
+            raise RuntimeError("serve flow stream: no PCM")
+        log(f"[serve] streamed Pocket-TTS /synthesize: {n_flow} frames, time "
+            f"to first audio {f_ttfa * 1e3:.1f} ms, "
+            f"{lat['/synthesize flow stream'] * 1e3:.1f} ms in all; at "
+            f"{time.monotonic() - t_phase:.1f} s [{name_limit}]")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    times["latency_ms"] = {k: v * 1e3 for k, v in lat.items()}
+    log(f"[serve] main path launches: {phase_counts}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts, times
+
+
 def chain_history(codes, window: int) -> list:
     """What a host SamplerChain with this repetition window holds for the
     penalty after it picked `codes` (its history's last `window`)."""
@@ -3809,6 +4570,8 @@ def main() -> int:
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar)
     from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B,
+                                                byte_fallback_vocab,
+                                                spm_model_b64,
                                                 write_random_backbone_ggufs,
                                                 write_random_csm_gguf)
     from codec_tpu_torch.ops import qmat
@@ -4236,9 +4999,10 @@ def main() -> int:
         paths = {name: Path(tmp.name) / f"{name}_random.gguf"
                  for name in ("mimi", "dac", "snac")}
         t0 = time.monotonic()
-        write_random_mimi_gguf(paths["mimi"], seed=SEED, encoder=True)
-        write_random_dac_gguf(paths["dac"], seed=SEED, encoder=True)
-        write_random_snac_gguf(paths["snac"], seed=SEED, encoder=True)
+        write_files(*[(lambda w=w, n=n: w(paths[n], seed=SEED, encoder=True))
+                      for w, n in ((write_random_mimi_gguf, "mimi"),
+                                   (write_random_dac_gguf, "dac"),
+                                   (write_random_snac_gguf, "snac"))])
         log("[model] wrote " + ", ".join(
             f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
             for path in paths.values())
@@ -4767,14 +5531,20 @@ def main() -> int:
     t0 = time.monotonic()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
     try:
-        csm_path = write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
-                                         seed=SEED)
-        # one draw of the weights for both types, quantized on a pool of
-        # threads; Llama-3.2-1B's widths, TTS_LAYERS of its 16 layers
-        bb_paths = write_random_backbone_ggufs(
-            {q: Path(tmp.name) / f"backbone_{q}.gguf" for q in ("Q4_K", "Q8_0")},
-            seed=SEED, cfg=dataclasses.replace(LLAMA_3_2_1B,
-                                               n_layers=TTS_LAYERS))
+        # the Mimi's encoder half too, for phase 9f's /encode; the
+        # backbones: one draw of the weights for both types, quantized on a
+        # pool of threads; Llama-3.2-1B's widths, TTS_LAYERS of its 16
+        # layers; the byte-fallback vocabulary, for phase 9f's server to
+        # tokenize with
+        csm_path, bb_paths = write_files(
+            lambda: write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
+                                          seed=SEED, encoder=True),
+            lambda: write_random_backbone_ggufs(
+                {q: Path(tmp.name) / f"backbone_{q}.gguf"
+                 for q in ("Q4_K", "Q8_0")},
+                seed=SEED, cfg=dataclasses.replace(LLAMA_3_2_1B,
+                                                   n_layers=TTS_LAYERS),
+                spm_b64=spm_model_b64(byte_fallback_vocab())))
         log("[tts] wrote " + ", ".join(
             f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
             for path in [csm_path, *bb_paths.values()])
@@ -4791,8 +5561,10 @@ def main() -> int:
                                                device="cuda")
             torch.cuda.synchronize()
             growth[qtype] = torch.cuda.memory_allocated() - before
-    finally:
+    except BaseException:
         tmp.cleanup()
+        raise
+    tts_tmp = tmp                   # its files serve phase 9f
     bcfg = backbones["Q4_K"].cfg
     log(f"[tts] loaded in {time.monotonic() - t0:.2f} s: backbone hidden "
         f"{bcfg.hidden}, {bcfg.n_layers} layers, {bcfg.n_heads} heads x "
@@ -5196,13 +5968,23 @@ def main() -> int:
 
     # -- 9d. Chatterbox TTS: T3 on Llama-520M into S3Gen; the speaker encoders
     log(f"[phase] 9d starts at {time.monotonic() - t_start:.1f} s")
-    cbx_counts, _ = chatterbox_flow(name_limit, zero_counts, counts, none)
+    cbx_counts, _ = chatterbox_flow(name_limit, zero_counts, counts, none,
+                                    reuse=reuse)
 
     # -- 9e. LFM2-Audio, MOSS-TTS-Realtime, the Qwen3-MoE backbone ---------------
     log(f"[phase] 9e starts at {time.monotonic() - t_start:.1f} s")
     rest_counts, _ = rest_lm_flows(name_limit, zero_counts, counts, none,
                                    reuse)
-    del reuse
+
+    # -- 9f. serving: the HTTP server, the engine, batched Chatterbox ----------
+    log(f"[phase] 9f starts at {time.monotonic() - t_start:.1f} s")
+    _, cbx_path, cbx_bb_path = reuse["cbx"]
+    serve_counts, _ = serving(
+        name_limit, zero_counts, counts, none,
+        {"csm": csm_path, **bb_paths, "cbx": cbx_path,
+         "cbx_bb": cbx_bb_path, "pocket": reuse["pocket"][1]})
+    tts_tmp.cleanup()
+    del reuse                        # and with it 9c's and 9d's directories
 
     # -- 10. times -------------------------------------------------------------
     log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
@@ -5245,6 +6027,7 @@ def main() -> int:
                      f"{fmt_ms(extra['flash_sdpa_window']['device_ms'])}")
         log(line + f" [{name_limit}]")
 
+    log(f"[phase] 10: windowed attention at {time.monotonic() - t_start:.1f} s")
     # the windowed codecs' attention (phase 8c's shapes): kernel and plain in
     # turns, F.scaled_dot_product_attention with the same mask, device time
     # (torch.profiler), and the bound of the kernel's passes (f32: three
@@ -5277,20 +6060,21 @@ def main() -> int:
                 + (f", f32 FMA {least_time(*work)[0]:.5f} ms"
                    if dtype == torch.float32 else "") + f" [{name_limit}]")
 
+    log(f"[phase] 10: MOSS attention at {time.monotonic() - t_start:.1f} s")
     # MOSS's attention (phase 8e's shapes) the same way; SDPA with the band
     # mask only where its mask fits (T <= 15 000: its memory-efficient
     # kernel takes the mask as an additive tensor of the inputs' dtype,
     # [T, T]; at T 120 000 that is 57.6 GB in f32, and the math path's
     # logits 172.8 GB)
-    for b, h, t, d, w in (*MOSS_ATTN_SHAPES, MOSS_LONG_ATTN):
+    # (the 200 s stage, T 1 200 000, is checked in phase 3, not timed here)
+    for b, h, t, d, w in MOSS_ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn((b, h, t, d), dtype, SEED + 900 + j)
                        for j in range(3))
             kern, plain, smp = turns(
                 lambda: flash_sdpa_window(q, k, v, window=w),
                 lambda: flash_sdpa_window_ref(q, k, v, window=w),
-                reps=20 if t <= 2500 else 1,
-                runs=3 if t > 200000 else TIMED_RUNS)
+                reps=20 if t <= 2500 else 1)
             if t <= 15000:
                 i = torch.arange(t, device="cuda")
                 band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
@@ -5318,12 +6102,18 @@ def main() -> int:
             del q, k, v
     torch.cuda.empty_cache()
 
+    log(f"[phase] 10: DAC units at {time.monotonic() - t_start:.1f} s")
     # the DAC residual units at every decoder and encoder width, d = 1, 3
     # and 9, in f32 and bf16, and the chain against three unit launches
     # (tools/seanet_times.py); the kernels line takes the f32 unit at block
     # 1 (C768, d = 1) and the f32 chain at block 4 (C96)
-    unit_rows = seanet_times.unit_rows(log=lambda m: log(f"{m} [{name_limit}]"))
-    chain_rows = seanet_times.chain_rows(log=lambda m: log(f"{m} [{name_limit}]"))
+    # d = 1 only: the dilation moves a unit's time by under 2% at every
+    # width, and the kernels line takes d = 1
+    unit_rows = seanet_times.unit_rows(
+        runs=TIMED_RUNS, log=lambda m: log(f"{m} [{name_limit}]"),
+        dilations=(1,))
+    chain_rows = seanet_times.chain_rows(
+        runs=TIMED_RUNS, log=lambda m: log(f"{m} [{name_limit}]"))
     row = next(r for r in unit_rows
                if (r["c"], r["d"], r["dtype"]) == (768, 1, "float32"))
     times["seanet_res_unit"] = (row["ms"], row["plain_ms"], row["bound_ms"],
@@ -5337,6 +6127,7 @@ def main() -> int:
                 f"{'the chain' if row['gate_takes_chain'] else 'three units'}"
                 f", the faster in this run is the other")
 
+    log(f"[phase] 10: SNAC blocks at {time.monotonic() - t_start:.1f} s")
     for dtype in (torch.float32, *HALF_DTYPES):
         for bi, (c, t) in enumerate(SNAC_BLOCKS, start=1):
             p = dw_params(3, c, dtype, SEED + 90 + bi)
@@ -5373,10 +6164,12 @@ def main() -> int:
             log(line + f" [{name_limit}]")
             del x, p
 
+    log(f"[phase] 10: packed products m1 at {time.monotonic() - t_start:.1f} s")
     # the packed products at m = 1 (one decode step) on every backbone
     # shape: device time per call from torch.profiler, and the CUDA-event
     # time of back-to-back calls, which includes the host's launch work
-    for out_d, in_d in QMAT_SHAPES:
+    # (the kernels line's gate shape; the m = 4 and 8 rows below)
+    for out_d, in_d in (QMAT_MAIN,):
         x = randn((1, in_d), torch.float32, SEED + 140)
         for name in ("q8_0_matmul", "q4_k_matmul"):
             qt = qmat_weights[name, out_d, in_d]
@@ -5399,15 +6192,16 @@ def main() -> int:
                                dev[2] or l_ev)
             del dense
 
-    # the packed products at the MOSS-TTSD backbone's shapes, m = 1 and 8,
-    # at the Chatterbox T3 backbone's, m = 1 and 2, and at the Qwen3-MoE
-    # attention's q and o, m = 1 and 8: device time (torch.profiler) of the
-    # kernel and of F.linear on the dequantized f32 weight, each beside the
-    # bound
+    log(f"[phase] 10: packed products sweep at {time.monotonic() - t_start:.1f} s")
+    # the packed products at the CSM backbone's shapes, m = 4 and 8 (the
+    # serving engine's and /synthesize_batch's rows), and at the Chatterbox
+    # T3 backbone's, m = 8 (batched Chatterbox's 4 streams x 2 lanes):
+    # device time (torch.profiler) of the kernel and of F.linear on the
+    # dequantized f32 weight, each beside the bound (Qwen3's, the MoE's and
+    # T3's m = 1 and 2 rows are checked in phase 3, not timed here)
     for out_d, in_d, ms, tag in (
-            [(o, i, QWEN3_QMAT_MS, "Qwen3") for o, i in QWEN3_QMAT_SHAPES]
-            + [(o, i, T3_QMAT_MS, "T3") for o, i in T3_QMAT_SHAPES]
-            + [(o, i, MOE_QMAT_MS, "MoE") for o, i in MOE_QMAT_SHAPES]):
+            [(o, i, QMAT_SERVE_MS, "CSM") for o, i in QMAT_SHAPES]
+            + [(o, i, (8,), "T3") for o, i in T3_QMAT_SHAPES]):
         for name in ("q8_0_matmul", "q4_k_matmul"):
             qt = qmat_weights[name, out_d, in_d]
             dense = qmat.dequant_ref(qt)
@@ -5415,7 +6209,11 @@ def main() -> int:
                 x = randn((m, in_d), torch.float32, SEED + 180 + m)
                 kern = lambda: packed_product(name, x, qt)
                 lib = lambda: F.linear(x, dense)
-                k_ms, l_ms = device_ms(kern), device_ms(lib)
+                # 20 calls a trace, two traces at most (a short one is
+                # "not measured"): the profiler's retries cost more than
+                # these rows' kernels
+                k_ms, l_ms = (device_ms(fn, n=20, tries=2)
+                              for fn in (kern, lib))
                 # CUDA events of back-to-back calls beside them (the
                 # wrapper's host time included; the profiler's trace of
                 # F.linear at these shapes loses records now and then)
@@ -5430,6 +6228,7 @@ def main() -> int:
                     + f" [{name_limit}]")
             del dense
 
+    log(f"[phase] 10: packed products cold at {time.monotonic() - t_start:.1f} s")
     # the packed products cold, as a forward finds them: each shape's line
     # cycles over the TTS_LAYERS layers' matrices of that shape in the loaded
     # backbone (a 64 MB buffer written between launches where the cycle
@@ -5504,7 +6303,8 @@ def main() -> int:
         del dense, order
     del flush_buf
 
-    for name, qtype, bucket in TTS_REQUESTS:
+    log(f"[phase] 10: TTS requests at {time.monotonic() - t_start:.1f} s")
+    for name, qtype, bucket in TTS_REQUESTS[:1]:    # (phase 9 ran all three)
         runs = [tts_request(backbones[qtype], bucket)[3]
                 for _ in range(TTS_TIMED_RUNS)]
         med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
@@ -5518,6 +6318,7 @@ def main() -> int:
             f"of audio; median of {TTS_TIMED_RUNS} runs after a warm-up) "
             f"[{name_limit}]")
 
+    log(f"[phase] 10: decodes at {time.monotonic() - t_start:.1f} s")
     decode_fns = {"dac": dac.dac_decode_fn, "snac": snac.snac_decode_fn}
     for label, reqs, plain_units in (
             ("mimi", mimi_reqs, None), ("dac", dac_reqs, dac.plain_res_units),
@@ -5551,6 +6352,7 @@ def main() -> int:
                          f"{d_plain:.3f} ms with {what}")
             log(line + f" [{name_limit}]")
 
+    log(f"[phase] 10: RVQ search at {time.monotonic() - t_start:.1f} s")
     # the RVQ search at Mimi's shapes (20 s b1 acoustic and semantic, b4,
     # and a streaming encode's 1- and 5-frame acoustic pushes) and the
     # iSTFT-head codecs' (WavTokenizer's and XY-Tokenizer's 20 s b1), with
@@ -5587,6 +6389,7 @@ def main() -> int:
             extra["rvq_encode_fused"] = {"bound_fma_ms": b_fma}
         del x, cb
 
+    log(f"[phase] 10: encodes at {time.monotonic() - t_start:.1f} s")
     # the encode requests, host PCM to host codes; for f32, the encode
     # function alone (PCM already on the card) with the kernels and with
     # the plain path
@@ -5620,6 +6423,7 @@ def main() -> int:
                      f"with the plain path")
         log(line + f" [{name_limit}]")
 
+    log(f"[phase] 10: streams at {time.monotonic() - t_start:.1f} s")
     # the streaming sessions: per step, after warm-up pushes, the median
     # CUDA-event time of a push (host codes to host PCM), the audio it
     # gives, and one warm push under torch.profiler (device busy time,
@@ -5679,6 +6483,7 @@ def main() -> int:
             f"{1 - busy / ms:.3f}, {kernels} kernel launches and {copies} "
             f"copies/fills [{name_limit}]")
 
+    log(f"[phase] 10: carried-key attention at {time.monotonic() - t_start:.1f} s")
     # flash_sdpa_window with carried keys at the sessions' shapes: kernel and
     # plain in turns, F.scaled_dot_product_attention with the same mask, the
     # bound of the pairs this mask leaves visible, device time
@@ -5726,7 +6531,8 @@ def main() -> int:
                    + rest_counts["flash_sdpa_window"]
                    + enc_counts["flash_sdpa_window"]
                    + windowed_counts["flash_sdpa_window"]
-                   + small_counts["flash_sdpa_window"],
+                   + small_counts["flash_sdpa_window"]
+                   + serve_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
                    + enc_counts["seanet_res_unit"],
                    "seanet_res_chain": dac_counts["seanet_res_chain"]
@@ -5736,17 +6542,21 @@ def main() -> int:
                    "q8_0_matmul": tts_counts["q8_0_matmul"]
                    + tts_dev_counts["q8_0_matmul"]
                    + lm_counts["q8_0_matmul"] + cbx_counts["q8_0_matmul"]
-                   + rest_counts["q8_0_matmul"],
+                   + rest_counts["q8_0_matmul"]
+                   + serve_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"]
                    + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"]
-                   + rest_counts["q4_k_matmul"],
+                   + rest_counts["q4_k_matmul"]
+                   + serve_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
-                   + windowed_counts["rvq_encode_fused"],
+                   + windowed_counts["rvq_encode_fused"]
+                   + serve_counts["rvq_encode_fused"],
                    "flash_sdpa_window (carried keys)": stream_launches
                    + windowed_counts["flash_sdpa_window (carried keys)"]
-                   + lm_counts["flash_sdpa_window (carried keys)"]}
+                   + lm_counts["flash_sdpa_window (carried keys)"]
+                   + serve_counts["flash_sdpa_window (carried keys)"]}
     sources = {"flash_sdpa_window": ("codec_tpu_torch/csrc/flash_sdpa_window.cu",
                                      "codec_tpu/ops/attn_pallas.py:82"),
                "seanet_res_unit": ("codec_tpu_torch/csrc/seanet_res.cu",

@@ -259,7 +259,7 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
                               prefill_bucket: int = 0, temperature=None,
                               top_p=None, min_p=None, rep_penalty=None,
                               quantized: bool = False, device="cuda",
-                              bb=None):
+                              bb=None, lm=None, t3=None):
     """Chatterbox T3 flow (reference: run_chatterbox, tts_runner.cpp:876;
     codec_tpu's run_chatterbox_synthesize): text → the baked BPE tokenizer
     → T3 (two CFG lanes over one backbone's weights, each with its own KV
@@ -272,14 +272,16 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
     1.2 over the whole history) with the CLI's overrides; `on_device`:
     the loop in K-frame device chunks (`chunk_frames`, at least 2), the
     chain in the graph. `bb`: a loaded backbone to reuse (packed when
-    `quantized`). → (pcm, n_frames, stop reason)."""
+    `quantized`); `lm` and `t3`: the CodecLM and ChatterboxT3 to reuse (a
+    server's, so that its graphs are replayed). → (pcm, n_frames, stop
+    reason)."""
     from ..lm.audio_lm import AudioLM
     from ..lm.backbone import LlamaBackbone, create_backbone
     from ..lm.chatterbox_t3 import ChatterboxT3
     from ..lm.tts_runner import T3Sampler, run_chatterbox
     from ..ops.sample import OnDeviceSampling
 
-    t3 = ChatterboxT3(reader, device=device)
+    t3 = t3 if t3 is not None else ChatterboxT3(reader, device=device)
     if t3.tokenizer is None:
         raise ValueError("chatterbox GGUF has no baked tokenizer "
                          "(codec.lm.chatterbox.tokenizer.*)")
@@ -294,7 +296,7 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
     lanes = [bb] + [LlamaBackbone.from_params(bb.cfg, bb.params, bb.dtype,
                                               bb.qmm)
                     for _ in range(n_lanes - 1)]
-    audio_lm = AudioLM(reader, codec=model, device=device)
+    audio_lm = AudioLM(reader, codec=model, lm=lm, device=device)
     s_temp = 0.8 if temperature is None else float(temperature)
     s_top_p = 1.0 if top_p is None else float(top_p)
     s_min_p = 0.05 if min_p is None else float(min_p)
@@ -317,6 +319,141 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
         raise ValueError("no audio frames generated")
     return res.pcm, res.codes.shape[0], \
         "eos" if res.stopped_by_eos else "max_frames"
+
+
+def sampling_overrides(base, sampling, n: int):
+    """One OnDeviceSampling a text: `base` with each text's
+    {"temperature", "top_k", "top_p", "min_p"} overrides (None: none)."""
+    import dataclasses
+
+    if sampling is None:
+        return None
+    if len(sampling) != n:
+        raise ValueError("sampling needs one entry per text")
+    return [dataclasses.replace(
+        base, temperature=float(s.get("temperature", base.temperature)),
+        top_k=int(s.get("top_k", base.top_k)),
+        top_p=float(s.get("top_p", base.top_p)),
+        min_p=float(s.get("min_p", base.min_p))) for s in sampling]
+
+
+def _outcomes(results):
+    return [(r.pcm, int(r.codes.shape[0]),
+             "eos" if r.stopped_by_eos else "max_frames") for r in results]
+
+
+def run_chatterbox_synthesize_batch(model, reader, backbone_path, texts,
+                                    seed: int = 0, max_frames: int = 0,
+                                    bb=None, chunk_frames: int = 8, lm=None,
+                                    prefill_bucket: int = 0, sampling=None,
+                                    cfg_weight: float = 0.5, mesh=None,
+                                    t3=None, quantized: bool = False,
+                                    device="cuda"):
+    """Batched Chatterbox synthesize (codec_tpu's
+    run_chatterbox_synthesize_batch): B texts, each with its CFG lanes,
+    through one chunk (lm/tts_runner.run_chatterbox_batch), stream i
+    seeded `seed + i`. The T3 preset chain (temperature 0.8, top_p 1.0,
+    min_p 0.05, repetition penalty 1.2); `sampling` dicts override the
+    chain per text (the penalty stays the preset). `lm` and `t3`: the
+    CodecLM and ChatterboxT3 to reuse (a server's, so that its graphs are
+    replayed); `bb` a loaded backbone (else one from `backbone_path`,
+    packed when `quantized`). → [(pcm, n_frames, stop reason)] a text."""
+    from ..lm import create_lm
+    from ..lm.audio_lm import AudioLM
+    from ..lm.backbone import create_backbone
+    from ..lm.chatterbox_t3 import ChatterboxT3
+    from ..lm.tts_runner import run_chatterbox_batch
+    from ..ops.sample import OnDeviceSampling
+
+    t3 = t3 if t3 is not None else ChatterboxT3(reader, device=device)
+    if t3.tokenizer is None:
+        raise ValueError("chatterbox GGUF has no baked tokenizer "
+                         "(codec.lm.chatterbox.tokenizer.*)")
+    if bb is None:
+        bb = create_backbone(backbone_path, quantized=quantized,
+                             device=device)
+    if bb.cfg.hidden != t3.info.hidden_dim:
+        raise ValueError(f"backbone hidden {bb.cfg.hidden} != "
+                         f"t3 hidden {t3.info.hidden_dim}")
+    shared = lm if lm is not None else create_lm(reader, device=device)
+    alms = [AudioLM(reader, codec=model, lm=shared) for _ in texts]
+    base = OnDeviceSampling(temperature=0.8, top_p=1.0, min_p=0.05,
+                            repetition_penalty=1.2, repetition_window=-1,
+                            seed=seed, chunk_frames=max(2, chunk_frames))
+    return _outcomes(run_chatterbox_batch(
+        alms, t3, bb, texts, base,
+        max_frames=max_frames if max_frames > 0 else 512,
+        cfg_weight=cfg_weight,
+        sampling=sampling_overrides(base, sampling, len(texts)),
+        prefill_bucket=prefill_bucket, mesh=mesh))
+
+
+def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
+                                  seed: int = 0, max_frames: int = 0,
+                                  bb=None, chunk_frames: int = 8, lm=None,
+                                  mesh=None, prefill_bucket: int = 0,
+                                  sampling=None, t3=None,
+                                  quantized: bool = False, device="cuda"):
+    """Batched codebook-AR synthesize (codec_tpu's
+    run_backbone_synthesize_batch): B texts through one batched chunk on
+    shared codec, LM and backbone weights, stream i seeded `seed + i`.
+    Plain codebook-AR families (CSM / Qwen3-TTS / MOSS-TTSD:
+    lm/tts_runner.run_codebook_ar_batch, the family's default chain) and
+    the Chatterbox T3 family (run_chatterbox_synthesize_batch, `t3` passed
+    on); continuous, LFM2-sequential and streaming-interleave kinds raise.
+    `lm`: a CodecLM to share across calls; `bb`: a loaded backbone (its KV
+    state is reset), else one from `backbone_path` (packed when
+    `quantized`). `sampling`: one dict a text ({"temperature", "top_k",
+    "top_p", "min_p"}, missing keys the defaults), the chains data in the
+    graph. `mesh` (data-parallel streams) is not ported yet.
+    → [(pcm, n_frames, stop reason)] a text."""
+    from ..io.gguf import GGUFReader
+    from ..lm import create_lm
+    from ..lm.audio_lm import AudioLM
+    from ..lm.backbone import create_backbone
+    from ..lm.chatterbox_t3 import is_chatterbox
+    from ..lm.prompt_info import build_prompt_info
+    from ..lm.tts_runner import run_codebook_ar_batch
+    from ..ops.sample import OnDeviceSampling
+    from ..runtime.model import CodecError
+
+    if mesh is not None:
+        raise CodecError("run_backbone_synthesize_batch(mesh=) is not "
+                         "ported yet")
+    if is_chatterbox(reader):
+        return run_chatterbox_synthesize_batch(
+            model, reader, backbone_path, texts, seed=seed,
+            max_frames=max_frames, bb=bb, chunk_frames=chunk_frames, lm=lm,
+            prefill_bucket=prefill_bucket, sampling=sampling, t3=t3,
+            quantized=quantized, device=device)
+    shared = lm if lm is not None else create_lm(reader, device=device)
+    pi = build_prompt_info(reader, shared.info)
+    if pi.is_continuous or pi.sequential_text_audio or pi.streaming_interleave:
+        raise ValueError(f"batched synthesize supports plain codebook-AR "
+                         f"kinds only (model family: {pi.host_arch})")
+    if bb is None:
+        bb = create_backbone(backbone_path, quantized=quantized, device=device)
+    else:
+        bb.reset()
+    if pi.hidden_dim and bb.cfg.hidden != pi.hidden_dim:
+        raise ValueError(f"backbone hidden {bb.cfg.hidden} != "
+                         f"codec.lm hidden {pi.hidden_dim}")
+    tok = load_backbone_tokenizer(GGUFReader(backbone_path))
+    alms = [AudioLM(reader, codec=model, lm=shared) for _ in texts]
+    prompts = []
+    for text, alm in zip(texts, alms):
+        ids = tok.encode(pi.prompt_prefix + text + pi.prompt_suffix)
+        if alm.prompt_needs_composed:
+            prompts.append([alm.compose_prompt_embd(t) for t in ids])
+        else:
+            prompts.append(list(bb.embed_tokens(np.asarray(ids))))
+    ods = OnDeviceSampling(**sampler_chain(pi), seed=seed,
+                           chunk_frames=max(2, chunk_frames))
+    return _outcomes(run_codebook_ar_batch(
+        alms, bb, prompts, ods,
+        max_steps=max_frames if max_frames > 0 else 512, pi=pi,
+        prefill_bucket=prefill_bucket,
+        sampling=sampling_overrides(ods, sampling, len(texts))))
 
 
 def sampler_chain(pi, temperature=None, top_k=None, top_p=None,
@@ -383,7 +520,7 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
                             device="cuda", on_device: bool = False,
                             chunk_frames: int = 8, timesteps=None,
                             min_len: int = -1, grammar: str = "",
-                            cfg_weight=None):
+                            cfg_weight=None, lm=None, t3=None):
     """Synthesize with the llama backbone (reference: tts-cli over
     tts_runner_synthesize, tts_runner.cpp:1043; backbone n_embd check at
     :1096-1113): the codebook-AR flow of CSM-style and MOSS-TTSD models
@@ -401,6 +538,8 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
 
     `bb`: a loaded LlamaBackbone to reuse (its KV state is reset); by
     default one is loaded from `backbone_path` (packed when `quantized`).
+    `lm` (and for Chatterbox `t3`): the CodecLM to reuse, whose graphs a
+    later request replays (a server's); by default one is loaded.
     Sampler overrides (None = the model family's defaults) apply to cb0;
     the depth codebooks are greedy, as in the reference. `on_device`:
     sample every codebook on the device with that chain (no repetition
@@ -424,8 +563,8 @@ def run_backbone_synthesize(model, reader, backbone_path, text: str,
             on_device=on_device, chunk_frames=chunk_frames,
             prefill_bucket=prefill_bucket, temperature=temperature,
             top_p=top_p, min_p=min_p, rep_penalty=rep_penalty,
-            quantized=quantized, device=device, bb=bb)
-    audio_lm = AudioLM(reader, codec=model, device=device)
+            quantized=quantized, device=device, bb=bb, lm=lm, t3=t3)
+    audio_lm = AudioLM(reader, codec=model, lm=lm, device=device)
     pi = build_prompt_info(reader, audio_lm.lm.info)
     if bb is None:
         bb = create_backbone(backbone_path, quantized=quantized, device=device)

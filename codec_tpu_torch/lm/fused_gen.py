@@ -26,7 +26,9 @@ Packed layouts (codec_tpu's):
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -148,6 +150,74 @@ def build_gen_chunk_batched(lm, bb_cfg,
     return chunk
 
 
+class CaptureLock:
+    """Keeps a CUDA graph capture apart from the process's other device
+    work. A capture (global capture mode) fails, or is spoiled, when
+    another thread allocates device memory, synchronizes or copies to the
+    host while it runs; so a capture holds this lock `exclusive()`, and
+    device work that may run on other threads at the same time (a server's
+    handlers, the continuous-batching engine's steps) holds it `shared()`.
+    Shared holders run together; a waiting capture keeps new shared
+    holders out (a thread that already holds it may take it again), and a
+    thread may take `exclusive()` over its own shared hold."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0                  # shared holds, every thread's
+        self._writer = None               # the thread holding exclusive()
+        self._waiting = 0                 # threads waiting for exclusive()
+        self._mine = threading.local()
+
+    def _held(self) -> int:
+        return getattr(self._mine, "n", 0)
+
+    def _may_share(self, me) -> bool:
+        if self._writer is not None:
+            return self._writer == me
+        return not self._waiting or self._held() > 0
+
+    @contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            while not self._may_share(me):
+                self._cond.wait()
+            self._shared += 1
+            self._mine.n = self._held() + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                self._mine.n -= 1
+                self._cond.notify_all()
+
+    @contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me:
+                outer = True
+            else:
+                outer = False
+                self._waiting += 1
+                while self._writer is not None \
+                        or self._shared > self._held():
+                    self._cond.wait()
+                self._waiting -= 1
+                self._writer = me
+        try:
+            yield
+        finally:
+            if not outer:
+                with self._cond:
+                    self._writer = None
+                    self._cond.notify_all()
+
+
+capture_lock = CaptureLock()
+
+
 class Graphed:
     """fn() over static tensors, captured once as a CUDA graph.
 
@@ -155,7 +225,8 @@ class Graphed:
     fn up on a side stream (its kernels are built and cuBLAS initialised),
     puts back the tensors in `restore` that the warm-up changed, captures
     fn, and replays; later calls replay. The output is the graph's own
-    tensor, valid until the next replay. A failed capture raises."""
+    tensor, valid until the next replay. A failed capture raises. The
+    warm-up and the capture hold `capture_lock` exclusive."""
 
     def __init__(self, fn: Callable, device: torch.device, restore=()):
         self.fn, self.device, self.restore = fn, device, restore
@@ -175,19 +246,20 @@ class Graphed:
         return self.out
 
     def _capture(self) -> None:
-        saved = [t.clone() for t in self.restore]
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.eager()
-        current.wait_stream(side)
-        for t, s in zip(self.restore, saved):
-            t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
-            self.out = self.fn()
-        self.graph = graph
+        with capture_lock.exclusive():
+            saved = [t.clone() for t in self.restore]
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.eager()
+            current.wait_stream(side)
+            for t, s in zip(self.restore, saved):
+                t.copy_(s)
+            graph = torch.cuda.CUDAGraph()
+            with torch.inference_mode(), torch.cuda.graph(graph):
+                self.out = self.fn()
+            self.graph = graph
 
 
 class ChunkRunner:
@@ -709,39 +781,125 @@ def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
     return chunk
 
 
+def build_chatterbox_chunk_batched(bb_cfg, n_frames: int, *, n_seq: int,
+                                   cfg_weight: float, stop_token: int,
+                                   n_pos: int, rep_pen: float = 1.2,
+                                   qmm: Optional[Callable] = None) -> Callable:
+    """B Chatterbox generations, each with its S CFG lanes, in one device
+    call (codec_tpu/lm/fused_gen.py::build_chatterbox_chunk_batched): the
+    single-stream chunk's frame per stream, the B·S lanes through one
+    backbone step as one batch of rows (the products at m = B·S). The
+    sampler chain is data, one row a stream (`chains` [B, 4],
+    `sample_logits_dyn`); the repetition penalty is a build-time constant
+    (T3's preset), applied to a stream only where its temperature is > 0,
+    as the host SamplerChain does.
+
+    chunk(params, head [V, hidden], speech_emb, pos_emb, kv [B, S, L, 2,
+    n_kv, >= ctx, D], pos [B], step [B], h [B, S, hidden] f32, noise [K, B,
+    V], seen [B, V] bool, done0 [B] bool, chains [B, 4], ctx) → (packed
+    int32 [K·B + 1 + 3B], h', pos', step', seen'); kv is written in place.
+    packed = codes[K, B].flatten() ++ [n_iter] ++ done[B] ++ pos[B] ++
+    step[B], codec_tpu's layout. A stream in `done0`, or one that stopped,
+    keeps its hiddens, position, step and seen mask, and its code rows are
+    zeros; its lanes still run the step, writing the cache row at the held
+    position, which its next real step overwrites."""
+    from ..ops import qmat
+    from ..ops.sample import apply_repetition_penalty, sample_logits_dyn
+
+    qmm = qmm or qmat.qmatmul
+    k_frames, cfg_w, stop = int(n_frames), float(cfg_weight), int(stop_token)
+    rep_pen = float(rep_pen)
+
+    def chunk(params, head, speech_emb, pos_emb, kv, pos, step, h, noise,
+              seen, done0, chains, ctx: int):
+        b, hidden = h.shape[0], h.shape[-1]
+        rows_kv = kv.flatten(0, 1)                   # [B·S, L, ...], a view
+        idx = torch.arange(seen.shape[-1], device=seen.device)
+        pen_on = chains[:, 0:1] > 0.0
+        done = done0
+        codes, live = [], []
+        for i in range(k_frames):
+            lg = F.linear(h.reshape(b * n_seq, hidden), head).reshape(
+                b, n_seq, -1)                                   # [B, S, V]
+            logits = (lg[:, 0] + cfg_w * (lg[:, 0] - lg[:, 1]) if n_seq == 2
+                      else lg[:, 0])
+            if rep_pen != 1.0:
+                logits = torch.where(pen_on, apply_repetition_penalty(
+                    logits, seen, rep_pen), logits)
+            code = sample_logits_dyn(logits, noise[i], chains)  # [B]
+            live.append(~done)
+            codes.append(torch.where(done, 0, code))
+            seen = seen | ((idx == code[:, None]) & ~done[:, None])
+            done = done | (code == stop)
+            nxt = step + 1
+            emb = speech_emb[code] + torch.where(
+                (nxt < n_pos)[:, None], pos_emb[nxt.clamp(0, n_pos - 1)], 0.0)
+            h2 = backbone_step(params, rows_kv, pos.repeat_interleave(n_seq),
+                               emb.repeat_interleave(n_seq, dim=0).to(kv.dtype),
+                               bb_cfg, ctx, qmm)
+            h = torch.where(done[:, None, None], h,
+                            h2.float().reshape(b, n_seq, hidden))
+            pos = torch.where(done, pos, pos + 1)
+            step = torch.where(done, step, nxt)
+        n_iter = torch.stack(live).any(dim=1).sum()[None]
+        packed = torch.cat([torch.stack(codes).reshape(-1), n_iter,
+                            done.long(), pos, step])
+        return packed.to(torch.int32), h, pos, step, seen
+
+    return chunk
+
+
 class ChatterboxRunner:
     """The Chatterbox chunk's static buffers and its graph: both lanes' KV
     caches as one [S, L, 2, n_kv, ctx, D] tensor (owned here; the host
     copies each lane's prefill in), their hiddens `h` [S, hidden] and
     position `pos` [S], the frame index `step` [1], the sampler's `seen`
     mask [V] and the host-drawn Gumbel `noise` [K, V]. `run()` advances
-    them in place and returns the packed result."""
+    them in place and returns the packed result.
+
+    With `b` > 0, the B-stream form (build_chatterbox_chunk_batched): `kv`
+    [B, S, L, 2, n_kv, ctx, D], `h` [B, S, hidden], `pos` and `step` [B],
+    `seen` [B, V], `noise` [K, B, V], and the host's `done` [B] and
+    `chains` [B, 4]; `chain` is then unused."""
 
     def __init__(self, head, speech_emb, pos_emb, backbone, chain,
                  rep_pen: float, n_frames: int, n_seq: int, cfg_weight: float,
-                 stop_token: int, ctx: int):
+                 stop_token: int, ctx: int, b: int = 0):
         cfg, dev = backbone.cfg, backbone.device
-        self.k, self.vocab = int(n_frames), int(head.shape[0])
-        self.kv = torch.zeros((n_seq, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
-                               cfg.head_dim), dtype=backbone.dtype, device=dev)
-        self.h = torch.zeros((n_seq, cfg.hidden), dtype=torch.float32,
-                             device=dev)
-        self.pos = torch.zeros((n_seq,), dtype=torch.long, device=dev)
-        self.step = torch.zeros((1,), dtype=torch.long, device=dev)
-        self.seen = torch.zeros((self.vocab,), dtype=torch.bool, device=dev)
-        self.noise = torch.zeros((self.k, self.vocab), dtype=torch.float32,
-                                 device=dev)
-        chunk = build_chatterbox_chunk(
-            cfg, chain, rep_pen, self.k, n_seq=n_seq, cfg_weight=cfg_weight,
-            stop_token=stop_token, n_pos=int(pos_emb.shape[0]),
-            qmm=backbone.qmm)
-        params = backbone.params
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.k, self.vocab, self.b = int(n_frames), int(head.shape[0]), int(b)
+        lead = (self.b, n_seq) if b else (n_seq,)
+        self.kv = zeros(*lead, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
+                        cfg.head_dim, dtype=backbone.dtype)
+        self.h = zeros(*lead, cfg.hidden)
+        self.pos = zeros(b or n_seq, dtype=torch.long)
+        self.step = zeros(b or 1, dtype=torch.long)
+        self.seen = zeros(*((b,) if b else ()), self.vocab, dtype=torch.bool)
+        self.noise = zeros(self.k, *((b,) if b else ()), self.vocab)
+        params, n_pos = backbone.params, int(pos_emb.shape[0])
         state = (self.h, self.pos, self.step, self.seen)
+        if b:
+            self.done = zeros(b, dtype=torch.bool)
+            self.chains = zeros(b, 4)
+            chunk = build_chatterbox_chunk_batched(
+                cfg, self.k, n_seq=n_seq, cfg_weight=cfg_weight,
+                stop_token=stop_token, n_pos=n_pos, rep_pen=rep_pen,
+                qmm=backbone.qmm)
+            extra = (self.done, self.chains)
+        else:
+            chunk = build_chatterbox_chunk(
+                cfg, chain, rep_pen, self.k, n_seq=n_seq,
+                cfg_weight=cfg_weight, stop_token=stop_token, n_pos=n_pos,
+                qmm=backbone.qmm)
+            extra = ()
 
         def run():
             packed, *new = chunk(params, head, speech_emb, pos_emb, self.kv,
                                  self.pos, self.step, self.h, self.noise,
-                                 self.seen, ctx)
+                                 self.seen, *extra, ctx)
             for buf, t in zip(state, new):
                 buf.copy_(t)
             return packed
@@ -749,9 +907,18 @@ class ChatterboxRunner:
         self.graphed = Graphed(run, torch.device(dev),
                                restore=(*state, self.kv))
 
-    def draw_noise(self, gen: torch.Generator) -> None:
-        """Fresh Gumbel noise for the K frames, one [V] draw a frame."""
-        self.noise.copy_(gumbel((self.k, self.vocab), gen, self.noise.device))
+    def draw_noise(self, gen) -> None:
+        """Fresh Gumbel noise for the K frames, one [K, V] draw from `gen`;
+        in the B-stream form `gen` is one generator a stream (or None:
+        that stream draws nothing), each drawing what its single-stream
+        chunk draws."""
+        if not self.b:
+            self.noise.copy_(gumbel((self.k, self.vocab), gen,
+                                    self.noise.device))
+            return
+        for s, g in enumerate(gen):
+            if g is not None:
+                self.noise[:, s] = gumbel((self.k, self.vocab), g, g.device)
 
     def run(self) -> torch.Tensor:
         return self.graphed.run()
@@ -759,18 +926,19 @@ class ChatterboxRunner:
 
 def chatterbox_chunk_cached(lm, t3, backbone, *, chain, rep_pen: float,
                             n_frames: int, n_seq: int, cfg_weight: float,
-                            ctx: int) -> ChatterboxRunner:
+                            ctx: int, b: int = 0) -> ChatterboxRunner:
     """The ChatterboxRunner of this (sampler chain, penalty, K, lanes, CFG
     weight, ctx, T3) on this backbone (whose weights both lanes share), kept
-    on the backbone (the _KEEP used last)."""
-    key = (id(lm), id(t3), tuple(chain), float(rep_pen), int(n_frames),
-           int(n_seq), float(cfg_weight), int(ctx), repr(backbone.cfg),
-           torch.backends.cuda.matmul.allow_tf32,
+    on the backbone (the _KEEP used last). `b` > 0: the B-stream runner,
+    its chain data (`chain` is not part of the key)."""
+    key = (id(lm), id(t3), None if b else tuple(chain), float(rep_pen),
+           int(n_frames), int(n_seq), float(cfg_weight), int(ctx), int(b),
+           repr(backbone.cfg), torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     speech_emb, pos_emb = t3.speech_tables(backbone.device)
 
     def make():
         return (lm, t3, ChatterboxRunner(
             lm.heads[0], speech_emb, pos_emb, backbone, chain, rep_pen,
-            n_frames, n_seq, cfg_weight, t3.info.stop_speech_token, ctx))
+            n_frames, n_seq, cfg_weight, t3.info.stop_speech_token, ctx, b=b))
     return _kept(backbone, "_cbx_chunks", key, make)[2]

@@ -917,6 +917,105 @@ def _run_chatterbox_chunked(audio_lm, t3, backbones, hiddens,
     return _chatterbox_result(audio_lm, codes, steps, stopped, decode)
 
 
+def run_chatterbox_batch(
+    audio_lms: Sequence[AudioLM],
+    t3,
+    backbone,
+    texts: Sequence[str],
+    on_device: OnDeviceSampling,
+    max_frames: int = 512,
+    cfg_weight: float = 0.5,
+    decode: bool = True,
+    sampling: Optional[Sequence[OnDeviceSampling]] = None,
+    prefill_bucket: int = 0,
+    mesh=None,
+) -> List[SynthesisResult]:
+    """B Chatterbox T3 generations, each with its CFG lanes, through one
+    chunk (lm/fused_gen.py::build_chatterbox_chunk_batched; on CUDA one
+    graph replay a chunk) on shared weights: codec_tpu's
+    run_chatterbox_batch. Stream i's codes are its single-stream chunked
+    run's (`run_chatterbox(on_device=...)`) with seed `on_device.seed + i`:
+    each stream prefills each lane into its KV slice on the host path, its
+    seen mask starts with the start speech token, and its Gumbel noise
+    comes from its own generator, a [K, V] draw a chunk while it runs.
+    `sampling`: one chain a stream (data in the graph); the repetition
+    penalty is `on_device`'s for every stream. `mesh` (data-parallel
+    streams) is not ported yet."""
+    from ..runtime.model import CodecError
+    from .fused_gen import chatterbox_chunk_cached, chunk_ctx
+
+    if mesh is not None:
+        raise CodecError("run_chatterbox_batch(mesh=) is not ported yet")
+    b = len(audio_lms)
+    if b == 0 or b != len(texts):
+        raise ValueError("need one text per stream")
+    if sampling is not None and len(sampling) != b:
+        raise ValueError("sampling needs one OnDeviceSampling per stream")
+    if not (hasattr(backbone, "params") and hasattr(backbone, "kv")
+            and hasattr(backbone, "cfg")):
+        raise ValueError("batched chatterbox needs a backbone with its "
+                         "weights, KV cache and config (LlamaBackbone)")
+    info = t3.info
+    k = max(2, int(on_device.chunk_frames))
+    n_seq = 2 if cfg_weight > 0.0 else 1
+    per_stream = sampling if sampling is not None else [on_device] * b
+    prompts = [t3.build_prompt(t3.tokenize(text), cfg_weight=cfg_weight)
+               for text in texts]
+    runs = -(-max_frames // k) * k
+    ctx = chunk_ctx(backbone, max(p.shape[1] for p in prompts) + runs + 1)
+    runner = chatterbox_chunk_cached(
+        audio_lms[0].lm, t3, backbone, chain=None,
+        rep_pen=float(on_device.repetition_penalty), n_frames=k, n_seq=n_seq,
+        cfg_weight=cfg_weight, ctx=ctx, b=b)
+    hs, poss = [], []
+    for i, prompt in enumerate(prompts):
+        lanes = []
+        for s in range(n_seq):
+            backbone.reset()
+            lanes.append(np.asarray(prefill_prompt(
+                backbone, list(prompt[s]), bucket=prefill_bucket), np.float32))
+            runner.kv[i, s].copy_(backbone.kv[..., :ctx, :])
+        hs.append(np.stack(lanes))
+        poss.append(backbone.pos)
+    runner.h.copy_(torch.as_tensor(np.stack(hs)))
+    runner.pos.copy_(torch.as_tensor(poss))
+    runner.step.zero_()
+    runner.seen.zero_()
+    runner.seen[:, info.start_speech_token] = True
+    runner.chains.copy_(torch.as_tensor(np.stack(
+        [o.chain_vec() for o in per_stream])))
+    dev = runner.h.device
+    gens = [torch.Generator(device=dev).manual_seed(on_device.seed + i)
+            if per_stream[i].temperature > 0.0 else None for i in range(b)]
+    for alm in audio_lms:
+        alm.reset()
+
+    codes: List[List[int]] = [[] for _ in range(b)]
+    stopped = [False] * b
+    steps = [0] * b
+    while any(not stopped[i] and steps[i] < max_frames for i in range(b)):
+        done0 = [stopped[i] or steps[i] >= max_frames for i in range(b)]
+        runner.done.copy_(torch.as_tensor(done0))
+        runner.draw_noise([None if done0[i] else gens[i] for i in range(b)])
+        arr = runner.run().cpu().numpy()
+        n_emit = int(arr[k * b])
+        if n_emit == 0:
+            break
+        rows = arr[: k * b].reshape(k, b)
+        for f in range(n_emit):
+            for i in range(b):
+                if stopped[i] or steps[i] >= max_frames:
+                    continue
+                code = int(rows[f, i])
+                steps[i] += 1
+                if code == info.stop_speech_token:
+                    stopped[i] = True
+                elif code < info.start_speech_token:
+                    codes[i].append(code)
+    return [_chatterbox_result(audio_lms[i], codes[i], steps[i], stopped[i],
+                               decode) for i in range(b)]
+
+
 def slice_slot(arr: torch.Tensor, s: int) -> torch.Tensor:
     """Stream s's slot of a batched state tensor (arr[s], a view)."""
     return arr[s]

@@ -302,14 +302,16 @@ def write_random_csm_gguf(path: Union[str, Path], seed: int = 0,
                           num_filters: int = 64,
                           dcfg: DepthConfig = DepthConfig(),
                           eos_code_c0: int = -1,
-                          delay_pattern: Optional[Sequence[int]] = None) -> Path:
+                          delay_pattern: Optional[Sequence[int]] = None,
+                          encoder: bool = False) -> Path:
     """A CSM-style codec GGUF: the random Mimi of models/mimi_init.py
-    (arch "mimi", F32) with a random residual_depth_ar adaptor (F16)
-    beside it. `eos_code_c0` (default unset: no EOS) and `delay_pattern`
-    (default all 0) set the adaptor's frame-stop and delay metadata."""
+    (arch "mimi", F32; with its encoder half when `encoder`) with a random
+    residual_depth_ar adaptor (F16) beside it. `eos_code_c0` (default
+    unset: no EOS) and `delay_pattern` (default all 0) set the adaptor's
+    frame-stop and delay metadata."""
     wr = GGUFWriter(path, "mimi")
     wr.add_name("CSM")
-    add_random_mimi(wr, seed, mimi_cfg, num_filters)
+    add_random_mimi(wr, seed, mimi_cfg, num_filters, encoder=encoder)
     add_random_depth_adaptor(wr, seed + 1, dcfg, eos_code_c0, delay_pattern)
     wr.write()
     return Path(path)

@@ -159,8 +159,10 @@ def _x(t, c, dtype, seed, b=1):
         np.float32)).to("cuda", dtype)
 
 
-def unit_rows(runs: int = 10, log=print, tag: str = ""):
-    """One row per (block, d, dtype): kernel, plain and bound ms."""
+def unit_rows(runs: int = 10, log=print, tag: str = "",
+              dilations=DILATIONS):
+    """One row per (block, d in `dilations`, dtype): kernel, plain and
+    bound ms."""
     from codec_tpu_torch.ops import seanet_cuda
     from codec_tpu_torch.runtime.model import f32_precision
 
@@ -172,7 +174,7 @@ def unit_rows(runs: int = 10, log=print, tag: str = ""):
                 p = res_params(1, c, dtype, seed=c)
                 x = _x(t, c, dtype, seed=c + 1)
                 bound, by = least_time(*res_work(1, 1, t, c, dtype))
-                for d in DILATIONS:
+                for d in dilations:
                     with f32_precision(dtype == torch.float32):
                         kern, plain = turns(
                             lambda: seanet_cuda.seanet_res_unit(

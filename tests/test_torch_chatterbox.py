@@ -395,3 +395,155 @@ def test_chip_smoke_chatterbox_on_cpu(monkeypatch):
     # (2 x 7 x 8 frames) and one eager chunk (7 x 8)
     assert got == {"q4_k_matmul": 2 * 71 * 7 + 3 * 7 * 8, "q8_0_matmul": 0}
     assert times["host_ms"] > 0 and "host_profile" not in times
+
+
+# ---------------------------------------------------------------------------
+# batched Chatterbox: B streams x CFG lanes in one chunk
+# ---------------------------------------------------------------------------
+
+BATCH_TEXTS = ["hello there", "ok", "hello hello"]
+SAMPLED_T3 = dict(temperature=0.8, min_p=0.05, repetition_penalty=1.2,
+                  repetition_window=-1, seed=11, chunk_frames=3)
+
+
+def _batch(eng, on_device, sampling=None, max_frames=10):
+    if eng["port"]:
+        bb = LlamaBackbone(eng["bb"], device="cpu")
+        alms = [AudioLM(eng["reader"], lm=eng["lm"]) for _ in BATCH_TEXTS]
+        return tts_runner.run_chatterbox_batch(
+            alms, eng["t3"], bb, BATCH_TEXTS, OnDeviceSampling(**on_device),
+            max_frames=max_frames, decode=False,
+            sampling=None if sampling is None
+            else [OnDeviceSampling(**s) for s in sampling])
+    from codec_tpu.lm import create_lm as jax_create_lm
+
+    shared = jax_create_lm(eng["reader"])
+    alms = [JaxAudioLM(eng["reader"], lm=shared) for _ in BATCH_TEXTS]
+    return jax_runner.run_chatterbox_batch(
+        alms, eng["t3"], jax_backbone(str(eng["bb"])), BATCH_TEXTS,
+        JaxSampling(**on_device), max_frames=max_frames, decode=False)
+
+
+@pytest.mark.parametrize("eng_name", ["engines", "stop_engines"])
+def test_run_chatterbox_batch_greedy_matches_jax(eng_name, request):
+    """Greedy with CFG, K = 4: every stream's codes, steps and stop equal
+    codec_tpu's run_chatterbox_batch and the port's own single-stream
+    chunk (the stop file's streams stop inside a chunk)."""
+    port, ref = request.getfixturevalue(eng_name)
+    od = dict(chunk_frames=4)
+    got = _batch(port, od)
+    want = _batch(ref, od)
+    for i, text in enumerate(BATCH_TEXTS):
+        np.testing.assert_array_equal(got[i].codes, want[i].codes)
+        assert (got[i].n_steps, got[i].stopped_by_eos) == \
+            (want[i].n_steps, want[i].stopped_by_eos)
+        alm = AudioLM(port["reader"], lm=port["lm"])
+        one = tts_runner.run_chatterbox(
+            alm, port["t3"], _lanes(port), text, max_frames=10, decode=False,
+            on_device=OnDeviceSampling(**od))
+        np.testing.assert_array_equal(got[i].codes, one.codes)
+        assert got[i].n_steps == one.n_steps
+    if eng_name == "stop_engines":
+        assert any(r.stopped_by_eos for r in got)
+
+
+def test_run_chatterbox_batch_sampled_matches_single(engines):
+    """Stream i of a sampled batch equals the port's single-stream chunk
+    with seed + i, with per-stream chains (the T3 preset, greedy, a hot
+    top-k) as data in one chunk."""
+    port, _ = engines
+    chains = [SAMPLED_T3, dict(SAMPLED_T3, temperature=0.0),
+              dict(SAMPLED_T3, temperature=1.4, top_k=5)]
+    got = _batch(port, SAMPLED_T3, sampling=chains)
+    for i, text in enumerate(BATCH_TEXTS):
+        alm = AudioLM(port["reader"], lm=port["lm"])
+        one = tts_runner.run_chatterbox(
+            alm, port["t3"], _lanes(port), text, max_frames=10, decode=False,
+            on_device=OnDeviceSampling(**dict(chains[i], seed=11 + i)))
+        np.testing.assert_array_equal(got[i].codes, one.codes)
+        assert (got[i].n_steps, got[i].stopped_by_eos) == \
+            (one.n_steps, one.stopped_by_eos)
+    assert not np.array_equal(got[0].codes, got[1].codes)
+
+
+def test_batched_chunk_meta_matches_jax(stop_engines):
+    """One greedy batched chunk of 10 frames over two streams from the same
+    prefilled lanes (the second three frames on): [n_iter] ++ done ++ pos
+    ++ step equal codec_tpu's, and the codes of every frame a stream was
+    live; the first stream stops at its ninth frame."""
+    from codec_tpu_torch.lm.fused_gen import build_chatterbox_chunk_batched
+
+    port, ref = stop_engines
+    k, b = 10, 2
+    lanes, hs = _prefilled(port)
+    jlanes, _ = _prefilled(ref)
+    pos = lanes[0].pos
+    ctx = chunk_ctx(lanes[0], pos + k + 1)
+    kv = torch.stack([torch.stack([x.kv[..., :ctx, :] for x in lanes])] * b)
+    t3, jt = port["t3"], ref["t3"]
+    semb, pemb = t3.speech_tables("cpu")
+    chunk = build_chatterbox_chunk_batched(
+        lanes[0].cfg, k, n_seq=2, cfg_weight=0.5,
+        stop_token=T3.stop_speech, n_pos=T3.speech_pos, rep_pen=1.2,
+        qmm=lanes[0].qmm)
+    seen = torch.zeros((b, T3.speech_vocab), dtype=torch.bool)
+    seen[:, T3.start_speech] = True
+    step0 = torch.tensor([0, 3])                 # stream 1 three frames on
+    with torch.inference_mode():
+        got, *_ = chunk(lanes[0].params, port["lm"].heads[0], semb, pemb, kv,
+                        torch.tensor([pos] * b), step0,
+                        torch.from_numpy(np.stack([hs] * b)),
+                        torch.zeros((k, b, T3.speech_vocab)), seen,
+                        torch.zeros(b, dtype=torch.bool),
+                        torch.zeros((b, 4)), ctx)
+    fn = jax_fused.build_chatterbox_chunk_batched(
+        jlanes[0].cfg, k, n_seq=2, cfg_weight=0.5, stop_token=T3.stop_speech,
+        n_pos=T3.speech_pos, rep_pen=1.2)
+    jkv = jnp.stack([jnp.stack([x.kv for x in jlanes])] * b)
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(b, dtype=jnp.uint32))
+    want, *_ = fn(jlanes[0].params, jnp.asarray(ref_head(ref)),
+                  jnp.asarray(jt.speech_emb), jnp.asarray(jt.speech_pos_emb),
+                  jkv, jnp.asarray([pos] * b, jnp.int32),
+                  jnp.asarray(step0.numpy(), jnp.int32),
+                  jnp.asarray(np.stack([hs] * b)), keys,
+                  jnp.asarray(seen.numpy()), jnp.zeros(b, bool),
+                  jnp.zeros((b, 4), jnp.float32))
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_array_equal(got[k * b:], want[k * b:])
+    done = got[k * b + 1: k * b + 1 + b]
+    assert done[0]                               # a stop inside the chunk
+    rows, wrows = got[: k * b].reshape(k, b), want[: k * b].reshape(k, b)
+    for s in range(b):
+        live = k if not done[s] else int(np.argmax(rows[:, s] == T3.stop_speech)) + 1
+        np.testing.assert_array_equal(rows[:live, s], wrows[:live, s])
+
+
+def test_backbone_synthesize_batch_routes_chatterbox(files, monkeypatch):
+    """run_backbone_synthesize_batch sends a Chatterbox file to
+    run_chatterbox_synthesize_batch (its T3 preset, per-text sampling, the
+    reused T3), and refuses mesh= as not ported."""
+    from codec_tpu_torch.cli import tts_cli
+    from codec_tpu_torch.runtime.model import CodecError
+
+    calls = []
+
+    def fake(*args, **kw):
+        calls.append((args, kw))
+        return [(None, 0, "eos")] * len(args[3])
+    monkeypatch.setattr(tts_cli, "run_chatterbox_synthesize_batch", fake)
+    reader = GGUFReader(files[0]["plain"])
+    out = tts_cli.run_backbone_synthesize_batch(
+        None, reader, str(files[1]), ["a", "b"], seed=3, max_frames=5,
+        sampling=[{}, {"temperature": 0.0}], t3="T3", device="cpu")
+    assert out == [(None, 0, "eos")] * 2
+    (args, kw), = calls
+    assert args[3] == ["a", "b"] and kw["seed"] == 3 and kw["t3"] == "T3"
+    assert kw["sampling"] == [{}, {"temperature": 0.0}]
+    with pytest.raises(CodecError, match="not ported yet"):
+        tts_cli.run_backbone_synthesize_batch(
+            None, reader, str(files[1]), ["a"], mesh=object(), device="cpu")
+    alm = AudioLM(reader, lm=create_lm(reader, device="cpu"))
+    with pytest.raises(CodecError, match="not ported yet"):
+        tts_runner.run_chatterbox_batch(
+            [alm], t3m.ChatterboxT3(reader, "cpu"), None, ["a"],
+            OnDeviceSampling(chunk_frames=2), mesh=object())
