@@ -136,7 +136,8 @@ Phases (any failure raises and exits non-zero before the last line):
      > 0.99999, max abs err <= 1e-4 x peak), 20 s b1 in f32 and bf16
      (bf16 against f32, corr > 0.99), each with the launch counts set to 0
      just before and read just after (none), timed (CUDA events), and
-     profiled once (device busy time, idle share, top kernels); the NSF
+     the f32 one profiled once (device busy time, idle share, top
+     kernels); the NSF
      phase at 20 s summed in f32 on the card and the CPU against the
      port's float64 sum
   9. CSM-style TTS: write a random CSM codec GGUF (full-width Mimi + a
@@ -248,12 +249,12 @@ Phases (any failure raises and exits non-zero before the last line):
      launches at C96, C64 and C128 (tools/seanet_times.py, medians of
      TIMED_RUNS); SNAC's
      four decoder blocks' three units beside their bound; device
-     times of the packed products from torch.profiler, warm on the gate
-     shape at m = 1, cold (cycling over the loaded backbones' 4 layers
-     of each shape) at m = 1 and 16, and
-     one backbone forward's 28 products, and at the Llama-3.2-1B shapes at
-     m = 4 and 8 and the Chatterbox T3 backbone's three at m = 8 (the
-     serving rows) beside F.linear and the bound; the Q4_K per-token TTS
+     times of the packed products from torch.profiler on the gate shape
+     at m = 1, warm and cold (cycling over the loaded backbones' gate and
+     up matrices), beside F.linear and the bound; CUDA events of
+     back-to-back calls at the Llama-3.2-1B shapes at m = 4 and 8 and the
+     Chatterbox T3 backbone's three at m = 8 (the serving rows);
+     the Q4_K per-token TTS
      request's time (median of 2 runs after phase 9's); per-request
      encode times (median of 5 after 2 warm-ups);
      the attention (also as device time, torch.profiler) and the RVQ search
@@ -269,6 +270,14 @@ Phases (any failure raises and exits non-zero before the last line):
      beside the banded plain version, SDPA with the band mask where that
      mask fits, and the bound;
      at n_q 1 the RVQ search also beside one cuBLAS product and an argmax
+  11. the device mesh on one card (mesh_phase; codec_tpu_torch/parallel):
+     meshes that name the card twice; data parallelism over Mimi 20 s b4
+     decode and encode and DAC 20 s b4 decode, the pipeline-parallel
+     Q4_K backbone of phase 9 (two stages), the same file dense and
+     tensor-parallel, and phase 9e's Qwen3-MoE expert-parallel (64 + 64
+     experts), each against the model unsharded; tts-cli-torch synthesize
+     --pp 2 and codec-serve-torch --pp 2 byte-equal to their unsharded
+     runs; launch counts of every sharded call
 Then one JSON line of kernel results, the card line again, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -691,6 +700,20 @@ RT_SAMPLED_FRAMES = 24
 # the MoE backbone's hiddens on the card within MOE_REL of their peak of the
 # CPU's, teacher-forced over a MOE_PROMPT-row prefill and MOE_STEPS steps
 MOE_LAYERS, MOE_PROMPT, MOE_STEPS, MOE_REL = 1, 16, 8, 1e-5
+# -- phase 11, the mesh on one card (codec_tpu_torch/parallel): every mesh
+# names the card twice, make_mesh(2, devices=["cuda:0"] * 2), so each
+# device's share runs on it in turn (a time here is no scaling number). DP:
+# Mimi 20 s b4 f32 decode and encode, DAC 20 s b4 f32 decode (decodes
+# within MESH_REL of the unsharded model's peak, corr > 0.99999; encodes
+# the near-tie rule); PP: phase 9's Q4_K backbone (4 of 16 layers, 2
+# stages) and TP: the same file dense, split 2 ways, each a MESH_PROMPT-row
+# prefill and MESH_STEPS teacher-forced steps (hiddens within MESH_BB_REL of
+# the unsharded peak) and one greedy host-path request of MESH_FRAMES
+# frames; EP: phase 9e's Qwen3-MoE (128 experts, 64 + 64) the same way;
+# tts-cli-torch synthesize --pp 2 and codec-serve-torch --pp 2's /synthesize
+# of MESH_FRAMES greedy frames against their unsharded runs
+MESH_N, MESH_SECONDS, MESH_BATCH, MESH_REL = 2, 20, 4, 1e-4
+MESH_PROMPT, MESH_STEPS, MESH_BB_REL, MESH_FRAMES = 16, 25, 1e-5, 10
 
 
 def log(msg: str) -> None:
@@ -955,8 +978,7 @@ def device_ms(fn, n: int = 50, tries: int = 3):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
@@ -979,7 +1001,7 @@ def profiled_ms(fn, calls: int, keep, tries: int = 5, launches: int = 0):
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.self_device_time_total > 0
@@ -998,7 +1020,7 @@ def profiled_step(fn, tries: int = 5):
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages() if e.self_device_time_total > 0
@@ -1561,8 +1583,10 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     is on these paths). The base file's encode must raise CodecError. Each
     output is checked for shape, finite samples and saturation (codes:
     shape and range); each f32 decode against the same port function on
-    the CPU from the same file (corr > 0.99999, max abs err <= 1e-4 x
-    peak), the distill decode against the base file's bit for bit, each f16
+    the CPU from the same file (a batch on its first row, and each of its
+    rows against the card's one-row decode of it; corr > 0.99999, max abs
+    err <= 1e-4 x peak), the distill decode against the base file's bit
+    for bit, each f16
     decode against the f32 model on the card (corr > 0.9999); each f32
     encode against the CPU on a NEU_CPU_ENCODE_SECONDS request run both
     ways (the FSQ near-tie rule: fsq_near_ties); one encode → decode round
@@ -1653,14 +1677,35 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
                                    "file's")
             line += "; equal to the base file's decode bit for bit"
         if dt == "float32":
-            ref = models[arch, "cpu", dt].decode(codes)
-            c = corr(pcm, ref)
-            err, peak = np.abs(pcm - ref).max(), np.abs(ref).max()
+            # a batch: its first row against the CPU's decode of that row,
+            # and every row against the card's one-row decode of it (a
+            # fault that mixes rows shows there; the CPU's b4 decode costs
+            # the smoke ~20 s)
+            ref = models[arch, "cpu", dt].decode(codes[:1])
+            c = corr(pcm[:1], ref)
+            err, peak = np.abs(pcm[:1] - ref).max(), np.abs(ref).max()
             if not (c > 0.99999 and err <= 1e-4 * peak):
                 raise RuntimeError(f"{arch} decode {name}: corr {c}, max abs "
                                    f"err {err} (peak {peak}) vs the CPU")
-            line += (f"; vs the same function on the CPU: corr {c:.9f}, max "
-                     f"abs err {err:.3e} ({err / peak:.2e} of peak {peak:.4f})")
+            line += (f"; {'row 0 ' if batch > 1 else ''}vs the same function "
+                     f"on the CPU: corr {c:.9f}, max abs err {err:.3e} "
+                     f"({err / peak:.2e} of peak {peak:.4f})")
+            if batch > 1:
+                rows = []
+                for i in range(batch):
+                    one = model.decode(codes[i:i + 1])
+                    c = corr(pcm[i:i + 1], one)
+                    err, peak = (np.abs(pcm[i:i + 1] - one).max(),
+                                 np.abs(one).max())
+                    if not (c > 0.99999 and err <= 1e-4 * peak):
+                        raise RuntimeError(
+                            f"{arch} decode {name}: row {i} corr {c}, max "
+                            f"abs err {err} (peak {peak}) vs its one-row "
+                            f"decode on the card")
+                    rows.append((c, err / peak))
+                line += (f"; each row vs its one-row decode on the card: "
+                         f"corr >= {min(r[0] for r in rows):.9f}, max abs "
+                         f"err <= {max(r[1] for r in rows):.2e} of peak")
         else:
             c = corr(pcm, models[arch, "cuda", "float32"].decode(codes))
             if dt == "float16" and not c > 0.9999:
@@ -2104,8 +2149,8 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
       - S3G_SECONDS of speech b1 in f32 and bf16: shape, finite samples,
         the share clipped at ±0.99; bf16 against f32 (corr >
         S3G_BF16_CORR); each request's median time (CUDA events, 5 after 2
-        warm-ups), x realtime, one call's device busy time, idle share and
-        top kernels under torch.profiler;
+        warm-ups), x realtime, and the f32 call's device busy time, idle
+        share and top kernels under torch.profiler;
       - the NSF phase of the 20 s request's f0 summed in float32 on the
         card and on the CPU (how far two f32 running sums drift) and as
         the port sums it (float64, rounded once).
@@ -2187,31 +2232,34 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
         ms = cuda_ms(lambda: model.decode(codes))
         line += (f"; {ms:.3f} ms per request (median of {TIMED_RUNS}), "
                  f"{S3G_SECONDS / (ms / 1e3):.1f}x realtime")
-        # one call under the profiler; a trace that lost device events (far
+        # one f32 call under the profiler (the bf16 call's trace costs the
+        # smoke more than it tells); a trace that lost device events (far
         # fewer launches than the ~18 500 a request makes) is taken again
-        for _ in range(5):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                model.decode(codes)
-                torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if e.self_device_time_total > 0
-                    and not e.key.startswith("aten::")]
-            if sum(e.count for e in kern) >= S3G_LEAST_LAUNCHES:
-                break
-        else:
-            kern = []
-        if kern:
-            busy = sum(e.self_device_time_total for e in kern) / 1e3
-            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-            line += (f"; one call under torch.profiler: device busy "
-                     f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / ms):.3f}"
-                     f", {sum(e.count for e in kern)} kernel launches; top "
-                     f"kernels " + "; ".join(
-                         f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
-                         f"{e.key[:60]}" for e in top))
-        else:
-            line += "; device busy time not measured (short profiler traces)"
+        if dt == "float32":
+            for _ in range(5):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    model.decode(codes)
+                    torch.cuda.synchronize()
+                kern = [e for e in prof.key_averages()
+                        if e.self_device_time_total > 0
+                        and not e.key.startswith("aten::")]
+                if sum(e.count for e in kern) >= S3G_LEAST_LAUNCHES:
+                    break
+            else:
+                kern = []
+            if kern:
+                busy = sum(e.self_device_time_total for e in kern) / 1e3
+                top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+                line += (f"; one call under torch.profiler: device busy "
+                         f"{busy:.3f} ms, idle share "
+                         f"{max(0.0, 1 - busy / ms):.3f}, "
+                         f"{sum(e.count for e in kern)} kernel launches; top "
+                         f"kernels " + "; ".join(
+                             f"{e.self_device_time_total / 1e3:.3f} ms "
+                             f"x{e.count} {e.key[:60]}" for e in top))
+            else:
+                line += ("; device busy time not measured (short profiler "
+                         "traces)")
         log(line + f" [{name_limit}]")
 
     # the NSF phase at 20 s: θ = 2π·cumsum(f0·h / sr) over 480 000 samples
@@ -2263,8 +2311,7 @@ def call_profile(fn, cuda: bool):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as trace:
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
             fn()
             torch.cuda.synchronize()
         kern = [e for e in trace.key_averages()
@@ -2668,8 +2715,7 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
         # product, else the fullest
         want_p, best = per_call * MOSS_TTSD_CHUNK, None
         for _ in range(6):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as trace:
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
                 runner.run()
                 torch.cuda.synchronize()
             kern = [e for e in trace.key_averages()
@@ -3322,8 +3368,7 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
         replay = cuda_ms(runner.run)
         best = None
         for _ in range(6):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as trace:
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
                 runner.run()
                 torch.cuda.synchronize()
             kern = [e for e in trace.key_averages()
@@ -3727,6 +3772,7 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
         times["moe"]["profile"] = sprof
         line += f"; one step under torch.profiler: {fmt_profile(sprof)}"
     log(line + f" [{name_limit}]")
+    reuse["moe"] = moe_cpu          # phase 11's EP backbone
     del mimi, mimi_cpu, lbb, lbb_cpu, moss, moss_cpu, moe, moe_cpu, flows
     del llm, rlm, runner
     if cuda:
@@ -4415,6 +4461,311 @@ def serving(name_limit: str, zero_counts, counts, none: dict, paths: dict,
     times["latency_ms"] = {k: v * 1e3 for k, v in lat.items()}
     log(f"[serve] main path launches: {phase_counts}; phase "
         f"{time.monotonic() - t_phase:.1f} s")
+    return phase_counts, times
+
+
+def mesh_phase(name_limit: str, zero_counts, counts, none: dict, models,
+               paths: dict, moe_cpu, dev: str = "cuda", sizes=None) -> tuple:
+    """Phase 11: the device mesh on one card (codec_tpu_torch/parallel),
+    every mesh make_mesh(MESH_N, devices=[dev] * MESH_N): one card named
+    twice, so the shares run on it one after the other and the times of
+    sharded against unsharded calls are no scaling number. Each sharded
+    call goes through the entry a user calls, its launch counts set to 0
+    just before and read just after, and is held against the same model
+    unsharded:
+      - DP (CodecModel.set_mesh): models "mimi" and "dac" (f32, loaded in
+        phase 4) replicated twice; Mimi b4 decode (8 flash_sdpa_window a
+        slice) and encode (8 + 2 rvq_encode_fused a slice), DAC b4 decode
+        (12 seanet_res_unit a slice); decodes within MESH_REL of the peak
+        at corr > 0.99999, encodes under the near-tie rule;
+      - PP (set_mesh_pp): paths["Q4_K"], phase 9's backbone, packed, two
+        stages of two layers: a MESH_PROMPT-row prefill and MESH_STEPS
+        teacher-forced steps (28 q4_k_matmul a step, as unsharded), hiddens
+        within MESH_BB_REL of the unsharded peak; a greedy host-path request
+        (the unsharded codes, or a near-tie); `tts-cli-torch synthesize
+        --pp 2` and `codec-serve-torch --pp 2`'s serialized /synthesize,
+        byte-equal to their unsharded runs, with the same launches;
+      - TP (set_mesh): the same file loaded dense, split two ways, the same
+        checks (no packed products: TP takes dense weights);
+      - EP (set_mesh_ep): `moe_cpu`, phase 9e's Qwen3-MoE (1 layer, 128
+        experts: 64 a share) copied to the card, the prefill and steps.
+    `dev` and `sizes` let it run small on the CPU, where the plain
+    versions count nothing and the counts are what the card is held to.
+    → (launch counts, times)."""
+    import http.client
+    import threading
+
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import main as tts_cli
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.tts_runner import run_codebook_ar
+    from codec_tpu_torch.models import mimi
+    from codec_tpu_torch.parallel.mesh import make_mesh
+    from codec_tpu_torch.runtime.model import f32_precision
+    from codec_tpu_torch.serve.server import CodecHTTPServer
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+    entry = "cuda:0" if cuda else dev
+    devs = [entry] * MESH_N
+    secs = sizes.get("seconds", MESH_SECONDS)
+    n_steps = sizes.get("steps", MESH_STEPS)
+    n_prompt = sizes.get("prompt", MESH_PROMPT)
+    frames = sizes.get("frames", MESH_FRAMES)
+    phase_counts, times = dict(none), {}
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 1100)
+
+    def mesh(axis):
+        return make_mesh(MESH_N, axis=axis, devices=devs)
+
+    def launched(label, fn, want):
+        """fn() with the counts set to 0 just before and read just after,
+        held to `want` (on the CPU the plain versions count nothing)."""
+        zero_counts()
+        out = fn()
+        want = {**none, **want}
+        got = counts() if cuda else want
+        if got != want:
+            raise RuntimeError(f"mesh {label}: launches {got}, want {want}")
+        for k, v in want.items():
+            phase_counts[k] += v
+        return out
+
+    def ms(fn):
+        """Median CUDA-event ms of one call (host clock on the CPU)."""
+        if cuda:
+            return cuda_ms(fn)
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    def pcm_held(label, got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        c, err = corr(got, want), float(np.abs(got - want).max())
+        peak = float(np.abs(want).max())
+        if got.shape != want.shape or not (c > 0.99999
+                                           and err <= MESH_REL * peak):
+            raise RuntimeError(f"mesh {label}: {got.shape} vs {want.shape}, "
+                               f"corr {c}, max abs err {err} (peak {peak})")
+        return f"corr {c:.9f}, max abs err {err:.3e} (peak {peak:.4f})"
+
+    # -- DP: one replica of the weights a mesh entry, the batch split -------
+    for arch in ("mimi", "dac"):
+        base = models[arch]
+        dp = type(base)(base.reader, compute_dtype=base.compute_dtype,
+                        device=entry)
+        dp.set_mesh(mesh("dp"))
+        n_fr = secs * base.sample_rate // base.hop_size
+        codes = rng.integers(0, base.codebook_size,
+                             (MESH_BATCH, n_fr, base.n_q)).astype(np.int32)
+        per = ({"flash_sdpa_window": MIMI_LAYERS} if arch == "mimi"
+               else {"seanet_res_unit": 12})
+        got = launched(f"{arch} dp decode", lambda: dp.decode(codes),
+                       {k: MESH_N * v for k, v in per.items()})
+        if [str(d) for d in dp.last_out_devices] != devs:
+            raise RuntimeError(f"mesh {arch} dp decode: slices on "
+                               f"{dp.last_out_devices}")
+        note = pcm_held(f"{arch} dp decode", got, base.decode(codes))
+        t_dp, t_one = ms(lambda: dp.decode(codes)), ms(lambda: base.decode(codes))
+        times[f"{arch}_dp_decode"] = (t_dp, t_one)
+        log(f"[mesh] dp {arch} {secs} s b{MESH_BATCH} f32 decode over "
+            f"{MESH_N} replicas on {entry}: launches {MESH_N} x {per}; vs the "
+            f"model unsharded {note}; {t_dp:.3f} ms sharded, {t_one:.3f} ms "
+            f"unsharded (one card runs the slices in turn: no scaling "
+            f"number) [{name_limit}]")
+        if arch == "mimi":
+            pcm = (rng.standard_normal((MESH_BATCH, secs * base.sample_rate))
+                   * 0.3).astype(np.float32)
+            got = launched("mimi dp encode", lambda: dp.encode(pcm),
+                           {"flash_sdpa_window": MESH_N * MIMI_LAYERS,
+                            "rvq_encode_fused": MESH_N * 2})
+            want = base.encode(pcm)
+            if got.shape != want.shape or got.dtype != np.int32:
+                raise RuntimeError(f"mesh mimi dp encode: codes {got.shape} "
+                                   f"{got.dtype}, want {want.shape}")
+            with torch.inference_mode(), f32_precision(True):
+                lat = f64(mimi.mimi_encode_latent_fn(
+                    base.params, torch.from_numpy(pcm).to(base.device),
+                    base.cfg))
+            ties = [t for bi in range(MESH_BATCH) for t in near_ties(
+                got[bi], want[bi],
+                mimi_margin(base.params, base.cfg, lat[bi], want[bi],
+                            got[bi]))]
+            t_dp, t_one = ms(lambda: dp.encode(pcm)), ms(lambda: base.encode(pcm))
+            times["mimi_dp_encode"] = (t_dp, t_one)
+            log(f"[mesh] dp mimi {secs} s b{MESH_BATCH} f32 encode: launches "
+                f"{MESH_N} x (8 flash_sdpa_window + 2 rvq_encode_fused); codes "
+                + ("equal to the unsharded encode's" if not ties else
+                   f"{len(ties)} frames differ, each a near-tie (margins "
+                   f"{', '.join(f'{m:.1e}' for _, _, m in ties)})")
+                + f"; {t_dp:.3f} ms sharded, {t_one:.3f} ms unsharded "
+                f"[{name_limit}]")
+        del dp
+
+    # -- the backbones: PP (packed), TP (dense), EP (the MoE) ----------------
+    def teacher(bb, rows, steps):
+        bb.reset()
+        hs = [bb.prefill(rows)] + [bb.step(x) for x in steps]
+        return np.stack(hs)
+
+    def held_bb(label, got, want):
+        err, peak = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if got.shape != want.shape or not err <= MESH_BB_REL * peak:
+            raise RuntimeError(f"mesh {label}: hiddens max abs err {err} "
+                               f"(peak {peak}, bound {MESH_BB_REL} x peak)")
+        return f"max abs err {err:.3e} ({err / peak:.2e} of peak {peak:.3f})"
+
+    csm = codec_tpu_torch.load_model(paths["csm"], device=entry)
+    reader = GGUFReader(paths["csm"])
+    lm = create_lm(reader, device=entry)
+
+    def request(bb):
+        bb.reset()
+        alm = AudioLM(reader, codec=csm, lm=lm)
+        return run_codebook_ar(alm, bb, prompt_rows, max_steps=frames,
+                               decode=False)
+
+    # the sharded backbones over the unsharded ones' weights: PP's stages
+    # share them (one card), TP's shares are copies of their slices
+    ref_q = create_backbone(paths["Q4_K"], quantized=True, device=entry)
+    bcfg = ref_q.cfg
+    ids = rng.integers(0, bcfg.vocab_size, n_prompt + n_steps)
+    rows = ref_q.embed_tokens(ids)
+    prompt_rows = list(rows[:n_prompt])
+    per_step = 7 * bcfg.n_layers
+    for kind in ("pp", "tp"):
+        quant = kind == "pp"
+        ref = ref_q if quant else create_backbone(paths["Q4_K"], device=entry)
+        bb = LlamaBackbone.from_params(ref.cfg, ref.params)
+        (bb.set_mesh_pp if kind == "pp" else bb.set_mesh)(mesh(kind))
+        want = teacher(ref, rows[:n_prompt], rows[n_prompt:])
+        n_k = per_step if quant else 0
+        bb.reset()
+        h = [launched(f"{kind} prefill", lambda: bb.prefill(rows[:n_prompt]),
+                      {"q4_k_matmul": n_k * min(4, n_prompt)})]
+        h += [launched(f"{kind} step", lambda x=x: bb.step(x),
+                       {"q4_k_matmul": n_k}) for x in rows[n_prompt:]]
+        note = held_bb(f"{kind} hiddens", np.stack(h), want)
+        x = rows[0]
+        bb.reset()
+        ref.reset()
+        t_sh, t_one = ms(lambda: bb.step(x)), ms(lambda: ref.step(x))
+        times[f"{kind}_step"] = (t_sh, t_one)
+        res = launched(f"{kind} request", lambda: request(bb),
+                       {"q4_k_matmul": n_k * (n_prompt + frames)})
+        code_note = _near_tie_csm(f"mesh {kind} request", lm, ref,
+                                  prompt_rows, res.codes, request(ref).codes)
+        shares = [len(s["layers"]) for s in bb.shards] if kind == "pp" else \
+            [tuple(s["layers"][0]["q"].shape) for s in bb.shards]
+        log(f"[mesh] {kind} backbone ({'Q4_K packed' if quant else 'dense f32'}"
+            f", {bcfg.n_layers} layers; shares {shares}): a {n_prompt}-row "
+            f"prefill and {len(rows) - n_prompt} steps vs unsharded: {note}; "
+            f"{n_k} q4_k_matmul a step"
+            + (f", {bb.reductions} reductions" if kind == "tp" else "")
+            + f"; a step {t_sh:.3f} ms sharded, {t_one:.3f} ms unsharded; a "
+            f"greedy {frames}-frame host-path request: {code_note} "
+            f"[{name_limit}]")
+        del bb
+        if not quant:
+            del ref
+
+    # EP: the MoE's router and attention on each share, 64 experts each
+    mcfg = moe_cpu.cfg
+    ref_m = LlamaBackbone.from_params(mcfg, _moved(moe_cpu.params, entry))
+    ep = LlamaBackbone.from_params(mcfg, ref_m.params)
+    ep.set_mesh_ep(mesh("ep"))
+    ids = rng.integers(0, mcfg.vocab_size, n_prompt + sizes.get("moe_steps",
+                                                                MOE_STEPS))
+    mrows = ref_m.embed_tokens(ids)
+    want = teacher(ref_m, mrows[:n_prompt], mrows[n_prompt:])
+    per_moe = 4 * mcfg.n_layers * MESH_N      # the attention's, replicated
+    ep.reset()
+    h = [launched("ep prefill", lambda: ep.prefill(mrows[:n_prompt]),
+                  {"q4_k_matmul": per_moe})]
+    h += [launched("ep step", lambda x=x: ep.step(x), {"q4_k_matmul": per_moe})
+          for x in mrows[n_prompt:]]
+    note = held_bb("ep hiddens", np.stack(h), want)
+    x = mrows[0]
+    ep.reset()
+    ref_m.reset()
+    t_sh, t_one = ms(lambda: ep.step(x)), ms(lambda: ref_m.step(x))
+    times["ep_step"] = (t_sh, t_one)
+    log(f"[mesh] ep qwen3-moe ({mcfg.n_layers} layer, {mcfg.n_experts} "
+        f"experts, {[s['layers'][0]['gate_exps'].shape[0] for s in ep.shards]}"
+        f" a share): a {n_prompt}-row prefill (the dense form) and "
+        f"{len(mrows) - n_prompt} steps (the gathered form) vs unsharded: "
+        f"{note}; {per_moe} q4_k_matmul a call (the attention on each share); "
+        f"a step {t_sh:.3f} ms sharded, {t_one:.3f} ms unsharded "
+        f"[{name_limit}]")
+    del ep, ref_m
+
+    # -- the surfaces: codec-serve-torch and tts-cli-torch with --pp 2 -------
+    def synth(srv):
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+            conn.request("POST", "/synthesize", body=json.dumps(
+                {"text": "hello there", "seed": 0, "temperature": 0.0,
+                 "max_frames": frames}).encode())
+            r = conn.getresponse()
+            body = r.read()
+            conn.close()
+            if r.status != 200:
+                raise RuntimeError(f"mesh /synthesize: status {r.status}: "
+                                   f"{body[:300]!r}")
+            return body
+        finally:
+            srv.shutdown()
+
+    kw = dict(port=0, backbone_path=str(paths["Q4_K"]), quant_exec=True,
+              device=entry)
+    srv = CodecHTTPServer(str(paths["csm"]), **kw)
+    zero_counts()
+    want_b = synth(srv)
+    want_c = counts()
+    srv = CodecHTTPServer(str(paths["csm"]), backbone_mesh=("pp", MESH_N),
+                          **kw)
+    got_b = launched("serve --pp 2", lambda: synth(srv),
+                     want_c if cuda else {})
+    if got_b != want_b:
+        raise RuntimeError("mesh: codec-serve-torch --pp 2's /synthesize is "
+                           "not the unsharded server's bytes")
+    del srv
+    log(f"[mesh] codec-serve-torch --pp {MESH_N}: serialized /synthesize "
+        f"({frames} greedy frames, {len(got_b)} bytes) byte-equal to the "
+        f"unsharded server's; launches {want_c}, as unsharded")
+    # tts-cli-torch --pp 2 against the same command unsharded
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    try:
+        d = Path(tmp.name)
+        args = ["synthesize", "--model", str(paths["csm"]), "--backbone",
+                str(paths["Q4_K"]), "--text", "hello there", "--quant-exec",
+                "--temp", "0", "--max-frames", str(frames), "--device",
+                entry]
+        zero_counts()
+        if tts_cli(args + ["--out", str(d / "one.wav")]) != 0:
+            raise RuntimeError("mesh: tts-cli-torch synthesize failed")
+        want_c = counts()
+        rc = launched("tts-cli --pp 2", lambda: tts_cli(
+            args + ["--out", str(d / "pp.wav"), "--pp", str(MESH_N)]),
+            want_c if cuda else {})
+        if rc != 0 or (d / "pp.wav").read_bytes() != \
+                (d / "one.wav").read_bytes():
+            raise RuntimeError("mesh: tts-cli-torch synthesize --pp 2's WAV "
+                               "is not the unsharded run's")
+    finally:
+        tmp.cleanup()
+    log(f"[mesh] tts-cli-torch synthesize --pp {MESH_N} --device {entry} "
+        f"--quant-exec --temp 0 ({frames} frames, host path): the WAV "
+        f"byte-equal to the unsharded run's; launches {want_c}, as "
+        f"unsharded")
+    log(f"[mesh] phase 11 launches {phase_counts}; "
+        f"{time.monotonic() - t_phase:.1f} s (every mesh names one card "
+        f"twice: the sharded times are no scaling number)")
     return phase_counts, times
 
 
@@ -5745,8 +6096,7 @@ def main() -> int:
 
         best = None
         for _ in range(4):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 runner.run()
                 torch.cuda.synchronize()
             dev = [e for e in prof.key_averages()
@@ -5924,8 +6274,9 @@ def main() -> int:
         f"realtime in all); wrapper launches {step} [{name_limit}]")
     # one backbone step at m = 1, 8 and 32 rows (streams) as a captured
     # graph: the packed products (Q4_K) against F.linear on the same
-    # weights dequantized to f32, the rest of the step the same; per-launch
-    # device time of the products by name under torch.profiler
+    # weights dequantized to f32, the rest of the step the same (CUDA
+    # events; the steps' traces and their products' device times are in
+    # PERF.md from earlier runs)
     from codec_tpu_torch.lm.backbone import backbone_step
     from codec_tpu_torch.lm.fused_gen import Graphed
 
@@ -5944,15 +6295,7 @@ def main() -> int:
                                                        qmat.qmatmul),
                         torch.device("cuda"), restore=(kv,))
             g.run()
-            step_ms = cuda_ms(g.run)
-            busy, kernels, products = replay_profile(g)
-            line += (f" {label} {step_ms:.4f} ms a step (device busy "
-                     f"{busy:.4f}, {kernels} kernels")
-            if products:
-                per = profiled_ms(g.run, products,
-                                  lambda key: "matmul_kernel" in key)
-                line += f", {products} q4_k_matmul at {fmt_ms(per)} each"
-            line += ");"
+            line += f" {label} {cuda_ms(g.run):.4f} ms a step;"
             del g
         log(line + f" [{name_limit}]")
     del dense
@@ -5983,7 +6326,7 @@ def main() -> int:
         name_limit, zero_counts, counts, none,
         {"csm": csm_path, **bb_paths, "cbx": cbx_path,
          "cbx_bb": cbx_bb_path, "pocket": reuse["pocket"][1]})
-    tts_tmp.cleanup()
+    moe_cpu = reuse.pop("moe")
     del reuse                        # and with it 9c's and 9d's directories
 
     # -- 10. times -------------------------------------------------------------
@@ -6029,10 +6372,11 @@ def main() -> int:
 
     log(f"[phase] 10: windowed attention at {time.monotonic() - t_start:.1f} s")
     # the windowed codecs' attention (phase 8c's shapes): kernel and plain in
-    # turns, F.scaled_dot_product_attention with the same mask, device time
-    # (torch.profiler), and the bound of the kernel's passes (f32: three
-    # TF32 passes a product; 16-bit: one for QK^T, two for PV) beside the
-    # bytes' alone
+    # turns, F.scaled_dot_product_attention with the same mask, and the
+    # bound of the kernel's passes (f32: three TF32 passes a product;
+    # 16-bit: one for QK^T, two for PV) beside the bytes' alone (their
+    # device times are in PERF.md from earlier runs: the profiler's traces
+    # cost the smoke more than these kernels)
     for b, h, t, d, w in WINDOWED_ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (randn((b, h, t, d), dtype, SEED + 700 + j)
@@ -6044,7 +6388,6 @@ def main() -> int:
             band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - (w or t))
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=band), reps=20)
-            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w))
             work = attn_work(b, h, t, d, w, dtype)
             flop = work[0][0][0]
             passes = ([(3 * flop, "tf32")] if dtype == torch.float32
@@ -6054,9 +6397,9 @@ def main() -> int:
                 f"{str(dtype)[6:]}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
                 f"(samples k {smp[0]:.4f} {smp[1]:.4f}, p {smp[2]:.4f} "
                 f"{smp[3]:.4f}), F.scaled_dot_product_attention with the same "
-                f"mask {lib:.4f} ms, device time (torch.profiler) "
-                f"{fmt_ms(dev)}; bound {b_ms:.5f} ms ({b_by}; the kernel's "
-                f"passes), bytes alone {least_time([], work[1])[0]:.5f} ms"
+                f"mask {lib:.4f} ms; bound {b_ms:.5f} ms ({b_by}; the "
+                f"kernel's passes), bytes alone "
+                f"{least_time([], work[1])[0]:.5f} ms"
                 + (f", f32 FMA {least_time(*work)[0]:.5f} ms"
                    if dtype == torch.float32 else "") + f" [{name_limit}]")
 
@@ -6084,8 +6427,6 @@ def main() -> int:
                 lib = (f"not run: its [T, T] mask is {t * t * dtype.itemsize / 1e9:.1f}"
                        f" GB as an additive {str(dtype)[6:]} tensor, the "
                        f"math path's f32 logits {b * h * t * t * 4 / 1e9:.1f} GB")
-            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w),
-                            n=10 if t > 15000 else 50)
             work = attn_work(b, h, t, d, w, dtype)
             flop = work[0][0][0]
             passes = ([(3 * flop, "tf32")] if dtype == torch.float32
@@ -6095,8 +6436,8 @@ def main() -> int:
                 f"{str(dtype)[6:]}: kernel {kern:.4f} ms, banded plain "
                 f"{plain:.4f} ms (samples k {smp[0]:.4f} {smp[1]:.4f}, p "
                 f"{smp[2]:.4f} {smp[3]:.4f}), F.scaled_dot_product_attention "
-                f"with the same mask {lib}, device time (torch.profiler) "
-                f"{fmt_ms(dev)}; bound {b_ms:.5f} ms ({b_by}; the kernel's "
+                f"with the same mask {lib}; bound {b_ms:.5f} ms ({b_by}; the "
+                f"kernel's "
                 f"passes; {b_ms / kern:.1%} of it), bytes alone "
                 f"{least_time([], work[1])[0]:.5f} ms [{name_limit}]")
             del q, k, v
@@ -6165,40 +6506,41 @@ def main() -> int:
             del x, p
 
     log(f"[phase] 10: packed products m1 at {time.monotonic() - t_start:.1f} s")
-    # the packed products at m = 1 (one decode step) on every backbone
-    # shape: device time per call from torch.profiler, and the CUDA-event
-    # time of back-to-back calls, which includes the host's launch work
-    # (the kernels line's gate shape; the m = 4 and 8 rows below)
-    for out_d, in_d in (QMAT_MAIN,):
-        x = randn((1, in_d), torch.float32, SEED + 140)
-        for name in ("q8_0_matmul", "q4_k_matmul"):
-            qt = qmat_weights[name, out_d, in_d]
-            dense = qmat.dequant_ref(qt)
-            kern = lambda: packed_product(name, x, qt)
-            plain = lambda: qmat.qmatmul_plain(x, qt)
-            lib = lambda: F.linear(x, dense)
-            dev = [device_ms(fn) for fn in (kern, plain, lib)]
-            k_ev, p_ev, s = turns(kern, plain, reps=20)
-            l_ev = cuda_ms(lib, reps=20)
-            b_ms, b_by = least_time(*qmat_work(out_d, in_d, 1, qt))
-            log(f"[time] {name} out {out_d} in {in_d} m1 f32: device time "
-                f"kernel {fmt_ms(dev[0])}, plain (dequant + matmul) "
-                f"{fmt_ms(dev[1])}, F.linear on the dequantized f32 weight "
-                f"{fmt_ms(dev[2])}; bound {b_ms:.4f} ms ({b_by}); CUDA events "
-                f"per call kernel {k_ev:.4f} ms, plain {p_ev:.4f} ms, "
-                f"F.linear {l_ev:.4f} ms [{name_limit}]")
-            if (out_d, in_d) == QMAT_MAIN:
-                times[name] = (dev[0] or k_ev, dev[1] or p_ev, b_ms, b_by,
-                               dev[2] or l_ev)
-            del dense
+    # the packed products at m = 1 (one decode step) on the gate shape (the
+    # kernels line's): device time per call from torch.profiler, and the
+    # CUDA-event time of back-to-back calls, which includes the host's
+    # launch work (the m = 4 and 8 rows below)
+    out_d, in_d = QMAT_MAIN
+    x = randn((1, in_d), torch.float32, SEED + 140)
+    for name in ("q8_0_matmul", "q4_k_matmul"):
+        qt = qmat_weights[name, out_d, in_d]
+        dense = qmat.dequant_ref(qt)
+        kern = lambda: packed_product(name, x, qt)
+        plain = lambda: qmat.qmatmul_plain(x, qt)
+        lib = lambda: F.linear(x, dense)
+        dev = [device_ms(fn) for fn in (kern, plain, lib)]
+        k_ev, p_ev, s = turns(kern, plain, reps=20)
+        l_ev = cuda_ms(lib, reps=20)
+        b_ms, b_by = least_time(*qmat_work(out_d, in_d, 1, qt))
+        log(f"[time] {name} out {out_d} in {in_d} m1 f32: device time "
+            f"kernel {fmt_ms(dev[0])}, plain (dequant + matmul) "
+            f"{fmt_ms(dev[1])}, F.linear on the dequantized f32 weight "
+            f"{fmt_ms(dev[2])}; bound {b_ms:.4f} ms ({b_by}); CUDA events "
+            f"per call kernel {k_ev:.4f} ms, plain {p_ev:.4f} ms, "
+            f"F.linear {l_ev:.4f} ms [{name_limit}]")
+        times[name] = (dev[0] or k_ev, dev[1] or p_ev, b_ms, b_by,
+                       dev[2] or l_ev)
+        del dense
 
     log(f"[phase] 10: packed products sweep at {time.monotonic() - t_start:.1f} s")
     # the packed products at the CSM backbone's shapes, m = 4 and 8 (the
     # serving engine's and /synthesize_batch's rows), and at the Chatterbox
     # T3 backbone's, m = 8 (batched Chatterbox's 4 streams x 2 lanes):
-    # device time (torch.profiler) of the kernel and of F.linear on the
-    # dequantized f32 weight, each beside the bound (Qwen3's, the MoE's and
-    # T3's m = 1 and 2 rows are checked in phase 3, not timed here)
+    # CUDA events of back-to-back calls of the kernel and of F.linear on
+    # the dequantized f32 weight, each beside the bound (their device times
+    # are in PERF.md from earlier runs: the profiler's traces cost the smoke
+    # more than these rows' kernels; Qwen3's, the MoE's and T3's m = 1 and 2
+    # rows are checked in phase 3, not timed here)
     for out_d, in_d, ms, tag in (
             [(o, i, QMAT_SERVE_MS, "CSM") for o, i in QMAT_SHAPES]
             + [(o, i, (8,), "T3") for o, i in T3_QMAT_SHAPES]):
@@ -6209,98 +6551,59 @@ def main() -> int:
                 x = randn((m, in_d), torch.float32, SEED + 180 + m)
                 kern = lambda: packed_product(name, x, qt)
                 lib = lambda: F.linear(x, dense)
-                # 20 calls a trace, two traces at most (a short one is
-                # "not measured"): the profiler's retries cost more than
-                # these rows' kernels
-                k_ms, l_ms = (device_ms(fn, n=20, tries=2)
-                              for fn in (kern, lib))
-                # CUDA events of back-to-back calls beside them (the
-                # wrapper's host time included; the profiler's trace of
-                # F.linear at these shapes loses records now and then)
+                # the wrapper's host time included
                 k_ev, l_ev = cuda_ms(kern, reps=20), cuda_ms(lib, reps=20)
                 b_ms, b_by = least_time(*qmat_work(out_d, in_d, m, qt))
                 log(f"[time] {name} {tag} out {out_d} in {in_d} m{m} f32: "
-                    f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
-                    f"dequantized f32 weight {fmt_ms(l_ms)}; CUDA events a "
-                    f"call kernel {k_ev:.4f} ms, F.linear {l_ev:.4f} ms; "
-                    f"bound {b_ms:.4f} ms ({b_by})"
-                    + (f", {b_ms / k_ms:.1%} of it" if k_ms else "")
-                    + f" [{name_limit}]")
+                    f"CUDA events a call kernel {k_ev:.4f} ms, F.linear on "
+                    f"the dequantized f32 weight {l_ev:.4f} ms; bound "
+                    f"{b_ms:.4f} ms ({b_by}) [{name_limit}]")
             del dense
 
     log(f"[phase] 10: packed products cold at {time.monotonic() - t_start:.1f} s")
-    # the packed products cold, as a forward finds them: each shape's line
-    # cycles over the TTS_LAYERS layers' matrices of that shape in the loaded
+    # the packed products cold, as a forward finds them: the gate shape's
+    # line cycles over the TTS_LAYERS layers' gate and up matrices in the loaded
     # backbone (a 64 MB buffer written between launches where the cycle
-    # would stay in L2), at m = 1 and m = 16 (a bucketed prefill); then one
-    # forward's 7 x TTS_LAYERS products at m = 1 in forward order. Device times by the
-    # kernel's name under torch.profiler, F.linear on the same dequantized
-    # f32 weights measured the same way
+    # would stay in L2) at m = 1 (the kernels line's cold_ms). Device times
+    # by the kernel's name under torch.profiler, F.linear on the same
+    # dequantized f32 weights measured the same way (the other shapes, m =
+    # 16 and one forward's 28 products in forward order are in PERF.md from
+    # earlier runs: their traces cost the smoke up to a minute)
     cold = {}
     flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
     for qtype, bb in backbones.items():
         name = kernel_of[qtype]
-        layers = bb.params["layers"]
-        dense = [{k: qmat.dequant_ref(lw[k]) for k in FORWARD_ORDER}
-                 for lw in layers]
-        xs = {d: randn((1, d), torch.float32, SEED + 150 + d)
-              for d in (bcfg.hidden, bcfg.ffn_dim)}
-        for out_d, in_d in QMAT_SHAPES:
-            pairs = [(lw[k], dw[k]) for lw, dw in zip(layers, dense)
-                     for k in FORWARD_ORDER if tuple(lw[k]["qs"].shape)[0] == out_d
-                     and qmat.in_features(lw[k]) == in_d]
-            wbytes = sum(t.numel() * t.element_size() for qt, _ in pairs
-                         for t in qt.values())
-            flush = wbytes < 2 * L2_BYTES
-            for m in (1, 16):
-                x = randn((m, in_d), torch.float32, SEED + 160 + m)
+        out_d, in_d = QMAT_MAIN
+        pairs = [(lw[k], qmat.dequant_ref(lw[k])) for lw in bb.params["layers"]
+                 for k in FORWARD_ORDER if tuple(lw[k]["qs"].shape)[0] == out_d
+                 and qmat.in_features(lw[k]) == in_d]
+        wbytes = sum(t.numel() * t.element_size() for qt, _ in pairs
+                     for t in qt.values())
+        flush = wbytes < 2 * L2_BYTES
+        x = randn((1, in_d), torch.float32, SEED + 161)
 
-                def cycle(use_dense):
-                    for qt, dw in pairs:
-                        if flush:
-                            flush_buf.fill_(1.0)
-                        if use_dense:
-                            F.linear(x, dw)
-                        else:
-                            packed_product(name, x, qt)
-                k_ms = profiled_ms(lambda: cycle(False), len(pairs),
-                                   lambda key: "matmul_kernel" in key)
-                l_ms = profiled_ms(lambda: cycle(True), len(pairs),
-                                   lambda key: "FillFunctor" not in key)
-                b_ms, b_by = least_time(*qmat_work(out_d, in_d, m, pairs[0][0]))
-                if m == 1 and (out_d, in_d) == QMAT_MAIN:
-                    cold[name] = k_ms
-                log(f"[time] {name} cold {SHAPE_NAMES[out_d, in_d]} out {out_d} "
-                    f"in {in_d} m{m} f32 ({len(pairs)} matrices, "
-                    f"{wbytes / 1e6:.1f} MB{', 64 MB written between launches' if flush else ''}): "
-                    f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
-                    f"dequantized f32 weight {fmt_ms(l_ms)}; bound {b_ms:.4f} ms "
-                    f"({b_by})" + (f", {b_ms / k_ms:.1%} of it" if k_ms else "")
-                    + f" [{name_limit}]")
-        order = [(lw[k], dw[k]) for lw, dw in zip(layers, dense)
-                 for k in FORWARD_ORDER]
-
-        def forward(use_dense):
-            for qt, dw in order:
-                x = xs[dw.shape[1]]
+        def cycle(use_dense):
+            for qt, dw in pairs:
+                if flush:
+                    flush_buf.fill_(1.0)
                 if use_dense:
                     F.linear(x, dw)
                 else:
                     packed_product(name, x, qt)
-        reps = 3
-        k_ms = profiled_ms(lambda: [forward(False) for _ in range(reps)], reps,
-                           lambda key: "matmul_kernel" in key,
-                           launches=reps * len(order))
-        l_ms = profiled_ms(lambda: [forward(True) for _ in range(reps)], reps,
-                           lambda key: True, launches=reps * len(order))
-        b_sum = sum(least_time(*qmat_work(qt["qs"].shape[0], dw.shape[1], 1,
-                                          qt))[0] for qt, dw in order)
-        log(f"[time] {name} one backbone forward, {len(order)} products at m1 "
-            f"in forward order (cold): device time kernel {fmt_ms(k_ms)}, "
-            f"F.linear on the dequantized f32 weights {fmt_ms(l_ms)}; summed "
-            f"bound {b_sum:.4f} ms" + (f", {b_sum / k_ms:.1%} of it"
-                                       if k_ms else "") + f" [{name_limit}]")
-        del dense, order
+        k_ms = profiled_ms(lambda: cycle(False), len(pairs),
+                           lambda key: "matmul_kernel" in key)
+        l_ms = profiled_ms(lambda: cycle(True), len(pairs),
+                           lambda key: "FillFunctor" not in key)
+        b_ms, b_by = least_time(*qmat_work(out_d, in_d, 1, pairs[0][0]))
+        cold[name] = k_ms
+        log(f"[time] {name} cold {SHAPE_NAMES[out_d, in_d]} out {out_d} "
+            f"in {in_d} m1 f32 ({len(pairs)} matrices, "
+            f"{wbytes / 1e6:.1f} MB{', 64 MB written between launches' if flush else ''}): "
+            f"device time kernel {fmt_ms(k_ms)}, F.linear on the "
+            f"dequantized f32 weight {fmt_ms(l_ms)}; bound {b_ms:.4f} ms "
+            f"({b_by})" + (f", {b_ms / k_ms:.1%} of it" if k_ms else "")
+            + f" [{name_limit}]")
+        del pairs
     del flush_buf
 
     log(f"[phase] 10: TTS requests at {time.monotonic() - t_start:.1f} s")
@@ -6486,7 +6789,9 @@ def main() -> int:
     log(f"[phase] 10: carried-key attention at {time.monotonic() - t_start:.1f} s")
     # flash_sdpa_window with carried keys at the sessions' shapes: kernel and
     # plain in turns, F.scaled_dot_product_attention with the same mask, the
-    # bound of the pairs this mask leaves visible, device time
+    # bound of the pairs this mask leaves visible; device time at the
+    # kernels line's shape only (the other shapes' traces cost the smoke up
+    # to 20 s; their device times are in PERF.md from earlier runs)
     for b, h, tq, tk, d, w, ks in STREAM_ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn((b, h, tq, d), dtype, SEED + 500)
@@ -6499,8 +6804,10 @@ def main() -> int:
             band = stream_mask(tq, tk, w, ks)
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=band), reps=20)
-            dev = device_ms(lambda: flash_sdpa_window(q, k, v, window=w,
-                                                      k_start=ks))
+            main = ((b, h, tq, tk, d, w, ks) == STREAM_ATTN_MAIN
+                    and dtype == torch.float32)
+            dev = device_ms(lambda: flash_sdpa_window(
+                q, k, v, window=w, k_start=ks)) if main else None
             work = stream_attn_work(b, h, tq, tk, d, w, ks, dtype)
             flop = work[0][0][0]
             # the kernel's passes: f32 three TF32 passes per product; bf16
@@ -6513,16 +6820,28 @@ def main() -> int:
                 f"{kern:.4f} ms, plain {plain:.4f} ms (samples k {smp[0]:.4f} "
                 f"{smp[1]:.4f}, p {smp[2]:.4f} {smp[3]:.4f}), "
                 f"F.scaled_dot_product_attention with the same mask "
-                f"{lib:.4f} ms, device time (torch.profiler) {fmt_ms(dev)}; "
-                f"bound {b_ms:.5f} ms ({b_by}; the kernel's passes) "
+                f"{lib:.4f} ms"
+                + (f", device time (torch.profiler) {fmt_ms(dev)}" if main
+                   else "")
+                + f"; bound {b_ms:.5f} ms ({b_by}; the kernel's passes) "
                 f"[{name_limit}]")
-            if (b, h, tq, tk, d, w, ks) == STREAM_ATTN_MAIN \
-                    and dtype == torch.float32:
+            if main:
                 times["flash_sdpa_window (carried keys)"] = (
                     kern, plain, b_ms, b_by, lib)
                 extra["flash_sdpa_window (carried keys)"] = {
                     "device_ms": dev,
                     "bound_fma_ms": least_time(*work)[0]}
+
+    # -- 11. the mesh on one card ----------------------------------------------
+    log(f"[phase] 11 starts at {time.monotonic() - t_start:.1f} s")
+    try:
+        mesh_counts, _ = mesh_phase(
+            name_limit, zero_counts, counts, none,
+            {"mimi": mimi_models["float32"], "dac": dac_models["float32"]},
+            {"csm": csm_path, **bb_paths}, moe_cpu)
+    finally:
+        tts_tmp.cleanup()
+    del moe_cpu
 
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
                    + tts_counts["flash_sdpa_window"]
@@ -6532,9 +6851,11 @@ def main() -> int:
                    + enc_counts["flash_sdpa_window"]
                    + windowed_counts["flash_sdpa_window"]
                    + small_counts["flash_sdpa_window"]
-                   + serve_counts["flash_sdpa_window"],
+                   + serve_counts["flash_sdpa_window"]
+                   + mesh_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
-                   + enc_counts["seanet_res_unit"],
+                   + enc_counts["seanet_res_unit"]
+                   + mesh_counts["seanet_res_unit"],
                    "seanet_res_chain": dac_counts["seanet_res_chain"]
                    + enc_counts["seanet_res_chain"],
                    "snac_res_chain": snac_counts["snac_res_chain"]
@@ -6548,11 +6869,13 @@ def main() -> int:
                    + tts_dev_counts["q4_k_matmul"]
                    + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"]
                    + rest_counts["q4_k_matmul"]
-                   + serve_counts["q4_k_matmul"],
+                   + serve_counts["q4_k_matmul"]
+                   + mesh_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
                    + windowed_counts["rvq_encode_fused"]
-                   + serve_counts["rvq_encode_fused"],
+                   + serve_counts["rvq_encode_fused"]
+                   + mesh_counts["rvq_encode_fused"],
                    "flash_sdpa_window (carried keys)": stream_launches
                    + windowed_counts["flash_sdpa_window (carried keys)"]
                    + lm_counts["flash_sdpa_window (carried keys)"]

@@ -5,12 +5,15 @@ The sequences are zero-padded to the longest and decoded as one batch;
 with --pipeline, or when their lengths differ, they go through
 CodecModel.decode_many instead (one batched decode per length, one sync),
 which gives each sequence what its own decode gives. Each output is
-written as <out-dir>/<input stem>.wav, cut to its own length.
+written as <out-dir>/<input stem>.wav, cut to its own length. --dp N
+splits the padded batch over N devices (the first N cards, or with
+--device cpu or cuda:K N entries of that device), one replica of the
+weights each.
 
 Usage:
   python -m codec_tpu_torch.cli.batch_decode --model mimi.gguf \\
       --codes a.npy b.npy c.npy --out-dir outs/ [--pipeline] \\
-      [--device cuda] [--dtype float32]
+      [--device cuda] [--dtype float32] [--dp N]
 """
 
 from __future__ import annotations
@@ -35,9 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nq", type=int, default=0,
                     help="codebooks to use (0=all)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="data parallelism over devices (not ported yet)")
+                    help="data parallelism: split the batch over N devices "
+                         "(the first N cards; with --device cpu or cuda:K, N "
+                         "entries of that device)")
     ap.add_argument("--sp", type=int, default=0,
-                    help="sequence parallelism over devices (not ported yet)")
+                    help="sequence parallelism over devices (not ported "
+                         "yet: the next slice)")
     ap.add_argument("--pipeline", action="store_true",
                     help="decode through decode_many (one batched decode per "
                          "length, one sync) instead of padding to one batch; "
@@ -60,20 +66,31 @@ def main(argv=None) -> int:
 
 
 def _run(args) -> int:
-    if args.dp > 1 or args.sp > 1:
-        raise CodecError("--dp and --sp are not ported yet")
+    if args.dp > 1 and args.sp > 1:
+        raise CodecError("--dp and --sp are mutually exclusive")
+    if args.sp > 1:
+        raise CodecError("sequence parallelism is not ported yet (--sp): "
+                         "it comes in the next slice, with its op-level "
+                         "halo design")
     import codec_tpu_torch
 
     from ..io.wav import write_wav
 
-    model = codec_tpu_torch.load_model(args.model, compute_dtype=args.dtype,
-                                       device=args.device)
+    mesh = None
+    if args.dp > 1:
+        from ..parallel.mesh import make_mesh, named_devices
+
+        mesh = make_mesh(args.dp, devices=named_devices(args.device, args.dp))
+    model = codec_tpu_torch.load_model(
+        args.model, compute_dtype=args.dtype,
+        device=None if mesh is not None else args.device, mesh=mesh)
     seqs = [np.load(p) for p in args.codes]
     if any(s.ndim != 2 or s.shape[0] == 0 for s in seqs):
         raise CodecError(f"want [T, C] inputs, got "
                          f"{[s.shape for s in seqs]}")
     lens = [s.shape[0] for s in seqs]
-    if (args.pipeline or len(set(lens)) > 1) and not args.latent:
+    if (args.pipeline or len(set(lens)) > 1) and not args.latent \
+            and mesh is None:
         outs = model.decode_many(seqs, n_q=args.nq, pcm_format="i16")
     else:
         cols = seqs[0].shape[1] if args.latent else min(
@@ -85,6 +102,9 @@ def _run(args) -> int:
         pcm = (model.decode_latent(batch, pcm_format="i16") if args.latent
                else model.decode(batch, n_q=args.nq, pcm_format="i16"))
         outs = [pcm[i, : t * model.hop_size] for i, t in enumerate(lens)]
+        if mesh is not None:
+            print(f"dp={args.dp}: device output sharding "
+                  f"{[str(d) for d in model.last_out_devices]}")
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for path, y in zip(args.codes, outs):

@@ -21,7 +21,12 @@ port (counterpart of codec_tpu/cli/tts_cli.py).
     lanes at `--cfg-weight` on the host or as one batch on the device,
     vocoded by S3Gen with its built-in conditioning).
 `--quant-exec` keeps a Q8_0 or Q4_K backbone's layer matrices packed on
-the device, multiplied by the dequantizing CUDA kernels.
+the device, multiplied by the dequantizing CUDA kernels. `--tp/--pp/--ep
+N` shard the backbone over N devices (lm/backbone.py::set_mesh,
+set_mesh_pp, set_mesh_ep; the first N cards, or with `--device cpu` or
+`cuda:K` N entries of that device) and run the host path; `--on-device`
+over a --tp/--ep backbone is not ported yet, and a --pp one generates
+through the host per-frame loop.
 
 Usage:
   tts-cli-torch info --model pocket.gguf
@@ -34,7 +39,7 @@ Usage:
       --backbone bb.gguf --text "Hello there." --out o.wav \
       [--quant-exec] [--max-frames N] [--seed 0] [--device cuda|cpu]
       [--on-device [--chunk-frames 8]] [--min-len N --timesteps N]
-      [--grammar g.gbnf] [--cfg-weight 0.5]
+      [--grammar g.gbnf] [--cfg-weight 0.5] [--tp N | --pp N | --ep N]
 """
 
 from __future__ import annotations
@@ -114,7 +119,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timesteps", type=int, default=None,
                    help="continuous-CFM Euler steps per patch (BlueMagpie "
                         "family; default 10)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="shard the backbone tensor-parallel over N devices "
+                        "(Megatron column/row split; the host path: "
+                        "--on-device over it is not ported yet)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="shard the backbone pipeline-parallel over N "
+                        "stages (n_layers/N layers per device; generation "
+                        "runs the host per-frame loop)")
+    p.add_argument("--ep", type=int, default=0,
+                   help="shard a MoE backbone expert-parallel over N "
+                        "devices (n_experts/N experts per device)")
     return ap
+
+
+def backbone_mesh_flag(args):
+    """(kind, n) of --tp/--pp/--ep (mutually exclusive), or None."""
+    given = [(k, n) for k, n in (("tp", args.tp), ("pp", args.pp),
+                                 ("ep", args.ep)) if n > 1]
+    if len(given) > 1:
+        raise ValueError("--tp, --pp and --ep are mutually exclusive")
+    return given[0] if given else None
 
 
 def load_backbone_tokenizer(bb_reader):
@@ -288,6 +313,9 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
     if bb is None:
         bb = create_backbone(backbone_path, quantized=quantized,
                              device=device)
+    if getattr(bb, "mesh_kind", None) is not None:
+        raise ValueError("--tp/--pp/--ep do not support the chatterbox "
+                         "dual-lane flow")
     bb.reset()
     if bb.cfg.hidden != t3.info.hidden_dim:
         raise ValueError(f"backbone hidden {bb.cfg.hidden} != "
@@ -405,8 +433,8 @@ def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
     state is reset), else one from `backbone_path` (packed when
     `quantized`). `sampling`: one dict a text ({"temperature", "top_k",
     "top_p", "min_p"}, missing keys the defaults), the chains data in the
-    graph. `mesh` (data-parallel streams) is not ported yet.
-    → [(pcm, n_frames, stop reason)] a text."""
+    graph. `mesh` (data-parallel streams) is not ported yet: it raises
+    CodecError. → [(pcm, n_frames, stop reason)] a text."""
     from ..io.gguf import GGUFReader
     from ..lm import create_lm
     from ..lm.audio_lm import AudioLM
@@ -419,7 +447,8 @@ def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
 
     if mesh is not None:
         raise CodecError("run_backbone_synthesize_batch(mesh=) is not "
-                         "ported yet")
+                         "ported yet: data-parallel streams come in the "
+                         "next slice")
     if is_chatterbox(reader):
         return run_chatterbox_synthesize_batch(
             model, reader, backbone_path, texts, seed=seed,
@@ -697,8 +726,18 @@ def _run(args) -> int:
         print(f"wrote {args.out}: {pcm.shape[0]} samples "
               f"({n_frames} frames, stop={stop})")
         return 0
+    bb = None
+    mesh = backbone_mesh_flag(args)
+    if mesh is not None:
+        from ..lm.backbone import apply_backbone_mesh, create_backbone
+        from ..parallel.mesh import named_devices
+
+        bb = create_backbone(args.backbone, quantized=args.quant_exec,
+                             device=args.device)
+        apply_backbone_mesh(bb, *mesh,
+                            devices=named_devices(args.device, mesh[1]))
     pcm, n_frames, stop = run_backbone_synthesize(
-        model, reader, args.backbone, args.text, seed=args.seed,
+        model, reader, args.backbone, args.text, seed=args.seed, bb=bb,
         max_frames=args.max_frames, prefill_bucket=args.prefill_bucket,
         temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
         min_p=args.min_p, rep_penalty=args.rep_penalty,

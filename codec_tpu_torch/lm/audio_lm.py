@@ -1,23 +1,35 @@
 """audio_lm — generic audio-LM host hooks (counterpart of
-codec_tpu/lm/audio_lm.py): the codes→PCM decode transform, the Type C/D
-frame observe and feedback compose of codebook-AR kinds, and the
-continuous-latent observe of CFM kinds (patches and the stop flag).
+codec_tpu/lm/audio_lm.py):
+  - the modality bits of `codec.lm.modality.*`;
+  - Type A audio-token-range detection (`codec.audio_token.{offset,count,
+    eos_id}`) and Type B embed-override compose (`observe_token`);
+  - the Type C/D frame observe and feedback compose of codebook-AR kinds;
+  - the continuous-latent observe of CFM kinds (patches and the stop flag);
+  - the end of a sequence: the codes→PCM decode transform and
+    `decode_audio` through the codec, with `push_codes` for frames made
+    elsewhere.
 
 Reference behavior: common/audio_lm.cpp + common/codec_common.h. The host
-owns the backbone decode loop and sampling. The modality bits and the Type
-A/B token observe wait for the flows that use them.
+owns the backbone decode loop and sampling.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from enum import Enum
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..io.gguf import GGUFReader
 from .base import CodecLM, LmError, create_lm
-from .decode_transform import DecodeTransform, build_decode_transform
+from .decode_transform import (DecodeTransform, build_decode_transform,
+                               transform_lm_codes)
+
+MODALITY_TEXT_IN = 1
+MODALITY_AUDIO_OUT = 2
+MODALITY_AUDIO_IN = 4
+MODALITY_TEXT_OUT = 8
 
 
 class ObserveAction(Enum):
@@ -25,6 +37,16 @@ class ObserveAction(Enum):
     CONSUMED = 1           # audio code consumed; host keeps token decode path
     CONSUMED_EMBED = 2     # feed next_embed as inputs_embeds next step
     STOP = 3               # end of audio; host breaks and decodes
+
+
+@dataclass
+class AudioTokenRange:
+    """Type A: the LLM's own vocabulary carries the codes as tokens
+    [offset, offset + count) (code = token - offset); eos_id stops.
+    offset -1: no range."""
+    offset: int = -1
+    count: int = 0
+    eos_id: int = -1
 
 
 class AudioLM:
@@ -39,6 +61,19 @@ class AudioLM:
         self.codec = codec
         self.lm: Optional[CodecLM] = lm if lm is not None \
             else create_lm(reader, device=device)
+        self.modality = 0
+        for bit, key in ((MODALITY_TEXT_IN, "codec.lm.modality.text_in"),
+                         (MODALITY_AUDIO_OUT, "codec.lm.modality.audio_out"),
+                         (MODALITY_AUDIO_IN, "codec.lm.modality.audio_in"),
+                         (MODALITY_TEXT_OUT, "codec.lm.modality.text_out")):
+            if reader.get_bool(key, False):
+                self.modality |= bit
+        self.token_range = AudioTokenRange(
+            offset=reader.get_i32("codec.audio_token.offset", -1),
+            count=reader.get_i32("codec.audio_token.count", 0),
+            eos_id=reader.get_i32("codec.audio_token.eos_id", -1))
+        self.uses_embed_override = False
+        self._embed_step_start = 0
         # codes→PCM decode transform (reference: init_decode_transform,
         # common/audio_lm.cpp:218-263)
         self.decode_transform: DecodeTransform = build_decode_transform(
@@ -50,7 +85,7 @@ class AudioLM:
         self.frames: List[List[int]] = []        # accumulated [T][n_cb] codes
         self.latents: List[np.ndarray] = []      # continuous patches
         self.next_embed: Optional[np.ndarray] = None
-        self._embed_step = 0
+        self._embed_step = self._embed_step_start
         self.state = self.lm.new_state() if self.lm is not None else None
 
     # -- capabilities ------------------------------------------------------
@@ -59,10 +94,54 @@ class AudioLM:
         return self.lm.info.n_codebook if self.lm else 1
 
     @property
+    def hidden_dim(self) -> int:
+        return self.lm.info.hidden_dim if self.lm else 0
+
+    @property
     def is_continuous(self) -> bool:
         return bool(self.lm and self.lm.info.is_continuous)
 
+    def lm_eos(self) -> Tuple[int, int]:
+        """(the cb0 EOS code, the frames before it counts); (-1, 0) with no
+        adaptor."""
+        if self.lm is None:
+            return -1, 0
+        return self.lm.info.eos_code_c0, self.lm.info.eos_min_step
+
+    # -- configuration -----------------------------------------------------
+    def set_audio_token_range(self, offset: int, count: int,
+                              eos_id: int) -> None:
+        self.token_range = AudioTokenRange(offset, count, eos_id)
+
+    def set_uses_embed_override(self, enabled: bool,
+                                start_step: int = 0) -> None:
+        """Type B: an in-range token is fed back as the LM's composed
+        embedding (its step counter starts at `start_step`, and `reset()`
+        returns to it)."""
+        self.uses_embed_override = enabled
+        self._embed_step_start = start_step
+        self._embed_step = start_step
+
     # -- per-step hooks ----------------------------------------------------
+    def observe_token(self, tok: int, last_hidden=None) -> ObserveAction:
+        """Type A/B dispatch (reference: audio_lm_observe_token): the EOS
+        id stops; a token in the range is a code, recorded as a frame of
+        one and, with the embed override, composed into `next_embed`;
+        anything else passes through."""
+        tr = self.token_range
+        if tr.eos_id >= 0 and tok == tr.eos_id:
+            return ObserveAction.STOP
+        if tr.offset < 0 or not (tr.offset <= tok < tr.offset + tr.count):
+            return ObserveAction.PASSTHROUGH
+        code = tok - tr.offset
+        self.frames.append([code])
+        if self.uses_embed_override and self.lm is not None:
+            self.next_embed = self.lm.compose_next_embd([code],
+                                                        self._embed_step)
+            self._embed_step += 1
+            return ObserveAction.CONSUMED_EMBED
+        return ObserveAction.CONSUMED
+
     def observe_codes(self, codes: Sequence[int], last_hidden=None,
                       compose: bool = True) -> ObserveAction:
         """Type C/D frame observe (reference: audio_lm_observe_codes):
@@ -140,3 +219,41 @@ class AudioLM:
         if not self.frames:
             return np.zeros((0, self.n_codebook), np.int32)
         return np.asarray(self.frames, np.int32)
+
+    def push_codes(self, codes) -> None:
+        """Append [T, n_cb] frames made elsewhere to the accumulator
+        (reference: audio_lm_push_codes, the offline and debug path)."""
+        codes = np.asarray(codes, np.int32)
+        if codes.ndim == 1:
+            codes = codes[:, None]
+        if self.frames and len(self.frames[0]) != codes.shape[1]:
+            raise LmError(f"push_codes: width {codes.shape[1]} mismatches "
+                          f"accumulated n_cb {len(self.frames[0])}")
+        self.frames.extend(codes.tolist())
+
+    def decode_audio(self, n_q: int = 0,
+                     n_speech_frames: Optional[int] = None) -> np.ndarray:
+        """The accumulated codes (or latents) through the codec (reference:
+        audio_lm_decode_audio, common/audio_lm.cpp:1455-1600). Codebook
+        kinds first apply the LM-codes→codec-codes transform (delay
+        unshift, control-cb0 drop, merged-cb0 speech remap, sentinel clamp;
+        decode_transform.py). `n_speech_frames`: the output length for a
+        host that flushed the delay tail after the cb0 EOS (None: T minus
+        the largest delay). `n_q` overrides the decode depth (0: the
+        transform's width)."""
+        if self.codec is None:
+            raise ValueError("no codec attached for decode_audio")
+        if self.is_continuous:
+            return self.codec.decode_latent(np.concatenate(self.latents,
+                                                           axis=0))
+        codes = self.codes_matrix()
+        if not len(codes):
+            raise LmError("decode_audio: no codes accumulated")
+        codes = transform_lm_codes(
+            codes, self.decode_transform,
+            codebook_size=getattr(self.codec, "codebook_size", 0),
+            n_frames_out=n_speech_frames)
+        if not len(codes):
+            raise LmError("decode_audio: no frames left after the decode "
+                          "transform")
+        return self.codec.decode(codes, n_q=n_q)

@@ -18,6 +18,12 @@ forward updates in place at the new positions; attention reads keys
 [0, pos + T) only, which equals the reference's masked attention over
 the whole cache (its -1e30 logits give exp = 0 exactly).
 
+On a device mesh (`set_mesh` tensor-parallel, `set_mesh_ep`
+expert-parallel, `set_mesh_pp` pipeline-parallel over
+parallel/pipeline.py) one process drives every device: each holds its share
+of the layers and of the cache, and `step` / `prefill` return one hidden
+as unsharded.
+
 `backbone_step` is codec_tpu's form of one decode step for B streams: the
 positions are device tensors, the new keys are written at them by a
 scatter, and attention reads a fixed number of cache rows under the mask
@@ -28,7 +34,7 @@ position, so lm/fused_gen.py can capture it in a CUDA graph; `step` and
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
 from ..ops import norms, qmat, rope
+from ..parallel.mesh import place
 
 NEG_INF = -1e30
 _ATTN = ("q", "k", "v", "o")
@@ -176,8 +183,8 @@ def _mm(h: torch.Tensor, w, qmm: Callable) -> torch.Tensor:
     return F.linear(h, w)
 
 
-def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any],
-             cfg: BackboneConfig) -> torch.Tensor:
+def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any], cfg: BackboneConfig,
+             e0: int = 0) -> torch.Tensor:
     """Qwen3-MoE sparse FFN over h [T, hidden] (codec_tpu/lm/backbone.py::
     _moe_ffn; HF Qwen3MoeSparseMoeBlock): the router's softmax in f32 →
     the n_experts_used most probable experts (equal probabilities: the
@@ -190,20 +197,34 @@ def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any],
     pairs are fewer than the experts (a decode step: T · k < E) this form
     gathers the chosen experts' matrices and runs those alone, the same
     sum over the same terms (k of E experts' bytes a token); else it runs
-    codec_tpu's dense form."""
+    codec_tpu's dense form.
+
+    An expert-parallel shard holds experts e0.. of them (fewer than E
+    stacked): it returns their share of the sum, gathering only its own
+    chosen experts where the form gathers."""
     t, k = h.shape[0], cfg.n_experts_used
     probs = torch.softmax(F.linear(h, lw["router"]).float(), dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     if cfg.norm_topk_prob:
         topv = topv / topv.sum(dim=-1, keepdim=True)
+    n_loc = lw["gate_exps"].shape[0]
     if t * k < cfg.n_experts:
+        if n_loc < cfg.n_experts:             # an EP shard's chosen experts
+            tt, jj = ((topi >= e0) & (topi < e0 + n_loc)).nonzero(
+                as_tuple=True)
+            ee, hs = topi[tt, jj] - e0, h[tt]
+            g = torch.einsum("ph,pfh->pf", hs, lw["gate_exps"][ee])
+            u = torch.einsum("ph,pfh->pf", hs, lw["up_exps"][ee])
+            y = torch.einsum("pf,phf->ph", F.silu(g) * u, lw["down_exps"][ee])
+            return h.new_zeros((t, y.shape[1])).index_add_(
+                0, tt, topv[tt, jj, None].to(y.dtype) * y)
         g = torch.einsum("th,tkfh->tkf", h, lw["gate_exps"][topi])
         u = torch.einsum("th,tkfh->tkf", h, lw["up_exps"][topi])
         y = torch.einsum("tkf,tkhf->tkh", F.silu(g) * u, lw["down_exps"][topi])
         return torch.einsum("tk,tkh->th", topv.to(y.dtype), y)
     w = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
-                    device=h.device).scatter(1, topi, topv)
+                    device=h.device).scatter(1, topi, topv)[:, e0:e0 + n_loc]
     g = torch.einsum("th,efh->tef", h, lw["gate_exps"])
     u = torch.einsum("th,efh->tef", h, lw["up_exps"])
     y = torch.einsum("tef,ehf->teh", F.silu(g) * u, lw["down_exps"])
@@ -211,22 +232,23 @@ def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any],
 
 
 def _ffn(h: torch.Tensor, lw: Dict[str, Any], cfg: BackboneConfig,
-         qmm: Callable) -> torch.Tensor:
-    """The layer's FFN over h [T, hidden]: SwiGLU, or the MoE's."""
+         qmm: Callable, e0: int = 0) -> torch.Tensor:
+    """The layer's FFN over h [T, hidden]: SwiGLU, or the MoE's (from
+    expert e0 on an expert-parallel shard)."""
     if cfg.n_experts:
-        return _moe_ffn(h, lw, cfg)
+        return _moe_ffn(h, lw, cfg, e0)
     g = F.silu(_mm(h, lw["gate"], qmm)) * _mm(h, lw["up"], qmm)
     return _mm(g, lw["down"], qmm)
 
 
-def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
-                pos0: int, cfg: BackboneConfig, rope_cs, mask,
-                qmm: Callable = qmat.qmatmul) -> torch.Tensor:
-    """One decoder layer over xb [T, hidden] at positions pos0..pos0+T-1:
-    attention against this layer's cache kv_l [2, n_kv, max_ctx, D] (the
-    new keys and values are written into it in place) + the FFN (SwiGLU,
-    or the MoE's). rope_cs: (cos, sin) of the positions; mask: additive [T, pos0+T] or
-    None (one query sees every key)."""
+def _attn_out(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
+              pos0: int, cfg: BackboneConfig, rope_cs, mask,
+              qmm: Callable) -> torch.Tensor:
+    """A layer's attention over xb [T, hidden] (its o product, before the
+    residual): the new keys and values are written into kv_l
+    [2, n_kv, max_ctx, D] at pos0.. in place. With a tensor-parallel
+    shard's config and weights (its heads, its kv heads) this is the
+    shard's partial o product."""
     t = xb.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = norms.rms_norm(xb, lw["attn_norm"], cfg.rms_eps)
@@ -253,10 +275,48 @@ def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
         logits = logits + mask
     w = torch.softmax(logits, dim=-1).to(vals.dtype)
     ctx = torch.matmul(w, vals).reshape(nh, t, hd).transpose(0, 1)
-    xb = xb + _mm(ctx.reshape(t, nh * hd), lw["o"], qmm)
+    return _mm(ctx.reshape(t, nh * hd), lw["o"], qmm)
 
+
+def layer_block(xb: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
+                pos0: int, cfg: BackboneConfig, rope_cs, mask,
+                qmm: Callable = qmat.qmatmul) -> torch.Tensor:
+    """One decoder layer over xb [T, hidden] at positions pos0..pos0+T-1:
+    attention against this layer's cache kv_l [2, n_kv, max_ctx, D] (the
+    new keys and values are written into it in place) + the FFN (SwiGLU,
+    or the MoE's). rope_cs: (cos, sin) of the positions; mask: additive [T, pos0+T] or
+    None (one query sees every key)."""
+    xb = xb + _attn_out(xb, lw, kv_l, pos0, cfg, rope_cs, mask, qmm)
     return xb + _ffn(norms.rms_norm(xb, lw["ffn_norm"], cfg.rms_eps), lw, cfg,
                      qmm)
+
+
+def positions_rope_mask(pos0: int, t: int, cfg: BackboneConfig,
+                        freq_factors, device):
+    """(cos, sin) of positions pos0..pos0+T-1 on `device`, and the additive
+    causal mask [T, pos0+T] (None for one row: a query at p sees keys
+    <= p)."""
+    positions = torch.arange(pos0, pos0 + t, device=device)
+    rope_cs = rope.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                                freq_factors=freq_factors)
+    mask = None
+    if t > 1:
+        key_pos = torch.arange(pos0 + t, device=device)
+        mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, NEG_INF)
+    return rope_cs, mask
+
+
+def run_layers(layers, kv: torch.Tensor, pos0: int, x: torch.Tensor,
+               cfg: BackboneConfig, freq_factors,
+               qmm: Callable = qmat.qmatmul) -> torch.Tensor:
+    """`layers` (a list of layer dicts, whole or one pipeline stage's) over
+    x [T, hidden] at positions pos0..; kv [len(layers), 2, n_kv, max_ctx,
+    D] their caches, updated in place → x after the last of them."""
+    rope_cs, mask = positions_rope_mask(pos0, x.shape[0], cfg, freq_factors,
+                                        x.device)
+    for li, lw in enumerate(layers):
+        x = layer_block(x, lw, kv[li], pos0, cfg, rope_cs, mask, qmm)
+    return x
 
 
 def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
@@ -265,16 +325,8 @@ def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
     """x: [T, hidden] new-token embeddings at positions pos0..pos0+T-1;
     kv [L, 2, n_kv, max_ctx, D] is updated in place → hiddens [T, hidden]
     after the output norm."""
-    t = x.shape[0]
-    positions = torch.arange(pos0, pos0 + t, device=x.device)
-    rope_cs = rope.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
-                                freq_factors=params["freq_factors"])
-    mask = None
-    if t > 1:                                 # query at p sees keys <= p
-        key_pos = torch.arange(pos0 + t, device=x.device)
-        mask = torch.where(key_pos[None, :] <= positions[:, None], 0.0, NEG_INF)
-    for li, lw in enumerate(params["layers"]):
-        x = layer_block(x, lw, kv[li], pos0, cfg, rope_cs, mask, qmm)
+    x = run_layers(params["layers"], kv, pos0, x, cfg, params["freq_factors"],
+                   qmm)
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
 
 
@@ -325,9 +377,17 @@ def backbone_step(params: Dict[str, Any], kv: torch.Tensor, pos: torch.Tensor,
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
 
 
+def _part(t: torch.Tensor, dim: int, i: int, n: int,
+          device) -> torch.Tensor:
+    """Part i of n of t along dim, as its own tensor on `device`."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size).to(device, copy=True)
+
+
 class LlamaBackbone:
     """A backbone GGUF on `device`, with the tts_runner Backbone protocol
-    (`step`) plus `prefill`, `embed_tokens` and `text_logits`.
+    (`step`) plus `prefill`, `embed_tokens` and `text_logits`, and the
+    device mesh (`set_mesh`, `set_mesh_ep`, `set_mesh_pp`).
 
     `quantized` keeps Q8_0/Q4_K matrices packed (default False: they are
     dequantized at load). `qmm` is the packed product (default
@@ -365,14 +425,18 @@ class LlamaBackbone:
         self.device = params["tok_embd"].device
         self.qmm = qmm
         self.kv: Optional[torch.Tensor] = None
+        # a mesh (set_mesh, set_mesh_ep, set_mesh_pp): "tp" | "ep" | "pp"
+        self.mesh_kind: Optional[str] = None
         self.reset()
 
     # -- state -------------------------------------------------------------
     def reset(self) -> None:
-        """Empty context; the KV cache is allocated once and reused."""
+        """Empty context; the KV cache is allocated once and reused (on a
+        mesh, every device's share stays where it was placed)."""
         c = self.cfg
         shape = (c.n_layers, 2, c.n_kv_heads, c.max_ctx, c.head_dim)
-        if self.kv is None or tuple(self.kv.shape) != shape:
+        if self.mesh_kind is None and (self.kv is None
+                                       or tuple(self.kv.shape) != shape):
             self.kv = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.pos = 0
 
@@ -381,8 +445,173 @@ class LlamaBackbone:
             raise ValueError(f"backbone context full: {self.pos} + "
                              f"{x.shape[0]} > max_ctx {self.cfg.max_ctx}")
         with torch.inference_mode():
-            return backbone_forward(self.params, self.kv, self.pos, x,
-                                    self.cfg, self.qmm)
+            if self.mesh_kind is None:
+                return backbone_forward(self.params, self.kv, self.pos, x,
+                                        self.cfg, self.qmm)
+            if self.mesh_kind == "pp":
+                return self._pp(self.shards, self.kvs, self.params["out_norm"],
+                                self.pos, x, self.qmm)
+            return self._split_forward(x)
+
+    # -- the device mesh (codec_tpu/lm/backbone.py:317-452) -----------------
+    # One process drives every device: the layer weights and KV caches are
+    # split into per-device shares (`shards`, `kvs`, one a mesh device);
+    # the embedding, output norm and LM head (`params`, no "layers" left)
+    # stay on the mesh's first device, where the hiddens come back. The
+    # generation chunks (lm/fused_gen.py) read `params` and `kv` whole, so
+    # a sharded backbone runs the host path (step / prefill).
+    def set_mesh(self, mesh, axis: str = "tp") -> None:
+        """Tensor parallelism over mesh[axis] (Megatron): q/k/v/gate/up
+        split by output rows with their biases, o/down by input columns;
+        the attention heads and the KV cache split on the kv-head axis, so
+        a GQA group stays on one device; a MoE's experts split on their
+        ffn dim, the router replicated. Each device's partial o and down
+        products are summed explicitly, in mesh order, on the first device
+        and the sum copied back to every device (`reductions` counts the
+        sums). Requires n_heads, n_kv_heads and ffn_dim (moe_ffn_dim for a
+        MoE) divisible by the mesh size; packed weights (quantized=True)
+        are refused, as codec_tpu refuses them."""
+        c = self.cfg
+        devs = mesh.axis_devices(axis)
+        n = len(devs)
+        checks = [("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads)]
+        # only the ffn dims that exist as tensors constrain the split
+        checks.append(("moe_ffn_dim", c.moe_ffn_dim) if c.n_experts
+                      else ("ffn_dim", c.ffn_dim))
+        for name, dim in checks:
+            if dim % n:
+                raise ValueError(f"backbone TP: {name}={dim} not divisible "
+                                 f"by mesh size {n}")
+        self._check_unplaced()
+        if any(isinstance(lw.get(k), dict) for lw in self.params["layers"]
+               for k in _ATTN + _FFN):
+            raise ValueError("backbone TP: packed-quantized weights are "
+                             "not supported; load with quantized=False")
+        # the dim each split tensor splits on; the rest replicate
+        split = {"q": 0, "k": 0, "v": 0, "gate": 0, "up": 0, "o": 1, "down": 1,
+                 "q_b": 0, "k_b": 0, "v_b": 0,
+                 "gate_exps": 1, "up_exps": 1, "down_exps": 2}
+
+        def share(lw, i, d):
+            return {k: (place(v, d) if k not in split else
+                        _part(v, split[k], i, n, d)) for k, v in lw.items()}
+
+        self._place("tp", devs, [[share(lw, i, d) for lw in self.params["layers"]]
+                                 for i, d in enumerate(devs)],
+                    kv_heads=c.n_kv_heads // n)
+        self.shard_cfg = replace(c, n_heads=c.n_heads // n,
+                                 n_kv_heads=c.n_kv_heads // n,
+                                 ffn_dim=c.ffn_dim // n,
+                                 moe_ffn_dim=c.moe_ffn_dim // n)
+
+    def set_mesh_ep(self, mesh, axis: str = "ep") -> None:
+        """Expert parallelism over mesh[axis] for a MoE backbone: device i
+        holds experts [i E/n, (i+1) E/n) of every layer; the attention,
+        router, norms and KV cache are replicated. Each device computes its
+        experts' share of the MoE sum for every token (gathering only its
+        own chosen experts where the form gathers) and the shares are
+        summed as TP's partial products are. Requires n_experts divisible
+        by the mesh size; a dense backbone is refused."""
+        c = self.cfg
+        devs = mesh.axis_devices(axis)
+        n = len(devs)
+        if not c.n_experts:
+            raise ValueError("backbone EP: not a MoE backbone "
+                             "(backbone.n_experts == 0)")
+        if c.n_experts % n:
+            raise ValueError(f"backbone EP: n_experts={c.n_experts} not "
+                             f"divisible by mesh size {n}")
+        self._check_unplaced()
+
+        def share(lw, i, d):
+            return {k: (_part(v, 0, i, n, d) if k in _EXPERTS[1:]
+                        else place(v, d)) for k, v in lw.items()}
+
+        self._place("ep", devs, [[share(lw, i, d) for lw in self.params["layers"]]
+                                 for i, d in enumerate(devs)],
+                    kv_heads=c.n_kv_heads)
+        self.shard_cfg = c
+        self.expert0 = [i * (c.n_experts // n) for i in range(n)]
+
+    def set_mesh_pp(self, mesh, axis: str = "pp",
+                    microbatches: int = 4) -> None:
+        """Pipeline parallelism over mesh[axis]: stage s holds layers
+        [s L/S, (s+1) L/S) whole, with their KV caches, on device s, and
+        prefill and step run parallel/pipeline.py's GPipe schedule
+        (`microbatches` caps the split of a prefill's rows). Packed
+        Q8_0/Q4_K layers stay packed, so each stage's products run the
+        packed kernels (PP × Q4_K is the largest backbone a set of cards
+        holds). Requires n_layers divisible by the mesh size."""
+        from ..parallel.pipeline import build_pp_forward
+
+        c = self.cfg
+        devs = mesh.axis_devices(axis)
+        n = len(devs)
+        if c.n_layers % n:
+            raise ValueError(f"backbone PP: n_layers={c.n_layers} not "
+                             f"divisible by mesh size {n}")
+        self._check_unplaced()
+        per = c.n_layers // n
+        layers = self.params["layers"]
+        self._place("pp", devs, [[place(lw, d) for lw in layers[i * per:
+                                                              (i + 1) * per]]
+                                 for i, d in enumerate(devs)],
+                    kv_heads=c.n_kv_heads, n_layers=per)
+        self._pp = build_pp_forward(c, mesh, axis, int(microbatches))
+
+    def _check_unplaced(self) -> None:
+        if self.mesh_kind is not None:
+            raise ValueError(f"backbone already sharded ({self.mesh_kind}); "
+                             f"load it again to place it another way")
+
+    def _place(self, kind: str, devs, layer_shares, kv_heads: int,
+               n_layers: int = 0) -> None:
+        """Record the shares: `shards[i]` = {"layers", "freq_factors"} on
+        devs[i], `kvs[i]` its caches; the head stays on devs[0]."""
+        c = self.cfg
+        ff = self.params["freq_factors"]
+        self.shards = [{"layers": ls, "freq_factors": place(ff, d)}
+                       for ls, d in zip(layer_shares, devs)]
+        self.kvs = [torch.zeros((n_layers or c.n_layers, 2, kv_heads,
+                                 c.max_ctx, c.head_dim), dtype=self.dtype,
+                                device=d) for d in devs]
+        self.params = {k: place(v, devs[0]) for k, v in self.params.items()
+                       if k != "layers"}
+        self.mesh_kind, self.mesh_devices = kind, list(devs)
+        self.device = torch.device(devs[0])
+        self.kv = None
+        self.reductions = 0
+
+    def _reduce(self, parts):
+        """The devices' partial sums added in mesh order on the first
+        device; the sum copied back to each device."""
+        self.reductions += 1
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device, non_blocking=True)
+        return [total.to(d, non_blocking=True) for d in self.mesh_devices]
+
+    def _split_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of a TP or EP backbone: the residual stream on every
+        device, each device's attention (its heads under TP, all of them
+        under EP) and FFN share computed there, the partial sums reduced."""
+        c, sc, pos0 = self.cfg, self.shard_cfg, self.pos
+        tp = self.mesh_kind == "tp"
+        devs = self.mesh_devices
+        xs = [x.to(d, non_blocking=True) for d in devs]
+        rms = [positions_rope_mask(pos0, x.shape[0], c, sh["freq_factors"], d)
+               for sh, d in zip(self.shards, devs)]
+        e0 = self.expert0 if not tp else [0] * len(devs)
+        for li in range(c.n_layers):
+            lws = [sh["layers"][li] for sh in self.shards]
+            att = [_attn_out(xd, lw, kv[li], pos0, sc, *rm, self.qmm)
+                   for xd, lw, kv, rm in zip(xs, lws, self.kvs, rms)]
+            xs = [xd + a for xd, a in zip(xs, self._reduce(att) if tp else att)]
+            ffn = [_ffn(norms.rms_norm(xd, lw["ffn_norm"], c.rms_eps), lw, sc,
+                        self.qmm, e)
+                   for xd, lw, e in zip(xs, lws, e0)]
+            xs = [xd + f for xd, f in zip(xs, self._reduce(ffn))]
+        return norms.rms_norm(xs[0], self.params["out_norm"], c.rms_eps)
 
     # -- Backbone protocol + helpers ----------------------------------------
     def step(self, embed: np.ndarray) -> np.ndarray:
@@ -426,3 +655,20 @@ def create_backbone(path, dtype=torch.float32, max_ctx: int = 0,
                     quantized: bool = False, device="cuda") -> LlamaBackbone:
     return LlamaBackbone(path, dtype=dtype, max_ctx=max_ctx,
                          quantized=quantized, device=device)
+
+
+def apply_backbone_mesh(bb: LlamaBackbone, kind: str, n: int,
+                        devices=None) -> None:
+    """The --tp/--pp/--ep surfaces' shared dispatch: shard `bb` over an
+    n-device mesh of the given kind (the first n cards, or `devices`)."""
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, axis=kind, devices=devices)
+    if kind == "tp":
+        bb.set_mesh(mesh, axis="tp")
+    elif kind == "pp":
+        bb.set_mesh_pp(mesh, axis="pp")
+    elif kind == "ep":
+        bb.set_mesh_ep(mesh, axis="ep")
+    else:
+        raise ValueError(f"unknown backbone mesh kind {kind!r}")

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sample import gumbel
+from ..runtime.model import CodecError
 from .backbone import backbone_step
 
 _CTX_STEP = 64     # the attended cache rows are a multiple of this
@@ -272,6 +273,7 @@ class ChunkRunner:
 
     def __init__(self, lm, backbone, chain, n_frames: int, cb0_range,
                  batched: bool, b: int, ctx: int):
+        unsharded(backbone, "a generation chunk")
         cfg, dev = backbone.cfg, backbone.device
         self.k = n_frames
         self.n_cb = lm.info.n_codebook
@@ -420,6 +422,7 @@ class StreamRunner:
     the packed result; `kv` is the backbone's cache."""
 
     def __init__(self, lm, backbone, chain, rep, n_frames: int, ctx: int):
+        unsharded(backbone, "a stream chunk")
         cfg, dev = backbone.cfg, backbone.device
         self.k = int(n_frames)
         self.n_cb = lm.info.n_codebook
@@ -492,6 +495,7 @@ def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
 
     `traced_chain=True` (batched only) ignores the chain statics: the
     runner's `chains` [B, 4] carries each stream's chain."""
+    unsharded(backbone, "a generation chunk")
     if traced_chain and not batched:
         raise ValueError("traced_chain is a batched-chunk mode")
     if stream and (batched or cb0_range is not None):
@@ -558,11 +562,30 @@ def supports_gen_chunk(lm: Any, backbone: Any) -> bool:
     its `gen_chunk_ok()`, false where the feedback depends on the step)
     and a backbone whose weights, KV cache and config it can run itself
     (the tts_runner Backbone protocol alone, an opaque host LLM, cannot be
-    chained on the device)."""
+    chained on the device). A pipeline-staged backbone (set_mesh_pp)
+    stands down, as codec_tpu's does: it generates through the host
+    per-frame loop, whose prefill and step run the pipeline. A TP or EP
+    backbone passes, and the chunk then refuses it (unsharded)."""
     return (hasattr(lm, "_build_frame") and hasattr(lm, "compose_embd_fn")
             and getattr(lm, "gen_chunk_ok", lambda: True)()
             and hasattr(backbone, "params") and hasattr(backbone, "kv")
-            and hasattr(backbone, "cfg"))
+            and hasattr(backbone, "cfg")
+            and getattr(backbone, "mesh_kind", None) != "pp")
+
+
+def unsharded(backbone: Any, what: str) -> None:
+    """Raise CodecError for a backbone on a mesh: `what` (a chunk or a
+    batched run) reads its weights and KV cache whole."""
+    kind = getattr(backbone, "mesh_kind", None)
+    if kind == "pp":
+        raise CodecError(f"{what} over a --pp backbone is not ported: a "
+                         f"pipeline-staged backbone generates through the "
+                         f"host per-frame loop")
+    if kind is not None:
+        raise CodecError(f"{what} over a --tp/--ep backbone is not ported "
+                         f"yet: TP and EP inside the CUDA-graph chunks come "
+                         f"in the next slice; run the host path (no "
+                         f"--on-device)")
 
 
 # -- the continuous-latent chunk (BlueMagpie / VoxCPM) -------------------------
@@ -638,6 +661,7 @@ class ContinuousRunner:
 
     def __init__(self, lm, backbone, n_steps: int, n_timesteps: int,
                  cfg_value: float, ctx: int):
+        unsharded(backbone, "a continuous chunk")
         dev = backbone.device
 
         def zeros(*shape, dtype=torch.float32):
@@ -701,6 +725,7 @@ def continuous_chunk_cached(lm, backbone, *, n_steps: int, n_timesteps: int,
     this backbone, built once and kept on the backbone (the _KEEP used
     last; its graph holds the backbone's weights and KV cache, whose
     address is in the key with the TF32 settings)."""
+    unsharded(backbone, "a continuous chunk")
     key = (id(lm), int(n_steps), int(n_timesteps), float(cfg_value), int(ctx),
            backbone.kv.data_ptr(), repr(backbone.cfg),
            torch.backends.cuda.matmul.allow_tf32,
@@ -865,6 +890,7 @@ class ChatterboxRunner:
     def __init__(self, head, speech_emb, pos_emb, backbone, chain,
                  rep_pen: float, n_frames: int, n_seq: int, cfg_weight: float,
                  stop_token: int, ctx: int, b: int = 0):
+        unsharded(backbone, "a Chatterbox chunk")
         cfg, dev = backbone.cfg, backbone.device
 
         def zeros(*shape, dtype=torch.float32):
@@ -931,6 +957,7 @@ def chatterbox_chunk_cached(lm, t3, backbone, *, chain, rep_pen: float,
     weight, ctx, T3) on this backbone (whose weights both lanes share), kept
     on the backbone (the _KEEP used last). `b` > 0: the B-stream runner,
     its chain data (`chain` is not part of the key)."""
+    unsharded(backbone, "a Chatterbox chunk")
     key = (id(lm), id(t3), None if b else tuple(chain), float(rep_pen),
            int(n_frames), int(n_seq), float(cfg_weight), int(ctx), int(b),
            repr(backbone.cfg), torch.backends.cuda.matmul.allow_tf32,

@@ -940,12 +940,14 @@ def run_chatterbox_batch(
     comes from its own generator, a [K, V] draw a chunk while it runs.
     `sampling`: one chain a stream (data in the graph); the repetition
     penalty is `on_device`'s for every stream. `mesh` (data-parallel
-    streams) is not ported yet."""
+    streams) is not ported yet: it raises CodecError."""
     from ..runtime.model import CodecError
-    from .fused_gen import chatterbox_chunk_cached, chunk_ctx
+    from .fused_gen import chatterbox_chunk_cached, chunk_ctx, unsharded
 
     if mesh is not None:
-        raise CodecError("run_chatterbox_batch(mesh=) is not ported yet")
+        raise CodecError("run_chatterbox_batch(mesh=) is not ported yet: "
+                         "data-parallel streams come in the next slice")
+    unsharded(backbone, "batched Chatterbox")
     b = len(audio_lms)
     if b == 0 or b != len(texts):
         raise ValueError("need one text per stream")
@@ -1055,6 +1057,7 @@ def run_codebook_ar_batch(
     pi=None,
     prefill_bucket: int = 0,
     sampling: Optional[Sequence[OnDeviceSampling]] = None,
+    mesh=None,
 ) -> List[SynthesisResult]:
     """B concurrent Type C/D generations on shared weights, the whole frame
     loop batched on the device (lm/fused_gen.py::build_gen_chunk_batched):
@@ -1070,9 +1073,16 @@ def run_codebook_ar_batch(
     `sampling`: one OnDeviceSampling per stream, their chains as data ([B,
     4], `ops.sample.sample_logits_dyn`; one graph for any mix);
     `on_device` then gives only seed and chunk_frames. None: `on_device`'s
-    chain for every stream."""
-    from .fused_gen import chunk_ctx, gen_chunk_cached, supports_gen_chunk
+    chain for every stream. `mesh` (codec_tpu's data-parallel streams and
+    dp×tp mesh) is not ported yet: it raises CodecError."""
+    from ..runtime.model import CodecError
+    from .fused_gen import (chunk_ctx, gen_chunk_cached, supports_gen_chunk,
+                            unsharded)
 
+    if mesh is not None:
+        raise CodecError("run_codebook_ar_batch(mesh=) is not ported yet: "
+                         "data-parallel streams come in the next slice")
+    unsharded(backbone, "batched generation")
     b = len(audio_lms)
     if b == 0 or b != len(prompt_embeds_list):
         raise ValueError("need one prompt per stream")

@@ -290,5 +290,5 @@ class BlueMagpieAudioVAE(CodecModel):
         with torch.inference_mode(), f32_precision(self.exact_encode):
             mu = bm_encode_latent_fn(
                 self.params, x.to(self.device, self.compute_dtype), self.cfg)
-            mu = mu.float().cpu().numpy()
+            mu = self._host(mu.float())
         return mu[0] if squeeze else mu

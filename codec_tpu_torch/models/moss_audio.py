@@ -438,4 +438,4 @@ class MossAudioCodec(CodecModel):
                 codes = moss_encode_fn(
                     self.params, x.to(self.device, self.compute_dtype),
                     self.cfg, n_valid)
-                return codes[0].to(torch.int32).cpu().numpy()
+                return self._host(codes[0].to(torch.int32))

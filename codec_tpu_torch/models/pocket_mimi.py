@@ -383,7 +383,7 @@ class PocketMimiCodec(CodecModel):
             mu = pocket_encode_latent_fn(
                 self.params, x.to(self.device, self.compute_dtype), self.cfg,
                 n_valid=n)
-            mu = mu.float().cpu().numpy()
+            mu = self._host(mu.float())
         return mu[0] if squeeze else mu
 
     def streaming_decoder(self, batch: int = 1) -> "PocketStreamingDecoder":

@@ -1,11 +1,13 @@
 """CodecModel: the public runtime object (load → encode / decode, and
 decode_async / decode_many for callers with more than one request).
 
-Counterpart of codec_tpu/runtime/model.py, eager: no jit cache, no shape
-buckets, no mesh. Decoding at the exact T gives what the reference's
-padded-and-cropped decode gives: a causal arch is cropped to T*hop
-samples, and a non-causal one (`causal_time = False`) keeps its whole
-output, as the reference decodes it unpadded. Encoding at the exact length
+Counterpart of codec_tpu/runtime/model.py, eager: no jit cache and no
+shape buckets. A data-parallel mesh (`set_mesh`) holds one replica of the
+weights a device and splits each batch into one slice a device. Decoding
+at the exact T gives what the reference's padded-and-cropped decode
+gives: a causal arch is cropped to T*hop samples, and a non-causal one
+(`causal_time = False`) keeps its whole output, as the reference decodes
+it unpadded. Encoding at the exact length
 gives what the reference's bucketed encode gives: a causal arch pads each
 strided conv's input with zeros to a stride multiple (ops/conv.py), which
 is what the reference's per-layer re-mask of its bucket pad computes, and
@@ -16,6 +18,8 @@ is cropped to ceil(n/hop) frames. Each model holds its parameters on one
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -23,12 +27,63 @@ import torch
 
 from ..io.gguf import (GGML_TYPE_BF16, GGML_TYPE_F16, GGML_TYPE_F32,
                        GGUFReader)
+from ..parallel.mesh import row_slices
 from . import op_profile
 from .perf_log import perf_scope
 
 
 class CodecError(ValueError):
     """Invalid-argument / invalid-state errors."""
+
+
+# set while a meshed call runs its slices: the replicas' entries then run
+# as they are, and their copies to the host do not wait
+_slices = threading.local()
+
+
+def _in_slices() -> bool:
+    return getattr(_slices, "on", False)
+
+
+@contextlib.contextmanager
+def _running_slices():
+    prev = _in_slices()
+    _slices.on = True
+    try:
+        yield
+    finally:
+        _slices.on = prev
+
+
+# each public entry's batched argument, by the name its signature gives it
+_BATCH_ARG = {"decode": "codes", "encode": "pcm", "decode_latent": "latent",
+              "encode_latent": "pcm"}
+
+
+def _meshed(entry: str, fn):
+    """`fn` (a public entry), split over the model's mesh when it has one."""
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        if self.mesh is None or _in_slices():
+            return fn(self, *args, **kwargs)
+        if args:
+            x, args = args[0], args[1:]
+        elif _BATCH_ARG[entry] in kwargs:
+            x = kwargs.pop(_BATCH_ARG[entry])
+        else:
+            raise TypeError(f"{entry}() missing its argument "
+                            f"{_BATCH_ARG[entry]!r}")
+        return self._mesh_call(entry, x, args, kwargs)
+
+    return call
+
+
+def _resolved(d: torch.device) -> torch.device:
+    """d with the current card's index when it names none ("cuda")."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 _DTYPE_ALIASES = {
@@ -104,8 +159,8 @@ class CodecModel:
         super().__init_subclass__(**kwargs)
         for entry in op_profile.ENTRIES:
             if entry in cls.__dict__:
-                setattr(cls, entry,
-                        op_profile.profiled(entry, cls.__dict__[entry]))
+                setattr(cls, entry, _meshed(entry, op_profile.profiled(
+                    entry, cls.__dict__[entry])))
 
     # Subclasses set these after load:
     sample_rate: int = 0
@@ -125,6 +180,12 @@ class CodecModel:
     # causal archs decode exactly T*hop samples and are cropped to them;
     # a non-causal arch (symmetric padding) keeps its whole output
     causal_time: bool = True
+    # data parallelism (set_mesh): the mesh, one model a device of its
+    # axis (the first one this model when it sits there), and the devices
+    # the last meshed call's slices ran on
+    mesh = None
+    replicas: Optional[List["CodecModel"]] = None
+    last_out_devices: Optional[List[torch.device]] = None
 
     def __init__(self, reader: GGUFReader, compute_dtype="float32",
                  device="cuda"):
@@ -158,6 +219,81 @@ class CodecModel:
     @property
     def n_tensors(self) -> int:
         return len(self.reader.tensors) if self.reader is not None else 0
+
+    # -- data parallelism (codec_tpu/runtime/model.py:178-205) --------------
+    def set_mesh(self, mesh, axis: str = "dp", dim: int = 0) -> None:
+        """Attach a parallel/mesh.py Mesh: one replica of the weights a
+        device of `axis` (this model itself where the first device is its
+        own), and every later decode, encode, decode_latent,
+        encode_latent, decode_async and decode_many splits its batch into
+        contiguous slices, one a device (the first B mod n one row longer;
+        a batch smaller than the mesh leaves devices idle, and an unbatched
+        input runs on the first). Every slice is enqueued on its device
+        before any is waited on: the copies to the host go into pinned
+        memory without waiting, and one sync a device ends the call. The
+        archs that copy each row to the host as they encode it (S3T,
+        NeuCodec, XCodec2, XY-Tokenizer) and S3Gen's decode wait on each
+        slice before the next. On a mesh that names a device twice, the
+        slices on it run there one after the other.
+
+        dim=1, codec_tpu's sequence parallelism (one stream's time split
+        over the mesh, XLA inserting the halo exchanges), is not ported:
+        it raises CodecError."""
+        if int(dim) != 0:
+            raise CodecError("sequence parallelism is not ported yet "
+                             "(set_mesh(dim=1), --sp): it comes in the next "
+                             "slice, with its op-level halo design")
+        reps: List[CodecModel] = []
+        for i, d in enumerate(mesh.axis_devices(axis)):
+            if i == 0 and _resolved(d) == _resolved(self.device):
+                reps.append(self)
+                continue
+            r = type(self)(self.reader, compute_dtype=self.compute_dtype,
+                           device=d)
+            r.exact_encode = self.exact_encode
+            reps.append(r)
+        self.mesh, self.replicas = mesh, reps
+
+    def _mesh_parts(self, x: np.ndarray, batched_ndim: int):
+        """[(replica, slice)]: x's batch split over the replicas (the empty
+        slices left out), or [(self or the first replica, x)] for an
+        unbatched x, a batch of one, or a model without a mesh."""
+        if self.mesh is None:
+            return [(self, x)]
+        if x.ndim != batched_ndim or x.shape[0] < 2:
+            return [(self.replicas[0], x)]
+        return [(r, x[s]) for r, s in zip(
+            self.replicas, row_slices(x.shape[0], len(self.replicas)))
+                if s.stop > s.start]
+
+    def _mesh_call(self, entry: str, x, args, kwargs) -> np.ndarray:
+        """A public entry over the mesh: each slice through its replica's
+        own entry, all enqueued before one sync a device, then the host
+        results concatenated in order."""
+        x = np.asarray(x)
+        if entry in ("decode", "decode_latent"):
+            batched_ndim = 3
+        else:
+            batched_ndim = 3 if (entry == "encode"
+                                 and self.expected_channels > 1) else 2
+        parts = self._mesh_parts(x, batched_ndim)
+        with _running_slices():
+            outs = [getattr(r, entry)(p, *args, **kwargs) for r, p in parts]
+        for d in {_resolved(r.device) for r, _ in parts
+                  if r.device.type == "cuda"}:
+            torch.cuda.synchronize(d)
+        self.last_out_devices = [r.device for r, _ in parts]
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        """A public entry's result on the host. Inside a meshed call's
+        slices a CUDA tensor is copied into pinned memory without waiting
+        (its values are there after the call's sync; the array keeps the
+        buffer alive); else the copy waits."""
+        if t.is_cuda and _in_slices():
+            return t.to("cpu", non_blocking=True).numpy()
+        return t.cpu().numpy()
 
     # -- subclass hooks ----------------------------------------------------
     def _load(self, reader: GGUFReader) -> None:
@@ -244,7 +380,7 @@ class CodecModel:
         with perf_scope("decode_total", self.arch), self._decoding():
             out, squeeze = self._decode_dispatch(codes, n_q, pcm_format)
             with perf_scope("graph_compute", "decode"):
-                pcm = out.cpu().numpy()
+                pcm = self._host(out)
         return pcm[0] if squeeze else pcm
 
     def decode_async(self, codes, n_q: int = 0,
@@ -252,10 +388,17 @@ class CodecModel:
         """decode without waiting: uploads and enqueues the work on the
         card, no sync → a PendingPcm whose result() makes the one copy to
         the host. Back-to-back calls queue on the card; PendingPcm.gather
-        fetches several with one sync."""
-        with self._decoding():
-            out, squeeze = self._decode_dispatch(codes, n_q, pcm_format)
-        return PendingPcm(out, squeeze)
+        fetches several with one sync. With a mesh, each slice of the
+        batch is enqueued on its replica's device."""
+        parts = self._mesh_parts(np.asarray(codes), 3)
+        outs, squeeze = [], False
+        for r, p in parts:
+            with r._decoding():
+                out, squeeze = r._decode_dispatch(p, n_q, pcm_format)
+            outs.append(out)
+        if self.mesh is not None:
+            self.last_out_devices = [r.device for r, _ in parts]
+        return PendingPcm(outs, squeeze)
 
     def decode_many(self, seqs, n_q: int = 0,
                     pcm_format: str = "f32") -> List[np.ndarray]:
@@ -331,7 +474,7 @@ class CodecModel:
                 codes = self._encode_impl(x.to(self.compute_dtype), use_nq)
                 if self.causal_time:
                     codes = codes[:, :-(-n // self.hop_size)]
-                codes = codes.to(torch.int32).cpu().numpy()
+                codes = self._host(codes.to(torch.int32))
         return codes[0] if squeeze else codes
 
     def decode_latent(self, latent, pcm_format: str = "f32") -> np.ndarray:
@@ -350,40 +493,47 @@ class CodecModel:
             pcm = fn()
             if n_samples is not None:
                 pcm = pcm[:, :n_samples]
-            return self._fmt_out(pcm, pcm_format).cpu().numpy()
+            return self._host(self._fmt_out(pcm, pcm_format))
 
 
 for _entry in op_profile.ENTRIES:
-    setattr(CodecModel, _entry,
-            op_profile.profiled(_entry, CodecModel.__dict__[_entry]))
+    setattr(CodecModel, _entry, _meshed(_entry, op_profile.profiled(
+        _entry, CodecModel.__dict__[_entry])))
 
 
 class PendingPcm:
     """A decode in flight (CodecModel.decode_async): the formatted output
-    on the device. result() copies it to the host (one sync); gather
-    fetches many with one sync."""
+    on the device, in one part a device of a meshed model's slices.
+    result() copies it to the host (one sync); gather fetches many with
+    one sync a device."""
 
-    def __init__(self, out: torch.Tensor, squeeze: bool):
-        self._out = out
+    def __init__(self, outs, squeeze: bool):
+        self._outs: List[torch.Tensor] = list(outs) \
+            if isinstance(outs, (list, tuple)) else [outs]
         self._squeeze = squeeze
 
     def device_array(self) -> torch.Tensor:
-        """The output [B, samples] on the device, for consumers that stay
-        there (no copy to the host)."""
-        return self._out
+        """The output [B, samples] on the device (a meshed model's parts
+        gathered on the first one), for consumers that stay there."""
+        if len(self._outs) == 1:
+            return self._outs[0]
+        dev = self._outs[0].device
+        return torch.cat([o.to(dev) for o in self._outs])
 
-    def _host(self, pcm: np.ndarray) -> np.ndarray:
+    def _host(self, parts: List[torch.Tensor]) -> np.ndarray:
+        pcm = parts[0].numpy() if len(parts) == 1 \
+            else np.concatenate([c.numpy() for c in parts])
         return pcm[0] if self._squeeze else pcm
 
     def result(self) -> np.ndarray:
-        return self._host(self._out.cpu().numpy())
+        return PendingPcm.gather([self])[0]
 
     @staticmethod
     def gather(pending: List["PendingPcm"]) -> List[np.ndarray]:
         """The host PCM of every PendingPcm: the copies are enqueued into
         pinned memory without waiting, then one sync per device."""
-        copies = [p._out.to("cpu", non_blocking=True) if p._out.is_cuda
-                  else p._out for p in pending]
-        for dev in {p._out.device for p in pending if p._out.is_cuda}:
+        copies = [[o.to("cpu", non_blocking=True) if o.is_cuda else o
+                   for o in p._outs] for p in pending]
+        for dev in {o.device for p in pending for o in p._outs if o.is_cuda}:
             torch.cuda.synchronize(dev)
-        return [p._host(c.numpy()) for p, c in zip(pending, copies)]
+        return [p._host(c) for p, c in zip(pending, copies)]

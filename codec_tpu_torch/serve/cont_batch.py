@@ -125,18 +125,22 @@ class ContinuousBatcher:
     A step attends every slot's `ctx` = max_ctx cache rows (the
     backbone's whole cache, as codec_tpu's slot arrays hold it). On CUDA
     the graph is captured when the engine is built. `mesh` (data-parallel
-    slots) is not ported yet.
+    slots) is not ported yet: it raises CodecError.
     """
 
     def __init__(self, backbone, shared_lm, *, n_slots: int = 4,
                  on_device: OnDeviceSampling, pi=None, decode: bool = True,
                  n_q: int = 0, mesh=None, prefill_bucket: int = 0):
-        from ..lm.fused_gen import ChunkRunner, chunk_ctx, supports_gen_chunk
+        from ..lm.fused_gen import (ChunkRunner, chunk_ctx,
+                                    supports_gen_chunk, unsharded)
         from ..lm.tts_runner import _cb0_range
         from ..runtime.model import CodecError
 
         if mesh is not None:
-            raise CodecError("ContinuousBatcher(mesh=) is not ported yet")
+            raise CodecError("ContinuousBatcher(mesh=) is not ported yet: "
+                             "data-parallel engine slots come in the next "
+                             "slice")
+        unsharded(backbone, "the continuous-batching engine")
         if n_slots < 1:
             raise ValueError("need at least one slot")
         if not supports_gen_chunk(shared_lm, backbone):

@@ -87,8 +87,12 @@ class CodecHTTPServer:
     backbone flows) on `device`. `quant_exec` keeps a Q8_0/Q4_K backbone's
     matrices packed for the dequantizing kernels. `cont_batch` > 0 starts
     the continuous-batching engine with that many slots, `chunk_frames`
-    frames a chunk. `backbone_mesh` and `dp` (the parallel backbone and
-    data-parallel streams) are not ported yet."""
+    frames a chunk. `backbone_mesh` ("tp" | "pp" | "ep", N) shards the
+    backbone once at startup (lm/backbone.py::apply_backbone_mesh; the
+    first N cards, or N entries of a `device` that names one), and the
+    serialized /synthesize then runs the host path over it; the engine,
+    /synthesize_batch and `on_device` over a sharded backbone raise
+    CodecError (the next slice), as does `dp` (data-parallel streams)."""
 
     def __init__(self, model_path: str, host: str = "127.0.0.1",
                  port: int = 8765, backbone_path: str = None,
@@ -104,8 +108,10 @@ class CodecHTTPServer:
         from ..lm import create_lm
         from ..runtime.model import CodecError
 
-        if backbone_mesh is not None or dp > 1:
-            raise CodecError("--tp, --pp, --ep and --dp are not ported yet")
+        if dp > 1:
+            raise CodecError("--dp (data-parallel /synthesize_batch streams "
+                             "and engine slots) is not ported yet: it comes "
+                             "in the next slice")
         self.device = device
         self.model = codec_tpu_torch.load_model(model_path, device=device)
         self.reader = GGUFReader(model_path)
@@ -127,6 +133,16 @@ class CodecHTTPServer:
                                             device=device)
             if is_chatterbox(self.reader):
                 self._t3 = ChatterboxT3(self.reader, device=device)
+            if backbone_mesh is not None:
+                from ..lm.backbone import apply_backbone_mesh
+                from ..parallel.mesh import named_devices
+
+                if self._t3 is not None:
+                    raise ValueError("--tp/--pp/--ep do not support the "
+                                     "chatterbox dual-lane flow")
+                apply_backbone_mesh(self.backbone, *backbone_mesh,
+                                    devices=named_devices(
+                                        device, backbone_mesh[1]))
 
         # continuous batching (--cont-batch N): /synthesize requests of
         # plain codebook-AR kinds run through one N-slot engine, admitted
@@ -144,6 +160,7 @@ class CodecHTTPServer:
                                  "in the model GGUF")
             from ..cli.tts_cli import load_backbone_tokenizer
             from ..lm.backbone import LlamaBackbone
+            from ..lm.fused_gen import unsharded
             from ..lm.prompt_info import build_prompt_info
             from ..ops.sample import OnDeviceSampling
             from .cont_batch import ContinuousBatcher, EngineThread
@@ -157,6 +174,7 @@ class CodecHTTPServer:
             self._cont_tok = load_backbone_tokenizer(
                 GGUFReader(backbone_path))
             bb = self.backbone
+            unsharded(bb, "the continuous-batching engine")
             # the engine's own cache over the shared weights: its
             # admissions never touch the serialized paths' backbone
             lane = LlamaBackbone.from_params(bb.cfg, bb.params, bb.dtype,
@@ -636,27 +654,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "device and multiply them with the dequantizing "
                          "kernels")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel backbone over N cards (not "
-                         "ported yet)")
+                    help="shard the backbone tensor-parallel over N devices "
+                         "(serialized /synthesize on the host path)")
     ap.add_argument("--pp", type=int, default=0,
-                    help="pipeline-parallel backbone over N stages (not "
-                         "ported yet)")
+                    help="shard the backbone pipeline-parallel over N "
+                         "stages (serialized /synthesize on the host path)")
     ap.add_argument("--ep", type=int, default=0,
-                    help="expert-parallel MoE backbone over N cards (not "
-                         "ported yet)")
+                    help="shard a MoE backbone expert-parallel over N "
+                         "devices (serialized /synthesize on the host path)")
     ap.add_argument("--dp", type=int, default=0,
                     help="/synthesize_batch streams data-parallel over N "
-                         "cards (not ported yet)")
+                         "cards (not ported yet: the next slice)")
     return ap
 
 
 def main(argv=None) -> int:
+    from ..cli.tts_cli import backbone_mesh_flag
     from ..lm.base import LmError
 
     args = build_parser().parse_args(argv)
-    mesh = next(((k, n) for k, n in (("tp", args.tp), ("pp", args.pp),
-                                     ("ep", args.ep)) if n > 1), None)
     try:
+        mesh = backbone_mesh_flag(args)
         srv = CodecHTTPServer(args.model, args.host, args.port,
                               backbone_path=args.backbone,
                               backbone_mesh=mesh, dp=args.dp,

@@ -272,11 +272,19 @@ def test_cli_batch_decode_latents_and_unported_flags(models, tmp_path,
     for i in range(2):
         _same_wav(tmp_path / "port" / f"z{i}.wav", tmp_path / "jax" /
                   f"z{i}.wav")
-    for flag in ("--dp", "--sp"):
-        assert main(["--model", path, "--codes", *files, "--out-dir",
-                     str(tmp_path / "x"), "--device", "cpu", flag,
-                     "2"]) == 1
-        assert "not ported yet" in capsys.readouterr().err
+    # --dp splits the batch over a mesh of two CPU entries (the same
+    # WAVs); --sp (sequence parallelism) is still not ported
+    assert main(["--model", path, "--codes", *files, "--latent", "--out-dir",
+                 str(tmp_path / "dp"), "--device", "cpu", "--dtype",
+                 "float32", "--dp", "2"]) == 0
+    assert "dp=2: device output sharding ['cpu', 'cpu']" in \
+        capsys.readouterr().out
+    for i in range(2):
+        _same_wav(tmp_path / "dp" / f"z{i}.wav", tmp_path / "port" /
+                  f"z{i}.wav")
+    assert main(["--model", path, "--codes", *files, "--out-dir",
+                 str(tmp_path / "x"), "--device", "cpu", "--sp", "2"]) == 1
+    assert "not ported yet" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
