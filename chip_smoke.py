@@ -666,10 +666,10 @@ QWEN3_QMAT_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144)]
 QWEN3_QMAT_MS = (1, 8)
 # and at the Chatterbox T3 backbone's (Llama-520M's): q/k/v/o, gate/up,
 # down, at m = 1 (a host step, one CFG lane), 2 (the device chunk's step,
-# both lanes as one batch) and 8 (/synthesize_batch's chunk: 4 streams x
-# 2 lanes)
+# both lanes as one batch), 4 (phase 12's data-parallel share: 2 streams x
+# 2 lanes) and 8 (/synthesize_batch's chunk: 4 streams x 2 lanes)
 T3_QMAT_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096)]
-T3_QMAT_MS = (1, 2, 8)
+T3_QMAT_MS = (1, 2, 4, 8)
 # and at the Qwen3-MoE backbone's (Qwen3-30B-A3B's) attention shapes that
 # no other backbone has: q (32 heads x 128 from 2048) and o, at m = 1 and 8
 MOE_QMAT_SHAPES = [(4096, 2048), (2048, 4096)]
@@ -714,6 +714,18 @@ MOE_LAYERS, MOE_PROMPT, MOE_STEPS, MOE_REL = 1, 16, 8, 1e-5
 # of MESH_FRAMES greedy frames against their unsharded runs
 MESH_N, MESH_SECONDS, MESH_BATCH, MESH_REL = 2, 20, 4, 1e-4
 MESH_PROMPT, MESH_STEPS, MESH_BB_REL, MESH_FRAMES = 16, 25, 1e-5, 10
+# -- phase 12, the CUDA-graph paths on the mesh (one card named 2 or 4
+# times): GRAPH_STREAMS CSM streams over dp 2 (the packed products at m =
+# 4 a share, 8 unsharded: rows phase 10 times) and over dp 2 x tp 2 (the
+# backbone dense), GRAPH_FRAMES greedy frames in chunks of GRAPH_CHUNK
+# after a bucketed prefill of GRAPH_PROMPT tokens; TP and EP single-stream
+# chunks, MOSS-TTS-Realtime's stream chunk and BlueMagpie's continuous
+# chunk over TP 2; GRAPH_CBX_STREAMS Chatterbox streams over dp 2 (T3's
+# products at m = 4 a share: 2 streams x 2 lanes); codec-serve-torch --dp 2
+# --tp 2's /synthesize_batch and --dp 2 --cont-batch GRAPH_SLOTS's
+# /synthesize against their unsharded servers
+GRAPH_STREAMS, GRAPH_FRAMES, GRAPH_PROMPT, GRAPH_CHUNK = 8, 16, 16, 8
+GRAPH_CBX_STREAMS, GRAPH_SLOTS, GRAPH_BM_PATCHES = 4, 8, 10
 
 
 def log(msg: str) -> None:
@@ -1047,6 +1059,147 @@ def write_files(*jobs):
         return [f.result() for f in [pool.submit(job) for job in jobs]]
 
 
+_AHEAD: dict = {}    # phase → (its directory, its writers' future)
+
+
+def write_ahead(key: str, prefix: str, jobs, sizes=None) -> None:
+    """Start phase `key`'s random GGUF writes on a background thread: a new
+    temporary directory (`prefix`) and jobs(its path, sizes) → the
+    zero-argument writers (write_files runs them). The phase before it
+    goes on running on the card meanwhile; the phase itself takes its
+    files with `ahead`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = tempfile.TemporaryDirectory(prefix=prefix)
+    pool = ThreadPoolExecutor(max_workers=1)
+    _AHEAD[key] = (tmp, pool.submit(write_files,
+                                    *jobs(Path(tmp.name), sizes or {})))
+    pool.shutdown(wait=False)
+
+
+def ahead(key: str, prefix: str, jobs, sizes=None):
+    """Phase `key`'s files → (their temporary directory, the writers'
+    results, the seconds the phase waited for them): the writes
+    `write_ahead` started, or where none was (a phase run alone, as the
+    CPU rehearsals do) written now. A writer's error raises here, after
+    its directory is removed."""
+    t0 = time.monotonic()
+    tmp, fut = _AHEAD.pop(key, (None, None))
+    if fut is None:
+        tmp = tempfile.TemporaryDirectory(prefix=prefix)
+    try:
+        out = fut.result() if fut is not None else \
+            write_files(*jobs(Path(tmp.name), sizes or {}))
+    except BaseException:
+        tmp.cleanup()
+        raise
+    return tmp, out, time.monotonic() - t0
+
+
+def wrote(tag: str, paths, waited: float) -> None:
+    log(f"[{tag}] wrote " + ", ".join(
+        f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
+        + f" (waited {waited:.2f} s for the writes)")
+
+
+def model_files(d: Path, sizes: dict) -> list:
+    """Phases 4-5's writers: Mimi, DAC and SNAC at full width, each with
+    its encoder."""
+    from codec_tpu_torch.models.dac_init import write_random_dac_gguf
+    from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
+    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
+
+    return [(lambda w=w, n=n: w(d / f"{n}_random.gguf", seed=SEED,
+                                encoder=True))
+            for w, n in ((write_random_mimi_gguf, "mimi"),
+                         (write_random_dac_gguf, "dac"),
+                         (write_random_snac_gguf, "snac"))]
+
+
+def tts_files(d: Path, sizes: dict) -> list:
+    """Phase 9's writers: the CSM codec (with its Mimi encoder, for phase
+    9f's /encode) and Q4_K and Q8_0 backbones at Llama-3.2-1B's widths,
+    TTS_LAYERS of its 16 layers, one draw of the weights for both types
+    quantized on a pool of threads, the byte-fallback vocabulary (phase
+    9f's server tokenizes with it)."""
+    import dataclasses
+
+    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B,
+                                                byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_ggufs,
+                                                write_random_csm_gguf)
+
+    return [lambda: write_random_csm_gguf(d / "csm_random.gguf", seed=SEED,
+                                          encoder=True),
+            lambda: write_random_backbone_ggufs(
+                {q: d / f"backbone_{q}.gguf" for q in ("Q4_K", "Q8_0")},
+                seed=SEED, cfg=dataclasses.replace(LLAMA_3_2_1B,
+                                                   n_layers=TTS_LAYERS),
+                spm_b64=spm_model_b64(byte_fallback_vocab()))]
+
+
+def istft_files(d: Path, sizes: dict) -> list:
+    """Phase 8b's writers: WavTokenizer, Soprano and XY-Tokenizer at full
+    width."""
+    from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
+    from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
+    from codec_tpu_torch.models.xy_init import write_random_xy_gguf
+
+    return [lambda: write_random_wt_gguf(d / "wavtokenizer_random.gguf",
+                                         seed=SEED, encoder=True),
+            lambda: write_random_soprano_gguf(d / "soprano_random.gguf",
+                                              seed=SEED),
+            lambda: write_random_xy_gguf(d / "xy_tokenizer_random.gguf",
+                                         seed=SEED, encoder=True)]
+
+
+def windowed_files(d: Path, sizes: dict) -> list:
+    """Phase 8c's writers: Qwen3-TTS-Tokenizer and Pocket-Mimi."""
+    from codec_tpu_torch.models.pocket_init import write_random_pocket_gguf
+    from codec_tpu_torch.models.qwen3_tts_init import write_random_q3t_gguf
+
+    return [lambda: write_random_q3t_gguf(d / "qwen3_random.gguf", seed=SEED),
+            lambda: write_random_pocket_gguf(d / "pocket_random.gguf",
+                                             seed=SEED)]
+
+
+def neu_files(d: Path, sizes: dict) -> list:
+    """Phase 8d's writers: NeuCodec, DistillNeuCodec and XCodec2."""
+    from codec_tpu_torch.models.neucodec_init import write_random_neu_gguf
+    from codec_tpu_torch.models.xcodec2_init import write_random_x2_gguf
+
+    return [lambda: write_random_neu_gguf(d / "neucodec_random.gguf",
+                                          seed=SEED),
+            lambda: write_random_neu_gguf(d / "distill_neucodec_random.gguf",
+                                          seed=SEED, encoder=True),
+            lambda: write_random_x2_gguf(d / "xcodec2_random.gguf", seed=SEED,
+                                         encoder=True)]
+
+
+def small_files(d: Path, sizes: dict) -> list:
+    """Phase 8e's writers: MOSS, NeMo nano, BlueMagpie, S3T."""
+    from codec_tpu_torch.models.bluemagpie_init import write_random_bm_gguf
+    from codec_tpu_torch.models.moss_init import write_random_moss_gguf
+    from codec_tpu_torch.models.nemo_init import write_random_nemo_gguf
+    from codec_tpu_torch.models.s3t_init import write_random_s3t_gguf
+
+    writers = {"moss": write_random_moss_gguf, "nemo": write_random_nemo_gguf,
+               "bluemagpie": write_random_bm_gguf,
+               "s3t": write_random_s3t_gguf}
+    return [(lambda a=arch, w=write: w(
+        d / f"{a}_random.gguf", seed=SEED,
+        **({} if a == "s3t" else {"encoder": True})))
+        for arch, write in writers.items()]
+
+
+def s3g_files(d: Path, sizes: dict) -> list:
+    """Phase 8f's writer: Chatterbox S3Gen."""
+    from codec_tpu_torch.models.s3g_init import write_random_s3g_gguf
+
+    return [lambda: write_random_s3g_gguf(d / "s3g_random.gguf", seed=SEED)]
+
+
 def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     """Phase 8b: write full-width random WavTokenizer (with its encoder),
     Soprano and XY-Tokenizer (with its encoder) GGUFs, load each with
@@ -1071,27 +1224,16 @@ def istft_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     from codec_tpu_torch.models import wavtokenizer as wt
     from codec_tpu_torch.ops import blocks
     from codec_tpu_torch.models import xy_tokenizer as xy
-    from codec_tpu_torch.models.soprano_init import write_random_soprano_gguf
-    from codec_tpu_torch.models.wavtokenizer_init import write_random_wt_gguf
-    from codec_tpu_torch.models.xy_init import write_random_xy_gguf
     from codec_tpu_torch.ops.rvq import rvq_encode
     from codec_tpu_torch.runtime.model import f32_precision
 
     t_phase = time.monotonic()
     models = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_istft_") as tmp:
+    files, _, waited = ahead("istft", "chip_smoke_istft_", istft_files)
+    with files as tmp:
         paths = {a: Path(tmp) / f"{a}_random.gguf"
                  for a in ("wavtokenizer", "soprano", "xy_tokenizer")}
-        t0 = time.monotonic()
-        write_files(
-            lambda: write_random_wt_gguf(paths["wavtokenizer"], seed=SEED,
-                                         encoder=True),
-            lambda: write_random_soprano_gguf(paths["soprano"], seed=SEED),
-            lambda: write_random_xy_gguf(paths["xy_tokenizer"], seed=SEED,
-                                         encoder=True))
-        log("[istft] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
-            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        wrote("istft", paths.values(), waited)
         t0 = time.monotonic()
         for arch, path in paths.items():
             for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
@@ -1307,24 +1449,18 @@ def windowed_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
 
     import codec_tpu_torch
     from codec_tpu_torch.models import mimi, pocket_mimi, qwen3_tts
-    from codec_tpu_torch.models.pocket_init import write_random_pocket_gguf
-    from codec_tpu_torch.models.qwen3_tts_init import write_random_q3t_gguf
     from codec_tpu_torch.ops.attn_cuda import flash_sdpa_window_ref
     from codec_tpu_torch.ops.rvq import rvq_encode
     from codec_tpu_torch.runtime.model import f32_precision
 
     t_phase = time.monotonic()
     models = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_windowed_") as tmp:
+    files, _, waited = ahead("windowed", "chip_smoke_windowed_",
+                             windowed_files)
+    with files as tmp:
         paths = {"qwen3": Path(tmp) / "qwen3_random.gguf",
                  "pocket": Path(tmp) / "pocket_random.gguf"}
-        t0 = time.monotonic()
-        write_files(lambda: write_random_q3t_gguf(paths["qwen3"], seed=SEED),
-                    lambda: write_random_pocket_gguf(paths["pocket"],
-                                                     seed=SEED))
-        log("[windowed] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
-            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        wrote("windowed", paths.values(), waited)
         t0 = time.monotonic()
         for arch, path in paths.items():
             for dt in ("float32", "bfloat16", "float16"):
@@ -1596,25 +1732,15 @@ def neu_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     from codec_tpu_torch import CodecError
     from codec_tpu_torch.models import neucodec as neu
     from codec_tpu_torch.models import xcodec2 as x2
-    from codec_tpu_torch.models.neucodec_init import write_random_neu_gguf
-    from codec_tpu_torch.models.xcodec2_init import write_random_x2_gguf
     from codec_tpu_torch.runtime.model import f32_precision
 
     t_phase = time.monotonic()
     models = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_neu_") as tmp:
+    files, _, waited = ahead("neu", "chip_smoke_neu_", neu_files)
+    with files as tmp:
         paths = {a: Path(tmp) / f"{a}_random.gguf"
                  for a in ("neucodec", "distill_neucodec", "xcodec2")}
-        t0 = time.monotonic()
-        write_files(
-            lambda: write_random_neu_gguf(paths["neucodec"], seed=SEED),
-            lambda: write_random_neu_gguf(paths["distill_neucodec"],
-                                          seed=SEED, encoder=True),
-            lambda: write_random_x2_gguf(paths["xcodec2"], seed=SEED,
-                                         encoder=True))
-        log("[neu] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
-            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        wrote("neu", paths.values(), waited)
         t0 = time.monotonic()
         for arch, path in paths.items():
             for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
@@ -1870,29 +1996,17 @@ def small_codecs(name_limit: str, zero_counts, counts, none: dict) -> dict:
     import codec_tpu_torch
     from codec_tpu_torch.models import bluemagpie, chatterbox_s3t, moss_audio
     from codec_tpu_torch.models import nemo_nano
-    from codec_tpu_torch.models.bluemagpie_init import write_random_bm_gguf
-    from codec_tpu_torch.models.moss_init import write_random_moss_gguf
-    from codec_tpu_torch.models.nemo_init import LEVELS, write_random_nemo_gguf
-    from codec_tpu_torch.models.s3t_init import write_random_s3t_gguf
+    from codec_tpu_torch.models.nemo_init import LEVELS
     from codec_tpu_torch.ops.attn_cuda import flash_sdpa_window_ref
     from codec_tpu_torch.runtime.model import f32_precision
 
     t_phase = time.monotonic()
     models = {}
-    writers = {"moss": write_random_moss_gguf, "nemo": write_random_nemo_gguf,
-               "bluemagpie": write_random_bm_gguf,
-               "s3t": write_random_s3t_gguf}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as tmp:
+    writers = ("moss", "nemo", "bluemagpie", "s3t")
+    files, _, waited = ahead("small", "chip_smoke_small_", small_files)
+    with files as tmp:
         paths = {a: Path(tmp) / f"{a}_random.gguf" for a in writers}
-        t0 = time.monotonic()
-        write_files(*[
-            (lambda a=arch, w=write: w(paths[a], seed=SEED,
-                                       **({} if a == "s3t"
-                                          else {"encoder": True})))
-            for arch, write in writers.items()])
-        log("[small] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
-            for p in paths.values()) + f" in {time.monotonic() - t0:.2f} s")
+        wrote("small", paths.values(), waited)
         t0 = time.monotonic()
         for arch, path in paths.items():
             for dev, dt in (("cuda", "float32"), ("cuda", "bfloat16"),
@@ -2159,16 +2273,13 @@ def s3g_codec(name_limit: str, zero_counts, counts, none: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from codec_tpu_torch.models import chatterbox_s3g as s3g
-    from codec_tpu_torch.models.s3g_init import write_random_s3g_gguf
     from codec_tpu_torch.runtime.model import f32_precision
 
     t_phase = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_s3g_") as tmp:
+    files, _, waited = ahead("s3g", "chip_smoke_s3g_", s3g_files)
+    with files as tmp:
         path = Path(tmp) / "s3g_random.gguf"
-        t0 = time.monotonic()
-        write_random_s3g_gguf(path, seed=SEED)
-        log(f"[s3g] wrote {path.name} ({path.stat().st_size / 2**20:.1f} "
-            f"MiB) in {time.monotonic() - t0:.2f} s")
+        wrote("s3g", [path], waited)
         t0 = time.monotonic()
         models = {(dev, dt): codec_tpu_torch.load_model(
             path, compute_dtype=dt, device=dev)
@@ -2344,6 +2455,41 @@ def _cleanup(tmp, reuse=None, key: str = "", keep=()):
     reuse[key] = (tmp, *keep)
 
 
+def lm_files(d: Path, sizes: dict) -> list:
+    """Phase 9c's writers: Pocket-TTS, MOSS-TTSD, its Q4_K Qwen3 backbone
+    (MOSS_TTSD_LAYERS layers), BlueMagpie and its f32 MiniCPM backbone
+    (BM_BACKBONE_LAYERS); `sizes` as lm_flows takes them."""
+    import dataclasses
+
+    from codec_tpu_torch.models import lm_tts_init as lti
+    from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_ggufs)
+
+    spm = spm_model_b64(byte_fallback_vocab())
+    qcfg = sizes.get("qwen3", dataclasses.replace(
+        lti.QWEN3_1_7B, n_layers=MOSS_TTSD_LAYERS))
+    mcfg = sizes.get("minicpm", dataclasses.replace(
+        lti.MINICPM4_0_5B, n_layers=BM_BACKBONE_LAYERS))
+    return [
+        lambda: lti.write_pocket_tts_gguf(
+            d / "pocket_tts_random.gguf", seed=SEED,
+            **sizes.get("pocket", {})),
+        lambda: lti.write_moss_ttsd_gguf(
+            d / "moss_ttsd_random.gguf", seed=SEED,
+            **sizes.get("moss", {"phd": lti.PhdConfig(
+                eos_min_step=MOSS_TTSD_FRAMES)})),
+        lambda: write_random_backbone_ggufs(
+            {"Q4_K": d / "qwen3_Q4_K.gguf"}, seed=SEED + 1, cfg=qcfg,
+            rope_scaling=None, spm_b64=spm)["Q4_K"],
+        lambda: lti.write_bluemagpie_tts_gguf(
+            d / "bluemagpie_tts_random.gguf", seed=SEED,
+            **sizes.get("bluemagpie", {})),
+        lambda: write_random_backbone_ggufs(
+            {"F32": d / "minicpm_F32.gguf"}, seed=SEED + 2, cfg=mcfg,
+            rope_scaling=None, spm_b64=spm)["F32"]]
+
+
 def lm_flows(name_limit: str, zero_counts, counts, none: dict,
              dev: str = "cuda", sizes=None, reuse=None) -> dict:
     """Phase 9c: the three LM flows past CSM's, each written at full width
@@ -2375,8 +2521,6 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     ("ttsd") and the Qwen3 backbone on the card and the CPU ("qwen3"); and
     phase 9f's Pocket-TTS file ("pocket" = (its directory, the file)).
     → (launch counts, times)."""
-    import dataclasses
-
     import codec_tpu_torch
     from codec_tpu_torch.cli.tts_cli import (flow_prepare_text,
                                              run_flow_synthesize)
@@ -2390,10 +2534,8 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar,
                                                run_continuous)
-    from codec_tpu_torch.models import lm_tts_init as lti
     from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
-                                                spm_model_b64,
-                                                write_random_backbone_ggufs)
+                                                spm_model_b64)
     from codec_tpu_torch.ops.sample import OnDeviceSampling
 
     sizes = sizes or {}
@@ -2431,35 +2573,11 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     carried = "flash_sdpa_window (carried keys)"
     phase_counts, times = dict(none, **{carried: 0}), {}
     spm = spm_model_b64(byte_fallback_vocab())
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lm_")
+    tmp, (pt_path, ttsd_path, q_path, bm_path, m_path), waited = ahead(
+        "lm", "chip_smoke_lm_", lm_files, sizes)
     try:
-        d = Path(tmp.name)
-        t0 = time.monotonic()
-        qcfg = sizes.get("qwen3", dataclasses.replace(
-            lti.QWEN3_1_7B, n_layers=MOSS_TTSD_LAYERS))
-        mcfg = sizes.get("minicpm", dataclasses.replace(
-            lti.MINICPM4_0_5B, n_layers=BM_BACKBONE_LAYERS))
-        pt_path, ttsd_path, q_path, bm_path, m_path = write_files(
-            lambda: lti.write_pocket_tts_gguf(
-                d / "pocket_tts_random.gguf", seed=SEED,
-                **sizes.get("pocket", {})),
-            lambda: lti.write_moss_ttsd_gguf(
-                d / "moss_ttsd_random.gguf", seed=SEED,
-                **sizes.get("moss", {"phd": lti.PhdConfig(
-                    eos_min_step=MOSS_TTSD_FRAMES)})),
-            lambda: write_random_backbone_ggufs(
-                {"Q4_K": d / "qwen3_Q4_K.gguf"}, seed=SEED + 1, cfg=qcfg,
-                rope_scaling=None, spm_b64=spm)["Q4_K"],
-            lambda: lti.write_bluemagpie_tts_gguf(
-                d / "bluemagpie_tts_random.gguf", seed=SEED,
-                **sizes.get("bluemagpie", {})),
-            lambda: write_random_backbone_ggufs(
-                {"F32": d / "minicpm_F32.gguf"}, seed=SEED + 2, cfg=mcfg,
-                rope_scaling=None, spm_b64=spm)["F32"])
         paths = (pt_path, ttsd_path, q_path, bm_path, m_path)
-        log("[lm] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
-            + f" in {time.monotonic() - t0:.2f} s")
+        wrote("lm", paths, waited)
         t0 = time.monotonic()
         load = codec_tpu_torch.load_model
         pt = {dt: load(pt_path, compute_dtype=dt, device=dev)
@@ -2836,6 +2954,7 @@ def lm_flows(name_limit: str, zero_counts, counts, none: dict,
     if reuse is not None:
         reuse["ttsd"] = (ttsd_reader, plm, plm_cpu, xy, ttsd_ids, pi)
         reuse["qwen3"] = (qbb, qbb_cpu)
+        reuse["bm"] = (clm, bm_reader, bm_ids, mbb)     # phase 12's
     del pt, pt_cpu, flm, flm_cpu, xy, plm, plm_cpu, qbb, qbb_cpu
     del vae, vae_cpu, clm, clm_cpu, mbb, mbb_cpu
     if cuda:
@@ -2925,6 +3044,26 @@ def _moved(tree, dev):
     return tree.to(dev) if torch.is_tensor(tree) else tree
 
 
+def cbx_files(d: Path, sizes: dict) -> list:
+    """Phase 9d's writers: the Chatterbox file (S3Gen + T3), its Q4_K
+    Llama-520M backbone and the Qwen3-TTS speaker encoder; `sizes` as
+    chatterbox_flow takes them."""
+    from codec_tpu_torch.models import chatterbox_init as cbi
+    from codec_tpu_torch.models.lm_init import write_random_backbone_ggufs
+
+    bcfg = sizes.get("backbone", cbi.LLAMA_520M)
+    return [
+        lambda: cbi.write_chatterbox_tts_gguf(
+            d / "chatterbox_random.gguf", seed=SEED,
+            **sizes.get("chatterbox", {})),
+        lambda: write_random_backbone_ggufs(
+            {"Q4_K": d / "t3_Q4_K.gguf"}, seed=SEED + 3, cfg=bcfg,
+            rope_scaling=cbi.T3_ROPE_SCALING)["Q4_K"],
+        lambda: cbi.write_qwen3_speaker_gguf(
+            d / "ecapa_random.gguf", seed=SEED + 4,
+            **sizes.get("ecapa", {}))]
+
+
 def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
                     dev: str = "cuda", sizes=None, reuse=None) -> dict:
     """Phase 9d: the Chatterbox TTS path at full width (text → T3 → S3
@@ -2961,8 +3100,6 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
     from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
     from codec_tpu_torch.lm.chatterbox_t3 import ChatterboxT3
     from codec_tpu_torch.lm.tts_runner import run_chatterbox
-    from codec_tpu_torch.models import chatterbox_init as cbi
-    from codec_tpu_torch.models.lm_init import write_random_backbone_ggufs
     from codec_tpu_torch.ops.sample import OnDeviceSampling
 
     sizes = sizes or {}
@@ -2990,25 +3127,10 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
 
     t_phase = time.monotonic()
     phase_counts, times = dict(none), {}
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cbx_")
+    tmp, (path, q_path, e_path), waited = ahead("cbx", "chip_smoke_cbx_",
+                                                 cbx_files, sizes)
     try:
-        d = Path(tmp.name)
-        t0 = time.monotonic()
-        bcfg = sizes.get("backbone", cbi.LLAMA_520M)
-        path, q_path, e_path = write_files(
-            lambda: cbi.write_chatterbox_tts_gguf(
-                d / "chatterbox_random.gguf", seed=SEED,
-                **sizes.get("chatterbox", {})),
-            lambda: write_random_backbone_ggufs(
-                {"Q4_K": d / "t3_Q4_K.gguf"}, seed=SEED + 3, cfg=bcfg,
-                rope_scaling=cbi.T3_ROPE_SCALING)["Q4_K"],
-            lambda: cbi.write_qwen3_speaker_gguf(
-                d / "ecapa_random.gguf", seed=SEED + 4,
-                **sizes.get("ecapa", {})))
-        log("[cbx] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)"
-            for p in (path, q_path, e_path))
-            + f" in {time.monotonic() - t0:.2f} s")
+        wrote("cbx", (path, q_path, e_path), waited)
         t0 = time.monotonic()
         reader, e_reader = GGUFReader(path), GGUFReader(e_path)
         s3g = codec_tpu_torch.load_model(path, device=dev)
@@ -3239,6 +3361,41 @@ def chatterbox_flow(name_limit: str, zero_counts, counts, none: dict,
     return phase_counts, times
 
 
+def rest_files(d: Path, sizes: dict) -> list:
+    """Phase 9e's writers: LFM2-Audio and its Q4_K and Q8_0 backbones
+    (LFM2_LAYERS layers), MOSS-TTS-Realtime, the Qwen3-MoE backbone
+    (MOE_LAYERS); `sizes` as rest_lm_flows takes them."""
+    import dataclasses
+
+    from codec_tpu_torch.models import lm_tts_init as lti
+    from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
+                                                spm_model_b64,
+                                                write_random_backbone_ggufs)
+
+    spm = spm_model_b64(byte_fallback_vocab())
+    n_fr = sizes.get("frames", FLOW_FRAMES)
+    lfm2_cfg = sizes.get("lfm2", lti.Lfm2Config(
+        eos_min_step=n_fr, max_text_tokens=LFM2_TEXT_TOKENS))
+    return [
+        lambda: lti.write_lfm2_audio_gguf(
+            d / "lfm2_audio_random.gguf", seed=SEED, lfm2=lfm2_cfg,
+            **sizes.get("mimi", {})),
+        lambda: write_random_backbone_ggufs(
+            {q: d / f"lfm2_{q}.gguf" for q in ("Q4_K", "Q8_0")},
+            seed=SEED + 3, rope_scaling=None, spm_b64=spm,
+            cfg=sizes.get("lfm2_bb", dataclasses.replace(
+                lti.LFM2_1_2B, n_layers=LFM2_LAYERS))),
+        lambda: lti.write_moss_realtime_gguf(
+            d / "moss_realtime_random.gguf", seed=SEED,
+            rt=sizes.get("rt", lti.RealtimeConfig(eos_min_step=n_fr)),
+            **sizes.get("moss", {})),
+        lambda: write_random_backbone_ggufs(
+            {"Q4_K": d / "qwen3moe_Q4_K.gguf"}, seed=SEED + 4,
+            rope_scaling=None, spm_b64=spm,
+            cfg=sizes.get("moe", dataclasses.replace(
+                lti.QWEN3_30B_A3B, n_layers=MOE_LAYERS)))["Q4_K"]]
+
+
 def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
                   reuse: dict, dev: str = "cuda", sizes=None) -> tuple:
     """Phase 9e: the rest of the LM layer, each written at full width and
@@ -3282,10 +3439,8 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar,
                                                run_realtime_streaming)
-    from codec_tpu_torch.models import lm_tts_init as lti
     from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
-                                                spm_model_b64,
-                                                write_random_backbone_ggufs)
+                                                spm_model_b64)
 
     sizes = sizes or {}
     cuda = dev == "cuda"
@@ -3389,34 +3544,11 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
     tok = SpmUnigram.from_b64(spm)
     ttsd_reader, plm, plm_cpu, xy, ttsd_ids, ttsd_pi = reuse["ttsd"]
     qbb, qbb_cpu = reuse["qwen3"]
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_rest_")
+    tmp, (lfm2_path, lbb_paths, rt_path, moe_path), waited = ahead(
+        "rest", "chip_smoke_rest_", rest_files, sizes)
     try:
-        d = Path(tmp.name)
-        t0 = time.monotonic()
-        lfm2_cfg = sizes.get("lfm2", lti.Lfm2Config(
-            eos_min_step=n_fr, max_text_tokens=LFM2_TEXT_TOKENS))
-        lfm2_path, lbb_paths, rt_path, moe_path = write_files(
-            lambda: lti.write_lfm2_audio_gguf(
-                d / "lfm2_audio_random.gguf", seed=SEED, lfm2=lfm2_cfg,
-                **sizes.get("mimi", {})),
-            lambda: write_random_backbone_ggufs(
-                {q: d / f"lfm2_{q}.gguf" for q in ("Q4_K", "Q8_0")},
-                seed=SEED + 3, rope_scaling=None, spm_b64=spm,
-                cfg=sizes.get("lfm2_bb", dataclasses.replace(
-                    lti.LFM2_1_2B, n_layers=LFM2_LAYERS))),
-            lambda: lti.write_moss_realtime_gguf(
-                d / "moss_realtime_random.gguf", seed=SEED,
-                rt=sizes.get("rt", lti.RealtimeConfig(eos_min_step=n_fr)),
-                **sizes.get("moss", {})),
-            lambda: write_random_backbone_ggufs(
-                {"Q4_K": d / "qwen3moe_Q4_K.gguf"}, seed=SEED + 4,
-                rope_scaling=None, spm_b64=spm,
-                cfg=sizes.get("moe", dataclasses.replace(
-                    lti.QWEN3_30B_A3B, n_layers=MOE_LAYERS)))["Q4_K"])
         paths = (lfm2_path, *lbb_paths.values(), rt_path, moe_path)
-        log("[rest] wrote " + ", ".join(
-            f"{p.name} ({p.stat().st_size / 2**20:.1f} MiB)" for p in paths)
-            + f" in {time.monotonic() - t0:.2f} s")
+        wrote("rest", paths, waited)
         t0 = time.monotonic()
         load = codec_tpu_torch.load_model
         mimi, mimi_cpu = (load(lfm2_path, device=x) for x in (dev, "cpu"))
@@ -3773,6 +3905,10 @@ def rest_lm_flows(name_limit: str, zero_counts, counts, none: dict,
         line += f"; one step under torch.profiler: {fmt_profile(sprof)}"
     log(line + f" [{name_limit}]")
     reuse["moe"] = moe_cpu          # phase 11's EP backbone
+    # phase 12's TP stream chunk: the realtime LM, reader, PromptInfo and
+    # prompt, and its Qwen3 backbone's packed weights on the CPU
+    reuse["rt"] = (rlm, rt_reader, flows["rt"]["pi"], flows["rt"]["ids"],
+                   qbb_cpu)
     del mimi, mimi_cpu, lbb, lbb_cpu, moss, moss_cpu, moe, moe_cpu, flows
     del llm, rlm, runner
     if cuda:
@@ -4417,9 +4553,10 @@ def serving(name_limit: str, zero_counts, counts, none: dict, paths: dict,
             notes.append(f"frame {f} a near-tie ({margin:.2e})")
         mb = {}
         if cuda:
-            ckey = [k for k in cbb._cbx_chunks if k[8] == SERVE_SLOTS]
-            _, _, mb, mb_us = _profile_mb(cbb._cbx_chunks[ckey[-1]][2].run,
-                                          "q4_k", 8, c_step * CBX_CHUNK)
+            ckey = [k for k in cbb._batch_chunks if k[1] == SERVE_SLOTS]
+            _, _, mb, mb_us = _profile_mb(
+                cbb._batch_chunks[ckey[-1]][2].runner.run, "q4_k", 8,
+                c_step * CBX_CHUNK)
             if mb.get(8, 0) != c_step * CBX_CHUNK:
                 raise RuntimeError(f"serve cbx batch replay: q4_k_matmul by "
                                    f"row bucket {mb}, want "
@@ -4769,6 +4906,446 @@ def mesh_phase(name_limit: str, zero_counts, counts, none: dict, models,
     return phase_counts, times
 
 
+def _dense(bb, dev):
+    """A dense f32 LlamaBackbone on `dev` over `bb`'s weights, its packed
+    Q8_0/Q4_K matrices dequantized (TP takes dense weights)."""
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.ops import qmat
+
+    def dq(v):
+        if isinstance(v, dict) and "qs" in v:
+            return qmat.dequant_ref(v).to(dev)
+        if isinstance(v, dict):
+            return {k: dq(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [dq(x) for x in v]
+        return v.to(dev) if torch.is_tensor(v) else v
+    return LlamaBackbone.from_params(bb.cfg, dq(bb.params))
+
+
+def graphs_phase(name_limit: str, zero_counts, counts, none: dict,
+                 paths: dict, moe_cpu, flows: dict, dev: str = "cuda",
+                 sizes=None) -> tuple:
+    """Phase 12: the CUDA-graph paths on the mesh (lm/fused_gen.py's chunks
+    over a TP or EP backbone's shares and over data-parallel shares of
+    streams), every mesh one card named 2 or 4 times (the shares run in
+    turn: a sharded time is no scaling number). Each case goes through the
+    entry a user calls, its launch counts set to 0 just before and read
+    just after (a first run of the same shape beforehand captures the
+    graphs), and is held to the same call unsharded:
+      - DP: run_codebook_ar_batch over paths["Q4_K"] (phase 9's CSM
+        backbone, packed) with GRAPH_STREAMS streams over dp 2, one graph a
+        share; greedy codes, q4_k_matmul and flash_sdpa_window (the Mimi
+        decodes) launched; q4_k_matmul's launches by row bucket in one
+        share's replay (m = 4) under torch.profiler;
+      - dp x tp on make_mesh_2d(2, 2): the same file dense, TP-split over
+        each dp row;
+      - a TP gen chunk (run_codebook_ar(on_device=...) over the dense
+        backbone split 2 ways) and an EP gen chunk (phase 9e's Qwen3-MoE,
+        `moe_cpu`, 64 experts a share);
+      - a TP stream chunk (MOSS-TTS-Realtime through run_text_audio_flow,
+        flows["rt"] = (its LM, reader, PromptInfo, ids, backbone), greedy)
+        and a TP continuous chunk (BlueMagpie through run_continuous,
+        flows["bm"] = (its LM, reader, ids, dense backbone)), each over
+        its backbone split 2 ways;
+      - DP run_chatterbox_batch (paths["cbx"], paths["cbx_bb"], Q4_K)
+        with GRAPH_CBX_STREAMS greedy streams over dp 2;
+      - codec-serve-torch --dp 2 --tp 2's /synthesize_batch and --dp 2
+        --cont-batch GRAPH_SLOTS's /synthesize (packed), byte-equal to
+        their unsharded servers.
+    Codes equal the unsharded run's, or (CSM) first differ at a near-tie;
+    the latents within 1e-4 of the unsharded peak. `dev` and `sizes` let
+    it run small on the CPU (tests/test_torch_parallel_graphs.py), where
+    the plain versions count nothing. → (launch counts, times)."""
+    import http.client
+    import threading
+
+    import codec_tpu_torch
+    from codec_tpu_torch.cli.tts_cli import run_text_audio_flow
+    from codec_tpu_torch.io.gguf import GGUFReader
+    from codec_tpu_torch.lm import create_lm
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone, create_backbone
+    from codec_tpu_torch.lm.chatterbox_t3 import ChatterboxT3
+    from codec_tpu_torch.lm.tts_runner import (run_chatterbox_batch,
+                                               run_codebook_ar,
+                                               run_codebook_ar_batch,
+                                               run_continuous)
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+    from codec_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from codec_tpu_torch.serve.server import CodecHTTPServer
+
+    sizes = sizes or {}
+    cuda = dev == "cuda"
+    entry = "cuda:0" if cuda else dev
+    n_str = sizes.get("streams", GRAPH_STREAMS)
+    n_fr = sizes.get("frames", GRAPH_FRAMES)
+    n_prompt = sizes.get("prompt", GRAPH_PROMPT)
+    k_ch = sizes.get("chunk", GRAPH_CHUNK)
+    n_cbx = sizes.get("cbx_streams", GRAPH_CBX_STREAMS)
+    n_slots = sizes.get("slots", GRAPH_SLOTS)
+    n_bm = sizes.get("bm_patches", GRAPH_BM_PATCHES)
+    phase_counts, times = dict(none), {}
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 1200)
+    greedy = OnDeviceSampling(chunk_frames=k_ch)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mesh(n, axis="dp"):
+        return make_mesh(n, axis=axis, devices=[entry] * n)
+
+    def launched(label, fn, need=()):
+        """fn() with the counts set to 0 just before and read just after;
+        each kernel in `need` launched at least once (on the CPU the plain
+        versions count nothing) → (its result, the counts, its host-clock
+        ms, the device's work included)."""
+        sync()
+        zero_counts()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        got = counts()
+        if cuda and any(got[k] == 0 for k in need):
+            raise RuntimeError(f"graphs {label}: launches {got}, want "
+                               f"{need} above 0")
+        for k, v in got.items():
+            phase_counts[k] += v
+        return out, {k: v for k, v in got.items() if v}, ms
+
+    def at():
+        return f"at {time.monotonic() - t_phase:.1f} s"
+
+    def timed(fn):
+        """One call's host-clock ms, the device's work included."""
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t) * 1e3
+
+    def same(label, got, want, tie=None):
+        """Codes stream for stream: equal, or (with `tie(s)` → (lm, bb,
+        prompt)) first differing at a near-tie of the unsharded host
+        path's logits → a note."""
+        notes = []
+        for s, (g, w) in enumerate(zip(got, want)):
+            if (g.n_steps, g.stopped_by_eos) != (w.n_steps, w.stopped_by_eos):
+                raise RuntimeError(f"graphs {label} stream {s}: {g.n_steps} "
+                                   f"steps (eos {g.stopped_by_eos}), "
+                                   f"unsharded {w.n_steps} "
+                                   f"({w.stopped_by_eos})")
+            if g.codes.shape == w.codes.shape and np.array_equal(g.codes,
+                                                                 w.codes):
+                continue
+            if tie is None:
+                raise RuntimeError(f"graphs {label} stream {s}: codes differ "
+                                   f"from the unsharded run's")
+            notes.append(f"stream {s}: " + _near_tie_csm(
+                f"graphs {label} stream {s}", *tie(s), g.codes, w.codes))
+        if notes:
+            return "; ".join(notes)
+        return ("codes equal the unsharded run's" if len(got) == 1 else
+                f"codes of all {len(got)} streams equal the unsharded run's")
+
+    # -- DP and dp x tp over phase 9's CSM backbone ---------------------------
+    csm = codec_tpu_torch.load_model(paths["csm"], device=entry)
+    reader = GGUFReader(paths["csm"])
+    lm = create_lm(reader, device=entry)
+    packed = create_backbone(paths["Q4_K"], quantized=True, device=entry)
+    bcfg = packed.cfg
+    prompts = [list(packed.embed_tokens(rng.integers(0, bcfg.vocab_size,
+                                                     n_prompt)))
+               for _ in range(n_str)]
+
+    def batch(bb, mesh_=None, decode=True):
+        bb.reset()
+        return run_codebook_ar_batch(
+            [AudioLM(reader, codec=csm, lm=lm) for _ in prompts], bb,
+            prompts, greedy, max_steps=n_fr, decode=decode,
+            prefill_bucket=n_prompt, mesh=mesh_)
+
+    def tie_of(bb):
+        return lambda s: (lm, bb, prompts[s])
+
+    dp = mesh(MESH_N)
+    want = batch(packed)
+    batch(packed, dp, decode=False)                # captures the shares
+    got, c, _ = launched("dp batch", lambda: batch(packed, dp),
+                         ("q4_k_matmul", "flash_sdpa_window"))
+    note = same("dp batch", got, want, tie_of(packed))
+    for r in got:
+        if r.pcm is None or not np.isfinite(r.pcm).all():
+            raise RuntimeError("graphs dp batch: no finite PCM")
+    t_sh, t_one = (timed(lambda: batch(packed, dp, decode=False)),
+                   timed(lambda: batch(packed, decode=False)))
+    times["dp_batch"] = (t_sh, t_one)
+    line = (f"[graphs] dp run_codebook_ar_batch ({n_str} streams over dp "
+            f"{MESH_N} on {entry}, Q4_K packed, {n_fr} greedy frames in "
+            f"chunks of {k_ch}): {note}; launches {c}; a request without "
+            f"the decode {t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded "
+            f"(one card runs the shares in turn: no scaling number)")
+    if cuda:
+        # the shares' replays count no launch: a share's replay under the
+        # profiler must launch every packed product of its K frames at m = 4
+        share = next(v[2] for k, v in packed._batch_chunks.items()
+                     if k[2] == id(dp)).runner
+        n_mm = 7 * bcfg.n_layers * k_ch
+        _, kern, by_m, us = _profile_mb(share.run, "q4_k", 4, n_mm)
+        if by_m.get(4, 0) < n_mm:
+            raise RuntimeError(f"graphs dp batch: a share's replay launches "
+                               f"q4_k_matmul by row bucket {by_m}, want "
+                               f"{n_mm} at m = 4")
+        times["dp_share_replay"] = dict(kernels=kern, q4_k_by_m=by_m,
+                                        us_at_m4=us)
+        line += (f"; one share's replay under torch.profiler: {kern} "
+                 f"kernels, q4_k_matmul launches by row bucket {by_m} "
+                 f"({us:.2f} us a launch at m = 4)")
+    log(line + f"; {at()} [{name_limit}]")
+
+    dense = _dense(packed, entry)
+    mesh2 = make_mesh_2d(MESH_N, MESH_N, devices=[entry] * MESH_N ** 2)
+    tp2 = LlamaBackbone.from_params(dense.cfg, dense.params)
+    tp2.set_mesh(mesh2, axis="tp")
+    want = batch(dense, decode=False)
+    batch(tp2, mesh2, decode=False)
+    got, c, t_sh = launched("dp x tp batch", lambda: batch(tp2, mesh2,
+                                                           decode=False))
+    note = same("dp x tp batch", got, want, tie_of(dense))
+    t_one = timed(lambda: batch(dense, decode=False))
+    times["dp_tp_batch"] = (t_sh, t_one)
+    log(f"[graphs] dp x tp run_codebook_ar_batch (make_mesh_2d({MESH_N}, "
+        f"{MESH_N}) on {entry}, dense f32, rows {[len(r) for r in tp2.row_devices]}"
+        f" devices): {note}; launches {c} (TP takes dense weights); a "
+        f"request {t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded; "
+        f"{at()} [{name_limit}]")
+    del tp2
+
+    # -- TP and EP single-stream chunks ---------------------------------------
+    def one(bb, lm_=lm, rows=None):
+        bb.reset()
+        return run_codebook_ar(AudioLM(reader, lm=lm_), bb, rows or prompts[0],
+                               max_steps=n_fr, decode=False, on_device=greedy,
+                               prefill_bucket=n_prompt)
+
+    tp = LlamaBackbone.from_params(dense.cfg, dense.params)
+    tp.set_mesh(mesh(MESH_N, "tp"), axis="tp")
+    want = one(dense)
+    one(tp)
+    got, c, t_sh = launched("tp chunk", lambda: one(tp))
+    note = same("tp chunk", [got], [want], tie_of(dense))
+    t_one = timed(lambda: one(dense))
+    times["tp_chunk"] = (t_sh, t_one)
+    log(f"[graphs] tp gen chunk (run_codebook_ar on the device, dense "
+        f"backbone split {MESH_N} ways, {tp.reductions} reductions counted: "
+        f"the captures' runs, not the replays): {note}; a request "
+        f"{t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded; {at()} "
+        f"[{name_limit}]")
+    del tp, dense
+
+    mcfg = moe_cpu.cfg
+    ref_m = LlamaBackbone.from_params(mcfg, _moved(moe_cpu.params, entry))
+    ep = LlamaBackbone.from_params(mcfg, ref_m.params)
+    ep.set_mesh_ep(mesh(MESH_N, "ep"))
+    mrows = list(ref_m.embed_tokens(rng.integers(0, mcfg.vocab_size,
+                                                 n_prompt)))
+    want = one(ref_m, rows=mrows)
+    one(ep, rows=mrows)
+    got, c, t_sh = launched("ep chunk", lambda: one(ep, rows=mrows),
+                            ("q4_k_matmul",))
+    note = same("ep chunk", [got], [want],
+                lambda s: (lm, ref_m, mrows))
+    t_one = timed(lambda: one(ref_m, rows=mrows))
+    times["ep_chunk"] = (t_sh, t_one)
+    log(f"[graphs] ep gen chunk (Qwen3-MoE, {mcfg.n_experts} experts, "
+        f"{mcfg.n_experts // MESH_N} a share, all k chosen slots gathered, "
+        f"clamped into each share): {note}; launches {c} (the prefill's "
+        f"packed attention; the chunk's replays are not counted); a request "
+        f"{t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded; {at()} "
+        f"[{name_limit}]")
+    del ep, ref_m
+
+    # -- the stream and continuous chunks over TP ------------------------------
+    rt_lm, rt_reader, rt_pi, rt_ids, rt_bb = flows["rt"]
+    rt_dense = _dense(rt_bb, entry)
+    rt_tp = LlamaBackbone.from_params(rt_dense.cfg, rt_dense.params)
+    rt_tp.set_mesh(mesh(MESH_N, "tp"), axis="tp")
+
+    def rt(bb):
+        bb.reset()
+        return run_text_audio_flow(
+            AudioLM(rt_reader, lm=rt_lm), bb, rt_pi, rt_ids, max_steps=n_fr,
+            on_device=True, chunk_frames=k_ch, temperature=0.0,
+            prefill_bucket=sizes.get("bucket", FLOW_BUCKET))
+
+    want = rt(rt_dense)
+    rt(rt_tp)
+    got, c, t_sh = launched("tp stream chunk", lambda: rt(rt_tp))
+    note = same("tp stream chunk", [got], [want])
+    t_one = timed(lambda: rt(rt_dense))
+    times["tp_stream_chunk"] = (t_sh, t_one)
+    log(f"[graphs] tp stream chunk (MOSS-TTS-Realtime through "
+        f"run_text_audio_flow --on-device, its Qwen3 backbone dense, split "
+        f"{MESH_N} ways, greedy with the repetition penalty's history): "
+        f"{note}; a request {t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded; "
+        f"{at()} [{name_limit}]")
+    del rt_tp, rt_dense
+
+    bm_lm, bm_reader, bm_ids, bm_bb = flows["bm"]
+    bm_tp = LlamaBackbone.from_params(bm_bb.cfg, bm_bb.params)
+    bm_tp.set_mesh(mesh(MESH_N, "tp"), axis="tp")
+
+    def bm(bb):
+        bb.reset()
+        return run_continuous(AudioLM(bm_reader, lm=bm_lm), bb,
+                              list(bb.embed_tokens(bm_ids)), max_steps=n_bm,
+                              min_len=n_bm, decode=False, chunk_steps=k_ch)
+
+    want = bm(bm_bb)
+    bm(bm_tp)
+    got, c, t_sh = launched("tp continuous chunk", lambda: bm(bm_tp))
+    peak = float(np.abs(want.codes).max())
+    err = float(np.abs(got.codes - want.codes).max()) \
+        if got.codes.shape == want.codes.shape else float("inf")
+    if got.n_steps != want.n_steps or not err <= 1e-4 * peak:
+        raise RuntimeError(f"graphs tp continuous chunk: {got.n_steps} "
+                           f"patches, latents max abs err {err} (peak "
+                           f"{peak}), unsharded {want.n_steps}")
+    t_one = timed(lambda: bm(bm_bb))
+    times["tp_continuous_chunk"] = (t_sh, t_one)
+    log(f"[graphs] tp continuous chunk (BlueMagpie through run_continuous "
+        f"in chunks of {k_ch}, its MiniCPM backbone split {MESH_N} ways): "
+        f"{got.n_steps} patches, latents within {err / peak:.2e} of the "
+        f"unsharded run's peak; a request {t_sh:.1f} ms sharded, "
+        f"{t_one:.1f} ms unsharded; {at()} [{name_limit}]")
+    del bm_tp
+
+    # -- DP batched Chatterbox --------------------------------------------------
+    cbx_reader = GGUFReader(paths["cbx"])
+    t3 = ChatterboxT3(cbx_reader, device=entry)
+    cbx_lm = create_lm(cbx_reader, device=entry)
+    cbx_bb = create_backbone(paths["cbx_bb"], quantized=True, device=entry)
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n_cbx)]
+    cbx_greedy = OnDeviceSampling(chunk_frames=k_ch, repetition_penalty=1.2)
+
+    def cbx(mesh_=None):
+        return run_chatterbox_batch(
+            [AudioLM(cbx_reader, lm=cbx_lm) for _ in texts], t3, cbx_bb,
+            texts, cbx_greedy, max_frames=n_fr, decode=False, mesh=mesh_,
+            prefill_bucket=sizes.get("cbx_bucket", CBX_BUCKET))
+
+    want = cbx()
+    # the shares' first call captures their graphs: its counts are the
+    # products the captures ran (a bucketed prefill of more than 32 rows
+    # dequantizes, and a replay counts none)
+    got, c, _ = launched("dp chatterbox", lambda: cbx(dp), ("q4_k_matmul",))
+    note = same("dp chatterbox", got, want)
+    t_sh, t_one = timed(lambda: cbx(dp)), timed(cbx)
+    times["dp_chatterbox"] = (t_sh, t_one)
+    log(f"[graphs] dp run_chatterbox_batch ({n_cbx} greedy streams with "
+        f"CFG over dp {MESH_N}: T3's products at m = {2 * n_cbx // MESH_N} a "
+        f"share, {2 * n_cbx} unsharded): {note}; launches {c} (the shares' "
+        f"captures); a request "
+        f"{t_sh:.1f} ms sharded, {t_one:.1f} ms unsharded; {at()} "
+        f"[{name_limit}]")
+    del t3, cbx_lm, cbx_bb
+
+    # -- the server's --dp --------------------------------------------------------
+    def post(srv, path, body):
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+        conn.request("POST", path, body=json.dumps(body).encode())
+        r = conn.getresponse()
+        data = r.read()
+        conn.close()
+        if r.status != 200:
+            raise RuntimeError(f"graphs {path}: status {r.status}: "
+                               f"{data[:300]!r}")
+        return data
+
+    def served(label, srv, path, bodies, need=(), warm=True):
+        """Each body posted in turn (with `warm` the first once more
+        beforehand, its graphs captured) → (responses, launches, ms a
+        response)."""
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            if warm:
+                post(srv, path, bodies[0])
+            out, c, ms = launched(label, lambda: [post(srv, path, b)
+                                                  for b in bodies], need)
+            return out, c, ms / len(bodies)
+        finally:
+            srv.shutdown()
+
+    kw = dict(port=0, backbone_path=str(paths["Q4_K"]), device=entry)
+    bodies = [{"texts": list(SERVE_TEXTS), "seed": 0, "max_frames": n_fr,
+               "chunk_frames": k_ch}]
+    want, _, t_one = served("serve", CodecHTTPServer(str(paths["csm"]), **kw),
+                            "/synthesize_batch", bodies)
+    srv = CodecHTTPServer(str(paths["csm"]), backbone_mesh=("tp", MESH_N),
+                          dp=MESH_N, **kw)
+    shape = dict(srv.batch_mesh.shape)
+    got, c, t_sh = served("serve --dp --tp", srv, "/synthesize_batch",
+                          bodies, ("flash_sdpa_window",))
+    if got != want:
+        raise RuntimeError("graphs: codec-serve-torch --dp 2 --tp 2's "
+                           "/synthesize_batch is not the unsharded server's")
+    times["serve_dp_tp_batch"] = (t_sh, t_one)
+    log(f"[graphs] codec-serve-torch --dp {MESH_N} --tp {MESH_N} (mesh "
+        f"{shape}, dense backbone): /synthesize_batch of {len(SERVE_TEXTS)} "
+        f"texts x {n_fr} frames byte-equal to the unsharded server's "
+        f"({len(got[0])} bytes); launches {c}; {t_sh:.1f} ms sharded, "
+        f"{t_one:.1f} ms unsharded; {at()} [{name_limit}]")
+    del srv
+
+    kw = dict(kw, quant_exec=True, cont_batch=n_slots, chunk_frames=k_ch)
+    bodies = [{"text": t, "seed": 3, "max_frames": n_fr,
+               **({"temperature": 0.0} if i % 2 else {})}
+              for i, t in enumerate(SERVE_TEXTS[:2])]
+    # the engine captures its graphs when it is built: no warm-up request
+    want, _, t_one = served("serve engine",
+                            CodecHTTPServer(str(paths["csm"]), **kw),
+                            "/synthesize", bodies, warm=False)
+    srv = CodecHTTPServer(str(paths["csm"]), dp=MESH_N, **kw)
+    per = [r.h.shape[0] for r in srv._cont_batcher.chunks.runners]
+    got, c, t_sh = served("serve --dp --cont-batch", srv, "/synthesize",
+                          bodies, ("q4_k_matmul", "flash_sdpa_window"),
+                          warm=False)
+    if got != want:
+        raise RuntimeError("graphs: codec-serve-torch --dp 2 --cont-batch's "
+                           "/synthesize is not the unsharded engine's")
+    times["serve_dp_engine"] = (t_sh, t_one)
+    eng_mb = ""
+    if cuda:
+        # the engine stopped with the server: one share's replay under the
+        # profiler, every packed product of its K frames at m = slots a share
+        mb_e, n_mm = per[0], 7 * bcfg.n_layers * k_ch
+        _, _, by_m, _ = _profile_mb(srv._cont_batcher.runner.run, "q4_k",
+                                    mb_e, n_mm)
+        if by_m.get(mb_e, 0) < n_mm:
+            raise RuntimeError(f"graphs --dp engine: a share's replay "
+                               f"launches q4_k_matmul by row bucket {by_m}, "
+                               f"want {n_mm} at m = {mb_e}")
+        times["serve_dp_engine_share"] = by_m
+        eng_mb = (f"; one share's replay under torch.profiler: q4_k_matmul "
+                  f"by row bucket {by_m}")
+    log(f"[graphs] codec-serve-torch --dp {MESH_N} --cont-batch {n_slots} "
+        f"--quant-exec (slots a share {per}): /synthesize of "
+        f"{len(bodies)} requests (the family's chain, then greedy) "
+        f"byte-equal to the unsharded engine's; launches {c} (the engine's "
+        f"replays are not counted){eng_mb}; {t_sh:.1f} ms sharded, "
+        f"{t_one:.1f} ms unsharded a request; {at()} [{name_limit}]")
+    del srv, csm, lm, packed
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[graphs] phase 12 launches {phase_counts}; "
+        f"{time.monotonic() - t_phase:.1f} s (every mesh names one card "
+        f"2 or 4 times: the sharded times are no scaling number)")
+    return phase_counts, times
+
+
 def chain_history(codes, window: int) -> list:
     """What a host SamplerChain with this repetition window holds for the
     penalty after it picked `codes` (its history's last `window`)."""
@@ -4883,8 +5460,6 @@ class Recorder:
 
 
 def main() -> int:
-    import dataclasses
-
     t_start = time.monotonic()
     # -- 1. the card ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -4899,10 +5474,7 @@ def main() -> int:
     import codec_tpu_torch
     from codec_tpu_torch.kernels import build
     from codec_tpu_torch.models import dac, snac
-    from codec_tpu_torch.models.dac_init import write_random_dac_gguf
     from codec_tpu_torch.models.mimi import mimi_decode_fn
-    from codec_tpu_torch.models.mimi_init import write_random_mimi_gguf
-    from codec_tpu_torch.models.snac_init import write_random_snac_gguf
     from codec_tpu_torch.ops import seanet_cuda
     from codec_tpu_torch.ops.attn_cuda import (flash_sdpa_window,
                                                flash_sdpa_window_ref)
@@ -4920,11 +5492,6 @@ def main() -> int:
     from codec_tpu_torch.ops.sample import OnDeviceSampling
     from codec_tpu_torch.lm.tts_runner import (_decode_transformed,
                                                run_codebook_ar)
-    from codec_tpu_torch.models.lm_init import (LLAMA_3_2_1B,
-                                                byte_fallback_vocab,
-                                                spm_model_b64,
-                                                write_random_backbone_ggufs,
-                                                write_random_csm_gguf)
     from codec_tpu_torch.ops import qmat
     from codec_tpu_torch.ops import qmat_cuda
     from codec_tpu_torch.ops.qmat_cuda import q4_k_matmul, q8_0_matmul
@@ -5029,6 +5596,8 @@ def main() -> int:
 
     # -- 3. kernels against their plain versions ------------------------------
     log(f"[phase] 3 starts at {time.monotonic() - t_start:.1f} s")
+    # phases 4-5's files, written while phase 3 runs on the card
+    write_ahead("model", "chip_smoke_", model_files)
     max_err = {name: 0.0 for name in wrappers}
     cases = [(s, torch.float32) for s in ATTN_SHAPES_F32]
     cases += [(ATTN_SHAPE_BF16, dt) for dt in HALF_DTYPES]
@@ -5345,19 +5914,13 @@ def main() -> int:
             del dense
 
     # -- 4, 5. full-width models through load_model ---------------------------
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp, _, waited = ahead("model", "chip_smoke_", model_files)
+    # phase 8b's files, written while phases 4-8 run on the card
+    write_ahead("istft", "chip_smoke_istft_", istft_files)
     try:
         paths = {name: Path(tmp.name) / f"{name}_random.gguf"
                  for name in ("mimi", "dac", "snac")}
-        t0 = time.monotonic()
-        write_files(*[(lambda w=w, n=n: w(paths[n], seed=SEED, encoder=True))
-                      for w, n in ((write_random_mimi_gguf, "mimi"),
-                                   (write_random_dac_gguf, "dac"),
-                                   (write_random_snac_gguf, "snac"))])
-        log("[model] wrote " + ", ".join(
-            f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
-            for path in paths.values())
-            + f" in {time.monotonic() - t0:.2f} s")
+        wrote("model", paths.values(), waited)
         t0 = time.monotonic()
         mimi_models, dac_models, snac_models = (
             {dt: codec_tpu_torch.load_model(paths[name], compute_dtype=dt,
@@ -5859,47 +6422,37 @@ def main() -> int:
 
     # -- 8b. the iSTFT-head codecs ----------------------------------------------
     log(f"[phase] 8b starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("windowed", "chip_smoke_windowed_", windowed_files)
     istft_counts = istft_codecs(name_limit, zero_counts, counts, none)
 
     # -- 8c. the windowed-transformer codecs -------------------------------------
     log(f"[phase] 8c starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("neu", "chip_smoke_neu_", neu_files)
     windowed_counts = windowed_codecs(name_limit, zero_counts, counts, none)
 
     # -- 8d. the NeuCodec family ------------------------------------------------
     log(f"[phase] 8d starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("small", "chip_smoke_small_", small_files)
     neu_codecs(name_limit, zero_counts, counts, none)
 
     # -- 8e. the last small codecs ----------------------------------------------
     log(f"[phase] 8e starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("s3g", "chip_smoke_s3g_", s3g_files)
     small_counts = small_codecs(name_limit, zero_counts, counts, none)
 
     # -- 8f. Chatterbox S3Gen ---------------------------------------------------
     log(f"[phase] 8f starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("tts", "chip_smoke_tts_", tts_files)
     s3g_codec(name_limit, zero_counts, counts, none)
 
     # -- 9. the CSM TTS path ---------------------------------------------------
     log(f"[phase] 9 starts at {time.monotonic() - t_start:.1f} s")
-    t0 = time.monotonic()
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tts_")
+    tmp, (csm_path, bb_paths), waited = ahead("tts", "chip_smoke_tts_",
+                                              tts_files)
+    # phase 9c's files, written while phases 9 and 9b run on the card
+    write_ahead("lm", "chip_smoke_lm_", lm_files)
     try:
-        # the Mimi's encoder half too, for phase 9f's /encode; the
-        # backbones: one draw of the weights for both types, quantized on a
-        # pool of threads; Llama-3.2-1B's widths, TTS_LAYERS of its 16
-        # layers; the byte-fallback vocabulary, for phase 9f's server to
-        # tokenize with
-        csm_path, bb_paths = write_files(
-            lambda: write_random_csm_gguf(Path(tmp.name) / "csm_random.gguf",
-                                          seed=SEED, encoder=True),
-            lambda: write_random_backbone_ggufs(
-                {q: Path(tmp.name) / f"backbone_{q}.gguf"
-                 for q in ("Q4_K", "Q8_0")},
-                seed=SEED, cfg=dataclasses.replace(LLAMA_3_2_1B,
-                                                   n_layers=TTS_LAYERS),
-                spm_b64=spm_model_b64(byte_fallback_vocab())))
-        log("[tts] wrote " + ", ".join(
-            f"{path.name} ({path.stat().st_size / 2**20:.1f} MiB)"
-            for path in [csm_path, *bb_paths.values()])
-            + f" in {time.monotonic() - t0:.2f} s")
+        wrote("tts", [csm_path, *bb_paths.values()], waited)
         t0 = time.monotonic()
         csm = codec_tpu_torch.load_model(csm_path, device="cuda")
         reader = GGUFReader(csm_path)
@@ -6232,8 +6785,8 @@ def main() -> int:
     bres = batch_request()
     step = counts()
     # the batch's runner, the backbone's newest batched entry
-    bkey = [k for k in backbones["Q4_K"]._gen_chunks if k[4]]
-    brunner = backbones["Q4_K"]._gen_chunks[bkey[-1]][1]
+    brunner = next(reversed(
+        backbones["Q4_K"]._batch_chunks.values()))[2].runner
     want = {**none, "flash_sdpa_window": MIMI_LAYERS * TTS_STREAMS,
             "q4_k_matmul": per_step * TTS_PROMPT * TTS_STREAMS}
     if step != want:
@@ -6305,12 +6858,14 @@ def main() -> int:
 
     # -- 9c. the LM flows past CSM's: Pocket-TTS, MOSS-TTSD, BlueMagpie ---------
     log(f"[phase] 9c starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("cbx", "chip_smoke_cbx_", cbx_files)
     reuse = {}
     lm_counts, _ = lm_flows(name_limit, zero_counts, counts, none,
                             reuse=reuse)
 
     # -- 9d. Chatterbox TTS: T3 on Llama-520M into S3Gen; the speaker encoders
     log(f"[phase] 9d starts at {time.monotonic() - t_start:.1f} s")
+    write_ahead("rest", "chip_smoke_rest_", rest_files)
     cbx_counts, _ = chatterbox_flow(name_limit, zero_counts, counts, none,
                                     reuse=reuse)
 
@@ -6327,7 +6882,9 @@ def main() -> int:
         {"csm": csm_path, **bb_paths, "cbx": cbx_path,
          "cbx_bb": cbx_bb_path, "pocket": reuse["pocket"][1]})
     moe_cpu = reuse.pop("moe")
-    del reuse                        # and with it 9c's and 9d's directories
+    # phase 12's: the Chatterbox files, the realtime and BlueMagpie pieces
+    graph_keep = {k: reuse.pop(k) for k in ("cbx", "rt", "bm")}
+    del reuse                        # and with it 9c's directory
 
     # -- 10. times -------------------------------------------------------------
     log(f"[phase] 10 starts at {time.monotonic() - t_start:.1f} s")
@@ -6534,8 +7091,10 @@ def main() -> int:
 
     log(f"[phase] 10: packed products sweep at {time.monotonic() - t_start:.1f} s")
     # the packed products at the CSM backbone's shapes, m = 4 and 8 (the
-    # serving engine's and /synthesize_batch's rows), and at the Chatterbox
-    # T3 backbone's, m = 8 (batched Chatterbox's 4 streams x 2 lanes):
+    # serving engine's and /synthesize_batch's rows, and phase 12's
+    # data-parallel shares'), and at the Chatterbox T3 backbone's, m = 4
+    # (phase 12's share: 2 streams x 2 lanes) and 8 (batched Chatterbox's
+    # 4 streams x 2 lanes):
     # CUDA events of back-to-back calls of the kernel and of F.linear on
     # the dequantized f32 weight, each beside the bound (their device times
     # are in PERF.md from earlier runs: the profiler's traces cost the smoke
@@ -6543,7 +7102,7 @@ def main() -> int:
     # rows are checked in phase 3, not timed here)
     for out_d, in_d, ms, tag in (
             [(o, i, QMAT_SERVE_MS, "CSM") for o, i in QMAT_SHAPES]
-            + [(o, i, (8,), "T3") for o, i in T3_QMAT_SHAPES]):
+            + [(o, i, (4, 8), "T3") for o, i in T3_QMAT_SHAPES]):
         for name in ("q8_0_matmul", "q4_k_matmul"):
             qt = qmat_weights[name, out_d, in_d]
             dense = qmat.dequant_ref(qt)
@@ -6839,8 +7398,17 @@ def main() -> int:
             name_limit, zero_counts, counts, none,
             {"mimi": mimi_models["float32"], "dac": dac_models["float32"]},
             {"csm": csm_path, **bb_paths}, moe_cpu)
+        # -- 12. the CUDA-graph paths on the mesh ------------------------------
+        log(f"[phase] 12 starts at {time.monotonic() - t_start:.1f} s")
+        _, cbx_path, cbx_bb_path = graph_keep["cbx"]
+        graph_counts, _ = graphs_phase(
+            name_limit, zero_counts, counts, none,
+            {"csm": csm_path, **bb_paths, "cbx": cbx_path,
+             "cbx_bb": cbx_bb_path}, moe_cpu,
+            {"rt": graph_keep["rt"], "bm": graph_keep["bm"]})
     finally:
         tts_tmp.cleanup()
+        graph_keep.clear()
     del moe_cpu
 
     main_counts = {"flash_sdpa_window": mimi_counts["flash_sdpa_window"]
@@ -6852,7 +7420,8 @@ def main() -> int:
                    + windowed_counts["flash_sdpa_window"]
                    + small_counts["flash_sdpa_window"]
                    + serve_counts["flash_sdpa_window"]
-                   + mesh_counts["flash_sdpa_window"],
+                   + mesh_counts["flash_sdpa_window"]
+                   + graph_counts["flash_sdpa_window"],
                    "seanet_res_unit": dac_counts["seanet_res_unit"]
                    + enc_counts["seanet_res_unit"]
                    + mesh_counts["seanet_res_unit"],
@@ -6864,13 +7433,15 @@ def main() -> int:
                    + tts_dev_counts["q8_0_matmul"]
                    + lm_counts["q8_0_matmul"] + cbx_counts["q8_0_matmul"]
                    + rest_counts["q8_0_matmul"]
-                   + serve_counts["q8_0_matmul"],
+                   + serve_counts["q8_0_matmul"]
+                   + graph_counts["q8_0_matmul"],
                    "q4_k_matmul": tts_counts["q4_k_matmul"]
                    + tts_dev_counts["q4_k_matmul"]
                    + lm_counts["q4_k_matmul"] + cbx_counts["q4_k_matmul"]
                    + rest_counts["q4_k_matmul"]
                    + serve_counts["q4_k_matmul"]
-                   + mesh_counts["q4_k_matmul"],
+                   + mesh_counts["q4_k_matmul"]
+                   + graph_counts["q4_k_matmul"],
                    "rvq_encode_fused": enc_counts["rvq_encode_fused"]
                    + istft_counts["rvq_encode_fused"]
                    + windowed_counts["rvq_encode_fused"]

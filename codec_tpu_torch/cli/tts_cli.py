@@ -24,9 +24,10 @@ port (counterpart of codec_tpu/cli/tts_cli.py).
 the device, multiplied by the dequantizing CUDA kernels. `--tp/--pp/--ep
 N` shard the backbone over N devices (lm/backbone.py::set_mesh,
 set_mesh_pp, set_mesh_ep; the first N cards, or with `--device cpu` or
-`cuda:K` N entries of that device) and run the host path; `--on-device`
-over a --tp/--ep backbone is not ported yet, and a --pp one generates
-through the host per-frame loop.
+`cuda:K` N entries of that device): the host path, or with `--on-device`
+the chunks over a --tp/--ep backbone's shares; a --pp one generates
+through the host per-frame loop, and the Chatterbox flow refuses all
+three, as codec_tpu's does.
 
 Usage:
   tts-cli-torch info --model pocket.gguf
@@ -121,8 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "family; default 10)")
     p.add_argument("--tp", type=int, default=0,
                    help="shard the backbone tensor-parallel over N devices "
-                        "(Megatron column/row split; the host path: "
-                        "--on-device over it is not ported yet)")
+                        "(Megatron column/row split; --on-device runs the "
+                        "chunks over its shares)")
     p.add_argument("--pp", type=int, default=0,
                    help="shard the backbone pipeline-parallel over N "
                         "stages (n_layers/N layers per device; generation "
@@ -301,7 +302,7 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
     server's, so that its graphs are replayed). → (pcm, n_frames, stop
     reason)."""
     from ..lm.audio_lm import AudioLM
-    from ..lm.backbone import LlamaBackbone, create_backbone
+    from ..lm.backbone import create_backbone
     from ..lm.chatterbox_t3 import ChatterboxT3
     from ..lm.tts_runner import T3Sampler, run_chatterbox
     from ..ops.sample import OnDeviceSampling
@@ -321,9 +322,7 @@ def run_chatterbox_synthesize(model, reader, backbone_path, text: str,
         raise ValueError(f"backbone hidden {bb.cfg.hidden} != "
                          f"t3 hidden {t3.info.hidden_dim}")
     n_lanes = 2 if cfg_weight > 0.0 else 1
-    lanes = [bb] + [LlamaBackbone.from_params(bb.cfg, bb.params, bb.dtype,
-                                              bb.qmm)
-                    for _ in range(n_lanes - 1)]
+    lanes = [bb] + [bb.lane() for _ in range(n_lanes - 1)]
     audio_lm = AudioLM(reader, codec=model, lm=lm, device=device)
     s_temp = 0.8 if temperature is None else float(temperature)
     s_top_p = 1.0 if top_p is None else float(top_p)
@@ -380,7 +379,8 @@ def run_chatterbox_synthesize_batch(model, reader, backbone_path, texts,
     """Batched Chatterbox synthesize (codec_tpu's
     run_chatterbox_synthesize_batch): B texts, each with its CFG lanes,
     through one chunk (lm/tts_runner.run_chatterbox_batch), stream i
-    seeded `seed + i`. The T3 preset chain (temperature 0.8, top_p 1.0,
+    seeded `seed + i`; `mesh`: the streams data-parallel over its "dp"
+    axis, one chunk a share. The T3 preset chain (temperature 0.8, top_p 1.0,
     min_p 0.05, repetition penalty 1.2); `sampling` dicts override the
     chain per text (the penalty stays the preset). `lm` and `t3`: the
     CodecLM and ChatterboxT3 to reuse (a server's, so that its graphs are
@@ -433,8 +433,9 @@ def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
     state is reset), else one from `backbone_path` (packed when
     `quantized`). `sampling`: one dict a text ({"temperature", "top_k",
     "top_p", "min_p"}, missing keys the defaults), the chains data in the
-    graph. `mesh` (data-parallel streams) is not ported yet: it raises
-    CodecError. → [(pcm, n_frames, stop reason)] a text."""
+    graph. `mesh`: the streams data-parallel over its "dp" axis (B a
+    multiple of its size; a 2-D dp x tp mesh with `bb` TP-split over it),
+    codec_tpu's --dp. → [(pcm, n_frames, stop reason)] a text."""
     from ..io.gguf import GGUFReader
     from ..lm import create_lm
     from ..lm.audio_lm import AudioLM
@@ -443,18 +444,13 @@ def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
     from ..lm.prompt_info import build_prompt_info
     from ..lm.tts_runner import run_codebook_ar_batch
     from ..ops.sample import OnDeviceSampling
-    from ..runtime.model import CodecError
 
-    if mesh is not None:
-        raise CodecError("run_backbone_synthesize_batch(mesh=) is not "
-                         "ported yet: data-parallel streams come in the "
-                         "next slice")
     if is_chatterbox(reader):
         return run_chatterbox_synthesize_batch(
             model, reader, backbone_path, texts, seed=seed,
             max_frames=max_frames, bb=bb, chunk_frames=chunk_frames, lm=lm,
             prefill_bucket=prefill_bucket, sampling=sampling, t3=t3,
-            quantized=quantized, device=device)
+            quantized=quantized, device=device, mesh=mesh)
     shared = lm if lm is not None else create_lm(reader, device=device)
     pi = build_prompt_info(reader, shared.info)
     if pi.is_continuous or pi.sequential_text_audio or pi.streaming_interleave:
@@ -482,7 +478,7 @@ def run_backbone_synthesize_batch(model, reader, backbone_path, texts,
         alms, bb, prompts, ods,
         max_steps=max_frames if max_frames > 0 else 512, pi=pi,
         prefill_bucket=prefill_bucket,
-        sampling=sampling_overrides(ods, sampling, len(texts))))
+        sampling=sampling_overrides(ods, sampling, len(texts)), mesh=mesh))
 
 
 def sampler_chain(pi, temperature=None, top_k=None, top_p=None,

@@ -29,7 +29,9 @@ positions are device tensors, the new keys are written at them by a
 scatter, and attention reads a fixed number of cache rows under the mask
 key_pos <= position. It has no host read and no shape that depends on a
 position, so lm/fused_gen.py can capture it in a CUDA graph; `step` and
-`prefill` stay the host path's.
+`prefill` stay the host path's. `backbone_step_split` is the same step
+over a TP or EP backbone's shares, and `StepGroup` says which form a
+batch of streams runs and on which devices.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 
 from ..io.gguf import GGUFReader
 from ..ops import norms, qmat, rope
-from ..parallel.mesh import place
+from ..parallel.mesh import physical, place
 
 NEG_INF = -1e30
 _ATTN = ("q", "k", "v", "o")
@@ -200,8 +202,12 @@ def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any], cfg: BackboneConfig,
     codec_tpu's dense form.
 
     An expert-parallel shard holds experts e0.. of them (fewer than E
-    stacked): it returns their share of the sum, gathering only its own
-    chosen experts where the form gathers."""
+    stacked): it returns their share of the sum. Where the form gathers,
+    it gathers all k chosen slots, each clamped into the shard, and
+    zeroes the weights of those outside it: a gather of the shard's own
+    chosen experts alone would have a length that depends on the routing
+    (a host read, which a CUDA graph cannot capture and which cost the
+    host step more than the clamped slots' bytes on the card)."""
     t, k = h.shape[0], cfg.n_experts_used
     probs = torch.softmax(F.linear(h, lw["router"]).float(), dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -210,15 +216,10 @@ def _moe_ffn(h: torch.Tensor, lw: Dict[str, Any], cfg: BackboneConfig,
         topv = topv / topv.sum(dim=-1, keepdim=True)
     n_loc = lw["gate_exps"].shape[0]
     if t * k < cfg.n_experts:
-        if n_loc < cfg.n_experts:             # an EP shard's chosen experts
-            tt, jj = ((topi >= e0) & (topi < e0 + n_loc)).nonzero(
-                as_tuple=True)
-            ee, hs = topi[tt, jj] - e0, h[tt]
-            g = torch.einsum("ph,pfh->pf", hs, lw["gate_exps"][ee])
-            u = torch.einsum("ph,pfh->pf", hs, lw["up_exps"][ee])
-            y = torch.einsum("pf,phf->ph", F.silu(g) * u, lw["down_exps"][ee])
-            return h.new_zeros((t, y.shape[1])).index_add_(
-                0, tt, topv[tt, jj, None].to(y.dtype) * y)
+        if n_loc < cfg.n_experts:             # an EP shard's chosen slots
+            mine = (topi >= e0) & (topi < e0 + n_loc)
+            topv = torch.where(mine, topv, 0.0)
+            topi = (topi - e0).clamp(0, n_loc - 1)
         g = torch.einsum("th,tkfh->tkf", h, lw["gate_exps"][topi])
         u = torch.einsum("th,tkfh->tkf", h, lw["up_exps"][topi])
         y = torch.einsum("tkf,tkhf->tkh", F.silu(g) * u, lw["down_exps"][topi])
@@ -330,6 +331,55 @@ def backbone_forward(params: Dict[str, Any], kv: torch.Tensor, pos0: int,
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
 
 
+def _step_inputs(pos: torch.Tensor, ctx: int, cfg: BackboneConfig,
+                 freq_factors) -> tuple:
+    """What every layer of a batched step reads: (cos, sin) of the
+    positions pos [B], the additive mask [B, ctx] key_pos <= pos, the rows
+    0..B-1 and the cache row each stream writes (min(pos, ctx - 1))."""
+    rope_cs = rope.rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta,
+                                freq_factors=freq_factors)
+    key_pos = torch.arange(ctx, device=pos.device)
+    mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, NEG_INF)
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rope_cs, mask, rows, pos.clamp(max=ctx - 1)
+
+
+def _step_attn(x: torch.Tensor, lw: Dict[str, Any], kv_l: torch.Tensor,
+               cfg: BackboneConfig, inputs: tuple, ctx: int,
+               qmm: Callable) -> torch.Tensor:
+    """One layer's attention in a batched step (its o product, before the
+    residual): x [B, hidden], kv_l [B, 2, n_kv, >= ctx, D] this layer's
+    caches, written in place at the streams' rows; `inputs` from
+    _step_inputs. With a tensor-parallel share's config and weights (its
+    heads, its kv heads) this is the share's partial o product."""
+    rope_cs, mask, rows, w_pos = inputs
+    b = x.shape[0]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = norms.rms_norm(x, lw["attn_norm"], cfg.rms_eps)
+    q, k, v = (_mm(h, lw[n], qmm) for n in ("q", "k", "v"))
+    if cfg.has_attn_bias:
+        q, k, v = q + lw["q_b"], k + lw["k_b"], v + lw["v_b"]
+    q = q.reshape(b, nh, 1, hd)
+    k = k.reshape(b, nkv, 1, hd)
+    v = v.reshape(b, nkv, hd)
+    if cfg.has_qk_norm:                       # per-head RMS over head_dim
+        q = norms.rms_norm(q, lw["q_norm"], cfg.rms_eps)
+        k = norms.rms_norm(k, lw["k_norm"], cfg.rms_eps)
+    q = rope.rotate(q, *rope_cs)
+    k = rope.rotate(k, *rope_cs)[:, :, 0]
+    keys, vals = kv_l[:, 0], kv_l[:, 1]         # [B, n_kv, max_ctx, D]
+    keys[rows, :, w_pos] = k
+    vals[rows, :, w_pos] = v
+    keys, vals = keys[:, :, None, :ctx], vals[:, :, None, :ctx]
+    # query head j reads kv head j // (nh / nkv), as jnp.repeat does
+    qg = q.reshape(b, nkv, nh // nkv, 1, hd)
+    logits = torch.matmul(qg.float(), keys.float().transpose(-1, -2))
+    logits = logits * hd ** -0.5 + mask[:, None, None, None, :]
+    w = torch.softmax(logits, dim=-1).to(vals.dtype)
+    att = torch.matmul(w, vals).reshape(b, nh * hd)
+    return _mm(att, lw["o"], qmm)
+
+
 def backbone_step(params: Dict[str, Any], kv: torch.Tensor, pos: torch.Tensor,
                   x: torch.Tensor, cfg: BackboneConfig, ctx: int,
                   qmm: Callable = qmat.qmatmul) -> torch.Tensor:
@@ -340,41 +390,45 @@ def backbone_step(params: Dict[str, Any], kv: torch.Tensor, pos: torch.Tensor,
     mask key_pos <= pos[b] (codec_tpu/lm/backbone.py's mask over the whole
     static cache, cut to the ctx rows a request can reach). The products
     run at m = B. → hiddens [B, hidden] after the output norm."""
-    b = x.shape[0]
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rope_cs = rope.rope_cos_sin(pos[:, None], hd, cfg.rope_theta,
-                                freq_factors=params["freq_factors"])
-    key_pos = torch.arange(ctx, device=x.device)
-    mask = torch.where(key_pos[None, :] <= pos[:, None], 0.0, NEG_INF)
-    rows = torch.arange(b, device=x.device)
-    w_pos = pos.clamp(max=ctx - 1)
+    inputs = _step_inputs(pos, ctx, cfg, params["freq_factors"])
     for li, lw in enumerate(params["layers"]):
-        h = norms.rms_norm(x, lw["attn_norm"], cfg.rms_eps)
-        q, k, v = (_mm(h, lw[n], qmm) for n in ("q", "k", "v"))
-        if cfg.has_attn_bias:
-            q, k, v = q + lw["q_b"], k + lw["k_b"], v + lw["v_b"]
-        q = q.reshape(b, nh, 1, hd)
-        k = k.reshape(b, nkv, 1, hd)
-        v = v.reshape(b, nkv, hd)
-        if cfg.has_qk_norm:                   # per-head RMS over head_dim
-            q = norms.rms_norm(q, lw["q_norm"], cfg.rms_eps)
-            k = norms.rms_norm(k, lw["k_norm"], cfg.rms_eps)
-        q = rope.rotate(q, *rope_cs)
-        k = rope.rotate(k, *rope_cs)[:, :, 0]
-        keys, vals = kv[:, li, 0], kv[:, li, 1]     # [B, n_kv, max_ctx, D]
-        keys[rows, :, w_pos] = k
-        vals[rows, :, w_pos] = v
-        keys, vals = keys[:, :, None, :ctx], vals[:, :, None, :ctx]
-        # query head j reads kv head j // (nh / nkv), as jnp.repeat does
-        qg = q.reshape(b, nkv, nh // nkv, 1, hd)
-        logits = torch.matmul(qg.float(), keys.float().transpose(-1, -2))
-        logits = logits * hd ** -0.5 + mask[:, None, None, None, :]
-        w = torch.softmax(logits, dim=-1).to(vals.dtype)
-        att = torch.matmul(w, vals).reshape(b, nh * hd)
-        x = x + _mm(att, lw["o"], qmm)
+        x = x + _step_attn(x, lw, kv[:, li], cfg, inputs, ctx, qmm)
         x = x + _ffn(norms.rms_norm(x, lw["ffn_norm"], cfg.rms_eps), lw, cfg,
                      qmm)
     return norms.rms_norm(x, params["out_norm"], cfg.rms_eps)
+
+
+def backbone_step_split(bb: "LlamaBackbone", row: int, kvs, pos: torch.Tensor,
+                        x: torch.Tensor, ctx: int,
+                        out_norm: torch.Tensor) -> torch.Tensor:
+    """backbone_step over row `row` of a TP or EP backbone's shares, as
+    _split_forward runs a prefill or host step: the residual stream on
+    each share's device, each share's attention (its heads and kv heads
+    under TP, all of them under EP) and FFN share computed there with its
+    own weights, the partial sums reduced in mesh order on the row's first
+    device (LlamaBackbone._reduce). kvs: one cache a share, [B, L, 2, n_kv
+    of the share, >= ctx, D]; out_norm on the row's first device. →
+    hiddens [B, hidden] there. No step reads the host (the MoE's gather
+    has a fixed length), so the step can be captured; `bb.reductions` then counts the reductions of the
+    capture's runs, not of the replays."""
+    c, sc = bb.cfg, bb.shard_cfg
+    tp = bb.mesh_kind == "tp"
+    shards, devs = bb.share_rows[row], bb.row_devices[row]
+    xs = [x.to(d, non_blocking=True) for d in devs]
+    inputs = [_step_inputs(pos.to(d, non_blocking=True), ctx, sc,
+                           sh["freq_factors"]) for sh, d in zip(shards, devs)]
+    e0 = bb.expert0 if not tp else [0] * len(devs)
+    for li in range(c.n_layers):
+        lws = [sh["layers"][li] for sh in shards]
+        att = [_step_attn(xd, lw, kv[:, li], sc, inp, ctx, bb.qmm)
+               for xd, lw, kv, inp in zip(xs, lws, kvs, inputs)]
+        xs = [xd + a for xd, a in zip(xs, bb._reduce(att, devs) if tp
+                                      else att)]
+        ffn = [_ffn(norms.rms_norm(xd, lw["ffn_norm"], c.rms_eps), lw, sc,
+                    bb.qmm, e)
+               for xd, lw, e in zip(xs, lws, e0)]
+        xs = [xd + f for xd, f in zip(xs, bb._reduce(ffn, devs))]
+    return norms.rms_norm(xs[0], out_norm, c.rms_eps)
 
 
 def _part(t: torch.Tensor, dim: int, i: int, n: int,
@@ -458,8 +512,8 @@ class LlamaBackbone:
     # split into per-device shares (`shards`, `kvs`, one a mesh device);
     # the embedding, output norm and LM head (`params`, no "layers" left)
     # stay on the mesh's first device, where the hiddens come back. The
-    # generation chunks (lm/fused_gen.py) read `params` and `kv` whole, so
-    # a sharded backbone runs the host path (step / prefill).
+    # generation chunks (lm/fused_gen.py) step a TP or EP backbone through
+    # StepGroup (backbone_step_split); a PP one runs the host path.
     def set_mesh(self, mesh, axis: str = "tp") -> None:
         """Tensor parallelism over mesh[axis] (Megatron): q/k/v/gate/up
         split by output rows with their biases, o/down by input columns;
@@ -468,7 +522,11 @@ class LlamaBackbone:
         ffn dim, the router replicated. Each device's partial o and down
         products are summed explicitly, in mesh order, on the first device
         and the sum copied back to every device (`reductions` counts the
-        sums). Requires n_heads, n_kv_heads and ffn_dim (moe_ffn_dim for a
+        sums). On a 2-D mesh (dp x tp) every row of the other axis gets
+        the same shares on its own devices (`share_rows`, `row_devices`,
+        placed with `place`, so a device named twice holds one copy); the
+        host path runs row 0, a data-parallel share of the batch runners
+        its own row. Requires n_heads, n_kv_heads and ffn_dim (moe_ffn_dim for a
         MoE) divisible by the mesh size; packed weights (quantized=True)
         are refused, as codec_tpu refuses them."""
         c = self.cfg
@@ -499,6 +557,14 @@ class LlamaBackbone:
         self._place("tp", devs, [[share(lw, i, d) for lw in self.params["layers"]]
                                  for i, d in enumerate(devs)],
                     kv_heads=c.n_kv_heads // n)
+        # every row of the other axes (a 2-D mesh's dp rows) holds the same
+        # shares on its own devices; `place` shares a tensor already there
+        rows = np.moveaxis(mesh.devices, mesh.axis_names.index(axis),
+                           -1).reshape(-1, n)
+        self.row_devices = [list(r) for r in rows]
+        self.share_rows = [self.shards] + [
+            [place(sh, d) for sh, d in zip(self.shards, r)] for r in rows[1:]]
+        self.mesh = mesh
         self.shard_cfg = replace(c, n_heads=c.n_heads // n,
                                  n_kv_heads=c.n_kv_heads // n,
                                  ffn_dim=c.ffn_dim // n,
@@ -578,18 +644,23 @@ class LlamaBackbone:
         self.params = {k: place(v, devs[0]) for k, v in self.params.items()
                        if k != "layers"}
         self.mesh_kind, self.mesh_devices = kind, list(devs)
+        self.mesh = None
+        self.__dict__.pop("_replicas", None)
+        self.share_rows, self.row_devices = [self.shards], [list(devs)]
         self.device = torch.device(devs[0])
         self.kv = None
         self.reductions = 0
 
-    def _reduce(self, parts):
+    def _reduce(self, parts, devices=None):
         """The devices' partial sums added in mesh order on the first
-        device; the sum copied back to each device."""
+        device; the sum copied back to each device (of `devices`, a row of
+        the mesh; the host path's by default)."""
         self.reductions += 1
         total = parts[0]
         for p in parts[1:]:
             total = total + p.to(total.device, non_blocking=True)
-        return [total.to(d, non_blocking=True) for d in self.mesh_devices]
+        return [total.to(d, non_blocking=True)
+                for d in devices or self.mesh_devices]
 
     def _split_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The forward of a TP or EP backbone: the residual stream on every
@@ -612,6 +683,40 @@ class LlamaBackbone:
                    for xd, lw, e in zip(xs, lws, e0)]
             xs = [xd + f for xd, f in zip(xs, self._reduce(ffn))]
         return norms.rms_norm(xs[0], self.params["out_norm"], c.rms_eps)
+
+    def params_on(self, device) -> Dict[str, Any]:
+        """The parameter tree (every layer on an unsharded backbone; the
+        embedding, output norm and head on a mesh) on `device`: `params`
+        where it already sits on that card, else a copy placed there once
+        and kept, which every runner of a data-parallel share on that card
+        reads, as do this backbone's lanes."""
+        if physical(device) == physical(self.device):
+            return self.params
+        reps = self.__dict__.setdefault("_replicas", {})
+        key = str(physical(device))
+        if key not in reps:
+            reps[key] = place(self.params, device)
+        return reps[key]
+
+    def lane(self) -> "LlamaBackbone":
+        """A backbone over these weights (and, on a mesh, these shares)
+        with a cache of its own: another stream's state that shares the
+        weights, such as a server's engine beside its serialized path."""
+        if self.mesh_kind is None:
+            bb = LlamaBackbone.from_params(self.cfg, self.params, self.dtype,
+                                           self.qmm)
+        elif self.mesh_kind == "pp":
+            raise ValueError("a pipeline-staged backbone has no lane: its "
+                             "stages run one stream")
+        else:
+            bb = LlamaBackbone.__new__(LlamaBackbone)
+            bb.__dict__.update({k: v for k, v in self.__dict__.items()
+                                if not k.startswith("_")})
+            bb.kvs = [torch.zeros_like(k) for k in self.kvs]
+            bb.reductions = 0
+            bb.pos = 0
+        bb._replicas = self.__dict__.setdefault("_replicas", {})
+        return bb
 
     # -- Backbone protocol + helpers ----------------------------------------
     def step(self, embed: np.ndarray) -> np.ndarray:
@@ -649,6 +754,59 @@ class LlamaBackbone:
         w = self.params["tok_embd"] if self.cfg.tied_lm_head \
             else self.params["lm_head"]
         return (h @ w.T).float().cpu().numpy()
+
+
+class StepGroup:
+    """Where a batch of streams runs its decode steps (the counterpart of
+    the sharding annotations jit propagates into codec_tpu's chunks): a
+    whole backbone on one device (`device`, its own by default: a
+    data-parallel share's, where its weights are the backbone's one copy on
+    that card, `params_on`), or row `row` of a TP or EP backbone's shares (a 2-D mesh's
+    dp row; row 0 is the host path's), each share's layers and kv heads on
+    its own device.
+
+    `devices` are the group's, `device` the first, where the hiddens come
+    back; `params` the embedding, output norm and head there.
+    `new_kv(lead, ctx)` makes a batch's caches and `own_kv()` gives the
+    backbone's own (a single stream's): one tensor a share, each [*lead,
+    L, 2, n_kv of the share, ctx, D]. `__call__(kvs, pos, x, ctx)` is one
+    step (backbone_step, or backbone_step_split) → hiddens [B, hidden] on
+    `device`."""
+
+    def __init__(self, bb: LlamaBackbone, row: int = 0, device=None):
+        self.bb, self.cfg, self.dtype, self.qmm = bb, bb.cfg, bb.dtype, bb.qmm
+        self.row = int(row)
+        if bb.mesh_kind is None:
+            self.devices = [torch.device(device) if device is not None
+                            else bb.device]
+        elif bb.mesh_kind in ("tp", "ep"):
+            self.devices = list(bb.row_devices[self.row])
+        else:
+            raise ValueError(f"no batched step over a {bb.mesh_kind} "
+                             f"backbone")
+        self.device = self.devices[0]
+        self.params = bb.params_on(self.device)
+        self.kv_heads = (bb.shard_cfg.n_kv_heads if bb.mesh_kind
+                         else bb.cfg.n_kv_heads)
+
+    def new_kv(self, lead, ctx: int):
+        c = self.cfg
+        return [torch.zeros((*lead, c.n_layers, 2, self.kv_heads, ctx,
+                             c.head_dim), dtype=self.dtype, device=d)
+                for d in self.devices]
+
+    def own_kv(self):
+        bb = self.bb
+        return [bb.kv[None]] if bb.mesh_kind is None else \
+            [k[None] for k in bb.kvs]
+
+    def __call__(self, kvs, pos: torch.Tensor, x: torch.Tensor,
+                 ctx: int) -> torch.Tensor:
+        if self.bb.mesh_kind is None:
+            return backbone_step(self.params, kvs[0], pos, x, self.cfg, ctx,
+                                 self.qmm)
+        return backbone_step_split(self.bb, self.row, kvs, pos, x, ctx,
+                                   self.params["out_norm"])
 
 
 def create_backbone(path, dtype=torch.float32, max_ctx: int = 0,

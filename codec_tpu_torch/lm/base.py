@@ -17,6 +17,8 @@ one step_finish; out-of-order calls raise LmStateError.
 
 from __future__ import annotations
 
+import copy
+
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -122,6 +124,28 @@ class CodecLM:
 
     def new_state(self) -> "LmState":
         return LmState(self)
+
+    def on_device(self, device) -> "CodecLM":
+        """This LM with its weights on `device`, for a data-parallel share
+        whose frame runs there and reads no other device's tensor: itself
+        where its weights already are (a device named twice, as on one
+        card), else a copy made once and kept (its tensors placed with
+        parallel/mesh.py::place, its caches of derived tensors emptied)."""
+        from ..parallel.mesh import physical, place
+
+        if physical(device) == physical(self.device):
+            return self
+        reps = self.__dict__.setdefault("_replicas", {})
+        key = str(physical(device))
+        if key not in reps:
+            rep = copy.copy(self)
+            rep.__dict__ = {
+                k: None if k.endswith("_cache") else place(v, device)
+                for k, v in self.__dict__.items()
+                if k not in ("_replicas", "_frame_runners")}
+            rep.device = torch.device(device)
+            reps[key] = rep
+        return reps[key]
 
     # -- kind hooks (codebook kinds) --------------------------------------
     def _begin(self, state: "LmState", h: np.ndarray) -> None:

@@ -19,6 +19,15 @@ codec_tpu's batched chunk does for finished streams), and its code rows
 are zeros. The counts in the packed result are codec_tpu's: the frames up
 to and including the EOS frame, the position after the last feedback step.
 
+The backbone step of every chunk goes through a StepGroup
+(lm/backbone.py): the whole backbone on one device, or one row of a TP or
+EP backbone's shares (backbone_step_split), each share's layers and kv
+heads with their own caches (`kvs`, one a share). Data-parallel streams
+(`dp_groups`) run one chunk a share, on the share's devices with the LM's
+weights there (CodecLM.on_device), behind one batch's interface
+(`DpChunks`). A group spread over several cards is
+refused (`step_group`): a capture across cards is not built.
+
 Packed layouts (codec_tpu's):
   single stream: codes [K, n_cb] ++ [n_emitted, stopped, pos_after]
   B streams:     codes [K, B, n_cb] ++ [n_iter] ++ done [B] ++ pos_after [B]
@@ -36,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sample import gumbel
+from ..parallel.mesh import physical
 from ..runtime.model import CodecError
-from .backbone import backbone_step
+from .backbone import StepGroup
 
 _CTX_STEP = 64     # the attended cache rows are a multiple of this
 _KEEP = 4          # runners kept per backbone, frames per LM
@@ -45,8 +55,9 @@ _KEEP = 4          # runners kept per backbone, frames per LM
 
 def _kept(owner, attr: str, key, make: Callable):
     """owner.<attr>[key], made by make() when absent. At most _KEEP are
-    kept, the least recently used dropped first: its graph, the graph's
-    memory pool and, for a batch, its KV go with it."""
+    kept, the least recently used dropped first: its graph (a batch's
+    graphs, one a data-parallel share), the graph's memory pool and, for a
+    batch, its KV go with it."""
     cache = owner.__dict__.setdefault(attr, OrderedDict())
     if key in cache:
         cache.move_to_end(key)
@@ -57,19 +68,20 @@ def _kept(owner, attr: str, key, make: Callable):
     return made
 
 
-def _chunk_loop(lm, bb_cfg, chain, n_frames: int, cb0_range, qmm: Callable,
+def _chunk_loop(lm, bb_cfg, chain, n_frames: int, cb0_range,
                 clamp_pos: bool) -> Callable:
-    """The K-frame loop shared by both chunk forms: loop(params, kv, pos,
+    """The K-frame loop shared by both chunk forms: loop(step, kvs, pos,
     base_frame, h, noise, text_ctx, done, chains, ctx) → (codes [K, B,
     n_cb], n_live [K, B] bool (the stream was not done when the frame
-    began), done [B], h' [B, hidden], pos' [B])."""
+    began), done [B], h' [B, hidden], pos' [B]). `step` is the backbone's
+    StepGroup, `kvs` its caches (one a share)."""
     frame = lm._build_frame(chain, cb0_range=cb0_range)
     compose = lm.compose_embd_fn()
     info = lm.info
     eos_code, eos_min = int(info.eos_code_c0), int(info.eos_min_step)
     max_pos = int(bb_cfg.max_ctx) - 1
 
-    def loop(params, kv, pos, base_frame, h, noise, text_ctx, done, chains,
+    def loop(step, kvs, pos, base_frame, h, noise, text_ctx, done, chains,
              ctx: int):
         rows, live = [], []
         for i in range(n_frames):
@@ -78,39 +90,37 @@ def _chunk_loop(lm, bb_cfg, chain, n_frames: int, cb0_range, qmm: Callable,
                 is_eos = (codes[:, 0] == eos_code) & (base_frame + i >= eos_min)
             else:
                 is_eos = torch.zeros_like(done)
-            emb = compose(codes).to(kv.dtype)
-            h2 = backbone_step(params, kv, pos, emb, bb_cfg, ctx, qmm)
+            emb = compose(codes).to(step.dtype)
+            h2 = step(kvs, pos, emb, ctx)
             live.append(~done)
             rows.append(torch.where(done[:, None], 0, codes))
             done = done | is_eos
             h = torch.where(done[:, None], h, h2.float())
-            step = pos + 1
+            nxt = pos + 1
             if clamp_pos:
-                step = step.clamp(max=max_pos)
-            pos = torch.where(done, pos, step)
+                nxt = nxt.clamp(max=max_pos)
+            pos = torch.where(done, pos, nxt)
         return torch.stack(rows), torch.stack(live), done, h, pos
 
     return loop
 
 
 def build_gen_chunk(lm, bb_cfg, chain: Optional[Tuple[float, int, float, float]],
-                    n_frames: int, cb0_range=None,
-                    qmm: Optional[Callable] = None) -> Callable:
-    """The single-stream chunk: chunk(params, kv [1, L, 2, n_kv, >= ctx, D],
-    pos [1], base_frame [1], h [1, hidden] f32, noise [K, 1, n_cb, W] f32,
-    text_ctx [1], ctx) → (packed int32 [K·n_cb + 3], h', pos'). `kv` is
-    updated in place; packed = codes.flatten() ++ [n_emitted, stopped,
-    pos_after], rows past n_emitted zero; `pos_after` is the position after
-    the last feedback step (the EOS frame takes none, as the host loop
-    breaks before `backbone.step`)."""
-    from ..ops import qmat
-
+                    n_frames: int, cb0_range=None) -> Callable:
+    """The single-stream chunk: chunk(step (the backbone's StepGroup), kvs
+    (its caches, each [1, L, 2, n_kv, >= ctx, D]), pos [1], base_frame [1],
+    h [1, hidden] f32, noise [K, 1, n_cb, W] f32, text_ctx [1], ctx) → (packed
+    int32 [K·n_cb + 3], h', pos'). `kvs` are updated in place; packed =
+    codes.flatten() ++ [n_emitted, stopped, pos_after], rows past
+    n_emitted zero; `pos_after` is the position after the last feedback
+    step (the EOS frame takes none, as the host loop breaks before
+    `backbone.step`)."""
     loop = _chunk_loop(lm, bb_cfg, chain, n_frames, cb0_range,
-                       qmm or qmat.qmatmul, clamp_pos=False)
+                       clamp_pos=False)
 
-    def chunk(params, kv, pos, base_frame, h, noise, text_ctx, ctx: int):
+    def chunk(step, kvs, pos, base_frame, h, noise, text_ctx, ctx: int):
         done = torch.zeros_like(pos, dtype=torch.bool)
-        codes, live, done, h, pos = loop(params, kv, pos, base_frame, h,
+        codes, live, done, h, pos = loop(step, kvs, pos, base_frame, h,
                                          noise, text_ctx, done, None, ctx)
         meta = torch.stack([live.sum(), done[0].long(), pos[0]])
         packed = torch.cat([codes.reshape(-1), meta]).to(torch.int32)
@@ -121,12 +131,11 @@ def build_gen_chunk(lm, bb_cfg, chain: Optional[Tuple[float, int, float, float]]
 
 def build_gen_chunk_batched(lm, bb_cfg,
                             chain: Optional[Tuple[float, int, float, float]],
-                            n_frames: int, cb0_range=None,
-                            qmm: Optional[Callable] = None) -> Callable:
+                            n_frames: int, cb0_range=None) -> Callable:
     """B streams through one chunk, as one batch of tensors (the products
-    at m = B): chunk(params, kv [B, L, 2, n_kv, >= ctx, D], pos [B],
-    base_frame [B], h [B, hidden], noise [K, B, n_cb, W], text_ctx [B],
-    done0 [B] bool, chains [B, 4] or None, ctx) → (packed int32 [K·B·n_cb +
+    at m = B): chunk(step (the backbone's StepGroup), kvs (its caches, each
+    [B, L, 2, n_kv, >= ctx, D]), pos [B], base_frame [B], h [B, hidden],
+    noise [K, B, n_cb, W], text_ctx [B], done0 [B] bool, chains [B, 4] or None, ctx) → (packed int32 [K·B·n_cb +
     1 + 2B], h', pos') with packed = codes[K, B, n_cb].flatten() ++
     [n_iter] ++ done[B] ++ pos_after[B]. Positions stop at max_ctx - 1.
 
@@ -135,14 +144,12 @@ def build_gen_chunk_batched(lm, bb_cfg,
     state of the frame they stopped at. `n_iter` counts the frames until
     every stream is done. `chain=None` builds the chunk whose sampler chain
     is data, `chains` [B, 4] (`ops.sample.sample_logits_dyn`)."""
-    from ..ops import qmat
-
     loop = _chunk_loop(lm, bb_cfg, chain, n_frames, cb0_range,
-                       qmm or qmat.qmatmul, clamp_pos=True)
+                       clamp_pos=True)
 
-    def chunk(params, kv, pos, base_frame, h, noise, text_ctx, done0, chains,
+    def chunk(step, kvs, pos, base_frame, h, noise, text_ctx, done0, chains,
               ctx: int):
-        codes, live, done, h, pos = loop(params, kv, pos, base_frame, h,
+        codes, live, done, h, pos = loop(step, kvs, pos, base_frame, h,
                                          noise, text_ctx, done0, chains, ctx)
         n_iter = live.any(dim=1).sum()[None]
         packed = torch.cat([codes.reshape(-1), n_iter, done.long(), pos])
@@ -227,7 +234,9 @@ class Graphed:
     puts back the tensors in `restore` that the warm-up changed, captures
     fn, and replays; later calls replay. The output is the graph's own
     tensor, valid until the next replay. A failed capture raises. The
-    warm-up and the capture hold `capture_lock` exclusive."""
+    warm-up and the capture hold `capture_lock` exclusive; both run with
+    `device` current, so each data-parallel share's graph lives on its
+    own card."""
 
     def __init__(self, fn: Callable, device: torch.device, restore=()):
         self.fn, self.device, self.restore = fn, device, restore
@@ -241,9 +250,10 @@ class Graphed:
     def run(self):
         if self.device.type != "cuda":
             return self.eager()
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
         return self.out
 
     def _capture(self) -> None:
@@ -265,16 +275,22 @@ class Graphed:
 
 class ChunkRunner:
     """One chunk's static buffers and its graph: B streams, K frames,
-    `ctx` attended cache rows. The host writes `h`, `pos`, `text_ctx`
-    once, and per chunk `base`, `done` and `noise`; `run()` advances `h`
-    and `pos` in place and returns the packed result (see the module
-    docstring). `kv` is the cache the chunk updates: the backbone's own
-    (single stream) or one owned here, [B, L, 2, n_kv, ctx, D]."""
+    `ctx` attended cache rows, on the backbone's StepGroup (`row` of a TP
+    or EP backbone's shares, or the whole backbone on `device`: a
+    data-parallel share's). The host writes `h`, `pos`, `text_ctx` once,
+    and per chunk `base`, `done` and `noise`; `run()` advances `h` and
+    `pos` in place and returns the packed result (see the module
+    docstring). `kvs` are the caches the chunk updates, one a share: the
+    backbone's own (single stream) or ones owned here, [B, L, 2, n_kv of
+    the share, ctx, D]; `kv` is the first (the whole cache unsharded)."""
 
     def __init__(self, lm, backbone, chain, n_frames: int, cb0_range,
-                 batched: bool, b: int, ctx: int):
-        unsharded(backbone, "a generation chunk")
-        cfg, dev = backbone.cfg, backbone.device
+                 batched: bool, b: int, ctx: int, row: int = 0,
+                 device=None):
+        group = step_group(backbone, "a generation chunk", row, device)
+        cfg, dev = backbone.cfg, group.device
+        lm = lm.on_device(dev)
+        self.device = dev
         self.k = n_frames
         self.n_cb = lm.info.n_codebook
         self.width = lm.noise_width()
@@ -287,33 +303,31 @@ class ChunkRunner:
                                  dtype=torch.float32, device=dev)
         self.chains = (torch.zeros((b, 4), dtype=torch.float32, device=dev)
                        if chain is None else None)
-        params, qmm = backbone.params, backbone.qmm
         if batched:
-            self.kv = torch.zeros((b, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
-                                   cfg.head_dim), dtype=backbone.dtype,
-                                  device=dev)
+            self.kvs = group.new_kv((b,), ctx)
             chunk = build_gen_chunk_batched(lm, cfg, chain, n_frames,
-                                            cb0_range, qmm)
+                                            cb0_range)
 
             def step():
-                packed, h, pos = chunk(params, self.kv, self.pos, self.base,
+                packed, h, pos = chunk(group, self.kvs, self.pos, self.base,
                                        self.h, self.noise, self.text_ctx,
                                        self.done, self.chains, ctx)
                 self.h.copy_(h)
                 self.pos.copy_(pos)
                 return packed
         else:
-            self.kv = backbone.kv[None]
-            chunk = build_gen_chunk(lm, cfg, chain, n_frames, cb0_range, qmm)
+            self.kvs = group.own_kv()
+            chunk = build_gen_chunk(lm, cfg, chain, n_frames, cb0_range)
 
             def step():
-                packed, h, pos = chunk(params, self.kv, self.pos, self.base,
+                packed, h, pos = chunk(group, self.kvs, self.pos, self.base,
                                        self.h, self.noise, self.text_ctx, ctx)
                 self.h.copy_(h)
                 self.pos.copy_(pos)
                 return packed
+        self.kv = self.kvs[0]
         self.graphed = Graphed(step, torch.device(dev), restore=(
-            self.h, self.pos, self.kv[..., :ctx, :]))
+            self.h, self.pos, *(k[..., :ctx, :] for k in self.kvs)))
 
     def draw_noise(self, generators, frames: int = 0) -> None:
         """Fresh Gumbel noise for stream s's frames from generators[s], one
@@ -352,8 +366,7 @@ def _hist_leaves(hist) -> tuple:
 
 
 def build_stream_chunk(lm, bb_cfg, chain: Tuple[float, int, float, float],
-                       rep: Tuple[float, int], n_frames: int,
-                       qmm: Optional[Callable] = None) -> Callable:
+                       rep: Tuple[float, int], n_frames: int) -> Callable:
     """K frames of the realtime streaming interleave in one device call
     (codec_tpu/lm/fused_gen.py::build_stream_chunk; host loop
     lm/tts_runner.run_realtime_streaming). Per frame: the repetition-
@@ -362,27 +375,25 @@ def build_stream_chunk(lm, bb_cfg, chain: Tuple[float, int, float, float],
     tok_embd[text_sched[i]] + compose(codes), the text side of the
     interleave scheduled by the host → one backbone step.
 
-    chunk(params, kv [1, L, 2, n_kv, >= ctx, D], pos [1], base_frame [1],
-    h [1, hidden] f32, noise [K, 1, n_cb, W] f32, hist, text_sched [K]
-    int64, ctx) → (packed int32 [K·n_cb + 3], h', pos', hist'); kv is
-    written in place. packed = codes.flatten() ++ [n_emitted, stopped,
-    pos_after], codec_tpu's layout. The EOS frame's codes enter the
+    chunk(step (the backbone's StepGroup), kvs (its caches, each [1, L, 2,
+    n_kv, >= ctx, D]), pos [1], base_frame [1], h [1, hidden] f32, noise
+    [K, 1, n_cb, W] f32, hist, text_sched [K] int64, ctx) → (packed int32
+    [K·n_cb + 3], h', pos', hist'); kvs are written in place. packed =
+    codes.flatten() ++ [n_emitted, stopped, pos_after], codec_tpu's
+    layout. The EOS frame's codes enter the
     history, as codec_tpu's loop keeps its frame's history; after it the
     hidden, the position and the history are held, the code rows are
     zeros, and the held steps write the backbone cache slot at the held
     position, which nothing reads (the run ends there)."""
-    from ..ops import qmat
-
-    qmm = qmm or qmat.qmatmul
     frame = lm._build_frame(chain, rep=rep)
     compose = lm.compose_embd_fn()
     info = lm.info
     eos_code, eos_min = int(info.eos_code_c0), int(info.eos_min_step)
     k_frames = int(n_frames)
 
-    def chunk(params, kv, pos, base_frame, h, noise, hist, text_sched,
+    def chunk(step, kvs, pos, base_frame, h, noise, hist, text_sched,
               ctx: int):
-        tok_embd = params["tok_embd"]
+        tok_embd = step.params["tok_embd"]
         text_ctx = torch.zeros_like(pos)
         done = torch.zeros_like(pos, dtype=torch.bool)
         rows, live = [], []
@@ -394,8 +405,8 @@ def build_stream_chunk(lm, bb_cfg, chain: Tuple[float, int, float, float],
                 is_eos = torch.zeros_like(done)
             # a [1] index: a 0-d one would be read on the host
             emb = (tok_embd[text_sched[i:i + 1]].float()
-                   + compose(codes)).to(kv.dtype)
-            h2 = backbone_step(params, kv, pos, emb, bb_cfg, ctx, qmm)
+                   + compose(codes)).to(step.dtype)
+            h2 = step(kvs, pos, emb, ctx)
             live.append(~done)
             rows.append(torch.where(done[:, None], 0, codes))
             hist = (tuple(torch.where(done, a, b) for a, b in
@@ -422,8 +433,9 @@ class StreamRunner:
     the packed result; `kv` is the backbone's cache."""
 
     def __init__(self, lm, backbone, chain, rep, n_frames: int, ctx: int):
-        unsharded(backbone, "a stream chunk")
-        cfg, dev = backbone.cfg, backbone.device
+        group = step_group(backbone, "a stream chunk")
+        cfg, dev = backbone.cfg, group.device
+        lm = lm.on_device(dev)
         self.k = int(n_frames)
         self.n_cb = lm.info.n_codebook
         self.width = lm.noise_width()
@@ -435,12 +447,12 @@ class StreamRunner:
                                  dtype=torch.float32, device=dev)
         self.hist = init_rep_hist(lm, int(rep[1]), dev)
         self._fresh = tuple(t.clone() for t in _hist_leaves(self.hist))
-        self.kv = backbone.kv[None]
-        chunk = build_stream_chunk(lm, cfg, chain, rep, self.k, backbone.qmm)
-        params = backbone.params
+        self.kvs = group.own_kv()
+        self.kv = self.kvs[0]
+        chunk = build_stream_chunk(lm, cfg, chain, rep, self.k)
 
         def step():
-            packed, h, pos, hist = chunk(params, self.kv, self.pos, self.base,
+            packed, h, pos, hist = chunk(group, self.kvs, self.pos, self.base,
                                          self.h, self.noise, self.hist,
                                          self.text_sched, ctx)
             self.h.copy_(h)
@@ -450,7 +462,8 @@ class StreamRunner:
             return packed
 
         self.graphed = Graphed(step, torch.device(dev), restore=(
-            self.h, self.pos, *_hist_leaves(self.hist), self.kv[..., :ctx, :]))
+            self.h, self.pos, *_hist_leaves(self.hist),
+            *(k[..., :ctx, :] for k in self.kvs)))
 
     def reset_hist(self) -> None:
         """An empty repetition history (a request's start)."""
@@ -476,38 +489,34 @@ def chunk_ctx(backbone, need: int) -> int:
     return min(int(backbone.cfg.max_ctx), -(-int(need) // _CTX_STEP) * _CTX_STEP)
 
 
+def _kv_key(backbone):
+    """The address of a backbone's own cache (every share's on a mesh)."""
+    if getattr(backbone, "kv", None) is not None:
+        return backbone.kv.data_ptr()
+    return tuple(k.data_ptr() for k in backbone.kvs)
+
+
 def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
                      temperature: float = 0.0, top_k: int = 0,
                      top_p: float = 1.0, min_p: float = 0.0,
-                     cb0_range=None, batched: bool = False, b: int = 1,
-                     traced_chain: bool = False, stream: bool = False,
+                     cb0_range=None, stream: bool = False,
                      rep: Optional[Tuple[float, int]] = None):
-    """The ChunkRunner of this (sampler chain, K, cb0_range, batch, ctx,
-    LM) on this backbone, or with `stream` the StreamRunner of this (chain,
-    rep = (penalty, window), default (1.0, 0), K, ctx, LM): built once and
-    kept on the backbone (its graph
-    holds the backbone's weights and, for one stream, its KV cache). The
-    key also holds the KV cache's address and the TF32 settings the graph
-    was captured under. The backbone keeps the _KEEP runners used last
-    (a new sampler chain, length bucket or batch size past them drops the
-    oldest, its graph and its KV with it); `reset()` keeps them, so the
-    next request of the same shape replays without a capture.
-
-    `traced_chain=True` (batched only) ignores the chain statics: the
-    runner's `chains` [B, 4] carries each stream's chain."""
-    unsharded(backbone, "a generation chunk")
-    if traced_chain and not batched:
-        raise ValueError("traced_chain is a batched-chunk mode")
-    if stream and (batched or cb0_range is not None):
+    """The single-stream ChunkRunner of this (sampler chain, K,
+    cb0_range, ctx, LM) on this backbone, or with `stream` the
+    StreamRunner of this (chain, rep = (penalty, window), default (1.0,
+    0), K, ctx, LM): built once and kept on the backbone (its graph holds
+    the backbone's weights and KV cache). The key also holds the KV
+    cache's address and the TF32 settings the graph was captured under.
+    The backbone keeps the _KEEP runners used last (a new sampler chain or
+    length bucket past them drops the oldest, its graph with it);
+    `reset()` keeps them, so the next request of the same shape replays
+    without a capture. A batch of streams: gen_batch_cached."""
+    if stream and cb0_range is not None:
         raise ValueError("the stream chunk is one stream with no cb0 range")
-    chain = None if traced_chain else (
-        float(temperature), int(top_k), float(top_p), float(min_p))
+    chain = (float(temperature), int(top_k), float(top_p), float(min_p))
     rep = (float(rep[0]), int(rep[1])) if rep is not None else (1.0, 0)
-    key = (id(lm), chain, int(n_frames), cb0_range, batched, int(b), int(ctx),
-           stream, rep if stream else None,
-           None if batched else backbone.kv.data_ptr(), repr(backbone.cfg),
-           torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
+    key = (id(lm), chain, int(n_frames), cb0_range, int(ctx), stream,
+           rep if stream else None, _kv_key(backbone), *_settings(backbone))
     if stream:
         def make():
             return StreamRunner(lm, backbone, chain, rep, int(n_frames),
@@ -515,9 +524,105 @@ def gen_chunk_cached(lm, backbone, *, n_frames: int, ctx: int,
     else:
         def make():
             return ChunkRunner(lm, backbone, chain, int(n_frames), cb0_range,
-                               batched, int(b), int(ctx))
+                               False, 1, int(ctx))
     # the LM rides along so that id(lm) is not reused while the entry lives
     return _kept(backbone, "_gen_chunks", key, lambda: (lm, make()))[1]
+
+
+def _settings(backbone) -> tuple:
+    """The rest of a runner's key: the backbone's config and the TF32
+    settings its graph is captured under."""
+    return (repr(backbone.cfg), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+class DpChunks:
+    """A batched chunk over B streams built as one runner a data-parallel
+    share (dp_groups: `rows` of the streams each; one runner of all B
+    without a mesh), behind one runner's interface over the B streams:
+    `put(name, values)` writes values[s] into stream s's row of buffer
+    `name` in the share holding it, `draw_noise(gens)` takes a generator a
+    stream, `kv(s)` gives stream s's caches, and `run()` replays every
+    share before it reads any and returns the unsharded chunk's packed
+    result. `width`: a frame's codes a stream (n_cb; 1 for Chatterbox)."""
+
+    def __init__(self, groups, make: Callable, width: int):
+        self.rows = [rows for rows, _, _ in groups]
+        self.runners = [make(rows.stop - rows.start, row, dev)
+                        for rows, row, dev in groups]
+        self.runner = self.runners[0]
+        self.width = int(width)
+
+    def at(self, s: int):
+        """(the runner holding stream s, its index there)."""
+        for rows, r in zip(self.rows, self.runners):
+            if rows.start <= s < rows.stop:
+                return r, s - rows.start
+        raise IndexError(s)
+
+    def kv(self, s: int) -> list:
+        """Stream s's caches, one a backbone share (views)."""
+        r, j = self.at(s)
+        return [k[j] for k in r.kvs]
+
+    def put(self, name: str, values) -> None:
+        values = np.asarray(values)
+        for rows, r in zip(self.rows, self.runners):
+            getattr(r, name).copy_(torch.as_tensor(values[rows]))
+
+    def draw_noise(self, gens, **kw) -> None:
+        """gens[s] (None: no draw) draws stream s's noise in its share."""
+        for rows, r in zip(self.rows, self.runners):
+            r.draw_noise(list(gens[rows]), **kw)
+
+    def run(self) -> np.ndarray:
+        """The packed result, codes [K, B, width] ++ [n_iter] ++ one [B]
+        vector a per-stream output (done, pos, ...), as one chunk over the
+        B streams gives it: the shares' codes and vectors joined in stream
+        order, n_iter the largest share's."""
+        outs = [r.run() for r in self.runners]
+        arrs = [o.cpu().numpy() for o in outs]
+        if len(arrs) == 1:
+            return arrs[0]
+        k = self.runner.k
+        codes, n_iter, vecs = [], 0, []
+        for a, rows in zip(arrs, self.rows):
+            b = rows.stop - rows.start
+            n = k * b * self.width
+            codes.append(a[:n].reshape(k, b, self.width))
+            n_iter = max(n_iter, int(a[n]))
+            vecs.append(a[n + 1:].reshape(-1, b))
+        return np.concatenate([np.concatenate(codes, axis=1).reshape(-1),
+                               np.asarray([n_iter], arrs[0].dtype),
+                               np.concatenate(vecs, axis=1).reshape(-1)])
+
+
+def _dp_cached(backbone, key, mesh, b: int, dp_axis: str, what: str,
+               make: Callable, width: int, rides) -> DpChunks:
+    """The DpChunks of b streams over mesh[dp_axis] under `key`, kept on
+    the backbone (`_batch_chunks`: the _KEEP used last, each with every
+    share's runner); `rides` (the LM, T3) and the mesh stay with the
+    entry, so their ids in the key are not reused while it lives."""
+    groups = dp_groups(backbone, mesh, int(b), dp_axis, what)
+    full = (key, int(b), id(mesh), dp_axis, *_settings(backbone))
+    return _kept(backbone, "_batch_chunks", full, lambda: (
+        rides, mesh, DpChunks(groups, make, width)))[2]
+
+
+def gen_batch_cached(lm, backbone, *, b: int, n_frames: int, ctx: int,
+                     chain: Optional[Tuple[float, int, float, float]] = None,
+                     cb0_range=None, mesh=None,
+                     dp_axis: str = "dp") -> DpChunks:
+    """The batched ChunkRunners of b streams (this chain, or with None
+    the chain as data; K, cb0_range, ctx, LM), one a share of
+    mesh[dp_axis] (dp_groups), as a DpChunks kept on the backbone."""
+    key = ("gen", id(lm), chain, int(n_frames), cb0_range, int(ctx))
+
+    def make(n, row, dev):
+        return ChunkRunner(lm, backbone, chain, int(n_frames), cb0_range,
+                           True, n, int(ctx), row, dev)
+    return _dp_cached(backbone, key, mesh, b, dp_axis, "batched generation",
+                      make, lm.info.n_codebook, lm)
 
 
 class FrameRunner:
@@ -565,33 +670,77 @@ def supports_gen_chunk(lm: Any, backbone: Any) -> bool:
     chained on the device). A pipeline-staged backbone (set_mesh_pp)
     stands down, as codec_tpu's does: it generates through the host
     per-frame loop, whose prefill and step run the pipeline. A TP or EP
-    backbone passes, and the chunk then refuses it (unsharded)."""
+    backbone runs the chunk over its shares (backbone_step_split)."""
     return (hasattr(lm, "_build_frame") and hasattr(lm, "compose_embd_fn")
             and getattr(lm, "gen_chunk_ok", lambda: True)()
-            and hasattr(backbone, "params") and hasattr(backbone, "kv")
-            and hasattr(backbone, "cfg")
+            and hasattr(backbone, "params") and hasattr(backbone, "cfg")
+            and (hasattr(backbone, "kv") or hasattr(backbone, "kvs"))
             and getattr(backbone, "mesh_kind", None) != "pp")
 
 
-def unsharded(backbone: Any, what: str) -> None:
-    """Raise CodecError for a backbone on a mesh: `what` (a chunk or a
-    batched run) reads its weights and KV cache whole."""
+def dp_groups(backbone: Any, mesh, b: int, dp_axis: str = "dp",
+              what: str = "batched generation", unit: str = "streams"):
+    """The data-parallel shares of b streams (or slots) over mesh[dp_axis]
+    (parallel/mesh.py::dp_share; ValueError where b is not a multiple of
+    the axis size) as [(their rows, StepGroup row, device)]: an unsharded
+    backbone replicated on each share's device, or a TP/EP backbone's own
+    row for each share (its set_mesh mesh must be this one: a 2-D dp x tp
+    mesh). mesh None: one share of every stream on the backbone's own
+    group."""
+    from ..parallel.mesh import dp_share
+
+    if mesh is None:
+        return [(slice(0, b), 0, None)]
+    n = int(mesh.shape[dp_axis])
+    dp_share(mesh, b, 0, dp_axis, what, unit)
     kind = getattr(backbone, "mesh_kind", None)
-    if kind == "pp":
+    if kind is not None and getattr(backbone, "mesh", None) is not mesh:
+        raise ValueError(f"{what} DP over a --{kind} backbone: shard the "
+                         f"backbone over the same 2-D mesh "
+                         f"(set_mesh(mesh, axis='tp'))")
+    per = b // n
+    out = []
+    for j in range(n):
+        _, devs = dp_share(mesh, b, j * per, dp_axis, what, unit)
+        rows = slice(j * per, (j + 1) * per)
+        out.append((rows, j, None) if kind else (rows, 0, devs[0]))
+    return out
+
+
+def refuse_pp(backbone: Any, what: str) -> None:
+    """CodecError for a pipeline-staged backbone, which `what` (a chunk or
+    a batched run) cannot step."""
+    if getattr(backbone, "mesh_kind", None) == "pp":
         raise CodecError(f"{what} over a --pp backbone is not ported: a "
                          f"pipeline-staged backbone generates through the "
                          f"host per-frame loop")
-    if kind is not None:
-        raise CodecError(f"{what} over a --tp/--ep backbone is not ported "
-                         f"yet: TP and EP inside the CUDA-graph chunks come "
-                         f"in the next slice; run the host path (no "
+
+
+def step_group(backbone: Any, what: str, row: int = 0,
+               device=None) -> StepGroup:
+    """The StepGroup `what` (a chunk or a batched run) steps the backbone
+    on: `row` of a TP or EP backbone's shares, or an unsharded backbone
+    on `device` (its own by default). CodecError for a --pp backbone,
+    which codec_tpu too runs only through the host per-frame loop, and
+    for a group whose shares sit on more than one card: a graph captured
+    across cards would join each other card's stream to the capture
+    through events, which is not built (name one card per group, as
+    devices=["cuda:0"] * n does, or run the host path)."""
+    refuse_pp(backbone, what)
+    group = StepGroup(backbone, row, device)
+    cards = {physical(d) for d in group.devices}
+    if len(cards) > 1:
+        raise CodecError(f"{what} over a backbone whose shares sit on "
+                         f"{len(cards)} cards ({sorted(map(str, cards))}): a "
+                         f"CUDA graph across cards is not built; name one "
+                         f"card per share group or run the host path (no "
                          f"--on-device)")
+    return group
 
 
 # -- the continuous-latent chunk (BlueMagpie / VoxCPM) -------------------------
 
-def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float,
-                           qmm: Optional[Callable] = None) -> Callable:
+def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float) -> Callable:
     """K steps of the continuous-latent (CFM) flow in one device call
     (codec_tpu/lm/fused_gen.py::build_continuous_chunk): per step one CFM
     step (`lm._generate` at primed=False: 9 Euler steps × 2 LocDiT passes
@@ -599,11 +748,12 @@ def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float,
     argmax, taken only once patch_index > min_len, as step_generate's host
     gate) → one backbone step on the fb_tslm feedback.
 
-    chunk(params, bb_kv [1, L, 2, n_kv, >= ctx, D], pos [1], h [1, hidden],
-    kv (the RALM cache), kv_pos [1], patch_index [1], min_len [1],
-    prev_patch [P, D], prev_fb_lm [h_vox], noise [K, P, D], ctx) →
-    (packed f32 [K·P·D + h_barbet + 3], h', pos', kv_pos', patch_index',
-    prev_patch', prev_fb_lm'); bb_kv and kv are written in place. packed =
+    chunk(step (the backbone's StepGroup), bb_kvs (its caches, each [1, L,
+    2, n_kv, >= ctx, D]), pos [1], h [1, hidden], kv (the RALM cache),
+    kv_pos [1], patch_index [1], min_len [1], prev_patch [P, D],
+    prev_fb_lm [h_vox], noise [K, P, D], ctx) → (packed f32 [K·P·D +
+    h_barbet + 3], h', pos', kv_pos', patch_index', prev_patch',
+    prev_fb_lm'); bb_kvs and kv are written in place. packed =
     patches.flatten() ++ the last step's fb_tslm ++ [n_emitted, stopped,
     pos_after], codec_tpu's layout.
 
@@ -612,13 +762,10 @@ def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float,
     the carried patch and feedback are held (`torch.where`), the later
     steps' patch rows are zeros and their cache writes land at the held
     slots (the run ends there)."""
-    from ..ops import qmat
-
-    qmm = qmm or qmat.qmatmul
     k_steps = int(n_steps)
     max_slot = int(lm.max_T) - 1
 
-    def chunk(params, bb_kv, pos, h, kv, kv_pos, patch_index, min_len,
+    def chunk(step, bb_kvs, pos, h, kv, kv_pos, patch_index, min_len,
               prev_patch, prev_fb_lm, noise, ctx: int):
         done = torch.zeros_like(pos, dtype=torch.bool)
         fb_last = None
@@ -639,8 +786,7 @@ def build_continuous_chunk(lm, bb_cfg, n_steps: int, sched, cfg_value: float,
             kv_pos = torch.where(done, kv_pos, kv_pos + 1)
             patch_index = torch.where(done, patch_index, patch_index + 1)
             done = done | stop
-            h2 = backbone_step(params, bb_kv, pos, fb_tslm[None].to(bb_kv.dtype),
-                               bb_cfg, ctx, qmm)
+            h2 = step(bb_kvs, pos, fb_tslm[None].to(step.dtype), ctx)
             h = torch.where(done[:, None], h, h2.float())
             pos = torch.where(done, pos, pos + 1)
         meta = torch.stack([torch.stack(live).sum(), done[0].long(),
@@ -661,8 +807,9 @@ class ContinuousRunner:
 
     def __init__(self, lm, backbone, n_steps: int, n_timesteps: int,
                  cfg_value: float, ctx: int):
-        unsharded(backbone, "a continuous chunk")
-        dev = backbone.device
+        group = step_group(backbone, "a continuous chunk")
+        dev = group.device
+        lm = lm.on_device(dev)
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -679,13 +826,13 @@ class ContinuousRunner:
         self.noise = zeros(self.k, lm.patch_size, lm.latent_dim)
         chunk = build_continuous_chunk(lm, backbone.cfg, self.k,
                                        lm.schedule(int(n_timesteps)),
-                                       float(cfg_value), backbone.qmm)
-        params, bb_kv = backbone.params, backbone.kv[None]
+                                       float(cfg_value))
+        bb_kvs = group.own_kv()
         state = (self.pos, self.kv_pos, self.patch_index, self.prev_patch,
                  self.prev_fb_lm)
 
         def step():
-            packed, h, *rest = chunk(params, bb_kv, self.pos, self.h, self.kv,
+            packed, h, *rest = chunk(group, bb_kvs, self.pos, self.h, self.kv,
                                      self.kv_pos, self.patch_index,
                                      self.min_len, self.prev_patch,
                                      self.prev_fb_lm, self.noise, ctx)
@@ -695,7 +842,7 @@ class ContinuousRunner:
             return packed
 
         self.graphed = Graphed(step, torch.device(dev), restore=(
-            self.h, *state, self.kv, bb_kv[..., :ctx, :]))
+            self.h, *state, self.kv, *(k[..., :ctx, :] for k in bb_kvs)))
 
     def load(self, ks, h, pos: int, min_len: int) -> None:
         """A CFM state (kind_state) after its first step, the backbone
@@ -725,11 +872,8 @@ def continuous_chunk_cached(lm, backbone, *, n_steps: int, n_timesteps: int,
     this backbone, built once and kept on the backbone (the _KEEP used
     last; its graph holds the backbone's weights and KV cache, whose
     address is in the key with the TF32 settings)."""
-    unsharded(backbone, "a continuous chunk")
     key = (id(lm), int(n_steps), int(n_timesteps), float(cfg_value), int(ctx),
-           backbone.kv.data_ptr(), repr(backbone.cfg),
-           torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
+           _kv_key(backbone), *_settings(backbone))
     return _kept(backbone, "_cont_chunks", key, lambda: (lm, ContinuousRunner(
         lm, backbone, n_steps, n_timesteps, cfg_value, ctx)))[1]
 
@@ -738,8 +882,7 @@ def continuous_chunk_cached(lm, backbone, *, n_steps: int, n_timesteps: int,
 
 def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
                            rep_pen: float, n_frames: int, *, n_seq: int,
-                           cfg_weight: float, stop_token: int, n_pos: int,
-                           qmm: Optional[Callable] = None) -> Callable:
+                           cfg_weight: float, stop_token: int, n_pos: int) -> Callable:
     """K frames of the Chatterbox T3 CFG loop in one device call
     (codec_tpu/lm/fused_gen.py::build_chatterbox_chunk; host loop
     lm/tts_runner.run_chatterbox). Per frame: the speech head on both
@@ -751,22 +894,21 @@ def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
     past the table, as codec_tpu clips it) → one backbone step of the
     lanes as a batch of `n_seq` (the products at m = n_seq).
 
-    chunk(params, head [V, hidden], speech_emb [V, hidden], pos_emb [P,
-    hidden], kv [S, L, 2, n_kv, >= ctx, D], pos [S], step [1], h [S,
-    hidden] f32, noise [K, V], seen [V] bool, ctx) → (packed int32 [K + 4],
-    h', pos', step', seen'); kv is written in place. packed = codes ++
+    chunk(bstep (the backbone's StepGroup), head [V, hidden], speech_emb [V,
+    hidden], pos_emb [P, hidden], kvs (its caches, each [S, L, 2, n_kv, >=
+    ctx, D]), pos [S], step [1], h [S, hidden] f32, noise [K, V], seen
+    [V] bool, ctx) → (packed int32 [K + 4], h', pos', step', seen'); kvs
+    are written in place. packed = codes ++
     [n_emitted, stopped, pos_after, step_after]: rows past the stop are
     zeros, and after it the hiddens, positions, step and seen mask are
     held (the stop is data, as in the codebook chunks)."""
-    from ..ops import qmat
     from ..ops.sample import apply_repetition_penalty, sample_logits
 
-    qmm = qmm or qmat.qmatmul
     k_frames, cfg_w, stop = int(n_frames), float(cfg_weight), int(stop_token)
     greedy = chain[0] <= 0.0
     use_pen = (not greedy) and rep_pen != 1.0
 
-    def chunk(params, head, speech_emb, pos_emb, kv, pos, step, h, noise,
+    def chunk(bstep, head, speech_emb, pos_emb, kvs, pos, step, h, noise,
               seen, ctx: int):
         done = torch.zeros_like(step, dtype=torch.bool)
         codes, live = [], []
@@ -792,9 +934,7 @@ def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
             nxt = step + 1
             emb = speech_emb[code] + torch.where(
                 nxt[:, None] < n_pos, pos_emb[nxt.clamp(0, n_pos - 1)], 0.0)
-            h2 = backbone_step(params, kv, pos,
-                               emb.expand(n_seq, -1).to(kv.dtype), bb_cfg,
-                               ctx, qmm)
+            h2 = bstep(kvs, pos, emb.expand(n_seq, -1).to(bstep.dtype), ctx)
             h = torch.where(done, h, h2.float())
             pos = torch.where(done, pos, pos + 1)
             step = torch.where(done, step, nxt)
@@ -808,8 +948,7 @@ def build_chatterbox_chunk(bb_cfg, chain: Tuple[float, int, float, float],
 
 def build_chatterbox_chunk_batched(bb_cfg, n_frames: int, *, n_seq: int,
                                    cfg_weight: float, stop_token: int,
-                                   n_pos: int, rep_pen: float = 1.2,
-                                   qmm: Optional[Callable] = None) -> Callable:
+                                   n_pos: int, rep_pen: float = 1.2) -> Callable:
     """B Chatterbox generations, each with its S CFG lanes, in one device
     call (codec_tpu/lm/fused_gen.py::build_chatterbox_chunk_batched): the
     single-stream chunk's frame per stream, the B·S lanes through one
@@ -819,26 +958,25 @@ def build_chatterbox_chunk_batched(bb_cfg, n_frames: int, *, n_seq: int,
     (T3's preset), applied to a stream only where its temperature is > 0,
     as the host SamplerChain does.
 
-    chunk(params, head [V, hidden], speech_emb, pos_emb, kv [B, S, L, 2,
-    n_kv, >= ctx, D], pos [B], step [B], h [B, S, hidden] f32, noise [K, B,
-    V], seen [B, V] bool, done0 [B] bool, chains [B, 4], ctx) → (packed
-    int32 [K·B + 1 + 3B], h', pos', step', seen'); kv is written in place.
+    chunk(bstep (the backbone's StepGroup), head [V, hidden], speech_emb,
+    pos_emb, kvs (its caches, each [B, S, L, 2, n_kv, >= ctx, D]), pos
+    [B], step [B], h [B, S, hidden] f32, noise [K, B, V], seen [B, V]
+    bool, done0 [B] bool, chains [B, 4], ctx) → (packed int32 [K·B + 1 +
+    3B], h', pos', step', seen'); kvs are written in place.
     packed = codes[K, B].flatten() ++ [n_iter] ++ done[B] ++ pos[B] ++
     step[B], codec_tpu's layout. A stream in `done0`, or one that stopped,
     keeps its hiddens, position, step and seen mask, and its code rows are
     zeros; its lanes still run the step, writing the cache row at the held
     position, which its next real step overwrites."""
-    from ..ops import qmat
     from ..ops.sample import apply_repetition_penalty, sample_logits_dyn
 
-    qmm = qmm or qmat.qmatmul
     k_frames, cfg_w, stop = int(n_frames), float(cfg_weight), int(stop_token)
     rep_pen = float(rep_pen)
 
-    def chunk(params, head, speech_emb, pos_emb, kv, pos, step, h, noise,
+    def chunk(bstep, head, speech_emb, pos_emb, kvs, pos, step, h, noise,
               seen, done0, chains, ctx: int):
         b, hidden = h.shape[0], h.shape[-1]
-        rows_kv = kv.flatten(0, 1)                   # [B·S, L, ...], a view
+        rows_kv = [kv.flatten(0, 1) for kv in kvs]   # [B·S, L, ...], views
         idx = torch.arange(seen.shape[-1], device=seen.device)
         pen_on = chains[:, 0:1] > 0.0
         done = done0
@@ -859,9 +997,9 @@ def build_chatterbox_chunk_batched(bb_cfg, n_frames: int, *, n_seq: int,
             nxt = step + 1
             emb = speech_emb[code] + torch.where(
                 (nxt < n_pos)[:, None], pos_emb[nxt.clamp(0, n_pos - 1)], 0.0)
-            h2 = backbone_step(params, rows_kv, pos.repeat_interleave(n_seq),
-                               emb.repeat_interleave(n_seq, dim=0).to(kv.dtype),
-                               bb_cfg, ctx, qmm)
+            h2 = bstep(rows_kv, pos.repeat_interleave(n_seq),
+                       emb.repeat_interleave(n_seq, dim=0).to(bstep.dtype),
+                       ctx)
             h = torch.where(done[:, None, None], h,
                             h2.float().reshape(b, n_seq, hidden))
             pos = torch.where(done, pos, pos + 1)
@@ -876,54 +1014,59 @@ def build_chatterbox_chunk_batched(bb_cfg, n_frames: int, *, n_seq: int,
 
 class ChatterboxRunner:
     """The Chatterbox chunk's static buffers and its graph: both lanes' KV
-    caches as one [S, L, 2, n_kv, ctx, D] tensor (owned here; the host
-    copies each lane's prefill in), their hiddens `h` [S, hidden] and
-    position `pos` [S], the frame index `step` [1], the sampler's `seen`
-    mask [V] and the host-drawn Gumbel `noise` [K, V]. `run()` advances
-    them in place and returns the packed result.
+    caches as [S, L, 2, n_kv, ctx, D] tensors (`kvs`, one a backbone
+    share, owned here; the host copies each lane's prefill in; `kv` the
+    first), their hiddens `h` [S, hidden] and position `pos` [S], the
+    frame index `step` [1], the sampler's `seen` mask [V] and the
+    host-drawn Gumbel `noise` [K, V]. `run()` advances them in place and
+    returns the packed result.
 
-    With `b` > 0, the B-stream form (build_chatterbox_chunk_batched): `kv`
-    [B, S, L, 2, n_kv, ctx, D], `h` [B, S, hidden], `pos` and `step` [B],
-    `seen` [B, V], `noise` [K, B, V], and the host's `done` [B] and
-    `chains` [B, 4]; `chain` is then unused."""
+    With `b` > 0, the B-stream form (build_chatterbox_chunk_batched): each
+    of `kvs` [B, S, L, 2, n_kv, ctx, D], `h` [B, S, hidden], `pos` and
+    `step` [B], `seen` [B, V], `noise` [K, B, V], and the host's `done` [B]
+    and `chains` [B, 4]; `chain` is then unused. `row` / `device`: the
+    backbone's StepGroup (a data-parallel share's), where the LM's head
+    and T3's tables are read too (their copies on that card)."""
 
-    def __init__(self, head, speech_emb, pos_emb, backbone, chain,
-                 rep_pen: float, n_frames: int, n_seq: int, cfg_weight: float,
-                 stop_token: int, ctx: int, b: int = 0):
-        unsharded(backbone, "a Chatterbox chunk")
-        cfg, dev = backbone.cfg, backbone.device
+    def __init__(self, lm, t3, backbone, chain, rep_pen: float,
+                 n_frames: int, n_seq: int, cfg_weight: float, ctx: int,
+                 b: int = 0, row: int = 0, device=None):
+        group = step_group(backbone, "a Chatterbox chunk", row, device)
+        cfg, dev = backbone.cfg, group.device
+        head = lm.on_device(dev).heads[0]
+        speech_emb, pos_emb = t3.speech_tables(physical(dev))
+        stop_token = t3.info.stop_speech_token
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        self.device = dev
         self.k, self.vocab, self.b = int(n_frames), int(head.shape[0]), int(b)
         lead = (self.b, n_seq) if b else (n_seq,)
-        self.kv = zeros(*lead, cfg.n_layers, 2, cfg.n_kv_heads, ctx,
-                        cfg.head_dim, dtype=backbone.dtype)
+        self.kvs = group.new_kv(lead, ctx)
+        self.kv = self.kvs[0]
         self.h = zeros(*lead, cfg.hidden)
         self.pos = zeros(b or n_seq, dtype=torch.long)
         self.step = zeros(b or 1, dtype=torch.long)
         self.seen = zeros(*((b,) if b else ()), self.vocab, dtype=torch.bool)
         self.noise = zeros(self.k, *((b,) if b else ()), self.vocab)
-        params, n_pos = backbone.params, int(pos_emb.shape[0])
+        n_pos = int(pos_emb.shape[0])
         state = (self.h, self.pos, self.step, self.seen)
         if b:
             self.done = zeros(b, dtype=torch.bool)
             self.chains = zeros(b, 4)
             chunk = build_chatterbox_chunk_batched(
                 cfg, self.k, n_seq=n_seq, cfg_weight=cfg_weight,
-                stop_token=stop_token, n_pos=n_pos, rep_pen=rep_pen,
-                qmm=backbone.qmm)
+                stop_token=stop_token, n_pos=n_pos, rep_pen=rep_pen)
             extra = (self.done, self.chains)
         else:
             chunk = build_chatterbox_chunk(
                 cfg, chain, rep_pen, self.k, n_seq=n_seq,
-                cfg_weight=cfg_weight, stop_token=stop_token, n_pos=n_pos,
-                qmm=backbone.qmm)
+                cfg_weight=cfg_weight, stop_token=stop_token, n_pos=n_pos)
             extra = ()
 
         def run():
-            packed, *new = chunk(params, head, speech_emb, pos_emb, self.kv,
+            packed, *new = chunk(group, head, speech_emb, pos_emb, self.kvs,
                                  self.pos, self.step, self.h, self.noise,
                                  self.seen, *extra, ctx)
             for buf, t in zip(state, new):
@@ -931,7 +1074,7 @@ class ChatterboxRunner:
             return packed
 
         self.graphed = Graphed(run, torch.device(dev),
-                               restore=(*state, self.kv))
+                               restore=(*state, *self.kvs))
 
     def draw_noise(self, gen) -> None:
         """Fresh Gumbel noise for the K frames, one [K, V] draw from `gen`;
@@ -952,20 +1095,30 @@ class ChatterboxRunner:
 
 def chatterbox_chunk_cached(lm, t3, backbone, *, chain, rep_pen: float,
                             n_frames: int, n_seq: int, cfg_weight: float,
-                            ctx: int, b: int = 0) -> ChatterboxRunner:
-    """The ChatterboxRunner of this (sampler chain, penalty, K, lanes, CFG
-    weight, ctx, T3) on this backbone (whose weights both lanes share), kept
-    on the backbone (the _KEEP used last). `b` > 0: the B-stream runner,
-    its chain data (`chain` is not part of the key)."""
-    unsharded(backbone, "a Chatterbox chunk")
-    key = (id(lm), id(t3), None if b else tuple(chain), float(rep_pen),
-           int(n_frames), int(n_seq), float(cfg_weight), int(ctx), int(b),
-           repr(backbone.cfg), torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    speech_emb, pos_emb = t3.speech_tables(backbone.device)
+                            ctx: int) -> ChatterboxRunner:
+    """The single-stream ChatterboxRunner of this (sampler chain, penalty,
+    K, lanes, CFG weight, ctx, T3) on this backbone (whose weights both
+    lanes share), kept on the backbone (the _KEEP used last)."""
+    key = (id(lm), id(t3), tuple(chain), float(rep_pen), int(n_frames),
+           int(n_seq), float(cfg_weight), int(ctx), *_settings(backbone))
+    return _kept(backbone, "_cbx_chunks", key, lambda: (
+        lm, t3, ChatterboxRunner(lm, t3, backbone, chain, rep_pen, n_frames,
+                                 n_seq, cfg_weight, ctx)))[2]
 
-    def make():
-        return (lm, t3, ChatterboxRunner(
-            lm.heads[0], speech_emb, pos_emb, backbone, chain, rep_pen,
-            n_frames, n_seq, cfg_weight, t3.info.stop_speech_token, ctx, b=b))
-    return _kept(backbone, "_cbx_chunks", key, make)[2]
+
+def chatterbox_batch_cached(lm, t3, backbone, *, b: int, rep_pen: float,
+                            n_frames: int, n_seq: int, cfg_weight: float,
+                            ctx: int, mesh=None,
+                            dp_axis: str = "dp") -> DpChunks:
+    """The B-stream ChatterboxRunners of b streams (their chains data),
+    one a share of mesh[dp_axis] (dp_groups), as a DpChunks kept on the
+    backbone."""
+    key = ("cbx", id(lm), id(t3), float(rep_pen), int(n_frames), int(n_seq),
+           float(cfg_weight), int(ctx))
+
+    def make(n, row, dev):
+        return ChatterboxRunner(lm, t3, backbone, None, rep_pen, n_frames,
+                                n_seq, cfg_weight, ctx, b=n, row=row,
+                                device=dev)
+    return _dp_cached(backbone, key, mesh, b, dp_axis, "batched chatterbox",
+                      make, 1, (lm, t3))

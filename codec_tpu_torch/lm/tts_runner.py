@@ -885,7 +885,8 @@ def _run_chatterbox_chunked(audio_lm, t3, backbones, hiddens,
         rep_pen=float(on_device.repetition_penalty), n_frames=k,
         n_seq=n_seq, cfg_weight=cfg_weight, ctx=ctx)
     for s, lane in enumerate(backbones):
-        runner.kv[s].copy_(lane.kv[..., :ctx, :])
+        for dst, src in zip(runner.kvs, own_kvs(lane)):
+            dst[s].copy_(src[..., :ctx, :])
     runner.h.copy_(torch.as_tensor(np.stack(
         [np.asarray(x, np.float32) for x in hiddens])))
     runner.pos.fill_(pos)
@@ -929,6 +930,7 @@ def run_chatterbox_batch(
     sampling: Optional[Sequence[OnDeviceSampling]] = None,
     prefill_bucket: int = 0,
     mesh=None,
+    dp_axis: str = "dp",
 ) -> List[SynthesisResult]:
     """B Chatterbox T3 generations, each with its CFG lanes, through one
     chunk (lm/fused_gen.py::build_chatterbox_chunk_batched; on CUDA one
@@ -939,22 +941,24 @@ def run_chatterbox_batch(
     seen mask starts with the start speech token, and its Gumbel noise
     comes from its own generator, a [K, V] draw a chunk while it runs.
     `sampling`: one chain a stream (data in the graph); the repetition
-    penalty is `on_device`'s for every stream. `mesh` (data-parallel
-    streams) is not ported yet: it raises CodecError."""
-    from ..runtime.model import CodecError
-    from .fused_gen import chatterbox_chunk_cached, chunk_ctx, unsharded
+    penalty is `on_device`'s for every stream.
 
-    if mesh is not None:
-        raise CodecError("run_chatterbox_batch(mesh=) is not ported yet: "
-                         "data-parallel streams come in the next slice")
-    unsharded(backbone, "batched Chatterbox")
+    `mesh`: the B streams split over mesh[dp_axis] (B a multiple of its
+    size), codec_tpu's data-parallel streams: one chunk a share, each
+    holding its B/n streams' lane caches, hiddens, seen masks and noise,
+    on its own devices (a 2-D dp x tp mesh: its row of a backbone TP-split
+    over the same mesh). The noise is drawn per stream as without a mesh
+    and copied into its share; every share is replayed before any is
+    read."""
+    from .fused_gen import chatterbox_batch_cached, chunk_ctx, refuse_pp
+
+    refuse_pp(backbone, "batched Chatterbox")
     b = len(audio_lms)
     if b == 0 or b != len(texts):
         raise ValueError("need one text per stream")
     if sampling is not None and len(sampling) != b:
         raise ValueError("sampling needs one OnDeviceSampling per stream")
-    if not (hasattr(backbone, "params") and hasattr(backbone, "kv")
-            and hasattr(backbone, "cfg")):
+    if not (hasattr(backbone, "params") and hasattr(backbone, "cfg")):
         raise ValueError("batched chatterbox needs a backbone with its "
                          "weights, KV cache and config (LlamaBackbone)")
     info = t3.info
@@ -965,10 +969,10 @@ def run_chatterbox_batch(
                for text in texts]
     runs = -(-max_frames // k) * k
     ctx = chunk_ctx(backbone, max(p.shape[1] for p in prompts) + runs + 1)
-    runner = chatterbox_chunk_cached(
-        audio_lms[0].lm, t3, backbone, chain=None,
+    chunks = chatterbox_batch_cached(
+        audio_lms[0].lm, t3, backbone, b=b,
         rep_pen=float(on_device.repetition_penalty), n_frames=k, n_seq=n_seq,
-        cfg_weight=cfg_weight, ctx=ctx, b=b)
+        cfg_weight=cfg_weight, ctx=ctx, mesh=mesh, dp_axis=dp_axis)
     hs, poss = [], []
     for i, prompt in enumerate(prompts):
         lanes = []
@@ -976,19 +980,20 @@ def run_chatterbox_batch(
             backbone.reset()
             lanes.append(np.asarray(prefill_prompt(
                 backbone, list(prompt[s]), bucket=prefill_bucket), np.float32))
-            runner.kv[i, s].copy_(backbone.kv[..., :ctx, :])
+            for dst, src in zip(chunks.kv(i), own_kvs(backbone)):
+                dst[s].copy_(src[..., :ctx, :])
         hs.append(np.stack(lanes))
         poss.append(backbone.pos)
-    runner.h.copy_(torch.as_tensor(np.stack(hs)))
-    runner.pos.copy_(torch.as_tensor(poss))
-    runner.step.zero_()
-    runner.seen.zero_()
-    runner.seen[:, info.start_speech_token] = True
-    runner.chains.copy_(torch.as_tensor(np.stack(
-        [o.chain_vec() for o in per_stream])))
-    dev = runner.h.device
-    gens = [torch.Generator(device=dev).manual_seed(on_device.seed + i)
-            if per_stream[i].temperature > 0.0 else None for i in range(b)]
+    chunks.put("h", np.stack(hs))
+    chunks.put("pos", poss)
+    chunks.put("chains", np.stack([o.chain_vec() for o in per_stream]))
+    for runner in chunks.runners:
+        runner.step.zero_()
+        runner.seen.zero_()
+        runner.seen[:, info.start_speech_token] = True
+    gens = [torch.Generator(device=backbone.device).manual_seed(
+        on_device.seed + i) if per_stream[i].temperature > 0.0 else None
+        for i in range(b)]
     for alm in audio_lms:
         alm.reset()
 
@@ -997,9 +1002,9 @@ def run_chatterbox_batch(
     steps = [0] * b
     while any(not stopped[i] and steps[i] < max_frames for i in range(b)):
         done0 = [stopped[i] or steps[i] >= max_frames for i in range(b)]
-        runner.done.copy_(torch.as_tensor(done0))
-        runner.draw_noise([None if done0[i] else gens[i] for i in range(b)])
-        arr = runner.run().cpu().numpy()
+        chunks.put("done", done0)
+        chunks.draw_noise([None if done0[i] else gens[i] for i in range(b)])
+        arr = chunks.run()
         n_emit = int(arr[k * b])
         if n_emit == 0:
             break
@@ -1018,9 +1023,11 @@ def run_chatterbox_batch(
                                decode) for i in range(b)]
 
 
-def slice_slot(arr: torch.Tensor, s: int) -> torch.Tensor:
-    """Stream s's slot of a batched state tensor (arr[s], a view)."""
-    return arr[s]
+def own_kvs(backbone) -> list:
+    """A backbone's own cache as a list, one tensor a share ([L, 2, n_kv of
+    the share, max_ctx, D] each)."""
+    return [backbone.kv] if getattr(backbone, "kv", None) is not None \
+        else list(backbone.kvs)
 
 
 def finalize_batch_stream(alm: AudioLM, backbone, kv_s, pos_s: int, gen_s,
@@ -1032,14 +1039,15 @@ def finalize_batch_stream(alm: AudioLM, backbone, kv_s, pos_s: int, gen_s,
     stream's KV slot (contract: include/codec_lm.h:387-401), then the
     decode of the transformed code matrix.
 
-    `kv_s` ([L, 2, n_kv, ctx, D], or a zero-arg callable giving it) is put
-    into the backbone's cache at position `pos_s` only when the flush runs;
+    `kv_s` (a zero-arg callable giving the stream's caches, one [L, 2,
+    n_kv of the share, ctx, D] a backbone share: DpChunks.kv) is put into
+    the backbone's cache at position `pos_s` only when the flush runs;
     `gen_s` is the stream's noise generator, which the flush continues."""
     n_speech = None
     if stopped and alm.decode_transform.max_delay(alm.n_codebook) > 0 \
             and alm.lm.info.eos_code_c0 >= 0:
-        kv_s = kv_s() if callable(kv_s) else kv_s
-        backbone.kv[..., : kv_s.shape[-2], :].copy_(kv_s)
+        for dst, src in zip(own_kvs(backbone), kv_s()):
+            dst[..., : src.shape[-2], :].copy_(src)
         backbone.pos = int(pos_s)
         n_speech, steps = _flush_delay_tail(
             alm, backbone, _device_sampler(on_device, gen_s), steps)
@@ -1058,6 +1066,7 @@ def run_codebook_ar_batch(
     prefill_bucket: int = 0,
     sampling: Optional[Sequence[OnDeviceSampling]] = None,
     mesh=None,
+    dp_axis: str = "dp",
 ) -> List[SynthesisResult]:
     """B concurrent Type C/D generations on shared weights, the whole frame
     loop batched on the device (lm/fused_gen.py::build_gen_chunk_batched):
@@ -1069,20 +1078,25 @@ def run_codebook_ar_batch(
     and EOS state; streams that stop early ride along frozen.
 
     Needs a backbone the chunk can run and a chunk-capable kind (raises
-    otherwise). `pi`'s cb0 range applies in-graph as in run_codebook_ar.
-    `sampling`: one OnDeviceSampling per stream, their chains as data ([B,
-    4], `ops.sample.sample_logits_dyn`; one graph for any mix);
-    `on_device` then gives only seed and chunk_frames. None: `on_device`'s
-    chain for every stream. `mesh` (codec_tpu's data-parallel streams and
-    dp×tp mesh) is not ported yet: it raises CodecError."""
-    from ..runtime.model import CodecError
-    from .fused_gen import (chunk_ctx, gen_chunk_cached, supports_gen_chunk,
-                            unsharded)
+    otherwise); a TP or EP backbone steps over its shares. `pi`'s cb0
+    range applies in-graph as in run_codebook_ar. `sampling`: one
+    OnDeviceSampling per stream, their chains as data ([B, 4],
+    `ops.sample.sample_logits_dyn`; one graph for any mix); `on_device`
+    then gives only seed and chunk_frames. None: `on_device`'s chain for
+    every stream.
 
-    if mesh is not None:
-        raise CodecError("run_codebook_ar_batch(mesh=) is not ported yet: "
-                         "data-parallel streams come in the next slice")
-    unsharded(backbone, "batched generation")
+    `mesh`: codec_tpu's data-parallel streams, B split over
+    mesh[dp_axis] (a multiple of its size): one chunk a share, each with
+    its B/n streams' caches, hiddens, positions and noise on the share's
+    devices (the products at m = B/n), its frame on its own device. On a
+    2-D mesh it composes with a backbone TP-split over the same mesh
+    (`bb.set_mesh(mesh2d, axis="tp")`): streams over dp, every product's
+    shares over its row's tp devices. The noise is drawn per stream as
+    without a mesh and copied into its share; every share is replayed
+    before any is read."""
+    from .fused_gen import (chunk_ctx, gen_batch_cached, refuse_pp,
+                            supports_gen_chunk)
+
     b = len(audio_lms)
     if b == 0 or b != len(prompt_embeds_list):
         raise ValueError("need one prompt per stream")
@@ -1095,6 +1109,7 @@ def run_codebook_ar_batch(
         if alm.lm is not lm:
             raise ValueError("streams must share one CodecLM "
                              "(AudioLM(reader, codec, lm=shared))")
+    refuse_pp(backbone, "batched generation")
     if not supports_gen_chunk(lm, backbone):
         raise ValueError("batched generation needs a backbone with its "
                          "weights, KV cache and config (LlamaBackbone) and "
@@ -1106,18 +1121,14 @@ def run_codebook_ar_batch(
         raise ValueError("every stream needs >= 1 prompt embedding")
     runs = -(-max_steps // chunk_n) * chunk_n
     ctx = chunk_ctx(backbone, max(len(e) for e in prompt_embeds_list) + runs + 1)
+    chain = None if sampling is not None else (
+        float(on_device.temperature), int(on_device.top_k),
+        float(on_device.top_p), float(on_device.min_p))
+    chunks = gen_batch_cached(lm, backbone, b=b, n_frames=chunk_n, ctx=ctx,
+                              chain=chain, cb0_range=_cb0_range(pi),
+                              mesh=mesh, dp_axis=dp_axis)
     if sampling is not None:
-        runner = gen_chunk_cached(lm, backbone, n_frames=chunk_n, ctx=ctx,
-                                  cb0_range=_cb0_range(pi), batched=True,
-                                  b=b, traced_chain=True)
-        runner.chains.copy_(torch.as_tensor(
-            np.stack([o.chain_vec() for o in sampling])))
-    else:
-        runner = gen_chunk_cached(
-            lm, backbone, n_frames=chunk_n, ctx=ctx, cb0_range=_cb0_range(pi),
-            batched=True, b=b, temperature=on_device.temperature,
-            top_k=on_device.top_k, top_p=on_device.top_p,
-            min_p=on_device.min_p)
+        chunks.put("chains", np.stack([o.chain_vec() for o in sampling]))
     # each stream's prompt prefill in the backbone's cache, then its slot
     hs, poss = [], []
     for s, embeds in enumerate(prompt_embeds_list):
@@ -1126,18 +1137,17 @@ def run_codebook_ar_batch(
                                             bucket=prefill_bucket),
                              np.float32))
         poss.append(backbone.pos)
-        runner.kv[s].copy_(backbone.kv[..., :ctx, :])
-    runner.h.copy_(torch.as_tensor(np.stack(hs)))
-    runner.pos.copy_(torch.as_tensor(poss))
+        for dst, src in zip(chunks.kv(s), own_kvs(backbone)):
+            dst.copy_(src[..., :ctx, :])
+    chunks.put("h", np.stack(hs))
+    chunks.put("pos", poss)
     for alm in audio_lms:
         alm.reset()
     states = [alm.state for alm in audio_lms]
-    runner.text_ctx.copy_(torch.as_tensor(
-        [st.text_context if st.text_context is not None else 0
-         for st in states]))
-    dev = runner.h.device
-    gens = [torch.Generator(device=dev).manual_seed(on_device.seed + s)
-            for s in range(b)]
+    chunks.put("text_ctx", [st.text_context if st.text_context is not None
+                            else 0 for st in states])
+    gens = [torch.Generator(device=backbone.device).manual_seed(
+        on_device.seed + s) for s in range(b)]
 
     n_cb = lm.info.n_codebook
     stopped = [False] * b
@@ -1149,11 +1159,11 @@ def run_codebook_ar_batch(
         # their KV and position at the frame they stopped at, which the
         # delay-tail flush below reads
         done0 = [stopped[s] or steps[s] >= max_steps for s in range(b)]
-        runner.done.copy_(torch.as_tensor(done0))
-        runner.base.fill_(base)
-        runner.draw_noise([None if done0[s] or per_stream[s].temperature <= 0
+        chunks.put("done", done0)
+        chunks.put("base", [base] * b)
+        chunks.draw_noise([None if done0[s] or per_stream[s].temperature <= 0
                            else gens[s] for s in range(b)])
-        arr = runner.run().cpu().numpy()
+        arr = chunks.run()
         n_emit = int(arr[chunk_n * b * n_cb])
         pos = arr[-b:]
         if n_emit == 0:
@@ -1172,6 +1182,6 @@ def run_codebook_ar_batch(
         base += n_emit
 
     return [finalize_batch_stream(
-        audio_lms[s], backbone, (lambda s=s: slice_slot(runner.kv, s)),
-        int(pos[s]), gens[s], per_stream[s], stopped=stopped[s],
-        steps=steps[s], decode=decode, n_q=n_q) for s in range(b)]
+        audio_lms[s], backbone, (lambda s=s: chunks.kv(s)), int(pos[s]),
+        gens[s], per_stream[s], stopped=stopped[s], steps=steps[s],
+        decode=decode, n_q=n_q) for s in range(b)]

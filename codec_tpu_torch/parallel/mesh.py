@@ -84,9 +84,10 @@ def make_mesh_2d(n_first: int, n_second: int,
                  axes: Sequence[str] = ("dp", "tp"),
                  devices: Optional[Sequence] = None) -> Mesh:
     """A 2-D mesh [n_first, n_second]; the second axis is the inner one
-    (consecutive devices), as in codec_tpu. Nothing shards over two axes
-    yet: the dp x tp batch runners that do come with the batched state's
-    sharding."""
+    (consecutive devices), as in codec_tpu. The dp x tp form of the batch
+    runners, the engine and the server's `--dp N --tp M`: streams split
+    over "dp" (dp_share), each dp row's backbone shares over "tp"
+    (LlamaBackbone.set_mesh(mesh, axis="tp"))."""
     devs = _devices(n_first * n_second, devices, f"{tuple(axes)}")
     return Mesh(np.array(devs, dtype=object).reshape(n_first, n_second),
                 tuple(axes))
@@ -100,6 +101,34 @@ def named_devices(device, n: int) -> Optional[List[torch.device]]:
     if d.type == "cuda" and d.index is None:
         return None
     return [d] * n
+
+
+def dp_share(mesh: Mesh, b: int, s: int, axis: str = "dp",
+             what: str = "batched generation", unit: str = "streams"
+             ) -> Tuple[int, List[torch.device]]:
+    """Stream (or slot) s of b split over mesh[axis] as codec_tpu splits
+    a batch over a dp axis (b must be a multiple of the axis size n;
+    ValueError "`what` DP: b `unit` not divisible by mesh size n"): its
+    share j, which holds streams [j b/n, (j + 1) b/n), and that share's
+    devices, mesh[axis = j]: one device on a 1-D mesh, the row of the
+    other axis (its tp devices) on a 2-D one."""
+    n = int(mesh.shape[axis])
+    if b % n:
+        raise ValueError(f"{what} DP: {b} {unit} not divisible by mesh "
+                         f"size {n}")
+    j = int(s) // (b // n)
+    i = mesh.axis_names.index(axis)
+    sub = mesh.devices[tuple(j if k == i else slice(None)
+                             for k in range(mesh.devices.ndim))]
+    return j, list(sub.ravel()) if isinstance(sub, np.ndarray) else [sub]
+
+
+def physical(device) -> torch.device:
+    """The card a device name means ("cuda" is the current one)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def row_slices(b: int, n: int) -> List[slice]:

@@ -5,8 +5,9 @@ Static batching (`lm/tts_runner.run_codebook_ar_batch`) fixes the request
 set at launch: a stream that finishes rides frozen until the whole batch
 drains, and a request that arrives mid-flight waits for the next batch.
 This engine keeps one B-stream chunk (`lm/fused_gen.ChunkRunner` with
-`batched=True` and the sampler chain as data; on CUDA one captured graph)
-and treats its batch dimension as B *slots*:
+`batched=True` and the sampler chain as data; on CUDA one captured graph),
+or with a mesh one chunk a data-parallel share of the slots, and treats
+the batch dimension as B *slots*:
 
   - a slot is retired the moment its stream stops (EOS observed by the
     host state machine, or the request's max_steps): its delay tail is
@@ -124,29 +125,33 @@ class ContinuousBatcher:
 
     A step attends every slot's `ctx` = max_ctx cache rows (the
     backbone's whole cache, as codec_tpu's slot arrays hold it). On CUDA
-    the graph is captured when the engine is built. `mesh` (data-parallel
-    slots) is not ported yet: it raises CodecError.
+    the graph is captured when the engine is built. A TP or EP backbone
+    steps over its shares. `mesh`: codec_tpu's data-parallel slots, the B
+    slots split over mesh[dp_axis] (B a multiple of its size): one chunk
+    a share (`chunks`, fused_gen.DpChunks; `runner` is the first), each
+    with its slots' caches, hiddens and noise on the share's devices; on
+    a 2-D mesh each share runs over its row of a backbone TP-split over
+    the same mesh. An admission writes its prefill into the share that owns
+    the slot; a step replays every share before it reads any.
     """
 
     def __init__(self, backbone, shared_lm, *, n_slots: int = 4,
                  on_device: OnDeviceSampling, pi=None, decode: bool = True,
-                 n_q: int = 0, mesh=None, prefill_bucket: int = 0):
-        from ..lm.fused_gen import (ChunkRunner, chunk_ctx,
-                                    supports_gen_chunk, unsharded)
+                 n_q: int = 0, mesh=None, dp_axis: str = "dp",
+                 prefill_bucket: int = 0):
+        from ..lm.fused_gen import (ChunkRunner, DpChunks, chunk_ctx,
+                                    dp_groups, refuse_pp, supports_gen_chunk)
         from ..lm.tts_runner import _cb0_range
-        from ..runtime.model import CodecError
 
-        if mesh is not None:
-            raise CodecError("ContinuousBatcher(mesh=) is not ported yet: "
-                             "data-parallel engine slots come in the next "
-                             "slice")
-        unsharded(backbone, "the continuous-batching engine")
+        refuse_pp(backbone, "the continuous-batching engine")
         if n_slots < 1:
             raise ValueError("need at least one slot")
         if not supports_gen_chunk(shared_lm, backbone):
             raise ValueError("continuous batching needs a backbone with its "
                              "weights, KV cache and config (LlamaBackbone) "
                              "and a chunk-capable LM kind")
+        groups = dp_groups(backbone, mesh, int(n_slots), dp_axis,
+                           "continuous batching", "slots")
         self.backbone = backbone
         self.lm = shared_lm
         self.B = int(n_slots)
@@ -159,11 +164,11 @@ class ContinuousBatcher:
         # forward padded to a multiple of it (lm/tts_runner.prefill_prompt)
         self.prefill_bucket = int(prefill_bucket)
         self.ctx = chunk_ctx(backbone, backbone.cfg.max_ctx)
-        self.runner = ChunkRunner(shared_lm, backbone, None, self.K,
-                                  _cb0_range(pi), batched=True, b=self.B,
-                                  ctx=self.ctx)
-        self.runner.chains.copy_(torch.as_tensor(np.tile(
-            on_device.chain_vec(), (self.B, 1))))
+        self.chunks = DpChunks(groups, lambda n, row, dev: ChunkRunner(
+            shared_lm, backbone, None, self.K, _cb0_range(pi), batched=True,
+            b=n, ctx=self.ctx, row=row, device=dev), self.n_cb)
+        self.runner = self.chunks.runner
+        self.chunks.put("chains", np.tile(on_device.chain_vec(), (self.B, 1)))
 
         self._queue: deque = deque()
         self._lock = threading.Lock()
@@ -174,10 +179,10 @@ class ContinuousBatcher:
         self._gens: List[Optional[torch.Generator]] = [None] * self.B
         self._pos = np.zeros(self.B, np.int64)
         if torch.device(backbone.device).type == "cuda":
-            # capture the graph now (every slot empty), not while other
+            # capture the graphs now (every slot empty), not while other
             # threads of a server run device work
-            self.runner.done.fill_(True)
-            self.runner.run()
+            self.chunks.put("done", [True] * self.B)
+            self.chunks.run()
 
     # -- request side -------------------------------------------------------
     def submit(self, audio_lm: AudioLM, prompt_embeds: Sequence,
@@ -231,21 +236,22 @@ class ContinuousBatcher:
 
     def _admit_one(self, s: int, req: TtsRequest) -> None:
         """Prefill `req`'s prompt on the host path into the backbone's own
-        cache, then copy its state into slot `s` of the chunk's buffers."""
-        from ..lm.tts_runner import prefill_prompt
+        cache, then copy its state into slot `s` of its share's buffers."""
+        from ..lm.tts_runner import own_kvs, prefill_prompt
 
-        r, bb = self.runner, self.backbone
+        (r, j), bb = self.chunks.at(s), self.backbone
         bb.reset()
         h = prefill_prompt(bb, req.prompt_embeds, bucket=self.prefill_bucket)
         req.audio_lm.reset()
         st = req.audio_lm.state
-        r.kv[s].copy_(bb.kv[..., :self.ctx, :])
-        r.h[s].copy_(torch.as_tensor(np.asarray(h, np.float32)))
-        r.pos[s] = bb.pos
-        r.text_ctx[s] = int(st.text_context or 0)
-        r.chains[s].copy_(torch.as_tensor(self._chain(req).chain_vec()))
+        for dst, src in zip(self.chunks.kv(s), own_kvs(bb)):
+            dst.copy_(src[..., :self.ctx, :])
+        r.h[j].copy_(torch.as_tensor(np.asarray(h, np.float32)))
+        r.pos[j] = bb.pos
+        r.text_ctx[j] = int(st.text_context or 0)
+        r.chains[j].copy_(torch.as_tensor(self._chain(req).chain_vec()))
         self._pos[s] = bb.pos
-        self._gens[s] = torch.Generator(device=r.h.device).manual_seed(
+        self._gens[s] = torch.Generator(device=bb.device).manual_seed(
             req.seed)
         self._steps[s] = 0
         self._stopped[s] = False
@@ -296,24 +302,23 @@ class ContinuousBatcher:
             return self._step()
 
     def _step(self) -> int:
-        from ..lm.tts_runner import finalize_batch_stream, slice_slot
+        from ..lm.tts_runner import finalize_batch_stream
 
         self._admit()
         active = [s for s in range(self.B) if self.slots[s] is not None]
         if not active:
             return 0
-        r = self.runner
         sampled = {s: self._chain(self.slots[s]).temperature > 0.0
                    for s in active}
-        r.done.copy_(torch.as_tensor([self.slots[s] is None
-                                      for s in range(self.B)]))
-        r.base.copy_(torch.as_tensor(
-            [self.slots[s].audio_lm.state.frame_counter
-             if self.slots[s] is not None else 0 for s in range(self.B)]))
         drawn = {s: self._gens[s].get_state() for s in active if sampled[s]}
-        r.draw_noise([self._gens[s] if s in drawn else None
+        c = self.chunks
+        c.put("done", [self.slots[s] is None for s in range(self.B)])
+        c.put("base", [self.slots[s].audio_lm.state.frame_counter
+                       if self.slots[s] is not None else 0
+                       for s in range(self.B)])
+        c.draw_noise([self._gens[s] if s in drawn else None
                       for s in range(self.B)])
-        arr = r.run().cpu().numpy()
+        arr = c.run()
         n_emit = int(arr[self.K * self.B * self.n_cb])
         pos_after = arr[-self.B:]
         rows = arr[: self.K * self.B * self.n_cb].reshape(
@@ -347,8 +352,8 @@ class ContinuousBatcher:
                 # leave the generator where the single-stream run leaves
                 # it: one draw a frame taken (the delay-tail flush goes on)
                 self._gens[s].set_state(drawn[s])
-                r.draw_noise([self._gens[s] if j == s else None
-                              for j in range(self.B)], frames=used[s])
+                c.draw_noise([self._gens[s] if i == s else None
+                              for i in range(self.B)], frames=used[s])
 
         n_left = 0
         for s in active:
@@ -370,7 +375,7 @@ class ContinuousBatcher:
             try:
                 result = finalize_batch_stream(
                     req.audio_lm, self.backbone,
-                    (lambda s=s: slice_slot(r.kv, s)), int(self._pos[s]),
+                    (lambda s=s: c.kv(s)), int(self._pos[s]),
                     self._gens[s], self._chain(req),
                     stopped=self._stopped[s], steps=self._steps[s],
                     decode=self.decode, n_q=self.n_q)

@@ -89,10 +89,15 @@ class CodecHTTPServer:
     the continuous-batching engine with that many slots, `chunk_frames`
     frames a chunk. `backbone_mesh` ("tp" | "pp" | "ep", N) shards the
     backbone once at startup (lm/backbone.py::apply_backbone_mesh; the
-    first N cards, or N entries of a `device` that names one), and the
-    serialized /synthesize then runs the host path over it; the engine,
-    /synthesize_batch and `on_device` over a sharded backbone raise
-    CodecError (the next slice), as does `dp` (data-parallel streams)."""
+    first N cards, or N entries of a `device` that names one): /synthesize
+    runs over it on the host path, `on_device`, the engine and
+    /synthesize_batch step a TP or EP backbone's shares in their chunks,
+    and a PP one runs the host per-frame loop (its engine raises
+    CodecError). `dp` > 1 (codec_tpu's --dp): /synthesize_batch's streams
+    and the engine's slots data-parallel over a dp mesh (`batch_mesh`; dp
+    entries of the device), or with ("tp", M) one 2-D dp x tp mesh with
+    the backbone TP-split over it; with "pp" or "ep" it raises
+    ValueError."""
 
     def __init__(self, model_path: str, host: str = "127.0.0.1",
                  port: int = 8765, backbone_path: str = None,
@@ -106,12 +111,7 @@ class CodecHTTPServer:
 
         from ..io.gguf import GGUFReader
         from ..lm import create_lm
-        from ..runtime.model import CodecError
 
-        if dp > 1:
-            raise CodecError("--dp (data-parallel /synthesize_batch streams "
-                             "and engine slots) is not ported yet: it comes "
-                             "in the next slice")
         self.device = device
         self.model = codec_tpu_torch.load_model(model_path, device=device)
         self.reader = GGUFReader(model_path)
@@ -121,6 +121,7 @@ class CodecHTTPServer:
         # decode and flow_lm paths stay concurrent)
         self.backbone = None
         self.backbone_path = backbone_path
+        self.batch_mesh = None          # the dp mesh of the batched paths
         self._bb_lock = _threading.Lock()
         self._shared_lm = None          # the CodecLM of /synthesize_batch
         self._t3 = None                 # a Chatterbox file's T3
@@ -133,13 +134,27 @@ class CodecHTTPServer:
                                             device=device)
             if is_chatterbox(self.reader):
                 self._t3 = ChatterboxT3(self.reader, device=device)
-            if backbone_mesh is not None:
-                from ..lm.backbone import apply_backbone_mesh
-                from ..parallel.mesh import named_devices
+            if backbone_mesh is not None and self._t3 is not None:
+                raise ValueError("--tp/--pp/--ep do not support the "
+                                 "chatterbox dual-lane flow")
+            from ..parallel.mesh import make_mesh, make_mesh_2d, named_devices
 
-                if self._t3 is not None:
-                    raise ValueError("--tp/--pp/--ep do not support the "
-                                     "chatterbox dual-lane flow")
+            if dp > 1 and backbone_mesh and backbone_mesh[0] == "tp":
+                # --dp N --tp M: one 2-D mesh, the batched paths' streams
+                # over dp and each dp row's backbone shares over tp
+                n_tp = backbone_mesh[1]
+                self.batch_mesh = make_mesh_2d(
+                    dp, n_tp, devices=named_devices(device, dp * n_tp))
+                self.backbone.set_mesh(self.batch_mesh, axis="tp")
+            elif dp > 1 and backbone_mesh:
+                raise ValueError("--dp composes with --tp only "
+                                 "(pp/ep backbones run per-stream)")
+            elif dp > 1:
+                self.batch_mesh = make_mesh(dp, axis="dp",
+                                            devices=named_devices(device, dp))
+            elif backbone_mesh is not None:
+                from ..lm.backbone import apply_backbone_mesh
+
                 apply_backbone_mesh(self.backbone, *backbone_mesh,
                                     devices=named_devices(
                                         device, backbone_mesh[1]))
@@ -159,8 +174,7 @@ class CodecHTTPServer:
                 raise ValueError("--cont-batch needs a codec_lm adaptor "
                                  "in the model GGUF")
             from ..cli.tts_cli import load_backbone_tokenizer
-            from ..lm.backbone import LlamaBackbone
-            from ..lm.fused_gen import unsharded
+            from ..lm.fused_gen import refuse_pp
             from ..lm.prompt_info import build_prompt_info
             from ..ops.sample import OnDeviceSampling
             from .cont_batch import ContinuousBatcher, EngineThread
@@ -174,18 +188,18 @@ class CodecHTTPServer:
             self._cont_tok = load_backbone_tokenizer(
                 GGUFReader(backbone_path))
             bb = self.backbone
-            unsharded(bb, "the continuous-batching engine")
-            # the engine's own cache over the shared weights: its
-            # admissions never touch the serialized paths' backbone
-            lane = LlamaBackbone.from_params(bb.cfg, bb.params, bb.dtype,
-                                             bb.qmm)
+            refuse_pp(bb, "the continuous-batching engine")
+            # the engine's own cache over the shared weights (and shares):
+            # its admissions never touch the serialized paths' backbone;
+            # its slots split over the dp mesh of /synthesize_batch (slots
+            # a multiple of dp)
             self._cont_batcher = ContinuousBatcher(
-                lane, self.lm, n_slots=cont_batch,
+                bb.lane(), self.lm, n_slots=cont_batch,
                 on_device=OnDeviceSampling(
                     temperature=pi.default_temperature,
                     top_k=pi.default_top_k, top_p=pi.default_top_p,
                     chunk_frames=max(2, chunk_frames)),
-                pi=pi, prefill_bucket=prefill_bucket)
+                pi=pi, prefill_bucket=prefill_bucket, mesh=self.batch_mesh)
             self.cont_engine = EngineThread(self._cont_batcher)
             self.cont_engine.start()
         self.prefill_bucket = int(prefill_bucket)
@@ -241,6 +255,7 @@ def _handler(outer: CodecHTTPServer):
                 "n_q": m.n_q, "has_encoder": m.has_encoder,
                 "has_decoder": m.has_decoder,
                 "lm_kind": outer.lm.info.kind if outer.lm else None,
+                "dp_mesh": _mesh_shape(outer.batch_mesh),
             })
 
         def _stats(self):
@@ -253,7 +268,7 @@ def _handler(outer: CodecHTTPServer):
                       "active": b.n_active, "queued": b.n_queued}
             self._json(200, {"cont_batch": cb,
                              "backbone": outer.backbone_path is not None,
-                             "dp_mesh": None})
+                             "dp_mesh": _mesh_shape(outer.batch_mesh)})
 
         def _body(self) -> bytes:
             n = int(self.headers.get("Content-Length", 0))
@@ -573,7 +588,8 @@ def _handler(outer: CodecHTTPServer):
                     bb=outer.backbone, lm=outer._shared_lm, t3=outer._t3,
                     chunk_frames=int(req.get("chunk_frames", 8)),
                     prefill_bucket=outer.prefill_bucket,
-                    sampling=req.get("sampling"), device=outer.device)
+                    sampling=req.get("sampling"), device=outer.device,
+                    mesh=outer.batch_mesh)
             sr = outer.model.sample_rate
             wavs, frames, stops = [], [], []
             for pcm, n_frames, stop in outs:
@@ -627,6 +643,11 @@ def _handler(outer: CodecHTTPServer):
     return Handler
 
 
+def _mesh_shape(mesh):
+    """A mesh's axis sizes for /health and /stats (None without one)."""
+    return dict(mesh.shape) if mesh is not None else None
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="codec-serve-torch")
     ap.add_argument("--model", required=True)
@@ -654,17 +675,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "device and multiply them with the dequantizing "
                          "kernels")
     ap.add_argument("--tp", type=int, default=0,
-                    help="shard the backbone tensor-parallel over N devices "
-                         "(serialized /synthesize on the host path)")
+                    help="shard the backbone tensor-parallel over N devices")
     ap.add_argument("--pp", type=int, default=0,
                     help="shard the backbone pipeline-parallel over N "
-                         "stages (serialized /synthesize on the host path)")
+                         "stages (the host per-frame loop; no engine)")
     ap.add_argument("--ep", type=int, default=0,
                     help="shard a MoE backbone expert-parallel over N "
-                         "devices (serialized /synthesize on the host path)")
+                         "devices")
     ap.add_argument("--dp", type=int, default=0,
-                    help="/synthesize_batch streams data-parallel over N "
-                         "cards (not ported yet: the next slice)")
+                    help="/synthesize_batch streams and --cont-batch slots "
+                         "data-parallel over N devices (with --tp M one 2-D "
+                         "dp x tp mesh of N x M; not with --pp/--ep)")
     return ap
 
 

@@ -41,7 +41,7 @@ from codec_tpu_torch.io.wav import read_wav
 from codec_tpu_torch.lm import chatterbox_t3 as t3m
 from codec_tpu_torch.lm import create_lm, tts_runner
 from codec_tpu_torch.lm.audio_lm import AudioLM
-from codec_tpu_torch.lm.backbone import LlamaBackbone
+from codec_tpu_torch.lm.backbone import LlamaBackbone, StepGroup
 from codec_tpu_torch.lm.fused_gen import chatterbox_chunk_cached, chunk_ctx
 from codec_tpu_torch.lm.speaker_chatterbox import VeConfig
 from codec_tpu_torch.models import chatterbox_init as cbi
@@ -484,13 +484,13 @@ def test_batched_chunk_meta_matches_jax(stop_engines):
     semb, pemb = t3.speech_tables("cpu")
     chunk = build_chatterbox_chunk_batched(
         lanes[0].cfg, k, n_seq=2, cfg_weight=0.5,
-        stop_token=T3.stop_speech, n_pos=T3.speech_pos, rep_pen=1.2,
-        qmm=lanes[0].qmm)
+        stop_token=T3.stop_speech, n_pos=T3.speech_pos, rep_pen=1.2)
     seen = torch.zeros((b, T3.speech_vocab), dtype=torch.bool)
     seen[:, T3.start_speech] = True
     step0 = torch.tensor([0, 3])                 # stream 1 three frames on
     with torch.inference_mode():
-        got, *_ = chunk(lanes[0].params, port["lm"].heads[0], semb, pemb, kv,
+        got, *_ = chunk(StepGroup(lanes[0]), port["lm"].heads[0], semb, pemb,
+                        [kv],
                         torch.tensor([pos] * b), step0,
                         torch.from_numpy(np.stack([hs] * b)),
                         torch.zeros((k, b, T3.speech_vocab)), seen,
@@ -521,9 +521,10 @@ def test_batched_chunk_meta_matches_jax(stop_engines):
 def test_backbone_synthesize_batch_routes_chatterbox(files, monkeypatch):
     """run_backbone_synthesize_batch sends a Chatterbox file to
     run_chatterbox_synthesize_batch (its T3 preset, per-text sampling, the
-    reused T3), and refuses mesh= as not ported."""
+    reused T3, the mesh); run_chatterbox_batch's streams must divide over
+    its mesh."""
     from codec_tpu_torch.cli import tts_cli
-    from codec_tpu_torch.runtime.model import CodecError
+    from codec_tpu_torch.parallel.mesh import make_mesh
 
     calls = []
 
@@ -539,11 +540,14 @@ def test_backbone_synthesize_batch_routes_chatterbox(files, monkeypatch):
     (args, kw), = calls
     assert args[3] == ["a", "b"] and kw["seed"] == 3 and kw["t3"] == "T3"
     assert kw["sampling"] == [{}, {"temperature": 0.0}]
-    with pytest.raises(CodecError, match="not ported yet"):
-        tts_cli.run_backbone_synthesize_batch(
-            None, reader, str(files[1]), ["a"], mesh=object(), device="cpu")
+    assert kw["mesh"] is None
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    tts_cli.run_backbone_synthesize_batch(
+        None, reader, str(files[1]), ["a", "b"], mesh=mesh, device="cpu")
+    assert calls[-1][1]["mesh"] is mesh
     alm = AudioLM(reader, lm=create_lm(reader, device="cpu"))
-    with pytest.raises(CodecError, match="not ported yet"):
+    with pytest.raises(ValueError, match="1 streams not divisible"):
         tts_runner.run_chatterbox_batch(
-            [alm], t3m.ChatterboxT3(reader, "cpu"), None, ["a"],
-            OnDeviceSampling(chunk_frames=2), mesh=object())
+            [alm], t3m.ChatterboxT3(reader, "cpu"),
+            LlamaBackbone(files[1], device="cpu"), ["a"],
+            OnDeviceSampling(chunk_frames=2), mesh=mesh)

@@ -30,7 +30,6 @@ from codec_tpu.serve.cont_batch import ContinuousBatcher as JaxBatcher
 from codec_tpu_torch.lm.audio_lm import AudioLM
 from codec_tpu_torch.lm.backbone import LlamaBackbone
 from codec_tpu_torch.ops.sample import OnDeviceSampling
-from codec_tpu_torch.runtime.model import CodecError
 from codec_tpu_torch.serve.cont_batch import (ContinuousBatcher,
                                               EngineThread, RequestCancelled)
 from test_torch_fused import (PROMPT, PROMPTS, SAMPLED, _engine, _run,  # noqa: F401
@@ -272,9 +271,16 @@ def test_submit_validation(engines):
 
 
 def test_mesh_is_not_ported(engines):
+    """mesh= splits the slots over its dp axis (its requests:
+    tests/test_torch_parallel_graphs.py); slots that do not divide over
+    it, and no slot at all, raise ValueError."""
+    from codec_tpu_torch.parallel.mesh import make_mesh
+
     port, _ = engines
-    with pytest.raises(CodecError, match="not ported yet"):
-        _batcher(port, mesh=object())
+    two = make_mesh(2, devices=["cpu"] * 2)
+    assert len(_batcher(port, n_slots=4, mesh=two).chunks.runners) == 2
+    with pytest.raises(ValueError, match="3 slots not divisible"):
+        _batcher(port, n_slots=3, mesh=two)
     with pytest.raises(ValueError, match="at least one slot"):
         _batcher(port, n_slots=0)
 

@@ -1572,6 +1572,65 @@ def test_batch_on_card_equals_single_streams(dev, tts_files):
         np.testing.assert_array_equal(got[s].codes, one.codes)
 
 
+def test_mesh_chunks_on_card(dev, tts_files):
+    """The chunks on a mesh that names the card twice (or four times):
+    DP streams (one captured graph a share), a TP chunk and the dp x tp
+    batch give the unsharded runs' codes; a TP chunk's replay equals its
+    eager run bit for bit."""
+    from codec_tpu_torch.lm.audio_lm import AudioLM
+    from codec_tpu_torch.lm.backbone import LlamaBackbone
+    from codec_tpu_torch.lm.fused_gen import gen_chunk_cached
+    from codec_tpu_torch.lm.tts_runner import (run_codebook_ar,
+                                               run_codebook_ar_batch)
+    from codec_tpu_torch.ops.sample import OnDeviceSampling
+    from codec_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    reader, codec, lm, bb = _tts(tts_files)
+    prompts = [[5, 9, 200, 31], [44, 2, 17, 80, 9, 100], [250, 1, 3],
+               [7, 7, 8]]
+    embeds = [list(bb.embed_tokens(p)) for p in prompts]
+    ods = OnDeviceSampling(temperature=0.8, top_k=5, chunk_frames=3, seed=21)
+
+    def batch(backbone, mesh=None, od=ods):
+        return run_codebook_ar_batch(
+            [AudioLM(reader, codec=codec, lm=lm) for _ in prompts], backbone,
+            embeds, od, max_steps=6, decode=False, mesh=mesh)
+
+    def same(got, want):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.codes, w.codes)
+
+    two = make_mesh(2, devices=["cuda:0"] * 2)
+    same(batch(bb, two), batch(bb))
+    dense = LlamaBackbone(tts_files[1], device="cuda")
+    mesh2 = make_mesh_2d(2, 2, devices=["cuda:0"] * 4)
+    tp2 = LlamaBackbone.from_params(dense.cfg, dense.params)
+    tp2.set_mesh(mesh2, axis="tp")
+    greedy = OnDeviceSampling(chunk_frames=3)
+    same(batch(tp2, mesh2, greedy), batch(dense, od=greedy))
+    tp = LlamaBackbone.from_params(dense.cfg, dense.params)
+    tp.set_mesh(make_mesh(2, axis="tp", devices=["cuda:0"] * 2), axis="tp")
+    one = []
+    for b in (tp, dense):
+        b.reset()
+        one.append(run_codebook_ar(AudioLM(reader, lm=lm), b, embeds[0],
+                                   max_steps=6, decode=False,
+                                   on_device=greedy))
+    same(one[:1], one[1:])
+    tp.reset()
+    h = tp.prefill(tp.embed_tokens([3, 17, 42, 99]))
+    runner = gen_chunk_cached(lm, tp, n_frames=4, ctx=64)
+    runner.h.copy_(torch.as_tensor(h).reshape(1, -1))
+    runner.pos.fill_(tp.pos)
+    state = [t.clone() for t in runner.graphed.restore]
+    eager = runner.graphed.eager().clone()
+    for t, s in zip(runner.graphed.restore, state):
+        t.copy_(s)
+    graph = runner.run().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, graph)
+
+
 def test_tts_cli_on_device_on_card(dev, tts_files, tmp_path):
     from codec_tpu_torch.cli.tts_cli import main
     from codec_tpu_torch.io.wav import read_wav

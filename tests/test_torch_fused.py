@@ -36,7 +36,7 @@ from codec_tpu.ops import sample as jax_sample
 from codec_tpu_torch.io.gguf import GGUFReader
 from codec_tpu_torch.lm import create_lm, fused_gen, tts_runner
 from codec_tpu_torch.lm.audio_lm import AudioLM
-from codec_tpu_torch.lm.backbone import LlamaBackbone, backbone_step
+from codec_tpu_torch.lm.backbone import LlamaBackbone, StepGroup, backbone_step
 from codec_tpu_torch.lm.base import LmError, LmStateError
 from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
                                             spm_model_b64,
@@ -429,10 +429,10 @@ def _prefilled(eng, ids=PROMPT):
 
 def _port_chunk(eng, chain, k, noise, h, base=0, ctx=64):
     lm, bb = eng["lm"], eng["bb"]
-    chunk = fused_gen.build_gen_chunk(lm, bb.cfg, chain, k, qmm=bb.qmm)
+    chunk = fused_gen.build_gen_chunk(lm, bb.cfg, chain, k)
     with torch.inference_mode():
         packed, h2, pos = chunk(
-            bb.params, bb.kv[None], torch.tensor([bb.pos]),
+            StepGroup(bb), [bb.kv[None]], torch.tensor([bb.pos]),
             torch.tensor([base]), torch.from_numpy(h)[None],
             torch.from_numpy(noise)[:, None], torch.tensor([0]), ctx)
     return packed.numpy(), h2, pos
@@ -620,10 +620,10 @@ def test_batched_chunk_packed_matches_jax(eos_files):
     k, b = frame + 2, len(prompts)
     lm, bb = port["lm"], port["bb"]
     chunk = fused_gen.build_gen_chunk_batched(lm, bb.cfg, (0.0, 0, 1.0, 0.0),
-                                              k, qmm=bb.qmm)
+                                              k)
     done0 = torch.tensor([False, False])
     with torch.inference_mode():
-        got, _, _ = chunk(bb.params, torch.stack(kvs), torch.tensor(pos),
+        got, _, _ = chunk(StepGroup(bb), [torch.stack(kvs)], torch.tensor(pos),
                           torch.zeros(b, dtype=torch.long),
                           torch.from_numpy(np.stack(hs)),
                           torch.zeros((k, b, 4, lm.noise_width())),

@@ -610,9 +610,12 @@ def test_pp_gen_matches_unsharded(csm):
 
 
 def test_tp_ep_gen_host_path_and_chunks_refuse(csm, bb_files):
-    """TP runs the host loop with the unsharded codes; a TP or EP backbone
-    given to any chunk raises CodecError naming the next slice, and so do
-    the batch runners' and the engine's mesh= (data-parallel streams)."""
+    """TP runs the host loop with the unsharded codes, and now the chunks
+    too: a TP backbone's chunked run, its batch, an engine over it and
+    run_backbone_synthesize_batch(mesh=) give the unsharded codes, and an
+    EP backbone's chunk runs; only a PP backbone is still refused by the
+    batch runner and the engine (CodecError), as codec_tpu runs it through
+    the host per-frame loop alone."""
     from codec_tpu_torch.cli.tts_cli import run_backbone_synthesize_batch
     from codec_tpu_torch.serve.cont_batch import ContinuousBatcher
 
@@ -620,32 +623,40 @@ def test_tp_ep_gen_host_path_and_chunks_refuse(csm, bb_files):
     tp = _placed(csm, "tp")
     np.testing.assert_array_equal(_gen(csm, tp).codes, _gen(csm, ref_bb).codes)
     ods = OnDeviceSampling(chunk_frames=3)
-    with pytest.raises(CodecError, match="--tp/--ep.*next slice"):
-        _gen(csm, tp, on_device=ods)
+    np.testing.assert_array_equal(_gen(csm, tp, on_device=ods).codes,
+                                  _gen(csm, ref_bb, on_device=ods).codes)
     alms = [AudioLM(csm["reader"], codec=csm["codec"], lm=csm["lm"])
             for _ in range(2)]
     prompts = [list(ref_bb.embed_tokens([3, 17]))] * 2
-    for bb in (tp, _placed(csm, "pp")):
-        with pytest.raises(CodecError, match="not ported"):
-            tts_runner.run_codebook_ar_batch(alms, bb, prompts, ods,
-                                             max_steps=2, decode=False)
-        with pytest.raises(CodecError, match="not ported"):
-            ContinuousBatcher(bb, csm["lm"], n_slots=2, on_device=ods)
-    with pytest.raises(CodecError, match="next slice"):
-        tts_runner.run_codebook_ar_batch(alms, ref_bb, prompts, ods,
-                                         max_steps=2, mesh=cpu_mesh(2))
-    with pytest.raises(CodecError, match="next slice"):
-        ContinuousBatcher(ref_bb, csm["lm"], n_slots=2, on_device=ods,
-                          mesh=cpu_mesh(2))
-    with pytest.raises(CodecError, match="next slice"):
-        run_backbone_synthesize_batch(
-            csm["codec"], csm["reader"], str(csm["bb"]), ["a"],
-            mesh=cpu_mesh(2), device="cpu")
+    want = tts_runner.run_codebook_ar_batch(alms, ref_bb, prompts, ods,
+                                            max_steps=2, decode=False)
+    got = tts_runner.run_codebook_ar_batch(alms, tp, prompts, ods,
+                                           max_steps=2, decode=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+    ContinuousBatcher(tp.lane(), csm["lm"], n_slots=2, on_device=ods)
+    pp = _placed(csm, "pp")
+    with pytest.raises(CodecError, match="not ported"):
+        tts_runner.run_codebook_ar_batch(alms, pp, prompts, ods,
+                                         max_steps=2, decode=False)
+    with pytest.raises(CodecError, match="not ported"):
+        ContinuousBatcher(pp, csm["lm"], n_slots=2, on_device=ods)
+    got = tts_runner.run_codebook_ar_batch(alms, ref_bb, prompts, ods,
+                                           max_steps=2, decode=False,
+                                           mesh=cpu_mesh(2))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+    ContinuousBatcher(ref_bb, csm["lm"], n_slots=2, on_device=ods,
+                      mesh=cpu_mesh(2))
+    outs = run_backbone_synthesize_batch(
+        csm["codec"], csm["reader"], str(csm["bb"]), ["a", "b"],
+        max_frames=2, mesh=cpu_mesh(2), device="cpu")
+    assert [o[1] for o in outs] == [2, 2]
     ep = create_backbone(bb_files["moe"], max_ctx=32, device="cpu")
     ep.set_mesh_ep(cpu_mesh(2, axis="ep"))
     from codec_tpu_torch.lm import fused_gen
-    with pytest.raises(CodecError, match="--tp/--ep"):
-        fused_gen.gen_chunk_cached(csm["lm"], ep, n_frames=2, ctx=32)
+    runner = fused_gen.gen_chunk_cached(csm["lm"], ep, n_frames=2, ctx=32)
+    assert len(runner.kvs) == 2
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
@@ -683,7 +694,8 @@ def test_cli_synthesize_backbone_mesh(csm, tmp_path, flag, capsys):
 
 def test_server_backbone_mesh(csm):
     """`codec-serve-torch --pp 2`: the serialized /synthesize's bytes equal
-    the unsharded server's; --dp still raises, naming the next slice."""
+    the unsharded server's; --dp builds its dp mesh (its requests:
+    tests/test_torch_parallel_graphs.py); the engine over --pp raises."""
     import http.client
     import json
 
@@ -709,8 +721,9 @@ def test_server_backbone_mesh(csm):
     assert srv.backbone.mesh_kind == "pp"
     got = synth(srv)
     assert got[0] == want[0] == 200 and got[1] == want[1]
-    with pytest.raises(CodecError, match="--dp.*next slice"):
-        CodecHTTPServer(str(csm["model"]), dp=2, **kw)
+    srv = CodecHTTPServer(str(csm["model"]), dp=2, **kw)
+    assert dict(srv.batch_mesh.shape) == {"dp": 2}
+    srv.httpd.server_close()
     with pytest.raises(CodecError, match="not ported"):
         CodecHTTPServer(str(csm["model"]), backbone_mesh=("pp", 2),
                         cont_batch=2, **kw)

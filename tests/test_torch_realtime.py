@@ -29,6 +29,7 @@ from codec_tpu.lm import fused_gen as jax_fused_gen
 from codec_tpu.lm import tts_runner as jax_runner
 from codec_tpu.ops.sample import OnDeviceSampling as JaxOnDevice
 from codec_tpu_torch.lm import fused_gen, tts_runner
+from codec_tpu_torch.lm.backbone import StepGroup
 from codec_tpu_torch.lm.tts_runner import SamplerChain
 from codec_tpu_torch.models import lm_tts_init as lti
 from codec_tpu_torch.models.lm_init import (byte_fallback_vocab,
@@ -325,11 +326,11 @@ def test_stream_chunk_packed_matches_reference(engines, chain):
     hist = _some_hist(lm, REP[1])
     jhist = _jax_hist(hist)
     sched = [TEXT[2], TEXT[3], 0, 0]
-    chunk = fused_gen.build_stream_chunk(lm, bb.cfg, chain, REP, 4, qmm=bb.qmm)
+    chunk = fused_gen.build_stream_chunk(lm, bb.cfg, chain, REP, 4)
     with torch.inference_mode():
         packed, h2, pos, hist = chunk(
-            bb.params, bb.kv[None], torch.tensor([bb.pos]), torch.tensor([0]),
-            torch.from_numpy(h)[None], torch.from_numpy(noise)[:, None], hist,
+            StepGroup(bb), [bb.kv[None]], torch.tensor([bb.pos]),
+            torch.tensor([0]), torch.from_numpy(h)[None], torch.from_numpy(noise)[:, None], hist,
             torch.tensor(sched), 64)
     fn = jax_fused_gen.gen_chunk_cached(
         ref["lm"], jbb, n_frames=4, stream=True, rep=REP, temperature=chain[0],

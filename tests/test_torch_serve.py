@@ -359,12 +359,26 @@ def test_stats_endpoint(cont_server, server):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp", "--ep", "--dp"])
-def test_parallel_flags_are_not_ported(dac_path, flag, capsys):
-    """--dp (data-parallel streams) is not ported yet, beside any backbone
-    mesh flag (--tp/--pp/--ep alone run: tests/test_torch_parallel.py)."""
-    assert main(["--model", str(dac_path), "--device", "cpu", flag, "2",
-                 "--dp", "2"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+def test_parallel_flags_are_not_ported(files, flag, capsys,  # noqa: F811
+                                       monkeypatch):
+    """Each flag beside --dp 2: --dp alone builds a dp mesh and with --tp a
+    2-D dp x tp mesh with the backbone TP-split over it (their requests:
+    tests/test_torch_parallel_graphs.py); beside --pp or --ep it exits 1
+    with codec_tpu's message."""
+    _, model, bb = files
+    started = []
+    monkeypatch.setattr(CodecHTTPServer, "serve_forever",
+                        lambda self: started.append(self))
+    rc = main(["--model", str(model), "--backbone", str(bb), "--device",
+               "cpu", flag, "2", "--dp", "2"])
+    if flag in ("--pp", "--ep"):
+        assert rc == 1
+        assert "--dp composes with --tp only" in capsys.readouterr().err
+        return
+    (srv,) = started
+    srv.httpd.server_close()
+    assert rc == 0 and dict(srv.batch_mesh.shape) == (
+        {"dp": 2, "tp": 2} if flag == "--tp" else {"dp": 2})
 
 
 def test_cont_batch_needs_a_backbone(dac_path, capsys):
